@@ -1,0 +1,29 @@
+"""Inference CLI for BSRNN on the port (counterpart of infers/inference_bsrnn.py).
+
+    python -m nvse_tpu_torch.infer --cfg_filename nvse_tpu_torch/configs/bsrnn_config.json
+Decodes the configured test filelist to h.test_output_dir and prints the
+RTF (generated-audio-seconds / wall-seconds). Runs on the GPU unless
+--device cpu is given.
+"""
+import argparse
+import os
+
+from ..utils import load_config
+from .engine import run_inference
+
+
+def main() -> None:
+    p = argparse.ArgumentParser(prog="python -m nvse_tpu_torch.infer")
+    p.add_argument("--cfg_filename", default=os.path.join(
+        os.path.dirname(__file__), "..", "configs", "bsrnn_config.json"))
+    p.add_argument("--limit", type=int, default=None)
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--stream", action="store_true",
+                   help="chunked streaming decode (not ported yet: raises)")
+    args = p.parse_args()
+    h = load_config(args.cfg_filename)
+    run_inference(h, limit=args.limit, stream=args.stream, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,225 @@
+"""BSRNN band-split RNN vocoder / enhancer, in PyTorch.
+
+Counterpart of nvse_tpu/models/bsrnn.py (reference Models/bsrnn.py and
+Models/bsrnn_24k.py). The 34 bands are grouped by width into 5 groups;
+each group's encoder/decoder is one batched einsum over stacked per-band
+parameters, as in the JAX package. Each BSNet runs a time BiLSTM over
+the frames (B*34 rows) and a band BiLSTM over the 34 bands (B*T rows),
+both through ops.lstm.lstm_scan_fused.
+
+Under a bfloat16 trunk the dtypes follow the JAX package's promotion: the
+DSP front and back ends and the encoder stay float32, LayerNorm and
+Linear outputs follow the params, and residual sums promote.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.spectral import hann_window, inverse_mel, istft_ri
+from .layers import LSTM, LayerNorm, Linear, uniform_
+
+
+def band_plan(sampling_rate: int, n_fft: int) -> list[int]:
+    """Band widths in FFT bins (reference bsrnn.py:98-108)."""
+    reso = sampling_rate / n_fft
+    widths = [int(np.floor(100 / reso))] * 10
+    widths += [int(np.floor(250 / reso))] * 12
+    widths += [int(np.floor(500 / reso))] * 8
+    widths += [int(np.floor(1000 / reso))] * 3
+    widths.append(n_fft // 2 + 1 - int(np.sum(widths)))
+    return widths
+
+
+def _band_groups(widths: Sequence[int]):
+    """Group consecutive equal-width bands: [(width, count, bin_offset)]."""
+    groups = []
+    off = 0
+    i = 0
+    while i < len(widths):
+        w = widths[i]
+        j = i
+        while j < len(widths) and widths[j] == w:
+            j += 1
+        groups.append((w, j - i, off))
+        off += w * (j - i)
+        i = j
+    return groups
+
+
+def _promoted(*ts: torch.Tensor) -> list[torch.Tensor]:
+    """Cast to the common dtype, as jnp's einsum/arithmetic promote."""
+    dt = functools.reduce(torch.promote_types, (t.dtype for t in ts))
+    return [t.to(dt) for t in ts]
+
+
+def _band_norm(x, scale, bias):
+    mu = x.mean(-1, keepdim=True)
+    var = x.var(-1, keepdim=True, unbiased=False)
+    x, scale, bias = _promoted((x - mu) * torch.rsqrt(var + 1e-5), scale, bias)
+    return x * scale + bias
+
+
+class _GroupedBandEncoder(nn.Module):
+    """Per-band LayerNorm(bw) + Linear(bw->C), batched per width group.
+
+    Input log-spectrum (B, F, T) -> features (B, nband, T, C).
+    """
+
+    def __init__(self, widths: Sequence[int], feature_dim: int, gen: torch.Generator):
+        super().__init__()
+        self.groups = _band_groups(widths)
+        C = feature_dim
+        for gi, (w, n, _off) in enumerate(self.groups):
+            bound = 1.0 / math.sqrt(w)
+            self.register_parameter(f"ln_scale_{gi}", nn.Parameter(torch.ones(n, 1, w)))
+            self.register_parameter(f"ln_bias_{gi}", nn.Parameter(torch.zeros(n, 1, w)))
+            self.register_parameter(f"w_{gi}", uniform_((n, w, C), bound, gen))
+            self.register_parameter(f"b_{gi}", uniform_((n, 1, C), bound, gen))
+
+    def forward(self, spec: torch.Tensor) -> torch.Tensor:
+        B, _, T = spec.shape
+        outs = []
+        for gi, (w, n, off) in enumerate(self.groups):
+            x = spec[:, off : off + n * w, :].reshape(B, n, w, T).transpose(2, 3)
+            x = _band_norm(x, getattr(self, f"ln_scale_{gi}"), getattr(self, f"ln_bias_{gi}"))
+            x, wgt, b = _promoted(x, getattr(self, f"w_{gi}"), getattr(self, f"b_{gi}"))
+            outs.append(torch.einsum("bntw,nwc->bntc", x, wgt) + b)
+        return torch.cat(outs, dim=1)
+
+
+class _GroupedBandDecoder(nn.Module):
+    """Per-band LN(C) + Linear(C->4C) + GELU + Linear(4C->out_mult*bw).
+
+    Input (B, nband, T, C) -> list of (B, n, T, out_mult*w) per group.
+    """
+
+    def __init__(self, widths: Sequence[int], feature_dim: int, out_mult: int,
+                 gen: torch.Generator):
+        super().__init__()
+        self.groups = _band_groups(widths)
+        C = feature_dim
+        for gi, (w, n, _off) in enumerate(self.groups):
+            self.register_parameter(f"ln_scale_{gi}", nn.Parameter(torch.ones(n, 1, C)))
+            self.register_parameter(f"ln_bias_{gi}", nn.Parameter(torch.zeros(n, 1, C)))
+            b1, b2 = 1.0 / math.sqrt(C), 1.0 / math.sqrt(4 * C)
+            self.register_parameter(f"w1_{gi}", uniform_((n, C, 4 * C), b1, gen))
+            self.register_parameter(f"b1_{gi}", uniform_((n, 1, 4 * C), b1, gen))
+            self.register_parameter(f"w2_{gi}", uniform_((n, 4 * C, out_mult * w), b2, gen))
+            self.register_parameter(f"b2_{gi}", uniform_((n, 1, out_mult * w), b2, gen))
+
+    def forward(self, feats: torch.Tensor) -> list[torch.Tensor]:
+        outs = []
+        band0 = 0
+        for gi, (_w, n, _off) in enumerate(self.groups):
+            x = feats[:, band0 : band0 + n]
+            band0 += n
+            x = _band_norm(x, getattr(self, f"ln_scale_{gi}"), getattr(self, f"ln_bias_{gi}"))
+            x, w1, b1 = _promoted(x, getattr(self, f"w1_{gi}"), getattr(self, f"b1_{gi}"))
+            x = F.gelu(torch.einsum("bntc,nch->bnth", x, w1) + b1)   # exact (erf) GELU
+            x, w2, b2 = _promoted(x, getattr(self, f"w2_{gi}"), getattr(self, f"b2_{gi}"))
+            outs.append(torch.einsum("bnth,nhk->bntk", x, w2) + b2)
+        return outs
+
+
+class ResRNN(nn.Module):
+    """LayerNorm + (bi)LSTM + projection with residual (bsrnn.py:7-41)."""
+
+    def __init__(self, input_size: int, hidden_size: int, causal: bool, gen: torch.Generator):
+        super().__init__()
+        self.norm = LayerNorm(input_size)
+        self.lstm = LSTM(input_size, hidden_size, bidirectional=not causal, gen=gen)
+        self.proj = Linear(hidden_size * (1 if causal else 2), input_size, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # x: (B, G, S, C); the LSTM runs over S for every (B, G)
+        B, G, S, C = x.shape
+        y = self.lstm(self.norm(x).reshape(B * G, S, C))
+        return x + self.proj(y).reshape(B, G, S, C)
+
+
+class BSNet(nn.Module):
+    """Dual-path block: time LSTM then band BiLSTM (bsrnn.py:44-77)."""
+
+    def __init__(self, feature_dim: int, causal: bool, gen: torch.Generator):
+        super().__init__()
+        self.time_rnn = ResRNN(feature_dim, feature_dim, causal, gen)
+        self.band_rnn = ResRNN(feature_dim, feature_dim, False, gen)
+        self.out_norm = LayerNorm(feature_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.time_rnn(x)                                   # (B, nband, T, C)
+        x = self.band_rnn(x.transpose(1, 2)).transpose(1, 2)   # over bands per frame
+        return self.out_norm(x)
+
+
+class BSRNNCore(nn.Module):
+    """Shared band-split trunk: log-spectrum (B, F, T) ->
+    (logamp, pha, rea, imag, wav), reference bsrnn.py:143-217."""
+
+    def __init__(self, sampling_rate: int, n_fft: int, hop_size: int, win_size: int,
+                 feature_dim: int, num_repeat: int, causal: bool, gen: torch.Generator):
+        super().__init__()
+        self.n_fft, self.hop_size, self.win_size = n_fft, hop_size, win_size
+        self.widths = band_plan(sampling_rate, n_fft)
+        self.encoder = _GroupedBandEncoder(self.widths, feature_dim, gen)
+        self.blocks = nn.ModuleList(BSNet(feature_dim, causal, gen) for _ in range(num_repeat))
+        self.dec_mag = _GroupedBandDecoder(self.widths, feature_dim, 1, gen)
+        self.dec_pha = _GroupedBandDecoder(self.widths, feature_dim, 2, gen)
+
+    def forward(self, log_spec: torch.Tensor):
+        feats = self.encoder(log_spec)
+        for blk in self.blocks:
+            feats = blk(feats)
+        B, _, T, _ = feats.shape
+        resi = torch.cat([g.transpose(1, 2).reshape(B, T, -1) for g in self.dec_mag(feats)],
+                         dim=-1)                                # (B, T, F)
+        pha_parts = []
+        for g, (w, _n, _o) in zip(self.dec_pha(feats), _band_groups(self.widths)):
+            pha = torch.atan2(g[..., w:], g[..., :w])           # (B, n, T, w)
+            pha_parts.append(pha.transpose(1, 2).reshape(B, T, -1))
+        phase = torch.cat(pha_parts, dim=-1).transpose(-1, -2)
+
+        mag = torch.exp(resi.transpose(-1, -2) + log_spec)      # (B, F, T)
+        # the reference's clamp_min_ is in place (bsrnn.py:204): the clamped
+        # magnitude also feeds rea/imag and the iSTFT
+        mag = torch.clamp(mag, min=1e-5)
+        logamp = torch.log(mag)
+        rea = mag * torch.cos(phase)
+        imag = mag * torch.sin(phase)
+        wav = istft_ri(rea, imag, self.n_fft, self.hop_size, self.win_size,
+                       window=hann_window(self.win_size))
+        return logamp, phase, rea, imag, wav
+
+
+class BSRNN(nn.Module):
+    """mel (B, M, T) -> (logamp, pha, rea, imag, wav). Reference bsrnn.py:80-217."""
+
+    def __init__(self, h, gen: torch.Generator):
+        super().__init__()
+        self.mel_args = (h.n_fft, h.num_mels, h.sampling_rate, h.hop_size,
+                         h.win_size, h.fmin, h.fmax)
+        self.core = BSRNNCore(h.sampling_rate, h.n_fft, h.hop_size, h.win_size,
+                              h.feature_dim, h.num_repeat, bool(h.causal), gen)
+
+    def forward(self, mel: torch.Tensor):
+        inv_amp = torch.clamp(torch.abs(inverse_mel(mel, *self.mel_args)), min=1e-5)
+        return self.core(torch.log(inv_amp))
+
+
+class BSRNN_24k(nn.Module):
+    """log-spectrum (B, F, T) -> TF outputs. Reference bsrnn_24k.py:79-194."""
+
+    def __init__(self, h, gen: torch.Generator):
+        super().__init__()
+        self.core = BSRNNCore(h.sampling_rate, h.n_fft, h.hop_size, h.win_size,
+                              h.feature_dim, h.num_repeat, bool(h.causal), gen)
+
+    def forward(self, log_spec: torch.Tensor):
+        return self.core(log_spec)
