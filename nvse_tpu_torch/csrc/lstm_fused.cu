@@ -44,38 +44,15 @@
 // - The ragged last row tile is masked at the x load and the output
 //   store. wgmma, TMA and thread-block clusters are later work.
 //
-// Built with nvcc by nvse_tpu_torch/ops/_build.py into a shared library
-// with a plain C entry, `lstm_fused_launch`, loaded through ctypes.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+// The cell, the W_hh packing and the recurrent product are shared with
+// lstm_bwd.cu through lstm_cell.cuh. Built with nvcc by
+// nvse_tpu_torch/ops/_build.py into a shared library with a plain C entry,
+// `lstm_fused_launch`, loaded through ctypes.
+#include "lstm_cell.cuh"
 
 namespace {
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
-}
-
-// four consecutive elements (16-byte aligned for float, 8-byte for bf16)
-__device__ __forceinline__ void load4(const float* p, float w[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float w[4]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  w[0] = a.x; w[1] = a.y; w[2] = b.x; w[3] = b.y;
-}
-
-__device__ __forceinline__ float sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }
+using namespace lstm;
 
 template <typename T, int RT>
 __global__ void __launch_bounds__(512, 1)
@@ -101,10 +78,7 @@ lstm_fused_kernel(const T* __restrict__ x,
   float* x_s = g_s + RT * G;                        // [RT][S][C]
   T* whh_s = reinterpret_cast<T*>(x_s + RT * S * C); // [ksm/4][G][4]
 
-  for (int i = j; i < ksm * G; i += G) {
-    const int k = i / G, col = i - k * G;
-    whh_s[((k >> 2) * G + col) * 4 + (k & 3)] = w_hh[i];
-  }
+  stage_whh(whh_s, w_hh, ksm, G);
   for (int i = j; i < RT * H; i += G) { h_s[i] = 0.0f; c_s[i] = 0.0f; }
   __syncthreads();
 
@@ -149,29 +123,7 @@ lstm_fused_kernel(const T* __restrict__ x,
         float acc[RT];
 #pragma unroll
         for (int r = 0; r < RT; ++r) acc[r] = xg[r][s];
-        for (int k = 0; k < ksm; k += 4) {
-          float w[4];
-          load4(whh_s + ((k >> 2) * G + j) * 4, w);
-#pragma unroll
-          for (int r = 0; r < RT; ++r) {
-            float hv[4];
-            load4(h_s + r * H + k, hv);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[r] = fmaf(hv[q], w[q], acc[r]);
-          }
-        }
-        for (int k = ksm; k < H; k += 4) {
-          float w[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) w[q] = to_f<T>(w_hh[(size_t)(k + q) * G + j]);
-#pragma unroll
-          for (int r = 0; r < RT; ++r) {
-            float hv[4];
-            load4(h_s + r * H + k, hv);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[r] = fmaf(hv[q], w[q], acc[r]);
-          }
-        }
+        recurrent_product<T, RT>(acc, h_s, whh_s, w_hh, ksm, H, G, j);
 #pragma unroll
         for (int r = 0; r < RT; ++r) g_s[r * G + j] = acc[r];
         __syncthreads();
@@ -180,13 +132,9 @@ lstm_fused_kernel(const T* __restrict__ x,
         const int t = dir ? (Tn - 1 - n) : n;
         for (int p = j; p < RT * H; p += G) {
           const int r = p / H, u = p - r * H;
-          const float* gr = g_s + r * G;
-          const float ig = sigmoid(gr[u]);
-          const float fg = sigmoid(gr[H + u]);
-          const float gg = tanhf(gr[2 * H + u]);
-          const float og = sigmoid(gr[3 * H + u]);
-          const float c = fg * c_s[p] + ig * gg;
-          const T hv = from_f<T>(og * tanhf(c));
+          float c, h;
+          cell(g_s + r * G, H, u, c_s[p], c, h);
+          const T hv = from_f<T>(h);
           c_s[p] = c;
           h_s[p] = to_f<T>(hv);  // h as the recurrent product sees it
           if (r < nr) out[((size_t)(r0 + r) * Tn + t) * (2 * H) + dir * H + u] = hv;
@@ -203,17 +151,12 @@ int launch(const void* x, const void* w_ih_f, const void* w_ih_b, const void* b_
            int R, int Tn, int C, int H, cudaStream_t stream) {
   constexpr int S = 32 / RT;
   const int G = 4 * H;
-  int dev = 0, max_smem = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int max_smem = 0, ksm = 0;
+  cudaError_t e = max_dynamic_smem(&max_smem);
   if (e != cudaSuccess) return e;
   const long fixed = (long)sizeof(float) * (2 * RT * H + RT * G + RT * S * C);
-  const long row = (long)sizeof(T) * G;   // one W_hh row in shared memory
-  if (fixed > max_smem) return cudaErrorInvalidValue;
-  int ksm = (int)((max_smem - fixed) / row);
-  ksm = (ksm < H ? ksm : H) & ~3;
-  const size_t smem = (size_t)(fixed + ksm * row);
+  const size_t smem = smem_with_whh<T>(fixed, H, max_smem, &ksm);
+  if (smem == 0) return cudaErrorInvalidValue;
   e = cudaFuncSetAttribute(lstm_fused_kernel<T, RT>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;

@@ -18,7 +18,6 @@ import wave
 
 import numpy as np
 from scipy.io import wavfile as _wavfile
-from scipy.signal import resample_poly
 
 
 def read_wav(path: str) -> tuple[np.ndarray, int]:
@@ -83,6 +82,8 @@ def write_wav(path: str, data: np.ndarray, sample_rate: int) -> None:
 def resample(data: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     if orig_sr == target_sr:
         return data
+    from scipy.signal import resample_poly   # ~2 s to import; only resampling needs it
+
     g = math.gcd(int(orig_sr), int(target_sr))
     return resample_poly(data, target_sr // g, orig_sr // g).astype(np.float32)
 

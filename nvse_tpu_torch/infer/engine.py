@@ -35,9 +35,10 @@ class InferenceEngine:
     """Holds one generator on `device` and decodes mel batches to waves.
 
     params: a port state_dict (e.g. from utils.params_from_jax); when
-    None, weights load from the port `.pt` state_dict at
-    h.checkpoint_file_load if that file exists, else they are random
-    from a torch.Generator seeded with h.seed.
+    None, weights load from h.checkpoint_file_load if that file exists
+    (a g_ bundle {"generator": state_dict} written by the port's
+    training, or a bare state_dict), else they are random from a
+    torch.Generator seeded with h.seed.
     """
 
     def __init__(self, h, params: dict | None = None, device: str = "cuda",
@@ -56,6 +57,8 @@ class InferenceEngine:
                     "not ported yet (convert with utils.params_from_jax)")
             if ckpt and os.path.isfile(ckpt):
                 params = torch.load(ckpt, map_location="cpu", weights_only=True)
+                if "generator" in params:   # a g_ bundle written by training
+                    params = params["generator"]
         if params is not None:
             self.generator.load_state_dict(params)
         self.generator.eval()

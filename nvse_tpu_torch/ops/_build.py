@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` is compiled by nvcc into its own shared library
 with a plain C interface, `build/lib<name>-<hash>.so`, loaded through
-ctypes. The hash covers the source text and the compiler flags, so a
-library is built at first use and rebuilt when its source changes.
+ctypes. The hash covers the source text, the shared headers and the
+compiler flags, so a library is built at first use and rebuilt when its
+source changes.
 Nothing includes PyTorch's headers: a build takes seconds, not minutes.
 """
 from __future__ import annotations
@@ -43,10 +44,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """Build path of csrc/<name>.cu's library; the hash covers the source,
+    the shared headers csrc/*.cuh and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start_build(name: str):

@@ -19,11 +19,13 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
+    "amp_pha_spectrum",
     "hann_window",
     "inverse_mel",
     "istft_ri",
     "mel_spectrogram",
     "mel_spectrogram_np",
+    "stft_ri",
 ]
 
 
@@ -126,6 +128,54 @@ def _mel_consts(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float, win_
     return (torch.from_numpy(_hann_np(win_size).copy()).to(device),
             torch.from_numpy(_mel_filterbank_np(sr, n_fft, n_mels, fmin, fmax)).to(device),
             torch.from_numpy(_inv_mel_basis_np(sr, n_fft, n_mels, fmin, fmax)).to(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _window_on(win_bytes: bytes, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.frombuffer(win_bytes, np.float32).copy()).to(device)
+
+
+# ---------------------------------------------------------------------------
+# STFT
+# ---------------------------------------------------------------------------
+
+def stft_ri(y: torch.Tensor, n_fft: int, hop_size: int, win_size: int,
+            window: np.ndarray | None = None):
+    """torch.stft on (..., L) returning (real, imag), each (..., F, T).
+
+    Centred: reflect-pads n_fft//2 on each side; one-sided, F =
+    n_fft//2 + 1. window=None is torch.stft's default: ones(win_size)
+    zero-padded to n_fft (the multi-resolution discriminator's
+    rectangular window), not ones(n_fft). The transform runs in float32
+    (cuFFT has no bfloat16) and the result has the input's dtype.
+    """
+    win_np = np.ones(win_size, np.float32) if window is None else np.asarray(window, np.float32)
+    win = _window_on(_pad_window(win_np, n_fft).tobytes(), y.device)
+    lead = y.shape[:-1]
+    spec = torch.stft(y.float().reshape(-1, y.shape[-1]), n_fft, hop_length=hop_size,
+                      win_length=n_fft, window=win, center=True, pad_mode="reflect",
+                      normalized=False, onesided=True, return_complex=True)
+    re = spec.real.reshape(*lead, *spec.shape[-2:]).to(y.dtype)
+    im = spec.imag.reshape(*lead, *spec.shape[-2:]).to(y.dtype)
+    return re, im
+
+
+def _safe_magnitude(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """sqrt(re^2 + im^2) floored at 1e-24 under the sqrt, so the gradient
+    is 0, not NaN, at exact-zero bins (nvse_tpu/ops/spectral.py:452-461)."""
+    return torch.sqrt(torch.clamp(re * re + im * im, min=1e-24))
+
+
+def amp_pha_spectrum(y: torch.Tensor, n_fft: int, hop_size: int, win_size: int,
+                     eps: float = 1e-7):
+    """wave (..., L) -> (log_amplitude, phase, real, imag), each (..., F, T).
+
+    Reference dataset.py:123-139 (eps 1e-7; the joint-denoise duplicate
+    uses 1e-5, passed explicitly). Hann window, center=True.
+    """
+    rea, imag = stft_ri(y, n_fft, hop_size, win_size, window=hann_window(win_size))
+    log_amplitude = torch.log(_safe_magnitude(rea, imag) + eps)
+    return log_amplitude, torch.atan2(imag, rea), rea, imag
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,331 @@
+"""GAN trainer of the T-F domain: one step updates D, then G.
+
+Counterpart of nvse_tpu/train/trainer.py:85-543 with domain "tf"
+(reference train_tf_wi_inv.py:158-305):
+  L_D = mrd_weight * L_MRD + L_MPD                      (LS-GAN)
+  L_G = 45 L_A + 100 (IP + GD + PTD) + 20 (L_C + 2.25 (L_R + L_I))
+        + L_GAN + L_FM + 45 L_Mel
+Features (mel, mel-loss target, log-amplitude, phase, real, imag) are
+computed on the device from the raw audio batch. The generator runs once
+with grad; the discriminators are updated first on its detached output,
+and the G losses use the UPDATED discriminators, frozen, so that no D
+gradient is left for the next D update. One backward through the G loss
+reaches every generator weight: each BiLSTM's backward is the
+lstm_bwd kernel per direction (ops/lstm.py).
+
+compute_dtype "bfloat16" runs the G and D trunks in bf16 from cast copies
+of the float32 master weights (torch.func.functional_call); features,
+losses and optimizer states stay float32, and the casts pass float32
+gradients back, as the JAX step's `_to_compute` does.
+
+Not ported (raise NotImplementedError): the time domain (MSD, SNConv1d),
+use_cqtd, the joint trainer, sp_devices > 1, and causal configs on CUDA
+(their time LSTM needs the still unported lstm_scan kernel).
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+from torch import nn
+
+from .. import resolve_device
+from ..losses import (
+    amplitude_loss,
+    feature_loss,
+    ls_discriminator_loss,
+    ls_generator_loss,
+    phase_loss,
+    stft_consistency_loss,
+)
+from ..losses.spectral import _masked_mean
+from ..models import build_generator
+from ..models.discriminators import MultiPeriodDiscriminator, MultiResolutionDiscriminator
+from ..models.layers import LSTM
+from ..ops.spectral import amp_pha_spectrum, mel_spectrogram
+
+METRIC_KEYS = ("A", "IP", "GD", "PTD", "C", "R", "I", "Mel", "GAN", "FM", "G", "D")
+
+
+def learning_rate(h, steps_per_epoch: int, updates: int) -> float:
+    """lr after `updates` optimizer updates: h.learning_rate decayed by
+    h.lr_decay once per epoch, a staircase (optax.exponential_decay with
+    staircase=True, as the JAX package schedules it)."""
+    return float(h.learning_rate) * float(h.lr_decay) ** (updates // max(1, steps_per_epoch))
+
+
+def make_optimizer(modules, h, steps_per_epoch: int) -> torch.optim.AdamW:
+    """AdamW(betas=(adam_b1, adam_b2), eps=1e-8, weight_decay=0.01) over
+    the parameters of `modules` (a module or a list of them), with the
+    staircase schedule of `learning_rate` applied by `apply_update`.
+
+    The LSTM layers hold one summed bias b = b_ih + b_hh where the JAX
+    layer and torch.nn.LSTM train two tensors with the same gradient.
+    One AdamW step on each of the two moves their sum by 2 lr u + lr wd b
+    (u the Adam direction), so the summed biases form a group with
+    `copies` = 2: lr x 2 and weight decay / 2, which is that update
+    exactly, and their gradients count twice in the global norm.
+    """
+    modules = modules if isinstance(modules, (list, tuple)) else [modules]
+    summed, plain = [], []
+    for mod in modules:
+        for sub in mod.modules():
+            own = dict(sub.named_parameters(recurse=False))
+            for name, p in own.items():
+                (summed if isinstance(sub, LSTM) and name in LSTM.summed_biases else plain).append(p)
+    groups = [{"params": plain, "copies": 1, "weight_decay": 0.01}]
+    if summed:
+        groups.append({"params": summed, "copies": 2, "weight_decay": 0.01 / 2})
+    opt = torch.optim.AdamW(groups, lr=float(h.learning_rate),
+                            betas=(float(h.adam_b1), float(h.adam_b2)), eps=1e-8)
+    opt.steps_per_epoch = max(1, int(steps_per_epoch))
+    return opt
+
+
+def _updates_done(opt: torch.optim.Optimizer) -> int:
+    """Optimizer updates applied so far (AdamW's own step count, which a
+    skipped update does not advance and a checkpoint restores)."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            st = opt.state.get(p)
+            if st and "step" in st:
+                return int(st["step"])
+    return 0
+
+
+def _global_norm(opt: torch.optim.Optimizer) -> torch.Tensor:
+    sq = [g["copies"] * torch.sum(p.grad.float() ** 2)
+          for g in opt.param_groups for p in g["params"] if p.grad is not None]
+    return torch.sqrt(torch.stack(sq).sum())
+
+
+def apply_update(opt: torch.optim.Optimizer, h, clip: float, skip_nonfinite: bool):
+    """One AdamW step at the scheduled lr, with the JAX step's opt-in
+    stabilisers (trainer.py:85-149): global-norm clipping when clip > 0
+    (non-finite norms left unscaled) and, with skip_nonfinite, no update
+    at all when the gradient norm is not finite. Returns 1.0 if the
+    update was applied, 0.0 if it was skipped."""
+    lr = learning_rate(h, opt.steps_per_epoch, _updates_done(opt))
+    for g in opt.param_groups:
+        g["lr"] = lr * g["copies"]
+    if clip > 0.0 or skip_nonfinite:
+        norm = _global_norm(opt)
+        if skip_nonfinite and not bool(torch.isfinite(norm)):   # one host sync, opt-in
+            return 0.0
+        if clip > 0.0:
+            scale = torch.where(torch.isfinite(norm),
+                                torch.clamp(clip / (norm + 1e-16), max=1.0),
+                                torch.ones_like(norm))
+            for g in opt.param_groups:
+                for p in g["params"]:
+                    if p.grad is not None:
+                        p.grad.mul_(scale)
+    opt.step()
+    return 1.0
+
+
+@contextlib.contextmanager
+def _frozen(module: nn.Module):
+    """No gradient reaches the module's parameters inside the block."""
+    params = [p for p in module.parameters() if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
+
+
+def _cast(tree, dtype):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    return type(tree)(_cast(t, dtype) for t in tree)
+
+
+def _check_supported(h, domain: str, device: torch.device) -> None:
+    if domain != "tf":
+        raise NotImplementedError(
+            f"{h.model_name} trains in the {domain} domain; only the T-F trainer (MPD + MRD) "
+            "is ported (the time domain's MSD / SNConv1d and the joint trainer are not)")
+    if h.get("use_cqtd"):
+        raise NotImplementedError("use_cqtd: the CQT discriminator is not ported yet")
+    if int(h.get("sp_devices", 1) or 1) > 1:
+        raise NotImplementedError("sp_devices > 1: multi-GPU training is not ported yet")
+    if bool(h.get("causal")) and device.type == "cuda":
+        raise NotImplementedError(
+            "causal configs on CUDA: the time LSTM needs the lstm_scan kernel "
+            "(nvse_tpu/ops/pallas_lstm.py:_pallas_lstm_scan), not ported yet")
+
+
+class GANTrainer:
+    """Generator, MPD + MRD, their AdamW optimizers and the step functions.
+
+    Weights are random from torch.Generators seeded with h.seed (the
+    generator as build_generator draws it, the discriminators from
+    h.seed + 1), made on the CPU and moved to `device`.
+    """
+
+    def __init__(self, h, device: str | torch.device = "cuda", steps_per_epoch: int = 1):
+        self.h = h
+        self.device = resolve_device(device)
+        generator, domain = build_generator(h)
+        _check_supported(h, domain, self.device)
+        dgen = torch.Generator().manual_seed(int(h.get("seed", 1234)) + 1)
+        self.generator = generator.to(self.device)
+        self.disc = nn.ModuleDict({
+            "mpd": MultiPeriodDiscriminator(tuple(h.mpd_reshapes), gen=dgen),
+            "mrd": MultiResolutionDiscriminator(gen=dgen),
+        }).to(self.device)
+        self.opt_g = make_optimizer(self.generator, h, steps_per_epoch)
+        self.opt_d = make_optimizer(self.disc, h, steps_per_epoch)
+        self.compute_dtype = {"bfloat16": torch.bfloat16}.get(str(h.get("compute_dtype")))
+        self.clip = float(h.get("grad_clip_norm", 0.0) or 0.0)
+        self.skip_nonfinite = bool(h.get("skip_nonfinite_updates"))
+        self.mrd_weight = float(h.mrd_weight)
+        sr = h.sampling_rate
+        self.melargs = (h.n_fft, h.num_mels, sr, h.hop_size, h.win_size)
+        # h.meloss is the fmax of the mel-loss target; null -> sr/2
+        self.meloss_fmax = h.get("meloss") or sr / 2.0
+
+    # -- pieces -----------------------------------------------------------
+    def _run(self, module: nn.Module, *args, mixed: bool = True):
+        """module(*args), in the compute dtype from cast copies of the
+        float32 weights when mixed; outputs come back float32."""
+        if not mixed or self.compute_dtype is None:
+            return module(*args)
+        params = {n: p.to(self.compute_dtype) for n, p in module.named_parameters()}
+        out = torch.func.functional_call(module, params, _cast(args, self.compute_dtype))
+        return _cast(out, torch.float32)
+
+    def features(self, audio: torch.Tensor):
+        """(mel, mel-loss target, log-amplitude, phase, real, imag) of the
+        clean wave (reference dataset.py:218-244)."""
+        h = self.h
+        meloss = mel_spectrogram(audio, *self.melargs, h.fmin, self.meloss_fmax)
+        mel = mel_spectrogram(audio, *self.melargs, h.fmin, h.fmax)
+        logamp, pha, rea, imag = amp_pha_spectrum(audio, h.n_fft, h.hop_size, h.win_size)
+        return mel, meloss, logamp, pha, rea, imag
+
+    def _consistency(self, rea_g, imag_g, y_gc, mask=None):
+        h = self.h
+        _, _, rea_gf, imag_gf = amp_pha_spectrum(y_gc, h.n_fft, h.hop_size, h.win_size)
+        Tc = min(rea_g.shape[-1], rea_gf.shape[-1])
+        return stft_consistency_loss(rea_g[..., :Tc], rea_gf[..., :Tc], imag_g[..., :Tc],
+                                     imag_gf[..., :Tc], mask=None if mask is None else mask[:Tc])
+
+    # -- the step ---------------------------------------------------------
+    def step(self, audio: torch.Tensor) -> dict:
+        """One GAN step on a (B, segment) float32 batch; returns the metrics
+        as 0-dim float32 tensors on the device (no host sync)."""
+        fwd = self.generator_forward(audio)
+        L_D, ok_d = self.discriminator_update(fwd)
+        metrics, ok_g = self.generator_update(fwd)
+        metrics["D"] = L_D.detach().float()
+        if self.skip_nonfinite:
+            # skipped updates this step: 0 = none, 1 = D or G, 2 = both
+            metrics["skip"] = torch.tensor((1.0 - ok_d) + (1.0 - ok_g), device=self.device)
+        return metrics
+
+    def generator_forward(self, audio: torch.Tensor) -> dict:
+        """Features of the batch and the generator's outputs, with grad."""
+        audio = audio.to(self.device, torch.float32)
+        feats = self.features(audio)
+        outs = self._run(self.generator, feats[0])
+        y_min = min(outs[-1].shape[-1], audio.shape[-1])
+        return {"feats": feats, "outs": outs, "y_c": audio[..., :y_min],
+                "y_gc": outs[-1][..., :y_min]}
+
+    def discriminator_update(self, fwd: dict):
+        """L_D on the detached generated wave and one D update
+        (reference train_tf_wi_inv.py:190-205). Returns (L_D, applied)."""
+        y_c, y_g_det = fwd["y_c"], fwd["y_gc"].detach()
+        r_f, g_f, _, _ = self._run(self.disc["mpd"], y_c, y_g_det)
+        r_s, g_s, _, _ = self._run(self.disc["mrd"], y_c, y_g_det)
+        L_D = (ls_discriminator_loss(r_s, g_s)[0] * self.mrd_weight
+               + ls_discriminator_loss(r_f, g_f)[0])
+        self.opt_d.zero_grad(set_to_none=True)
+        L_D.backward()
+        return L_D, apply_update(self.opt_d, self.h, self.clip, self.skip_nonfinite)
+
+    def generator_update(self, fwd: dict):
+        """L_G against the updated, frozen discriminators, one backward
+        through the generator and one G update. Returns (metrics, applied)."""
+        h = self.h
+        mel, meloss, logamp, pha, rea, imag = fwd["feats"]
+        logamp_g, pha_g, rea_g, imag_g, _ = fwd["outs"]
+        y_c, y_gc = fwd["y_c"], fwd["y_gc"]
+        with _frozen(self.disc):
+            L_A = amplitude_loss(logamp, logamp_g)
+            ip, gd, ptd = phase_loss(pha, pha_g)
+            # gradients flow through both sides of the consistency loss
+            L_C = self._consistency(rea_g, imag_g, y_gc)
+            L_R = torch.mean(torch.abs(rea - rea_g))
+            L_I = torch.mean(torch.abs(imag - imag_g))
+            y_g_mel = mel_spectrogram(y_gc, *self.melargs, h.fmin, self.meloss_fmax)
+            L_Mel = torch.mean(torch.abs(meloss - y_g_mel))
+            _, g_f, fr_f, fg_f = self._run(self.disc["mpd"], y_c, y_gc)
+            _, g_s, fr_s, fg_s = self._run(self.disc["mrd"], y_c, y_gc)
+            L_GAN = ls_generator_loss(g_s)[0] * self.mrd_weight + ls_generator_loss(g_f)[0]
+            L_FM = feature_loss(fr_s, fg_s) * self.mrd_weight + feature_loss(fr_f, fg_f)
+            L_G = (45.0 * L_A + 100.0 * (ip + gd + ptd) + 20.0 * (L_C + 2.25 * (L_R + L_I))
+                   + L_GAN + L_FM + 45.0 * L_Mel)
+            self.opt_g.zero_grad(set_to_none=True)
+            L_G.backward()
+        ok_g = apply_update(self.opt_g, h, self.clip, self.skip_nonfinite)
+        vals = (L_A, ip, gd, ptd, L_C, L_R, L_I, L_Mel, L_GAN, L_FM, L_G)
+        return {k: v.detach().float() for k, v in zip(METRIC_KEYS, vals)}, ok_g
+
+    # -- validation (no grad: the BiLSTMs take the inference kernel) ------
+    @torch.no_grad()
+    def eval_step(self, audio: torch.Tensor):
+        """Full losses on a fixed crop (trainer.py:425-453); float32 weights."""
+        h = self.h
+        audio = audio.to(self.device, torch.float32)
+        mel, meloss, logamp, pha, rea, imag = self.features(audio)
+        logamp_g, pha_g, rea_g, imag_g, y_g = self.generator(mel)
+        ip, gd, ptd = phase_loss(pha, pha_g)
+        metrics = {"A": amplitude_loss(logamp, logamp_g), "IP": ip, "GD": gd, "PTD": ptd,
+                   "R": torch.mean(torch.abs(rea - rea_g)),
+                   "I": torch.mean(torch.abs(imag - imag_g))}
+        Tc = min(y_g.shape[-1], audio.shape[-1])
+        metrics["C"] = self._consistency(rea_g, imag_g, y_g[..., :Tc])
+        y_g_mel = mel_spectrogram(y_g[..., :Tc], *self.melargs, h.fmin, self.meloss_fmax)
+        T = min(meloss.shape[-1], y_g_mel.shape[-1])
+        metrics["Mel"] = torch.mean(torch.abs(meloss[..., :T] - y_g_mel[..., :T]))
+        return y_g, metrics
+
+    @torch.no_grad()
+    def eval_full(self, audio: torch.Tensor, n_samples: int):
+        """Full-utterance validation (trainer.py:455-508): `audio` (1, L) is
+        the utterance zero-padded to a bucket; every metric is masked to the
+        frames whose reference features depend only on real samples,
+        t * hop + n_fft/2 <= n_samples."""
+        h = self.h
+        audio = audio.to(self.device, torch.float32)
+        mel, meloss, logamp, pha, rea, imag = self.features(audio)
+        logamp_g, pha_g, rea_g, imag_g, y_g = self.generator(mel)
+        y_min = min(y_g.shape[-1], audio.shape[-1])
+        y_gc = y_g[..., :y_min]
+        y_g_mel = mel_spectrogram(y_gc, *self.melargs, h.fmin, self.meloss_fmax)
+        Tm = min(meloss.shape[-1], y_g_mel.shape[-1])
+        nf = max(1, (int(n_samples) - h.n_fft // 2) // h.hop_size + 1)
+        mask_m = (torch.arange(Tm, device=self.device) < nf).float()
+        metrics = {"Mel": _masked_mean(torch.abs(meloss[..., :Tm] - y_g_mel[..., :Tm]), mask_m)}
+        Tf = min(pha.shape[-1], pha_g.shape[-1])
+        mask = (torch.arange(Tf, device=self.device) < nf).float()
+        metrics["A"] = amplitude_loss(logamp[..., :Tf], logamp_g[..., :Tf], mask=mask)
+        ip, gd, ptd = phase_loss(pha[..., :Tf], pha_g[..., :Tf], mask=mask)
+        metrics.update(IP=ip, GD=gd, PTD=ptd)
+        metrics["R"] = _masked_mean(torch.abs(rea[..., :Tf] - rea_g[..., :Tf]), mask)
+        metrics["I"] = _masked_mean(torch.abs(imag[..., :Tf] - imag_g[..., :Tf]), mask)
+        metrics["C"] = self._consistency(rea_g[..., :Tf], imag_g[..., :Tf], y_gc, mask=mask)
+        return y_g, metrics
+
+
+def fetch_scalars(metrics: dict) -> dict:
+    """Metrics dict of device scalars -> python floats in one transfer."""
+    keys = sorted(metrics)
+    vals = torch.stack([metrics[k].float() for k in keys]).cpu().tolist()
+    return dict(zip(keys, vals))
+

@@ -1,4 +1,5 @@
-"""Map a JAX-package BSRNN parameter tree onto the port's state_dict.
+"""Map JAX-package parameter trees (BSRNN, the T-F discriminators) onto
+the port's state_dicts.
 
 Reads plain numpy (e.g. `jax.tree.map(np.asarray, variables["params"])`
 done by the caller), so this module imports nothing of JAX. The tests
@@ -53,3 +54,29 @@ def params_from_jax(flax_params_as_numpy: dict, h) -> dict[str, torch.Tensor]:
         out[f"core.blocks.{r}.out_norm.scale"] = _t(blk["LayerNorm_0"]["scale"])
         out[f"core.blocks.{r}.out_norm.bias"] = _t(blk["LayerNorm_0"]["bias"])
     return out
+
+
+def _conv2d_wn(node: dict, prefix: str, out: dict) -> None:
+    """Weight-norm Conv2d: v HWIO -> OIHW, g (1, 1, 1, O) -> (O, 1, 1, 1)."""
+    out[f"{prefix}.v"] = _t(np.transpose(np.asarray(node["v"]), (3, 2, 0, 1)))
+    out[f"{prefix}.g"] = _t(np.asarray(node["g"]).reshape(-1, 1, 1, 1))
+    out[f"{prefix}.bias"] = _t(node["bias"])
+
+
+def disc_params_from_jax(disc_params_as_numpy: dict):
+    """JAX T-F discriminator tree (numpy leaves) -> (MPD, MRD) state_dicts.
+
+    Tree: {"mpd": {DiscriminatorP_i: {Conv2d_j: {v, g, bias}}},
+    "scale": {DiscriminatorR_i: {Conv2d_j: {v, g, bias}}}}, as
+    nvse_tpu/train/trainer.py:create_states builds it for domain "tf".
+    """
+    sds = []
+    for key, sub in (("mpd", "DiscriminatorP"), ("scale", "DiscriminatorR")):
+        tree = disc_params_as_numpy[key]
+        out: dict[str, torch.Tensor] = {}
+        for i in range(len(tree)):
+            d = tree[f"{sub}_{i}"]
+            for j in range(len(d)):
+                _conv2d_wn(d[f"Conv2d_{j}"], f"discs.{i}.convs.{j}", out)
+        sds.append(out)
+    return tuple(sds)

@@ -1,0 +1,149 @@
+#!/usr/bin/env python3
+"""Where the time goes in one BSRNN-M GAN training step of the PyTorch port.
+
+    python scripts/profile_torch_train.py
+
+Full-width BSRNN-M (nvse_tpu_torch/configs/bsrnn_config.json) with MPD +
+MRD on one CUDA card, random weights from the config's seed, a seeded
+synthetic batch of 16 16384-sample segments (the training shapes of the
+LSTM kernels: 544 rows x 65 steps, 1040 rows x 34 steps). Per compute
+dtype (float32, bfloat16), after two warmup steps and over three steps
+it prints one JSON line with:
+  * wall ms per step (host clock around synchronised steps);
+  * ms per step of the three phases of GANTrainer.step, from CUDA events
+    with the card idle at each step's start (so host enqueue time counts
+    where the card waits for it): generator forward (features + G),
+    discriminator update, generator update (G losses against the updated
+    D, backward, AdamW);
+  * from torch.profiler over the same number of steps: device-busy ms per
+    step (sum of kernel times; one stream), the idle share 1 - busy / wall,
+    the LSTM training kernels' ms and share of busy, busy ms by kernel
+    category, and the top kernels.
+The card's name and power limit are printed first. Needs a CUDA GPU.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+BATCH, STEPS, DTYPES = 16, 3, ("float32", "bfloat16")
+LSTM_KERNELS = ("lstm_fwd_hc_kernel", "lstm_bwd_kernel", "lstm_dw_kernel")
+
+
+def _batch(B, n, sr, seed=0):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / sr
+    x = 0.3 * np.sin(2 * np.pi * rng.uniform(100, 400, (B, 1)) * t)
+    return torch.from_numpy((x + 0.05 * rng.standard_normal((B, n))).astype(np.float32))
+
+
+# kernel-name markers of each category, tried in order
+CATEGORIES = (
+    ("lstm training kernels", LSTM_KERNELS),
+    ("convolutions (cuDNN)", ("conv", "xmma", "dgrad", "wgrad", "cudnn", "implicit")),
+    ("matmuls (cuBLAS)", ("gemm", "cublas", "cutlass")),
+    ("FFT (cuFFT)", ("fft",)),
+)
+
+
+def _kernel_times(prof, steps):
+    """{kernel name: ms per step} from the profiler's device events; the
+    spans of user annotations (e.g. Optimizer.step) are not kernels and
+    would count their kernels twice."""
+    out = {}
+    for evt in prof.events():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)
+                and not evt.name.startswith(("Optimizer.", "ProfilerStep"))):
+            out[evt.name] = out.get(evt.name, 0.0) + evt.device_time / 1e3 / steps
+    return out
+
+
+def _categories(kernels):
+    out = {name: 0.0 for name, _ in CATEGORIES}
+    out["elementwise, reductions, copies"] = 0.0
+    for n, v in kernels.items():
+        low = n.lower()
+        cat = next((c for c, marks in CATEGORIES if any(m in low for m in marks)),
+                   "elementwise, reductions, copies")
+        out[cat] += v
+    return out
+
+
+def profile(dtype):
+    from nvse_tpu_torch.train import GANTrainer
+    from nvse_tpu_torch.utils import load_config
+
+    h = load_config(os.path.join(REPO, "nvse_tpu_torch", "configs", "bsrnn_config.json"))
+    h.compute_dtype = dtype
+    tr = GANTrainer(h, device="cuda", steps_per_epoch=2)
+    audio = _batch(BATCH, int(h.segment_size), h.sampling_rate).cuda()
+    for _ in range(2):
+        tr.step(audio)
+    torch.cuda.synchronize()
+
+    t0 = time.time()
+    for _ in range(STEPS):
+        tr.step(audio)
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) / STEPS * 1e3
+
+    phases = {"generator_forward": 0.0, "discriminator_update": 0.0, "generator_update": 0.0}
+    for _ in range(STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        fwd = tr.generator_forward(audio)
+        ev[1].record()
+        tr.discriminator_update(fwd)
+        ev[2].record()
+        tr.generator_update(fwd)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, k in enumerate(phases):
+            phases[k] += ev[i].elapsed_time(ev[i + 1]) / STEPS
+        del fwd
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(STEPS):
+            tr.step(audio)
+        torch.cuda.synchronize()
+    kernels = _kernel_times(prof, STEPS)
+    busy = sum(kernels.values())
+    lstm = {k: sum(v for n, v in kernels.items() if k in n) for k in LSTM_KERNELS}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    return {
+        "dtype": dtype, "batch": BATCH, "segment": int(h.segment_size), "steps": STEPS,
+        "wall_ms_per_step": wall, "phase_ms_per_step": phases,
+        "device_busy_ms_per_step": busy if kernels else "not measured",
+        "idle_share": (1.0 - busy / wall) if kernels else "not measured",
+        "lstm_kernel_ms_per_step": lstm,
+        "lstm_share_of_busy": (sum(lstm.values()) / busy) if busy else "not measured",
+        "busy_ms_per_step_by_category": _categories(kernels),
+        "top_kernels_ms_per_step": [[n[:120], v] for n, v in top],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_train: needs a CUDA GPU")
+    from nvse_tpu_torch import resolve_device
+
+    resolve_device("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    for dtype in DTYPES:
+        print(json.dumps(profile(dtype)), flush=True)
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

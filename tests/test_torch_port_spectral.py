@@ -59,3 +59,40 @@ def test_mel_spectrogram_torch():
     got = tops.mel_spectrogram(torch.from_numpy(y), *MEL).numpy()
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, **TOL)
+
+
+@pytest.mark.parametrize("n_fft,hop,win,hann", [(1024, 256, 1024, True), (512, 128, 400, True),
+                                                (2048, 512, 2048, False), (512, 128, 400, False)])
+def test_stft_ri(n_fft, hop, win, hann):
+    # window=None: ones(win) zero-padded to n_fft (the MRD's rectangular window)
+    y = (0.3 * np.random.default_rng(4).standard_normal((2, 4096))).astype(np.float32)
+    w = jops.hann_window(win) if hann else None
+    ref = jops.stft_ri(jnp.asarray(y), n_fft, hop, win, window=w)
+    got = tops.stft_ri(torch.from_numpy(y), n_fft, hop, win,
+                       window=tops.hann_window(win) if hann else None)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape == (2, n_fft // 2 + 1, 4096 // hop + 1)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("eps", [1e-7, 1e-5])
+def test_amp_pha_spectrum(eps):
+    y = (0.3 * np.random.default_rng(5).standard_normal((2, 4096))).astype(np.float32)
+    y[:, :512] = 0.0   # exact-zero bins: the 1e-24 floor under the sqrt
+    ref = jops.amp_pha_spectrum(jnp.asarray(y), 1024, 256, 1024, eps=eps)
+    got = tops.amp_pha_spectrum(torch.from_numpy(y), 1024, 256, 1024, eps=eps)
+    for name, a, b in zip(("logamp", "phase", "real", "imag"), got, ref):
+        a, b = a.numpy(), np.asarray(b)
+        if name == "phase":   # compared as the wrapped difference where the bin is not silent
+            live = np.asarray(ref[0]) > np.log(1e-3)
+            d = np.angle(np.exp(1j * (a.astype(np.float64) - b)))[live]
+            assert np.abs(d).max() < 1e-3, name
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+def test_safe_magnitude_gradient_is_zero_at_silence():
+    re = torch.zeros(3, requires_grad=True)
+    im = torch.zeros(3, requires_grad=True)
+    tops._safe_magnitude(re, im).sum().backward()
+    assert torch.equal(re.grad, torch.zeros(3)) and torch.equal(im.grad, torch.zeros(3))
