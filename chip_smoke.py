@@ -11,10 +11,19 @@ the last line:
      its main path, in float32 and bfloat16, and time kernel, plain
      version and the library yardstick (cuDNN's torch.nn.LSTM, which
      the port never calls): the fused inference LSTM at the BSRNN-M
-     decode shapes; lstm_fwd_hc, lstm_bwd and the dW_hh reduction at the
+     decode shapes and at the band shapes of a streaming chunk (640 rows
+     x 34 steps for 8 streams, 80 for one) and of a context-recompute
+     window (96); lstm_fwd_hc, lstm_bwd and the dW_hh reduction at the
      BSRNN-M training shapes (batch 16: 544 rows x 65 steps, 1040 rows x
      34 steps), with cuDNN's BiLSTM forward + backward beside the port's
-     and one cuBLAS GEMM beside the dW_hh reduction;
+     and one cuBLAS GEMM beside the dW_hh reduction; lstm_scan at the
+     causal decode and context-recompute window shapes (272 rows x 1024
+     steps, 34 x 96) and lstm_scan_stateful at the streaming chunk shapes
+     (272 x 80 for 8 streams, 34 x 80 for one; seeded nonzero state; hs
+     and cs), with cuDNN's unidirectional LSTM forward (projection
+     included) beside them and, as the control the limit must refuse,
+     the stateful kernel fed zeros in place of its initial state; a
+     cuDNN call that compacts its weights at every call fails the run;
   3. decode B=8 x 1024 mel frames through InferenceEngine with seeded
      random BSRNN-M weights in float32 and bfloat16 (16 kernel launches
      per forward), check the card's output against the CPU's plain path
@@ -30,9 +39,24 @@ the last line:
      control that the limits must refuse;
   7. the training CLI's train() for 2 steps with a validation pass on the
      synthetic data, then InferenceEngine decoding from the g_ bundle;
-  8. print the kernels line, then the ok line.
+  8. stream, at full BSRNN-M width in float32 and bfloat16: 8 streams x 512
+     frames through synthesize_streaming_stateful (chunk 64, lookahead
+     16) on the causal config (8 lstm_scan_stateful + 8 fused launches
+     per chunk, none of lstm_scan; in float32 equal to the card's offline
+     decode with and without lookahead) and on the non-causal one (16 +
+     8), per-chunk latency (a clock on the engine's own per-chunk step)
+     and streams x real time; the causal offline
+     decode at B=8 x 1024 (8 lstm_scan + 8 fused launches per forward)
+     and against the CPU's plain path on a small input; run_inference
+     with stream=True in both stream modes;
+  9. causal training: GANTrainer steps of the causal config at batch 16 x
+     16384 in float32 (a finite nonzero gradient on all 72 LSTM
+     parameters, 24 launches per step of each training kernel, none of
+     an inference kernel);
+ 10. print the kernels line, then the ok line.
 Exits nonzero without output when no CUDA GPU is visible.
 """
+import contextlib
 import json
 import math
 import os
@@ -40,6 +64,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -98,18 +123,46 @@ def _lstm_inputs(R, T, C, H, dtype, seed):
     return [t.to("cuda", dtype) for t in [x, *w]]
 
 
-def _cudnn_lstm(args):
-    x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b = args
-    C, H = x.shape[-1], w_hh_f.shape[0]
-    lstm = torch.nn.LSTM(C, H, batch_first=True, bidirectional=True).to("cuda", x.dtype)
+def _cudnn_lstm(directions, dtype, **kw):
+    """torch.nn.LSTM on the card holding the given (w_ih, w_hh, b) of each
+    direction, its weights laid out as one cuDNN buffer. Build it outside
+    inference mode. nn.LSTM.flatten_parameters lays out float32 but skips
+    bfloat16 (torch.backends.cudnn.is_acceptable does not list the type),
+    and cuDNN then compacts the weights at every call: so this calls the op
+    that flatten_parameters wraps."""
+    import torch.backends.cudnn.rnn as cudnn_rnn
+
+    (w_ih, w_hh, _), *rest = directions
+    lstm = torch.nn.LSTM(w_ih.shape[0], w_hh.shape[0], bidirectional=bool(rest),
+                         device="cuda", dtype=dtype, **kw)
     with torch.no_grad():
-        for sfx, w_ih, w_hh, b in (("", w_ih_f, w_hh_f, b_f), ("_reverse", w_ih_b, w_hh_b, b_b)):
+        for sfx, (w_ih, w_hh, b) in zip(("", "_reverse"), directions):
             getattr(lstm, f"weight_ih_l0{sfx}").copy_(w_ih.T)
             getattr(lstm, f"weight_hh_l0{sfx}").copy_(w_hh.T)
             getattr(lstm, f"bias_ih_l0{sfx}").copy_(b)
             getattr(lstm, f"bias_hh_l0{sfx}").zero_()
-    lstm.flatten_parameters()   # one cuDNN weight buffer, not a compaction per call
+        torch._cudnn_rnn_flatten_weight(
+            lstm._flat_weights, 4, lstm.input_size, cudnn_rnn.get_cudnn_mode(lstm.mode),
+            lstm.hidden_size, lstm.proj_size, lstm.num_layers, lstm.batch_first,
+            bool(lstm.bidirectional))
     return lstm
+
+
+def _cudnn_bilstm(args):
+    x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b = args
+    return _cudnn_lstm([(w_ih_f, w_hh_f, b_f), (w_ih_b, w_hh_b, b_b)], x.dtype,
+                       batch_first=True)
+
+
+@contextlib.contextmanager
+def _no_weight_compaction():
+    """Fails the run if a cuDNN LSTM call inside warns that its weights are
+    compacted at every call: the library's time would include the copy."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        yield
+    if any("contiguous chunk" in str(w.message) for w in caught):
+        raise SystemExit("the cuDNN yardstick compacts its weights at every call")
 
 
 def _bound(nbytes, ops, dtype):
@@ -126,21 +179,29 @@ def _bound_ms(R, T, C, H, dtype):
     return (*_bound(nbytes, ops, dtype), ops)
 
 
+# lstm_scan_fused (C = H = 128) as (label, rows, steps)
+FUSED_SHAPES = (("time", 272, 1024), ("band", 8192, 34), ("band_chunk", 640, 34),
+                ("band_chunk1", 80, 34), ("band_window", 96, 34))
+
+
 def phase_kernels():
-    """lstm_scan_fused at the time- and band-BiLSTM shapes of BSRNN-M B=8."""
+    """lstm_scan_fused at every shape the driven paths give it: the time and
+    band BiLSTMs of a BSRNN-M decode at B=8 x 1024, and the band BiLSTM of a
+    streaming chunk of 8 streams (8 x 80 frames), of one stream (80) and of
+    one context-recompute window (96)."""
     from nvse_tpu_torch.ops.lstm import lstm_scan_fused, lstm_scan_fused_plain
 
     C = H = 128
     rows = []
-    for label, R, T in (("time", 272, 1024), ("band", 8192, 34)):
+    for label, R, T in FUSED_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             args = _lstm_inputs(R, T, C, H, dtype, seed=R + T)
-            with torch.inference_mode():
+            lib = _cudnn_bilstm(args)
+            with torch.inference_mode(), _no_weight_compaction():
                 got = lstm_scan_fused(*args)
                 torch.cuda.synchronize()
                 ref = lstm_scan_fused_plain(*args)
                 err = (got.float() - ref.float()).abs().max().item()
-                lib = _cudnn_lstm(args)
                 lib_err = (lib(args[0])[0].float() - ref.float()).abs().max().item()
                 ms = cuda_ms(lambda: lstm_scan_fused(*args), iters=10)
                 plain_ms = cuda_ms(lambda: lstm_scan_fused_plain(*args), iters=2)
@@ -273,7 +334,8 @@ def _training_counters():
     from nvse_tpu_torch.ops import lstm as L
 
     return {"lstm_fwd_hc": L.lstm_fwd_hc, "lstm_bwd": L.lstm_bwd,
-            "lstm_bwd_dw": L.lstm_dw_hh, "lstm_scan_fused": L.lstm_scan_fused}
+            "lstm_bwd_dw": L.lstm_dw_hh, "lstm_scan_fused": L.lstm_scan_fused,
+            "lstm_scan": L.lstm_scan, "lstm_scan_stateful": L.lstm_scan_stateful}
 
 
 def phase_train_kernels():
@@ -351,6 +413,82 @@ def phase_train_kernels():
     return rows
 
 
+# lstm_scan / lstm_scan_stateful at the shapes of their paths (H = 128): the
+# causal time LSTM of a B=8 x 1024 decode, of one context-recompute window of
+# one file (64 + 2 x 16 frames), and of a streaming chunk (64 + 16) of 8 streams
+# and of one
+SCAN_SHAPES = (("lstm_scan", "decode", 272, 1024), ("lstm_scan", "window", 34, 96),
+               ("lstm_scan_stateful", "chunk", 272, 80),
+               ("lstm_scan_stateful", "chunk1", 34, 80))
+
+
+def phase_scan_kernels():
+    """lstm_scan and lstm_scan_stateful against their plain versions, with
+    cuDNN's unidirectional LSTM forward on the same x, weights and state
+    (it also does the projection x @ W_ih + b, which the port leaves to a
+    torch matmul) as the library yardstick."""
+    from nvse_tpu_torch.ops import lstm as L
+
+    C = H = TRAIN_H
+    G = 4 * H
+    rows = []
+    for name, label, R, T in SCAN_SHAPES:
+        stateful = name == "lstm_scan_stateful"
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(R + T)
+            b = 1.0 / math.sqrt(H)
+            x = torch.randn(T, R, C, generator=g).to("cuda", dtype)
+            w_ih, bias, whh = (torch.empty(sh).uniform_(-b, b, generator=g).to("cuda", dtype)
+                               for sh in ((C, G), (G,), (H, G)))
+            h0, c0 = ((0.3 * torch.randn(R, H, generator=g)).to("cuda", dtype) for _ in range(2))
+            lib_state = (h0[None], c0[None]) if stateful else None
+            item = x.element_size()
+            ops = 2 * R * T * H * G
+            nbytes = (R * T * (G + H) + H * G) * item
+            lib = _cudnn_lstm([(w_ih, whh, bias)], dtype)        # time-major, one direction
+            with torch.inference_mode(), _no_weight_compaction():
+                xp = (x @ w_ih + bias).contiguous()
+                if stateful:
+                    nbytes += (R * T * H + 2 * R * H) * item
+                    run = lambda: L.lstm_scan_stateful(xp, whh, h0, c0)
+                    plain = lambda: L.lstm_scan_stateful_plain(xp, whh, h0, c0)
+                else:
+                    run = lambda: (L.lstm_scan(xp, whh),)
+                    plain = lambda: (L.lstm_scan_plain(xp, whh),)
+                got = run()
+                torch.cuda.synchronize()
+                ref = plain()
+                err = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref))
+                lib_err = (lib(x, lib_state)[0].float() - ref[0].float()).abs().max().item()
+                ms = cuda_ms(run, iters=10)
+                plain_ms = cuda_ms(plain, iters=2)
+                library_ms = cuda_ms(lambda: lib(x, lib_state), iters=10)
+                control = None
+                if stateful:      # zeros in place of (h0, c0): the limit must refuse it
+                    z = torch.zeros_like(h0)
+                    ctl = L.lstm_scan_stateful(xp, whh, z, z)
+                    control = max((a.float() - r.float()).abs().max().item()
+                                  for a, r in zip(ctl, ref))
+            bound, bound_by = _bound(nbytes, ops, dtype)
+            row = dict(name=name, shape=label, rows=R, steps=T, H=H, dtype=DT_NAME[dtype],
+                       max_abs_err=err, tol=TOL[dtype], ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, library="cuDNN LSTM forward, projection included",
+                       library_max_abs_err=lib_err, bound_ms=bound, bound_by=bound_by,
+                       tflops=ops / (ms * 1e-3) / 1e12)
+            if stateful:
+                row["control_max_abs_err"] = control
+            say(phase="kernel_vs_plain", **row)
+            if not (err <= TOL[dtype]):
+                raise SystemExit(f"{name} {label} {DT_NAME[dtype]}: max abs err {err} over "
+                                 f"tolerance {TOL[dtype]}")
+            if stateful and not (control > TOL[dtype]):
+                raise SystemExit(f"{name} {label} {DT_NAME[dtype]}: the control with a zero "
+                                 f"initial state ({control}) passes the tolerance {TOL[dtype]}")
+            rows.append(row)
+    return rows
+
+
+
 def _bilstm_fwd_bwd_ms(R, T, H, dtype):
     """One BiLSTM forward + backward at (R, T, C = H): the port's training
     route (torch matmuls + lstm_fwd_hc / lstm_bwd) and cuDNN's LSTM."""
@@ -358,7 +496,7 @@ def _bilstm_fwd_bwd_ms(R, T, H, dtype):
 
     args = [a.requires_grad_() for a in _lstm_inputs(R, T, H, H, dtype, seed=R)]
     grad = torch.randn(R, T, 2 * H, device="cuda", dtype=dtype)
-    lib = _cudnn_lstm([a.detach() for a in args])
+    lib = _cudnn_bilstm([a.detach() for a in args])
     x_lib = args[0].detach().clone().requires_grad_()
 
     def port():
@@ -367,7 +505,8 @@ def _bilstm_fwd_bwd_ms(R, T, H, dtype):
     def cudnn():
         lib(x_lib)[0].backward(grad)
 
-    return dict(port_ms=cuda_ms(port, iters=5), cudnn_ms=cuda_ms(cudnn, iters=5))
+    with _no_weight_compaction():
+        return dict(port_ms=cuda_ms(port, iters=5), cudnn_ms=cuda_ms(cudnn, iters=5))
 
 
 def _bsrnn_config(**kw):
@@ -386,17 +525,22 @@ def _audio_batch(B, n, sr, seed):
     return torch.from_numpy(x.astype(np.float32))
 
 
-def phase_train():
-    """Full-width BSRNN-M GAN steps, batch 16 x 16384, float32 and bfloat16."""
+def phase_train(causal=False):
+    """Full-width BSRNN-M GAN steps, batch 16 x 16384: the non-causal config
+    in float32 and bfloat16, the causal one (its time LSTM one direction,
+    through lstm_scan's residual-saving route) in float32."""
     from nvse_tpu_torch.train import GANTrainer, fetch_scalars
 
     B, iters = 16, 3
+    # LSTM launches per step of each training kernel, and LSTM parameters:
+    # 8 blocks x (time + band) x directions, 3 tensors per direction
+    n_lstm = 8 * (1 + 2) if causal else 8 * (2 + 2)
     counters = _training_counters()
     for c in counters.values():                    # this main path starts here
         c.launches = 0
         c.launches_by_shape = {}
-    for dtype in ("float32", "bfloat16"):
-        h = _bsrnn_config(compute_dtype=dtype)
+    for dtype in ("float32",) if causal else ("float32", "bfloat16"):
+        h = _bsrnn_config(compute_dtype=dtype, causal=causal)
         audio = _audio_batch(B, int(h.segment_size), h.sampling_rate, seed=0).to("cuda")
         tr = GANTrainer(h, device="cuda", steps_per_epoch=2)
         before = {n: p.detach().clone() for n, p in
@@ -419,7 +563,8 @@ def phase_train():
                     if p.grad is None or not torch.isfinite(p.grad).all() or p.grad.abs().sum() == 0]
         enc = {n: p for n, p in tr.generator.named_parameters() if n.startswith("core.encoder.b_")}
         bad_enc = [n for n, p in enc.items() if p.grad is None or p.grad.abs().sum() == 0]
-        say(phase="train", dtype=dtype, batch=B, segment=int(h.segment_size), ms_per_step=ms,
+        say(phase="train", causal=causal, dtype=dtype, batch=B, segment=int(h.segment_size),
+            ms_per_step=ms,
             steps_timed=iters, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
             launches_per_step=per_step, lstm_params=len(lstm), losses=losses)
         fails = []
@@ -427,15 +572,16 @@ def phase_train():
             fails.append(f"non-finite losses {losses}")
         if unchanged:
             fails.append(f"parameters not updated: {unchanged[:5]} ({len(unchanged)})")
-        if len(lstm) != 96 or bad_grad:
+        if len(lstm) != 3 * n_lstm or bad_grad:
             fails.append(f"{len(lstm)} LSTM params, without a finite nonzero grad: {bad_grad[:5]}")
         if not enc or bad_enc:
             fails.append(f"encoder without gradient: {bad_enc}")
-        expect = {"lstm_fwd_hc": 32, "lstm_bwd": 32, "lstm_bwd_dw": 32, "lstm_scan_fused": 0}
+        expect = {"lstm_fwd_hc": n_lstm, "lstm_bwd": n_lstm, "lstm_bwd_dw": n_lstm,
+                  "lstm_scan_fused": 0, "lstm_scan": 0, "lstm_scan_stateful": 0}
         if per_step != expect:
             fails.append(f"launches per step {per_step}, expected {expect}")
         if fails:
-            raise SystemExit(f"train {dtype}: " + "; ".join(fails))
+            raise SystemExit(f"train causal={causal} {dtype}: " + "; ".join(fails))
         del tr, before, after, lstm, enc
         torch.cuda.empty_cache()
     return {k: dict(c.launches_by_shape) for k, c in counters.items()}   # ... and ends here
@@ -517,6 +663,161 @@ def phase_train_cli():
         raise SystemExit("the training CLI path did not checkpoint, validate and serve")
 
 
+# state-carrying streaming of a causal config against the card's own offline
+# decode, float32: max |diff| / max |offline| (the JAX package's test limit;
+# the two differ only in float order); of a non-causal config: the mean
+# |diff| / mean |offline| away from the edges, bounded by the lookahead
+STREAM_EXACT_REL, STREAM_NONCAUSAL_REL = 1e-4, 0.15
+
+
+@contextlib.contextmanager
+def _chunk_clock(eng):
+    """Puts a clock on the engine's per-chunk step while the caller runs a
+    streaming entry point: yields a list that receives the host time at
+    which each chunk's step is entered, the card idle. The time from one
+    entry to the next is one chunk as a user waits for it: the step on the
+    card, the frames' copy to the host and the overlap-add."""
+    stamps, step = [], eng._stream_step
+
+    def clocked(*args, **kw):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return step(*args, **kw)
+
+    eng._stream_step = clocked
+    try:
+        yield stamps
+    finally:
+        del eng._stream_step
+
+
+def phase_stream():
+    """Streaming and causal decode at full BSRNN-M width, f32 and bf16."""
+    from nvse_tpu_torch.infer import InferenceEngine, run_inference
+    from nvse_tpu_torch.ops import lstm as L
+
+    counters = {"lstm_scan": L.lstm_scan, "lstm_scan_stateful": L.lstm_scan_stateful,
+                "lstm_scan_fused": L.lstm_scan_fused}
+    for c in counters.values():                    # this main path starts here
+        c.launches = 0
+        c.launches_by_shape = {}
+
+    def launched(fn):
+        n0 = {k: c.launches for k, c in counters.items()}
+        out = fn()
+        return out, {k: c.launches - n0[k] for k, c in counters.items()}
+
+    B, T, c, la = 8, 512, 64, 16
+    n_chunks = T // c
+    rng = np.random.default_rng(1)
+    base = _bsrnn_config()
+    mel = torch.from_numpy(rng.standard_normal((B, base.num_mels, T)).astype(np.float32) - 4.0)
+    out_len = (T - 1) * base.hop_size
+    chunk_audio_sec = B * c * base.hop_size / base.sampling_rate
+
+    # 8 concurrent streams through synthesize_streaming_stateful
+    for causal, per_chunk in ((True, 8), (False, 16)):
+        for dtype in ("float32", "bfloat16"):
+            eng = InferenceEngine(_bsrnn_config(causal=causal, compute_dtype=dtype), device="cuda")
+            eng.synthesize_streaming_stateful(mel[..., :c], chunk_frames=c, lookahead_frames=la)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _chunk_clock(eng) as stamps:
+                wav, counts = launched(lambda: eng.synthesize_streaming_stateful(
+                    mel, out_len=out_len, chunk_frames=c, lookahead_frames=la))
+                stamps.append(time.perf_counter())    # the last chunk ends with the flush
+            wall = stamps[-1] - t0
+            ms = sorted(np.diff(stamps) * 1e3)
+            expect = {"lstm_scan": 0, "lstm_scan_stateful": per_chunk * n_chunks,
+                      "lstm_scan_fused": 8 * n_chunks}
+            offline = eng.synthesize_mel(mel, out_len=out_len)
+            rel_max = float(np.abs(wav - offline).max() / (np.abs(offline).max() + 1e-9))
+            sl = slice(la * base.hop_size, out_len - la * base.hop_size)
+            rel_mean = float(np.abs(wav[:, sl] - offline[:, sl]).mean()
+                             / (np.abs(offline[:, sl]).mean() + 1e-9))
+            line = dict(phase="stream", causal=causal, dtype=dtype, streams=B, frames=T,
+                        chunk_frames=c, lookahead_frames=la, chunks=n_chunks,
+                        launches_per_chunk={k: v / n_chunks for k, v in counts.items()},
+                        wall_ms_per_chunk_mean=wall * 1e3 / n_chunks,
+                        streams_x_realtime=B * out_len / base.sampling_rate / wall,
+                        vs_offline_rel_max=rel_max, vs_offline_interior_rel_mean=rel_mean)
+            fails = []
+            if counts != expect:
+                fails.append(f"launches {counts}, expected {expect}")
+            if wav.shape != (B, out_len) or not np.isfinite(wav).all():
+                fails.append(f"bad output {wav.shape}")
+            if causal and dtype == "float32":
+                wav0 = eng.synthesize_streaming_stateful(mel, out_len=out_len, chunk_frames=c,
+                                                         lookahead_frames=0)
+                rel0 = float(np.abs(wav0 - offline).max() / (np.abs(offline).max() + 1e-9))
+                line.update(vs_offline_rel_max_no_lookahead=rel0, rel_max_tol=STREAM_EXACT_REL)
+                if not (rel_max < STREAM_EXACT_REL and rel0 < STREAM_EXACT_REL):
+                    fails.append(f"streaming differs from the offline decode: {rel_max} with, "
+                                 f"{rel0} without lookahead, limit {STREAM_EXACT_REL}")
+            if not causal:
+                line.update(interior_rel_mean_tol=STREAM_NONCAUSAL_REL)
+                if dtype == "float32" and not (rel_mean < STREAM_NONCAUSAL_REL):
+                    fails.append(f"interior error {rel_mean} over {STREAM_NONCAUSAL_REL}")
+            line.update(wall_ms_per_chunk_p50=ms[len(ms) // 2], wall_ms_per_chunk_max=ms[-1],
+                        streams_x_realtime_p50=chunk_audio_sec / (ms[len(ms) // 2] * 1e-3))
+            say(**line)
+            if fails:
+                raise SystemExit(f"stream causal={causal} {dtype}: " + "; ".join(fails))
+            del eng
+
+    # causal offline decode, B = 8 x 1024
+    B2, T2, iters = 8, 1024, 5
+    mel2 = torch.from_numpy(rng.standard_normal((B2, base.num_mels, T2)).astype(np.float32)
+                            - 4.0).to("cuda")
+    audio_sec = B2 * (T2 - 1) * base.hop_size / base.sampling_rate
+    for dtype in ("float32", "bfloat16"):
+        eng = InferenceEngine(_bsrnn_config(causal=True, compute_dtype=dtype), device="cuda")
+        eng.forward(mel2)                          # warmup
+        torch.cuda.synchronize()
+        t0 = time.time()
+        wav, counts = launched(lambda: [eng.forward(mel2) for _ in range(iters)][-1])
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) / iters
+        say(phase="decode_causal", dtype=dtype, batch=B2, frames=T2, wall_ms=wall * 1e3,
+            rtf=audio_sec / wall, launches_per_forward={k: v / iters for k, v in counts.items()})
+        if counts != {"lstm_scan": 8 * iters, "lstm_scan_stateful": 0, "lstm_scan_fused": 8 * iters}:
+            raise SystemExit(f"causal decode {dtype}: launches {counts} for {iters} forwards")
+        if wav.shape != (B2, (T2 - 1) * base.hop_size) or not torch.isfinite(wav).all():
+            raise SystemExit(f"causal decode {dtype}: bad output {tuple(wav.shape)}")
+        del eng
+
+    # run_inference(stream=True) on the synthetic set, both stream modes
+    for dtype in ("float32", "bfloat16"):
+        for mode in ("recompute", "stateful"):
+            with tempfile.TemporaryDirectory() as out:
+                h = _bsrnn_config(causal=True, compute_dtype=dtype, stream_mode=mode,
+                                  test_output_dir=out)
+                lines = []
+                stats, counts = launched(lambda: run_inference(h, stream=True, device="cuda",
+                                                               log_fn=lines.append))
+                written = sorted(os.listdir(out))
+            say(phase="serve_stream", dtype=dtype, stream_mode=mode, line=lines[-1],
+                files=stats["files"], rtf=stats["rtf"], launches=counts)
+            used = counts["lstm_scan_stateful" if mode == "stateful" else "lstm_scan"]
+            if stats["files"] != 6 or len(written) != 6 or used == 0:
+                raise SystemExit(f"streaming serve {dtype} {mode}: {stats} wrote {written}, "
+                                 f"launches {counts}")
+    main_counts = {k: dict(c.launches_by_shape) for k, c in counters.items()}   # ... and ends here
+
+    # the card's causal decode against the CPU's plain path, same weights, small input
+    h = _bsrnn_config(causal=True)
+    small = mel[:2, :, :64]
+    cpu = InferenceEngine(h, device="cpu").forward(small)
+    gpu = InferenceEngine(h, device="cuda").forward(small).cpu()
+    err = (gpu - cpu).abs()
+    ok = bool((err <= MODEL_ATOL + MODEL_RTOL * cpu.abs()).all())
+    say(phase="decode_causal_vs_cpu_plain", batch=2, frames=64, max_abs_err=err.max().item(),
+        rtol=MODEL_RTOL, atol=MODEL_ATOL, ok=ok)
+    if not ok:
+        raise SystemExit("causal decode on the card disagrees with the CPU plain path")
+    return main_counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible", file=sys.stderr)
@@ -536,11 +837,14 @@ def main():
     phase_build()
     rows = phase_kernels()
     train_rows = phase_train_kernels()
+    scan_rows = phase_scan_kernels()
     main_counts = phase_decode()
     phase_serve()
     train_counts = phase_train()
     phase_train_vs_cpu_plain()
     phase_train_cli()
+    stream_counts = phase_stream()
+    phase_train(causal=True)
 
     kernels = []
     for r in rows:
@@ -550,7 +854,8 @@ def main():
             "route": "cuda", "source": "nvse_tpu_torch/csrc/lstm_fused.cu",
             "replaces": "nvse_tpu/ops/pallas_lstm.py:815",
             "also_replaces": "nvse_tpu/ops/pallas_lstm.py:727",
-            "launches": main_counts.get(key, 0), "max_abs_err": r["max_abs_err"],
+            "launches": main_counts.get(key, 0) + stream_counts["lstm_scan_fused"].get(key, 0),
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
@@ -566,9 +871,20 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    scan_replaces = {"lstm_scan": "nvse_tpu/ops/pallas_lstm.py:212",
+                     "lstm_scan_stateful": "nvse_tpu/ops/pallas_lstm.py:297"}
+    for r in scan_rows:
+        key = (r["steps"], r["rows"], r["H"], r["dtype"])
+        kernels.append({
+            "name": r["name"], "shape": r["shape"], "dtype": r["dtype"], "route": "cuda",
+            "source": "nvse_tpu_torch/csrc/lstm_scan.cu", "replaces": scan_replaces[r["name"]],
+            "launches": stream_counts[r["name"]].get(key, 0), "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
     if any(k["launches"] == 0 for k in kernels):
-        raise SystemExit(f"a kernel of the main path was never launched: {main_counts} "
-                         f"{train_counts}")
+        raise SystemExit(f"a kernel of a driven path was never launched: {main_counts} "
+                         f"{train_counts} {stream_counts}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

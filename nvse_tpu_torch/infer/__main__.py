@@ -3,7 +3,9 @@
     python -m nvse_tpu_torch.infer --cfg_filename nvse_tpu_torch/configs/bsrnn_config.json
 Decodes the configured test filelist to h.test_output_dir and prints the
 RTF (generated-audio-seconds / wall-seconds). Runs on the GPU unless
---device cpu is given.
+--device cpu is given. --stream decodes in chunks (config keys
+stream_chunk_frames, stream_context_frames; stream_mode "stateful"
+carries the recurrent state instead of recomputing a context).
 """
 import argparse
 import os
@@ -19,7 +21,7 @@ def main() -> None:
     p.add_argument("--limit", type=int, default=None)
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--stream", action="store_true",
-                   help="chunked streaming decode (not ported yet: raises)")
+                   help="chunked streaming decode, one window shape for any length")
     args = p.parse_args()
     h = load_config(args.cfg_filename)
     run_inference(h, limit=args.limit, stream=args.stream, device=args.device)

@@ -7,9 +7,14 @@ Counterpart of nvse_tpu/infer/engine.py for the BSRNN family:
   * `compute_dtype: "bfloat16"` runs the trunk in bf16 (params and mel
     cast, as the JAX engine does); the DSP ends stay float32;
   * RTF = generated-audio-seconds / wall-seconds, each bucket warmed up
-    outside the timed region.
-Multi-device serving, streaming decode and Orbax checkpoints belong to
-later slices of the port and raise here.
+    outside the timed region;
+  * chunked streaming decode at one window shape whatever the length:
+    `synthesize_streaming` recomputes a context on each side of every
+    chunk, `synthesize_streaming_stateful` carries the time LSTMs' state
+    and the overlap-add tail from chunk to chunk (exact for a causal
+    config), batch rows being independent streams.
+Multi-device serving and Orbax checkpoints are not ported yet and raise
+here.
 """
 from __future__ import annotations
 
@@ -22,7 +27,9 @@ import torch
 from .. import resolve_device
 from ..data import load_wav, write_wav
 from ..models import build_generator, model_input_bins
-from ..ops.spectral import mel_spectrogram, mel_spectrogram_np
+from ..models.bsrnn import band_plan
+from ..ops.spectral import (StreamingOLA, hann_window, istft_frames, mel_spectrogram,
+                            mel_spectrogram_np)
 
 _PAD = float(np.log(1e-5))
 
@@ -94,9 +101,93 @@ class InferenceEngine:
             out_len = T * self.h.hop_size
         return wav[..., :out_len]
 
-    def warmup(self, T: int, batch: int | None = None) -> None:
-        """Run the T-frame bucket at this batch once, outside any timer."""
-        Tb = _bucket(T, self.bucket_frames)
+    def synthesize_streaming(self, mel, out_len: int | None = None, chunk_frames: int = 64,
+                             context_frames: int = 16) -> np.ndarray:
+        """Chunked decode by context recompute: mel (B, M, T) -> wav (B, L).
+
+        The mel is cut into windows of `chunk_frames` with `context_frames`
+        on each side; each window is decoded on its own and only its centre
+        chunk_frames * hop samples are kept. One window shape whatever the
+        length, constant memory. For a causal model the left context
+        rebuilds the recurrent state nearly exactly; for a non-causal one
+        it bounds the lookahead error.
+        """
+        mel = torch.as_tensor(mel)
+        T = mel.shape[-1]
+        c, ctx, hop = chunk_frames, context_frames, self.h.hop_size
+        n_chunks = (T + c - 1) // c
+        # pad so that every window [i*c - ctx, (i+1)*c + ctx) is in range
+        melp = torch.nn.functional.pad(mel.to(self.device), (ctx, n_chunks * c - T + ctx),
+                                       value=_PAD)
+        pieces = []
+        for i in range(n_chunks):
+            wav = self.forward(melp[..., i * c : i * c + c + 2 * ctx])
+            pieces.append(wav[..., ctx * hop : (ctx + c) * hop].cpu().numpy())
+        out = np.concatenate(pieces, axis=-1)
+        return out[..., : T * hop if out_len is None else out_len]
+
+    def _stream_state_zeros(self, B: int):
+        """Zero recurrent state of a BSRNN-family model: num_repeat pairs
+        (h, c) of the time LSTM's forward direction, each float32
+        (B, nband, feature_dim): the state an offline decode starts from,
+        so the first chunk is exact."""
+        h = self.h
+        nband = len(band_plan(h.sampling_rate, h.n_fft))
+        z = torch.zeros(B, nband, int(h.feature_dim), device=self.device)
+        return tuple((z, z) for _ in range(int(h.num_repeat)))
+
+    @torch.inference_mode()
+    def _stream_step(self, states, mel_win: torch.Tensor, c: int):
+        """One chunk: (float32 states, mel window (B, M, c + lookahead)) ->
+        (windowed synthesis frames (B, c, n_fft) float32, float32 states
+        after c frames). The states enter the trunk in the compute dtype."""
+        h = self.h
+        states = tuple(tuple(s.to(self.dtype) for s in st) for st in states)
+        outs, new_states = self.generator(mel_win.to(self.device, self.dtype),
+                                          stream_state=states, return_state=True, carry_idx=c)
+        frames = istft_frames(outs[2][..., :c].float(), outs[3][..., :c].float(), h.n_fft,
+                              h.win_size, window=hann_window(h.win_size))
+        return frames, tuple(tuple(s.float() for s in st) for st in new_states)
+
+    def synthesize_streaming_stateful(self, mel, out_len: int | None = None,
+                                      chunk_frames: int = 64,
+                                      lookahead_frames: int = 16) -> np.ndarray:
+        """Chunked decode that carries the recurrent state across chunks:
+        mel (B, M, T) -> wav (B, L), for generators with
+        `supports_stream_state` (the BSRNN family).
+
+        Against the context-recompute decoder: for a causal config it is
+        exact (the time LSTM's state at each chunk boundary is the true
+        one, no left context is recomputed, and StreamingOLA's carried
+        tail reproduces the offline iSTFT); for a non-causal config the
+        forward direction is exact and only the backward direction sees a
+        bounded `lookahead_frames` of future, so a window is c + la frames
+        instead of c + 2 * ctx. Batch rows are independent streams.
+        """
+        if not getattr(type(self.generator), "supports_stream_state", False):
+            raise ValueError(f"{self.h.model_name} has no stream_state support; use "
+                             "synthesize_streaming (context recompute)")
+        h = self.h
+        mel = torch.as_tensor(mel)
+        B, _, T = mel.shape
+        c, la, hop = chunk_frames, lookahead_frames, h.hop_size
+        n_chunks = (T + c - 1) // c
+        melp = torch.nn.functional.pad(mel.to(self.device), (0, n_chunks * c - T + la),
+                                       value=_PAD)
+        states = self._stream_state_zeros(B)
+        ola = StreamingOLA(h.n_fft, hop, h.win_size, window=hann_window(h.win_size))
+        pieces = []
+        for i in range(n_chunks):
+            frames, states = self._stream_step(states, melp[..., i * c : i * c + c + la], c)
+            pieces.append(ola.push(frames.cpu().numpy()))
+        pieces.append(ola.flush())
+        y = np.concatenate(pieces, axis=-1)[:, h.n_fft // 2 :]
+        return y[:, : T * hop if out_len is None else out_len]
+
+    def warmup(self, T: int, exact: bool = False, batch: int | None = None) -> None:
+        """Run the T-frame bucket at this batch once, outside any timer;
+        exact=True runs T itself (a streaming window is no bucket multiple)."""
+        Tb = T if exact else _bucket(T, self.bucket_frames)
         B = batch or 1
         if (Tb, B) in self._warmed:
             return
@@ -123,9 +214,15 @@ def run_inference(h, limit: int | None = None, log_fn=print, stream: bool = Fals
     batch (default h.infer_batch, else 8) groups files into fixed-size
     batches per length bucket, with mels from the host numpy mel; batch=1
     (or test_mel_load) decodes file by file.
+
+    stream=True (or h.stream) decodes file by file in chunks of
+    h.stream_chunk_frames (64) with h.stream_context_frames (16) of
+    context: by context recompute, or with h.stream_mode == "stateful"
+    carrying the recurrent state, the context then being the lookahead.
     """
-    if stream or h.get("stream"):
-        raise NotImplementedError("streaming decode (--stream) is not ported yet")
+    stream = stream or bool(h.get("stream"))
+    chunk = int(h.get("stream_chunk_frames", 64))
+    ctx = int(h.get("stream_context_frames", 16))
     engine = InferenceEngine(h, device=device)
     if model_input_bins(h) != h.num_mels and not h.get("test_mel_load"):
         raise ValueError(
@@ -142,7 +239,7 @@ def run_inference(h, limit: int | None = None, log_fn=print, stream: bool = Fals
     total_audio_sec = 0.0
     total_wall = 0.0
 
-    if batch > 1 and not h.get("test_mel_load"):
+    if batch > 1 and not stream and not h.get("test_mel_load"):
         M = model_input_bins(h)
         items = []  # (path, mel (M, T), audio_len)
         for path in files:
@@ -171,6 +268,8 @@ def run_inference(h, limit: int | None = None, log_fn=print, stream: bool = Fals
                     write_wav(os.path.join(h.test_output_dir, os.path.basename(path)),
                               wavs[r, :alen], h.sampling_rate)
     else:
+        stateful = (stream and str(h.get("stream_mode", "")) == "stateful"
+                    and getattr(type(engine.generator), "supports_stream_state", False))
         for path in files:
             if h.get("test_mel_load"):
                 mel = torch.from_numpy(np.load(path)[None, ...])
@@ -179,9 +278,19 @@ def run_inference(h, limit: int | None = None, log_fn=print, stream: bool = Fals
                 audio = load_wav(path, h.sampling_rate)
                 mel = engine.mel_of(audio)
                 audio_len = len(audio)
-            engine.warmup(mel.shape[-1])
+            if stream and not stateful:
+                engine.warmup(chunk + 2 * ctx, exact=True)
+            elif not stream:
+                engine.warmup(mel.shape[-1])
             t0 = time.time()
-            wav = engine.synthesize_mel(mel, out_len=audio_len)
+            if stateful:
+                wav = engine.synthesize_streaming_stateful(
+                    mel, out_len=audio_len, chunk_frames=chunk, lookahead_frames=ctx)
+            elif stream:
+                wav = engine.synthesize_streaming(mel, out_len=audio_len, chunk_frames=chunk,
+                                                  context_frames=ctx)
+            else:
+                wav = engine.synthesize_mel(mel, out_len=audio_len)
             total_wall += time.time() - t0
             total_audio_sec += audio_len / h.sampling_rate
             write_wav(os.path.join(h.test_output_dir, os.path.basename(path)),

@@ -3,9 +3,16 @@
 Counterpart of nvse_tpu/models/bsrnn.py (reference Models/bsrnn.py and
 Models/bsrnn_24k.py). The 34 bands are grouped by width into 5 groups;
 each group's encoder/decoder is one batched einsum over stacked per-band
-parameters, as in the JAX package. Each BSNet runs a time BiLSTM over
-the frames (B*34 rows) and a band BiLSTM over the 34 bands (B*T rows),
-both through ops.lstm.lstm_scan_fused.
+parameters, as in the JAX package. Each BSNet runs a time LSTM over the
+frames (B*34 rows; a BiLSTM through ops.lstm.lstm_scan_fused, or for a
+causal config a unidirectional one through ops.lstm.lstm_scan) and a band
+BiLSTM over the 34 bands (B*T rows, lstm_scan_fused).
+
+Streaming decode (stream_state / return_state / carry_idx on the
+generators): the state is one (h, c) pair per BSNet, each (B, nband, C),
+of the time LSTM's forward direction, carried from chunk to chunk through
+ops.lstm.lstm_scan_stateful; the band BiLSTM runs within a frame and
+carries nothing.
 
 Under a bfloat16 trunk the dtypes follow the JAX package's promotion: the
 DSP front and back ends and the encoder stay float32, LayerNorm and
@@ -137,11 +144,21 @@ class ResRNN(nn.Module):
         self.lstm = LSTM(input_size, hidden_size, bidirectional=not causal, gen=gen)
         self.proj = Linear(hidden_size * (1 if causal else 2), input_size, gen)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # x: (B, G, S, C); the LSTM runs over S for every (B, G)
+    def forward(self, x: torch.Tensor, state=None, return_state: bool = False,
+                carry_idx: int | None = None):
+        # x: (B, G, S, C); the LSTM runs over S for every (B, G). Streaming:
+        # state is the forward-direction (h, c), each (B, G, H)
         B, G, S, C = x.shape
-        y = self.lstm(self.norm(x).reshape(B * G, S, C))
-        return x + self.proj(y).reshape(B, G, S, C)
+        y = self.norm(x).reshape(B * G, S, C)
+        streaming = state is not None or return_state
+        if streaming:
+            st = None if state is None else tuple(s.reshape(B * G, -1) for s in state)
+            y, new_st = self.lstm(y, initial_state=st, return_state=True, carry_idx=carry_idx)
+            new_state = tuple(s.reshape(B, G, -1) for s in new_st)
+        else:
+            y = self.lstm(y)
+        out = x + self.proj(y).reshape(B, G, S, C)
+        return (out, new_state) if streaming else out
 
 
 class BSNet(nn.Module):
@@ -153,15 +170,29 @@ class BSNet(nn.Module):
         self.band_rnn = ResRNN(feature_dim, feature_dim, False, gen)
         self.out_norm = LayerNorm(feature_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.time_rnn(x)                                   # (B, nband, T, C)
+    def forward(self, x: torch.Tensor, state=None, return_state: bool = False,
+                carry_idx: int | None = None):
+        # x: (B, nband, T, C); streaming state belongs to the time RNN only
+        streaming = state is not None or return_state
+        if streaming:
+            x, new_state = self.time_rnn(x, state=state, return_state=True, carry_idx=carry_idx)
+        else:
+            x = self.time_rnn(x)
         x = self.band_rnn(x.transpose(1, 2)).transpose(1, 2)   # over bands per frame
-        return self.out_norm(x)
+        out = self.out_norm(x)
+        return (out, new_state) if streaming else out
 
 
 class BSRNNCore(nn.Module):
     """Shared band-split trunk: log-spectrum (B, F, T) ->
-    (logamp, pha, rea, imag, wav), reference bsrnn.py:143-217."""
+    (logamp, pha, rea, imag, wav), reference bsrnn.py:143-217.
+
+    Streaming (stream_state / return_state): stream_state is a tuple of
+    num_repeat time-LSTM states, each a ((B, nband, C), (B, nband, C))
+    pair; carry_idx is the chunk length in frames after which the next
+    chunk's state is taken (lookahead frames beyond it refine this
+    window's output and do not enter the carry). Returns
+    (outputs, new_states)."""
 
     def __init__(self, sampling_rate: int, n_fft: int, hop_size: int, win_size: int,
                  feature_dim: int, num_repeat: int, causal: bool, gen: torch.Generator):
@@ -173,10 +204,18 @@ class BSRNNCore(nn.Module):
         self.dec_mag = _GroupedBandDecoder(self.widths, feature_dim, 1, gen)
         self.dec_pha = _GroupedBandDecoder(self.widths, feature_dim, 2, gen)
 
-    def forward(self, log_spec: torch.Tensor):
+    def forward(self, log_spec: torch.Tensor, stream_state=None, return_state: bool = False,
+                carry_idx: int | None = None):
         feats = self.encoder(log_spec)
-        for blk in self.blocks:
-            feats = blk(feats)
+        streaming = stream_state is not None or return_state
+        new_states = []
+        for r, blk in enumerate(self.blocks):
+            if streaming:
+                st = None if stream_state is None else stream_state[r]
+                feats, ns = blk(feats, state=st, return_state=True, carry_idx=carry_idx)
+                new_states.append(ns)
+            else:
+                feats = blk(feats)
         B, _, T, _ = feats.shape
         resi = torch.cat([g.transpose(1, 2).reshape(B, T, -1) for g in self.dec_mag(feats)],
                          dim=-1)                                # (B, T, F)
@@ -195,11 +234,15 @@ class BSRNNCore(nn.Module):
         imag = mag * torch.sin(phase)
         wav = istft_ri(rea, imag, self.n_fft, self.hop_size, self.win_size,
                        window=hann_window(self.win_size))
-        return logamp, phase, rea, imag, wav
+        outs = (logamp, phase, rea, imag, wav)
+        return (outs, tuple(new_states)) if streaming else outs
 
 
 class BSRNN(nn.Module):
     """mel (B, M, T) -> (logamp, pha, rea, imag, wav). Reference bsrnn.py:80-217."""
+
+    # the engine's state-carrying chunked decoder looks for this flag
+    supports_stream_state = True
 
     def __init__(self, h, gen: torch.Generator):
         super().__init__()
@@ -208,18 +251,24 @@ class BSRNN(nn.Module):
         self.core = BSRNNCore(h.sampling_rate, h.n_fft, h.hop_size, h.win_size,
                               h.feature_dim, h.num_repeat, bool(h.causal), gen)
 
-    def forward(self, mel: torch.Tensor):
+    def forward(self, mel: torch.Tensor, stream_state=None, return_state: bool = False,
+                carry_idx: int | None = None):
         inv_amp = torch.clamp(torch.abs(inverse_mel(mel, *self.mel_args)), min=1e-5)
-        return self.core(torch.log(inv_amp))
+        return self.core(torch.log(inv_amp), stream_state=stream_state,
+                         return_state=return_state, carry_idx=carry_idx)
 
 
 class BSRNN_24k(nn.Module):
     """log-spectrum (B, F, T) -> TF outputs. Reference bsrnn_24k.py:79-194."""
+
+    supports_stream_state = True
 
     def __init__(self, h, gen: torch.Generator):
         super().__init__()
         self.core = BSRNNCore(h.sampling_rate, h.n_fft, h.hop_size, h.win_size,
                               h.feature_dim, h.num_repeat, bool(h.causal), gen)
 
-    def forward(self, log_spec: torch.Tensor):
-        return self.core(log_spec)
+    def forward(self, log_spec: torch.Tensor, stream_state=None, return_state: bool = False,
+                carry_idx: int | None = None):
+        return self.core(log_spec, stream_state=stream_state, return_state=return_state,
+                         carry_idx=carry_idx)

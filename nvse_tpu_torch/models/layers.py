@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.lstm import lstm_scan, lstm_scan_fused
+from ..ops.lstm import lstm_scan, lstm_scan_fused, lstm_scan_stateful
 
 
 def uniform_(shape, bound: float, gen: torch.Generator | None) -> nn.Parameter:
@@ -61,10 +61,19 @@ class LSTM(nn.Module):
     (B, T, H * (2 if bidirectional else 1)).
 
     The bias of each direction is b_ih + b_hh, summed when the params are
-    made. A bidirectional LSTM runs ops.lstm.lstm_scan_fused (the CUDA
-    kernel on the card). A unidirectional one runs ops.lstm.lstm_scan,
-    which has only its plain CPU version so far. The streaming arguments
-    of the JAX layer belong to a later slice.
+    made. A bidirectional LSTM runs ops.lstm.lstm_scan_fused, a
+    unidirectional one ops.lstm.lstm_scan on its time-major projection
+    (the CUDA kernels on the card).
+
+    Streaming decode (initial_state / return_state): the forward
+    direction starts from `initial_state` (h, c), each (B, H), through
+    ops.lstm.lstm_scan_stateful, and the returned state is its (h, c)
+    after `carry_idx` steps (default: all), the state the next chunk
+    resumes from. The backward direction of a BiLSTM starts from zeros
+    over the given window (its true state would need the whole future);
+    callers bound that error with a right lookahead. The state is cast to
+    the params' dtype on the way in and comes back in it, as in the JAX
+    layer. Returns (y, state) when return_state.
     """
 
     # each holds b_ih + b_hh of the JAX layer and torch.nn.LSTM, two
@@ -84,16 +93,34 @@ class LSTM(nn.Module):
             self.register_parameter(f"b_{d}", nn.Parameter(b))
 
     def forward(self, x: torch.Tensor, initial_state=None, return_state: bool = False,
-                carry_idx: int | None = None) -> torch.Tensor:
-        if initial_state is not None or return_state or carry_idx is not None:
-            raise NotImplementedError(
-                "streaming LSTM state is not ported yet (TPU kernel "
-                "nvse_tpu/ops/pallas_lstm.py:_pallas_lstm_scan_stateful)")
+                carry_idx: int | None = None):
         x = x.to(self.w_ih_fwd.dtype)
+        if initial_state is not None or return_state:
+            return self._forward_streaming(x, initial_state, return_state, carry_idx)
         if not self.bidirectional:
-            return lstm_scan(x @ self.w_ih_fwd + self.b_fwd, self.w_hh_fwd)
+            xg = (x.transpose(0, 1) @ self.w_ih_fwd + self.b_fwd).contiguous()   # (T, B, 4H)
+            return lstm_scan(xg, self.w_hh_fwd).transpose(0, 1)
         return lstm_scan_fused(x.contiguous(), self.w_ih_fwd, self.w_ih_bwd,
                                self.b_fwd, self.b_bwd, self.w_hh_fwd, self.w_hh_bwd)
+
+    def _forward_streaming(self, x, initial_state, return_state, carry_idx):
+        B, S, _ = x.shape
+        zero = x.new_zeros(B, self.w_hh_fwd.shape[0])
+        if initial_state is None:
+            h0 = c0 = zero
+        else:
+            h0, c0 = (s.to(x.dtype).contiguous() for s in initial_state)
+        xt = x.transpose(0, 1)                                               # (S, B, C)
+        hs_f, cs_f = lstm_scan_stateful((xt @ self.w_ih_fwd + self.b_fwd).contiguous(),
+                                        self.w_hh_fwd, h0, c0)
+        ci = S if carry_idx is None else int(carry_idx)
+        state = (hs_f[ci - 1], cs_f[ci - 1])
+        y = hs_f.transpose(0, 1)
+        if self.bidirectional:
+            xg_b = (xt @ self.w_ih_bwd + self.b_bwd).flip(0).contiguous()
+            hs_b, _ = lstm_scan_stateful(xg_b, self.w_hh_bwd, zero, zero)
+            y = torch.cat([y, hs_b.flip(0).transpose(0, 1)], dim=-1)
+        return (y, state) if return_state else y
 
 
 LRELU_SLOPE = 0.1

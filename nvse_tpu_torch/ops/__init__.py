@@ -1,8 +1,17 @@
-from .lstm import lstm_scan, lstm_scan_fused, lstm_scan_fused_plain
+from .lstm import (
+    lstm_scan,
+    lstm_scan_fused,
+    lstm_scan_fused_plain,
+    lstm_scan_plain,
+    lstm_scan_stateful,
+    lstm_scan_stateful_plain,
+)
 from .spectral import (
+    StreamingOLA,
     amp_pha_spectrum,
     hann_window,
     inverse_mel,
+    istft_frames,
     istft_ri,
     mel_spectrogram,
     mel_spectrogram_np,

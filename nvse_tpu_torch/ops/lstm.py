@@ -1,7 +1,9 @@
-"""LSTM recurrences: the fused bidirectional LSTM and its training path.
+"""LSTM recurrences: the fused bidirectional LSTM, the unidirectional
+scans and their training path.
 
-Counterpart of nvse_tpu/ops/pallas_lstm.py (`lstm_scan_fused`) and
-nvse_tpu/ops/pallas_lstm_bwd.py (`lstm_fwd_hc`, `lstm_bwd`).
+Counterpart of nvse_tpu/ops/pallas_lstm.py (`lstm_scan_fused`,
+`lstm_scan`, `lstm_scan_stateful`) and nvse_tpu/ops/pallas_lstm_bwd.py
+(`lstm_fwd_hc`, `lstm_bwd`).
 
 `lstm_scan_fused` is the switch between two routes:
   * inference (grad disabled, or no input requires grad): the fused
@@ -13,6 +15,12 @@ nvse_tpu/ops/pallas_lstm_bwd.py (`lstm_fwd_hc`, `lstm_bwd`).
     `lstm_bwd` per direction (kernels of csrc/lstm_bwd.cu: the
     reverse-time recurrence and the dW_hh reduction) and torch matmuls
     for dx, dW_ih and db.
+`lstm_scan` (the time LSTM of a causal config) switches the same way:
+the kernel of csrc/lstm_scan.cu for inference, `_ScanSaving`
+(`lstm_fwd_hc` forward, `lstm_bwd` backward, as the JAX custom_vjp at
+pallas_lstm.py:331-351) under autograd. `lstm_scan_stateful` (streaming
+decode: the scan from a caller's (h0, c0), returning hs and cs) is the
+second kernel of csrc/lstm_scan.cu and has no gradient.
 Every wrapper launches its CUDA kernel on a CUDA tensor or raises, and
 runs its plain PyTorch version only on a CPU tensor; each counts its
 launches in `<wrapper>.launches`.
@@ -20,8 +28,9 @@ launches in `<wrapper>.launches`.
 Layouts follow the JAX package: x (B, T, C) batch-first, w_ih (C, 4H),
 w_hh (H, 4H), b (4H,) = b_ih + b_hh, gate order (i, f, g, o); the
 output is (B, T, 2H) with the forward direction in [:H] and the
-backward direction, at its original time index, in [H:]. The training
-kernels are time-major: x_proj (T, R, 4H), hs / cs / dhs (T, R, H).
+backward direction, at its original time index, in [H:]. The scans and
+the training kernels are time-major: x_proj (T, R, 4H), h0 / c0 (R, H),
+hs / cs / dhs (T, R, H).
 """
 from __future__ import annotations
 
@@ -33,10 +42,10 @@ import torch
 
 __all__ = ["lstm_bwd", "lstm_bwd_plain", "lstm_dw_hh", "lstm_dw_hh_plain", "lstm_fwd_hc",
            "lstm_fwd_hc_plain", "lstm_scan", "lstm_scan_fused", "lstm_scan_fused_plain",
-           "lstm_scan_plain"]
+           "lstm_scan_plain", "lstm_scan_stateful", "lstm_scan_stateful_plain"]
 
 _MAX_H = 128                    # one thread per gate column: 4H <= 512 threads
-_ROWS_PER_BLOCK = (2, 4, 8)     # template instances in csrc/lstm_fused.cu and lstm_bwd.cu
+_ROWS_PER_BLOCK = (2, 4, 8)     # template instances in csrc/*.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -46,24 +55,25 @@ def _cell(gates: torch.Tensor, c: torch.Tensor):
     return torch.sigmoid(o) * torch.tanh(c), c
 
 
-def _scan_plain(xg: torch.Tensor, w_hh: torch.Tensor, reverse: bool) -> torch.Tensor:
-    """xg (B, T, 4H) float32 projected input -> hs (B, T, H) float32.
+def _scan_plain(xg: torch.Tensor, w_hh: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+                reverse: bool = False):
+    """xg (T, R, 4H) float32 projected input, h / c (R, H) float32 initial
+    state -> (hs, cs), each (T, R, H) float32.
 
     State stays float32; h is cast to the weight dtype before the
     recurrent product, which accumulates in float32 (the `_hdot` rule,
     nvse_tpu/ops/pallas_lstm.py:36-43).
     """
-    B, T, G = xg.shape
-    H = G // 4
+    T = xg.shape[0]
     w = w_hh.float()
-    h = xg.new_zeros(B, H)
-    c = xg.new_zeros(B, H)
-    hs = xg.new_empty(B, T, H)
+    hs = xg.new_empty(T, *h.shape)
+    cs = xg.new_empty(T, *h.shape)
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        gates = xg[:, t] + h.to(w_hh.dtype).float() @ w
+        gates = xg[t] + h.to(w_hh.dtype).float() @ w
         h, c = _cell(gates, c)
-        hs[:, t] = h
-    return hs
+        hs[t] = h
+        cs[t] = c
+    return hs, cs
 
 
 def lstm_scan_fused_plain(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.Tensor:
@@ -76,8 +86,9 @@ def lstm_scan_fused_plain(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.
     outs = []
     for w_ih, b, w_hh, reverse in ((w_ih_f, b_f, w_hh_f, False),
                                    (w_ih_b, b_b, w_hh_b, True)):
-        xg = x.float() @ w_ih.float() + b.float()
-        outs.append(_scan_plain(xg, w_hh, reverse))
+        xg = (x.float() @ w_ih.float() + b.float()).transpose(0, 1)
+        zero = xg.new_zeros(x.shape[0], w_hh.shape[0])
+        outs.append(_scan_plain(xg, w_hh, zero, zero, reverse)[0].transpose(0, 1))
     return torch.cat(outs, dim=-1).to(x.dtype)
 
 
@@ -174,22 +185,6 @@ lstm_scan_fused.launches = 0
 lstm_scan_fused.launches_by_shape = {}
 
 
-def lstm_scan_plain(x_proj: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
-    """Unidirectional scan from zero state: (B, T, 4H), (H, 4H) -> (B, T, H)."""
-    return _scan_plain(x_proj.float(), w_hh, reverse=False).to(x_proj.dtype)
-
-
-def lstm_scan(x_proj: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
-    """Unidirectional LSTM (causal configs). Only the plain CPU version
-    exists so far: its TPU kernel (nvse_tpu/ops/pallas_lstm.py
-    `_pallas_lstm_scan`) is not ported to CUDA yet, so a CUDA tensor raises."""
-    if x_proj.device.type == "cpu":
-        return lstm_scan_plain(x_proj, w_hh)
-    raise NotImplementedError(
-        "lstm_scan has no CUDA kernel yet (TPU kernel "
-        "nvse_tpu/ops/pallas_lstm.py:_pallas_lstm_scan is still to be ported)")
-
-
 # ---------------------------------------------------------------------------
 # training route: residual-saving forward and reverse-time backward
 # ---------------------------------------------------------------------------
@@ -260,11 +255,12 @@ def lstm_bwd_plain(x_proj, hs, cs, dhs, w_hh):
     return dx, lstm_dw_hh_plain(hs, dx).to(w_hh.dtype)
 
 
-def _check_seq_args(name: str, x_proj: torch.Tensor, w_hh: torch.Tensor | None, *states):
-    """Validate what csrc/lstm_bwd.cu takes; raises, never falls back.
-    x_proj (T, R, 4H), w_hh (H, 4H) or None, states (T, R, H) each.
-    Returns (T, R, H)."""
-    args = (x_proj, *states) if w_hh is None else (x_proj, w_hh, *states)
+def _check_seq_args(name: str, x_proj: torch.Tensor, w_hh: torch.Tensor | None, *states,
+                    initial=()):
+    """Validate what csrc/lstm_bwd.cu and csrc/lstm_scan.cu take; raises,
+    never falls back. x_proj (T, R, 4H), w_hh (H, 4H) or None, states
+    (T, R, H) each, initial states (R, H) each. Returns (T, R, H)."""
+    args = (x_proj, *states, *initial) if w_hh is None else (x_proj, w_hh, *states, *initial)
     for a in args:
         if not a.is_contiguous():
             raise ValueError(f"{name} kernel needs contiguous tensors")
@@ -277,7 +273,8 @@ def _check_seq_args(name: str, x_proj: torch.Tensor, w_hh: torch.Tensor | None, 
     T, R, G = x_proj.shape
     H = G // 4
     if ((w_hh is not None and w_hh.shape != (H, 4 * H)) or G != 4 * H
-            or any(s.shape != (T, R, H) for s in states)):
+            or any(s.shape != (T, R, H) for s in states)
+            or any(s.shape != (R, H) for s in initial)):
         raise ValueError(f"{name}: shapes {[tuple(a.shape) for a in args]} do not match "
                          f"x_proj (T, R, 4H) = {tuple(x_proj.shape)}")
     if H > _MAX_H or H % 8:
@@ -392,6 +389,126 @@ def lstm_bwd_recurrence(x_proj, hs, cs, dhs, w_hh) -> torch.Tensor:
 for _fn in (lstm_fwd_hc, lstm_bwd, lstm_dw_hh):
     _fn.launches = 0
     _fn.launches_by_shape = {}
+
+
+# ---------------------------------------------------------------------------
+# unidirectional scans: causal time LSTM and streaming decode
+# ---------------------------------------------------------------------------
+
+def lstm_scan_plain(x_proj: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """Plain version of the lstm_scan kernel: the unidirectional scan from
+    zero state, (T, R, 4H), (H, 4H) -> hs (T, R, H) in the x_proj dtype.
+    Mirrors `_xla_lstm_scan` with the kernel's numerics (`_scan_plain`)."""
+    zero = x_proj.new_zeros(x_proj.shape[1], w_hh.shape[0], dtype=torch.float32)
+    return _scan_plain(x_proj.float(), w_hh, zero, zero)[0].to(x_proj.dtype)
+
+
+def lstm_scan_stateful_plain(x_proj, w_hh, h0, c0):
+    """Plain version of the lstm_scan_stateful kernel: the scan started from
+    the caller's (h0, c0), each (R, H) -> (hs, cs), each (T, R, H) in the
+    x_proj dtype. Mirrors `_xla_lstm_scan_stateful` with the kernel's
+    numerics: h0 and c0 are cast to float32 and the state stays float32."""
+    hs, cs = _scan_plain(x_proj.float(), w_hh, h0.float(), c0.float())
+    return hs.to(x_proj.dtype), cs.to(x_proj.dtype)
+
+
+@functools.cache
+def _scan_lib() -> ctypes.CDLL:
+    from ._build import load_library
+
+    lib = load_library("lstm_scan")
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_scan_launch.argtypes = [i, ptr, ptr, ptr, i, i, i, i, ptr]
+    lib.lstm_scan_stateful_launch.argtypes = [i, ptr, ptr, ptr, ptr, ptr, ptr, i, i, i, i, ptr]
+    for fn in (lib.lstm_scan_launch, lib.lstm_scan_stateful_launch):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def lstm_scan(x_proj: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+    """(T, R, 4H), (H, 4H) -> hs (T, R, H): the unidirectional LSTM scan
+    from zero state (the time LSTM of a causal config).
+
+    When autograd will differentiate the call it takes the
+    residual-saving route, `_ScanSaving`. Otherwise CUDA tensors launch
+    the hand-written kernel of csrc/lstm_scan.cu, which replaces
+    nvse_tpu/ops/pallas_lstm.py:_pallas_lstm_scan, and CPU tensors run
+    lstm_scan_plain. Counts inference-kernel launches in
+    `lstm_scan.launches` (and per (T, R, H, dtype) in
+    `lstm_scan.launches_by_shape`)."""
+    if torch.is_grad_enabled() and (x_proj.requires_grad or w_hh.requires_grad):
+        return _ScanSaving.apply(x_proj, w_hh)
+    if x_proj.device.type == "cpu":
+        return lstm_scan_plain(x_proj, w_hh)
+    T, R, H = _check_seq_args("lstm_scan", x_proj, w_hh)
+    hs = torch.empty(T, R, H, device=x_proj.device, dtype=x_proj.dtype)
+    if T == 0 or R == 0:
+        return hs
+    with torch.cuda.device(x_proj.device):
+        stream = torch.cuda.current_stream(x_proj.device).cuda_stream
+        err = _scan_lib().lstm_scan_launch(
+            _DTYPE_CODE[x_proj.dtype], x_proj.data_ptr(), w_hh.data_ptr(), hs.data_ptr(),
+            R, T, H, _rows_per_block(R, _n_sm(x_proj.device), 1), stream)
+    _raise_on(err, "lstm_scan")
+    _count(lstm_scan, (T, R, H, str(x_proj.dtype).replace("torch.", "")))
+    return hs
+
+
+def lstm_scan_stateful(x_proj, w_hh, h0, c0):
+    """(T, R, 4H), (H, 4H), (R, H), (R, H) -> (hs, cs), each (T, R, H): the
+    scan started from the caller's state, returning both trajectories so
+    that a streaming decoder can take its carry at any step.
+
+    CUDA tensors launch the hand-written kernel of csrc/lstm_scan.cu,
+    which replaces nvse_tpu/ops/pallas_lstm.py:_pallas_lstm_scan_stateful;
+    CPU tensors run lstm_scan_stateful_plain. Inference only, as in the
+    JAX package: the kernel has no backward, so on CUDA a call that
+    autograd would differentiate raises. Counts launches in
+    `lstm_scan_stateful.launches` (and per (T, R, H, dtype) in
+    `lstm_scan_stateful.launches_by_shape`)."""
+    if x_proj.device.type == "cpu":
+        return lstm_scan_stateful_plain(x_proj, w_hh, h0, c0)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (x_proj, w_hh, h0, c0)):
+        raise RuntimeError("lstm_scan_stateful has no gradient (streaming decode is "
+                           "inference only): call it under torch.no_grad() or "
+                           "torch.inference_mode()")
+    T, R, H = _check_seq_args("lstm_scan_stateful", x_proj, w_hh, initial=(h0, c0))
+    hs = torch.empty(T, R, H, device=x_proj.device, dtype=x_proj.dtype)
+    cs = torch.empty_like(hs)
+    if T == 0 or R == 0:
+        return hs, cs
+    with torch.cuda.device(x_proj.device):
+        stream = torch.cuda.current_stream(x_proj.device).cuda_stream
+        err = _scan_lib().lstm_scan_stateful_launch(
+            _DTYPE_CODE[x_proj.dtype], x_proj.data_ptr(), w_hh.data_ptr(), h0.data_ptr(),
+            c0.data_ptr(), hs.data_ptr(), cs.data_ptr(), R, T, H,
+            _rows_per_block(R, _n_sm(x_proj.device), 1), stream)
+    _raise_on(err, "lstm_scan_stateful")
+    _count(lstm_scan_stateful, (T, R, H, str(x_proj.dtype).replace("torch.", "")))
+    return hs, cs
+
+
+for _fn in (lstm_scan, lstm_scan_stateful):
+    _fn.launches = 0
+    _fn.launches_by_shape = {}
+
+
+class _ScanSaving(torch.autograd.Function):
+    """lstm_scan under autograd, as the JAX custom_vjp on the TPU
+    (nvse_tpu/ops/pallas_lstm.py:331-351): lstm_fwd_hc forward saving hs
+    and cs, lstm_bwd backward."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh):
+        x_proj = x_proj.contiguous()
+        hs, cs = lstm_fwd_hc(x_proj, w_hh)
+        ctx.save_for_backward(x_proj, w_hh, hs, cs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, g):
+        x_proj, w_hh, hs, cs = ctx.saved_tensors
+        return lstm_bwd(x_proj, hs, cs, g.to(x_proj.dtype).contiguous(), w_hh)
 
 
 class _BiLSTMSaving(torch.autograd.Function):

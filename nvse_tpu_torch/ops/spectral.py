@@ -1,7 +1,7 @@
 """Spectral ops of the BSRNN mel->wave path, in PyTorch.
 
-Counterpart of nvse_tpu/ops/spectral.py for the functions this slice
-runs. The JAX package builds its DFT from matmuls only because the TPU
+Counterpart of nvse_tpu/ops/spectral.py for the functions the ported
+paths run. The JAX package builds its DFT from matmuls only because the TPU
 has no FFT lowering; here the transforms are torch.fft (cuFFT on the
 card). Semantics are torch.stft/torch.istft (center=True, reflect pad,
 one-sided) and the librosa Slaney mel basis, as in the reference.
@@ -19,9 +19,11 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
+    "StreamingOLA",
     "amp_pha_spectrum",
     "hann_window",
     "inverse_mel",
+    "istft_frames",
     "istft_ri",
     "mel_spectrogram",
     "mel_spectrogram_np",
@@ -106,33 +108,48 @@ def _pad_window(window: np.ndarray, n_fft: int) -> np.ndarray:
     return out
 
 
+def _padded_window(window: np.ndarray | None, win_size: int, n_fft: int) -> np.ndarray:
+    """The window padded to n_fft, float32; None is torch.stft's and torch.istft's default,
+    ones(win_size)."""
+    win = np.ones(win_size, np.float32) if window is None else np.asarray(window, np.float32)
+    return _pad_window(win, n_fft)
+
+
 # Device copies of the host constants, made once per device (and per
 # frame count for the iSTFT envelope): a copy from pageable host memory
-# inside a forward would wait for the stream to drain.
+# inside a forward would wait for the stream to drain. They are made with
+# inference mode off: a tensor first made under torch.inference_mode() (a
+# decode) could not be saved for backward when training reads the cache later.
+
+def _on_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.from_numpy(a.copy()).to(device)
+
 
 @functools.lru_cache(maxsize=64)
-def _istft_consts(win_bytes: bytes, n_fft: int, hop: int, T: int, device: torch.device):
-    """(window, OLA envelope with values <= 1e-11 replaced by 1) on device."""
+def _istft_envelope(win_bytes: bytes, n_fft: int, hop: int, T: int, device: torch.device):
+    """The window's OLA envelope over T frames, values <= 1e-11 replaced by
+    1, on device."""
     win = np.frombuffer(win_bytes, np.float32)
     env = np.zeros(n_fft + hop * (T - 1), np.float32)
     for t in range(T):
         env[t * hop : t * hop + n_fft] += win * win
     env = np.where(env > 1e-11, env, 1.0).astype(np.float32)
-    return torch.from_numpy(win.copy()).to(device), torch.from_numpy(env).to(device)
+    return _on_device(env, device)
 
 
 @functools.lru_cache(maxsize=None)
 def _mel_consts(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float, win_size: int,
                 device: torch.device):
     """(Hann window, mel basis (M, F), its pseudo-inverse (F, M)) on device."""
-    return (torch.from_numpy(_hann_np(win_size).copy()).to(device),
-            torch.from_numpy(_mel_filterbank_np(sr, n_fft, n_mels, fmin, fmax)).to(device),
-            torch.from_numpy(_inv_mel_basis_np(sr, n_fft, n_mels, fmin, fmax)).to(device))
+    return (_on_device(_hann_np(win_size), device),
+            _on_device(_mel_filterbank_np(sr, n_fft, n_mels, fmin, fmax), device),
+            _on_device(_inv_mel_basis_np(sr, n_fft, n_mels, fmin, fmax), device))
 
 
 @functools.lru_cache(maxsize=64)
 def _window_on(win_bytes: bytes, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.frombuffer(win_bytes, np.float32).copy()).to(device)
+    return _on_device(np.frombuffer(win_bytes, np.float32), device)
 
 
 # ---------------------------------------------------------------------------
@@ -149,8 +166,7 @@ def stft_ri(y: torch.Tensor, n_fft: int, hop_size: int, win_size: int,
     rectangular window), not ones(n_fft). The transform runs in float32
     (cuFFT has no bfloat16) and the result has the input's dtype.
     """
-    win_np = np.ones(win_size, np.float32) if window is None else np.asarray(window, np.float32)
-    win = _window_on(_pad_window(win_np, n_fft).tobytes(), y.device)
+    win = _window_on(_padded_window(window, win_size, n_fft).tobytes(), y.device)
     lead = y.shape[:-1]
     spec = torch.stft(y.float().reshape(-1, y.shape[-1]), n_fft, hop_length=hop_size,
                       win_length=n_fft, window=win, center=True, pad_mode="reflect",
@@ -191,6 +207,68 @@ def _overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
     return out.reshape(N, L)
 
 
+def istft_frames(re: torch.Tensor, im: torch.Tensor, n_fft: int, win_size: int,
+                 window: np.ndarray | None = None) -> torch.Tensor:
+    """Windowed synthesis frames (..., T, n_fft) of (real, imag) pairs, each
+    (..., F, T): the stage of istft_ri before the overlap-add, in float32.
+    A streaming decoder overlap-adds chunks of these with carried tails
+    (StreamingOLA), which reproduces the offline istft_ri: a sample is
+    emitted once every frame that touches it has arrived."""
+    win = _window_on(_padded_window(window, win_size, n_fft).tobytes(), re.device)
+    spec = torch.complex(re.float(), im.float()).transpose(-1, -2)   # (..., T, F)
+    return torch.fft.irfft(spec, n=n_fft, dim=-1) * win
+
+
+class StreamingOLA:
+    """Streaming overlap-add with the squared-window normalisation, on the
+    host in float64.
+
+    push() takes windowed synthesis frames (B, c, n_fft) chunk by chunk
+    and emits the c * hop samples whose every contributing frame has
+    arrived; the trailing n_fft - hop samples stay in a carried numerator
+    and envelope tail, which flush() finalises. All emissions
+    concatenated equal istft_ri's output before its center crop: the
+    caller drops the first n_fft // 2 samples and trims to its length.
+    """
+
+    def __init__(self, n_fft: int, hop_size: int, win_size: int,
+                 window: np.ndarray | None = None):
+        self.n_fft, self.hop = n_fft, hop_size
+        win = _padded_window(window, win_size, n_fft)
+        self.env_frame = (win * win).astype(np.float64)
+        self.num_tail: np.ndarray | None = None   # (B, n_fft - hop)
+        self.env_tail: np.ndarray | None = None
+
+    @staticmethod
+    def _ola(frames: np.ndarray, hop: int) -> np.ndarray:
+        B, T, n_fft = frames.shape
+        out = np.zeros((B, n_fft + hop * (T - 1)), frames.dtype)
+        for t in range(T):
+            out[:, t * hop : t * hop + n_fft] += frames[:, t]
+        return out
+
+    def push(self, frames: np.ndarray) -> np.ndarray:
+        frames = np.asarray(frames, np.float64)
+        _, c, n_fft = frames.shape
+        hop, ov = self.hop, self.n_fft - self.hop
+        y = self._ola(frames, hop)                       # (B, hop * (c - 1) + n_fft)
+        env = self._ola(np.broadcast_to(self.env_frame, (1, c, n_fft)).copy(), hop)
+        env = np.broadcast_to(env, y.shape).copy()
+        if self.num_tail is not None:
+            y[:, :ov] += self.num_tail
+            env[:, :ov] += self.env_tail
+        done_y, self.num_tail = y[:, : c * hop], y[:, c * hop :].copy()
+        done_e, self.env_tail = env[:, : c * hop], env[:, c * hop :].copy()
+        return (done_y / np.where(done_e > 1e-11, done_e, 1.0)).astype(np.float32)
+
+    def flush(self) -> np.ndarray:
+        if self.num_tail is None:
+            return np.zeros((1, 0), np.float32)
+        out = self.num_tail / np.where(self.env_tail > 1e-11, self.env_tail, 1.0)
+        self.num_tail = self.env_tail = None
+        return out.astype(np.float32)
+
+
 def istft_ri(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_size: int,
              win_size: int, window: np.ndarray | None = None,
              center: bool = True, length: int | None = None) -> torch.Tensor:
@@ -201,14 +279,10 @@ def istft_ri(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_size: int,
     (elsewhere by 1), then the n_fft//2 center crop. Runs in float32.
     Default output length = hop_size * (T - 1).
     """
-    if window is None:
-        win_np = _pad_window(np.ones(win_size, dtype=np.float32), n_fft)
-    else:
-        win_np = _pad_window(np.asarray(window, np.float32), n_fft)
     lead, T = re.shape[:-2], re.shape[-1]
-    win, env = _istft_consts(win_np.tobytes(), n_fft, hop_size, T, re.device)
-    spec = torch.complex(re.float(), im.float()).transpose(-1, -2)   # (..., T, F)
-    frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * win
+    env = _istft_envelope(_padded_window(window, win_size, n_fft).tobytes(), n_fft,
+                          hop_size, T, re.device)
+    frames = istft_frames(re, im, n_fft, win_size, window)
     y = _overlap_add(frames.reshape(-1, T, n_fft), hop_size) / env
 
     if center:

@@ -19,8 +19,8 @@ losses and optimizer states stay float32, and the casts pass float32
 gradients back, as the JAX step's `_to_compute` does.
 
 Not ported (raise NotImplementedError): the time domain (MSD, SNConv1d),
-use_cqtd, the joint trainer, sp_devices > 1, and causal configs on CUDA
-(their time LSTM needs the still unported lstm_scan kernel).
+use_cqtd, the joint trainer and sp_devices > 1. A causal config trains on
+both devices: its time LSTM takes lstm_scan's residual-saving route.
 """
 from __future__ import annotations
 
@@ -143,7 +143,7 @@ def _cast(tree, dtype):
     return type(tree)(_cast(t, dtype) for t in tree)
 
 
-def _check_supported(h, domain: str, device: torch.device) -> None:
+def _check_supported(h, domain: str) -> None:
     if domain != "tf":
         raise NotImplementedError(
             f"{h.model_name} trains in the {domain} domain; only the T-F trainer (MPD + MRD) "
@@ -152,10 +152,6 @@ def _check_supported(h, domain: str, device: torch.device) -> None:
         raise NotImplementedError("use_cqtd: the CQT discriminator is not ported yet")
     if int(h.get("sp_devices", 1) or 1) > 1:
         raise NotImplementedError("sp_devices > 1: multi-GPU training is not ported yet")
-    if bool(h.get("causal")) and device.type == "cuda":
-        raise NotImplementedError(
-            "causal configs on CUDA: the time LSTM needs the lstm_scan kernel "
-            "(nvse_tpu/ops/pallas_lstm.py:_pallas_lstm_scan), not ported yet")
 
 
 class GANTrainer:
@@ -170,7 +166,7 @@ class GANTrainer:
         self.h = h
         self.device = resolve_device(device)
         generator, domain = build_generator(h)
-        _check_supported(h, domain, self.device)
+        _check_supported(h, domain)
         dgen = torch.Generator().manual_seed(int(h.get("seed", 1234)) + 1)
         self.generator = generator.to(self.device)
         self.disc = nn.ModuleDict({

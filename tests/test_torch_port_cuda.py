@@ -5,7 +5,9 @@ no CPU mode). Run on a GPU machine with
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 (--noconftest: tests/conftest.py sets up JAX, which these tests do not use).
 Shapes are small but cover the ragged row tile, each rows-per-block
-instance, float32 and bfloat16, and the 16-launch BSRNN forward.
+instance, T = 1, float32 and bfloat16, the 16-launch BSRNN forward, the
+causal forward (8 lstm_scan + 8 fused) and a streaming chunk (8 or 16
+lstm_scan_stateful + 8 fused).
 """
 import math
 
@@ -141,3 +143,112 @@ def test_autograd_bilstm_on_card_matches_cpu(cuda, dtype):
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     for got, want in zip(gpu, ref):
         torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# unidirectional scans: lstm_scan, lstm_scan_stateful
+# ---------------------------------------------------------------------------
+
+def _state_args(R, H, dtype, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    return [(0.3 * torch.randn(R, H, generator=g)).to("cuda", dtype) for _ in range(2)]
+
+
+# float32: the same arithmetic summed in another order; bfloat16: h is rounded
+# to 8 bits of mantissa each step and a one-ulp flip moves later steps
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,R,H", [(1, 3, 8), (17, 3, 8), (9, 200, 128), (40, 300, 32),
+                                   (34, 37, 128)])
+def test_scan_kernels_match_plain(cuda, T, R, H, dtype):
+    xp, whh, _ = _seq_args(T, R, H, dtype)
+    h0, c0 = _state_args(R, H, dtype)
+    n = port_lstm.lstm_scan.launches, port_lstm.lstm_scan_stateful.launches
+    hs = port_lstm.lstm_scan(xp, whh)
+    hs_st, cs_st = port_lstm.lstm_scan_stateful(xp, whh, h0, c0)
+    torch.cuda.synchronize()
+    assert (port_lstm.lstm_scan.launches, port_lstm.lstm_scan_stateful.launches) == (n[0] + 1, n[1] + 1)
+    ref = port_lstm.lstm_scan_plain(xp, whh)
+    ref_h, ref_c = port_lstm.lstm_scan_stateful_plain(xp, whh, h0, c0)
+    tol = SCAN_TOL[dtype]
+    for got, want in ((hs, ref), (hs_st, ref_h), (cs_st, ref_c)):
+        assert got.dtype == dtype and got.shape == (T, R, H)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    # the carried state matters: from zeros the stateful kernel gives lstm_scan's hs
+    z = torch.zeros_like(h0)
+    torch.testing.assert_close(port_lstm.lstm_scan_stateful(xp, whh, z, z)[0], hs, atol=0, rtol=0)
+    assert not torch.equal(hs_st, hs)
+
+
+def test_scan_kernels_raise_on_unsupported(cuda):
+    xp, whh, _ = _seq_args(3, 2, 160, torch.float32)
+    h0, c0 = _state_args(2, 160, torch.float32)
+    with pytest.raises(NotImplementedError, match="H <= 128"):
+        port_lstm.lstm_scan(xp, whh)
+    with pytest.raises(NotImplementedError, match="H <= 128"):
+        port_lstm.lstm_scan_stateful(xp, whh, h0, c0)
+    xp, whh, _ = _seq_args(3, 2, 8, torch.float32)
+    h0, c0 = _state_args(2, 8, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        port_lstm.lstm_scan(xp.transpose(0, 1), whh)
+    with pytest.raises(ValueError, match="shapes"):
+        port_lstm.lstm_scan_stateful(xp, whh, h0[:1], c0)
+    with pytest.raises(TypeError):
+        port_lstm.lstm_scan_stateful(xp, whh, h0.bfloat16(), c0)
+
+
+def test_scan_stateful_under_autograd_raises(cuda):
+    xp, whh, _ = _seq_args(3, 2, 8, torch.float32)
+    h0, c0 = _state_args(2, 8, torch.float32)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        port_lstm.lstm_scan_stateful(xp.requires_grad_(), whh, h0, c0)
+    with torch.no_grad():
+        hs, _ = port_lstm.lstm_scan_stateful(xp, whh, h0, c0)
+    assert hs.shape == (3, 2, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_scan_on_card_matches_cpu(cuda, dtype):
+    T, R, H = 11, 5, 32
+    xp, whh, g = (a.cpu().float() for a in _seq_args(T, R, H, torch.float32, seed=5))
+
+    def run(device, dt):
+        a, w = (t.to(device, dt).requires_grad_() for t in (xp, whh))
+        out = port_lstm.lstm_scan(a, w)
+        out.backward(g.to(device, dt))
+        return [out.detach().float().cpu(), a.grad.float().cpu(), w.grad.float().cpu()]
+
+    n = port_lstm.lstm_scan.launches, port_lstm.lstm_fwd_hc.launches, port_lstm.lstm_bwd.launches
+    gpu = run("cuda", dtype)
+    assert (port_lstm.lstm_scan.launches, port_lstm.lstm_fwd_hc.launches,
+            port_lstm.lstm_bwd.launches) == (n[0], n[1] + 1, n[2] + 1)   # the training route only
+    ref = run("cpu", dtype)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for got, want in zip(gpu, ref):
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("causal,stateful_per_chunk", [(True, 8), (False, 16)])
+def test_bsrnn_causal_forward_and_streaming_launches(cuda, causal, stateful_per_chunk):
+    from nvse_tpu_torch.infer import InferenceEngine
+    from nvse_tpu_torch.utils import AttrDict
+
+    h = AttrDict(dict(model_name="BSRNN", feature_dim=16, num_repeat=8, causal=causal,
+                      sampling_rate=22050, n_fft=1024, hop_size=256, win_size=1024,
+                      num_mels=80, fmin=0, fmax=8000, seed=1234))
+    mel = torch.randn(2, 80, 64, generator=torch.Generator().manual_seed(0)) - 4.0
+    gpu, cpu = InferenceEngine(h, device="cuda"), InferenceEngine(h, device="cpu")
+    fns = port_lstm.lstm_scan, port_lstm.lstm_scan_stateful, port_lstm.lstm_scan_fused
+
+    n0 = [f.launches for f in fns]
+    wav = gpu.forward(mel).cpu()
+    assert [f.launches - n for f, n in zip(fns, n0)] == ([8, 0, 8] if causal else [0, 0, 16])
+    torch.testing.assert_close(wav, cpu.forward(mel), rtol=2e-3, atol=2e-4)
+
+    n0 = [f.launches for f in fns]
+    got = gpu.synthesize_streaming_stateful(mel, chunk_frames=32, lookahead_frames=8)
+    assert [f.launches - n for f, n in zip(fns, n0)] == [0, 2 * stateful_per_chunk, 2 * 8]
+    want = cpu.synthesize_streaming_stateful(mel, chunk_frames=32, lookahead_frames=8)
+    torch.testing.assert_close(torch.from_numpy(got), torch.from_numpy(want), rtol=2e-3, atol=2e-4)

@@ -212,8 +212,14 @@ def test_wav_cache_is_consistent_under_concurrent_readers():
 
 
 def test_causal_configs_raise_on_cuda_before_touching_it():
+    """What is left of the causal guard: the trainer takes a causal config on
+    any device, and only a hidden size the kernels do not handle raises,
+    from the argument check that runs before any CUDA call."""
+    from nvse_tpu_torch.ops import lstm as port_lstm
     from nvse_tpu_torch.train.trainer import _check_supported
 
-    with pytest.raises(NotImplementedError, match="lstm_scan"):
-        _check_supported(_h(causal=True), "tf", torch.device("cuda"))
-    _check_supported(_h(causal=True), "tf", torch.device("cpu"))
+    _check_supported(_h(causal=True), "tf")
+    xp, whh = torch.zeros(3, 2, 4 * 160), torch.zeros(160, 4 * 160)
+    for name in ("lstm_scan", "lstm_fwd_hc"):
+        with pytest.raises(NotImplementedError, match="H <= 128"):
+            port_lstm._check_seq_args(name, xp, whh)

@@ -59,11 +59,11 @@ def test_plain_matches_pallas_unrolled_interpret():
 
 def test_unidirectional_plain_matches_xla_scan():
     rng = np.random.default_rng(3)
-    xp = rng.standard_normal((5, 9, 32)).astype(np.float32) * 0.5    # (B, T, 4H)
+    xp = rng.standard_normal((9, 5, 32)).astype(np.float32) * 0.5    # (T, B, 4H), time-major
     whh = rng.standard_normal((8, 32)).astype(np.float32) * 0.1
-    ref = np.asarray(_xla_lstm_scan(jnp.asarray(xp).swapaxes(0, 1), jnp.asarray(whh)))
+    ref = np.asarray(_xla_lstm_scan(jnp.asarray(xp), jnp.asarray(whh)))
     got = port_lstm.lstm_scan(torch.from_numpy(xp), torch.from_numpy(whh)).numpy()
-    np.testing.assert_allclose(got, ref.swapaxes(0, 1), **TOL)
+    np.testing.assert_allclose(got, ref, **TOL)
 
 
 def test_cpu_wrapper_runs_plain_and_counts_no_launch():
