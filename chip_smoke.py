@@ -53,7 +53,22 @@ the last line:
      16384 in float32 (a finite nonzero gradient on all 72 LSTM
      parameters, 24 launches per step of each training kernel, none of
      an inference kernel);
- 10. print the kernels line, then the ok line.
+ 10. lstm_scan_bidir2 (two scans in one cooperative launch, the hidden
+     units spread over the card) against its plain version at the GCRN
+     shapes (decode: 1024 steps x 8 rows x H = 448; serving the synthetic
+     set: 128 x 8 x 448) and at one H <= 128 shape, in float32 and
+     bfloat16, with two cuDNN unidirectional LSTM forwards beside it and,
+     as the control the limit must refuse, the two W_hh swapped;
+ 11. GCRN at its full (only) width through InferenceEngine: decode B=8 x
+     1024 frames in float32 and bfloat16 (2 lstm_scan_bidir2 launches per
+     forward, none of any other LSTM kernel), run_inference on the
+     synthetic set, and the card's decode against the CPU's plain path
+     on a small input;
+ 12. the gradient route of lstm_scan_bidir2 on the card at H = 128
+     against the CPU's plain autograd (2 lstm_fwd_hc + 2 lstm_bwd, none
+     of the inference kernel); at H = 448 under autograd it must raise
+     NotImplementedError;
+ 13. print the kernels line, then the ok line.
 Exits nonzero without output when no CUDA GPU is visible.
 """
 import contextlib
@@ -338,6 +353,19 @@ def _training_counters():
             "lstm_scan": L.lstm_scan, "lstm_scan_stateful": L.lstm_scan_stateful}
 
 
+def _launched(counters, fn):
+    """fn() and the launches of each counter that it made."""
+    n0 = {k: c.launches for k, c in counters.items()}
+    out = fn()
+    return out, {k: c.launches - n0[k] for k, c in counters.items()}
+
+
+def _all_counters():
+    from nvse_tpu_torch.ops import lstm as L
+
+    return {**_training_counters(), "lstm_scan_bidir2": L.lstm_scan_bidir2}
+
+
 def phase_train_kernels():
     """lstm_fwd_hc, the lstm_bwd recurrence and the dW_hh reduction at the
     BSRNN-M training shapes, against their plain versions; cuDNN's BiLSTM
@@ -509,12 +537,17 @@ def _bilstm_fwd_bwd_ms(R, T, H, dtype):
         return dict(port_ms=cuda_ms(port, iters=5), cudnn_ms=cuda_ms(cudnn, iters=5))
 
 
-def _bsrnn_config(**kw):
+def _config(name, **kw):
+    """The port's copy of a reference config (bsrnn, gcrn) with overrides."""
     from nvse_tpu_torch.utils import load_config
 
-    h = load_config(os.path.join(REPO, "nvse_tpu_torch", "configs", "bsrnn_config.json"))
+    h = load_config(os.path.join(REPO, "nvse_tpu_torch", "configs", f"{name}_config.json"))
     h.update(kw)
     return h
+
+
+def _bsrnn_config(**kw):
+    return _config("bsrnn", **kw)
 
 
 def _audio_batch(B, n, sr, seed):
@@ -702,11 +735,6 @@ def phase_stream():
         c.launches = 0
         c.launches_by_shape = {}
 
-    def launched(fn):
-        n0 = {k: c.launches for k, c in counters.items()}
-        out = fn()
-        return out, {k: c.launches - n0[k] for k, c in counters.items()}
-
     B, T, c, la = 8, 512, 64, 16
     n_chunks = T // c
     rng = np.random.default_rng(1)
@@ -723,7 +751,7 @@ def phase_stream():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with _chunk_clock(eng) as stamps:
-                wav, counts = launched(lambda: eng.synthesize_streaming_stateful(
+                wav, counts = _launched(counters, lambda: eng.synthesize_streaming_stateful(
                     mel, out_len=out_len, chunk_frames=c, lookahead_frames=la))
                 stamps.append(time.perf_counter())    # the last chunk ends with the flush
             wall = stamps[-1] - t0
@@ -775,7 +803,7 @@ def phase_stream():
         eng.forward(mel2)                          # warmup
         torch.cuda.synchronize()
         t0 = time.time()
-        wav, counts = launched(lambda: [eng.forward(mel2) for _ in range(iters)][-1])
+        wav, counts = _launched(counters, lambda: [eng.forward(mel2) for _ in range(iters)][-1])
         torch.cuda.synchronize()
         wall = (time.time() - t0) / iters
         say(phase="decode_causal", dtype=dtype, batch=B2, frames=T2, wall_ms=wall * 1e3,
@@ -793,8 +821,8 @@ def phase_stream():
                 h = _bsrnn_config(causal=True, compute_dtype=dtype, stream_mode=mode,
                                   test_output_dir=out)
                 lines = []
-                stats, counts = launched(lambda: run_inference(h, stream=True, device="cuda",
-                                                               log_fn=lines.append))
+                stats, counts = _launched(counters, lambda: run_inference(
+                    h, stream=True, device="cuda", log_fn=lines.append))
                 written = sorted(os.listdir(out))
             say(phase="serve_stream", dtype=dtype, stream_mode=mode, line=lines[-1],
                 files=stats["files"], rtf=stats["rtf"], launches=counts)
@@ -816,6 +844,197 @@ def phase_stream():
     if not ok:
         raise SystemExit("causal decode on the card disagrees with the CPU plain path")
     return main_counts
+
+
+# lstm_scan_bidir2 as (label, steps, rows, H): GCRN's grouped LSTM at the
+# B=8 x 1024 decode and at the serving shape of the synthetic set (6 files of
+# 82 frames in one batch of 8 at the 128-frame bucket), and one shape the
+# H <= 128 kernels also take
+BIDIR2_SHAPES = (("decode", 1024, 8, 448), ("serve", 128, 8, 448), ("small", 65, 16, 128))
+
+
+def phase_bidir2_kernels():
+    """lstm_scan_bidir2 against its plain version; the library yardstick is
+    two cuDNN unidirectional LSTM forwards (input H, hidden H) on the x that
+    the port projects outside its kernel; the control, which the limit must
+    refuse, is the kernel with its two W_hh swapped."""
+    from nvse_tpu_torch.ops import lstm as L
+
+    rows = []
+    for label, T, R, H in BIDIR2_SHAPES:
+        G = 4 * H
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(T + R + H)
+            b = 1.0 / math.sqrt(H)
+            xs = [torch.randn(T, R, H, generator=g).to("cuda", dtype) for _ in range(2)]
+            w_ih, bias, whh = ([torch.empty(sh).uniform_(-b, b, generator=g).to("cuda", dtype)
+                                for _ in range(2)] for sh in ((H, G), (G,), (H, G)))
+            libs = [_cudnn_lstm([(w_ih[i], whh[i], bias[i])], dtype) for i in range(2)]
+            item = xs[0].element_size()
+            ops = 2 * 2 * R * T * H * G
+            nbytes = 2 * (R * T * (G + H) + H * G) * item
+            with torch.inference_mode(), _no_weight_compaction():
+                xp = [(xs[i] @ w_ih[i] + bias[i]).contiguous() for i in range(2)]
+                run = lambda: L.lstm_scan_bidir2(xp[0], xp[1], whh[0], whh[1])
+                plain = lambda: L.lstm_scan_bidir2_plain(xp[0], xp[1], whh[0], whh[1])
+                library = lambda: (libs[0](xs[0])[0], libs[1](xs[1])[0])
+                got = run()
+                torch.cuda.synchronize()
+                ref = plain()
+                err = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref))
+                lib_err = max((a.float() - r.float()).abs().max().item()
+                              for a, r in zip(library(), ref))
+                ctl = L.lstm_scan_bidir2(xp[0], xp[1], whh[1], whh[0])
+                control = max((a.float() - r.float()).abs().max().item() for a, r in zip(ctl, ref))
+                ms = cuda_ms(run, iters=10)
+                plain_ms = cuda_ms(plain, iters=2)
+                library_ms = cuda_ms(library, iters=10)
+            bound, bound_by = _bound(nbytes, ops, dtype)
+            row = dict(name="lstm_scan_bidir2", shape=label, rows=R, steps=T, H=H,
+                       dtype=DT_NAME[dtype], max_abs_err=err, tol=TOL[dtype], ms=ms,
+                       us_per_step=ms * 1e3 / T, plain_ms=plain_ms, library_ms=library_ms,
+                       library="2 cuDNN LSTM forwards, projection included",
+                       library_max_abs_err=lib_err, control_max_abs_err=control,
+                       bound_ms=bound, bound_by=bound_by, tflops=ops / (ms * 1e-3) / 1e12)
+            say(phase="kernel_vs_plain", **row)
+            if not (err <= TOL[dtype]):
+                raise SystemExit(f"lstm_scan_bidir2 {label} {DT_NAME[dtype]}: max abs err {err} "
+                                 f"over tolerance {TOL[dtype]}")
+            if not (control > TOL[dtype]):
+                raise SystemExit(f"lstm_scan_bidir2 {label} {DT_NAME[dtype]}: the control with "
+                                 f"the two W_hh swapped ({control}) passes the tolerance "
+                                 f"{TOL[dtype]}")
+            rows.append(row)
+    return rows
+
+
+def phase_gcrn():
+    """GCRN (8.28 M parameters, no width knobs) through the engine: decode at
+    B=8 x 1024 in float32 and bfloat16, run_inference on the synthetic set,
+    the card against the CPU's plain path."""
+    from nvse_tpu_torch.infer import InferenceEngine, run_inference
+    from nvse_tpu_torch.ops.spectral import mel_spectrogram
+
+    counters = _all_counters()
+    for c in counters.values():                    # this main path starts here
+        c.launches = 0
+        c.launches_by_shape = {}
+
+    base = _config("gcrn")
+    B, T, iters = 8, 1024, 5
+    rng = np.random.default_rng(2)
+    mel = torch.from_numpy(rng.standard_normal((B, base.num_mels, T)).astype(np.float32) - 4.0)
+    melc = mel.to("cuda")
+    audio_sec = B * (T - 1) * base.hop_size / base.sampling_rate
+    wavs = {}
+    for dtype in ("float32", "bfloat16"):
+        eng = InferenceEngine(_config("gcrn", compute_dtype=dtype), device="cuda")
+        n_params = sum(p.numel() for p in eng.generator.parameters())
+        eng.forward(melc)                          # warmup
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        wav, counts = _launched(counters, lambda: [eng.forward(melc) for _ in range(iters)][-1])
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) / iters
+        say(phase="gcrn_decode", dtype=dtype, batch=B, frames=T, parameters=n_params,
+            wall_ms=wall * 1e3, rtf=audio_sec / wall,
+            launches_per_forward={k: v / iters for k, v in counts.items()},
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        expect = {k: (2 * iters if k == "lstm_scan_bidir2" else 0) for k in counters}
+        if counts != expect:
+            raise SystemExit(f"GCRN decode {dtype}: launches {counts} for {iters} forwards, "
+                             "expected 2 lstm_scan_bidir2 per forward and no other LSTM kernel")
+        if wav.shape != (B, (T - 1) * base.hop_size) or not torch.isfinite(wav).all():
+            raise SystemExit(f"GCRN decode {dtype}: bad output {tuple(wav.shape)}")
+        if not 0.98 * 8.28e6 <= n_params <= 1.02 * 8.28e6:
+            raise SystemExit(f"GCRN has {n_params} parameters, not the 8.28 M of its full width")
+        wavs[dtype] = wav
+        del eng
+    w32, wbf = wavs["float32"], wavs["bfloat16"]
+    margs = (base.n_fft, base.num_mels, base.sampling_rate, base.hop_size, base.win_size,
+             base.fmin, base.sampling_rate / 2)
+    mel_l1 = (mel_spectrogram(w32, *margs) - mel_spectrogram(wbf, *margs)).abs().mean().item()
+    wav_rel = ((w32 - wbf).norm() / (w32.norm() + 1e-9)).item()
+    say(phase="gcrn_decode", bf16_vs_f32_mel_l1=mel_l1, bf16_vs_f32_wav_rel_l2=wav_rel)
+
+    # run_inference on the synthetic set (weights from the seed: the config's
+    # checkpoint file is not part of the repository)
+    for dtype in ("float32", "bfloat16"):
+        with tempfile.TemporaryDirectory() as out:
+            lines = []
+            stats, counts = _launched(counters, lambda: run_inference(
+                _config("gcrn", compute_dtype=dtype, test_output_dir=out), device="cuda",
+                log_fn=lines.append))
+            written = sorted(os.listdir(out))
+        say(phase="gcrn_serve", dtype=dtype, line=lines[-1], files=stats["files"],
+            rtf=stats["rtf"], launches=counts)
+        others = sum(v for k, v in counts.items() if k != "lstm_scan_bidir2")
+        if (stats["files"] != 6 or len(written) != 6 or counts["lstm_scan_bidir2"] == 0
+                or others):
+            raise SystemExit(f"GCRN serving {dtype}: {stats} wrote {written}, launches {counts}")
+    main_counts = dict(counters["lstm_scan_bidir2"].launches_by_shape)   # ... and ends here
+
+    # the card's decode against the CPU's plain path, same weights, small input
+    small = mel[:2, :, :64]
+    cpu = InferenceEngine(base, device="cpu").forward(small)
+    gpu = InferenceEngine(base, device="cuda").forward(small).cpu()
+    err = (gpu - cpu).abs()
+    ok = bool((err <= MODEL_ATOL + MODEL_RTOL * cpu.abs()).all())
+    say(phase="gcrn_decode_vs_cpu_plain", batch=2, frames=64, max_abs_err=err.max().item(),
+        max_abs_ref=cpu.abs().max().item(), rtol=MODEL_RTOL, atol=MODEL_ATOL, ok=ok)
+    if not ok:
+        raise SystemExit("GCRN decode on the card disagrees with the CPU plain path")
+    return main_counts
+
+
+def phase_bidir2_grad():
+    """lstm_scan_bidir2 under autograd on the card: at H = 128 the
+    residual-saving route (lstm_fwd_hc and lstm_bwd per scan) against the
+    CPU's plain autograd; at GCRN's H = 448 those kernels do not exist yet
+    and the call must raise, not detour."""
+    from nvse_tpu_torch.ops import lstm as L
+
+    counters = _all_counters()
+    T, R, H = 65, 16, 128
+    g = torch.Generator().manual_seed(11)
+    b = 1.0 / math.sqrt(H)
+    host = ([0.5 * torch.randn(T, R, 4 * H, generator=g) for _ in range(2)]
+            + [torch.empty(H, 4 * H).uniform_(-b, b, generator=g) for _ in range(2)])
+    cots = [torch.randn(T, R, H, generator=g) for _ in range(2)]
+
+    def run(device):
+        args = [a.to(device).requires_grad_() for a in host]
+        outs = L.lstm_scan_bidir2(*args)
+        torch.autograd.backward(list(outs), [c.to(device) for c in cots])
+        return [o.detach().cpu() for o in outs] + [a.grad.cpu() for a in args]
+
+    gpu, counts = _launched(counters, lambda: run("cuda"))
+    cpu = run("cpu")
+    names = ("hs_a", "hs_b", "dx_proj_a", "dx_proj_b", "dW_hh_a", "dW_hh_b")
+    errs = {n: _err(a, r)[1] for n, a, r in zip(names, gpu, cpu)}
+    expect = {k: 0 for k in counters}
+    expect.update(lstm_fwd_hc=2, lstm_bwd=2, lstm_bwd_dw=2)
+    ok = all(e <= TRAIN_TOL[torch.float32] for e in errs.values())
+    say(phase="bidir2_grad_vs_cpu_plain", steps=T, rows=R, H=H, rel_err=errs,
+        tol=TRAIN_TOL[torch.float32], launches=counts, ok=ok)
+    if not ok or counts != expect:
+        raise SystemExit(f"lstm_scan_bidir2 gradient route: errors {errs}, launches {counts}, "
+                         f"expected {expect}")
+
+    wide = [torch.zeros(3, 2, 4 * 448, device="cuda").requires_grad_() for _ in range(2)]
+    w = [torch.zeros(448, 4 * 448, device="cuda") for _ in range(2)]
+    n0 = {k: c.launches for k, c in counters.items()}
+    try:
+        L.lstm_scan_bidir2(*wide, *w)
+    except NotImplementedError as e:
+        raised = str(e)
+    else:
+        raise SystemExit("lstm_scan_bidir2 under autograd at H = 448 on the card did not raise")
+    counts = {k: c.launches - n0[k] for k, c in counters.items()}
+    say(phase="bidir2_grad_wide", H=448, raised=raised, launches=counts)
+    if "H=448" not in raised or any(counts.values()):
+        raise SystemExit(f"lstm_scan_bidir2 under autograd at H = 448: {raised!r}, {counts}")
 
 
 def main():
@@ -845,6 +1064,9 @@ def main():
     phase_train_cli()
     stream_counts = phase_stream()
     phase_train(causal=True)
+    bidir2_rows = phase_bidir2_kernels()
+    gcrn_counts = phase_gcrn()
+    phase_bidir2_grad()
 
     kernels = []
     for r in rows:
@@ -882,9 +1104,21 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    for r in bidir2_rows:
+        key = (r["steps"], r["rows"], r["H"], r["dtype"])
+        if r["shape"] == "small":      # held against its plain version only: no path has H <= 128
+            continue
+        kernels.append({
+            "name": r["name"], "shape": r["shape"], "dtype": r["dtype"], "route": "cuda",
+            "source": "nvse_tpu_torch/csrc/lstm_bidir2.cu",
+            "replaces": "nvse_tpu/ops/pallas_lstm.py:499",
+            "launches": gcrn_counts.get(key, 0), "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
     if any(k["launches"] == 0 for k in kernels):
         raise SystemExit(f"a kernel of a driven path was never launched: {main_counts} "
-                         f"{train_counts} {stream_counts}")
+                         f"{train_counts} {stream_counts} {gcrn_counts}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

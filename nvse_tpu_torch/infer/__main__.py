@@ -1,11 +1,14 @@
-"""Inference CLI for BSRNN on the port (counterpart of infers/inference_bsrnn.py).
+"""Inference CLI of the port for the BSRNN family and GCRN (counterpart
+of infers/inference_bsrnn.py and infers/inference_gcrn.py).
 
     python -m nvse_tpu_torch.infer --cfg_filename nvse_tpu_torch/configs/bsrnn_config.json
+    python -m nvse_tpu_torch.infer --cfg_filename nvse_tpu_torch/configs/gcrn_config.json
 Decodes the configured test filelist to h.test_output_dir and prints the
 RTF (generated-audio-seconds / wall-seconds). Runs on the GPU unless
 --device cpu is given. --stream decodes in chunks (config keys
 stream_chunk_frames, stream_context_frames; stream_mode "stateful"
-carries the recurrent state instead of recomputing a context).
+carries the recurrent state instead of recomputing a context, for the
+BSRNN family; GCRN streams by context recompute).
 """
 import argparse
 import os

@@ -1,6 +1,7 @@
 """Batch inference engine: mel->wav decoding with RTF accounting.
 
-Counterpart of nvse_tpu/infer/engine.py for the BSRNN family:
+Counterpart of nvse_tpu/infer/engine.py for the generators the port has
+(the BSRNN family and GCRN):
   * length bucketing: utterances are padded to the next multiple of
     `bucket_frames` mel frames with log(1e-5) and the output is cropped
     back, so a batch of mixed lengths decodes at a few fixed shapes;
@@ -10,9 +11,11 @@ Counterpart of nvse_tpu/infer/engine.py for the BSRNN family:
     outside the timed region;
   * chunked streaming decode at one window shape whatever the length:
     `synthesize_streaming` recomputes a context on each side of every
-    chunk, `synthesize_streaming_stateful` carries the time LSTMs' state
-    and the overlap-add tail from chunk to chunk (exact for a causal
-    config), batch rows being independent streams.
+    chunk (any generator), `synthesize_streaming_stateful` carries the
+    time LSTMs' state and the overlap-add tail from chunk to chunk (exact
+    for a causal config; the BSRNN family only: GCRN has no
+    `supports_stream_state` and raises there), batch rows being
+    independent streams.
 Multi-device serving and Orbax checkpoints are not ported yet and raise
 here.
 """

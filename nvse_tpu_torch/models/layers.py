@@ -1,11 +1,14 @@
-"""Linear, LayerNorm, LSTM and Conv2d with torch.nn semantics.
+"""Linear, LayerNorm, LSTM, Conv2d and ConvTranspose2d with torch.nn
+semantics.
 
 Counterparts of nvse_tpu/models/layers.py (Linear, LayerNorm, LSTM
-:466-608; Conv2d, leaky_relu, get_padding :37-46, :287-342). Linear and
-LSTM keep the JAX package's names and layouts (Linear `kernel` is
-(in, out); LSTM `w_ih_*` is (C, 4H), `w_hh_*` (H, 4H)); Conv2d keeps the
-names `v`, `g`, `bias` in torch's OIHW layout. utils/jax_params.py maps
-a flax tree onto them one to one. Random init draws from the caller's
+:466-608; Conv2d, ConvTranspose2d, leaky_relu, get_padding :37-46,
+:287-394). Linear and LSTM keep the JAX package's names and layouts
+(Linear `kernel` is (in, out); LSTM `w_ih_*` is (C, 4H), `w_hh_*`
+(H, 4H)); the weight-normalised Conv2d keeps the names `v`, `g`, `bias`
+in torch's OIHW layout, PlainConv2d and ConvTranspose2d the names
+`kernel`, `bias` in torch's layouts. utils/jax_params.py maps a flax
+tree onto them one to one. Random init draws from the caller's
 torch.Generator with the JAX package's distributions.
 """
 from __future__ import annotations
@@ -162,12 +165,66 @@ class Conv2d(nn.Module):
         return self.g * self.v / torch.clamp(norm, min=1e-12)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.kernel()
-        if w.dtype == torch.bfloat16 and w.device.type == "cpu":
-            # torch's oneDNN bf16 conv2d on the CPU returned NaN for finite
-            # inputs (MRD layer 4, (4, 64, 65, 2) * (64, 64, 3, 3), stride 2);
-            # float32 of the bf16 values, rounded once, is a bf16 conv with
-            # float32 sums
-            return F.conv2d(x.to(w.dtype).float(), w.float(), self.bias.float(), self.stride,
-                            self.padding).to(w.dtype)
-        return F.conv2d(x.to(w.dtype), w, self.bias, self.stride, self.padding)
+        return conv2d(x, self.kernel(), self.bias, self.stride, self.padding)
+
+
+def _conv(fn, x, w, bias, stride, padding):
+    """fn = F.conv2d or F.conv_transpose2d on NCHW, the input cast to the
+    weight dtype as the JAX layers follow their params."""
+    if w.dtype == torch.bfloat16 and w.device.type == "cpu":
+        # torch's oneDNN bf16 conv2d on the CPU returned NaN for finite
+        # inputs (MRD layer 4, (4, 64, 65, 2) * (64, 64, 3, 3), stride 2);
+        # float32 of the bf16 values, rounded once, is a bf16 conv with
+        # float32 sums
+        return fn(x.to(w.dtype).float(), w.float(), bias.float(), stride, padding).to(w.dtype)
+    return fn(x.to(w.dtype), w, bias, stride, padding)
+
+
+def conv2d(x, w, bias, stride=(1, 1), padding=(0, 0)) -> torch.Tensor:
+    """torch conv2d: x (B, I, H, W), w (O, I, kh, kw), bias (O,)."""
+    return _conv(F.conv2d, x, w, bias, stride, padding)
+
+
+def conv_transpose2d(x, w, bias, stride=(1, 1), padding=(0, 0)) -> torch.Tensor:
+    """torch conv_transpose2d: x (B, I, H, W), w (I, O, kh, kw), bias (O,).
+    The JAX layer's form (kernel flipped, input dilated by the stride, padded
+    by k - 1 - padding) is this function."""
+    return _conv(F.conv_transpose2d, x, w, bias, stride, padding)
+
+
+class PlainConv2d(nn.Module):
+    """torch.nn.Conv2d on NCHW without weight norm (GCRN's convs).
+    Counterpart of nvse_tpu/models/layers.py:Conv2d with its defaults;
+    parameters `kernel` (out, in, kh, kw) and `bias` (out,), both
+    U(+-1/sqrt(in * kh * kw))."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=(1, 1),
+                 padding=(0, 0), gen: torch.Generator | None = None):
+        super().__init__()
+        kh, kw = kernel_size
+        self.stride, self.padding = tuple(stride), tuple(padding)
+        bound = 1.0 / math.sqrt(in_channels * kh * kw)
+        self.kernel = uniform_((out_channels, in_channels, kh, kw), bound, gen)
+        self.bias = uniform_((out_channels,), bound, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(x, self.kernel, self.bias, self.stride, self.padding)
+
+
+class ConvTranspose2d(nn.Module):
+    """torch.nn.ConvTranspose2d on NCHW. Counterpart of
+    nvse_tpu/models/layers.py:ConvTranspose2d; parameters `kernel`
+    (in, out, kh, kw) and `bias` (out,), both U(+-1/sqrt(out * kh * kw)),
+    torch's fan-in for a transposed conv."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=(1, 1),
+                 padding=(0, 0), gen: torch.Generator | None = None):
+        super().__init__()
+        kh, kw = kernel_size
+        self.stride, self.padding = tuple(stride), tuple(padding)
+        bound = 1.0 / math.sqrt(out_channels * kh * kw)
+        self.kernel = uniform_((in_channels, out_channels, kh, kw), bound, gen)
+        self.bias = uniform_((out_channels,), bound, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_transpose2d(x, self.kernel, self.bias, self.stride, self.padding)

@@ -1,5 +1,7 @@
 from .lstm import (
     lstm_scan,
+    lstm_scan_bidir2,
+    lstm_scan_bidir2_plain,
     lstm_scan_fused,
     lstm_scan_fused_plain,
     lstm_scan_plain,

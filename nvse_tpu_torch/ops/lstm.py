@@ -2,8 +2,8 @@
 scans and their training path.
 
 Counterpart of nvse_tpu/ops/pallas_lstm.py (`lstm_scan_fused`,
-`lstm_scan`, `lstm_scan_stateful`) and nvse_tpu/ops/pallas_lstm_bwd.py
-(`lstm_fwd_hc`, `lstm_bwd`).
+`lstm_scan`, `lstm_scan_stateful`, `lstm_scan_bidir2`) and
+nvse_tpu/ops/pallas_lstm_bwd.py (`lstm_fwd_hc`, `lstm_bwd`).
 
 `lstm_scan_fused` is the switch between two routes:
   * inference (grad disabled, or no input requires grad): the fused
@@ -21,6 +21,12 @@ the kernel of csrc/lstm_scan.cu for inference, `_ScanSaving`
 pallas_lstm.py:331-351) under autograd. `lstm_scan_stateful` (streaming
 decode: the scan from a caller's (h0, c0), returning hs and cs) is the
 second kernel of csrc/lstm_scan.cu and has no gradient.
+`lstm_scan_bidir2` (two independent scans in one launch: the grouped
+LSTM of GCRN, H = 448 over batch rows) is the kernel of
+csrc/lstm_bidir2.cu, which spreads the hidden units over the card and
+takes H up to 768; under autograd it is `_Bidir2Saving` (`lstm_fwd_hc`
+and `lstm_bwd` per scan, as the JAX custom_vjp at pallas_lstm.py:545-563),
+which on the card shares those kernels' limit of H <= 128.
 Every wrapper launches its CUDA kernel on a CUDA tensor or raises, and
 runs its plain PyTorch version only on a CPU tensor; each counts its
 launches in `<wrapper>.launches`.
@@ -42,9 +48,11 @@ import torch
 
 __all__ = ["lstm_bwd", "lstm_bwd_plain", "lstm_dw_hh", "lstm_dw_hh_plain", "lstm_fwd_hc",
            "lstm_fwd_hc_plain", "lstm_scan", "lstm_scan_fused", "lstm_scan_fused_plain",
-           "lstm_scan_plain", "lstm_scan_stateful", "lstm_scan_stateful_plain"]
+           "lstm_scan_bidir2", "lstm_scan_bidir2_plain", "lstm_scan_plain",
+           "lstm_scan_stateful", "lstm_scan_stateful_plain"]
 
 _MAX_H = 128                    # one thread per gate column: 4H <= 512 threads
+_BIDIR2_MAX_H = 768             # csrc/lstm_bidir2.cu: W_hh slices of 12 units fit a block
 _ROWS_PER_BLOCK = (2, 4, 8)     # template instances in csrc/*.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -256,10 +264,11 @@ def lstm_bwd_plain(x_proj, hs, cs, dhs, w_hh):
 
 
 def _check_seq_args(name: str, x_proj: torch.Tensor, w_hh: torch.Tensor | None, *states,
-                    initial=()):
-    """Validate what csrc/lstm_bwd.cu and csrc/lstm_scan.cu take; raises,
-    never falls back. x_proj (T, R, 4H), w_hh (H, 4H) or None, states
-    (T, R, H) each, initial states (R, H) each. Returns (T, R, H)."""
+                    initial=(), max_h: int = _MAX_H):
+    """Validate what csrc/lstm_bwd.cu, csrc/lstm_scan.cu and
+    csrc/lstm_bidir2.cu take; raises, never falls back. x_proj (T, R, 4H),
+    w_hh (H, 4H) or None, states (T, R, H) each, initial states (R, H)
+    each. Returns (T, R, H)."""
     args = (x_proj, *states, *initial) if w_hh is None else (x_proj, w_hh, *states, *initial)
     for a in args:
         if not a.is_contiguous():
@@ -277,8 +286,8 @@ def _check_seq_args(name: str, x_proj: torch.Tensor, w_hh: torch.Tensor | None, 
             or any(s.shape != (R, H) for s in initial)):
         raise ValueError(f"{name}: shapes {[tuple(a.shape) for a in args]} do not match "
                          f"x_proj (T, R, 4H) = {tuple(x_proj.shape)}")
-    if H > _MAX_H or H % 8:
-        raise NotImplementedError(f"{name} kernel handles H <= {_MAX_H} with H % 8 == 0; "
+    if H > max_h or H % 8:
+        raise NotImplementedError(f"{name} kernel handles H <= {max_h} with H % 8 == 0; "
                                   f"got H={H}")
     if any(a.device != x_proj.device for a in args) or x_proj.device.type != "cuda":
         raise ValueError(f"{name} kernel needs all tensors on one CUDA device")
@@ -493,6 +502,72 @@ for _fn in (lstm_scan, lstm_scan_stateful):
     _fn.launches_by_shape = {}
 
 
+# ---------------------------------------------------------------------------
+# two independent scans in one launch: the grouped LSTM of GCRN
+# ---------------------------------------------------------------------------
+
+def lstm_scan_bidir2_plain(xp_a, xp_b, w_a, w_b):
+    """Plain version of the lstm_scan_bidir2 kernel: two unidirectional
+    scans from zero state, each in its own time order with its own W_hh:
+    (T, R, 4H) x 2, (H, 4H) x 2 -> (hs_a, hs_b), each (T, R, H) in the
+    x_proj dtype. Mirrors `_xla_lstm_scan_bidir2` with the kernel's
+    numerics (`_scan_plain`)."""
+    return lstm_scan_plain(xp_a, w_a), lstm_scan_plain(xp_b, w_b)
+
+
+@functools.cache
+def _bidir2_lib() -> ctypes.CDLL:
+    from ._build import load_library
+
+    lib = load_library("lstm_bidir2")
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_bidir2_launch.argtypes = [i, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i, i, i, ptr]
+    lib.lstm_bidir2_launch.restype = ctypes.c_int
+    return lib
+
+
+def lstm_scan_bidir2(xp_a, xp_b, w_a, w_b):
+    """(T, R, 4H) x 2, (H, 4H) x 2 -> (hs_a, hs_b), each (T, R, H): two
+    independent unidirectional LSTM scans from zero state that advance in
+    the same launch (GCRN's pairs of group LSTMs). A caller that wants a
+    reversed direction flips that scan's input and output.
+
+    When autograd will differentiate the call it takes the
+    residual-saving route, `_Bidir2Saving`. Otherwise CUDA tensors launch
+    the hand-written kernel of csrc/lstm_bidir2.cu, which replaces
+    nvse_tpu/ops/pallas_lstm.py:_pallas_lstm_scan_bidir2 and takes
+    H <= 768, and CPU tensors run lstm_scan_bidir2_plain. Counts
+    inference-kernel launches in `lstm_scan_bidir2.launches` (and per
+    (T, R, H, dtype) in `lstm_scan_bidir2.launches_by_shape`)."""
+    args = (xp_a, xp_b, w_a, w_b)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _Bidir2Saving.apply(*args)
+    if xp_a.device.type == "cpu":
+        return lstm_scan_bidir2_plain(*args)
+    T, R, H = _check_seq_args("lstm_scan_bidir2", xp_a, w_a, max_h=_BIDIR2_MAX_H)
+    if (xp_b.shape != xp_a.shape or xp_b.dtype != xp_a.dtype or xp_b.device != xp_a.device
+            or _check_seq_args("lstm_scan_bidir2", xp_b, w_b, max_h=_BIDIR2_MAX_H) != (T, R, H)):
+        raise ValueError("lstm_scan_bidir2: the two scans must agree in shape, dtype and "
+                         f"device; got {[(tuple(a.shape), a.dtype, a.device) for a in args]}")
+    hs_a = torch.empty(T, R, H, device=xp_a.device, dtype=xp_a.dtype)
+    hs_b = torch.empty_like(hs_a)
+    if T == 0 or R == 0:
+        return hs_a, hs_b
+    c_state = torch.empty(2, R, H, device=xp_a.device, dtype=torch.float32)   # kernel scratch
+    with torch.cuda.device(xp_a.device):
+        stream = torch.cuda.current_stream(xp_a.device).cuda_stream
+        err = _bidir2_lib().lstm_bidir2_launch(
+            _DTYPE_CODE[xp_a.dtype], xp_a.data_ptr(), xp_b.data_ptr(), w_a.data_ptr(),
+            w_b.data_ptr(), hs_a.data_ptr(), hs_b.data_ptr(), c_state.data_ptr(), R, T, H, stream)
+    _raise_on(err, "lstm_scan_bidir2")
+    _count(lstm_scan_bidir2, (T, R, H, str(xp_a.dtype).replace("torch.", "")))
+    return hs_a, hs_b
+
+
+lstm_scan_bidir2.launches = 0
+lstm_scan_bidir2.launches_by_shape = {}
+
+
 class _ScanSaving(torch.autograd.Function):
     """lstm_scan under autograd, as the JAX custom_vjp on the TPU
     (nvse_tpu/ops/pallas_lstm.py:331-351): lstm_fwd_hc forward saving hs
@@ -509,6 +584,29 @@ class _ScanSaving(torch.autograd.Function):
     def backward(ctx, g):
         x_proj, w_hh, hs, cs = ctx.saved_tensors
         return lstm_bwd(x_proj, hs, cs, g.to(x_proj.dtype).contiguous(), w_hh)
+
+
+class _Bidir2Saving(torch.autograd.Function):
+    """lstm_scan_bidir2 under autograd, as the TPU branch of the JAX
+    custom_vjp (nvse_tpu/ops/pallas_lstm.py:554-563): lstm_fwd_hc per scan
+    forward saving hs and cs, lstm_bwd per scan backward. As with
+    lstm_scan, this route multiplies the unrounded float32 h where the
+    inference kernel rounds it as stored; they differ in bfloat16 only."""
+
+    @staticmethod
+    def forward(ctx, xp_a, xp_b, w_a, w_b):
+        xp_a, xp_b = xp_a.contiguous(), xp_b.contiguous()
+        hs_a, cs_a = lstm_fwd_hc(xp_a, w_a)
+        hs_b, cs_b = lstm_fwd_hc(xp_b, w_b)
+        ctx.save_for_backward(xp_a, xp_b, w_a, w_b, hs_a, cs_a, hs_b, cs_b)
+        return hs_a, hs_b
+
+    @staticmethod
+    def backward(ctx, g_a, g_b):
+        xp_a, xp_b, w_a, w_b, hs_a, cs_a, hs_b, cs_b = ctx.saved_tensors
+        dx_a, dw_a = lstm_bwd(xp_a, hs_a, cs_a, g_a.to(xp_a.dtype).contiguous(), w_a)
+        dx_b, dw_b = lstm_bwd(xp_b, hs_b, cs_b, g_b.to(xp_b.dtype).contiguous(), w_b)
+        return dx_a, dx_b, dw_a, dw_b
 
 
 class _BiLSTMSaving(torch.autograd.Function):

@@ -1,5 +1,5 @@
-"""Map JAX-package parameter trees (BSRNN, the T-F discriminators) onto
-the port's state_dicts.
+"""Map JAX-package parameter trees (BSRNN, GCRN, the T-F discriminators)
+onto the port's state_dicts.
 
 Reads plain numpy (e.g. `jax.tree.map(np.asarray, variables["params"])`
 done by the caller), so this module imports nothing of JAX. The tests
@@ -15,31 +15,90 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
-def _res_rnn(node: dict, prefix: str, out: dict) -> None:
-    out[f"{prefix}.norm.scale"] = _t(node["LayerNorm_0"]["scale"])
-    out[f"{prefix}.norm.bias"] = _t(node["LayerNorm_0"]["bias"])
-    lstm = node["LSTM_0"]
+def _copy(node: dict, prefix: str, out: dict) -> None:
+    """A node whose leaves keep their names and layouts (LayerNorm, Linear,
+    the per-frequency LayerNorm)."""
+    for name, a in node.items():
+        out[f"{prefix}.{name}"] = _t(a)
+
+
+def _lstm(lstm: dict, prefix: str, out: dict) -> None:
     for d in ("fwd", "bwd"):
         if f"w_ih_{d}" not in lstm:
             continue
-        out[f"{prefix}.lstm.w_ih_{d}"] = _t(lstm[f"w_ih_{d}"])
-        out[f"{prefix}.lstm.w_hh_{d}"] = _t(lstm[f"w_hh_{d}"])
+        out[f"{prefix}.w_ih_{d}"] = _t(lstm[f"w_ih_{d}"])
+        out[f"{prefix}.w_hh_{d}"] = _t(lstm[f"w_hh_{d}"])
         # the JAX layer sums b_ih + b_hh at parameter time (layers.py:564-566)
-        out[f"{prefix}.lstm.b_{d}"] = _t(np.asarray(lstm[f"b_ih_{d}"]) + np.asarray(lstm[f"b_hh_{d}"]))
+        out[f"{prefix}.b_{d}"] = _t(np.asarray(lstm[f"b_ih_{d}"]) + np.asarray(lstm[f"b_hh_{d}"]))
+
+
+def _res_rnn(node: dict, prefix: str, out: dict) -> None:
+    out[f"{prefix}.norm.scale"] = _t(node["LayerNorm_0"]["scale"])
+    out[f"{prefix}.norm.bias"] = _t(node["LayerNorm_0"]["bias"])
+    _lstm(node["LSTM_0"], f"{prefix}.lstm", out)
     out[f"{prefix}.proj.kernel"] = _t(node["Linear_0"]["kernel"])
     out[f"{prefix}.proj.bias"] = _t(node["Linear_0"]["bias"])
 
 
-def params_from_jax(flax_params_as_numpy: dict, h) -> dict[str, torch.Tensor]:
-    """JAX BSRNN / BSRNN_24k params (numpy leaves) -> port state_dict.
+def glu_params(node: dict, transposed: bool = False, prefix: str = "",
+               out: dict | None = None) -> dict[str, torch.Tensor]:
+    """A JAX GluConv2d / GluConvTranspose2d node -> the port module's
+    state_dict: the two child convs, kernels HWIO -> OIHW, or for the
+    transposed pair (kh, kw, cin, cout) -> (cin, cout, kh, kw), not flipped:
+    the JAX layer flips them itself to write the transposed conv as a
+    dilated one."""
+    out = {} if out is None else out
+    child, perm = ("ConvTranspose2d", (2, 3, 0, 1)) if transposed else ("Conv2d", (3, 2, 0, 1))
+    for j, dst in enumerate(("conv_a", "conv_b")):
+        conv = node[f"{child}_{j}"]
+        out[f"{prefix}{dst}.kernel"] = _t(np.transpose(np.asarray(conv["kernel"]), perm))
+        out[f"{prefix}{dst}.bias"] = _t(conv["bias"])
+    return out
 
-    Tree: BSRNNCore_0/{_GroupedBandEncoder_0, BSNet_{r}/{ResRNN_0 (time),
-    ResRNN_1 (band), LayerNorm_0 (out norm)}, _GroupedBandDecoder_0 (mag),
-    _GroupedBandDecoder_1 (phase)}.
+
+def glstm_params(node: dict, prefix: str = "", out: dict | None = None) -> dict[str, torch.Tensor]:
+    """A JAX GLSTM node {LSTM_0..2g-1, LayerNorm_0, LayerNorm_1} -> the port
+    module's state_dict (b = b_ih + b_hh)."""
+    out = {} if out is None else out
+    for i in range(sum(k.startswith("LSTM_") for k in node)):
+        _lstm(node[f"LSTM_{i}"], f"{prefix}lstms.{i}", out)
+    _copy(node["LayerNorm_0"], f"{prefix}norm1", out)
+    _copy(node["LayerNorm_1"], f"{prefix}norm2", out)
+    return out
+
+
+def _gcrn_params(p: dict) -> dict[str, torch.Tensor]:
+    """Tree: GluConv2d_{0..5}/Conv2d_{0,1} and bn{1..6} (encoder), GLSTM_0/
+    {LSTM_0..2g-1, LayerNorm_0, LayerNorm_1}, GluConvTranspose2d_{0..5}
+    (magnitude decoder) and _{6..11} (phase decoder) with
+    bn{6-i}_t_{branch}, Linear_0 (fc1), Linear_1 (fc2)."""
+    out: dict[str, torch.Tensor] = {}
+    for i in range(6):
+        glu_params(p[f"GluConv2d_{i}"], False, f"enc_convs.{i}.", out)
+        _copy(p[f"bn{i + 1}"], f"enc_norms.{i}", out)
+        for branch in (1, 2):
+            glu_params(p[f"GluConvTranspose2d_{6 * (branch - 1) + i}"], True,
+                       f"dec{branch}.convs.{i}.", out)
+            _copy(p[f"bn{6 - i}_t_{branch}"], f"dec{branch}.norms.{i}", out)
+    glstm_params(p["GLSTM_0"], "glstm.", out)
+    _copy(p["Linear_0"], "fc1", out)
+    _copy(p["Linear_1"], "fc2", out)
+    return out
+
+
+def params_from_jax(flax_params_as_numpy: dict, h) -> dict[str, torch.Tensor]:
+    """JAX generator params (numpy leaves) -> port state_dict, for the
+    models the port has: BSRNN / BSRNN_24k and GCRN (`_gcrn_params`).
+
+    BSRNN tree: BSRNNCore_0/{_GroupedBandEncoder_0, BSNet_{r}/{ResRNN_0
+    (time), ResRNN_1 (band), LayerNorm_0 (out norm)}, _GroupedBandDecoder_0
+    (mag), _GroupedBandDecoder_1 (phase)}.
     """
+    p = flax_params_as_numpy.get("params", flax_params_as_numpy)
+    if h.model_name == "GCRN":
+        return _gcrn_params(p)
     if h.model_name not in ("BSRNN", "BSRNN_24k"):
         raise NotImplementedError(f"no parameter map for {h.model_name!r} yet")
-    p = flax_params_as_numpy.get("params", flax_params_as_numpy)
     core = p["BSRNNCore_0"]
     out: dict[str, torch.Tensor] = {}
     for src, dst in (("_GroupedBandEncoder_0", "encoder"),

@@ -6,8 +6,9 @@ no CPU mode). Run on a GPU machine with
 (--noconftest: tests/conftest.py sets up JAX, which these tests do not use).
 Shapes are small but cover the ragged row tile, each rows-per-block
 instance, T = 1, float32 and bfloat16, the 16-launch BSRNN forward, the
-causal forward (8 lstm_scan + 8 fused) and a streaming chunk (8 or 16
-lstm_scan_stateful + 8 fused).
+causal forward (8 lstm_scan + 8 fused), a streaming chunk (8 or 16
+lstm_scan_stateful + 8 fused), and lstm_scan_bidir2 from one row to 33 at
+H = 64, 128 and GCRN's 448 with the GCRN forward (2 launches).
 """
 import math
 
@@ -252,3 +253,109 @@ def test_bsrnn_causal_forward_and_streaming_launches(cuda, causal, stateful_per_
     assert [f.launches - n for f, n in zip(fns, n0)] == [0, 2 * stateful_per_chunk, 2 * 8]
     want = cpu.synthesize_streaming_stateful(mel, chunk_frames=32, lookahead_frames=8)
     torch.testing.assert_close(torch.from_numpy(got), torch.from_numpy(want), rtol=2e-3, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# two scans in one launch, wide H and few rows: lstm_scan_bidir2
+# ---------------------------------------------------------------------------
+
+def _bidir2_args(T, R, H, dtype, seed=0, device="cuda"):
+    g = torch.Generator().manual_seed(seed)
+    b = 1 / math.sqrt(H)
+    xs = [(0.5 * torch.randn(T, R, 4 * H, generator=g)).to(device, dtype) for _ in range(2)]
+    ws = [torch.empty(H, 4 * H).uniform_(-b, b, generator=g).to(device, dtype) for _ in range(2)]
+    return (*xs, *ws)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [64, 128, 448])
+@pytest.mark.parametrize("T", [1, 65])
+@pytest.mark.parametrize("R", [1, 3, 8, 16, 33])      # below, at and over the 8-row tile
+def test_bidir2_kernel_matches_plain(cuda, R, T, H, dtype):
+    args = _bidir2_args(T, R, H, dtype, seed=R + T)
+    n0 = port_lstm.lstm_scan_bidir2.launches
+    with torch.inference_mode():
+        got = port_lstm.lstm_scan_bidir2(*args)
+        torch.cuda.synchronize()
+        ref = port_lstm.lstm_scan_bidir2_plain(*args)
+    assert port_lstm.lstm_scan_bidir2.launches == n0 + 1
+    tol = SCAN_TOL[dtype]
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype and g.shape == (T, R, H)
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol)
+    assert not torch.equal(got[0], got[1])        # each scan has its own input and weights
+
+
+def test_bidir2_kernel_at_its_widest_hidden_size(cuda):
+    args = _bidir2_args(9, 5, port_lstm._BIDIR2_MAX_H, torch.float32)
+    with torch.inference_mode():
+        got = port_lstm.lstm_scan_bidir2(*args)
+        ref = port_lstm.lstm_scan_bidir2_plain(*args)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+
+
+def test_bidir2_kernel_raises_on_unsupported(cuda):
+    H = port_lstm._BIDIR2_MAX_H + 8
+    with torch.inference_mode():
+        with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._BIDIR2_MAX_H}"):
+            port_lstm.lstm_scan_bidir2(*_bidir2_args(2, 2, H, torch.float32))
+        xa, xb, wa, wb = _bidir2_args(4, 3, 64, torch.float32)
+        with pytest.raises(ValueError, match="contiguous"):
+            port_lstm.lstm_scan_bidir2(xa, xb.transpose(0, 1).contiguous().transpose(0, 1), wa, wb)
+        with pytest.raises(ValueError, match="contiguous"):
+            port_lstm.lstm_scan_bidir2(xa, xb, wa.T.contiguous().T, wb)
+        with pytest.raises(TypeError):
+            port_lstm.lstm_scan_bidir2(xa, xb, wa, wb.bfloat16())
+        with pytest.raises((TypeError, ValueError)):
+            port_lstm.lstm_scan_bidir2(xa, xb.bfloat16(), wa, wb.bfloat16())
+        with pytest.raises(ValueError):
+            port_lstm.lstm_scan_bidir2(xa, xb[:3].contiguous(), wa, wb)
+        with pytest.raises(ValueError, match="CUDA"):
+            port_lstm.lstm_scan_bidir2(xa, xb, wa, wb.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_bidir2_on_card_matches_cpu(cuda, dtype):
+    T, R, H = 11, 5, 128
+    cpu = _bidir2_args(T, R, H, torch.float32, seed=7, device="cpu")
+    g = torch.Generator().manual_seed(8)
+    ga, gb = torch.randn(T, R, H, generator=g), torch.randn(T, R, H, generator=g)
+
+    def run(device, dt):
+        args = [a.to(device, dt).requires_grad_() for a in cpu]
+        ha, hb = port_lstm.lstm_scan_bidir2(*args)
+        torch.autograd.backward([ha, hb], [ga.to(device, dt), gb.to(device, dt)])
+        return [t.detach().float().cpu() for t in (ha, hb)] + [a.grad.float().cpu() for a in args]
+
+    fns = port_lstm.lstm_scan_bidir2, port_lstm.lstm_fwd_hc, port_lstm.lstm_bwd
+    n0 = [f.launches for f in fns]
+    gpu = run("cuda", dtype)
+    assert [f.launches - n for f, n in zip(fns, n0)] == [0, 2, 2]     # the training route only
+    ref = run("cpu", dtype)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for got, want in zip(gpu, ref):
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+def test_autograd_bidir2_at_gcrn_width_raises_on_card(cuda):
+    args = [a.requires_grad_() for a in _bidir2_args(3, 2, 448, torch.float32)]
+    with pytest.raises(NotImplementedError, match="H=448"):
+        port_lstm.lstm_scan_bidir2(*args)
+
+
+def test_gcrn_forward_launches_2_bidir2_kernels(cuda):
+    from nvse_tpu_torch.infer import InferenceEngine
+    from nvse_tpu_torch.utils import AttrDict
+
+    h = AttrDict(dict(model_name="GCRN", sampling_rate=22050, n_fft=1024, hop_size=256,
+                      win_size=1024, num_mels=80, fmin=0, fmax=8000, seed=1234))
+    mel = torch.randn(2, 80, 32, generator=torch.Generator().manual_seed(0)) - 4.0
+    fns = (port_lstm.lstm_scan_bidir2, port_lstm.lstm_scan, port_lstm.lstm_scan_stateful,
+           port_lstm.lstm_scan_fused, port_lstm.lstm_fwd_hc)
+    n0 = [f.launches for f in fns]
+    gpu = InferenceEngine(h, device="cuda").forward(mel).cpu()
+    assert [f.launches - n for f, n in zip(fns, n0)] == [2, 0, 0, 0, 0]
+    assert port_lstm.lstm_scan_bidir2.launches_by_shape[(32, 2, 448, "float32")] >= 2
+    torch.testing.assert_close(gpu, InferenceEngine(h, device="cpu").forward(mel),
+                               rtol=2e-3, atol=2e-4)
