@@ -15,8 +15,9 @@ the last line:
      x 34 steps for 8 streams, 80 for one) and of a context-recompute
      window (96); lstm_fwd_hc, lstm_bwd and the dW_hh reduction at the
      BSRNN-M training shapes (batch 16: 544 rows x 65 steps, 1040 rows x
-     34 steps), with cuDNN's BiLSTM forward + backward beside the port's
-     and one cuBLAS GEMM beside the dW_hh reduction; lstm_scan at the
+     34 steps), with cuDNN's BiLSTM forward + backward beside the port's,
+     and at GCRN's (16 rows x 65 steps, H = 448: the wide kernels of
+     csrc/lstm_wide.cu), with one cuBLAS GEMM beside the dW_hh reduction; lstm_scan at the
      causal decode and context-recompute window shapes (272 rows x 1024
      steps, 34 x 96) and lstm_scan_stateful at the streaming chunk shapes
      (272 x 80 for 8 streams, 34 x 80 for one; seeded nonzero state; hs
@@ -37,8 +38,9 @@ the last line:
   6. one step of a small config on the card against the CPU's plain path
      (losses and AdamW first moments), with a TF32 card step as the
      control that the limits must refuse;
-  7. the training CLI's train() for 2 steps with a validation pass on the
-     synthetic data, then InferenceEngine decoding from the g_ bundle;
+  7. the training CLI (its main(), in this process) for 2 steps with a
+     validation pass on the synthetic data, then run_inference decoding
+     from the g_ bundle it wrote;
   8. stream, at full BSRNN-M width in float32 and bfloat16: 8 streams x 512
      frames through synthesize_streaming_stateful (chunk 64, lookahead
      16) on the causal config (8 lstm_scan_stateful + 8 fused launches
@@ -64,14 +66,24 @@ the last line:
      forward, none of any other LSTM kernel), run_inference on the
      synthetic set, and the card's decode against the CPU's plain path
      on a small input;
- 12. the gradient route of lstm_scan_bidir2 on the card at H = 128
-     against the CPU's plain autograd (2 lstm_fwd_hc + 2 lstm_bwd, none
-     of the inference kernel); at H = 448 under autograd it must raise
-     NotImplementedError;
- 13. print the kernels line, then the ok line.
+ 12. the gradient route of lstm_scan_bidir2 on the card (2 lstm_fwd_hc + 2
+     lstm_bwd + 2 dW, none of the inference kernel) against the CPU's
+     plain autograd at 65 steps x 16 rows, H = 128 and GCRN's H = 448 (the
+     wide kernels of csrc/lstm_wide.cu), with the two W_hh swapped as the
+     control the limit must refuse;
+ 13. GCRN training (gcrn_train): GANTrainer steps at its full width, batch
+     16 x 16384, in float32 and bfloat16 (ms per step, peak memory; a
+     finite nonzero gradient on all 12 GLSTM LSTM parameters, 4 launches
+     per step of each training kernel at 65 x 16 x 448, none of an
+     inference kernel); one GCRN step at batch 2 x 4096 on the card
+     against the CPU's plain path at the limits of phase 6, TF32 as the
+     control (gcrn_train_vs_cpu_plain); the training CLI with the GCRN
+     config for 2 steps, then serving its g_ bundle (gcrn_train_cli);
+ 14. print the kernels line, then the ok line.
 Exits nonzero without output when no CUDA GPU is visible.
 """
 import contextlib
+import io
 import json
 import math
 import os
@@ -317,8 +329,10 @@ def phase_serve():
         launches=lstm_scan_fused.launches - n0)
 
 
-# BSRNN-M training shapes at batch 16 x 16384 samples (65 frames, 34 bands, H = 128)
-TRAIN_SHAPES = (("time", 544, 65), ("band", 1040, 34))
+# training shapes at batch 16 x 16384 samples (65 frames) as (label, rows, steps, H):
+# BSRNN-M's time and band BiLSTMs (34 bands, H = 128, csrc/lstm_bwd.cu) and GCRN's
+# group LSTMs (H = 448, the wide kernels of csrc/lstm_wide.cu)
+TRAIN_SHAPES = (("time", 544, 65, 128), ("band", 1040, 34, 128), ("gcrn", 16, 65, 448))
 TRAIN_H = 128
 # training kernels vs plain, as max abs error over max(1, max |plain|):
 # float32 sums in another order; bfloat16 stores hs, cs and dx with 8 bits
@@ -368,13 +382,13 @@ def _all_counters():
 
 def phase_train_kernels():
     """lstm_fwd_hc, the lstm_bwd recurrence and the dW_hh reduction at the
-    BSRNN-M training shapes, against their plain versions; cuDNN's BiLSTM
-    forward + backward beside the port's."""
+    BSRNN-M and GCRN training shapes, against their plain versions; at
+    BSRNN-M's, cuDNN's BiLSTM forward + backward beside the port's."""
     from nvse_tpu_torch.ops import lstm as L
 
-    H, G = TRAIN_H, 4 * TRAIN_H
     rows = []
-    for label, R, T in TRAIN_SHAPES:
+    for label, R, T, H in TRAIN_SHAPES:
+        G = 4 * H
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.Generator().manual_seed(R + T)
             b = 1.0 / math.sqrt(H)
@@ -421,6 +435,7 @@ def phase_train_kernels():
             for name in ("lstm_fwd_hc", "lstm_bwd", "lstm_bwd_dw"):
                 (err, rel), (ms, plain_ms), (bound, bound_by) = errs[name], times[name], bounds[name]
                 row = dict(name=name, shape=label, rows=R, steps=T, H=H, dtype=DT_NAME[dtype],
+                           source=_train_source(name, H),
                            max_abs_err=err, rel_err=rel, tol=tols[name], ms=ms,
                            plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by=bound_by,
                            tflops=flops[name] / (ms * 1e-3) / 1e12)
@@ -436,9 +451,18 @@ def phase_train_kernels():
                 raise SystemExit(f"lstm_bwd_dw {label} {DT_NAME[dtype]}: the control with "
                                  f"{DW_CONTROL_ROWS} pairs dropped ({dw_control}) passes "
                                  f"the tolerance {DW_TOL}")
-            say(phase="bilstm_train_vs_cudnn", shape=label, rows=R, steps=T, dtype=DT_NAME[dtype],
-                **_bilstm_fwd_bwd_ms(R, T, H, dtype))
+            if H == TRAIN_H:
+                say(phase="bilstm_train_vs_cudnn", shape=label, rows=R, steps=T,
+                    dtype=DT_NAME[dtype], **_bilstm_fwd_bwd_ms(R, T, H, dtype))
     return rows
+
+
+def _train_source(name, H):
+    """The source of the training kernel that `name` launches at H."""
+    from nvse_tpu_torch.ops.lstm import _MAX_H
+
+    wide = H > _MAX_H and name != "lstm_bwd_dw"        # the dW reduction is tiled: any H
+    return f"nvse_tpu_torch/csrc/{'lstm_wide' if wide else 'lstm_bwd'}.cu"
 
 
 # lstm_scan / lstm_scan_stateful at the shapes of their paths (H = 128): the
@@ -558,22 +582,29 @@ def _audio_batch(B, n, sr, seed):
     return torch.from_numpy(x.astype(np.float32))
 
 
-def phase_train(causal=False):
-    """Full-width BSRNN-M GAN steps, batch 16 x 16384: the non-causal config
-    in float32 and bfloat16, the causal one (its time LSTM one direction,
-    through lstm_scan's residual-saving route) in float32."""
+def phase_train(model="bsrnn", causal=False):
+    """Full-width GAN steps, batch 16 x 16384: BSRNN-M's non-causal config in
+    float32 and bfloat16, its causal one (the time LSTM one direction,
+    through lstm_scan's residual-saving route) in float32; GCRN (its four
+    group LSTMs through lstm_scan_bidir2's residual-saving route, the wide
+    training kernels at 65 steps x 16 rows x H = 448) in float32 and
+    bfloat16."""
     from nvse_tpu_torch.train import GANTrainer, fetch_scalars
 
     B, iters = 16, 3
-    # LSTM launches per step of each training kernel, and LSTM parameters:
-    # 8 blocks x (time + band) x directions, 3 tensors per direction
-    n_lstm = 8 * (1 + 2) if causal else 8 * (2 + 2)
-    counters = _training_counters()
+    # LSTM launches per step of each training kernel, and the LSTM
+    # parameters (3 tensors per direction): BSRNN-M, 8 blocks x (time +
+    # band) x directions; GCRN, 2 layers x 2 groups, one direction each
+    if model == "gcrn":
+        n_lstm, is_lstm = 4, (lambda n: n.startswith("glstm.lstms."))
+    else:
+        n_lstm, is_lstm = 8 * (1 + 2) if causal else 8 * (2 + 2), (lambda n: ".lstm." in n)
+    counters = _all_counters()
     for c in counters.values():                    # this main path starts here
         c.launches = 0
         c.launches_by_shape = {}
     for dtype in ("float32",) if causal else ("float32", "bfloat16"):
-        h = _bsrnn_config(compute_dtype=dtype, causal=causal)
+        h = _config(model, compute_dtype=dtype, causal=causal)
         audio = _audio_batch(B, int(h.segment_size), h.sampling_rate, seed=0).to("cuda")
         tr = GANTrainer(h, device="cuda", steps_per_epoch=2)
         before = {n: p.detach().clone() for n, p in
@@ -591,15 +622,16 @@ def phase_train(causal=False):
         losses = fetch_scalars(metrics)
         after = dict([*tr.generator.named_parameters(), *tr.disc.named_parameters()])
         unchanged = [n for n, p in after.items() if torch.equal(p.detach(), before[n])]
-        lstm = {n: p for n, p in tr.generator.named_parameters() if ".lstm." in n}
+        lstm = {n: p for n, p in tr.generator.named_parameters() if is_lstm(n)}
         bad_grad = [n for n, p in lstm.items()
                     if p.grad is None or not torch.isfinite(p.grad).all() or p.grad.abs().sum() == 0]
-        enc = {n: p for n, p in tr.generator.named_parameters() if n.startswith("core.encoder.b_")}
-        bad_enc = [n for n, p in enc.items() if p.grad is None or p.grad.abs().sum() == 0]
-        say(phase="train", causal=causal, dtype=dtype, batch=B, segment=int(h.segment_size),
-            ms_per_step=ms,
-            steps_timed=iters, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-            launches_per_step=per_step, lstm_params=len(lstm), losses=losses)
+        say(phase="train" if model == "bsrnn" else f"{model}_train", causal=causal, dtype=dtype,
+            batch=B, segment=int(h.segment_size), ms_per_step=ms, steps_timed=iters,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches_per_step=per_step,
+            launches_per_step_by_shape={k: {str(sh): n / (iters + 1) for sh, n in
+                                            c.launches_by_shape.items() if sh[-1] == dtype}
+                                        for k, c in counters.items() if c.launches_by_shape},
+            lstm_params=len(lstm), losses=losses)
         fails = []
         if not all(math.isfinite(v) for v in losses.values()):
             fails.append(f"non-finite losses {losses}")
@@ -607,15 +639,19 @@ def phase_train(causal=False):
             fails.append(f"parameters not updated: {unchanged[:5]} ({len(unchanged)})")
         if len(lstm) != 3 * n_lstm or bad_grad:
             fails.append(f"{len(lstm)} LSTM params, without a finite nonzero grad: {bad_grad[:5]}")
-        if not enc or bad_enc:
-            fails.append(f"encoder without gradient: {bad_enc}")
-        expect = {"lstm_fwd_hc": n_lstm, "lstm_bwd": n_lstm, "lstm_bwd_dw": n_lstm,
-                  "lstm_scan_fused": 0, "lstm_scan": 0, "lstm_scan_stateful": 0}
+        if model == "bsrnn":
+            enc = {n: p for n, p in tr.generator.named_parameters()
+                   if n.startswith("core.encoder.b_")}
+            bad_enc = [n for n, p in enc.items() if p.grad is None or p.grad.abs().sum() == 0]
+            if not enc or bad_enc:
+                fails.append(f"encoder without gradient: {bad_enc}")
+        expect = {k: 0 for k in counters}              # no inference kernel inside a step
+        expect.update(lstm_fwd_hc=n_lstm, lstm_bwd=n_lstm, lstm_bwd_dw=n_lstm)
         if per_step != expect:
             fails.append(f"launches per step {per_step}, expected {expect}")
         if fails:
-            raise SystemExit(f"train causal={causal} {dtype}: " + "; ".join(fails))
-        del tr, before, after, lstm, enc
+            raise SystemExit(f"train {model} causal={causal} {dtype}: " + "; ".join(fails))
+        del tr, before, after, lstm
         torch.cuda.empty_cache()
     return {k: dict(c.launches_by_shape) for k, c in counters.items()}   # ... and ends here
 
@@ -625,13 +661,19 @@ def _set_tf32(on):
     torch.backends.cudnn.allow_tf32 = on
 
 
-def phase_train_vs_cpu_plain():
+# the small step of phase_train_vs_cpu_plain: BSRNN-M narrowed; GCRN has no
+# width knobs and runs at its full width (the wide training kernels at 17
+# steps x 2 rows x H = 448), both at batch 2 x 4096 samples
+SMALL_STEP = {"bsrnn": dict(feature_dim=16, num_repeat=2), "gcrn": {}}
+
+
+def phase_train_vs_cpu_plain(model="bsrnn"):
     """A small config, one step on the card and one on the CPU's plain path
     from the same seeded weights and batch; and the control: one more card
     step with TF32 on, which both limits must refuse."""
     from nvse_tpu_torch.train import GANTrainer, fetch_scalars
 
-    h = _bsrnn_config(feature_dim=16, num_repeat=2, segment_size=4096, batch_size=2)
+    h = _config(model, segment_size=4096, batch_size=2, **SMALL_STEP[model])
     audio = _audio_batch(2, 4096, h.sampling_rate, seed=1)
     out = {}
     for run in ("cuda", "cuda_tf32", "cpu"):
@@ -660,30 +702,42 @@ def phase_train_vs_cpu_plain():
     ctl_loss_rel, ctl_mom_rel, _ = readings("cuda_tf32")
     ok = loss_rel <= STEP_RTOL and mom_rel <= MOMENT_REL
     refused = ctl_loss_rel > STEP_RTOL and ctl_mom_rel > MOMENT_REL
-    say(phase="train_vs_cpu_plain", feature_dim=16, num_repeat=2, segment=4096, batch=2,
+    say(phase="train_vs_cpu_plain" if model == "bsrnn" else f"{model}_train_vs_cpu_plain",
+        **SMALL_STEP[model], segment=4096, batch=2,
         worst_loss_rel=loss_rel, loss_rtol=STEP_RTOL, worst_moment_rel=mom_rel,
         worst_moment=worst, moment_rel_tol=MOMENT_REL, tf32_control_loss_rel=ctl_loss_rel,
         tf32_control_moment_rel=ctl_mom_rel, ok=ok, control_refused=refused)
     if not ok:
-        raise SystemExit("one training step on the card disagrees with the CPU plain path")
+        raise SystemExit(f"one {model} training step on the card disagrees with the CPU plain path")
     if not refused:
-        raise SystemExit("the TF32 control step passes a limit of the card-vs-CPU comparison")
+        raise SystemExit(f"the {model} TF32 control step passes a limit of the card-vs-CPU "
+                         "comparison")
 
 
-def phase_train_cli():
-    """train(h, device="cuda") for 2 full-width steps with a validation pass on
-    the synthetic data, then InferenceEngine decoding from its g_ bundle."""
+def phase_train_cli(model="bsrnn"):
+    """The training CLI (python -m nvse_tpu_torch.train --cfg_filename, its
+    main() run in this process) on a copy of the model's config for 2
+    full-width steps with a validation pass on the synthetic data, then
+    run_inference decoding from the g_ bundle it wrote."""
     from nvse_tpu_torch.infer import run_inference
-    from nvse_tpu_torch.train import train
+    from nvse_tpu_torch.train.__main__ import main as train_cli
 
     with tempfile.TemporaryDirectory() as tmp:
-        h = _bsrnn_config(checkpoint_path=os.path.join(tmp, "ckpt"), training_steps=1,
-                          stdout_interval=1, checkpoint_interval=10 ** 6,
-                          validation_interval=10 ** 6, test_output_dir=os.path.join(tmp, "out"))
-        lines = []
+        h = _config(model, checkpoint_path=os.path.join(tmp, "ckpt"), training_steps=1,
+                    stdout_interval=1, checkpoint_interval=10 ** 6,
+                    validation_interval=10 ** 6, test_output_dir=os.path.join(tmp, "out"))
+        cfg = os.path.join(tmp, "config.json")
+        with open(cfg, "w") as f:
+            json.dump(h, f)
+        argv, sys.argv = sys.argv, ["nvse_tpu_torch.train", "--cfg_filename", cfg]
         t0 = time.time()
-        train(h, device="cuda", log_fn=lines.append)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as log:
+                train_cli()
+        finally:
+            sys.argv = argv
         secs = time.time() - t0
+        lines = log.getvalue().splitlines()
         written = sorted(os.listdir(h.checkpoint_path))
         h.checkpoint_file_load = os.path.join(h.checkpoint_path, "g_00000001")
         served = []
@@ -691,9 +745,10 @@ def phase_train_cli():
     ok = ({"g_00000001", "do_00000001"} <= set(written) and stats["files"] == 1
           and any(l.startswith("step 0 validation:") for l in lines)
           and any("training finished" in l for l in lines))
-    say(phase="train_cli", seconds=secs, written=written, log=lines[-4:], serve=served[-1:], ok=ok)
+    say(phase="train_cli" if model == "bsrnn" else f"{model}_train_cli", seconds=secs,
+        written=written, log=lines[-4:], serve=served[-1:], ok=ok)
     if not ok:
-        raise SystemExit("the training CLI path did not checkpoint, validate and serve")
+        raise SystemExit(f"the {model} training CLI path did not checkpoint, validate and serve")
 
 
 # state-carrying streaming of a causal config against the card's own offline
@@ -989,52 +1044,47 @@ def phase_gcrn():
 
 
 def phase_bidir2_grad():
-    """lstm_scan_bidir2 under autograd on the card: at H = 128 the
-    residual-saving route (lstm_fwd_hc and lstm_bwd per scan) against the
-    CPU's plain autograd; at GCRN's H = 448 those kernels do not exist yet
-    and the call must raise, not detour."""
+    """lstm_scan_bidir2 under autograd on the card, its residual-saving route
+    (lstm_fwd_hc and lstm_bwd per scan) against the CPU's plain autograd:
+    at H = 128 (the kernels of csrc/lstm_bwd.cu) and at GCRN's training
+    shape, 65 steps x 16 rows x H = 448 (csrc/lstm_wide.cu); the control,
+    which the limit must refuse, is the card's route with the two W_hh
+    swapped."""
     from nvse_tpu_torch.ops import lstm as L
 
     counters = _all_counters()
-    T, R, H = 65, 16, 128
-    g = torch.Generator().manual_seed(11)
-    b = 1.0 / math.sqrt(H)
-    host = ([0.5 * torch.randn(T, R, 4 * H, generator=g) for _ in range(2)]
-            + [torch.empty(H, 4 * H).uniform_(-b, b, generator=g) for _ in range(2)])
-    cots = [torch.randn(T, R, H, generator=g) for _ in range(2)]
-
-    def run(device):
-        args = [a.to(device).requires_grad_() for a in host]
-        outs = L.lstm_scan_bidir2(*args)
-        torch.autograd.backward(list(outs), [c.to(device) for c in cots])
-        return [o.detach().cpu() for o in outs] + [a.grad.cpu() for a in args]
-
-    gpu, counts = _launched(counters, lambda: run("cuda"))
-    cpu = run("cpu")
     names = ("hs_a", "hs_b", "dx_proj_a", "dx_proj_b", "dW_hh_a", "dW_hh_b")
-    errs = {n: _err(a, r)[1] for n, a, r in zip(names, gpu, cpu)}
-    expect = {k: 0 for k in counters}
-    expect.update(lstm_fwd_hc=2, lstm_bwd=2, lstm_bwd_dw=2)
-    ok = all(e <= TRAIN_TOL[torch.float32] for e in errs.values())
-    say(phase="bidir2_grad_vs_cpu_plain", steps=T, rows=R, H=H, rel_err=errs,
-        tol=TRAIN_TOL[torch.float32], launches=counts, ok=ok)
-    if not ok or counts != expect:
-        raise SystemExit(f"lstm_scan_bidir2 gradient route: errors {errs}, launches {counts}, "
-                         f"expected {expect}")
+    for T, R, H in ((65, 16, 128), (65, 16, 448)):
+        g = torch.Generator().manual_seed(11 + H)
+        b = 1.0 / math.sqrt(H)
+        host = ([0.5 * torch.randn(T, R, 4 * H, generator=g) for _ in range(2)]
+                + [torch.empty(H, 4 * H).uniform_(-b, b, generator=g) for _ in range(2)])
+        cots = [torch.randn(T, R, H, generator=g) for _ in range(2)]
 
-    wide = [torch.zeros(3, 2, 4 * 448, device="cuda").requires_grad_() for _ in range(2)]
-    w = [torch.zeros(448, 4 * 448, device="cuda") for _ in range(2)]
-    n0 = {k: c.launches for k, c in counters.items()}
-    try:
-        L.lstm_scan_bidir2(*wide, *w)
-    except NotImplementedError as e:
-        raised = str(e)
-    else:
-        raise SystemExit("lstm_scan_bidir2 under autograd at H = 448 on the card did not raise")
-    counts = {k: c.launches - n0[k] for k, c in counters.items()}
-    say(phase="bidir2_grad_wide", H=448, raised=raised, launches=counts)
-    if "H=448" not in raised or any(counts.values()):
-        raise SystemExit(f"lstm_scan_bidir2 under autograd at H = 448: {raised!r}, {counts}")
+        def run(device, swap=False):
+            args = [a.to(device).detach().requires_grad_() for a in host]
+            xa, xb, wa, wb = args
+            outs = L.lstm_scan_bidir2(xa, xb, *((wb, wa) if swap else (wa, wb)))
+            torch.autograd.backward(list(outs), [c.to(device) for c in cots])
+            return [o.detach().cpu() for o in outs] + [a.grad.cpu() for a in args]
+
+        gpu, counts = _launched(counters, lambda: run("cuda"))
+        cpu = run("cpu")
+        errs = {n: _err(a, r)[1] for n, a, r in zip(names, gpu, cpu)}
+        control = max(_err(a, r)[1] for a, r in zip(run("cuda", swap=True), cpu))
+        expect = {k: 0 for k in counters}
+        expect.update(lstm_fwd_hc=2, lstm_bwd=2, lstm_bwd_dw=2)
+        ok = all(e <= TRAIN_TOL[torch.float32] for e in errs.values())
+        refused = control > TRAIN_TOL[torch.float32]
+        say(phase="bidir2_grad_vs_cpu_plain", steps=T, rows=R, H=H, rel_err=errs,
+            tol=TRAIN_TOL[torch.float32], control_rel_err=control, launches=counts, ok=ok,
+            control_refused=refused)
+        if not ok or counts != expect:
+            raise SystemExit(f"lstm_scan_bidir2 gradient route at H = {H}: errors {errs}, "
+                             f"launches {counts}, expected {expect}")
+        if not refused:
+            raise SystemExit(f"lstm_scan_bidir2 gradient route at H = {H}: the control with "
+                             f"the W_hh swapped ({control}) passes the tolerance")
 
 
 def main():
@@ -1067,6 +1117,9 @@ def main():
     bidir2_rows = phase_bidir2_kernels()
     gcrn_counts = phase_gcrn()
     phase_bidir2_grad()
+    gcrn_train_counts = phase_train("gcrn")
+    phase_train_vs_cpu_plain("gcrn")
+    phase_train_cli("gcrn")
 
     kernels = []
     for r in rows:
@@ -1088,8 +1141,10 @@ def main():
         key = (r["steps"], r["rows"], r["H"], r["dtype"])
         kernels.append({
             "name": r["name"], "shape": r["shape"], "dtype": r["dtype"], "route": "cuda",
-            "source": "nvse_tpu_torch/csrc/lstm_bwd.cu", "replaces": replaces[r["name"]],
-            "launches": train_counts[r["name"]].get(key, 0), "max_abs_err": r["max_abs_err"],
+            "source": r["source"], "replaces": replaces[r["name"]],
+            "launches": (train_counts[r["name"]].get(key, 0)
+                         + gcrn_train_counts[r["name"]].get(key, 0)),
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
@@ -1118,7 +1173,7 @@ def main():
         })
     if any(k["launches"] == 0 for k in kernels):
         raise SystemExit(f"a kernel of a driven path was never launched: {main_counts} "
-                         f"{train_counts} {stream_counts} {gcrn_counts}")
+                         f"{train_counts} {stream_counts} {gcrn_counts} {gcrn_train_counts}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -57,20 +57,6 @@ using namespace lstm;
 constexpr int RT = 8;          // rows per tile (accumulators per thread)
 constexpr int THREADS = 512;
 
-// 16 bytes of h from global memory through L2, as floats into shared memory
-__device__ __forceinline__ void load_h16(const float* src, float* dst) {
-  *reinterpret_cast<float4*>(dst) = __ldcg(reinterpret_cast<const float4*>(src));
-}
-__device__ __forceinline__ void load_h16(const __nv_bfloat16* src, float* dst) {
-  const uint4 v = __ldcg(reinterpret_cast<const uint4*>(src));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.z));
-  const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.w));
-  *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
-  *reinterpret_cast<float4*>(dst + 4) = make_float4(c.x, c.y, d.x, d.y);
-}
-
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }

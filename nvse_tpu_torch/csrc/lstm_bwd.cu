@@ -56,7 +56,8 @@
 //     step); dh_carry in shared memory.
 // - lstm_dw_kernel: dW_hh is (H, 4H) = 256 KiB in float32, which fits
 //   neither a block's shared memory nor its registers, so it is a second
-//   kernel: a tiled reduction over the T*R rows of [h_{t-1} | dx_proj]
+//   kernel (also that of the wide recurrence of csrc/lstm_wide.cu, up to
+//   H = 768): a tiled reduction over the T*R rows of [h_{t-1} | dx_proj]
 //   (64 x 64 output tiles, 4 x 4 per thread, 16 rows staged per pass),
 //   split over the rows so that the grid fills the card; each split writes
 //   float32 partials (nsplit, H, 4H).
@@ -380,8 +381,10 @@ int launch_dw(const void* hs, const void* dx, float* partial, int R, int Tn, int
   return cudaGetLastError();
 }
 
-bool bad_shape(int R, int Tn, int H) {
-  return R <= 0 || Tn <= 0 || H <= 0 || 4 * H > 512 || H % 8;
+// the recurrences run one thread per gate column (4H <= 512); the dW
+// reduction is tiled and takes the wide kernels' H <= 768 (csrc/lstm_wide.cu)
+bool bad_shape(int R, int Tn, int H, int max_h = 128) {
+  return R <= 0 || Tn <= 0 || H <= 0 || H > max_h || H % 8;
 }
 
 }  // namespace
@@ -430,7 +433,7 @@ extern "C" int lstm_bwd_launch(int dtype, const void* xp, const void* hs, const 
 // hs (T, R, H), dx_proj (T, R, 4H) -> float32 partial (nsplit, H, 4H).
 extern "C" int lstm_dw_launch(int dtype, const void* hs, const void* dx, void* partial, int R,
                               int Tn, int H, int nsplit, void* stream) {
-  if (bad_shape(R, Tn, H) || nsplit <= 0) return cudaErrorInvalidValue;
+  if (bad_shape(R, Tn, H, 768) || nsplit <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(partial);
   if (dtype == 0) return launch_dw<float>(hs, dx, out, R, Tn, H, nsplit, s);

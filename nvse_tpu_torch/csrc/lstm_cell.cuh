@@ -1,6 +1,7 @@
-// Pieces shared by the LSTM kernels of csrc/ (lstm_fused.cu, lstm_bwd.cu).
+// Pieces shared by the LSTM kernels of csrc/.
 //
-// Layout they all use: a block owns a tile of RT rows and runs 4H threads;
+// Layout of the H <= 128 kernels (lstm_fused.cu, lstm_bwd.cu, lstm_scan.cu):
+// a block owns a tile of RT rows and runs 4H threads;
 // thread j owns gate column j (gate order i, f, g, o). W_hh (H, 4H) sits in
 // shared memory as far as it fits, rows [0, ksm), packed [ksm/4][4H][4] so
 // that a thread reads 4 consecutive k of its column in one vector load; the
@@ -34,6 +35,23 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float w[4]) {
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
   w[0] = a.x; w[1] = a.y; w[2] = b.x; w[3] = b.y;
+}
+
+// 16 bytes (4 float32 or 8 bfloat16 values) from global memory through L2,
+// as floats into shared memory. `__ldcg` skips L1, which is not coherent
+// across SMs: the wide kernels read data that other blocks of the same
+// launch wrote (16-byte aligned src and dst).
+__device__ __forceinline__ void load_h16(const float* src, float* dst) {
+  *reinterpret_cast<float4*>(dst) = __ldcg(reinterpret_cast<const float4*>(src));
+}
+__device__ __forceinline__ void load_h16(const __nv_bfloat16* src, float* dst) {
+  const uint4 v = __ldcg(reinterpret_cast<const uint4*>(src));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.z));
+  const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.w));
+  *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(c.x, c.y, d.x, d.y);
 }
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }

@@ -25,8 +25,11 @@ second kernel of csrc/lstm_scan.cu and has no gradient.
 LSTM of GCRN, H = 448 over batch rows) is the kernel of
 csrc/lstm_bidir2.cu, which spreads the hidden units over the card and
 takes H up to 768; under autograd it is `_Bidir2Saving` (`lstm_fwd_hc`
-and `lstm_bwd` per scan, as the JAX custom_vjp at pallas_lstm.py:545-563),
-which on the card shares those kernels' limit of H <= 128.
+and `lstm_bwd` per scan, as the JAX custom_vjp at pallas_lstm.py:545-563).
+The training kernels pick their kernel from H alone: csrc/lstm_bwd.cu
+(one thread per gate column) for H <= 128, csrc/lstm_wide.cu (the hidden
+units spread over the card, as lstm_bidir2.cu) for 128 < H <= 768; the
+dW_hh reduction of csrc/lstm_bwd.cu is tiled and takes both.
 Every wrapper launches its CUDA kernel on a CUDA tensor or raises, and
 runs its plain PyTorch version only on a CPU tensor; each counts its
 launches in `<wrapper>.launches`.
@@ -52,7 +55,7 @@ __all__ = ["lstm_bwd", "lstm_bwd_plain", "lstm_dw_hh", "lstm_dw_hh_plain", "lstm
            "lstm_scan_stateful", "lstm_scan_stateful_plain"]
 
 _MAX_H = 128                    # one thread per gate column: 4H <= 512 threads
-_BIDIR2_MAX_H = 768             # csrc/lstm_bidir2.cu: W_hh slices of 12 units fit a block
+_WIDE_MAX_H = 768               # lstm_bidir2.cu, lstm_wide.cu: hidden units spread over the card
 _ROWS_PER_BLOCK = (2, 4, 8)     # template instances in csrc/*.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -308,6 +311,27 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _wide_lib() -> ctypes.CDLL:
+    from ._build import load_library
+
+    lib = load_library("lstm_wide")
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_fwd_hc_wide_launch.argtypes = [i, ptr, ptr, ptr, ptr, ptr, ptr, i, i, i, ptr]
+    lib.lstm_bwd_wide_launch.argtypes = [i, *[ptr] * 8, i, i, i, ptr]
+    for fn in (lib.lstm_fwd_hc_wide_launch, lib.lstm_bwd_wide_launch):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_train_args(name: str, x_proj, w_hh, *states):
+    """_check_seq_args for the training kernels, which take H <= 768, and
+    which of their kernels H picks: -> (T, R, H, wide), wide for the kernels
+    of csrc/lstm_wide.cu (128 < H), else those of csrc/lstm_bwd.cu."""
+    T, R, H = _check_seq_args(name, x_proj, w_hh, *states, max_h=_WIDE_MAX_H)
+    return T, R, H, H > _MAX_H
+
+
 def _n_sm(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -324,21 +348,30 @@ def _raise_on(err: int, name: str) -> None:
 
 def lstm_fwd_hc(x_proj: torch.Tensor, w_hh: torch.Tensor):
     """(T, R, 4H), (H, 4H) -> (hs, cs), each (T, R, H): the residual-saving
-    forward scan from zero state. CUDA tensors launch the hand-written
-    kernel of csrc/lstm_bwd.cu, which replaces
-    nvse_tpu/ops/pallas_lstm_bwd.py:lstm_fwd_hc; CPU tensors run
-    lstm_fwd_hc_plain. Counts launches in `lstm_fwd_hc.launches` (and per
-    (T, R, H, dtype) in `lstm_fwd_hc.launches_by_shape`)."""
+    forward scan from zero state. CUDA tensors launch a hand-written
+    kernel that replaces nvse_tpu/ops/pallas_lstm_bwd.py:lstm_fwd_hc, that
+    of csrc/lstm_bwd.cu for H <= 128, that of csrc/lstm_wide.cu for
+    128 < H <= 768; CPU tensors run lstm_fwd_hc_plain. Counts launches in
+    `lstm_fwd_hc.launches` (and per (T, R, H, dtype) in
+    `lstm_fwd_hc.launches_by_shape`)."""
     if x_proj.device.type == "cpu":
         return lstm_fwd_hc_plain(x_proj, w_hh)
-    T, R, H = _check_seq_args("lstm_fwd_hc", x_proj, w_hh)
+    T, R, H, wide = _check_train_args("lstm_fwd_hc", x_proj, w_hh)
     hs = torch.empty(T, R, H, device=x_proj.device, dtype=x_proj.dtype)
     cs = torch.empty_like(hs)
+    args = (_DTYPE_CODE[x_proj.dtype], x_proj.data_ptr(), w_hh.data_ptr(), hs.data_ptr(),
+            cs.data_ptr())
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream(x_proj.device).cuda_stream
-        err = _bwd_lib().lstm_fwd_hc_launch(
-            _DTYPE_CODE[x_proj.dtype], x_proj.data_ptr(), w_hh.data_ptr(), hs.data_ptr(),
-            cs.data_ptr(), R, T, H, _rows_per_block(R, _n_sm(x_proj.device), 1), stream)
+        if wide:
+            # kernel scratch: the float32 h exchanged between blocks, two slots
+            # by step parity, and the float32 c of each (row, unit)
+            state = torch.empty(3, R, H, device=x_proj.device, dtype=torch.float32)
+            err = _wide_lib().lstm_fwd_hc_wide_launch(*args, state.data_ptr(),
+                                                      state[2].data_ptr(), R, T, H, stream)
+        else:
+            err = _bwd_lib().lstm_fwd_hc_launch(
+                *args, R, T, H, _rows_per_block(R, _n_sm(x_proj.device), 1), stream)
     _raise_on(err, "lstm_fwd_hc")
     _count(lstm_fwd_hc, (T, R, H, str(x_proj.dtype).replace("torch.", "")))
     return hs, cs
@@ -347,12 +380,12 @@ def lstm_fwd_hc(x_proj: torch.Tensor, w_hh: torch.Tensor):
 def lstm_dw_hh(hs: torch.Tensor, dx_proj: torch.Tensor) -> torch.Tensor:
     """dW_hh = sum_{t, r} h_{t-1}^T dx_proj[t] -> float32 (H, 4H). CUDA
     tensors launch the hand-written reduction of csrc/lstm_bwd.cu (the dW
-    sum of nvse_tpu/ops/pallas_lstm_bwd.py:lstm_bwd): per-split float32
-    partials, added by a torch sum. CPU tensors run lstm_dw_hh_plain.
-    Counts launches in `lstm_dw_hh.launches`."""
+    sum of nvse_tpu/ops/pallas_lstm_bwd.py:lstm_bwd; tiled, H <= 768):
+    per-split float32 partials, added by a torch sum. CPU tensors run
+    lstm_dw_hh_plain. Counts launches in `lstm_dw_hh.launches`."""
     if hs.device.type == "cpu":
         return lstm_dw_hh_plain(hs, dx_proj)
-    T, R, H = _check_seq_args("lstm_dw_hh", dx_proj, None, hs)
+    T, R, H = _check_seq_args("lstm_dw_hh", dx_proj, None, hs, max_h=_WIDE_MAX_H)
     tiles = math.ceil(4 * H / 64) * math.ceil(H / 64)
     nsplit = max(1, min(math.ceil(T * R / 256), math.ceil(2 * _n_sm(hs.device) / tiles)))
     partial = torch.empty(nsplit, H, 4 * H, device=hs.device, dtype=torch.float32)
@@ -369,8 +402,8 @@ def lstm_dw_hh(hs: torch.Tensor, dx_proj: torch.Tensor) -> torch.Tensor:
 def lstm_bwd(x_proj, hs, cs, dhs, w_hh):
     """Reverse-time LSTM backward: (x_proj, hs, cs, dhs, w_hh) ->
     (dx_proj (T, R, 4H), dw_hh (H, 4H)), gates recomputed from the saved
-    h_{t-1}. CUDA tensors launch the hand-written recurrence of
-    csrc/lstm_bwd.cu, which replaces nvse_tpu/ops/pallas_lstm_bwd.py:
+    h_{t-1}. CUDA tensors launch the hand-written recurrence
+    (lstm_bwd_recurrence), which replaces nvse_tpu/ops/pallas_lstm_bwd.py:
     lstm_bwd, then the dW_hh reduction (lstm_dw_hh); CPU tensors run
     lstm_bwd_plain. Counts recurrence launches in `lstm_bwd.launches`."""
     if x_proj.device.type == "cpu":
@@ -381,15 +414,26 @@ def lstm_bwd(x_proj, hs, cs, dhs, w_hh):
 
 def lstm_bwd_recurrence(x_proj, hs, cs, dhs, w_hh) -> torch.Tensor:
     """The reverse-time kernel of lstm_bwd alone (CUDA tensors only):
-    -> dx_proj (T, R, 4H). Counts in `lstm_bwd.launches`."""
-    T, R, H = _check_seq_args("lstm_bwd", x_proj, w_hh, hs, cs, dhs)
+    -> dx_proj (T, R, 4H); that of csrc/lstm_bwd.cu for H <= 128, that of
+    csrc/lstm_wide.cu for 128 < H <= 768. Counts in `lstm_bwd.launches`."""
+    T, R, H, wide = _check_train_args("lstm_bwd", x_proj, w_hh, hs, cs, dhs)
     dx = torch.empty_like(x_proj)
+    args = (_DTYPE_CODE[x_proj.dtype], x_proj.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+            dhs.data_ptr(), w_hh.data_ptr(), dx.data_ptr())
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream(x_proj.device).cuda_stream
-        err = _bwd_lib().lstm_bwd_launch(
-            _DTYPE_CODE[x_proj.dtype], x_proj.data_ptr(), hs.data_ptr(), cs.data_ptr(),
-            dhs.data_ptr(), w_hh.data_ptr(), dx.data_ptr(), R, T, H,
-            _rows_per_block(R, _n_sm(x_proj.device), 1), stream)
+        if wide:
+            # kernel scratch: each block's float32 share of the next dh carry,
+            # two slots by step parity, for at most ceil(H / 8) blocks; the
+            # float32 dc carry of each (row, unit)
+            part = torch.empty(2, math.ceil(H / 8), R, H, device=x_proj.device,
+                               dtype=torch.float32)
+            dc = torch.empty(R, H, device=x_proj.device, dtype=torch.float32)
+            err = _wide_lib().lstm_bwd_wide_launch(*args, part.data_ptr(), dc.data_ptr(),
+                                                   R, T, H, stream)
+        else:
+            err = _bwd_lib().lstm_bwd_launch(
+                *args, R, T, H, _rows_per_block(R, _n_sm(x_proj.device), 1), stream)
     _raise_on(err, "lstm_bwd")
     _count(lstm_bwd, (T, R, H, str(x_proj.dtype).replace("torch.", "")))
     return dx
@@ -544,9 +588,9 @@ def lstm_scan_bidir2(xp_a, xp_b, w_a, w_b):
         return _Bidir2Saving.apply(*args)
     if xp_a.device.type == "cpu":
         return lstm_scan_bidir2_plain(*args)
-    T, R, H = _check_seq_args("lstm_scan_bidir2", xp_a, w_a, max_h=_BIDIR2_MAX_H)
+    T, R, H = _check_seq_args("lstm_scan_bidir2", xp_a, w_a, max_h=_WIDE_MAX_H)
     if (xp_b.shape != xp_a.shape or xp_b.dtype != xp_a.dtype or xp_b.device != xp_a.device
-            or _check_seq_args("lstm_scan_bidir2", xp_b, w_b, max_h=_BIDIR2_MAX_H) != (T, R, H)):
+            or _check_seq_args("lstm_scan_bidir2", xp_b, w_b, max_h=_WIDE_MAX_H) != (T, R, H)):
         raise ValueError("lstm_scan_bidir2: the two scans must agree in shape, dtype and "
                          f"device; got {[(tuple(a.shape), a.dtype, a.device) for a in args]}")
     hs_a = torch.empty(T, R, H, device=xp_a.device, dtype=xp_a.dtype)
@@ -589,7 +633,10 @@ class _ScanSaving(torch.autograd.Function):
 class _Bidir2Saving(torch.autograd.Function):
     """lstm_scan_bidir2 under autograd, as the TPU branch of the JAX
     custom_vjp (nvse_tpu/ops/pallas_lstm.py:554-563): lstm_fwd_hc per scan
-    forward saving hs and cs, lstm_bwd per scan backward. As with
+    forward saving hs and cs, lstm_bwd per scan backward, in both dtypes
+    at every H the training kernels take (the JAX package's VMEM rule,
+    which sends f32 at H = 448 to XLA's recompute autodiff on the TPU, is
+    a TPU tiling heuristic; both compute the same gradient). As with
     lstm_scan, this route multiplies the unrounded float32 h where the
     inference kernel rounds it as stored; they differ in bfloat16 only."""
 

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time goes in one BSRNN-M GAN training step of the PyTorch port.
+"""Where the time goes in one GAN training step of the PyTorch port.
 
-    python scripts/profile_torch_train.py
+    python scripts/profile_torch_train.py [--model bsrnn|gcrn]
 
-Full-width BSRNN-M (nvse_tpu_torch/configs/bsrnn_config.json) with MPD +
-MRD on one CUDA card, random weights from the config's seed, a seeded
-synthetic batch of 16 16384-sample segments (the training shapes of the
-LSTM kernels: 544 rows x 65 steps, 1040 rows x 34 steps). Per compute
-dtype (float32, bfloat16), after two warmup steps and over three steps
-it prints one JSON line with:
+Full-width BSRNN-M (nvse_tpu_torch/configs/bsrnn_config.json, the default)
+or GCRN (gcrn_config.json) with MPD + MRD on one CUDA card, random weights
+from the config's seed, a seeded synthetic batch of 16 16384-sample
+segments (the training shapes of the LSTM kernels: BSRNN-M 544 rows x 65
+steps and 1040 rows x 34 steps at H = 128, GCRN 16 rows x 65 steps at
+H = 448). Per compute dtype (float32, bfloat16), after two warmup steps
+and over three steps it prints one JSON line with:
   * wall ms per step (host clock around synchronised steps);
   * ms per step of the three phases of GANTrainer.step, from CUDA events
     with the card idle at each step's start (so host enqueue time counts
@@ -21,6 +22,7 @@ it prints one JSON line with:
     category, and the top kernels.
 The card's name and power limit are printed first. Needs a CUDA GPU.
 """
+import argparse
 import json
 import os
 import subprocess
@@ -34,7 +36,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 BATCH, STEPS, DTYPES = 16, 3, ("float32", "bfloat16")
-LSTM_KERNELS = ("lstm_fwd_hc_kernel", "lstm_bwd_kernel", "lstm_dw_kernel")
+# csrc/lstm_bwd.cu (H <= 128) and csrc/lstm_wide.cu (128 < H <= 768)
+LSTM_KERNELS = ("lstm_fwd_hc_kernel", "lstm_bwd_kernel", "lstm_dw_kernel",
+                "lstm_fwd_hc_wide_kernel", "lstm_bwd_wide_kernel")
 
 
 def _batch(B, n, sr, seed=0):
@@ -77,11 +81,11 @@ def _categories(kernels):
     return out
 
 
-def profile(dtype):
+def profile(model, dtype):
     from nvse_tpu_torch.train import GANTrainer
     from nvse_tpu_torch.utils import load_config
 
-    h = load_config(os.path.join(REPO, "nvse_tpu_torch", "configs", "bsrnn_config.json"))
+    h = load_config(os.path.join(REPO, "nvse_tpu_torch", "configs", f"{model}_config.json"))
     h.compute_dtype = dtype
     tr = GANTrainer(h, device="cuda", steps_per_epoch=2)
     audio = _batch(BATCH, int(h.segment_size), h.sampling_rate).cuda()
@@ -117,10 +121,11 @@ def profile(dtype):
         torch.cuda.synchronize()
     kernels = _kernel_times(prof, STEPS)
     busy = sum(kernels.values())
-    lstm = {k: sum(v for n, v in kernels.items() if k in n) for k in LSTM_KERNELS}
+    lstm = {k: sum(v for n, v in kernels.items() if k in n) for k in LSTM_KERNELS
+            if any(k in n for n in kernels)}
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return {
-        "dtype": dtype, "batch": BATCH, "segment": int(h.segment_size), "steps": STEPS,
+        "model": model, "dtype": dtype, "batch": BATCH, "segment": int(h.segment_size), "steps": STEPS,
         "wall_ms_per_step": wall, "phase_ms_per_step": phases,
         "device_busy_ms_per_step": busy if kernels else "not measured",
         "idle_share": (1.0 - busy / wall) if kernels else "not measured",
@@ -133,6 +138,9 @@ def profile(dtype):
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="bsrnn", choices=("bsrnn", "gcrn"))
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA GPU")
     from nvse_tpu_torch import resolve_device
@@ -141,7 +149,7 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     for dtype in DTYPES:
-        print(json.dumps(profile(dtype)), flush=True)
+        print(json.dumps(profile(args.model, dtype)), flush=True)
         torch.cuda.empty_cache()
 
 

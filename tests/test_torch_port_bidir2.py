@@ -94,17 +94,17 @@ def test_bidir2_kernel_arguments_are_checked_before_touching_gpu():
     xa, xb, wa, wb = _t(*_data(5, 3, 8))
     check = port_lstm._check_seq_args
     with pytest.raises(ValueError, match="CUDA"):
-        check("lstm_scan_bidir2", xa, wa, max_h=port_lstm._BIDIR2_MAX_H)
+        check("lstm_scan_bidir2", xa, wa, max_h=port_lstm._WIDE_MAX_H)
     with pytest.raises(ValueError, match="contiguous"):
-        check("lstm_scan_bidir2", xa.transpose(0, 1), wa, max_h=port_lstm._BIDIR2_MAX_H)
+        check("lstm_scan_bidir2", xa.transpose(0, 1), wa, max_h=port_lstm._WIDE_MAX_H)
     with pytest.raises(TypeError):
-        check("lstm_scan_bidir2", xa, wa.bfloat16(), max_h=port_lstm._BIDIR2_MAX_H)
+        check("lstm_scan_bidir2", xa, wa.bfloat16(), max_h=port_lstm._WIDE_MAX_H)
     # the wide kernel's own limit, beyond the one-thread-per-gate-column kernels'
-    assert port_lstm._BIDIR2_MAX_H >= 448 > port_lstm._MAX_H
-    big = torch.zeros(1, 1, 4 * (port_lstm._BIDIR2_MAX_H + 8))
-    with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._BIDIR2_MAX_H}"):
-        check("lstm_scan_bidir2", big, torch.zeros(port_lstm._BIDIR2_MAX_H + 8, big.shape[-1]),
-              max_h=port_lstm._BIDIR2_MAX_H)
+    assert port_lstm._WIDE_MAX_H >= 448 > port_lstm._MAX_H
+    big = torch.zeros(1, 1, 4 * (port_lstm._WIDE_MAX_H + 8))
+    with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._WIDE_MAX_H}"):
+        check("lstm_scan_bidir2", big, torch.zeros(port_lstm._WIDE_MAX_H + 8, big.shape[-1]),
+              max_h=port_lstm._WIDE_MAX_H)
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +122,7 @@ def _counting(name, calls):
     return orig, counted
 
 
-@pytest.mark.parametrize("T,R,H", [(12, 7, 16), (5, 9, 8)])
+@pytest.mark.parametrize("T,R,H", [(12, 7, 16), (5, 9, 8), (3, 2, 448)])
 def test_bidir2_gradient_matches_jax_grad(T, R, H):
     """dx_proj and dW_hh of both scans (CPU: lstm_fwd_hc_plain + lstm_bwd_plain
     per scan under _Bidir2Saving) against jax.grad through nvse_tpu's

@@ -7,8 +7,10 @@ no CPU mode). Run on a GPU machine with
 Shapes are small but cover the ragged row tile, each rows-per-block
 instance, T = 1, float32 and bfloat16, the 16-launch BSRNN forward, the
 causal forward (8 lstm_scan + 8 fused), a streaming chunk (8 or 16
-lstm_scan_stateful + 8 fused), and lstm_scan_bidir2 from one row to 33 at
-H = 64, 128 and GCRN's 448 with the GCRN forward (2 launches).
+lstm_scan_stateful + 8 fused), lstm_scan_bidir2 from one row to 33 at
+H = 64, 128 and GCRN's 448 with the GCRN forward (2 launches), and the
+wide training kernels (csrc/lstm_wide.cu) at H = 256, 448 and 768 with
+GCRN's grouped LSTM under autograd.
 """
 import math
 
@@ -112,14 +114,45 @@ def test_fwd_hc_and_bwd_match_plain(cuda, T, R, H, dtype):
 
 
 def test_training_kernels_raise_on_unsupported(cuda):
-    xp, whh, dhs = _seq_args(3, 2, 160, torch.float32)
-    with pytest.raises(NotImplementedError, match="H <= 128"):
-        port_lstm.lstm_fwd_hc(xp, whh)
+    for H in (port_lstm._WIDE_MAX_H + 8, 452):           # too wide; H % 8 != 0
+        xp, whh, dhs = _seq_args(3, 2, H, torch.float32)
+        with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._WIDE_MAX_H}"):
+            port_lstm.lstm_fwd_hc(xp, whh)
+        with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._WIDE_MAX_H}"):
+            port_lstm.lstm_bwd(xp, dhs, dhs, dhs, whh)
+        with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._WIDE_MAX_H}"):
+            port_lstm.lstm_dw_hh(dhs, xp)
     xp, whh, dhs = _seq_args(3, 2, 8, torch.float32)
     with pytest.raises(TypeError):
         port_lstm.lstm_fwd_hc(xp, whh.to(torch.bfloat16))
     with pytest.raises(ValueError, match="contiguous"):
         port_lstm.lstm_bwd(xp.transpose(0, 1), dhs, dhs, dhs, whh)
+
+
+# the wide kernels of csrc/lstm_wide.cu (128 < H <= 768): one row and one step,
+# GCRN's training shape (65 steps x 16 rows), and ragged row tiles
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [256, 448, 768])
+@pytest.mark.parametrize("T,R", [(1, 1), (65, 16), (9, 19)])
+def test_wide_training_kernels_match_plain(cuda, T, R, H, dtype):
+    xp, whh, dhs = _seq_args(T, R, H, dtype, seed=H + R)
+    xp = 0.5 * xp
+    fns = port_lstm.lstm_fwd_hc, port_lstm.lstm_bwd, port_lstm.lstm_dw_hh
+    n = [f.launches for f in fns]
+    hs, cs = port_lstm.lstm_fwd_hc(xp, whh)
+    dx, dw = port_lstm.lstm_bwd(xp, hs, cs, dhs, whh)
+    torch.cuda.synchronize()
+    assert [f.launches - k for f, k in zip(fns, n)] == [1, 1, 1]
+    assert port_lstm.lstm_fwd_hc.launches_by_shape[(T, R, H, str(dtype)[6:])] >= 1
+    hs_ref, cs_ref = port_lstm.lstm_fwd_hc_plain(xp, whh)
+    dx_ref, dw_ref = port_lstm.lstm_bwd_plain(xp, hs, cs, dhs, whh)
+    atol, rtol = SEQ_TOL[dtype]
+    for got, ref in ((hs, hs_ref), (cs, cs_ref), (dx, dx_ref)):
+        assert got.dtype == dtype and got.shape == ref.shape
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    # dW sums up to T * R products of stored values: held relative to its largest entry
+    scale = max(1.0, dw_ref.float().abs().max().item())
+    assert dw.dtype == dtype and (dw.float() - dw_ref.float()).abs().max().item() <= atol * scale
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -287,7 +320,7 @@ def test_bidir2_kernel_matches_plain(cuda, R, T, H, dtype):
 
 
 def test_bidir2_kernel_at_its_widest_hidden_size(cuda):
-    args = _bidir2_args(9, 5, port_lstm._BIDIR2_MAX_H, torch.float32)
+    args = _bidir2_args(9, 5, port_lstm._WIDE_MAX_H, torch.float32)
     with torch.inference_mode():
         got = port_lstm.lstm_scan_bidir2(*args)
         ref = port_lstm.lstm_scan_bidir2_plain(*args)
@@ -296,9 +329,9 @@ def test_bidir2_kernel_at_its_widest_hidden_size(cuda):
 
 
 def test_bidir2_kernel_raises_on_unsupported(cuda):
-    H = port_lstm._BIDIR2_MAX_H + 8
+    H = port_lstm._WIDE_MAX_H + 8
     with torch.inference_mode():
-        with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._BIDIR2_MAX_H}"):
+        with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._WIDE_MAX_H}"):
             port_lstm.lstm_scan_bidir2(*_bidir2_args(2, 2, H, torch.float32))
         xa, xb, wa, wb = _bidir2_args(4, 3, 64, torch.float32)
         with pytest.raises(ValueError, match="contiguous"):
@@ -338,10 +371,51 @@ def test_autograd_bidir2_on_card_matches_cpu(cuda, dtype):
         torch.testing.assert_close(got, want, atol=tol, rtol=tol)
 
 
-def test_autograd_bidir2_at_gcrn_width_raises_on_card(cuda):
-    args = [a.requires_grad_() for a in _bidir2_args(3, 2, 448, torch.float32)]
-    with pytest.raises(NotImplementedError, match="H=448"):
-        port_lstm.lstm_scan_bidir2(*args)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_bidir2_at_gcrn_width_matches_cpu(cuda, dtype):
+    """GCRN's pairs under autograd at H = 448: the wide training kernels on
+    the card (2 lstm_fwd_hc + 2 lstm_bwd + 2 dW, no inference kernel)
+    against the plain versions on the CPU."""
+    T, R, H = 13, 5, 448
+    cpu = _bidir2_args(T, R, H, torch.float32, seed=9, device="cpu")
+    g = torch.Generator().manual_seed(10)
+    ga, gb = torch.randn(T, R, H, generator=g), torch.randn(T, R, H, generator=g)
+
+    def run(device, dt):
+        args = [a.to(device, dt).requires_grad_() for a in cpu]
+        ha, hb = port_lstm.lstm_scan_bidir2(*args)
+        torch.autograd.backward([ha, hb], [ga.to(device, dt), gb.to(device, dt)])
+        return [t.detach().float().cpu() for t in (ha, hb)] + [a.grad.float().cpu() for a in args]
+
+    fns = (port_lstm.lstm_scan_bidir2, port_lstm.lstm_fwd_hc, port_lstm.lstm_bwd,
+           port_lstm.lstm_dw_hh)
+    n0 = [f.launches for f in fns]
+    gpu = run("cuda", dtype)
+    assert [f.launches - n for f, n in zip(fns, n0)] == [0, 2, 2, 2]
+    ref = run("cpu", dtype)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for got, want in zip(gpu, ref):
+        scale = max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= tol * scale
+
+
+def test_glstm_gradient_on_card_matches_cpu(cuda):
+    """GCRN's grouped LSTM at full width (hidden 896 in 2 groups) under
+    autograd: output and every parameter's gradient, card against CPU."""
+    from nvse_tpu_torch.models.gcrn import GLSTM
+
+    x = torch.randn(2, 128, 9, 7, generator=torch.Generator().manual_seed(11))
+    outs = {}
+    for device in ("cpu", "cuda"):
+        mod = GLSTM(gen=torch.Generator().manual_seed(12)).to(device)
+        xd = x.to(device).detach().requires_grad_()
+        y = mod(xd)
+        (y * y).mean().backward()
+        outs[device] = [y.detach().cpu(), xd.grad.cpu()] + [p.grad.cpu() for p in mod.parameters()]
+    assert len(outs["cuda"]) == 2 + 12 + 4          # 4 LSTMs x 3 tensors, 2 LayerNorms x 2
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        scale = max(1e-3, want.abs().max().item())
+        assert (got - want).abs().max().item() <= 1e-4 * scale
 
 
 def test_gcrn_forward_launches_2_bidir2_kernels(cuda):

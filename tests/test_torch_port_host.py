@@ -220,6 +220,8 @@ def test_causal_configs_raise_on_cuda_before_touching_it():
 
     _check_supported(_h(causal=True), "tf")
     xp, whh = torch.zeros(3, 2, 4 * 160), torch.zeros(160, 4 * 160)
-    for name in ("lstm_scan", "lstm_fwd_hc"):
-        with pytest.raises(NotImplementedError, match="H <= 128"):
-            port_lstm._check_seq_args(name, xp, whh)
+    with pytest.raises(NotImplementedError, match="H <= 128"):      # the inference scan
+        port_lstm._check_seq_args("lstm_scan", xp, whh)
+    xp, whh = torch.zeros(3, 2, 4 * 776), torch.zeros(776, 4 * 776)
+    with pytest.raises(NotImplementedError, match="H <= 768"):      # the training route
+        port_lstm._check_train_args("lstm_fwd_hc", xp, whh)

@@ -126,9 +126,10 @@ def test_training_wrappers_reject_before_touching_gpu():
         port_lstm._check_seq_args("lstm_bwd", xp.transpose(0, 1), whh)
     with pytest.raises(TypeError):
         port_lstm._check_seq_args("lstm_fwd_hc", xp, whh.to(torch.bfloat16))
-    big = torch.zeros(3, 2, 4 * 160)
-    with pytest.raises(NotImplementedError, match="H <= 128"):
-        port_lstm._check_seq_args("lstm_fwd_hc", big, torch.zeros(160, 640))
+    # the training kernels take H <= 768 (csrc/lstm_wide.cu above 128)
+    big = torch.zeros(3, 2, 4 * 776)
+    with pytest.raises(NotImplementedError, match="H <= 768"):
+        port_lstm._check_train_args("lstm_fwd_hc", big, torch.zeros(776, 4 * 776))
 
 
 @pytest.mark.parametrize("rows,n_sm,rt", [(544, 132, 8), (1040, 132, 8), (200, 132, 2), (400, 132, 4)])

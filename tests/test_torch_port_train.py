@@ -70,7 +70,7 @@ def _np(tree):
 def _bridge_gen(tree, h, half_bias: bool):
     out = params_from_jax(_np(tree), h)
     if half_bias:   # the summed bias holds two JAX tensors' moments
-        out = {k: v * 0.5 if k.endswith((".lstm.b_fwd", ".lstm.b_bwd")) else v
+        out = {k: v * 0.5 if k.endswith((".b_fwd", ".b_bwd")) else v
                for k, v in out.items()}
     return out
 
