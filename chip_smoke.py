@@ -13,7 +13,8 @@ the last line:
      the port never calls): the fused inference LSTM at the BSRNN-M
      decode shapes and at the band shapes of a streaming chunk (640 rows
      x 34 steps for 8 streams, 80 for one) and of a context-recompute
-     window (96); lstm_fwd_hc, lstm_bwd and the dW_hh reduction at the
+     window (96), with its two W_hh swapped as the control; lstm_fwd_hc,
+     lstm_bwd and the dW_hh reduction at the
      BSRNN-M training shapes (batch 16: 544 rows x 65 steps, 1040 rows x
      34 steps), with cuDNN's BiLSTM forward + backward beside the port's,
      and at GCRN's (16 rows x 65 steps, H = 448: the wide kernels of
@@ -79,7 +80,32 @@ the last line:
      against the CPU's plain path at the limits of phase 6, TF32 as the
      control (gcrn_train_vs_cpu_plain); the training CLI with the GCRN
      config for 2 steps, then serving its g_ bundle (gcrn_train_cli);
- 14. print the kernels line, then the ok line.
+ 14. BSRNN-L (nvse_tpu_torch/configs/bsrnn_l_config.json: feature_dim 256,
+     so H = C = 256 in every LSTM, 38,572,293 parameters) on the wide
+     kernels: decode B=8 x 1024 in float32 and bfloat16 (16 launches per
+     forward of csrc/lstm_fused_wide.cu, none of csrc/lstm_fused.cu) and
+     against the CPU's plain path (bsrnn_l_decode, bsrnn_l_decode_vs_cpu_plain),
+     run_inference (bsrnn_l_serve); phase 8's streams, causal decode and
+     streaming serve on csrc/lstm_scan_wide.cu and csrc/lstm_fused_wide.cu
+     (bsrnn_l_stream, bsrnn_l_decode_causal, bsrnn_l_serve_stream); GAN steps
+     at batch 16 x 16384 in float32 and bfloat16 (32 launches per step of each
+     wide training kernel of csrc/lstm_wide.cu, a gradient on all 96 LSTM
+     parameters, device busy time and idle share, peak memory) with
+     GANTrainer.eval_step on a validation crop (16 wide fused launches;
+     bsrnn_l_train, bsrnn_l_validation), one step of 2 BSNets at full width
+     against the CPU (bsrnn_l_train_vs_cpu_plain); then (bsrnn_l_kernels) every
+     wide kernel against its plain version at BSRNN-M's shapes (fused 272 x
+     1024, 8192 x 34, 640 / 80 / 96 x 34; the scans at 272 x 1024, 34 x 96,
+     272 x 80, 34 x 80; the training kernels at 544 x 65 and 1040 x 34), with
+     the fused kernel's W_hh swapped and the stateful kernel's state zeroed as
+     controls the limits must refuse;
+ 15. each main path above sets the launch counts to 0 when it starts and
+     reads them per wrapper and shape when it ends; every other shape that a
+     main path launched (serving's 128-frame bucket, the validations, the
+     offline decodes beside the streams) gets its kernel-vs-plain row in the
+     dtype it ran in, and a launch at a shape with no row fails the run;
+ 16. print the kernels line (one entry per kernel, shape and dtype, each
+     with its launches summed over the main paths), then the ok line.
 Exits nonzero without output when no CUDA GPU is visible.
 """
 import contextlib
@@ -206,87 +232,120 @@ def _bound_ms(R, T, C, H, dtype):
     return (*_bound(nbytes, ops, dtype), ops)
 
 
-# lstm_scan_fused (C = H = 128) as (label, rows, steps)
+# lstm_scan_fused as (label, rows, steps): the time and band BiLSTMs of a decode at B=8 x
+# 1024, and the band BiLSTM of a streaming chunk of 8 streams (8 x 80 frames), of one
+# stream (80) and of one context-recompute window (96)
 FUSED_SHAPES = (("time", 272, 1024), ("band", 8192, 34), ("band_chunk", 640, 34),
                 ("band_chunk1", 80, 34), ("band_window", 96, 34))
 
 
-def phase_kernels():
-    """lstm_scan_fused at every shape the driven paths give it: the time and
-    band BiLSTMs of a BSRNN-M decode at B=8 x 1024, and the band BiLSTM of a
-    streaming chunk of 8 streams (8 x 80 frames), of one stream (80) and of
-    one context-recompute window (96)."""
+def _source(name, H):
+    """The csrc path of the kernel that the wrapper `name` launches at H (the
+    smoke's lstm_bwd_dw is the wrapper lstm_dw_hh)."""
+    from nvse_tpu_torch.ops.lstm import _kernel_source
+
+    stem = _kernel_source({"lstm_bwd_dw": "lstm_dw_hh"}.get(name, name), H)
+    return f"nvse_tpu_torch/csrc/{stem}.cu"
+
+
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def phase_kernels(cases, phase="kernel_vs_plain"):
+    """lstm_scan_fused at each (label, rows, steps, C, H, dtype) of cases (C = H
+    = 128: BSRNN-M, csrc/lstm_fused.cu; 256: BSRNN-L, csrc/lstm_fused_wide.cu),
+    with the kernel fed its two W_hh swapped as the control the limit must
+    refuse."""
     from nvse_tpu_torch.ops.lstm import lstm_scan_fused, lstm_scan_fused_plain
 
-    C = H = 128
     rows = []
-    for label, R, T in FUSED_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            args = _lstm_inputs(R, T, C, H, dtype, seed=R + T)
-            lib = _cudnn_bilstm(args)
-            with torch.inference_mode(), _no_weight_compaction():
-                got = lstm_scan_fused(*args)
-                torch.cuda.synchronize()
-                ref = lstm_scan_fused_plain(*args)
-                err = (got.float() - ref.float()).abs().max().item()
-                lib_err = (lib(args[0])[0].float() - ref.float()).abs().max().item()
-                ms = cuda_ms(lambda: lstm_scan_fused(*args), iters=10)
-                plain_ms = cuda_ms(lambda: lstm_scan_fused_plain(*args), iters=2)
-                library_ms = cuda_ms(lambda: lib(args[0]), iters=10)
-            bound, bound_by, ops = _bound_ms(R, T, C, H, dtype)
-            row = dict(name="lstm_scan_fused", shape=label, rows=R, steps=T, C=C, H=H,
-                       dtype=DT_NAME[dtype], max_abs_err=err, tol=TOL[dtype],
-                       ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                       library_max_abs_err=lib_err, bound_ms=bound, bound_by=bound_by,
-                       tflops=ops / (ms * 1e-3) / 1e12)
-            say(phase="kernel_vs_plain", **row)
-            if not (err <= TOL[dtype]):
-                raise SystemExit(f"lstm_scan_fused {label} {DT_NAME[dtype]}: max abs err "
-                                 f"{err} over tolerance {TOL[dtype]}")
-            rows.append(row)
+    for label, R, T, C, H, dtype in cases:
+        args = _lstm_inputs(R, T, C, H, dtype, seed=R + T)
+        lib = _cudnn_bilstm(args)
+        x, wif, wib, bf, bb, whf, whb = args
+        with torch.inference_mode(), _no_weight_compaction():
+            got = lstm_scan_fused(*args)
+            torch.cuda.synchronize()
+            ref = lstm_scan_fused_plain(*args)
+            err = (got.float() - ref.float()).abs().max().item()
+            lib_err = (lib(args[0])[0].float() - ref.float()).abs().max().item()
+            ctl = lstm_scan_fused(x, wif, wib, bf, bb, whb, whf)
+            control = (ctl.float() - ref.float()).abs().max().item()
+            ms = cuda_ms(lambda: lstm_scan_fused(*args), iters=10)
+            plain_ms = cuda_ms(lambda: lstm_scan_fused_plain(*args), iters=2)
+            library_ms = cuda_ms(lambda: lib(args[0]), iters=10)
+        bound, bound_by, ops = _bound_ms(R, T, C, H, dtype)
+        row = dict(name="lstm_scan_fused", shape=label, rows=R, steps=T, C=C, H=H,
+                   dtype=DT_NAME[dtype], source=_source("lstm_scan_fused", H),
+                   max_abs_err=err, tol=TOL[dtype], control_max_abs_err=control,
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   library_max_abs_err=lib_err, bound_ms=bound, bound_by=bound_by,
+                   tflops=ops / (ms * 1e-3) / 1e12)
+        say(phase=phase, **row)
+        if not (err <= TOL[dtype]):
+            raise SystemExit(f"lstm_scan_fused {label} H={H} {DT_NAME[dtype]}: max abs err "
+                             f"{err} over tolerance {TOL[dtype]}")
+        if T > 1 and not (control > TOL[dtype]):
+            raise SystemExit(f"lstm_scan_fused {label} H={H} {DT_NAME[dtype]}: the control "
+                             f"with the two W_hh swapped ({control}) passes the tolerance")
+        rows.append(row)
     return rows
 
 
-def phase_decode():
-    """Full-width BSRNN-M decode through the engine, f32 and bf16."""
-    from nvse_tpu_torch.infer import InferenceEngine
-    from nvse_tpu_torch.ops.lstm import lstm_scan_fused
-    from nvse_tpu_torch.ops.spectral import mel_spectrogram
-    from nvse_tpu_torch.utils import load_config
+# parameters of the generators at full width (BSRNN-L: the paper's 38.61 M less the
+# 32 x 1024 b_hh entries that the port sums into one LSTM bias)
+N_PARAMS = {"bsrnn_l": 38_572_293}
 
-    h = load_config(os.path.join(REPO, "nvse_tpu_torch", "configs", "bsrnn_config.json"))
+
+def _tag(name, phase):
+    """Phase names: BSRNN-M's plain, the other configs' prefixed (bsrnn_l_decode)."""
+    return phase if name == "bsrnn" else f"{name}_{phase}"
+
+
+def phase_decode(name="bsrnn"):
+    """Full-width BSRNN decode through the engine, f32 and bf16: BSRNN-M
+    (csrc/lstm_fused.cu) or BSRNN-L (csrc/lstm_fused_wide.cu), 16 launches
+    of its fused kernel per forward and none of the other."""
+    from nvse_tpu_torch.infer import InferenceEngine
+    from nvse_tpu_torch.ops.lstm import _kernel_source, _reset_counts, lstm_scan_fused
+    from nvse_tpu_torch.ops.spectral import mel_spectrogram
+
+    h = _config(name)
+    kernel = _kernel_source("lstm_scan_fused", int(h.feature_dim))
     B, T, iters = 8, 1024, 5
     rng = np.random.default_rng(0)
     mel = torch.from_numpy(rng.standard_normal((B, h.num_mels, T)).astype(np.float32) - 4.0)
     audio_sec = B * (T - 1) * h.hop_size / h.sampling_rate
     per_forward = 2 * int(h.num_repeat)            # time + band BiLSTM per BSNet
 
-    lstm_scan_fused.launches = 0                   # main path starts here
-    lstm_scan_fused.launches_by_shape = {}
+    _reset_counts(*_all_counters().values())       # main path starts here
     wavs = {}
     for dtype in ("float32", "bfloat16"):
-        hd = type(h)(h)
-        hd["compute_dtype"] = dtype
-        eng = InferenceEngine(hd, device="cuda")
+        eng = InferenceEngine(_config(name, compute_dtype=dtype), device="cuda")
+        n_params = sum(p.numel() for p in eng.generator.parameters())
         melc = mel.to("cuda")
-        n0 = lstm_scan_fused.launches
+        n0 = dict(lstm_scan_fused.launches_by_kernel)
         wav = eng.forward(melc)                    # warmup
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         for _ in range(iters):
             wav = eng.forward(melc)
         torch.cuda.synchronize()
         wall = (time.time() - t0) / iters
-        launches = lstm_scan_fused.launches - n0
-        if launches != per_forward * (iters + 1):
-            raise SystemExit(f"{dtype} decode: {launches} kernel launches for {iters + 1} "
-                             f"forwards, expected {per_forward} per forward")
+        launches = _delta(lstm_scan_fused.launches_by_kernel, n0)
+        if launches != {kernel: per_forward * (iters + 1)}:
+            raise SystemExit(f"{name} {dtype} decode: kernel launches {launches} for {iters + 1} "
+                             f"forwards, expected {per_forward} of {kernel} per forward")
         if wav.shape != (B, (T - 1) * h.hop_size) or not torch.isfinite(wav).all():
-            raise SystemExit(f"{dtype} decode: bad output {tuple(wav.shape)} "
+            raise SystemExit(f"{name} {dtype} decode: bad output {tuple(wav.shape)} "
                              f"finite={bool(torch.isfinite(wav).all())}")
+        if name in N_PARAMS and n_params != N_PARAMS[name]:
+            raise SystemExit(f"{name} has {n_params} parameters, not {N_PARAMS[name]}")
         wavs[dtype] = wav
-        say(phase="decode", dtype=dtype, batch=B, frames=T, wall_ms=wall * 1e3,
-            rtf=audio_sec / wall, launches_per_forward=launches // (iters + 1),
+        say(phase=_tag(name, "decode"), dtype=dtype, batch=B, frames=T, parameters=n_params,
+            wall_ms=wall * 1e3, rtf=audio_sec / wall,
+            launches_per_forward={k: v // (iters + 1) for k, v in launches.items()},
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         del eng
 
@@ -295,8 +354,8 @@ def phase_decode():
              h.sampling_rate / 2)
     mel_l1 = (mel_spectrogram(w32, *margs) - mel_spectrogram(wbf, *margs)).abs().mean().item()
     wav_rel = ((w32 - wbf).norm() / (w32.norm() + 1e-9)).item()
-    main_counts = dict(lstm_scan_fused.launches_by_shape)   # main path ends here
-    say(phase="decode", bf16_vs_f32_mel_l1=mel_l1, bf16_vs_f32_wav_rel_l2=wav_rel)
+    main_counts = _shape_counts()                  # main path ends here
+    say(phase=_tag(name, "decode"), bf16_vs_f32_mel_l1=mel_l1, bf16_vs_f32_wav_rel_l2=wav_rel)
 
     # the card's output against the CPU's plain path, same weights, small input
     small = mel[:2, :, :64]
@@ -304,36 +363,43 @@ def phase_decode():
     gpu = InferenceEngine(h, device="cuda").forward(small).cpu()
     err = (gpu - cpu).abs()
     ok = bool((err <= MODEL_ATOL + MODEL_RTOL * cpu.abs()).all())
-    say(phase="decode_vs_cpu_plain", batch=2, frames=64, max_abs_err=err.max().item(),
-        rtol=MODEL_RTOL, atol=MODEL_ATOL, ok=ok)
+    say(phase=_tag(name, "decode_vs_cpu_plain"), batch=2, frames=64,
+        max_abs_err=err.max().item(), rtol=MODEL_RTOL, atol=MODEL_ATOL, ok=ok)
     if not ok:
-        raise SystemExit("decode on the card disagrees with the CPU plain path")
+        raise SystemExit(f"{name} decode on the card disagrees with the CPU plain path")
     return main_counts
 
 
-def phase_serve():
+def phase_serve(name="bsrnn"):
+    """run_inference on the synthetic set: 6 files in one batch of 8 at the
+    128-frame bucket, through the model's fused kernel alone."""
     from nvse_tpu_torch.infer import run_inference
-    from nvse_tpu_torch.ops.lstm import lstm_scan_fused
-    from nvse_tpu_torch.utils import load_config
+    from nvse_tpu_torch.ops.lstm import _kernel_source, _reset_counts, lstm_scan_fused
 
-    h = load_config(os.path.join(REPO, "nvse_tpu_torch", "configs", "bsrnn_config.json"))
-    n0 = lstm_scan_fused.launches
+    h = _config(name)
+    _reset_counts(*_all_counters().values())       # this main path starts here
     with tempfile.TemporaryDirectory() as out:
         h.test_output_dir = out
         lines = []
         stats = run_inference(h, log_fn=lines.append, device="cuda")
         written = sorted(os.listdir(out))
-    if stats["files"] != 6 or len(written) != 6 or lstm_scan_fused.launches == n0:
-        raise SystemExit(f"serving: {stats} wrote {written}")
-    say(phase="serve", line=lines[-1], files=stats["files"], rtf=stats["rtf"],
-        launches=lstm_scan_fused.launches - n0)
+    counts = _shape_counts()                       # ... and ends here
+    launches = {k: dict(c.launches_by_kernel) for k, c in _all_counters().items() if c.launches}
+    want = {"lstm_scan_fused": {_kernel_source("lstm_scan_fused", int(h.feature_dim)):
+                                lstm_scan_fused.launches}}
+    if stats["files"] != 6 or len(written) != 6 or launches != want:
+        raise SystemExit(f"{name} serving: {stats} wrote {written}, launches {launches}")
+    say(phase=_tag(name, "serve"), line=lines[-1], files=stats["files"], rtf=stats["rtf"],
+        launches=launches, launches_by_shape=_str_keys(counts))
+    return counts
 
 
 # training shapes at batch 16 x 16384 samples (65 frames) as (label, rows, steps, H):
 # BSRNN-M's time and band BiLSTMs (34 bands, H = 128, csrc/lstm_bwd.cu) and GCRN's
 # group LSTMs (H = 448, the wide kernels of csrc/lstm_wide.cu)
 TRAIN_SHAPES = (("time", 544, 65, 128), ("band", 1040, 34, 128), ("gcrn", 16, 65, 448))
-TRAIN_H = 128
+# BSRNN-L's (H = 256, csrc/lstm_wide.cu)
+L_TRAIN_SHAPES = (("time", 544, 65, 256), ("band", 1040, 34, 256))
 # training kernels vs plain, as max abs error over max(1, max |plain|):
 # float32 sums in another order; bfloat16 stores hs, cs and dx with 8 bits
 # of mantissa and the two may round a value apart. The dW reduction sums
@@ -367,6 +433,11 @@ def _training_counters():
             "lstm_scan": L.lstm_scan, "lstm_scan_stateful": L.lstm_scan_stateful}
 
 
+def _delta(now, before):
+    """The launches per key (shape or kernel) made since `before`."""
+    return {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}
+
+
 def _launched(counters, fn):
     """fn() and the launches of each counter that it made."""
     n0 = {k: c.launches for k, c in counters.items()}
@@ -380,14 +451,25 @@ def _all_counters():
     return {**_training_counters(), "lstm_scan_bidir2": L.lstm_scan_bidir2}
 
 
-def phase_train_kernels():
+def _shape_counts():
+    """The launches of every wrapper per shape since its counts were set to 0."""
+    return {k: dict(c.launches_by_shape) for k, c in _all_counters().items()}
+
+
+def _str_keys(counts):
+    """counts per wrapper and shape, for a JSON line."""
+    return {k: {str(s): n for s, n in d.items()} for k, d in counts.items() if d}
+
+
+def phase_train_kernels(shapes=TRAIN_SHAPES, phase="kernel_vs_plain"):
     """lstm_fwd_hc, the lstm_bwd recurrence and the dW_hh reduction at the
-    BSRNN-M and GCRN training shapes, against their plain versions; at
-    BSRNN-M's, cuDNN's BiLSTM forward + backward beside the port's."""
+    BSRNN-M and GCRN training shapes (or BSRNN-L's), against their plain
+    versions; at the BSRNN shapes, cuDNN's BiLSTM forward + backward beside
+    the port's."""
     from nvse_tpu_torch.ops import lstm as L
 
     rows = []
-    for label, R, T, H in TRAIN_SHAPES:
+    for label, R, T, H in shapes:
         G = 4 * H
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.Generator().manual_seed(R + T)
@@ -435,14 +517,14 @@ def phase_train_kernels():
             for name in ("lstm_fwd_hc", "lstm_bwd", "lstm_bwd_dw"):
                 (err, rel), (ms, plain_ms), (bound, bound_by) = errs[name], times[name], bounds[name]
                 row = dict(name=name, shape=label, rows=R, steps=T, H=H, dtype=DT_NAME[dtype],
-                           source=_train_source(name, H),
+                           source=_source(name, H),
                            max_abs_err=err, rel_err=rel, tol=tols[name], ms=ms,
                            plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by=bound_by,
                            tflops=flops[name] / (ms * 1e-3) / 1e12)
                 if name == "lstm_bwd_dw":
                     row.update(library_ms=dw_library_ms, library_rel_err=dw_library_err,
                                control_rel_err=dw_control)
-                say(phase="kernel_vs_plain", **row)
+                say(phase=phase, **row)
                 if not (rel <= tols[name]):
                     raise SystemExit(f"{name} {label} {DT_NAME[dtype]}: error {err} "
                                      f"({rel} relative) over tolerance {tols[name]}")
@@ -451,18 +533,10 @@ def phase_train_kernels():
                 raise SystemExit(f"lstm_bwd_dw {label} {DT_NAME[dtype]}: the control with "
                                  f"{DW_CONTROL_ROWS} pairs dropped ({dw_control}) passes "
                                  f"the tolerance {DW_TOL}")
-            if H == TRAIN_H:
-                say(phase="bilstm_train_vs_cudnn", shape=label, rows=R, steps=T,
+            if label in ("time", "band"):
+                say(phase="bilstm_train_vs_cudnn", shape=label, rows=R, steps=T, H=H,
                     dtype=DT_NAME[dtype], **_bilstm_fwd_bwd_ms(R, T, H, dtype))
     return rows
-
-
-def _train_source(name, H):
-    """The source of the training kernel that `name` launches at H."""
-    from nvse_tpu_torch.ops.lstm import _MAX_H
-
-    wide = H > _MAX_H and name != "lstm_bwd_dw"        # the dW reduction is tiled: any H
-    return f"nvse_tpu_torch/csrc/{'lstm_wide' if wide else 'lstm_bwd'}.cu"
 
 
 # lstm_scan / lstm_scan_stateful at the shapes of their paths (H = 128): the
@@ -474,69 +548,70 @@ SCAN_SHAPES = (("lstm_scan", "decode", 272, 1024), ("lstm_scan", "window", 34, 9
                ("lstm_scan_stateful", "chunk1", 34, 80))
 
 
-def phase_scan_kernels():
-    """lstm_scan and lstm_scan_stateful against their plain versions, with
-    cuDNN's unidirectional LSTM forward on the same x, weights and state
+def phase_scan_kernels(cases, phase="kernel_vs_plain"):
+    """lstm_scan and lstm_scan_stateful against their plain versions at each
+    (name, label, rows, steps, H, dtype) of cases (C = H = 128: BSRNN-M,
+    csrc/lstm_scan.cu; 256: BSRNN-L, csrc/lstm_scan_wide.cu),
+    with cuDNN's unidirectional LSTM forward on the same x, weights and state
     (it also does the projection x @ W_ih + b, which the port leaves to a
     torch matmul) as the library yardstick."""
     from nvse_tpu_torch.ops import lstm as L
 
-    C = H = TRAIN_H
-    G = 4 * H
     rows = []
-    for name, label, R, T in SCAN_SHAPES:
+    for name, label, R, T, H, dtype in cases:
+        C, G = H, 4 * H
         stateful = name == "lstm_scan_stateful"
-        for dtype in (torch.float32, torch.bfloat16):
-            g = torch.Generator().manual_seed(R + T)
-            b = 1.0 / math.sqrt(H)
-            x = torch.randn(T, R, C, generator=g).to("cuda", dtype)
-            w_ih, bias, whh = (torch.empty(sh).uniform_(-b, b, generator=g).to("cuda", dtype)
-                               for sh in ((C, G), (G,), (H, G)))
-            h0, c0 = ((0.3 * torch.randn(R, H, generator=g)).to("cuda", dtype) for _ in range(2))
-            lib_state = (h0[None], c0[None]) if stateful else None
-            item = x.element_size()
-            ops = 2 * R * T * H * G
-            nbytes = (R * T * (G + H) + H * G) * item
-            lib = _cudnn_lstm([(w_ih, whh, bias)], dtype)        # time-major, one direction
-            with torch.inference_mode(), _no_weight_compaction():
-                xp = (x @ w_ih + bias).contiguous()
-                if stateful:
-                    nbytes += (R * T * H + 2 * R * H) * item
-                    run = lambda: L.lstm_scan_stateful(xp, whh, h0, c0)
-                    plain = lambda: L.lstm_scan_stateful_plain(xp, whh, h0, c0)
-                else:
-                    run = lambda: (L.lstm_scan(xp, whh),)
-                    plain = lambda: (L.lstm_scan_plain(xp, whh),)
-                got = run()
-                torch.cuda.synchronize()
-                ref = plain()
-                err = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref))
-                lib_err = (lib(x, lib_state)[0].float() - ref[0].float()).abs().max().item()
-                ms = cuda_ms(run, iters=10)
-                plain_ms = cuda_ms(plain, iters=2)
-                library_ms = cuda_ms(lambda: lib(x, lib_state), iters=10)
-                control = None
-                if stateful:      # zeros in place of (h0, c0): the limit must refuse it
-                    z = torch.zeros_like(h0)
-                    ctl = L.lstm_scan_stateful(xp, whh, z, z)
-                    control = max((a.float() - r.float()).abs().max().item()
-                                  for a, r in zip(ctl, ref))
-            bound, bound_by = _bound(nbytes, ops, dtype)
-            row = dict(name=name, shape=label, rows=R, steps=T, H=H, dtype=DT_NAME[dtype],
-                       max_abs_err=err, tol=TOL[dtype], ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, library="cuDNN LSTM forward, projection included",
-                       library_max_abs_err=lib_err, bound_ms=bound, bound_by=bound_by,
-                       tflops=ops / (ms * 1e-3) / 1e12)
+        g = torch.Generator().manual_seed(R + T)
+        b = 1.0 / math.sqrt(H)
+        x = torch.randn(T, R, C, generator=g).to("cuda", dtype)
+        w_ih, bias, whh = (torch.empty(sh).uniform_(-b, b, generator=g).to("cuda", dtype)
+                           for sh in ((C, G), (G,), (H, G)))
+        h0, c0 = ((0.3 * torch.randn(R, H, generator=g)).to("cuda", dtype) for _ in range(2))
+        lib_state = (h0[None], c0[None]) if stateful else None
+        item = x.element_size()
+        ops = 2 * R * T * H * G
+        nbytes = (R * T * (G + H) + H * G) * item
+        lib = _cudnn_lstm([(w_ih, whh, bias)], dtype)        # time-major, one direction
+        with torch.inference_mode(), _no_weight_compaction():
+            xp = (x @ w_ih + bias).contiguous()
             if stateful:
-                row["control_max_abs_err"] = control
-            say(phase="kernel_vs_plain", **row)
-            if not (err <= TOL[dtype]):
-                raise SystemExit(f"{name} {label} {DT_NAME[dtype]}: max abs err {err} over "
-                                 f"tolerance {TOL[dtype]}")
-            if stateful and not (control > TOL[dtype]):
-                raise SystemExit(f"{name} {label} {DT_NAME[dtype]}: the control with a zero "
-                                 f"initial state ({control}) passes the tolerance {TOL[dtype]}")
-            rows.append(row)
+                nbytes += (R * T * H + 2 * R * H) * item
+                run = lambda: L.lstm_scan_stateful(xp, whh, h0, c0)
+                plain = lambda: L.lstm_scan_stateful_plain(xp, whh, h0, c0)
+            else:
+                run = lambda: (L.lstm_scan(xp, whh),)
+                plain = lambda: (L.lstm_scan_plain(xp, whh),)
+            got = run()
+            torch.cuda.synchronize()
+            ref = plain()
+            err = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref))
+            lib_err = (lib(x, lib_state)[0].float() - ref[0].float()).abs().max().item()
+            ms = cuda_ms(run, iters=10)
+            plain_ms = cuda_ms(plain, iters=2)
+            library_ms = cuda_ms(lambda: lib(x, lib_state), iters=10)
+            control = None
+            if stateful:      # zeros in place of (h0, c0): the limit must refuse it
+                z = torch.zeros_like(h0)
+                ctl = L.lstm_scan_stateful(xp, whh, z, z)
+                control = max((a.float() - r.float()).abs().max().item()
+                              for a, r in zip(ctl, ref))
+        bound, bound_by = _bound(nbytes, ops, dtype)
+        row = dict(name=name, shape=label, rows=R, steps=T, H=H, dtype=DT_NAME[dtype],
+                   source=_source(name, H),
+                   max_abs_err=err, tol=TOL[dtype], ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, library="cuDNN LSTM forward, projection included",
+                   library_max_abs_err=lib_err, bound_ms=bound, bound_by=bound_by,
+                   tflops=ops / (ms * 1e-3) / 1e12)
+        if stateful:
+            row["control_max_abs_err"] = control
+        say(phase=phase, **row)
+        if not (err <= TOL[dtype]):
+            raise SystemExit(f"{name} {label} H={H} {DT_NAME[dtype]}: max abs err {err} over "
+                             f"tolerance {TOL[dtype]}")
+        if stateful and not (control > TOL[dtype]):
+            raise SystemExit(f"{name} {label} H={H} {DT_NAME[dtype]}: the control with a zero "
+                             f"initial state ({control}) passes the tolerance {TOL[dtype]}")
+        rows.append(row)
     return rows
 
 
@@ -570,10 +645,6 @@ def _config(name, **kw):
     return h
 
 
-def _bsrnn_config(**kw):
-    return _config("bsrnn", **kw)
-
-
 def _audio_batch(B, n, sr, seed):
     rng = np.random.default_rng(seed)
     t = np.arange(n) / sr
@@ -582,13 +653,18 @@ def _audio_batch(B, n, sr, seed):
     return torch.from_numpy(x.astype(np.float32))
 
 
-def phase_train(model="bsrnn", causal=False):
+def phase_train(model="bsrnn", causal=False, validate=False):
     """Full-width GAN steps, batch 16 x 16384: BSRNN-M's non-causal config in
     float32 and bfloat16, its causal one (the time LSTM one direction,
-    through lstm_scan's residual-saving route) in float32; GCRN (its four
-    group LSTMs through lstm_scan_bidir2's residual-saving route, the wide
-    training kernels at 65 steps x 16 rows x H = 448) in float32 and
-    bfloat16."""
+    through lstm_scan's residual-saving route) in float32; BSRNN-L (H = 256:
+    the wide training kernels of csrc/lstm_wide.cu at 544 x 65 and 1040 x 34)
+    in float32 and bfloat16; GCRN (its four group LSTMs through
+    lstm_scan_bidir2's residual-saving route, the wide training kernels at 65
+    steps x 16 rows x H = 448) in float32 and bfloat16. Device busy time and
+    the idle share from torch.profiler over one more step. With validate,
+    GANTrainer.eval_step on a validation crop after the steps: 16 launches
+    of the fused inference kernel."""
+    from nvse_tpu_torch.ops.lstm import _reset_counts
     from nvse_tpu_torch.train import GANTrainer, fetch_scalars
 
     B, iters = 16, 3
@@ -600,9 +676,7 @@ def phase_train(model="bsrnn", causal=False):
     else:
         n_lstm, is_lstm = 8 * (1 + 2) if causal else 8 * (2 + 2), (lambda n: ".lstm." in n)
     counters = _all_counters()
-    for c in counters.values():                    # this main path starts here
-        c.launches = 0
-        c.launches_by_shape = {}
+    _reset_counts(*counters.values())              # this main path starts here
     for dtype in ("float32",) if causal else ("float32", "bfloat16"):
         h = _config(model, compute_dtype=dtype, causal=causal)
         audio = _audio_batch(B, int(h.segment_size), h.sampling_rate, seed=0).to("cuda")
@@ -610,7 +684,8 @@ def phase_train(model="bsrnn", causal=False):
         before = {n: p.detach().clone() for n, p in
                   [*tr.generator.named_parameters(), *tr.disc.named_parameters()]}
         torch.cuda.reset_peak_memory_stats()
-        n0 = {k: c.launches for k, c in counters.items()}
+        n0 = {k: (c.launches, dict(c.launches_by_shape), dict(c.launches_by_kernel))
+              for k, c in counters.items()}
         metrics = tr.step(audio)                   # warmup
         torch.cuda.synchronize()
         t0 = time.time()
@@ -618,19 +693,27 @@ def phase_train(model="bsrnn", causal=False):
             metrics = tr.step(audio)
         torch.cuda.synchronize()
         ms = (time.time() - t0) / iters * 1e3
-        per_step = {k: (c.launches - n0[k]) / (iters + 1) for k, c in counters.items()}
+        per_step = {k: (c.launches - n0[k][0]) / (iters + 1) for k, c in counters.items()}
+
+        def per_step_by(i, attr):                  # attr: launches_by_shape or _by_kernel
+            return {k: {str(key): n / (iters + 1)
+                        for key, n in _delta(getattr(c, attr), n0[k][i]).items()}
+                    for k, c in counters.items() if c.launches > n0[k][0]}
+
+        by_shape = per_step_by(1, "launches_by_shape")
+        by_kernel = per_step_by(2, "launches_by_kernel")
+        busy = _busy_ms(lambda: tr.step(audio))
         losses = fetch_scalars(metrics)
         after = dict([*tr.generator.named_parameters(), *tr.disc.named_parameters()])
         unchanged = [n for n, p in after.items() if torch.equal(p.detach(), before[n])]
         lstm = {n: p for n, p in tr.generator.named_parameters() if is_lstm(n)}
         bad_grad = [n for n, p in lstm.items()
                     if p.grad is None or not torch.isfinite(p.grad).all() or p.grad.abs().sum() == 0]
-        say(phase="train" if model == "bsrnn" else f"{model}_train", causal=causal, dtype=dtype,
+        say(phase=_tag(model, "train"), causal=causal, dtype=dtype,
             batch=B, segment=int(h.segment_size), ms_per_step=ms, steps_timed=iters,
+            device_busy_ms=busy, idle_share=1.0 - busy / ms if busy else "not measured",
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches_per_step=per_step,
-            launches_per_step_by_shape={k: {str(sh): n / (iters + 1) for sh, n in
-                                            c.launches_by_shape.items() if sh[-1] == dtype}
-                                        for k, c in counters.items() if c.launches_by_shape},
+            launches_per_step_by_kernel=by_kernel, launches_per_step_by_shape=by_shape,
             lstm_params=len(lstm), losses=losses)
         fails = []
         if not all(math.isfinite(v) for v in losses.values()):
@@ -639,7 +722,7 @@ def phase_train(model="bsrnn", causal=False):
             fails.append(f"parameters not updated: {unchanged[:5]} ({len(unchanged)})")
         if len(lstm) != 3 * n_lstm or bad_grad:
             fails.append(f"{len(lstm)} LSTM params, without a finite nonzero grad: {bad_grad[:5]}")
-        if model == "bsrnn":
+        if model.startswith("bsrnn"):
             enc = {n: p for n, p in tr.generator.named_parameters()
                    if n.startswith("core.encoder.b_")}
             bad_enc = [n for n, p in enc.items() if p.grad is None or p.grad.abs().sum() == 0]
@@ -649,11 +732,61 @@ def phase_train(model="bsrnn", causal=False):
         expect.update(lstm_fwd_hc=n_lstm, lstm_bwd=n_lstm, lstm_bwd_dw=n_lstm)
         if per_step != expect:
             fails.append(f"launches per step {per_step}, expected {expect}")
+        if validate:
+            fails += _validate(tr, h, counters, model)
         if fails:
             raise SystemExit(f"train {model} causal={causal} {dtype}: " + "; ".join(fails))
         del tr, before, after, lstm
         torch.cuda.empty_cache()
-    return {k: dict(c.launches_by_shape) for k, c in counters.items()}   # ... and ends here
+    return _shape_counts()                         # ... and ends here
+
+
+def _busy_ms(fn):
+    """Device-busy ms of one fn() from torch.profiler (the sum of its kernel
+    times; one stream), or None when the profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)
+             and not e.name.startswith(("Optimizer.", "ProfilerStep")))
+    return us / 1e3 or None
+
+
+def _validate(tr, h, counters, model):
+    """GANTrainer.eval_step on the first validation utterance's crop of one
+    training segment, as the loop validates with validation_full false: its
+    BiLSTMs run no-grad, through the fused inference kernel. -> failures."""
+    import random
+
+    from nvse_tpu_torch.data import SegmentDataset, get_dataset_filelist
+    from nvse_tpu_torch.ops.lstm import _kernel_source
+    from nvse_tpu_torch.train import fetch_scalars
+
+    _, files = get_dataset_filelist(h.input_training_wav_list, h.input_validation_wav_list,
+                                    h.raw_wavfile_path)
+    ds = SegmentDataset(files, h.segment_size, h.sampling_rate, split=True, shuffle=False,
+                        seed=h.seed)
+    audio = torch.from_numpy(ds.segment_at(0, random.Random(0x5EED))[None, :])
+    n0 = {k: dict(c.launches_by_kernel) for k, c in counters.items()}
+    y, metrics = tr.eval_step(audio)
+    vals = fetch_scalars(metrics)
+    launches = {k: _delta(c.launches_by_kernel, n0[k]) for k, c in counters.items()}
+    launches = {k: v for k, v in launches.items() if v}
+    say(phase=_tag(model, "validation"),
+        samples=audio.shape[-1], launches=launches, metrics=vals)
+    want = {"lstm_scan_fused": {_kernel_source("lstm_scan_fused", int(h.feature_dim)):
+                                2 * int(h.num_repeat)}}
+    fails = []
+    if launches != want:
+        fails.append(f"validation launches {launches}, expected {want}")
+    if not all(math.isfinite(v) for v in vals.values()) or not torch.isfinite(y).all():
+        fails.append(f"validation not finite: {vals}")
+    return fails
 
 
 def _set_tf32(on):
@@ -661,10 +794,12 @@ def _set_tf32(on):
     torch.backends.cudnn.allow_tf32 = on
 
 
-# the small step of phase_train_vs_cpu_plain: BSRNN-M narrowed; GCRN has no
-# width knobs and runs at its full width (the wide training kernels at 17
-# steps x 2 rows x H = 448), both at batch 2 x 4096 samples
-SMALL_STEP = {"bsrnn": dict(feature_dim=16, num_repeat=2), "gcrn": {}}
+# the small step of phase_train_vs_cpu_plain: BSRNN-M narrowed; BSRNN-L at its
+# full width (H = 256: the wide training kernels at 34 x 17 and 34 x 34), two
+# BSNets; GCRN has no width knobs and runs at its full width (the wide training
+# kernels at 17 steps x 2 rows x H = 448); all at batch 2 x 4096 samples
+SMALL_STEP = {"bsrnn": dict(feature_dim=16, num_repeat=2), "gcrn": {},
+              "bsrnn_l": dict(num_repeat=2)}
 
 
 def phase_train_vs_cpu_plain(model="bsrnn"):
@@ -702,7 +837,7 @@ def phase_train_vs_cpu_plain(model="bsrnn"):
     ctl_loss_rel, ctl_mom_rel, _ = readings("cuda_tf32")
     ok = loss_rel <= STEP_RTOL and mom_rel <= MOMENT_REL
     refused = ctl_loss_rel > STEP_RTOL and ctl_mom_rel > MOMENT_REL
-    say(phase="train_vs_cpu_plain" if model == "bsrnn" else f"{model}_train_vs_cpu_plain",
+    say(phase=_tag(model, "train_vs_cpu_plain"),
         **SMALL_STEP[model], segment=4096, batch=2,
         worst_loss_rel=loss_rel, loss_rtol=STEP_RTOL, worst_moment_rel=mom_rel,
         worst_moment=worst, moment_rel_tol=MOMENT_REL, tf32_control_loss_rel=ctl_loss_rel,
@@ -720,8 +855,10 @@ def phase_train_cli(model="bsrnn"):
     full-width steps with a validation pass on the synthetic data, then
     run_inference decoding from the g_ bundle it wrote."""
     from nvse_tpu_torch.infer import run_inference
+    from nvse_tpu_torch.ops.lstm import _reset_counts
     from nvse_tpu_torch.train.__main__ import main as train_cli
 
+    _reset_counts(*_all_counters().values())       # this main path starts here
     with tempfile.TemporaryDirectory() as tmp:
         h = _config(model, checkpoint_path=os.path.join(tmp, "ckpt"), training_steps=1,
                     stdout_interval=1, checkpoint_interval=10 ** 6,
@@ -742,13 +879,15 @@ def phase_train_cli(model="bsrnn"):
         h.checkpoint_file_load = os.path.join(h.checkpoint_path, "g_00000001")
         served = []
         stats = run_inference(h, limit=1, log_fn=served.append, device="cuda")
+    counts = _shape_counts()                       # ... and ends here
     ok = ({"g_00000001", "do_00000001"} <= set(written) and stats["files"] == 1
           and any(l.startswith("step 0 validation:") for l in lines)
           and any("training finished" in l for l in lines))
-    say(phase="train_cli" if model == "bsrnn" else f"{model}_train_cli", seconds=secs,
-        written=written, log=lines[-4:], serve=served[-1:], ok=ok)
+    say(phase=_tag(model, "train_cli"), seconds=secs, written=written, log=lines[-4:],
+        serve=served[-1:], launches_by_shape=_str_keys(counts), ok=ok)
     if not ok:
         raise SystemExit(f"the {model} training CLI path did not checkpoint, validate and serve")
+    return counts
 
 
 # state-carrying streaming of a causal config against the card's own offline
@@ -779,21 +918,21 @@ def _chunk_clock(eng):
         del eng._stream_step
 
 
-def phase_stream():
-    """Streaming and causal decode at full BSRNN-M width, f32 and bf16."""
+def phase_stream(name="bsrnn"):
+    """Streaming and causal decode at full width, f32 and bf16: BSRNN-M
+    (csrc/lstm_scan.cu, csrc/lstm_fused.cu) or BSRNN-L (their wide
+    counterparts, csrc/lstm_scan_wide.cu and csrc/lstm_fused_wide.cu)."""
     from nvse_tpu_torch.infer import InferenceEngine, run_inference
     from nvse_tpu_torch.ops import lstm as L
 
     counters = {"lstm_scan": L.lstm_scan, "lstm_scan_stateful": L.lstm_scan_stateful,
                 "lstm_scan_fused": L.lstm_scan_fused}
-    for c in counters.values():                    # this main path starts here
-        c.launches = 0
-        c.launches_by_shape = {}
+    L._reset_counts(*_all_counters().values())     # this main path starts here
 
+    base = _config(name)
     B, T, c, la = 8, 512, 64, 16
     n_chunks = T // c
     rng = np.random.default_rng(1)
-    base = _bsrnn_config()
     mel = torch.from_numpy(rng.standard_normal((B, base.num_mels, T)).astype(np.float32) - 4.0)
     out_len = (T - 1) * base.hop_size
     chunk_audio_sec = B * c * base.hop_size / base.sampling_rate
@@ -801,7 +940,7 @@ def phase_stream():
     # 8 concurrent streams through synthesize_streaming_stateful
     for causal, per_chunk in ((True, 8), (False, 16)):
         for dtype in ("float32", "bfloat16"):
-            eng = InferenceEngine(_bsrnn_config(causal=causal, compute_dtype=dtype), device="cuda")
+            eng = InferenceEngine(_config(name, causal=causal, compute_dtype=dtype), device="cuda")
             eng.synthesize_streaming_stateful(mel[..., :c], chunk_frames=c, lookahead_frames=la)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -818,7 +957,7 @@ def phase_stream():
             sl = slice(la * base.hop_size, out_len - la * base.hop_size)
             rel_mean = float(np.abs(wav[:, sl] - offline[:, sl]).mean()
                              / (np.abs(offline[:, sl]).mean() + 1e-9))
-            line = dict(phase="stream", causal=causal, dtype=dtype, streams=B, frames=T,
+            line = dict(phase=_tag(name, "stream"), causal=causal, dtype=dtype, streams=B, frames=T,
                         chunk_frames=c, lookahead_frames=la, chunks=n_chunks,
                         launches_per_chunk={k: v / n_chunks for k, v in counts.items()},
                         wall_ms_per_chunk_mean=wall * 1e3 / n_chunks,
@@ -845,7 +984,7 @@ def phase_stream():
                         streams_x_realtime_p50=chunk_audio_sec / (ms[len(ms) // 2] * 1e-3))
             say(**line)
             if fails:
-                raise SystemExit(f"stream causal={causal} {dtype}: " + "; ".join(fails))
+                raise SystemExit(f"{name} stream causal={causal} {dtype}: " + "; ".join(fails))
             del eng
 
     # causal offline decode, B = 8 x 1024
@@ -854,50 +993,57 @@ def phase_stream():
                             - 4.0).to("cuda")
     audio_sec = B2 * (T2 - 1) * base.hop_size / base.sampling_rate
     for dtype in ("float32", "bfloat16"):
-        eng = InferenceEngine(_bsrnn_config(causal=True, compute_dtype=dtype), device="cuda")
+        eng = InferenceEngine(_config(name, causal=True, compute_dtype=dtype), device="cuda")
         eng.forward(mel2)                          # warmup
         torch.cuda.synchronize()
         t0 = time.time()
         wav, counts = _launched(counters, lambda: [eng.forward(mel2) for _ in range(iters)][-1])
         torch.cuda.synchronize()
         wall = (time.time() - t0) / iters
-        say(phase="decode_causal", dtype=dtype, batch=B2, frames=T2, wall_ms=wall * 1e3,
+        say(phase=_tag(name, "decode_causal"), dtype=dtype, batch=B2, frames=T2, wall_ms=wall * 1e3,
             rtf=audio_sec / wall, launches_per_forward={k: v / iters for k, v in counts.items()})
         if counts != {"lstm_scan": 8 * iters, "lstm_scan_stateful": 0, "lstm_scan_fused": 8 * iters}:
-            raise SystemExit(f"causal decode {dtype}: launches {counts} for {iters} forwards")
+            raise SystemExit(f"{name} causal decode {dtype}: launches {counts} for {iters} "
+                             "forwards")
         if wav.shape != (B2, (T2 - 1) * base.hop_size) or not torch.isfinite(wav).all():
-            raise SystemExit(f"causal decode {dtype}: bad output {tuple(wav.shape)}")
+            raise SystemExit(f"{name} causal decode {dtype}: bad output {tuple(wav.shape)}")
         del eng
 
     # run_inference(stream=True) on the synthetic set, both stream modes
     for dtype in ("float32", "bfloat16"):
         for mode in ("recompute", "stateful"):
             with tempfile.TemporaryDirectory() as out:
-                h = _bsrnn_config(causal=True, compute_dtype=dtype, stream_mode=mode,
-                                  test_output_dir=out)
+                h = _config(name, causal=True, compute_dtype=dtype, stream_mode=mode,
+                            test_output_dir=out)
                 lines = []
                 stats, counts = _launched(counters, lambda: run_inference(
                     h, stream=True, device="cuda", log_fn=lines.append))
                 written = sorted(os.listdir(out))
-            say(phase="serve_stream", dtype=dtype, stream_mode=mode, line=lines[-1],
+            say(phase=_tag(name, "serve_stream"), dtype=dtype, stream_mode=mode, line=lines[-1],
                 files=stats["files"], rtf=stats["rtf"], launches=counts)
             used = counts["lstm_scan_stateful" if mode == "stateful" else "lstm_scan"]
             if stats["files"] != 6 or len(written) != 6 or used == 0:
-                raise SystemExit(f"streaming serve {dtype} {mode}: {stats} wrote {written}, "
+                raise SystemExit(f"{name} streaming serve {dtype} {mode}: {stats} wrote {written}, "
                                  f"launches {counts}")
-    main_counts = {k: dict(c.launches_by_shape) for k, c in counters.items()}   # ... and ends here
+    main_counts = _shape_counts()                  # ... and ends here
+    used = {k: set(c.launches_by_kernel) for k, c in counters.items()}
+    want = {k: {L._kernel_source(k, int(base.feature_dim))} for k in counters}
+    say(phase=_tag(name, "stream_kernels"),
+        launches_by_kernel={k: c.launches_by_kernel for k, c in counters.items()})
+    if used != want:
+        raise SystemExit(f"{name} streaming and causal paths launched {used}, expected {want}")
 
     # the card's causal decode against the CPU's plain path, same weights, small input
-    h = _bsrnn_config(causal=True)
+    h = _config(name, causal=True)
     small = mel[:2, :, :64]
     cpu = InferenceEngine(h, device="cpu").forward(small)
     gpu = InferenceEngine(h, device="cuda").forward(small).cpu()
     err = (gpu - cpu).abs()
     ok = bool((err <= MODEL_ATOL + MODEL_RTOL * cpu.abs()).all())
-    say(phase="decode_causal_vs_cpu_plain", batch=2, frames=64, max_abs_err=err.max().item(),
-        rtol=MODEL_RTOL, atol=MODEL_ATOL, ok=ok)
+    say(phase=_tag(name, "decode_causal_vs_cpu_plain"), batch=2, frames=64,
+        max_abs_err=err.max().item(), rtol=MODEL_RTOL, atol=MODEL_ATOL, ok=ok)
     if not ok:
-        raise SystemExit("causal decode on the card disagrees with the CPU plain path")
+        raise SystemExit(f"{name} causal decode on the card disagrees with the CPU plain path")
     return main_counts
 
 
@@ -908,58 +1054,59 @@ def phase_stream():
 BIDIR2_SHAPES = (("decode", 1024, 8, 448), ("serve", 128, 8, 448), ("small", 65, 16, 128))
 
 
-def phase_bidir2_kernels():
-    """lstm_scan_bidir2 against its plain version; the library yardstick is
+def phase_bidir2_kernels(cases, phase="kernel_vs_plain"):
+    """lstm_scan_bidir2 against its plain version at each (label, steps,
+    rows, H, dtype) of cases; the library yardstick is
     two cuDNN unidirectional LSTM forwards (input H, hidden H) on the x that
     the port projects outside its kernel; the control, which the limit must
     refuse, is the kernel with its two W_hh swapped."""
     from nvse_tpu_torch.ops import lstm as L
 
     rows = []
-    for label, T, R, H in BIDIR2_SHAPES:
+    for label, T, R, H, dtype in cases:
         G = 4 * H
-        for dtype in (torch.float32, torch.bfloat16):
-            g = torch.Generator().manual_seed(T + R + H)
-            b = 1.0 / math.sqrt(H)
-            xs = [torch.randn(T, R, H, generator=g).to("cuda", dtype) for _ in range(2)]
-            w_ih, bias, whh = ([torch.empty(sh).uniform_(-b, b, generator=g).to("cuda", dtype)
-                                for _ in range(2)] for sh in ((H, G), (G,), (H, G)))
-            libs = [_cudnn_lstm([(w_ih[i], whh[i], bias[i])], dtype) for i in range(2)]
-            item = xs[0].element_size()
-            ops = 2 * 2 * R * T * H * G
-            nbytes = 2 * (R * T * (G + H) + H * G) * item
-            with torch.inference_mode(), _no_weight_compaction():
-                xp = [(xs[i] @ w_ih[i] + bias[i]).contiguous() for i in range(2)]
-                run = lambda: L.lstm_scan_bidir2(xp[0], xp[1], whh[0], whh[1])
-                plain = lambda: L.lstm_scan_bidir2_plain(xp[0], xp[1], whh[0], whh[1])
-                library = lambda: (libs[0](xs[0])[0], libs[1](xs[1])[0])
-                got = run()
-                torch.cuda.synchronize()
-                ref = plain()
-                err = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref))
-                lib_err = max((a.float() - r.float()).abs().max().item()
-                              for a, r in zip(library(), ref))
-                ctl = L.lstm_scan_bidir2(xp[0], xp[1], whh[1], whh[0])
-                control = max((a.float() - r.float()).abs().max().item() for a, r in zip(ctl, ref))
-                ms = cuda_ms(run, iters=10)
-                plain_ms = cuda_ms(plain, iters=2)
-                library_ms = cuda_ms(library, iters=10)
-            bound, bound_by = _bound(nbytes, ops, dtype)
-            row = dict(name="lstm_scan_bidir2", shape=label, rows=R, steps=T, H=H,
-                       dtype=DT_NAME[dtype], max_abs_err=err, tol=TOL[dtype], ms=ms,
-                       us_per_step=ms * 1e3 / T, plain_ms=plain_ms, library_ms=library_ms,
-                       library="2 cuDNN LSTM forwards, projection included",
-                       library_max_abs_err=lib_err, control_max_abs_err=control,
-                       bound_ms=bound, bound_by=bound_by, tflops=ops / (ms * 1e-3) / 1e12)
-            say(phase="kernel_vs_plain", **row)
-            if not (err <= TOL[dtype]):
-                raise SystemExit(f"lstm_scan_bidir2 {label} {DT_NAME[dtype]}: max abs err {err} "
-                                 f"over tolerance {TOL[dtype]}")
-            if not (control > TOL[dtype]):
-                raise SystemExit(f"lstm_scan_bidir2 {label} {DT_NAME[dtype]}: the control with "
-                                 f"the two W_hh swapped ({control}) passes the tolerance "
-                                 f"{TOL[dtype]}")
-            rows.append(row)
+        g = torch.Generator().manual_seed(T + R + H)
+        b = 1.0 / math.sqrt(H)
+        xs = [torch.randn(T, R, H, generator=g).to("cuda", dtype) for _ in range(2)]
+        w_ih, bias, whh = ([torch.empty(sh).uniform_(-b, b, generator=g).to("cuda", dtype)
+                            for _ in range(2)] for sh in ((H, G), (G,), (H, G)))
+        libs = [_cudnn_lstm([(w_ih[i], whh[i], bias[i])], dtype) for i in range(2)]
+        item = xs[0].element_size()
+        ops = 2 * 2 * R * T * H * G
+        nbytes = 2 * (R * T * (G + H) + H * G) * item
+        with torch.inference_mode(), _no_weight_compaction():
+            xp = [(xs[i] @ w_ih[i] + bias[i]).contiguous() for i in range(2)]
+            run = lambda: L.lstm_scan_bidir2(xp[0], xp[1], whh[0], whh[1])
+            plain = lambda: L.lstm_scan_bidir2_plain(xp[0], xp[1], whh[0], whh[1])
+            library = lambda: (libs[0](xs[0])[0], libs[1](xs[1])[0])
+            got = run()
+            torch.cuda.synchronize()
+            ref = plain()
+            err = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref))
+            lib_err = max((a.float() - r.float()).abs().max().item()
+                          for a, r in zip(library(), ref))
+            ctl = L.lstm_scan_bidir2(xp[0], xp[1], whh[1], whh[0])
+            control = max((a.float() - r.float()).abs().max().item() for a, r in zip(ctl, ref))
+            ms = cuda_ms(run, iters=10)
+            plain_ms = cuda_ms(plain, iters=2)
+            library_ms = cuda_ms(library, iters=10)
+        bound, bound_by = _bound(nbytes, ops, dtype)
+        row = dict(name="lstm_scan_bidir2", shape=label, rows=R, steps=T, H=H,
+                   dtype=DT_NAME[dtype], source="nvse_tpu_torch/csrc/lstm_bidir2.cu",
+                   max_abs_err=err, tol=TOL[dtype], ms=ms,
+                   us_per_step=ms * 1e3 / T, plain_ms=plain_ms, library_ms=library_ms,
+                   library="2 cuDNN LSTM forwards, projection included",
+                   library_max_abs_err=lib_err, control_max_abs_err=control,
+                   bound_ms=bound, bound_by=bound_by, tflops=ops / (ms * 1e-3) / 1e12)
+        say(phase=phase, **row)
+        if not (err <= TOL[dtype]):
+            raise SystemExit(f"lstm_scan_bidir2 {label} {DT_NAME[dtype]}: max abs err {err} "
+                             f"over tolerance {TOL[dtype]}")
+        if not (control > TOL[dtype]):
+            raise SystemExit(f"lstm_scan_bidir2 {label} {DT_NAME[dtype]}: the control with "
+                             f"the two W_hh swapped ({control}) passes the tolerance "
+                             f"{TOL[dtype]}")
+        rows.append(row)
     return rows
 
 
@@ -970,10 +1117,10 @@ def phase_gcrn():
     from nvse_tpu_torch.infer import InferenceEngine, run_inference
     from nvse_tpu_torch.ops.spectral import mel_spectrogram
 
+    from nvse_tpu_torch.ops.lstm import _reset_counts
+
     counters = _all_counters()
-    for c in counters.values():                    # this main path starts here
-        c.launches = 0
-        c.launches_by_shape = {}
+    _reset_counts(*counters.values())              # this main path starts here
 
     base = _config("gcrn")
     B, T, iters = 8, 1024, 5
@@ -1028,7 +1175,7 @@ def phase_gcrn():
         if (stats["files"] != 6 or len(written) != 6 or counts["lstm_scan_bidir2"] == 0
                 or others):
             raise SystemExit(f"GCRN serving {dtype}: {stats} wrote {written}, launches {counts}")
-    main_counts = dict(counters["lstm_scan_bidir2"].launches_by_shape)   # ... and ends here
+    main_counts = _shape_counts()                  # ... and ends here
 
     # the card's decode against the CPU's plain path, same weights, small input
     small = mel[:2, :, :64]
@@ -1087,6 +1234,40 @@ def phase_bidir2_grad():
                              f"the W_hh swapped ({control}) passes the tolerance")
 
 
+def _key(r):
+    """A row's shape as its wrapper counts launches: (rows, steps, C, H, dtype)
+    for the fused kernel, (steps, rows, H, dtype) for the others."""
+    if r["name"] == "lstm_scan_fused":
+        return (r["rows"], r["steps"], r["C"], r["H"], r["dtype"])
+    return (r["steps"], r["rows"], r["H"], r["dtype"])
+
+
+def _missing(rows, paths):
+    """(path, wrapper, shape) of every launch on the main paths that no row holds."""
+    have = {(r["name"], _key(r)) for r in rows}
+    return [(p, k, key) for p, counts in paths.items() for k, d in counts.items()
+            for key in d if (k, key) not in have]
+
+
+def phase_rest(rows, paths, phase="kernel_vs_plain"):
+    """Rows for the inference kernels' launches on the main paths that no row
+    holds yet, each at its shape and dtype, labelled <path>_<rows>x<steps>."""
+    fused, scans, bidir2 = {}, {}, {}
+    for p, k, key in _missing(rows, paths):
+        dtype = getattr(torch, key[-1])
+        if k == "lstm_scan_fused":
+            R, T, C, H, _ = key
+            fused.setdefault(key, (f"{p}_{R}x{T}", R, T, C, H, dtype))
+        elif k in ("lstm_scan", "lstm_scan_stateful"):
+            T, R, H, _ = key
+            scans.setdefault((k, key), (k, f"{p}_{R}x{T}", R, T, H, dtype))
+        elif k == "lstm_scan_bidir2":
+            T, R, H, _ = key
+            bidir2.setdefault(key, (f"{p}_{T}x{R}", T, R, H, dtype))
+    return (phase_kernels(fused.values(), phase) + phase_scan_kernels(scans.values(), phase)
+            + phase_bidir2_kernels(bidir2.values(), phase))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible", file=sys.stderr)
@@ -1104,76 +1285,67 @@ def main():
         device=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     phase_build()
-    rows = phase_kernels()
-    train_rows = phase_train_kernels()
-    scan_rows = phase_scan_kernels()
-    main_counts = phase_decode()
-    phase_serve()
-    train_counts = phase_train()
+    m_fused = [(label, R, T, 128, 128, dt) for label, R, T in FUSED_SHAPES for dt in DTYPES]
+    m_scans = [(n, label, R, T, 128, dt) for n, label, R, T in SCAN_SHAPES for dt in DTYPES]
+    rows = phase_kernels(m_fused) + phase_train_kernels() + phase_scan_kernels(m_scans)
+    # the main paths, each with its launches per wrapper and shape
+    paths = {"decode": phase_decode(), "serve": phase_serve(), "train": phase_train()}
     phase_train_vs_cpu_plain()
-    phase_train_cli()
-    stream_counts = phase_stream()
-    phase_train(causal=True)
-    bidir2_rows = phase_bidir2_kernels()
-    gcrn_counts = phase_gcrn()
+    paths["train_cli"] = phase_train_cli()
+    paths["stream"] = phase_stream()
+    paths["train_causal"] = phase_train(causal=True)
+    rows += phase_bidir2_kernels([(label, T, R, H, dt) for label, T, R, H in BIDIR2_SHAPES
+                                  for dt in DTYPES])
+    paths["gcrn"] = phase_gcrn()
     phase_bidir2_grad()
-    gcrn_train_counts = phase_train("gcrn")
+    paths["gcrn_train"] = phase_train("gcrn")
     phase_train_vs_cpu_plain("gcrn")
-    phase_train_cli("gcrn")
+    paths["gcrn_train_cli"] = phase_train_cli("gcrn")
+    # BSRNN-L (H = 256): the wide inference kernels and the wide training kernels
+    l_paths = {"decode": phase_decode("bsrnn_l"), "serve": phase_serve("bsrnn_l"),
+               "stream": phase_stream("bsrnn_l"), "train": phase_train("bsrnn_l", validate=True)}
+    phase_train_vs_cpu_plain("bsrnn_l")
+    rows += phase_kernels([(label, R, T, 256, 256, dt) for label, R, T in FUSED_SHAPES
+                           for dt in DTYPES], phase="bsrnn_l_kernels")
+    rows += phase_train_kernels(L_TRAIN_SHAPES, phase="bsrnn_l_kernels")
+    rows += phase_scan_kernels([(n, label, R, T, 256, dt) for n, label, R, T in SCAN_SHAPES
+                                for dt in DTYPES], phase="bsrnn_l_kernels")
+    # every other shape that a main path launched (serving's 128-frame bucket, the
+    # validations, the offline decodes beside the streams), in the dtype it ran in
+    rows += phase_rest(rows, paths) + phase_rest(rows, l_paths, phase="bsrnn_l_kernels")
+    all_paths = {**paths, **{f"bsrnn_l_{p}": c for p, c in l_paths.items()}}
+    missing = _missing(rows, all_paths)
+    if missing:
+        raise SystemExit(f"launches on a main path with no kernel-vs-plain row: {missing}")
 
-    kernels = []
-    for r in rows:
-        key = (r["rows"], r["steps"], r["C"], r["H"], r["dtype"])
-        kernels.append({
-            "name": "lstm_scan_fused", "shape": r["shape"], "dtype": r["dtype"],
-            "route": "cuda", "source": "nvse_tpu_torch/csrc/lstm_fused.cu",
-            "replaces": "nvse_tpu/ops/pallas_lstm.py:815",
-            "also_replaces": "nvse_tpu/ops/pallas_lstm.py:727",
-            "launches": main_counts.get(key, 0) + stream_counts["lstm_scan_fused"].get(key, 0),
-            "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        })
+    launched = {}                  # launches per wrapper and shape over every main path
+    for counts in all_paths.values():
+        for k, d in counts.items():
+            for key, n in d.items():
+                launched.setdefault(k, {})[key] = launched.get(k, {}).get(key, 0) + n
+    fused_replaces = {"replaces": "nvse_tpu/ops/pallas_lstm.py:815",
+                      "also_replaces": "nvse_tpu/ops/pallas_lstm.py:727"}
     replaces = {"lstm_fwd_hc": "nvse_tpu/ops/pallas_lstm_bwd.py:181",
                 "lstm_bwd": "nvse_tpu/ops/pallas_lstm_bwd.py:339",
-                "lstm_bwd_dw": "nvse_tpu/ops/pallas_lstm_bwd.py:339"}
-    for r in train_rows:
-        key = (r["steps"], r["rows"], r["H"], r["dtype"])
+                "lstm_bwd_dw": "nvse_tpu/ops/pallas_lstm_bwd.py:339",
+                "lstm_scan": "nvse_tpu/ops/pallas_lstm.py:212",
+                "lstm_scan_stateful": "nvse_tpu/ops/pallas_lstm.py:297",
+                "lstm_scan_bidir2": "nvse_tpu/ops/pallas_lstm.py:499"}
+    kernels = []
+    for r in rows:
+        if r["name"] == "lstm_scan_bidir2" and r["shape"] == "small":
+            continue               # held against its plain version only: no path launches it
+        src = {"source": r["source"], **(fused_replaces if r["name"] == "lstm_scan_fused"
+                                         else {"replaces": replaces[r["name"]]})}
         kernels.append({
-            "name": r["name"], "shape": r["shape"], "dtype": r["dtype"], "route": "cuda",
-            "source": r["source"], "replaces": replaces[r["name"]],
-            "launches": (train_counts[r["name"]].get(key, 0)
-                         + gcrn_train_counts[r["name"]].get(key, 0)),
-            "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        })
-    scan_replaces = {"lstm_scan": "nvse_tpu/ops/pallas_lstm.py:212",
-                     "lstm_scan_stateful": "nvse_tpu/ops/pallas_lstm.py:297"}
-    for r in scan_rows:
-        key = (r["steps"], r["rows"], r["H"], r["dtype"])
-        kernels.append({
-            "name": r["name"], "shape": r["shape"], "dtype": r["dtype"], "route": "cuda",
-            "source": "nvse_tpu_torch/csrc/lstm_scan.cu", "replaces": scan_replaces[r["name"]],
-            "launches": stream_counts[r["name"]].get(key, 0), "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        })
-    for r in bidir2_rows:
-        key = (r["steps"], r["rows"], r["H"], r["dtype"])
-        if r["shape"] == "small":      # held against its plain version only: no path has H <= 128
-            continue
-        kernels.append({
-            "name": r["name"], "shape": r["shape"], "dtype": r["dtype"], "route": "cuda",
-            "source": "nvse_tpu_torch/csrc/lstm_bidir2.cu",
-            "replaces": "nvse_tpu/ops/pallas_lstm.py:499",
-            "launches": gcrn_counts.get(key, 0), "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        })
+            "name": r["name"], "shape": r["shape"], "rows": r["rows"], "steps": r["steps"],
+            "H": r["H"], "dtype": r["dtype"], "route": "cuda", **src,
+            "launches": launched.get(r["name"], {}).get(_key(r), 0),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     if any(k["launches"] == 0 for k in kernels):
-        raise SystemExit(f"a kernel of a driven path was never launched: {main_counts} "
-                         f"{train_counts} {stream_counts} {gcrn_counts} {gcrn_train_counts}")
+        idle = [(k["name"], k["shape"], k["H"], k["dtype"]) for k in kernels if not k["launches"]]
+        raise SystemExit(f"a kernel of a driven path was never launched: {idle}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

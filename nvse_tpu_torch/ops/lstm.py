@@ -6,33 +6,39 @@ Counterpart of nvse_tpu/ops/pallas_lstm.py (`lstm_scan_fused`,
 nvse_tpu/ops/pallas_lstm_bwd.py (`lstm_fwd_hc`, `lstm_bwd`).
 
 `lstm_scan_fused` is the switch between two routes:
-  * inference (grad disabled, or no input requires grad): the fused
-    kernel of csrc/lstm_fused.cu, with x @ W_ih inside the recurrence;
+  * inference (grad disabled, or no input requires grad): a fused kernel
+    with x @ W_ih inside the recurrence, picked from H: that of
+    csrc/lstm_fused.cu (one thread per gate column) for H <= 128, that of
+    csrc/lstm_fused_wide.cu (row groups x slices of 8 hidden units over
+    the card, csrc/lstm_grid.cuh) for 128 < H <= 512 with C + H <= 1280;
   * training: `_BiLSTMSaving`, an autograd Function mirroring the JAX
     custom_vjp's `_fused_fwd_saving` / `_fused_bwd_saved`
     (pallas_lstm.py:904-952): torch matmuls for x @ W_ih + b, then
     `lstm_fwd_hc` per direction saving hs and cs; its backward runs
-    `lstm_bwd` per direction (kernels of csrc/lstm_bwd.cu: the
-    reverse-time recurrence and the dW_hh reduction) and torch matmuls
-    for dx, dW_ih and db.
+    `lstm_bwd` per direction (the reverse-time recurrence and the dW_hh
+    reduction) and torch matmuls for dx, dW_ih and db.
 `lstm_scan` (the time LSTM of a causal config) switches the same way:
-the kernel of csrc/lstm_scan.cu for inference, `_ScanSaving`
-(`lstm_fwd_hc` forward, `lstm_bwd` backward, as the JAX custom_vjp at
-pallas_lstm.py:331-351) under autograd. `lstm_scan_stateful` (streaming
-decode: the scan from a caller's (h0, c0), returning hs and cs) is the
-second kernel of csrc/lstm_scan.cu and has no gradient.
+a scan kernel for inference, `_ScanSaving` (`lstm_fwd_hc` forward,
+`lstm_bwd` backward, as the JAX custom_vjp at pallas_lstm.py:331-351)
+under autograd. `lstm_scan_stateful` (streaming decode: the scan from a
+caller's (h0, c0), returning hs and cs) has no gradient. Both scans pick
+their kernel from H: csrc/lstm_scan.cu for H <= 128, csrc/lstm_scan_wide.cu
+(the layout of csrc/lstm_grid.cuh) for 128 < H <= 768.
 `lstm_scan_bidir2` (two independent scans in one launch: the grouped
 LSTM of GCRN, H = 448 over batch rows) is the kernel of
 csrc/lstm_bidir2.cu, which spreads the hidden units over the card and
 takes H up to 768; under autograd it is `_Bidir2Saving` (`lstm_fwd_hc`
 and `lstm_bwd` per scan, as the JAX custom_vjp at pallas_lstm.py:545-563).
-The training kernels pick their kernel from H alone: csrc/lstm_bwd.cu
-(one thread per gate column) for H <= 128, csrc/lstm_wide.cu (the hidden
-units spread over the card, as lstm_bidir2.cu) for 128 < H <= 768; the
-dW_hh reduction of csrc/lstm_bwd.cu is tiled and takes both.
+The training kernels pick theirs from H too: csrc/lstm_bwd.cu (one thread
+per gate column) for H <= 128, csrc/lstm_wide.cu (the hidden units spread
+over the card, as lstm_bidir2.cu) for 128 < H <= 768; the dW_hh reduction
+of csrc/lstm_bwd.cu is tiled and takes both.
 Every wrapper launches its CUDA kernel on a CUDA tensor or raises, and
-runs its plain PyTorch version only on a CPU tensor; each counts its
-launches in `<wrapper>.launches`.
+runs its plain PyTorch version only on a CPU tensor. Each counts its
+launches in `<wrapper>.launches`, per shape in
+`<wrapper>.launches_by_shape` and per kernel source (the `csrc/<name>.cu`
+stem) in `<wrapper>.launches_by_kernel`, so that a run shows which kernel
+ran.
 
 Layouts follow the JAX package: x (B, T, C) batch-first, w_ih (C, 4H),
 w_hh (H, 4H), b (4H,) = b_ih + b_hh, gate order (i, f, g, o); the
@@ -55,9 +61,26 @@ __all__ = ["lstm_bwd", "lstm_bwd_plain", "lstm_dw_hh", "lstm_dw_hh_plain", "lstm
            "lstm_scan_stateful", "lstm_scan_stateful_plain"]
 
 _MAX_H = 128                    # one thread per gate column: 4H <= 512 threads
-_WIDE_MAX_H = 768               # lstm_bidir2.cu, lstm_wide.cu: hidden units spread over the card
+_WIDE_MAX_H = 768               # lstm_bidir2.cu, lstm_wide.cu, lstm_scan_wide.cu: hidden units
+                                # spread over the card, H / 8 blocks a row group
+# lstm_fused_wide.cu: both directions' H / 8 blocks co-resident on 128 SMs, and the
+# float32 (C + H, 32) weight slice beside a 64 x 256 staged row tile in 227 KB
+_FUSED_WIDE_MAX_H, _FUSED_WIDE_MAX_K = 512, 1280
 _ROWS_PER_BLOCK = (2, 4, 8)     # template instances in csrc/*.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the csrc/<stem>.cu whose kernel each wrapper launches: (H <= _MAX_H, H > _MAX_H)
+_SOURCES = {"lstm_scan_fused": ("lstm_fused", "lstm_fused_wide"),
+            "lstm_scan": ("lstm_scan", "lstm_scan_wide"),
+            "lstm_scan_stateful": ("lstm_scan", "lstm_scan_wide"),
+            "lstm_fwd_hc": ("lstm_bwd", "lstm_wide"),
+            "lstm_bwd": ("lstm_bwd", "lstm_wide"),
+            "lstm_dw_hh": ("lstm_bwd", "lstm_bwd"),
+            "lstm_scan_bidir2": ("lstm_bidir2", "lstm_bidir2")}
+
+
+def _kernel_source(name: str, H: int) -> str:
+    """The csrc/<stem>.cu stem of the kernel that the wrapper `name` launches at H."""
+    return _SOURCES[name][H > _MAX_H]
 
 
 def _cell(gates: torch.Tensor, c: torch.Tensor):
@@ -121,13 +144,24 @@ def _check_kernel_args(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b):
     shapes = {w_ih_f.shape, w_ih_b.shape}, {w_hh_f.shape, w_hh_b.shape}, {b_f.shape, b_b.shape}
     if shapes != ({(C, 4 * H)}, {(H, 4 * H)}, {(4 * H,)}):
         raise ValueError(f"weight shapes {shapes} do not match C={C}, H={H}")
-    if H > _MAX_H or H % 8 or C % 4:
+    if (H % 8 or C % 4 or H > _FUSED_WIDE_MAX_H
+            or (H > _MAX_H and C + H > _FUSED_WIDE_MAX_K)):
         raise NotImplementedError(
-            f"lstm_scan_fused kernel handles H <= {_MAX_H} with H % 8 == 0 and "
-            f"C % 4 == 0; got C={C}, H={H}")
+            f"lstm_scan_fused kernels handle H <= {_MAX_H} (csrc/lstm_fused.cu) and "
+            f"{_MAX_H} < H <= {_FUSED_WIDE_MAX_H} with C + H <= {_FUSED_WIDE_MAX_K} "
+            f"(csrc/lstm_fused_wide.cu), H % 8 == 0 and C % 4 == 0; got C={C}, H={H}")
     if any(a.device != x.device for a in args) or x.device.type != "cuda":
         raise ValueError("lstm_scan_fused kernel needs all tensors on one CUDA device")
+    if H > _MAX_H:
+        _check_aligned("lstm_scan_fused", *args)
     return B, T, C, H
+
+
+def _check_aligned(name: str, *tensors) -> None:
+    """The wide inference kernels read 16 bytes at a time."""
+    if any(a.data_ptr() % 16 for a in tensors):
+        raise ValueError(f"{name} kernel needs 16-byte aligned tensors (a contiguous view "
+                         "at an odd offset is not: call .clone() on it)")
 
 
 def _rows_per_block(rows: int, n_sm: int, directions: int = 2) -> int:
@@ -151,24 +185,37 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _fused_wide_lib() -> ctypes.CDLL:
+    from ._build import load_library
+
+    lib = load_library("lstm_fused_wide")
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_fused_wide_launch.argtypes = [i, *[ptr] * 9, i, i, i, i, ptr]
+    lib.lstm_fused_wide_launch.restype = ctypes.c_int
+    return lib
+
+
 def _launch_kernel(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.Tensor:
     B, T, C, H = _check_kernel_args(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b)
     out = torch.empty(B, T, 2 * H, device=x.device, dtype=x.dtype)
     if B == 0 or T == 0:
         return out
-    lib = _kernel_lib()
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    ptrs = (x.data_ptr(), w_ih_f.data_ptr(), w_ih_b.data_ptr(), b_f.data_ptr(),
+            b_b.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(), out.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.lstm_fused_launch(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), w_ih_f.data_ptr(), w_ih_b.data_ptr(),
-            b_f.data_ptr(), b_b.data_ptr(), w_hh_f.data_ptr(), w_hh_b.data_ptr(),
-            out.data_ptr(), B, T, C, H, _rows_per_block(B, n_sm), stream)
-    if err:
-        raise RuntimeError(f"lstm_fused kernel launch failed: CUDA error {err}")
-    lstm_scan_fused.launches += 1
-    key = (B, T, C, H, str(x.dtype).replace("torch.", ""))
-    lstm_scan_fused.launches_by_shape[key] = lstm_scan_fused.launches_by_shape.get(key, 0) + 1
+        if H > _MAX_H:
+            # kernel scratch: the float32 c of each (direction, row, unit)
+            c_state = torch.empty(2, B, H, device=x.device, dtype=torch.float32)
+            err = _fused_wide_lib().lstm_fused_wide_launch(
+                _DTYPE_CODE[x.dtype], *ptrs, c_state.data_ptr(), B, T, C, H, stream)
+        else:
+            err = _kernel_lib().lstm_fused_launch(
+                _DTYPE_CODE[x.dtype], *ptrs, B, T, C, H, _rows_per_block(B, _n_sm(x.device)),
+                stream)
+    _raise_on(err, _kernel_source("lstm_scan_fused", H))
+    _count(lstm_scan_fused, (B, T, C, H, str(x.dtype).replace("torch.", "")))
     return out
 
 
@@ -177,12 +224,14 @@ def lstm_scan_fused(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.Tensor
 
     When autograd will differentiate the call (grad enabled and any
     input requires grad) it takes the residual-saving training route,
-    `_BiLSTMSaving`. Otherwise CUDA tensors go to the hand-written
-    inference kernel (csrc/lstm_fused.cu), which replaces
-    nvse_tpu/ops/pallas_lstm.py:lstm_scan_fused, and CPU tensors to
+    `_BiLSTMSaving`. Otherwise CUDA tensors go to a hand-written inference
+    kernel that replaces nvse_tpu/ops/pallas_lstm.py:lstm_scan_fused, that
+    of csrc/lstm_fused.cu for H <= 128, that of csrc/lstm_fused_wide.cu for
+    128 < H <= 512 (C + H <= 1280), and CPU tensors to
     lstm_scan_fused_plain. Counts inference-kernel launches in
-    `lstm_scan_fused.launches` (and per (B, T, C, H, dtype) in
-    `lstm_scan_fused.launches_by_shape`).
+    `lstm_scan_fused.launches` (per (B, T, C, H, dtype) in
+    `lstm_scan_fused.launches_by_shape`, per kernel in
+    `lstm_scan_fused.launches_by_kernel`).
     """
     args = (x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
@@ -192,8 +241,14 @@ def lstm_scan_fused(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.Tensor
     return _launch_kernel(*args)
 
 
-lstm_scan_fused.launches = 0
-lstm_scan_fused.launches_by_shape = {}
+def _reset_counts(*fns) -> None:
+    for fn in fns:
+        fn.launches = 0
+        fn.launches_by_shape = {}
+        fn.launches_by_kernel = {}
+
+
+_reset_counts(lstm_scan_fused)
 
 
 # ---------------------------------------------------------------------------
@@ -268,8 +323,8 @@ def lstm_bwd_plain(x_proj, hs, cs, dhs, w_hh):
 
 def _check_seq_args(name: str, x_proj: torch.Tensor, w_hh: torch.Tensor | None, *states,
                     initial=(), max_h: int = _MAX_H):
-    """Validate what csrc/lstm_bwd.cu, csrc/lstm_scan.cu and
-    csrc/lstm_bidir2.cu take; raises, never falls back. x_proj (T, R, 4H),
+    """Validate what the scan and training kernels take (H <= max_h, H % 8
+    == 0); raises, never falls back. x_proj (T, R, 4H),
     w_hh (H, 4H) or None, states (T, R, H) each, initial states (R, H)
     each. Returns (T, R, H)."""
     args = (x_proj, *states, *initial) if w_hh is None else (x_proj, w_hh, *states, *initial)
@@ -337,8 +392,11 @@ def _n_sm(device: torch.device) -> int:
 
 
 def _count(fn, key) -> None:
+    """One launch of fn's kernel at key = (..., H, dtype)."""
+    kernel = _kernel_source(fn.__name__, key[-2])
     fn.launches += 1
     fn.launches_by_shape[key] = fn.launches_by_shape.get(key, 0) + 1
+    fn.launches_by_kernel[kernel] = fn.launches_by_kernel.get(kernel, 0) + 1
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -439,9 +497,7 @@ def lstm_bwd_recurrence(x_proj, hs, cs, dhs, w_hh) -> torch.Tensor:
     return dx
 
 
-for _fn in (lstm_fwd_hc, lstm_bwd, lstm_dw_hh):
-    _fn.launches = 0
-    _fn.launches_by_shape = {}
+_reset_counts(lstm_fwd_hc, lstm_bwd, lstm_dw_hh)
 
 
 # ---------------------------------------------------------------------------
@@ -478,33 +534,70 @@ def _scan_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _scan_wide_lib() -> ctypes.CDLL:
+    from ._build import load_library
+
+    lib = load_library("lstm_scan_wide")
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_scan_wide_launch.argtypes = [i, ptr, ptr, ptr, ptr, i, i, i, ptr]
+    lib.lstm_scan_stateful_wide_launch.argtypes = [i, *[ptr] * 7, i, i, i, ptr]
+    for fn in (lib.lstm_scan_wide_launch, lib.lstm_scan_stateful_wide_launch):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch_scan(fn, x_proj, w_hh, initial=()):
+    """Launches, for the wrapper fn, the scan kernel that H picks:
+    csrc/lstm_scan.cu for H <= 128, csrc/lstm_scan_wide.cu for
+    128 < H <= 768. -> (hs,), or (hs, cs) when `initial` is (h0, c0)."""
+    name = fn.__name__
+    T, R, H = _check_seq_args(name, x_proj, w_hh, initial=initial, max_h=_WIDE_MAX_H)
+    wide = H > _MAX_H
+    if wide:
+        _check_aligned(name, x_proj, w_hh, *initial)
+    hs = torch.empty(T, R, H, device=x_proj.device, dtype=x_proj.dtype)
+    outs = (hs, torch.empty_like(hs)) if initial else (hs,)
+    if T == 0 or R == 0:
+        return outs
+    ptrs = [x_proj.data_ptr(), w_hh.data_ptr(), *(a.data_ptr() for a in (*initial, *outs))]
+    dtype = _DTYPE_CODE[x_proj.dtype]
+    with torch.cuda.device(x_proj.device):
+        stream = torch.cuda.current_stream(x_proj.device).cuda_stream
+        if wide:
+            # kernel scratch: the float32 c of each (row, unit)
+            c_state = torch.empty(R, H, device=x_proj.device, dtype=torch.float32)
+            launch = (_scan_wide_lib().lstm_scan_stateful_wide_launch if initial
+                      else _scan_wide_lib().lstm_scan_wide_launch)
+            err = launch(dtype, *ptrs, c_state.data_ptr(), R, T, H, stream)
+        else:
+            launch = (_scan_lib().lstm_scan_stateful_launch if initial
+                      else _scan_lib().lstm_scan_launch)
+            err = launch(dtype, *ptrs, R, T, H, _rows_per_block(R, _n_sm(x_proj.device), 1),
+                         stream)
+    _raise_on(err, name)
+    _count(fn, (T, R, H, str(x_proj.dtype).replace("torch.", "")))
+    return outs
+
+
 def lstm_scan(x_proj: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """(T, R, 4H), (H, 4H) -> hs (T, R, H): the unidirectional LSTM scan
     from zero state (the time LSTM of a causal config).
 
     When autograd will differentiate the call it takes the
-    residual-saving route, `_ScanSaving`. Otherwise CUDA tensors launch
-    the hand-written kernel of csrc/lstm_scan.cu, which replaces
-    nvse_tpu/ops/pallas_lstm.py:_pallas_lstm_scan, and CPU tensors run
-    lstm_scan_plain. Counts inference-kernel launches in
-    `lstm_scan.launches` (and per (T, R, H, dtype) in
-    `lstm_scan.launches_by_shape`)."""
+    residual-saving route, `_ScanSaving`. Otherwise CUDA tensors launch a
+    hand-written kernel that replaces
+    nvse_tpu/ops/pallas_lstm.py:_pallas_lstm_scan, that of
+    csrc/lstm_scan.cu for H <= 128, that of csrc/lstm_scan_wide.cu for
+    128 < H <= 768, and CPU tensors run lstm_scan_plain. Counts
+    inference-kernel launches in `lstm_scan.launches` (per (T, R, H,
+    dtype) in `lstm_scan.launches_by_shape`, per kernel in
+    `lstm_scan.launches_by_kernel`)."""
     if torch.is_grad_enabled() and (x_proj.requires_grad or w_hh.requires_grad):
         return _ScanSaving.apply(x_proj, w_hh)
     if x_proj.device.type == "cpu":
         return lstm_scan_plain(x_proj, w_hh)
-    T, R, H = _check_seq_args("lstm_scan", x_proj, w_hh)
-    hs = torch.empty(T, R, H, device=x_proj.device, dtype=x_proj.dtype)
-    if T == 0 or R == 0:
-        return hs
-    with torch.cuda.device(x_proj.device):
-        stream = torch.cuda.current_stream(x_proj.device).cuda_stream
-        err = _scan_lib().lstm_scan_launch(
-            _DTYPE_CODE[x_proj.dtype], x_proj.data_ptr(), w_hh.data_ptr(), hs.data_ptr(),
-            R, T, H, _rows_per_block(R, _n_sm(x_proj.device), 1), stream)
-    _raise_on(err, "lstm_scan")
-    _count(lstm_scan, (T, R, H, str(x_proj.dtype).replace("torch.", "")))
-    return hs
+    return _launch_scan(lstm_scan, x_proj, w_hh)[0]
 
 
 def lstm_scan_stateful(x_proj, w_hh, h0, c0):
@@ -512,38 +605,25 @@ def lstm_scan_stateful(x_proj, w_hh, h0, c0):
     scan started from the caller's state, returning both trajectories so
     that a streaming decoder can take its carry at any step.
 
-    CUDA tensors launch the hand-written kernel of csrc/lstm_scan.cu,
-    which replaces nvse_tpu/ops/pallas_lstm.py:_pallas_lstm_scan_stateful;
-    CPU tensors run lstm_scan_stateful_plain. Inference only, as in the
-    JAX package: the kernel has no backward, so on CUDA a call that
-    autograd would differentiate raises. Counts launches in
-    `lstm_scan_stateful.launches` (and per (T, R, H, dtype) in
-    `lstm_scan_stateful.launches_by_shape`)."""
+    CUDA tensors launch a hand-written kernel that replaces
+    nvse_tpu/ops/pallas_lstm.py:_pallas_lstm_scan_stateful, that of
+    csrc/lstm_scan.cu for H <= 128, that of csrc/lstm_scan_wide.cu for
+    128 < H <= 768; CPU tensors run lstm_scan_stateful_plain. Inference
+    only, as in the JAX package: the kernels have no backward, so on CUDA
+    a call that autograd would differentiate raises. Counts launches in
+    `lstm_scan_stateful.launches` (per (T, R, H, dtype) in
+    `lstm_scan_stateful.launches_by_shape`, per kernel in
+    `lstm_scan_stateful.launches_by_kernel`)."""
     if x_proj.device.type == "cpu":
         return lstm_scan_stateful_plain(x_proj, w_hh, h0, c0)
     if torch.is_grad_enabled() and any(a.requires_grad for a in (x_proj, w_hh, h0, c0)):
         raise RuntimeError("lstm_scan_stateful has no gradient (streaming decode is "
                            "inference only): call it under torch.no_grad() or "
                            "torch.inference_mode()")
-    T, R, H = _check_seq_args("lstm_scan_stateful", x_proj, w_hh, initial=(h0, c0))
-    hs = torch.empty(T, R, H, device=x_proj.device, dtype=x_proj.dtype)
-    cs = torch.empty_like(hs)
-    if T == 0 or R == 0:
-        return hs, cs
-    with torch.cuda.device(x_proj.device):
-        stream = torch.cuda.current_stream(x_proj.device).cuda_stream
-        err = _scan_lib().lstm_scan_stateful_launch(
-            _DTYPE_CODE[x_proj.dtype], x_proj.data_ptr(), w_hh.data_ptr(), h0.data_ptr(),
-            c0.data_ptr(), hs.data_ptr(), cs.data_ptr(), R, T, H,
-            _rows_per_block(R, _n_sm(x_proj.device), 1), stream)
-    _raise_on(err, "lstm_scan_stateful")
-    _count(lstm_scan_stateful, (T, R, H, str(x_proj.dtype).replace("torch.", "")))
-    return hs, cs
+    return _launch_scan(lstm_scan_stateful, x_proj, w_hh, initial=(h0, c0))
 
 
-for _fn in (lstm_scan, lstm_scan_stateful):
-    _fn.launches = 0
-    _fn.launches_by_shape = {}
+_reset_counts(lstm_scan, lstm_scan_stateful)
 
 
 # ---------------------------------------------------------------------------
@@ -608,8 +688,7 @@ def lstm_scan_bidir2(xp_a, xp_b, w_a, w_b):
     return hs_a, hs_b
 
 
-lstm_scan_bidir2.launches = 0
-lstm_scan_bidir2.launches_by_shape = {}
+_reset_counts(lstm_scan_bidir2)
 
 
 class _ScanSaving(torch.autograd.Function):

@@ -19,8 +19,10 @@ losses and optimizer states stay float32, and the casts pass float32
 gradients back, as the JAX step's `_to_compute` does.
 
 Not ported (raise NotImplementedError): the time domain (MSD, SNConv1d),
-use_cqtd, the joint trainer and sp_devices > 1. A causal config trains on
-both devices: its time LSTM takes lstm_scan's residual-saving route.
+use_cqtd, the joint trainer, sp_devices > 1 and compute_dtype "float16"
+(the JAX trainer's float16 trunks: the LSTM kernels take float32 and
+bfloat16 only). A causal config trains on both devices: its time LSTM
+takes lstm_scan's residual-saving route.
 """
 from __future__ import annotations
 
@@ -152,6 +154,9 @@ def _check_supported(h, domain: str) -> None:
         raise NotImplementedError("use_cqtd: the CQT discriminator is not ported yet")
     if int(h.get("sp_devices", 1) or 1) > 1:
         raise NotImplementedError("sp_devices > 1: multi-GPU training is not ported yet")
+    if str(h.get("compute_dtype")) == "float16":
+        raise NotImplementedError('compute_dtype "float16": only "bfloat16" trunks are ported '
+                                  "(the LSTM kernels take float32 and bfloat16)")
 
 
 class GANTrainer:
@@ -164,9 +169,9 @@ class GANTrainer:
 
     def __init__(self, h, device: str | torch.device = "cuda", steps_per_epoch: int = 1):
         self.h = h
-        self.device = resolve_device(device)
         generator, domain = build_generator(h)
-        _check_supported(h, domain)
+        _check_supported(h, domain)                  # before any CUDA call
+        self.device = resolve_device(device)
         dgen = torch.Generator().manual_seed(int(h.get("seed", 1234)) + 1)
         self.generator = generator.to(self.device)
         self.disc = nn.ModuleDict({

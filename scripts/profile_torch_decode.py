@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's BSRNN-M and GCRN decodes on one GPU.
+"""Where the time goes in the port's BSRNN-M, BSRNN-L and GCRN decodes on one GPU.
 
-    python3 scripts/profile_torch_decode.py [--iters 3] [--model bsrnn|gcrn|both]
+    python3 scripts/profile_torch_decode.py [--iters 3] [--model bsrnn|bsrnn_l|gcrn|both]
 
 Runs the B=8 x 1024-frame mel->wave decode of nvse_tpu_torch (seeded
 random weights at full width, float32 then bfloat16) under torch.profiler
 after one warmup forward, and prints one JSON line per model and dtype:
 wall ms per forward, device-busy ms per forward (sum of kernel times; one
 stream, so kernels do not overlap), the idle share, the hand-written LSTM
-kernels' share (lstm_fused for BSRNN-M, lstm_bidir2 for GCRN), device ms
+kernels' share (lstm_fused for BSRNN-M, lstm_grid for BSRNN-L, lstm_bidir2
+for GCRN; "both" is BSRNN-M and GCRN), device ms
 per category of kernel name (lstm, convolution, gemm, elementwise and
 copies, other) and the twelve kernels with the most device time. Needs a
 CUDA GPU.
@@ -42,7 +43,9 @@ CATEGORIES = (
     ("elementwise_and_copies", ("elementwise", "vectorized", "reduce", "catarray", "copy",
                                 "memcpy", "memset", "layer_norm", "index", "fill")),
 )
-CONFIGS = {"bsrnn": ("bsrnn_config.json", "lstm_fused"), "gcrn": ("gcrn_config.json", "lstm_bidir2")}
+CONFIGS = {"bsrnn": ("bsrnn_config.json", "lstm_fused"),
+           "bsrnn_l": ("bsrnn_l_config.json", "lstm_grid"),
+           "gcrn": ("gcrn_config.json", "lstm_bidir2")}
 
 
 def category(kernel_name: str) -> str:
@@ -56,7 +59,7 @@ def category(kernel_name: str) -> str:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=3)
-    ap.add_argument("--model", default="both", choices=("bsrnn", "gcrn", "both"))
+    ap.add_argument("--model", default="both", choices=("bsrnn", "bsrnn_l", "gcrn", "both"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_decode: needs a CUDA GPU")

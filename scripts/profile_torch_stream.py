@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's BSRNN-M streaming decode on one GPU.
+"""Where the time goes in the port's BSRNN streaming decode on one GPU.
 
-    python3 scripts/profile_torch_stream.py
+    python3 scripts/profile_torch_stream.py [--model bsrnn|bsrnn_l]
 
 Runs synthesize_streaming_stateful of nvse_tpu_torch (seeded random
-BSRNN-M weights; 8 streams x 512 frames, chunk 64 frames, lookahead 16)
+BSRNN-M weights, or BSRNN-L's with --model bsrnn_l; 8 streams x 512
+frames, chunk 64 frames, lookahead 16)
 for the causal and the non-causal config, float32 then bfloat16, under torch.profiler after one
 warmup chunk, and prints one JSON line per run: wall ms per chunk,
 device-busy ms per chunk (sum of kernel times; one stream, so kernels do
@@ -13,6 +14,7 @@ kernel, the number of kernels the card ran per chunk, and the ten kernels
 with the most device time. Then the causal offline decode at B=8 x 1024
 frames the same way, per forward. Needs a CUDA GPU.
 """
+import argparse
 import json
 import os
 import subprocess
@@ -23,7 +25,9 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LSTM_KERNELS = ("lstm_scan_kernel", "lstm_fused_kernel")
+# csrc/lstm_scan.cu and csrc/lstm_fused.cu (H <= 128); csrc/lstm_grid.cuh, the
+# layout of both wide kernels (BSRNN-L)
+LSTM_KERNELS = ("lstm_scan_kernel", "lstm_fused_kernel", "lstm_grid_kernel")
 
 
 def _device_us(evt) -> float:
@@ -62,13 +66,16 @@ def profiled(fn, units: int) -> dict:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="bsrnn", choices=("bsrnn", "bsrnn_l"))
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_stream: needs a CUDA GPU")
     sys.path.insert(0, REPO)
     from nvse_tpu_torch.infer import InferenceEngine
     from nvse_tpu_torch.utils import load_config
 
-    h = load_config(os.path.join(REPO, "nvse_tpu_torch", "configs", "bsrnn_config.json"))
+    h = load_config(os.path.join(REPO, "nvse_tpu_torch", "configs", f"{args.model}_config.json"))
     streams, frames, c, la = 8, 512, 64, 16
     rng = np.random.default_rng(0)
     mel = torch.from_numpy(rng.standard_normal(
@@ -86,7 +93,8 @@ def main() -> None:
             eng.synthesize_streaming_stateful(mel[..., :c], chunk_frames=c, lookahead_frames=la)
             out = profiled(lambda: eng.synthesize_streaming_stateful(
                 mel, chunk_frames=c, lookahead_frames=la), chunks)
-            print(json.dumps({"path": "stream_stateful", "causal": causal, "dtype": dtype,
+            print(json.dumps({"model": args.model, "path": "stream_stateful", "causal": causal,
+                              "dtype": dtype,
                               "streams": streams, "frames": frames, "chunk_frames": c,
                               "lookahead_frames": la, "per": "chunk", **out}), flush=True)
             del eng
@@ -98,7 +106,8 @@ def main() -> None:
         eng = engine(True, dtype)
         eng.forward(mel2)
         out = profiled(lambda: [eng.forward(mel2) for _ in range(iters)], iters)
-        print(json.dumps({"path": "decode_causal", "dtype": dtype, "batch": B, "frames": T,
+        print(json.dumps({"model": args.model, "path": "decode_causal", "dtype": dtype,
+                          "batch": B, "frames": T,
                           "per": "forward", **out}), flush=True)
         del eng
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

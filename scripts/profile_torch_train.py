@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Where the time goes in one GAN training step of the PyTorch port.
 
-    python scripts/profile_torch_train.py [--model bsrnn|gcrn]
+    python scripts/profile_torch_train.py [--model bsrnn|bsrnn_l|gcrn]
 
-Full-width BSRNN-M (nvse_tpu_torch/configs/bsrnn_config.json, the default)
-or GCRN (gcrn_config.json) with MPD + MRD on one CUDA card, random weights
-from the config's seed, a seeded synthetic batch of 16 16384-sample
-segments (the training shapes of the LSTM kernels: BSRNN-M 544 rows x 65
-steps and 1040 rows x 34 steps at H = 128, GCRN 16 rows x 65 steps at
-H = 448). Per compute dtype (float32, bfloat16), after two warmup steps
+Full-width BSRNN-M (nvse_tpu_torch/configs/bsrnn_config.json, the default),
+BSRNN-L (bsrnn_l_config.json) or GCRN (gcrn_config.json) with MPD + MRD on
+one CUDA card, random weights from the config's seed, a seeded synthetic
+batch of 16 16384-sample segments (the training shapes of the LSTM kernels:
+BSRNN 544 rows x 65 steps and 1040 rows x 34 steps, at H = 128 for BSRNN-M
+and 256 for BSRNN-L, GCRN 16 rows x 65 steps at H = 448). Per compute dtype (float32, bfloat16), after two warmup steps
 and over three steps it prints one JSON line with:
   * wall ms per step (host clock around synchronised steps);
   * ms per step of the three phases of GANTrainer.step, from CUDA events
@@ -139,7 +139,7 @@ def profile(model, dtype):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", default="bsrnn", choices=("bsrnn", "gcrn"))
+    ap.add_argument("--model", default="bsrnn", choices=("bsrnn", "bsrnn_l", "gcrn"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA GPU")

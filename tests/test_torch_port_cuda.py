@@ -10,7 +10,10 @@ causal forward (8 lstm_scan + 8 fused), a streaming chunk (8 or 16
 lstm_scan_stateful + 8 fused), lstm_scan_bidir2 from one row to 33 at
 H = 64, 128 and GCRN's 448 with the GCRN forward (2 launches), and the
 wide training kernels (csrc/lstm_wide.cu) at H = 256, 448 and 768 with
-GCRN's grouped LSTM under autograd.
+GCRN's grouped LSTM under autograd, and the wide inference kernels
+(csrc/lstm_fused_wide.cu, csrc/lstm_scan_wide.cu: row groups x unit
+slices) from one row to 700 at H = 136-768, with the BSRNN-L (H = 256)
+forward, causal forward and stream.
 """
 import math
 
@@ -55,8 +58,10 @@ def test_kernel_matches_plain(cuda, B, T, C, H, dtype, tol):
 
 
 def test_kernel_raises_on_unsupported_hidden_size(cuda):
-    with pytest.raises(NotImplementedError):
-        port_lstm.lstm_scan_fused(*_args(2, 3, 8, 160, torch.float32))
+    # past the wide kernel's H; HD-Demucs's H = 768 layers (C = 768, 1536): past C + H
+    for C, H in ((8, port_lstm._FUSED_WIDE_MAX_H + 8), (768, 768), (1536, 768)):
+        with pytest.raises(NotImplementedError, match=f"C \\+ H <= {port_lstm._FUSED_WIDE_MAX_K}"):
+            port_lstm.lstm_scan_fused(*_args(2, 3, C, H, torch.float32))
 
 
 def test_bsrnn_forward_launches_16_kernels(cuda):
@@ -217,11 +222,12 @@ def test_scan_kernels_match_plain(cuda, T, R, H, dtype):
 
 
 def test_scan_kernels_raise_on_unsupported(cuda):
-    xp, whh, _ = _seq_args(3, 2, 160, torch.float32)
-    h0, c0 = _state_args(2, 160, torch.float32)
-    with pytest.raises(NotImplementedError, match="H <= 128"):
+    H = port_lstm._WIDE_MAX_H + 8
+    xp, whh, _ = _seq_args(3, 2, H, torch.float32)
+    h0, c0 = _state_args(2, H, torch.float32)
+    with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._WIDE_MAX_H}"):
         port_lstm.lstm_scan(xp, whh)
-    with pytest.raises(NotImplementedError, match="H <= 128"):
+    with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._WIDE_MAX_H}"):
         port_lstm.lstm_scan_stateful(xp, whh, h0, c0)
     xp, whh, _ = _seq_args(3, 2, 8, torch.float32)
     h0, c0 = _state_args(2, 8, torch.float32)
@@ -433,3 +439,101 @@ def test_gcrn_forward_launches_2_bidir2_kernels(cuda):
     assert port_lstm.lstm_scan_bidir2.launches_by_shape[(32, 2, 448, "float32")] >= 2
     torch.testing.assert_close(gpu, InferenceEngine(h, device="cpu").forward(mel),
                                rtol=2e-3, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# the wide inference kernels: csrc/lstm_fused_wide.cu, csrc/lstm_scan_wide.cu
+# ---------------------------------------------------------------------------
+
+def _kernel_delta(fn, n0):
+    return {k: v - n0.get(k, 0) for k, v in fn.launches_by_kernel.items() if v != n0.get(k, 0)}
+
+
+# one row and one step, a few rows (one row group of up to 64), row groups of
+# more than 64 rows over several row tiles, C in two staged chunks, the widest H
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("B,T,C,H", [(1, 1, 256, 256), (5, 9, 136, 136), (40, 17, 256, 256),
+                                     (700, 6, 260, 256), (150, 5, 8, 512)])
+def test_wide_fused_kernel_matches_plain(cuda, B, T, C, H, dtype, tol):
+    args = _args(B, T, C, H, dtype, seed=B + T)
+    n0 = dict(port_lstm.lstm_scan_fused.launches_by_kernel)
+    with torch.inference_mode():
+        got = port_lstm.lstm_scan_fused(*args)
+    torch.cuda.synchronize()
+    assert _kernel_delta(port_lstm.lstm_scan_fused, n0) == {"lstm_fused_wide": 1}
+    ref = port_lstm.lstm_scan_fused_plain(*args)
+    assert got.dtype == dtype and got.shape == (B, T, 2 * H)
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+    # the control: the two directions' W_hh swapped must fail the limit
+    if T > 1:
+        x, wif, wib, bf, bb, whf, whb = args
+        ctl = port_lstm.lstm_scan_fused(x, wif, wib, bf, bb, whb, whf)
+        assert (ctl.float() - ref.float()).abs().max().item() > tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,R,H", [(1, 1, 256), (17, 3, 136), (9, 272, 256), (34, 34, 256),
+                                   (6, 700, 256), (5, 40, 768)])
+def test_wide_scan_kernels_match_plain(cuda, T, R, H, dtype):
+    xp, whh, _ = _seq_args(T, R, H, dtype, seed=T + R)
+    xp = 0.5 * xp
+    h0, c0 = _state_args(R, H, dtype)
+    n0 = dict(port_lstm.lstm_scan.launches_by_kernel), dict(port_lstm.lstm_scan_stateful.launches_by_kernel)
+    with torch.inference_mode():
+        hs = port_lstm.lstm_scan(xp, whh)
+        hs_st, cs_st = port_lstm.lstm_scan_stateful(xp, whh, h0, c0)
+    torch.cuda.synchronize()
+    assert _kernel_delta(port_lstm.lstm_scan, n0[0]) == {"lstm_scan_wide": 1}
+    assert _kernel_delta(port_lstm.lstm_scan_stateful, n0[1]) == {"lstm_scan_wide": 1}
+    ref = port_lstm.lstm_scan_plain(xp, whh)
+    ref_h, ref_c = port_lstm.lstm_scan_stateful_plain(xp, whh, h0, c0)
+    tol = SCAN_TOL[dtype]
+    for got, want in ((hs, ref), (hs_st, ref_h), (cs_st, ref_c)):
+        assert got.dtype == dtype and got.shape == (T, R, H)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    z = torch.zeros_like(h0)
+    with torch.inference_mode():
+        torch.testing.assert_close(port_lstm.lstm_scan_stateful(xp, whh, z, z)[0], hs,
+                                   atol=0, rtol=0)
+    assert not torch.equal(hs_st, hs)
+
+
+def _bsrnn_l(causal):
+    from nvse_tpu_torch.utils import AttrDict
+
+    return AttrDict(dict(model_name="BSRNN", feature_dim=256, num_repeat=8, causal=causal,
+                         sampling_rate=22050, n_fft=1024, hop_size=256, win_size=1024,
+                         num_mels=80, fmin=0, fmax=8000, seed=1234))
+
+
+def test_bsrnn_l_forward_launches_16_wide_kernels(cuda):
+    from nvse_tpu_torch.infer import InferenceEngine
+
+    mel = torch.randn(2, 80, 48, generator=torch.Generator().manual_seed(0)) - 4.0
+    n0 = dict(port_lstm.lstm_scan_fused.launches_by_kernel)
+    gpu = InferenceEngine(_bsrnn_l(False), device="cuda").forward(mel).cpu()
+    assert _kernel_delta(port_lstm.lstm_scan_fused, n0) == {"lstm_fused_wide": 16}
+    cpu = InferenceEngine(_bsrnn_l(False), device="cpu").forward(mel)
+    torch.testing.assert_close(gpu, cpu, rtol=2e-3, atol=2e-4)
+
+
+def test_bsrnn_l_causal_forward_and_stream_launch_wide_kernels(cuda):
+    from nvse_tpu_torch.infer import InferenceEngine
+
+    # 64 frames: one engine bucket, so the offline decode pads nothing
+    mel = torch.randn(2, 80, 64, generator=torch.Generator().manual_seed(1)) - 4.0
+    gpu, cpu = InferenceEngine(_bsrnn_l(True), device="cuda"), InferenceEngine(_bsrnn_l(True), device="cpu")
+    fns = port_lstm.lstm_scan, port_lstm.lstm_scan_stateful, port_lstm.lstm_scan_fused
+    n0 = [dict(f.launches_by_kernel) for f in fns]
+    wav = gpu.forward(mel).cpu()
+    assert [_kernel_delta(f, n) for f, n in zip(fns, n0)] == [
+        {"lstm_scan_wide": 8}, {}, {"lstm_fused_wide": 8}]
+    torch.testing.assert_close(wav, cpu.forward(mel), rtol=2e-3, atol=2e-4)
+    n0 = [dict(f.launches_by_kernel) for f in fns]
+    got = gpu.synthesize_streaming_stateful(mel, out_len=63 * 256, chunk_frames=32,
+                                            lookahead_frames=8)
+    assert [_kernel_delta(f, n) for f, n in zip(fns, n0)] == [
+        {}, {"lstm_scan_wide": 16}, {"lstm_fused_wide": 16}]
+    # causal: the stream equals the card's own offline decode
+    offline = gpu.synthesize_mel(mel, out_len=63 * 256)
+    assert abs(got - offline).max() <= 1e-4 * abs(offline).max()

@@ -92,12 +92,18 @@ def test_kernel_wrapper_rejects_non_contiguous_before_touching_gpu():
 
 
 def test_kernel_wrapper_rejects_unsupported_shapes():
-    args = [torch.from_numpy(a) for a in _args(H=160, C=12)]
-    with pytest.raises(NotImplementedError, match="H <= 128"):
-        port_lstm._check_kernel_args(*args)
-    args = [torch.from_numpy(a) for a in _args()]
-    with pytest.raises(ValueError, match="CUDA"):
-        port_lstm._check_kernel_args(*args)
+    # past the wide kernel's H, and past its C + H at an H it takes
+    wide_h, wide_k = port_lstm._FUSED_WIDE_MAX_H, port_lstm._FUSED_WIDE_MAX_K
+    for H, C in ((wide_h + 8, 12), (256, wide_k - 256 + 4)):
+        args = [torch.from_numpy(a) for a in _args(B=2, T=2, H=H, C=C)]
+        with pytest.raises(NotImplementedError, match=f"H <= {wide_h} with C \\+ H <= {wide_k}"):
+            port_lstm._check_kernel_args(*args)
+    # H = 160 (csrc/lstm_fused_wide.cu) and H = 16 (csrc/lstm_fused.cu) pass the
+    # limits and stop at the device
+    for H in (160, 16):
+        args = [torch.from_numpy(a) for a in _args(H=H)]
+        with pytest.raises(ValueError, match="CUDA"):
+            port_lstm._check_kernel_args(*args)
 
 
 @pytest.mark.parametrize("rows,n_sm,rt", [(272, 132, 8), (64, 132, 2), (200, 132, 4), (8192, 132, 8)])
