@@ -99,12 +99,29 @@ the last line:
      272 x 80, 34 x 80; the training kernels at 544 x 65 and 1040 x 34), with
      the fused kernel's W_hh swapped and the stateful kernel's state zeroed as
      controls the limits must refuse;
- 15. each main path above sets the launch counts to 0 when it starts and
+ 15. ConvTasNet (nvse_tpu_torch/configs/convtasnet_config.json with fused_tcn
+     1: 4,960,409 parameters, Griffin-Lim front, 24 TCN blocks): tcn_kernels,
+     the tail kernel of csrc/tcn_tail.cu against tcn_block_tail_plain at the
+     decode shape (8 x 32,735 encoder frames, H = 512, Bc = 128) at each
+     dilation 1 ... 128 in float32 and bfloat16, with the wrapper's time (gLN
+     fold + kernel), the plain version's and the unfused tail as several
+     PyTorch calls (gLN, F.conv1d depthwise, one cuBLAS 1x1) as the library
+     yardstick, and two controls the limit must refuse (w_rs's res and skip
+     halves swapped; at d = 128, c zero-padded before the norm);
+     convtasnet_decode, B = 8 x 1024 mel frames in float32 and bfloat16 (24
+     tail launches per forward, 3 per dilation, none of an LSTM kernel) with
+     the same decode with fused_tcn 0 timed beside it and held to it;
+     convtasnet_serve, run_inference on the synthetic set in both dtypes;
+     convtasnet_decode_vs_cpu_plain, the card against the CPU's plain path on
+     a small input with zero initial phase (TF32 as the control) and the
+     Griffin-Lim front on its own;
+ 16. each main path above sets the launch counts to 0 when it starts and
      reads them per wrapper and shape when it ends; every other shape that a
      main path launched (serving's 128-frame bucket, the validations, the
-     offline decodes beside the streams) gets its kernel-vs-plain row in the
-     dtype it ran in, and a launch at a shape with no row fails the run;
- 16. print the kernels line (one entry per kernel, shape and dtype, each
+     offline decodes beside the streams, ConvTasNet's serving buckets) gets
+     its kernel-vs-plain row in the dtype it ran in, and a launch at a shape
+     with no row fails the run;
+ 17. print the kernels line (one entry per kernel, shape and dtype, each
      with its launches summed over the main paths), then the ok line.
 Exits nonzero without output when no CUDA GPU is visible.
 """
@@ -447,8 +464,10 @@ def _launched(counters, fn):
 
 def _all_counters():
     from nvse_tpu_torch.ops import lstm as L
+    from nvse_tpu_torch.ops.tcn import tcn_block_tail
 
-    return {**_training_counters(), "lstm_scan_bidir2": L.lstm_scan_bidir2}
+    return {**_training_counters(), "lstm_scan_bidir2": L.lstm_scan_bidir2,
+            "tcn_block_tail": tcn_block_tail}
 
 
 def _shape_counts():
@@ -1233,12 +1252,282 @@ def phase_bidir2_grad():
             raise SystemExit(f"lstm_scan_bidir2 gradient route at H = {H}: the control with "
                              f"the W_hh swapped ({control}) passes the tolerance")
 
+# ---------------------------------------------------------------------------
+# ConvTasNet: the TCN block tail (csrc/tcn_tail.cu) and mel->wave serving
+# ---------------------------------------------------------------------------
+
+# the tail at ConvTasNet's decode shape: B = 8 x 1024 mel frames -> hop * 1023 =
+# 261,888 samples -> (261,888 - 16) / 8 + 1 = 32,735 encoder frames; H = 512, Bc = 128;
+# the dilations of one repeat of 8 blocks
+TCN_B, TCN_T, TCN_H, TCN_BC = 8, (256 * 1023 - 16) // 8 + 1, 512, 128
+TCN_DILATIONS = tuple(2 ** i for i in range(8))
+TCN_CONTROL_DILATION = 128
+# ConvTasNet at full width: N = 512, H = 512, 24 blocks (the JAX init's count)
+CONVTASNET_PARAMS = 4_960_409
+# the card's decode against the CPU's plain path, float32, as max |card - cpu| over
+# max |cpu|: with zero initial phase (the trunk and the tail kernel; the control, TF32
+# on in matmuls and cuDNN, must be refused) at MODEL_PEAK_REL; Griffin-Lim's 32
+# momentum iterations carry rounding from one iteration to the next (float32 against
+# float64 on the CPU: 6.3e-4 of the peak at 2 x 64 frames), so the Griffin-Lim front,
+# card against CPU, at GL_PEAK_REL
+MODEL_PEAK_REL, GL_PEAK_REL = 1e-4, 5e-3
+# the fused decode against the unfused one on the card: float32 at MODEL_PEAK_REL;
+# bfloat16, where the two round at other places, the fused decode's relative L2
+# distance to the float32 decode at most BF16_FUSED_RATIO times the unfused one's
+BF16_FUSED_RATIO = 1.5
+
+
+def _tail_inputs(B, T, H, Bc, dtype, seed):
+    """(c, x, gln_w, gln_b, w_dw, b_dw, w_rs, b_rs) on the card: c with a
+    nonzero mean (a PReLU'd projection) and a nonzero gLN shift, so that a
+    tap that read b2 in place of 0 at the sequence ends shows."""
+    g = torch.Generator().manual_seed(seed)
+    c = torch.randn(B, T, H, generator=g) + 0.5
+    x = torch.randn(B, T, Bc, generator=g)
+    gw, gb = 1.0 + 0.1 * torch.randn(1, H, generator=g), 0.5 * torch.randn(1, H, generator=g)
+    wdw, bdw = torch.randn(3, H, generator=g) / 3, 0.1 * torch.randn(1, H, generator=g)
+    wrs = torch.randn(H, 2 * Bc, generator=g) / math.sqrt(H)
+    brs = 0.1 * torch.randn(1, 2 * Bc, generator=g)
+    return [t.to("cuda", dtype) for t in (c, x, gw, gb, wdw, bdw, wrs, brs)]
+
+
+def _tail_library(c, x, gw, gb, wdw, bdw, wrs, brs, d):
+    """The unfused tail as several PyTorch calls, in the input dtype: gLN
+    (two-pass, as the unfused module), F.conv1d depthwise (PyTorch's own
+    depthwise kernel at these shapes, not cuDNN's), one cuBLAS product for
+    the concatenated res|skip 1x1, the residual add."""
+    import torch.nn.functional as F
+
+    B, T, H = c.shape
+    Bc = x.shape[-1]
+    mean = c.mean(dim=(1, 2), keepdim=True)
+    var = ((c - mean) ** 2).mean(dim=(1, 2), keepdim=True)
+    n = gw * (c - mean) / torch.sqrt(var + 1e-5) + gb
+    q = F.conv1d(n.transpose(1, 2), wdw.T.unsqueeze(1), bdw.reshape(H), padding=d, dilation=d,
+                 groups=H)
+    out = torch.addmm(brs, q.transpose(1, 2).reshape(B * T, H), wrs).reshape(B, T, 2 * Bc)
+    return x + out[..., :Bc], out[..., Bc:]
+
+
+def _tail_bound(B, T, H, Bc, dtype):
+    """(bound ms, what binds it, operations): c and x read once, both outputs
+    written once, the weights and the folded gLN; the res|skip product plus
+    the norm and the three taps."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (B * T * (H + 3 * Bc) + 5 * H + 2 * H * Bc + 2 * Bc) * item + 2 * B * H * 4
+    ops = 2 * B * T * H * 2 * Bc + 8 * B * T * H
+    return (*_bound(nbytes, ops, dtype), ops)
+
+
+def phase_tcn_kernels(cases, phase="tcn_kernels"):
+    """The tail kernel against tcn_block_tail_plain at each (label, B, T, H,
+    Bc, dilation, dtype) of cases, with its time, the wrapper's (the gLN
+    fold plus the kernel), the plain version's and the unfused tail's as
+    several PyTorch calls (the library yardstick); as controls the limit must
+    refuse, the kernel on w_rs with its res and skip halves swapped and, at
+    dilation 128, on c zero-padded before the norm."""
+    import torch.nn.functional as F
+
+    from nvse_tpu_torch.ops.tcn import (_fold, tcn_block_tail, tcn_block_tail_kernel,
+                                        tcn_block_tail_plain)
+
+    rows = []
+    for label, B, T, H, Bc, d, dtype in cases:
+        c, x, gw, gb, wdw, bdw, wrs, brs = _tail_inputs(B, T, H, Bc, dtype, seed=d + T)
+        with torch.inference_mode():
+            a, b2 = _fold(c, gw, gb, 1e-5)
+            args = (c, x, a, b2, wdw, bdw, wrs, brs, d)
+            got = tcn_block_tail_kernel(*args)
+            torch.cuda.synchronize()
+            ref = tcn_block_tail_plain(*args)
+            err = max((_err(g, r) for g, r in zip(got, ref)), key=lambda e: e[1])
+            swapped = torch.cat([wrs[:, Bc:], wrs[:, :Bc]], dim=1)
+            ctl = tcn_block_tail_kernel(c, x, a, b2, wdw, bdw, swapped, brs, d)
+            controls = {"w_rs_halves_swapped": max(_err(g, r)[1] for g, r in zip(ctl, ref))}
+            if d == TCN_CONTROL_DILATION:
+                pad = (0, 0, d, d)
+                ctl = tcn_block_tail_kernel(F.pad(c, pad), F.pad(x, pad), a, b2, wdw, bdw, wrs,
+                                            brs, d)
+                controls["padded_before_norm"] = max(_err(g[:, d:-d], r)[1]
+                                                     for g, r in zip(ctl, ref))
+            lib = _tail_library(c, x, gw, gb, wdw, bdw, wrs, brs, d)
+            lib_err = max(_err(g, r)[1] for g, r in zip(lib, ref))
+            ms = cuda_ms(lambda: tcn_block_tail_kernel(*args), iters=10)
+            wrapper_ms = cuda_ms(lambda: tcn_block_tail(c, x, gw, gb, wdw, bdw, wrs, brs, d),
+                                 iters=10)
+            plain_ms = cuda_ms(lambda: tcn_block_tail_plain(*args), iters=3)
+            library_ms = cuda_ms(lambda: _tail_library(c, x, gw, gb, wdw, bdw, wrs, brs, d),
+                                 iters=10)
+        bound, bound_by, ops = _tail_bound(B, T, H, Bc, dtype)
+        row = dict(name="tcn_block_tail", shape=label, rows=B, steps=T, H=H, Bc=Bc, dilation=d,
+                   dtype=DT_NAME[dtype], source="nvse_tpu_torch/csrc/tcn_tail.cu",
+                   max_abs_err=err[0], rel_err=err[1], tol=TOL[dtype],
+                   control_rel_err=controls, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, library_max_rel_err=lib_err,
+                   library="unfused tail, several calls: gLN, F.conv1d depthwise, "
+                           "one cuBLAS res|skip product, the residual add",
+                   bound_ms=bound, bound_by=bound_by, tflops=ops / (ms * 1e-3) / 1e12)
+        say(phase=phase, **row)
+        if not (err[1] <= TOL[dtype]):
+            raise SystemExit(f"tcn_block_tail {label} {DT_NAME[dtype]}: error {err} over "
+                             f"tolerance {TOL[dtype]}")
+        passed = [k for k, v in controls.items() if not (v > TOL[dtype])]
+        if passed:
+            raise SystemExit(f"tcn_block_tail {label} {DT_NAME[dtype]}: controls {passed} pass "
+                             f"the tolerance: {controls}")
+        rows.append(row)
+    return rows
+
+
+def _rel_peak(got, ref):
+    """max |got - ref| over max |ref|."""
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def _rel_l2(got, ref):
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def phase_convtasnet():
+    """ConvTasNet (configs/convtasnet_config.json, 4.96 M parameters) with
+    fused_tcn on through the engine: decode B = 8 x 1024 mel frames in
+    float32 and bfloat16 (24 tail launches per forward, 3 at each dilation,
+    none of an LSTM kernel), the same decode with fused_tcn off timed beside
+    it, then run_inference on the synthetic set; afterwards the card against
+    the CPU's plain path on a small input."""
+    from nvse_tpu_torch.infer import InferenceEngine, run_inference
+    from nvse_tpu_torch.ops.griffin_lim import griffin_lim
+    from nvse_tpu_torch.ops.lstm import _reset_counts
+    from nvse_tpu_torch.ops.spectral import inverse_mel, mel_spectrogram
+    from nvse_tpu_torch.ops.tcn import tcn_block_tail
+
+    counters = _all_counters()
+    _reset_counts(*counters.values())              # this main path starts here
+    base = _config("convtasnet", fused_tcn=1)
+    B, T, iters = 8, 1024, 3
+    rng = np.random.default_rng(3)
+    mel = torch.from_numpy(rng.standard_normal((B, base.num_mels, T)).astype(np.float32) - 4.0)
+    melc = mel.to("cuda")
+    audio_sec = B * (T - 1) * base.hop_size / base.sampling_rate
+    n_blocks = int(base.R) * int(base.X)
+    wavs = {}
+    for dtype in ("float32", "bfloat16"):
+        for fused in (1, 0):
+            eng = InferenceEngine(_config("convtasnet", fused_tcn=fused, compute_dtype=dtype),
+                                  device="cuda")
+            n_params = sum(p.numel() for p in eng.generator.parameters())
+            eng.forward(melc)                      # warmup
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            n0 = dict(tcn_block_tail.launches_by_shape)
+            t0 = time.time()
+            wav, counts = _launched(counters, lambda: [eng.forward(melc) for _ in range(iters)][-1])
+            torch.cuda.synchronize()
+            wall = (time.time() - t0) / iters
+            by_dilation = {key[4]: n // iters for key, n in
+                           _delta(tcn_block_tail.launches_by_shape, n0).items()}
+            say(phase="convtasnet_decode", dtype=dtype, fused_tcn=fused, batch=B, frames=T,
+                encoder_frames=TCN_T, parameters=n_params, wall_ms=wall * 1e3,
+                rtf=audio_sec / wall, launches_per_forward={k: v / iters for k, v in counts.items()},
+                tail_launches_per_forward_by_dilation=by_dilation,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            expect = {k: (n_blocks * iters * fused if k == "tcn_block_tail" else 0)
+                      for k in counters}
+            want_d = {d: 3 for d in TCN_DILATIONS} if fused else {}
+            if counts != expect or by_dilation != want_d:
+                raise SystemExit(f"ConvTasNet decode {dtype} fused_tcn={fused}: launches {counts}"
+                                 f" by dilation {by_dilation}, expected {n_blocks} tail launches "
+                                 "per forward when fused (3 per dilation), no other kernel")
+            if wav.shape != (B, (T - 1) * base.hop_size) or not torch.isfinite(wav).all():
+                raise SystemExit(f"ConvTasNet decode {dtype}: bad output {tuple(wav.shape)}")
+            if n_params != CONVTASNET_PARAMS:
+                raise SystemExit(f"ConvTasNet has {n_params} parameters, not {CONVTASNET_PARAMS}")
+            wavs[dtype, fused] = wav
+            del eng
+            torch.cuda.empty_cache()
+    f32, bf, bf_u = wavs["float32", 1], wavs["bfloat16", 1], wavs["bfloat16", 0]
+    margs = (base.n_fft, base.num_mels, base.sampling_rate, base.hop_size, base.win_size,
+             base.fmin, base.sampling_rate / 2)
+    fused_vs_unfused = _rel_peak(f32, wavs["float32", 0])
+    dev = dict(bf16_vs_f32_mel_l1=(mel_spectrogram(f32, *margs)
+                                   - mel_spectrogram(bf, *margs)).abs().mean().item(),
+               bf16_vs_f32_wav_rel_l2=_rel_l2(bf, f32),
+               bf16_unfused_vs_f32_wav_rel_l2=_rel_l2(bf_u, f32),
+               f32_fused_vs_unfused_peak_rel=fused_vs_unfused, limit=MODEL_PEAK_REL,
+               bf16_fused_ratio_limit=BF16_FUSED_RATIO)
+    say(phase="convtasnet_decode", **dev)
+    if not (fused_vs_unfused <= MODEL_PEAK_REL):
+        raise SystemExit(f"ConvTasNet float32: the fused decode is {fused_vs_unfused} of the "
+                         f"peak from the unfused one, over {MODEL_PEAK_REL}")
+    if not (dev["bf16_vs_f32_wav_rel_l2"]
+            <= BF16_FUSED_RATIO * dev["bf16_unfused_vs_f32_wav_rel_l2"]):
+        raise SystemExit(f"ConvTasNet bfloat16: the fused decode is further from the float32 "
+                         f"decode than {BF16_FUSED_RATIO} x the unfused one's: {dev}")
+
+    # run_inference on the synthetic set (weights from the seed), fused_tcn on
+    for dtype in ("float32", "bfloat16"):
+        with tempfile.TemporaryDirectory() as out:
+            lines = []
+            stats, counts = _launched(counters, lambda: run_inference(
+                _config("convtasnet", fused_tcn=1, compute_dtype=dtype, test_output_dir=out),
+                device="cuda", log_fn=lines.append))
+            written = sorted(os.listdir(out))
+        say(phase="convtasnet_serve", dtype=dtype, line=lines[-1], files=stats["files"],
+            rtf=stats["rtf"], launches=counts)
+        others = sum(v for k, v in counts.items() if k != "tcn_block_tail")
+        if (stats["files"] != 6 or len(written) != 6 or counts["tcn_block_tail"] == 0
+                or counts["tcn_block_tail"] % n_blocks or others):
+            raise SystemExit(f"ConvTasNet serving {dtype}: {stats} wrote {written}, "
+                             f"launches {counts}")
+    main_counts = _shape_counts()                  # ... and ends here
+
+    # the card against the CPU's plain path, same weights, small input: the trunk
+    # (zero phase) with TF32 as the control, then the Griffin-Lim front
+    small = mel[:2, :, :64]
+    h0 = _config("convtasnet", fused_tcn=1, init_phase="zero")
+    cpu = InferenceEngine(h0, device="cpu").forward(small)
+    gpu_eng = InferenceEngine(h0, device="cuda")
+    gpu = gpu_eng.forward(small).cpu()
+    _set_tf32(True)
+    try:
+        tf32 = gpu_eng.forward(small).cpu()
+    finally:
+        _set_tf32(False)
+
+    def within(got):
+        err = (got - cpu).abs()
+        return bool((err <= MODEL_ATOL + MODEL_RTOL * cpu.abs()).all()) and \
+            _rel_peak(got, cpu) <= MODEL_PEAK_REL
+
+    ok, refused = within(gpu), not within(tf32)
+    margs = (base.n_fft, base.num_mels, base.sampling_rate, base.hop_size, base.win_size,
+             base.fmin, base.fmax)
+    mag = torch.clamp(inverse_mel(small, *margs).abs(), min=1e-5)
+    theta = torch.rand(mag.shape, generator=torch.Generator().manual_seed(0)) * 2 * math.pi - math.pi
+    gl_args = (base.n_fft, base.hop_size, base.win_size)
+    gl = _rel_peak(griffin_lim(mag.cuda(), *gl_args, theta=theta).cpu(),
+                   griffin_lim(mag, *gl_args, theta=theta))
+    say(phase="convtasnet_decode_vs_cpu_plain", batch=2, frames=64, init_phase="zero",
+        max_abs_err=(gpu - cpu).abs().max().item(), peak_rel_err=_rel_peak(gpu, cpu),
+        max_abs_ref=cpu.abs().max().item(), rtol=MODEL_RTOL, atol=MODEL_ATOL,
+        peak_rel_limit=MODEL_PEAK_REL, ok=ok, tf32_control_peak_rel_err=_rel_peak(tf32, cpu),
+        control_refused=refused, griffin_lim_peak_rel_err=gl, griffin_lim_limit=GL_PEAK_REL)
+    if not ok:
+        raise SystemExit("ConvTasNet decode on the card disagrees with the CPU plain path")
+    if not refused:
+        raise SystemExit("ConvTasNet decode vs the CPU: the TF32 control passes the limits")
+    if not (gl <= GL_PEAK_REL):
+        raise SystemExit(f"Griffin-Lim on the card is {gl} of the peak from the CPU's")
+    return main_counts
+
 
 def _key(r):
     """A row's shape as its wrapper counts launches: (rows, steps, C, H, dtype)
     for the fused kernel, (steps, rows, H, dtype) for the others."""
     if r["name"] == "lstm_scan_fused":
         return (r["rows"], r["steps"], r["C"], r["H"], r["dtype"])
+    if r["name"] == "tcn_block_tail":
+        return (r["rows"], r["steps"], r["H"], r["Bc"], r["dilation"], r["dtype"])
     return (r["steps"], r["rows"], r["H"], r["dtype"])
 
 
@@ -1252,7 +1541,7 @@ def _missing(rows, paths):
 def phase_rest(rows, paths, phase="kernel_vs_plain"):
     """Rows for the inference kernels' launches on the main paths that no row
     holds yet, each at its shape and dtype, labelled <path>_<rows>x<steps>."""
-    fused, scans, bidir2 = {}, {}, {}
+    fused, scans, bidir2, tails = {}, {}, {}, {}
     for p, k, key in _missing(rows, paths):
         dtype = getattr(torch, key[-1])
         if k == "lstm_scan_fused":
@@ -1264,8 +1553,12 @@ def phase_rest(rows, paths, phase="kernel_vs_plain"):
         elif k == "lstm_scan_bidir2":
             T, R, H, _ = key
             bidir2.setdefault(key, (f"{p}_{T}x{R}", T, R, H, dtype))
+        elif k == "tcn_block_tail":
+            B, T, H, Bc, d, _ = key
+            tails.setdefault(key, (f"{p}_{B}x{T}_d{d}", B, T, H, Bc, d, dtype))
     return (phase_kernels(fused.values(), phase) + phase_scan_kernels(scans.values(), phase)
-            + phase_bidir2_kernels(bidir2.values(), phase))
+            + phase_bidir2_kernels(bidir2.values(), phase)
+            + phase_tcn_kernels(tails.values(), phase))
 
 
 def main():
@@ -1313,7 +1606,13 @@ def main():
     # every other shape that a main path launched (serving's 128-frame bucket, the
     # validations, the offline decodes beside the streams), in the dtype it ran in
     rows += phase_rest(rows, paths) + phase_rest(rows, l_paths, phase="bsrnn_l_kernels")
-    all_paths = {**paths, **{f"bsrnn_l_{p}": c for p, c in l_paths.items()}}
+    # ConvTasNet (the time domain): the tail kernel at the decode shape at each
+    # dilation, the decode and serving main path, then the shapes serving launched
+    rows += phase_tcn_kernels([(f"decode_d{d}", TCN_B, TCN_T, TCN_H, TCN_BC, d, dt)
+                               for d in TCN_DILATIONS for dt in DTYPES])
+    c_paths = {"convtasnet": phase_convtasnet()}
+    rows += phase_rest(rows, c_paths, phase="tcn_kernels")
+    all_paths = {**paths, **{f"bsrnn_l_{p}": c for p, c in l_paths.items()}, **c_paths}
     missing = _missing(rows, all_paths)
     if missing:
         raise SystemExit(f"launches on a main path with no kernel-vs-plain row: {missing}")
@@ -1330,7 +1629,8 @@ def main():
                 "lstm_bwd_dw": "nvse_tpu/ops/pallas_lstm_bwd.py:339",
                 "lstm_scan": "nvse_tpu/ops/pallas_lstm.py:212",
                 "lstm_scan_stateful": "nvse_tpu/ops/pallas_lstm.py:297",
-                "lstm_scan_bidir2": "nvse_tpu/ops/pallas_lstm.py:499"}
+                "lstm_scan_bidir2": "nvse_tpu/ops/pallas_lstm.py:499",
+                "tcn_block_tail": "nvse_tpu/ops/pallas_tcn.py:136"}
     kernels = []
     for r in rows:
         if r["name"] == "lstm_scan_bidir2" and r["shape"] == "small":
@@ -1339,7 +1639,8 @@ def main():
                                          else {"replaces": replaces[r["name"]]})}
         kernels.append({
             "name": r["name"], "shape": r["shape"], "rows": r["rows"], "steps": r["steps"],
-            "H": r["H"], "dtype": r["dtype"], "route": "cuda", **src,
+            "H": r["H"], **{k: r[k] for k in ("Bc", "dilation", "library") if k in r},
+            "dtype": r["dtype"], "route": "cuda", **src,
             "launches": launched.get(r["name"], {}).get(_key(r), 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -1,14 +1,18 @@
-"""Inference CLI of the port for the BSRNN family and GCRN (counterpart
-of infers/inference_bsrnn.py and infers/inference_gcrn.py).
+"""Inference CLI of the port for the BSRNN family, GCRN and ConvTasNet
+(counterpart of infers/inference_bsrnn.py, infers/inference_gcrn.py and
+infers/inference_convtasnet.py).
 
     python -m nvse_tpu_torch.infer --cfg_filename nvse_tpu_torch/configs/bsrnn_config.json
     python -m nvse_tpu_torch.infer --cfg_filename nvse_tpu_torch/configs/gcrn_config.json
+    python -m nvse_tpu_torch.infer --cfg_filename nvse_tpu_torch/configs/convtasnet_config.json
 Decodes the configured test filelist to h.test_output_dir and prints the
 RTF (generated-audio-seconds / wall-seconds). Runs on the GPU unless
 --device cpu is given. --stream decodes in chunks (config keys
 stream_chunk_frames, stream_context_frames; stream_mode "stateful"
 carries the recurrent state instead of recomputing a context, for the
-BSRNN family; GCRN streams by context recompute).
+BSRNN family; GCRN and ConvTasNet stream by context recompute). ConvTasNet's
+config leaves fused_tcn off, as the reference; a copy with "fused_tcn": 1
+runs every TCN block tail through the kernel of csrc/tcn_tail.cu.
 """
 import argparse
 import os

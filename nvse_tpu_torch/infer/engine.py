@@ -1,7 +1,8 @@
 """Batch inference engine: mel->wav decoding with RTF accounting.
 
 Counterpart of nvse_tpu/infer/engine.py for the generators the port has
-(the BSRNN family and GCRN):
+(the BSRNN family, GCRN and ConvTasNet; a time-domain generator returns the
+wave itself, hop * (T - 1) samples, which synthesize_mel crops):
   * length bucketing: utterances are padded to the next multiple of
     `bucket_frames` mel frames with log(1e-5) and the output is cropped
     back, so a batch of mixed lengths decodes at a few fixed shapes;
@@ -13,9 +14,9 @@ Counterpart of nvse_tpu/infer/engine.py for the generators the port has
     `synthesize_streaming` recomputes a context on each side of every
     chunk (any generator), `synthesize_streaming_stateful` carries the
     time LSTMs' state and the overlap-add tail from chunk to chunk (exact
-    for a causal config; the BSRNN family only: GCRN has no
-    `supports_stream_state` and raises there), batch rows being
-    independent streams.
+    for a causal config; the BSRNN family only: GCRN and ConvTasNet have
+    no `supports_stream_state` and raise there, and run_inference streams
+    them by context recompute), batch rows being independent streams.
 Multi-device serving and Orbax checkpoints are not ported yet and raise
 here.
 """

@@ -1,14 +1,16 @@
 """Model registry of the port.
 
 `build_generator(h)` returns `(module, domain)` like the JAX package's
-registry (nvse_tpu/models/__init__.py). The BSRNN family and GCRN are
-ported so far; any other `model_name` raises and lists what is.
+registry (nvse_tpu/models/__init__.py). The BSRNN family, GCRN (T-F
+domain) and ConvTasNet (time domain) are ported so far; any other
+`model_name` raises and lists what is.
 """
 from __future__ import annotations
 
 import torch
 
 from .bsrnn import BSRNN, BSRNN_24k
+from .convtasnet import ConvTasNet
 from .gcrn import GCRN
 
 # name -> (factory, domain); names match the reference cfgs' model_name
@@ -16,6 +18,7 @@ _REGISTRY: dict = {
     "BSRNN": (BSRNN, "tf"),
     "BSRNN_24k": (BSRNN_24k, "tf"),
     "GCRN": (GCRN, "tf"),
+    "ConvTasNet": (ConvTasNet, "time"),
 }
 
 

@@ -1,13 +1,15 @@
-"""Linear, LayerNorm, LSTM, Conv2d and ConvTranspose2d with torch.nn
-semantics.
+"""Linear, LayerNorm, LSTM, Conv1d, ConvTranspose1d, Conv2d and
+ConvTranspose2d with torch.nn semantics.
 
 Counterparts of nvse_tpu/models/layers.py (Linear, LayerNorm, LSTM
-:466-608; Conv2d, ConvTranspose2d, leaky_relu, get_padding :37-46,
-:287-394). Linear and LSTM keep the JAX package's names and layouts
-(Linear `kernel` is (in, out); LSTM `w_ih_*` is (C, 4H), `w_hh_*`
-(H, 4H)); the weight-normalised Conv2d keeps the names `v`, `g`, `bias`
-in torch's OIHW layout, PlainConv2d and ConvTranspose2d the names
-`kernel`, `bias` in torch's layouts. utils/jax_params.py maps a flax
+:466-608; Conv1d, ConvTranspose1d :138-285; Conv2d, ConvTranspose2d,
+leaky_relu, get_padding :37-46, :287-394). Linear and LSTM keep the JAX
+package's names and layouts (Linear `kernel` is (in, out); LSTM `w_ih_*`
+is (C, 4H), `w_hh_*` (H, 4H)); the weight-normalised Conv2d keeps the
+names `v`, `g`, `bias` in torch's OIHW layout, Conv1d, ConvTranspose1d,
+PlainConv2d and ConvTranspose2d the names `kernel`, `bias` in torch's
+layouts. The 1-D convs take and return the JAX layers' channels-last
+(B, T, C). utils/jax_params.py maps a flax
 tree onto them one to one. Random init draws from the caller's
 torch.Generator with the JAX package's distributions.
 """
@@ -228,3 +230,51 @@ class ConvTranspose2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv_transpose2d(x, self.kernel, self.bias, self.stride, self.padding)
+
+
+class Conv1d(nn.Module):
+    """torch.nn.Conv1d on channels-last (B, T, C), without weight norm.
+    Counterpart of nvse_tpu/models/layers.py:Conv1d with its defaults;
+    parameters `kernel` (out, in / groups, k) and `bias` (out,), both
+    U(+-1/sqrt(in / groups * k)). The input is cast to the weight dtype. A
+    1x1 conv (stride 1, no padding, one group) is a matrix product over the
+    channels; any other runs F.conv1d on (B, C, T)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, dilation: int = 1, groups: int = 1,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        self.stride, self.padding, self.dilation, self.groups = stride, padding, dilation, groups
+        bound = 1.0 / math.sqrt(in_channels // groups * kernel_size)
+        self.kernel = uniform_((out_channels, in_channels // groups, kernel_size), bound, gen)
+        self.bias = uniform_((out_channels,), bound, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.kernel.dtype)
+        if self.kernel.shape[-1] == 1 and self.stride == 1 and self.padding == 0 and self.groups == 1:
+            return x @ self.kernel[:, :, 0].T + self.bias
+        y = F.conv1d(x.transpose(1, 2), self.kernel, self.bias, self.stride, self.padding,
+                     self.dilation, self.groups)
+        return y.transpose(1, 2)
+
+
+class ConvTranspose1d(nn.Module):
+    """torch.nn.ConvTranspose1d on channels-last (B, T, C), without weight
+    norm: out_len = (T - 1) * stride - 2 * padding + k. Counterpart of
+    nvse_tpu/models/layers.py:ConvTranspose1d with its defaults; parameters
+    `kernel` (in, out, k) and `bias` (out,), both U(+-1/sqrt(out * k)),
+    torch's fan-in for a transposed conv. The JAX layer's form (kernel
+    flipped, input dilated by the stride) is F.conv_transpose1d."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, gen: torch.Generator | None = None):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        bound = 1.0 / math.sqrt(out_channels * kernel_size)
+        self.kernel = uniform_((in_channels, out_channels, kernel_size), bound, gen)
+        self.bias = uniform_((out_channels,), bound, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose1d(x.to(self.kernel.dtype).transpose(1, 2), self.kernel, self.bias,
+                               self.stride, self.padding)
+        return y.transpose(1, 2)

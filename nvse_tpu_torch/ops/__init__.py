@@ -1,3 +1,4 @@
+from .griffin_lim import griffin_lim, random_phase
 from .lstm import (
     lstm_scan,
     lstm_scan_bidir2,
@@ -19,3 +20,4 @@ from .spectral import (
     mel_spectrogram_np,
     stft_ri,
 )
+from .tcn import tcn_block_tail, tcn_block_tail_kernel, tcn_block_tail_plain

@@ -1,4 +1,5 @@
-"""Map JAX-package parameter trees (BSRNN, GCRN, the T-F discriminators)
+"""Map JAX-package parameter trees (BSRNN, GCRN, ConvTasNet, the T-F
+discriminators)
 onto the port's state_dicts.
 
 Reads plain numpy (e.g. `jax.tree.map(np.asarray, variables["params"])`
@@ -86,9 +87,44 @@ def _gcrn_params(p: dict) -> dict[str, torch.Tensor]:
     return out
 
 
+def _conv1d(node: dict, prefix: str, out: dict, transposed: bool = False) -> None:
+    """Conv1d kernel (k, in / groups, out) -> (out, in / groups, k); a
+    ConvTranspose1d kernel (k, in, out) -> (in, out, k), not flipped: the
+    JAX layer flips it itself to write the transposed conv as a dilated one."""
+    perm = (1, 2, 0) if transposed else (2, 1, 0)
+    out[f"{prefix}.kernel"] = _t(np.transpose(np.asarray(node["kernel"]), perm))
+    out[f"{prefix}.bias"] = _t(node["bias"])
+
+
+def _convtasnet_params(p: dict, h) -> dict[str, torch.Tensor]:
+    """Tree (the order of nvse_tpu/utils/torch_import.py:import_convtasnet):
+    Conv1d_0 (encoder), GlobalLayerNorm_0, Conv1d_1 (bottleneck),
+    Conv1DBlock_{i}/{Conv1d_0 (1x1), PReLU_0, GlobalLayerNorm_0 or
+    ChannelLayerNorm_0, Conv1d_1 (depthwise), Conv1d_2 (res), Conv1d_3
+    (skip)}, Conv1d_2 (mask head), ConvTranspose1d_0 (decoder)."""
+    out: dict[str, torch.Tensor] = {}
+    _conv1d(p["Conv1d_0"], "encoder", out)
+    _copy(p["GlobalLayerNorm_0"], "enc_norm", out)
+    _conv1d(p["Conv1d_1"], "bottleneck", out)
+    for i in range(int(h.R) * int(h.X)):
+        blk, pre = p[f"Conv1DBlock_{i}"], f"blocks.{i}"
+        _conv1d(blk["Conv1d_0"], f"{pre}.conv_in", out)
+        out[f"{pre}.prelu.alpha"] = _t(np.asarray(blk["PReLU_0"]["alpha"]).reshape(()))
+        norm = "GlobalLayerNorm_0" if "GlobalLayerNorm_0" in blk else "ChannelLayerNorm_0"
+        _copy(blk[norm], f"{pre}.norm", out)
+        _conv1d(blk["Conv1d_1"], f"{pre}.dwconv", out)
+        _conv1d(blk["Conv1d_2"], f"{pre}.res_conv", out)
+        if "Conv1d_3" in blk:
+            _conv1d(blk["Conv1d_3"], f"{pre}.skip_conv", out)
+    _conv1d(p["Conv1d_2"], "mask_conv", out)
+    _conv1d(p["ConvTranspose1d_0"], "decoder", out, transposed=True)
+    return out
+
+
 def params_from_jax(flax_params_as_numpy: dict, h) -> dict[str, torch.Tensor]:
     """JAX generator params (numpy leaves) -> port state_dict, for the
-    models the port has: BSRNN / BSRNN_24k and GCRN (`_gcrn_params`).
+    models the port has: BSRNN / BSRNN_24k, GCRN (`_gcrn_params`) and
+    ConvTasNet (`_convtasnet_params`).
 
     BSRNN tree: BSRNNCore_0/{_GroupedBandEncoder_0, BSNet_{r}/{ResRNN_0
     (time), ResRNN_1 (band), LayerNorm_0 (out norm)}, _GroupedBandDecoder_0
@@ -97,6 +133,8 @@ def params_from_jax(flax_params_as_numpy: dict, h) -> dict[str, torch.Tensor]:
     p = flax_params_as_numpy.get("params", flax_params_as_numpy)
     if h.model_name == "GCRN":
         return _gcrn_params(p)
+    if h.model_name == "ConvTasNet":
+        return _convtasnet_params(p, h)
     if h.model_name not in ("BSRNN", "BSRNN_24k"):
         raise NotImplementedError(f"no parameter map for {h.model_name!r} yet")
     core = p["BSRNNCore_0"]

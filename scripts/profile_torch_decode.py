@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's BSRNN-M, BSRNN-L and GCRN decodes on one GPU.
+"""Where the time goes in the port's BSRNN-M, BSRNN-L, GCRN and ConvTasNet decodes on one GPU.
 
-    python3 scripts/profile_torch_decode.py [--iters 3] [--model bsrnn|bsrnn_l|gcrn|both]
+    python3 scripts/profile_torch_decode.py [--iters 3] [--model bsrnn|bsrnn_l|gcrn|convtasnet|both]
 
 Runs the B=8 x 1024-frame mel->wave decode of nvse_tpu_torch (seeded
 random weights at full width, float32 then bfloat16) under torch.profiler
-after one warmup forward, and prints one JSON line per model and dtype:
-wall ms per forward, device-busy ms per forward (sum of kernel times; one
-stream, so kernels do not overlap), the idle share, the hand-written LSTM
-kernels' share (lstm_fused for BSRNN-M, lstm_grid for BSRNN-L, lstm_bidir2
-for GCRN; "both" is BSRNN-M and GCRN), device ms
-per category of kernel name (lstm, convolution, gemm, elementwise and
-copies, other) and the twelve kernels with the most device time. Needs a
-CUDA GPU.
+after one warmup forward, and prints one JSON line per model and dtype
+(ConvTasNet: per dtype with fused_tcn 1, then 0): wall ms per forward,
+device-busy ms per forward (sum of kernel times; one stream, so kernels do
+not overlap), the idle share, the hand-written kernel's share (`kernel`:
+lstm_fused for BSRNN-M, lstm_grid for BSRNN-L, lstm_bidir2 for GCRN,
+tcn_tail for ConvTasNet; "both" is BSRNN-M and GCRN), device ms per
+category of kernel name (the hand-written kernels, FFT, convolution, gemm,
+elementwise and copies, other) and the twelve kernels with the most device
+time. Needs a CUDA GPU.
 """
 import argparse
 import json
@@ -37,15 +38,20 @@ def _device_us(evt) -> float:
 # kernel-name fragments of each category, tried in this order
 CATEGORIES = (
     ("lstm", ("lstm_",)),
+    ("tcn_tail", ("tcn_tail",)),
+    ("fft", ("fft",)),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit", "cudnn", "winograd",
                      "im2col", "col2im", "nchwtonhwc", "nhwctonchw")),
     ("gemm", ("gemm", "gemv", "cublas", "cutlass")),
     ("elementwise_and_copies", ("elementwise", "vectorized", "reduce", "catarray", "copy",
                                 "memcpy", "memset", "layer_norm", "index", "fill")),
 )
-CONFIGS = {"bsrnn": ("bsrnn_config.json", "lstm_fused"),
-           "bsrnn_l": ("bsrnn_l_config.json", "lstm_grid"),
-           "gcrn": ("gcrn_config.json", "lstm_bidir2")}
+# model -> (config, the hand-written kernel's name fragment, config variants)
+CONFIGS = {"bsrnn": ("bsrnn_config.json", "lstm_fused", ({},)),
+           "bsrnn_l": ("bsrnn_l_config.json", "lstm_grid", ({},)),
+           "gcrn": ("gcrn_config.json", "lstm_bidir2", ({},)),
+           "convtasnet": ("convtasnet_config.json", "tcn_tail",
+                          ({"fused_tcn": 1}, {"fused_tcn": 0}))}
 
 
 def category(kernel_name: str) -> str:
@@ -59,7 +65,8 @@ def category(kernel_name: str) -> str:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=3)
-    ap.add_argument("--model", default="both", choices=("bsrnn", "bsrnn_l", "gcrn", "both"))
+    ap.add_argument("--model", default="both",
+                    choices=("bsrnn", "bsrnn_l", "gcrn", "convtasnet", "both"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_decode: needs a CUDA GPU")
@@ -76,13 +83,13 @@ def main() -> None:
     print(smi, flush=True)
     B, T = 8, 1024
     for model in ("bsrnn", "gcrn") if args.model == "both" else (args.model,):
-        cfg, lstm_kernel = CONFIGS[model]
+        cfg, kernel, variants = CONFIGS[model]
         h = load_config(os.path.join(REPO, "nvse_tpu_torch", "configs", cfg))
         mel = torch.from_numpy(np.random.default_rng(0).standard_normal(
             (B, h.num_mels, T)).astype(np.float32) - 4.0).cuda()
-        for dtype in ("float32", "bfloat16"):
+        for dtype, variant in [(d, v) for d in ("float32", "bfloat16") for v in variants]:
             hd = type(h)(h)
-            hd["compute_dtype"] = dtype
+            hd.update(variant, compute_dtype=dtype)
             eng = InferenceEngine(hd, device="cuda")
             eng.forward(mel)
             torch.cuda.synchronize()
@@ -104,20 +111,20 @@ def main() -> None:
                 if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
                     kernels[evt.key] = kernels.get(evt.key, 0.0) + us
             busy_ms = sum(kernels.values()) / 1e3 / args.iters
-            lstm_ms = sum(v for k, v in kernels.items() if lstm_kernel in k) / 1e3 / args.iters
+            kernel_ms = sum(v for k, v in kernels.items() if kernel in k) / 1e3 / args.iters
             by_cat = {}
             for k, v in kernels.items():
                 by_cat[category(k)] = by_cat.get(category(k), 0.0) + v / 1e3 / args.iters
             top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
             print(json.dumps({
-                "model": h.model_name, "dtype": dtype, "batch": B, "frames": T,
+                "model": h.model_name, **variant, "dtype": dtype, "batch": B, "frames": T,
                 "wall_ms": wall_ms, "wall_ms_untraced": untraced_ms,
                 "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
                 "idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else "not measured",
                 "idle_share_untraced": (1 - busy_ms / untraced_ms if busy_ms > 0
                                         else "not measured"),
-                "lstm_kernel": lstm_kernel, "lstm_kernel_ms": lstm_ms,
-                "lstm_share_of_busy": lstm_ms / busy_ms if busy_ms > 0 else "not measured",
+                "kernel": kernel, "kernel_ms": kernel_ms,
+                "kernel_share_of_busy": kernel_ms / busy_ms if busy_ms > 0 else "not measured",
                 "kernel_launches_per_forward": sum(
                     e.count for e in prof.key_averages()
                     if e.device_type == torch.autograd.DeviceType.CUDA) / args.iters,

@@ -13,7 +13,9 @@ wide training kernels (csrc/lstm_wide.cu) at H = 256, 448 and 768 with
 GCRN's grouped LSTM under autograd, and the wide inference kernels
 (csrc/lstm_fused_wide.cu, csrc/lstm_scan_wide.cu: row groups x unit
 slices) from one row to 700 at H = 136-768, with the BSRNN-L (H = 256)
-forward, causal forward and stream.
+forward, causal forward and stream; the TCN block tail (csrc/tcn_tail.cu)
+from one step to 700, dilations 1-300 (past T), 2 Bc over two column tiles,
+under autograd, and a 24-block ConvTasNet forward (24 launches).
 """
 import math
 
@@ -537,3 +539,98 @@ def test_bsrnn_l_causal_forward_and_stream_launch_wide_kernels(cuda):
     # causal: the stream equals the card's own offline decode
     offline = gpu.synthesize_mel(mel, out_len=63 * 256)
     assert abs(got - offline).max() <= 1e-4 * abs(offline).max()
+
+
+# ---------------------------------------------------------------------------
+# the TCN block tail: csrc/tcn_tail.cu
+# ---------------------------------------------------------------------------
+
+def _tail_args(B, T, H, Bc, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    c = torch.randn(B, T, H, generator=g) + 0.5
+    x = torch.randn(B, T, Bc, generator=g)
+    gw, gb = 1.0 + 0.1 * torch.randn(1, H, generator=g), 0.5 * torch.randn(1, H, generator=g)
+    wdw, bdw = torch.randn(3, H, generator=g) / 3, 0.1 * torch.randn(1, H, generator=g)
+    wrs = torch.randn(H, 2 * Bc, generator=g) / math.sqrt(H)
+    brs = 0.1 * torch.randn(1, 2 * Bc, generator=g)
+    return [t.to("cuda", dtype) for t in (c, x, gw, gb, wdw, bdw, wrs, brs)]
+
+
+# kernel vs plain over max(1, max |plain|): float32 sums in another order; in
+# bfloat16 both round q once and store the outputs with 8-bit mantissas
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("B,T,H,Bc,d", [(1, 1, 8, 4, 1), (3, 700, 512, 128, 1),
+                                        (3, 700, 512, 128, 128), (2, 333, 96, 40, 16),
+                                        (2, 100, 64, 200, 300)])
+def test_tcn_tail_kernel_matches_plain(cuda, B, T, H, Bc, d, dtype, tol):
+    from nvse_tpu_torch.ops.tcn import _fold, tcn_block_tail, tcn_block_tail_plain
+
+    c, x, gw, gb, wdw, bdw, wrs, brs = _tail_args(B, T, H, Bc, dtype, seed=T + d)
+    n0 = tcn_block_tail.launches
+    with torch.inference_mode():
+        e, s = tcn_block_tail(c, x, gw, gb, wdw, bdw, wrs, brs, d)
+        torch.cuda.synchronize()
+        a, b2 = _fold(c, gw, gb, 1e-5)
+        e_ref, s_ref = tcn_block_tail_plain(c, x, a, b2, wdw, bdw, wrs, brs, d)
+    assert tcn_block_tail.launches == n0 + 1
+    assert tcn_block_tail.launches_by_shape[(B, T, H, Bc, d, str(dtype)[6:])] >= 1
+    for got, ref in ((e, e_ref), (s, s_ref)):
+        assert got.dtype == dtype and got.shape == (B, T, Bc)
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= tol * max(1.0, ref.float().abs().max().item())
+
+
+def test_tcn_tail_kernel_raises_on_what_it_does_not_take(cuda):
+    from nvse_tpu_torch.ops.tcn import tcn_block_tail
+
+    c, x, gw, gb, wdw, bdw, wrs, brs = _tail_args(2, 9, 16, 8, torch.float32)
+    with pytest.raises(NotImplementedError, match="3 taps"):
+        tcn_block_tail(c, x, gw, gb, torch.zeros(5, 16, device="cuda"), bdw, wrs, brs, 1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tcn_block_tail(c.half(), x.half(), gw.half(), gb.half(), wdw.half(), bdw.half(),
+                       wrs.half(), brs.half(), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tcn_block_tail(c.transpose(0, 1).contiguous().transpose(0, 1), x, gw, gb, wdw, bdw,
+                       wrs, brs, 1)
+    with pytest.raises(ValueError, match="dilation"):
+        tcn_block_tail(c, x, gw, gb, wdw, bdw, wrs, brs, 0)
+
+
+def test_tcn_tail_under_autograd_on_card_matches_cpu(cuda):
+    from nvse_tpu_torch.ops.tcn import tcn_block_tail
+
+    host = [t.cpu() for t in _tail_args(2, 65, 128, 64, torch.float32, seed=5)]
+    cot = [torch.randn(2, 65, 64, generator=torch.Generator().manual_seed(s)) for s in (1, 2)]
+    outs = {}
+    for device in ("cuda", "cpu"):
+        leaves = [t.to(device).requires_grad_() for t in host]
+        n0 = tcn_block_tail.launches
+        e, s = tcn_block_tail(*leaves, 4)
+        assert tcn_block_tail.launches - n0 == (device == "cuda")
+        assert e.grad_fn is not None
+        torch.autograd.backward([e, s], [t.to(device) for t in cot])
+        outs[device] = [e.detach().cpu(), s.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+def test_convtasnet_forward_launches_24_tails(cuda):
+    from nvse_tpu_torch.infer import InferenceEngine
+    from nvse_tpu_torch.ops.tcn import tcn_block_tail
+    from nvse_tpu_torch.utils import AttrDict
+
+    h = AttrDict(dict(model_name="ConvTasNet", sampling_rate=22050, n_fft=1024, hop_size=256,
+                      win_size=1024, num_mels=80, fmin=0, fmax=8000, N=64, L=16, B=128, H=128,
+                      P=3, X=8, R=3, num_spks=1, skip_con=True, init_phase="griffin_lim",
+                      causal=False, norm="gln", fused_tcn=1, seed=1234))
+    mel = torch.randn(2, 80, 32, generator=torch.Generator().manual_seed(0)) - 4.0
+    lstms = (port_lstm.lstm_scan_fused, port_lstm.lstm_scan, port_lstm.lstm_scan_bidir2)
+    n0, l0 = dict(tcn_block_tail.launches_by_shape), [f.launches for f in lstms]
+    gpu = InferenceEngine(h, device="cuda").forward(mel).cpu()
+    got = {k: v - n0.get(k, 0) for k, v in tcn_block_tail.launches_by_shape.items()
+           if v != n0.get(k, 0)}
+    T = (256 * 31 - 16) // 8 + 1
+    assert got == {(2, T, 128, 128, 2 ** i, "float32"): 3 for i in range(8)}
+    assert [f.launches for f in lstms] == l0
+    torch.testing.assert_close(gpu, InferenceEngine(h, device="cpu").forward(mel),
+                               rtol=2e-3, atol=2e-4)
