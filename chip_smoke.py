@@ -115,13 +115,33 @@ the last line:
      convtasnet_decode_vs_cpu_plain, the card against the CPU's plain path on
      a small input with zero initial phase (TF32 as the control) and the
      Griffin-Lim front on its own;
- 16. each main path above sets the launch counts to 0 when it starts and
+ 16. lstm_scan_bidir (both directions as stacked rows of one scan:
+     csrc/lstm_scan.cu at H = 128, csrc/lstm_scan_wide.cu mode kScanBidir at
+     H = 256) against its plain version at the bench's default shapes (1024
+     steps x 2 x 544 rows, 68 x 2 x 8192) at H = 128 and 256 and at a ragged
+     64 x 2 x 20, in float32 and bfloat16, with two cuDNN LSTM forwards beside
+     it and the halves of w_stack swapped as the control the limit must refuse
+     (lstm_scan_bidir_kernels); the port's LSTM-layout bench
+     (scripts/bench_torch_lstm_kernel.py) in this process at its default
+     shapes and at --hidden 256, 3 timed calls a variant (bench_lstm_kernel);
+     lstm_scan_fused at HD-Demucs's
+     bottleneck (8 x 1024, H = 768, C = 768 and 1536) in both dtypes, past its
+     fused kernels: the projection and one lstm_scan_bidir2 launch a call,
+     held to lstm_scan_fused_plain (hddemucs_bottleneck);
+ 17. the per-step ablation harness (scripts/profile_torch_lstm_step.py) in this
+     process at its four shapes in float32 and bfloat16: five variants of one
+     direction of csrc/lstm_fused.cu (H = 128) and csrc/lstm_fused_wide.cu
+     (H = 256), each against its plain version, `full` against the forward half
+     of lstm_scan_fused, and the split of a step into input, products,
+     nonlinearities and floor (lstm_step_ablation, lstm_step_split);
+ 18. each main path above sets the launch counts to 0 when it starts and
      reads them per wrapper and shape when it ends; every other shape that a
      main path launched (serving's 128-frame bucket, the validations, the
-     offline decodes beside the streams, ConvTasNet's serving buckets) gets
-     its kernel-vs-plain row in the dtype it ran in, and a launch at a shape
-     with no row fails the run;
- 17. print the kernels line (one entry per kernel, shape and dtype, each
+     offline decodes beside the streams, ConvTasNet's serving buckets, the
+     bench's scans and fused BiLSTMs, HD-Demucs's lstm_scan_bidir2) gets its
+     kernel-vs-plain row in the dtype it ran in, and a launch at a shape with
+     no row fails the run;
+ 19. print the kernels line (one entry per kernel, shape and dtype, each
      with its launches summed over the main paths), then the ok line.
 Exits nonzero without output when no CUDA GPU is visible.
 """
@@ -134,12 +154,14 @@ import subprocess
 import sys
 import tempfile
 import time
-import warnings
 
 import numpy as np
 import torch
 
+from nvse_tpu_torch.ops._measure import cudnn_lstm, launch_delta, no_weight_compaction
+
 REPO = os.path.dirname(os.path.abspath(__file__))
+T0 = time.time()                   # every phase line gives its seconds since the start
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -155,7 +177,7 @@ MODEL_RTOL, MODEL_ATOL = 2e-3, 2e-4
 
 
 def say(**kw):
-    print(json.dumps(kw), flush=True)
+    print(json.dumps({**kw, "t": round(time.time() - T0, 1)}), flush=True)
 
 
 def cuda_ms(fn, iters, warmup=1):
@@ -193,46 +215,10 @@ def _lstm_inputs(R, T, C, H, dtype, seed):
     return [t.to("cuda", dtype) for t in [x, *w]]
 
 
-def _cudnn_lstm(directions, dtype, **kw):
-    """torch.nn.LSTM on the card holding the given (w_ih, w_hh, b) of each
-    direction, its weights laid out as one cuDNN buffer. Build it outside
-    inference mode. nn.LSTM.flatten_parameters lays out float32 but skips
-    bfloat16 (torch.backends.cudnn.is_acceptable does not list the type),
-    and cuDNN then compacts the weights at every call: so this calls the op
-    that flatten_parameters wraps."""
-    import torch.backends.cudnn.rnn as cudnn_rnn
-
-    (w_ih, w_hh, _), *rest = directions
-    lstm = torch.nn.LSTM(w_ih.shape[0], w_hh.shape[0], bidirectional=bool(rest),
-                         device="cuda", dtype=dtype, **kw)
-    with torch.no_grad():
-        for sfx, (w_ih, w_hh, b) in zip(("", "_reverse"), directions):
-            getattr(lstm, f"weight_ih_l0{sfx}").copy_(w_ih.T)
-            getattr(lstm, f"weight_hh_l0{sfx}").copy_(w_hh.T)
-            getattr(lstm, f"bias_ih_l0{sfx}").copy_(b)
-            getattr(lstm, f"bias_hh_l0{sfx}").zero_()
-        torch._cudnn_rnn_flatten_weight(
-            lstm._flat_weights, 4, lstm.input_size, cudnn_rnn.get_cudnn_mode(lstm.mode),
-            lstm.hidden_size, lstm.proj_size, lstm.num_layers, lstm.batch_first,
-            bool(lstm.bidirectional))
-    return lstm
-
-
 def _cudnn_bilstm(args):
     x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b = args
-    return _cudnn_lstm([(w_ih_f, w_hh_f, b_f), (w_ih_b, w_hh_b, b_b)], x.dtype,
+    return cudnn_lstm([(w_ih_f, w_hh_f, b_f), (w_ih_b, w_hh_b, b_b)], x.dtype,
                        batch_first=True)
-
-
-@contextlib.contextmanager
-def _no_weight_compaction():
-    """Fails the run if a cuDNN LSTM call inside warns that its weights are
-    compacted at every call: the library's time would include the copy."""
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        yield
-    if any("contiguous chunk" in str(w.message) for w in caught):
-        raise SystemExit("the cuDNN yardstick compacts its weights at every call")
 
 
 def _bound(nbytes, ops, dtype):
@@ -280,7 +266,7 @@ def phase_kernels(cases, phase="kernel_vs_plain"):
         args = _lstm_inputs(R, T, C, H, dtype, seed=R + T)
         lib = _cudnn_bilstm(args)
         x, wif, wib, bf, bb, whf, whb = args
-        with torch.inference_mode(), _no_weight_compaction():
+        with torch.inference_mode(), no_weight_compaction():
             got = lstm_scan_fused(*args)
             torch.cuda.synchronize()
             ref = lstm_scan_fused_plain(*args)
@@ -350,7 +336,7 @@ def phase_decode(name="bsrnn"):
             wav = eng.forward(melc)
         torch.cuda.synchronize()
         wall = (time.time() - t0) / iters
-        launches = _delta(lstm_scan_fused.launches_by_kernel, n0)
+        launches = launch_delta(lstm_scan_fused.launches_by_kernel, n0)
         if launches != {kernel: per_forward * (iters + 1)}:
             raise SystemExit(f"{name} {dtype} decode: kernel launches {launches} for {iters + 1} "
                              f"forwards, expected {per_forward} of {kernel} per forward")
@@ -450,11 +436,6 @@ def _training_counters():
             "lstm_scan": L.lstm_scan, "lstm_scan_stateful": L.lstm_scan_stateful}
 
 
-def _delta(now, before):
-    """The launches per key (shape or kernel) made since `before`."""
-    return {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}
-
-
 def _launched(counters, fn):
     """fn() and the launches of each counter that it made."""
     n0 = {k: c.launches for k, c in counters.items()}
@@ -464,10 +445,12 @@ def _launched(counters, fn):
 
 def _all_counters():
     from nvse_tpu_torch.ops import lstm as L
+    from nvse_tpu_torch.ops.lstm_step import lstm_step_variant
     from nvse_tpu_torch.ops.tcn import tcn_block_tail
 
     return {**_training_counters(), "lstm_scan_bidir2": L.lstm_scan_bidir2,
-            "tcn_block_tail": tcn_block_tail}
+            "tcn_block_tail": tcn_block_tail, "lstm_scan_bidir": L.lstm_scan_bidir,
+            "lstm_step_variant": lstm_step_variant}
 
 
 def _shape_counts():
@@ -590,8 +573,8 @@ def phase_scan_kernels(cases, phase="kernel_vs_plain"):
         item = x.element_size()
         ops = 2 * R * T * H * G
         nbytes = (R * T * (G + H) + H * G) * item
-        lib = _cudnn_lstm([(w_ih, whh, bias)], dtype)        # time-major, one direction
-        with torch.inference_mode(), _no_weight_compaction():
+        lib = cudnn_lstm([(w_ih, whh, bias)], dtype)        # time-major, one direction
+        with torch.inference_mode(), no_weight_compaction():
             xp = (x @ w_ih + bias).contiguous()
             if stateful:
                 nbytes += (R * T * H + 2 * R * H) * item
@@ -651,7 +634,7 @@ def _bilstm_fwd_bwd_ms(R, T, H, dtype):
     def cudnn():
         lib(x_lib)[0].backward(grad)
 
-    with _no_weight_compaction():
+    with no_weight_compaction():
         return dict(port_ms=cuda_ms(port, iters=5), cudnn_ms=cuda_ms(cudnn, iters=5))
 
 
@@ -716,7 +699,7 @@ def phase_train(model="bsrnn", causal=False, validate=False):
 
         def per_step_by(i, attr):                  # attr: launches_by_shape or _by_kernel
             return {k: {str(key): n / (iters + 1)
-                        for key, n in _delta(getattr(c, attr), n0[k][i]).items()}
+                        for key, n in launch_delta(getattr(c, attr), n0[k][i]).items()}
                     for k, c in counters.items() if c.launches > n0[k][0]}
 
         by_shape = per_step_by(1, "launches_by_shape")
@@ -794,7 +777,7 @@ def _validate(tr, h, counters, model):
     n0 = {k: dict(c.launches_by_kernel) for k, c in counters.items()}
     y, metrics = tr.eval_step(audio)
     vals = fetch_scalars(metrics)
-    launches = {k: _delta(c.launches_by_kernel, n0[k]) for k, c in counters.items()}
+    launches = {k: launch_delta(c.launches_by_kernel, n0[k]) for k, c in counters.items()}
     launches = {k: v for k, v in launches.items() if v}
     say(phase=_tag(model, "validation"),
         samples=audio.shape[-1], launches=launches, metrics=vals)
@@ -1089,11 +1072,11 @@ def phase_bidir2_kernels(cases, phase="kernel_vs_plain"):
         xs = [torch.randn(T, R, H, generator=g).to("cuda", dtype) for _ in range(2)]
         w_ih, bias, whh = ([torch.empty(sh).uniform_(-b, b, generator=g).to("cuda", dtype)
                             for _ in range(2)] for sh in ((H, G), (G,), (H, G)))
-        libs = [_cudnn_lstm([(w_ih[i], whh[i], bias[i])], dtype) for i in range(2)]
+        libs = [cudnn_lstm([(w_ih[i], whh[i], bias[i])], dtype) for i in range(2)]
         item = xs[0].element_size()
         ops = 2 * 2 * R * T * H * G
         nbytes = 2 * (R * T * (G + H) + H * G) * item
-        with torch.inference_mode(), _no_weight_compaction():
+        with torch.inference_mode(), no_weight_compaction():
             xp = [(xs[i] @ w_ih[i] + bias[i]).contiguous() for i in range(2)]
             run = lambda: L.lstm_scan_bidir2(xp[0], xp[1], whh[0], whh[1])
             plain = lambda: L.lstm_scan_bidir2_plain(xp[0], xp[1], whh[0], whh[1])
@@ -1425,7 +1408,7 @@ def phase_convtasnet():
             torch.cuda.synchronize()
             wall = (time.time() - t0) / iters
             by_dilation = {key[4]: n // iters for key, n in
-                           _delta(tcn_block_tail.launches_by_shape, n0).items()}
+                           launch_delta(tcn_block_tail.launches_by_shape, n0).items()}
             say(phase="convtasnet_decode", dtype=dtype, fused_tcn=fused, batch=B, frames=T,
                 encoder_frames=TCN_T, parameters=n_params, wall_ms=wall * 1e3,
                 rtf=audio_sec / wall, launches_per_forward={k: v / iters for k, v in counts.items()},
@@ -1521,13 +1504,252 @@ def phase_convtasnet():
     return main_counts
 
 
+# ---------------------------------------------------------------------------
+# the two-direction scan (B7) behind the LSTM-layout bench, the per-step
+# ablation harness (B8), and lstm_scan_fused at HD-Demucs's bottleneck
+# ---------------------------------------------------------------------------
+
+# lstm_scan_bidir as (label, steps, rows of one direction, H): the bench's defaults
+# (batch 8, 1024 frames, 68 bands: the time LSTM over 8 x 68 rows, the band LSTM over
+# 8 x 1024) at H = 128 and 256, and a ragged B held against its plain version only
+BIDIR_SHAPES = tuple((label, T, B, H) for H in (128, 256)
+                     for label, T, B in (("time", 1024, 544), ("band", 68, 8192),
+                                         ("ragged", 64, 20)))
+# rows held against their plain version on no main path: not in the kernels line
+HELD_ONLY = {"lstm_scan_bidir2": ("small",), "lstm_scan_bidir": ("ragged",)}
+
+
+def _script(name):
+    """scripts/<name>.py as a module (its main() is called in this process)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_bidir_kernels(cases, phase="lstm_scan_bidir_kernels"):
+    """lstm_scan_bidir against its plain version at each (label, steps, rows
+    of one direction B, H, dtype) of cases: csrc/lstm_scan.cu at H <= 128,
+    csrc/lstm_scan_wide.cu mode kScanBidir above. Each direction's x_proj is
+    its x @ W_ih + b; the library yardstick is two cuDNN unidirectional LSTM
+    forwards on those x, the projection included; the control, which the
+    limit must refuse, is the kernel with the halves of w_stack swapped."""
+    from nvse_tpu_torch.ops import lstm as L
+
+    rows = []
+    for label, T, B, H, dtype in cases:
+        G = 4 * H
+        g = torch.Generator().manual_seed(T + B + H)
+        b = 1.0 / math.sqrt(H)
+        xs = [torch.randn(T, B, H, generator=g).to("cuda", dtype) for _ in range(2)]
+        w_ih, bias, whh = ([torch.empty(sh).uniform_(-b, b, generator=g).to("cuda", dtype)
+                            for _ in range(2)] for sh in ((H, G), (G,), (H, G)))
+        libs = [cudnn_lstm([(w_ih[i], whh[i], bias[i])], dtype) for i in range(2)]
+        item = xs[0].element_size()
+        ops = 2 * 2 * B * T * H * G
+        nbytes = (2 * B * T * (G + H) + 2 * H * G) * item
+        with torch.inference_mode(), no_weight_compaction():
+            xp = torch.cat([xs[i] @ w_ih[i] + bias[i] for i in range(2)], dim=1).contiguous()
+            ws = torch.cat(whh).contiguous()
+            run = lambda: L.lstm_scan_bidir(xp, ws)
+            plain = lambda: L.lstm_scan_bidir_plain(xp, ws)
+            library = lambda: (libs[0](xs[0])[0], libs[1](xs[1])[0])
+            got = run()
+            torch.cuda.synchronize()
+            ref = plain()
+            err = (got.float() - ref.float()).abs().max().item()
+            lib_err = (torch.cat(library(), dim=1).float() - ref.float()).abs().max().item()
+            ctl = L.lstm_scan_bidir(xp, torch.cat(whh[::-1]).contiguous())
+            control = (ctl.float() - ref.float()).abs().max().item()
+            ms = cuda_ms(run, iters=10)
+            plain_ms = cuda_ms(plain, iters=2, warmup=0)
+            library_ms = cuda_ms(library, iters=10)
+        bound, bound_by = _bound(nbytes, ops, dtype)
+        row = dict(name="lstm_scan_bidir", shape=label, rows=2 * B, steps=T, H=H,
+                   dtype=DT_NAME[dtype], source=_source("lstm_scan_bidir", H),
+                   max_abs_err=err, tol=TOL[dtype], ms=ms, us_per_step=ms * 1e3 / T,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   library="2 cuDNN LSTM forwards, projection included",
+                   library_max_abs_err=lib_err, control_max_abs_err=control,
+                   bound_ms=bound, bound_by=bound_by, tflops=ops / (ms * 1e-3) / 1e12)
+        say(phase=phase, **row)
+        if not (err <= TOL[dtype]):
+            raise SystemExit(f"lstm_scan_bidir {label} H={H} {DT_NAME[dtype]}: max abs err "
+                             f"{err} over tolerance {TOL[dtype]}")
+        if not (control > TOL[dtype]):
+            raise SystemExit(f"lstm_scan_bidir {label} H={H} {DT_NAME[dtype]}: the control with "
+                             f"the halves of w_stack swapped ({control}) passes the tolerance")
+        rows.append(row)
+    return rows
+
+
+def phase_bench_lstm_kernel():
+    """The port's LSTM-layout bench (scripts/bench_torch_lstm_kernel.py), its
+    main() in this process at its default shapes and at --hidden 256, with 3
+    timed calls a variant: every variant at the time and band shapes in
+    float32 and bfloat16. -> its launches per wrapper and shape, which must
+    include lstm_scan_bidir in both dtypes."""
+    from nvse_tpu_torch.ops.lstm import _reset_counts
+
+    bench = _script("bench_torch_lstm_kernel")
+    _reset_counts(*_all_counters().values())       # this main path starts here
+    t0 = time.time()
+    for argv in ([], ["--hidden", "256"]):         # the kernel rows time each kernel at 10
+        bench.main([*argv, "--iters", "3"])
+    counts = _shape_counts()                       # ... and ends here
+    say(phase="bench_lstm_kernel", seconds=time.time() - t0, launches_by_shape=_str_keys(counts))
+    got = {(H, dt) for T, R, H, dt in counts["lstm_scan_bidir"]}
+    want = {(H, dt) for H in (128, 256) for dt in ("float32", "bfloat16")}
+    if got != want:
+        raise SystemExit(f"the bench launched lstm_scan_bidir at {sorted(got)}, not {sorted(want)}")
+    return counts
+
+
+# lstm_scan_fused at HD-Demucs's bottleneck BiLSTM (nvse_tpu/models/hddemucas.py:55-71):
+# 8 rows x 1024 frames, H = 768, layer 1 C = 768, layer 2 C = 1536
+HDDEMUCS_SHAPES = ((8, 1024, 768, 768), (8, 1024, 1536, 768))
+
+
+def phase_hddemucs_bottleneck():
+    """lstm_scan_fused past its fused kernels, at HD-Demucs's bottleneck shapes
+    in float32 and bfloat16: the projection as torch matmuls and one
+    lstm_scan_bidir2 launch a call (csrc/lstm_bidir2.cu), none of a fused
+    kernel, against lstm_scan_fused_plain. -> its launches per wrapper and
+    shape (the bidir2 rows come from phase_rest)."""
+    from nvse_tpu_torch.ops import lstm as L
+
+    L._reset_counts(*_all_counters().values())     # this main path starts here
+    for B, T, C, H in HDDEMUCS_SHAPES:
+        for dtype in DTYPES:
+            args = _lstm_inputs(B, T, C, H, dtype, seed=C + H)
+            n0 = {k: dict(c.launches_by_kernel) for k, c in _all_counters().items()}
+            with torch.inference_mode():
+                got = L.lstm_scan_fused(*args)
+                torch.cuda.synchronize()
+                launches = {k: launch_delta(c.launches_by_kernel, n0[k])
+                            for k, c in _all_counters().items()}
+                ms = cuda_ms(lambda: L.lstm_scan_fused(*args), iters=5)
+            ref = L.lstm_scan_fused_plain(*args)
+            err = (got.float() - ref.float()).abs().max().item()
+            launches = {k: v for k, v in launches.items() if v}
+            say(phase="hddemucs_bottleneck", rows=B, steps=T, C=C, H=H, dtype=DT_NAME[dtype],
+                route=L._fused_route(C, H), launches=launches, max_abs_err=err,
+                tol=TOL[dtype], ms=ms)
+            if launches != {"lstm_scan_bidir2": {"lstm_bidir2": 1}}:
+                raise SystemExit(f"lstm_scan_fused C={C} H={H}: launches {launches}, expected one "
+                                 "of lstm_scan_bidir2 (csrc/lstm_bidir2.cu)")
+            if not (err <= TOL[dtype]) or got.shape != (B, T, 2 * H):
+                raise SystemExit(f"lstm_scan_fused C={C} H={H} {DT_NAME[dtype]}: max abs err "
+                                 f"{err} over tolerance {TOL[dtype]}")
+    return _shape_counts()                         # ... and ends here
+
+
+# kernel vs plain for the ablation variants, as max |err| over max(1, max |plain|):
+# no_vpu's h has no tanh and may grow; where it passes ABLATION_GROW its output is
+# checked for finiteness only
+ABLATION_GROW = 1e3
+
+
+def _ablation_bound(mode, R, T, C, H, dtype):
+    """(bound ms, what binds it) of one variant: one direction's reads and
+    writes, and its two products where it does them."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    x = {"no_indma": R * C, "empty": 0}.get(mode, R * T * C)
+    weights = {"no_dot": 4 * H, "empty": 0}.get(mode, C * 4 * H + H * 4 * H + 4 * H)
+    ops = 0 if mode in ("no_dot", "empty") else 2 * R * T * (C + H) * 4 * H
+    return _bound((x + weights + R * T * H) * item, ops, dtype)
+
+
+def phase_lstm_step_ablation():
+    """The per-step ablation harness (scripts/profile_torch_lstm_step.py), its
+    main() in this process at its four shapes in float32 and bfloat16: five
+    variants of one direction of csrc/lstm_fused.cu (H = 128) and of
+    csrc/lstm_fused_wide.cu (H = 256). Each variant's output against its plain
+    version on the harness's inputs, with a control the limit must refuse:
+    W_hh with its rows reversed where the variant reads W_hh, x reversed in
+    time for no_dot (which reads x and b only), and the full kernel's output
+    for empty (which reads nothing).
+    `full` is also held against the forward half of lstm_scan_fused at the same
+    weights, and timed beside cuDNN's unidirectional LSTM forward (time-major x,
+    laid out once outside the timing); the split of a step (lstm_step_split).
+    -> (rows, launches per wrapper and shape)."""
+    from nvse_tpu_torch.ops import lstm as L
+    from nvse_tpu_torch.ops import lstm_step as LS
+
+    harness = _script("profile_torch_lstm_step")
+    L._reset_counts(*_all_counters().values())     # this main path starts here
+    timed = [r for dt in ("float32", "bfloat16")
+             for r in harness.main(["--dtype", dt, "--iters", "10"])]
+    counts = _shape_counts()                       # ... and ends here
+    rows, split, full_out = [], {}, {}
+    for r in timed:
+        T, R, C, H, mode, dtype = r["T"], r["B"], r["C"], r["H"], r["variant"], getattr(torch, r["dtype"])
+        x, w_ih, w_hh, b = harness.inputs(T, R, C, H, dtype, "cuda")
+        ctl_args = {"no_dot": (x.flip(1).contiguous(), w_ih, w_hh, b),
+                    "empty": None}.get(mode, (x, w_ih, w_hh.flip(0).contiguous(), b))
+        lib = cudnn_lstm([(w_ih, w_hh, b)], dtype) if mode == "full" else None
+        fused_err = library_ms = lib_err = None
+        with torch.inference_mode(), no_weight_compaction():
+            got = LS.lstm_step_variant(x, w_ih, w_hh, b, mode)
+            torch.cuda.synchronize()
+            ref = LS.lstm_step_variant_plain(x, w_ih, w_hh, b, mode)
+            plain_ms = cuda_ms(lambda: LS.lstm_step_variant_plain(x, w_ih, w_hh, b, mode),
+                               iters=1, warmup=0)
+            ctl = (full_out[r["shape"], r["dtype"]] if ctl_args is None
+                   else LS.lstm_step_variant(*ctl_args, mode))
+            if mode == "full":
+                full_out[r["shape"], r["dtype"]] = got
+                fused = L.lstm_scan_fused(x, w_ih, w_ih, b, b, w_hh, w_hh)[..., :H]
+                fused_err = (got.float() - fused.float()).abs().max().item()
+                x_tm = x.transpose(0, 1).contiguous()
+                lib_err = (lib(x_tm)[0].transpose(0, 1).float() - ref.float()).abs().max().item()
+                library_ms = cuda_ms(lambda: lib(x_tm), iters=10)
+        scale = max(1.0, ref.float().abs().max().item())
+        grows = mode == "no_vpu" and not scale <= ABLATION_GROW
+        err = (got.float() - ref.float()).abs().max().item()
+        rel, control = err / scale, (ctl.float() - ref.float()).abs().max().item() / scale
+        bound, bound_by = _ablation_bound(mode, R, T, C, H, dtype)
+        row = dict(name="lstm_step_variant", shape=r["shape"], mode=mode, rows=R, steps=T, C=C,
+                   H=H, dtype=r["dtype"], source=f"nvse_tpu_torch/csrc/{LS._kernel_source(H)}.cu",
+                   max_abs_err=err, rel_err=rel, tol=TOL[dtype], control_rel_err=control,
+                   ms=r["ms"], us_per_step=r["us_per_step"], plain_ms=plain_ms,
+                   library_ms=library_ms, library_max_abs_err=lib_err,
+                   **({"library": "cuDNN LSTM forward, projection included"} if lib else {}),
+                   bound_ms=bound, bound_by=bound_by, full_vs_fused_max_abs_err=fused_err,
+                   checked="finite only" if grows else "vs plain")
+        say(phase="lstm_step_ablation", **row)
+        what = f"lstm_step_variant {mode} {r['shape']} {r['dtype']}"
+        if grows and not torch.isfinite(got).all():
+            raise SystemExit(f"{what}: not finite")
+        if not grows and not (rel <= TOL[dtype]):
+            raise SystemExit(f"{what}: error {err} ({rel} relative) over tolerance {TOL[dtype]}")
+        if not grows and not (control > TOL[dtype]):
+            raise SystemExit(f"{what}: the control ({control} relative) passes the tolerance")
+        if fused_err is not None and not (fused_err <= TOL[dtype]):
+            raise SystemExit(f"{what}: {fused_err} from the forward half of lstm_scan_fused")
+        split.setdefault((r["shape"], r["dtype"]), {})[mode] = r["us_per_step"]
+        rows.append(row)
+    for (shape, dt), us in split.items():
+        full = us["full"]
+        parts = {"input_dram": full - us["no_indma"], "products": full - us["no_dot"],
+                 "nonlinearities": full - us["no_vpu"], "floor": us["empty"]}
+        say(phase="lstm_step_split", shape=shape, dtype=dt, us_per_step=us,
+            share_of_full={k: v / full for k, v in parts.items()})
+    return rows, counts
+
+
 def _key(r):
     """A row's shape as its wrapper counts launches: (rows, steps, C, H, dtype)
-    for the fused kernel, (steps, rows, H, dtype) for the others."""
+    for the fused kernel, (steps, rows, C, H, mode, dtype) for the ablation
+    variants, (steps, rows, H, dtype) for the others."""
     if r["name"] == "lstm_scan_fused":
         return (r["rows"], r["steps"], r["C"], r["H"], r["dtype"])
     if r["name"] == "tcn_block_tail":
         return (r["rows"], r["steps"], r["H"], r["Bc"], r["dilation"], r["dtype"])
+    if r["name"] == "lstm_step_variant":
+        return (r["steps"], r["rows"], r["C"], r["H"], r["mode"], r["dtype"])
     return (r["steps"], r["rows"], r["H"], r["dtype"])
 
 
@@ -1541,7 +1763,7 @@ def _missing(rows, paths):
 def phase_rest(rows, paths, phase="kernel_vs_plain"):
     """Rows for the inference kernels' launches on the main paths that no row
     holds yet, each at its shape and dtype, labelled <path>_<rows>x<steps>."""
-    fused, scans, bidir2, tails = {}, {}, {}, {}
+    fused, scans, bidir2, bidir, tails = {}, {}, {}, {}, {}
     for p, k, key in _missing(rows, paths):
         dtype = getattr(torch, key[-1])
         if k == "lstm_scan_fused":
@@ -1553,11 +1775,15 @@ def phase_rest(rows, paths, phase="kernel_vs_plain"):
         elif k == "lstm_scan_bidir2":
             T, R, H, _ = key
             bidir2.setdefault(key, (f"{p}_{T}x{R}", T, R, H, dtype))
+        elif k == "lstm_scan_bidir":
+            T, R2, H, _ = key
+            bidir.setdefault(key, (f"{p}_{T}x{R2}", T, R2 // 2, H, dtype))
         elif k == "tcn_block_tail":
             B, T, H, Bc, d, _ = key
             tails.setdefault(key, (f"{p}_{B}x{T}_d{d}", B, T, H, Bc, d, dtype))
     return (phase_kernels(fused.values(), phase) + phase_scan_kernels(scans.values(), phase)
             + phase_bidir2_kernels(bidir2.values(), phase)
+            + phase_bidir_kernels(bidir.values(), phase)
             + phase_tcn_kernels(tails.values(), phase))
 
 
@@ -1612,7 +1838,18 @@ def main():
                                for d in TCN_DILATIONS for dt in DTYPES])
     c_paths = {"convtasnet": phase_convtasnet()}
     rows += phase_rest(rows, c_paths, phase="tcn_kernels")
-    all_paths = {**paths, **{f"bsrnn_l_{p}": c for p, c in l_paths.items()}, **c_paths}
+    # the two-direction scan (B7), its bench, lstm_scan_fused at HD-Demucs's bottleneck,
+    # then the shapes the bench and HD-Demucs launched on the other kernels
+    rows += phase_bidir_kernels([(label, T, B, H, dt) for label, T, B, H in BIDIR_SHAPES
+                                 for dt in DTYPES])
+    b_paths = {"bench_lstm_kernel": phase_bench_lstm_kernel(),
+               "hddemucs_bottleneck": phase_hddemucs_bottleneck()}
+    rows += phase_rest(rows, b_paths, phase="lstm_scan_bidir_kernels")
+    # the per-step ablation harness (B8)
+    ablation_rows, ablation_counts = phase_lstm_step_ablation()
+    rows += ablation_rows
+    all_paths = {**paths, **{f"bsrnn_l_{p}": c for p, c in l_paths.items()}, **c_paths,
+                 **b_paths, "lstm_step_ablation": ablation_counts}
     missing = _missing(rows, all_paths)
     if missing:
         raise SystemExit(f"launches on a main path with no kernel-vs-plain row: {missing}")
@@ -1630,16 +1867,18 @@ def main():
                 "lstm_scan": "nvse_tpu/ops/pallas_lstm.py:212",
                 "lstm_scan_stateful": "nvse_tpu/ops/pallas_lstm.py:297",
                 "lstm_scan_bidir2": "nvse_tpu/ops/pallas_lstm.py:499",
-                "tcn_block_tail": "nvse_tpu/ops/pallas_tcn.py:136"}
+                "tcn_block_tail": "nvse_tpu/ops/pallas_tcn.py:136",
+                "lstm_scan_bidir": "nvse_tpu/ops/pallas_lstm.py:427",
+                "lstm_step_variant": "scripts/profile_lstm_step.py:99"}
     kernels = []
     for r in rows:
-        if r["name"] == "lstm_scan_bidir2" and r["shape"] == "small":
+        if r["shape"] in HELD_ONLY.get(r["name"], ()):
             continue               # held against its plain version only: no path launches it
         src = {"source": r["source"], **(fused_replaces if r["name"] == "lstm_scan_fused"
                                          else {"replaces": replaces[r["name"]]})}
         kernels.append({
             "name": r["name"], "shape": r["shape"], "rows": r["rows"], "steps": r["steps"],
-            "H": r["H"], **{k: r[k] for k in ("Bc", "dilation", "library") if k in r},
+            "H": r["H"], **{k: r[k] for k in ("C", "mode", "Bc", "dilation", "library") if k in r},
             "dtype": r["dtype"], "route": "cuda", **src,
             "launches": launched.get(r["name"], {}).get(_key(r), 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],

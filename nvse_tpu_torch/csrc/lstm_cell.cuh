@@ -56,6 +56,17 @@ __device__ __forceinline__ void load_h16(const __nv_bfloat16* src, float* dst) {
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }
 
+// What a step of a fused kernel computes: kFull, the production cell, or one
+// of the per-step ablation variants of scripts/profile_torch_lstm_step.py
+// (the TPU harness's `_variant_kernel` at one step a grid step), each of which
+// drops one part of the step and keeps the launch, the step loop with its
+// synchronisation and the output writes:
+//   kNoInDma  every step reads x[0]: the input stays in L2, its DRAM traffic goes
+//   kNoDot    gates = tile(x_t, 4) * 0.25 + b (C == H): both products go
+//   kNoVpu    c = g_i + 0.5 c; h = g_f + 0.5 c: the sigmoids and tanhs go
+//   kEmpty    the zero state written at every step: the floor
+enum Step : int { kFull = 0, kNoInDma = 1, kNoDot = 2, kNoVpu = 3, kEmpty = 4 };
+
 // Rows [0, ksm) of w_hh (H, G) into whh_s, packed [ksm/4][G][4].
 template <typename T>
 __device__ __forceinline__ void stage_whh(T* whh_s, const T* __restrict__ w_hh, int ksm, int G) {

@@ -6,6 +6,10 @@
 // pallas_lstm.py:815) and `_fused_kernel_unrolled` (launched by
 // `_pallas_lstm_fused_unrolled`, pallas_lstm.py:727), one function at two TPU
 // unroll factors. csrc/lstm_fused.cu (one thread per gate column) takes H <= 128.
+// At the same sizes it also holds the per-step ablation variants of the TPU
+// harness `build` / `_variant_kernel` (scripts/profile_lstm_step.py:99 / :44):
+// this kernel with a compile-time STEP (lstm_cell.cuh), launched for one
+// direction, behind scripts/profile_torch_lstm_step.py.
 //
 // Contract: that of csrc/lstm_fused.cu. x (R, T, C) -> out (R, T, 2H), both
 // directions in one launch, zero state, gates_t = x_t @ W_ih + b + h_{t-1} @ W_hh
@@ -20,7 +24,8 @@
 // slices of one row group must be co-resident (H <= 512 on 128 SMs).
 //
 // Built with nvcc by nvse_tpu_torch/ops/_build.py into a shared library with
-// one plain C entry (lstm_fused_wide_launch), loaded through ctypes.
+// plain C entries (lstm_fused_wide_launch, lstm_step_variant_wide_launch),
+// loaded through ctypes.
 #include "lstm_grid.cuh"
 
 // dtype: 0 float32, 1 bfloat16. x (R, T, C), w_ih (C, 4H), b (4H), w_hh (H, 4H),
@@ -47,4 +52,37 @@ extern "C" int lstm_fused_wide_launch(int dtype, const void* x, const void* w_ih
   a.C = C;
   a.H = H;
   return lstm_grid::launch_dtype<lstm_grid::kFused>(dtype, a, stream);
+}
+
+// The per-step ablation: one direction (the forward one) of the kernel above
+// with step = lstm::Step (0 kFull, the production kernel, ... 4 kEmpty), its
+// row groups those of a two-direction launch. x (R, T, C), w_ih (C, 4H), b (4H),
+// w_hh (H, 4H), out (R, T, 2H) (columns [0, H) written), c_state float32 (R, H)
+// scratch, as lstm_fused_wide_launch; kNoDot needs C == H.
+extern "C" int lstm_step_variant_wide_launch(int dtype, int step, const void* x,
+                                             const void* w_ih, const void* b, const void* w_hh,
+                                             void* out, void* c_state, int R, int Tn, int C,
+                                             int H, void* stream) {
+  using namespace lstm_grid;
+  Args a{};
+  a.x = x;
+  a.w_ih[0] = a.w_ih[1] = w_ih;
+  a.b[0] = a.b[1] = b;
+  a.w_hh[0] = a.w_hh[1] = w_hh;
+  a.out = out;
+  a.c_state = static_cast<float*>(c_state);
+  a.R = R;
+  a.Tn = Tn;
+  a.C = C;
+  a.H = H;
+  a.ndir = 1;
+  switch (step) {
+    case lstm::kFull: return launch_dtype<kFused, lstm::kFull>(dtype, a, stream);
+    case lstm::kNoInDma: return launch_dtype<kFused, lstm::kNoInDma>(dtype, a, stream);
+    case lstm::kNoDot:
+      return C == H ? launch_dtype<kFused, lstm::kNoDot>(dtype, a, stream) : cudaErrorInvalidValue;
+    case lstm::kNoVpu: return launch_dtype<kFused, lstm::kNoVpu>(dtype, a, stream);
+    case lstm::kEmpty: return launch_dtype<kFused, lstm::kEmpty>(dtype, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -1,6 +1,7 @@
 // The wide inference LSTM recurrence shared by csrc/lstm_fused_wide.cu (the
-// fused bidirectional LSTM) and csrc/lstm_scan_wide.cu (the unidirectional
-// scans), for 128 < H and many rows, for Hopper (sm_90a).
+// fused bidirectional LSTM and its per-step ablation variants) and
+// csrc/lstm_scan_wide.cu (the unidirectional scans and the two-direction
+// scan), for 128 < H and many rows, for Hopper (sm_90a).
 //
 // Contract, per row r and direction d (gate order i, f, g, o):
 //   gates_t = [x_t @ W_ih_d + b_d | x_proj[t]] + h_{t-1} @ W_hh_d
@@ -10,6 +11,10 @@
 //            into columns [H, 2H) of out (R, T, 2H).
 // kScan:     x_proj (T, R, 4H) time-major, one direction, zero state -> hs (T, R, H).
 // kStateful: the same from the caller's (h0, c0), each (R, H) -> hs and cs.
+// kScanBidir: x_proj (T, 2R, 4H) time-major, zero state -> hs (T, 2R, H); rows
+//            [d R, d R + R) scan with w_hh[d], both directions forward in time.
+// STEP (kFused, one direction; lstm_cell.cuh): kFull is the kernel above, the
+// others the per-step ablation variants of scripts/profile_torch_lstm_step.py.
 // Types: every tensor float32 or every tensor bfloat16; the state and every
 // sum float32. h is rounded to the weight type as stored and the recurrent
 // product reads it back rounded (the `_hdot` rule, pallas_lstm.py:36-43); c is
@@ -34,7 +39,9 @@
 // cooperative grid barrier separates the steps, so a grid that cannot be
 // co-resident is a launch error, never a hang. The launcher takes as many row
 // groups as fit one block an SM (2 for the fused BiLSTM at H = 256: 128
-// blocks; 4 for a scan), at least 16 rows a group.
+// blocks; 4 for a scan), at least 16 rows a group. kScanBidir runs both
+// directions' blocks in one launch where they are co-resident (H <= 528 on 132
+// SMs) and one launch a direction where not.
 // Inside a block, 512 threads as 8 unit lanes x 64 row lanes: a thread owns
 // one unit (its four gate columns, a float4 of the slice) and RM rows (1 or
 // 2, so up to 128 rows a tile); a group's rows run as tiles, and each tile
@@ -62,20 +69,22 @@ constexpr int KC = 256;                // k values of a staged chunk
 constexpr int PITCH = KC + 4;          // floats a staged row (conflict-free float4 reads)
 constexpr int MIN_GROUP_ROWS = 16;
 
-enum Mode : int { kFused = 0, kScan = 1, kStateful = 2 };
+enum Mode : int { kFused = 0, kScan = 1, kStateful = 2, kScanBidir = 3 };
 
 struct Args {
-  const void* x;          // kFused: x (R, Tn, C); else x_proj (Tn, R, 4H)
+  const void* x;          // kFused: x (R, Tn, C); kScanBidir: (Tn, 2R, 4H); else x_proj (Tn, R, 4H)
   const void* w_ih[2];    // kFused: (C, 4H) of each direction
   const void* b[2];       // kFused: (4H) of each direction
-  const void* w_hh[2];    // (H, 4H) of each direction (one for the scans)
+  const void* w_hh[2];    // (H, 4H) of each direction (one for kScan, kStateful)
   const void* h0;         // kStateful: (R, H)
   const void* c0;         // kStateful: (R, H)
-  void* out;              // kFused: (R, Tn, 2H); else hs (Tn, R, H)
+  void* out;              // kFused: (R, Tn, 2H); kScanBidir: (Tn, 2R, H); else hs (Tn, R, H)
   void* cs;               // kStateful: (Tn, R, H)
   float* c_state;         // float32 (directions, R, H) scratch
   int R, Tn, C, H;
   int groups;             // row groups
+  int dir0;               // kScanBidir: the first direction this launch runs
+  int ndir;               // directions this launch runs (0: all of the mode's)
 };
 
 // four consecutive elements through L2, as floats (16-byte aligned for
@@ -131,15 +140,17 @@ __device__ __forceinline__ void tile_product(float (&acc)[RM][4], const float* a
   }
 }
 
-template <typename T, int MODE, int RM>
+template <typename T, int MODE, int RM, int STEP = kFull>
 __global__ void __launch_bounds__(THREADS, 1) lstm_grid_kernel(const Args a) {
-  constexpr bool FUSED = MODE == kFused, STATEFUL = MODE == kStateful;
+  constexpr bool FUSED = MODE == kFused, STATEFUL = MODE == kStateful, TWO = MODE == kScanBidir;
   cg::grid_group grid = cg::this_grid();
   const int H = a.H, R = a.R, Tn = a.Tn, G = 4 * H;
   const int Cw = FUSED ? a.C : 0;                  // W_ih rows of the staged slice
   const int ns = H / U;                            // unit slices (H % 8 == 0)
   const int slice = blockIdx.x % ns, rest = blockIdx.x / ns;
-  const int grp = rest % a.groups, dir = rest / a.groups;
+  const int grp = rest % a.groups, dir = (TWO ? a.dir0 : 0) + rest / a.groups;
+  const int Rs = TWO ? 2 * R : R;                  // row stride of x_proj and hs
+  const size_t roff = TWO ? (size_t)dir * R : 0;   // the direction's first row
   const int u0 = slice * U;
   const int gr0 = (int)((long)R * grp / a.groups);
   const int gr = (int)((long)R * (grp + 1) / a.groups) - gr0;
@@ -168,11 +179,20 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_grid_kernel(const Args a) {
   // no chunk and reads neither
 
   for (int n = 0; n < Tn; ++n) {
-    const int t = dir ? Tn - 1 - n : n;
+    const int t = TWO ? n : dir ? Tn - 1 - n : n;
     for (int p = 0; p < n_tile; ++p) {
       const int pr0 = (int)((long)gr * p / n_tile);
       const int np = (int)((long)gr * (p + 1) / n_tile) - pr0;
       const int row0 = gr0 + pr0;                  // first row of the tile
+      if (STEP == kEmpty) {                        // the zero state, written
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          const int lr = ty * RM + i;
+          if (lr < np)
+            out[((size_t)(row0 + lr) * Tn + t) * 2 * H + (size_t)dir * H + unit] = from_f<T>(0.0f);
+        }
+        continue;
+      }
       float acc[RM][4], xv[RM][4], c_prev[RM];
 #pragma unroll
       for (int i = 0; i < RM; ++i) {               // this thread's (row, unit) values, loaded early
@@ -187,21 +207,33 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_grid_kernel(const Args a) {
         for (int q = 0; q < 4; ++q) {
           acc[i][q] = 0.0f;
           xv[i][q] = 0.0f;
-          if (!FUSED && on) xv[i][q] = to_f<T>(xin[((size_t)t * R + row) * G + q * H + unit]);
+          if (!FUSED && on) xv[i][q] = to_f<T>(xin[((size_t)t * Rs + roff + row) * G + q * H + unit]);
         }
       }
       const bool act = ty * RM < np;               // the thread's first row is in the tile
 
       if (FUSED) {                                 // x_t @ W_ih, chunk by chunk
+        const int tx_in = STEP == kNoInDma ? 0 : t;
         for (int k0 = 0; k0 < Cw; k0 += KC) {
           const int kc = min(KC, Cw - k0);
           __syncthreads();                         // the previous chunk's readers are done
-          stage_tile(a_s, xin + ((size_t)row0 * Tn + t) * Cw + k0, (size_t)Tn * Cw, np, kc);
+          stage_tile(a_s, xin + ((size_t)row0 * Tn + tx_in) * Cw + k0, (size_t)Tn * Cw, np, kc);
           __syncthreads();
-          if (act) tile_product<RM>(acc, a_s, w_s + (size_t)k0 * NC, kc, tx, ty);
+          if (STEP == kNoDot) {                    // gates = tile(x_t, 4) * 0.25 + b (C == H)
+            if (act && unit >= k0 && unit < k0 + kc) {
+#pragma unroll
+              for (int i = 0; i < RM; ++i) {
+                const float v = 0.25f * a_s[(ty * RM + i) * PITCH + unit - k0];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) acc[i][q] = v;
+              }
+            }
+          } else if (act) {
+            tile_product<RM>(acc, a_s, w_s + (size_t)k0 * NC, kc, tx, ty);
+          }
         }
       }
-      if (n > 0 || STATEFUL) {                     // h_{t-1} @ W_hh (h_{-1} = 0 without a state)
+      if ((n > 0 || STATEFUL) && STEP != kNoDot) { // h_{t-1} @ W_hh (h_{-1} = 0 without a state)
         const T* hsrc;
         size_t stride;
         if (n == 0) {
@@ -212,7 +244,7 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_grid_kernel(const Args a) {
           hsrc = out + ((size_t)row0 * Tn + tp) * 2 * H + (size_t)dir * H;
           stride = (size_t)Tn * 2 * H;
         } else {
-          hsrc = out + ((size_t)(t - 1) * R + row0) * H;
+          hsrc = out + ((size_t)(t - 1) * Rs + roff + row0) * H;
           stride = H;
         }
         for (int k0 = 0; k0 < H; k0 += KC) {
@@ -231,12 +263,20 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_grid_kernel(const Args a) {
         float gt[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q) gt[q] = acc[i][q] + (FUSED ? b_s[tx * 4 + q] : xv[i][q]);
-        const float c = sigmoid(gt[1]) * c_prev[i] + sigmoid(gt[0]) * tanhf(gt[2]);
-        const float h = sigmoid(gt[3]) * tanhf(c);
+        float c, h;
+        if (STEP == kNoVpu) {
+          // the g and o sums feed nothing here: the zero term keeps their FMAs,
+          // which the compiler would drop, so that only the transcendentals go
+          c = gt[0] + 0.5f * c_prev[i];
+          h = gt[1] + 0.5f * c + 0.0f * (gt[2] + gt[3]);
+        } else {
+          c = sigmoid(gt[1]) * c_prev[i] + sigmoid(gt[0]) * tanhf(gt[2]);
+          h = sigmoid(gt[3]) * tanhf(c);
+        }
         if (FUSED) {
           out[((size_t)row * Tn + t) * 2 * H + (size_t)dir * H + unit] = from_f<T>(h);
         } else {
-          const size_t o = ((size_t)t * R + row) * H + unit;
+          const size_t o = ((size_t)t * Rs + roff + row) * H + unit;
           out[o] = from_f<T>(h);
           if (STATEFUL) static_cast<T*>(a.cs)[o] = from_f<T>(c);
         }
@@ -251,24 +291,27 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_grid_kernel(const Args a) {
   }
 }
 
-// Launches lstm_grid_kernel<T, MODE, RM> if its shared memory fits, its grid
-// is co-resident and (for RM = 2) a row group has more rows than row lanes;
-// sets *launched when it tried.
-template <typename T, int MODE, int RM>
+// Launches lstm_grid_kernel<T, MODE, RM, STEP> if its shared memory fits, its
+// grid is co-resident and (for RM = 2) a row group has more rows than row
+// lanes; sets *launched when it tried. The row groups are those of the mode's
+// directions, so a kFused launch of one direction (the step ablation) keeps a
+// decode's groups; those of a kScanBidir launch of one direction are its own.
+template <typename T, int MODE, int RM, int STEP>
 cudaError_t try_launch(const Args& a0, int n_sm, int max_smem, cudaStream_t stream,
                        bool* launched) {
-  const int dirs = MODE == kFused ? 2 : 1;
+  const int dirs = MODE == kFused || MODE == kScanBidir ? 2 : 1;
+  const int ndir = a0.ndir ? a0.ndir : dirs;     // directions this launch runs
   const int kw = (MODE == kFused ? a0.C : 0) + a0.H;
   const size_t smem = sizeof(float) * ((size_t)kw * NC + NC + (size_t)TY * RM * PITCH);
   if (smem > (size_t)max_smem) return cudaSuccess;
-  auto kernel = lstm_grid_kernel<T, MODE, RM>;
+  auto kernel = lstm_grid_kernel<T, MODE, RM, STEP>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
   int per_sm = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
   if (e != cudaSuccess) return e;
-  const int per_group = dirs * (a0.H / U);
+  const int per_group = (MODE == kScanBidir ? ndir : dirs) * (a0.H / U);
   const int max_groups = per_sm * n_sm / per_group;
   if (max_groups < 1) return cudaSuccess;
   Args a = a0;
@@ -276,8 +319,9 @@ cudaError_t try_launch(const Args& a0, int n_sm, int max_smem, cudaStream_t stre
   if (RM > 1 && (a.R + a.groups - 1) / a.groups <= TY) return cudaSuccess;   // one row a lane
   *launched = true;
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(a.groups * per_group),
-                                  dim3(THREADS), args, smem, stream);
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
+                                  dim3(a.groups * ndir * (a0.H / U)), dim3(THREADS), args,
+                                  smem, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -286,7 +330,7 @@ cudaError_t try_launch(const Args& a0, int n_sm, int max_smem, cudaStream_t stre
 // staged tile fits, else 1) and the row groups, and launches. Returns the
 // cudaError_t of the launch; cudaErrorCooperativeLaunchTooLarge when no grid
 // of whole row groups is co-resident on this device.
-template <typename T, int MODE>
+template <typename T, int MODE, int STEP = kFull>
 int launch(const Args& a, cudaStream_t stream) {
   if (a.R <= 0 || a.Tn <= 0 || a.H <= 0 || a.H % U || (MODE == kFused && (a.C <= 0 || a.C % 4)))
     return cudaErrorInvalidValue;
@@ -298,18 +342,18 @@ int launch(const Args& a, cudaStream_t stream) {
   if ((e = max_dynamic_smem(&max_smem)) != cudaSuccess) return e;
   if (!coop) return cudaErrorNotSupported;
   bool launched = false;
-  e = try_launch<T, MODE, 2>(a, n_sm, max_smem, stream, &launched);
+  e = try_launch<T, MODE, 2, STEP>(a, n_sm, max_smem, stream, &launched);
   if (e != cudaSuccess || launched) return e;
-  e = try_launch<T, MODE, 1>(a, n_sm, max_smem, stream, &launched);
+  e = try_launch<T, MODE, 1, STEP>(a, n_sm, max_smem, stream, &launched);
   if (e != cudaSuccess || launched) return e;
   return cudaErrorCooperativeLaunchTooLarge;
 }
 
-template <int MODE>
+template <int MODE, int STEP = kFull>
 int launch_dtype(int dtype, const Args& a, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, MODE>(a, s);
-  if (dtype == 1) return launch<__nv_bfloat16, MODE>(a, s);
+  if (dtype == 0) return launch<float, MODE, STEP>(a, s);
+  if (dtype == 1) return launch<__nv_bfloat16, MODE, STEP>(a, s);
   return cudaErrorInvalidValue;
 }
 

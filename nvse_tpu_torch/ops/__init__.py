@@ -1,6 +1,8 @@
 from .griffin_lim import griffin_lim, random_phase
 from .lstm import (
     lstm_scan,
+    lstm_scan_bidir,
+    lstm_scan_bidir_plain,
     lstm_scan_bidir2,
     lstm_scan_bidir2_plain,
     lstm_scan_fused,

@@ -2,15 +2,19 @@
 scans and their training path.
 
 Counterpart of nvse_tpu/ops/pallas_lstm.py (`lstm_scan_fused`,
-`lstm_scan`, `lstm_scan_stateful`, `lstm_scan_bidir2`) and
-nvse_tpu/ops/pallas_lstm_bwd.py (`lstm_fwd_hc`, `lstm_bwd`).
+`lstm_scan`, `lstm_scan_stateful`, `lstm_scan_bidir2`, `lstm_scan_bidir`)
+and nvse_tpu/ops/pallas_lstm_bwd.py (`lstm_fwd_hc`, `lstm_bwd`).
 
 `lstm_scan_fused` is the switch between two routes:
   * inference (grad disabled, or no input requires grad): a fused kernel
-    with x @ W_ih inside the recurrence, picked from H: that of
-    csrc/lstm_fused.cu (one thread per gate column) for H <= 128, that of
-    csrc/lstm_fused_wide.cu (row groups x slices of 8 hidden units over
-    the card, csrc/lstm_grid.cuh) for 128 < H <= 512 with C + H <= 1280;
+    with x @ W_ih inside the recurrence, picked from (C, H) by
+    `_fused_route`: that of csrc/lstm_fused.cu (one thread per gate column)
+    for H <= 128, that of csrc/lstm_fused_wide.cu (row groups x slices of 8
+    hidden units over the card, csrc/lstm_grid.cuh) for 128 < H <= 512 with
+    C + H <= 1280; past them, up to H = 768 (HD-Demucs's bottleneck BiLSTM),
+    the decomposition the JAX function takes past its fused kernel's VMEM
+    budget (pallas_lstm.py:864-880): x @ W_ih + b per direction as torch
+    matmuls, then the two scans of csrc/lstm_bidir2.cu;
   * training: `_BiLSTMSaving`, an autograd Function mirroring the JAX
     custom_vjp's `_fused_fwd_saving` / `_fused_bwd_saved`
     (pallas_lstm.py:904-952): torch matmuls for x @ W_ih + b, then
@@ -29,6 +33,12 @@ LSTM of GCRN, H = 448 over batch rows) is the kernel of
 csrc/lstm_bidir2.cu, which spreads the hidden units over the card and
 takes H up to 768; under autograd it is `_Bidir2Saving` (`lstm_fwd_hc`
 and `lstm_bwd` per scan, as the JAX custom_vjp at pallas_lstm.py:545-563).
+`lstm_scan_bidir` (both directions of a BiLSTM as stacked rows of one
+scan; no model calls it, as in the JAX package) is the kernel of
+csrc/lstm_scan.cu for H <= 128 and of csrc/lstm_scan_wide.cu (mode
+kScanBidir of csrc/lstm_grid.cuh) for 128 < H <= 768; under autograd it is
+`_BidirRecompute`, whose backward differentiates the plain version
+recomputed (the JAX custom_vjp at pallas_lstm.py:959-981).
 The training kernels pick theirs from H too: csrc/lstm_bwd.cu (one thread
 per gate column) for H <= 128, csrc/lstm_wide.cu (the hidden units spread
 over the card, as lstm_bidir2.cu) for 128 < H <= 768; the dW_hh reduction
@@ -57,8 +67,9 @@ import torch
 
 __all__ = ["lstm_bwd", "lstm_bwd_plain", "lstm_dw_hh", "lstm_dw_hh_plain", "lstm_fwd_hc",
            "lstm_fwd_hc_plain", "lstm_scan", "lstm_scan_fused", "lstm_scan_fused_plain",
-           "lstm_scan_bidir2", "lstm_scan_bidir2_plain", "lstm_scan_plain",
-           "lstm_scan_stateful", "lstm_scan_stateful_plain"]
+           "lstm_scan_bidir", "lstm_scan_bidir_plain", "lstm_scan_bidir2",
+           "lstm_scan_bidir2_plain", "lstm_scan_plain", "lstm_scan_stateful",
+           "lstm_scan_stateful_plain"]
 
 _MAX_H = 128                    # one thread per gate column: 4H <= 512 threads
 _WIDE_MAX_H = 768               # lstm_bidir2.cu, lstm_wide.cu, lstm_scan_wide.cu: hidden units
@@ -75,7 +86,8 @@ _SOURCES = {"lstm_scan_fused": ("lstm_fused", "lstm_fused_wide"),
             "lstm_fwd_hc": ("lstm_bwd", "lstm_wide"),
             "lstm_bwd": ("lstm_bwd", "lstm_wide"),
             "lstm_dw_hh": ("lstm_bwd", "lstm_bwd"),
-            "lstm_scan_bidir2": ("lstm_bidir2", "lstm_bidir2")}
+            "lstm_scan_bidir2": ("lstm_bidir2", "lstm_bidir2"),
+            "lstm_scan_bidir": ("lstm_scan", "lstm_scan_wide")}
 
 
 def _kernel_source(name: str, H: int) -> str:
@@ -126,17 +138,34 @@ def lstm_scan_fused_plain(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.
     return torch.cat(outs, dim=-1).to(x.dtype)
 
 
-def _check_kernel_args(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b):
-    """Validate what csrc/lstm_fused.cu takes; raises, never falls back."""
+def _fused_route(C: int, H: int) -> str:
+    """The inference route of lstm_scan_fused on the card at (C, H):
+    "lstm_fused" (csrc/lstm_fused.cu) for H <= 128, "lstm_fused_wide"
+    (csrc/lstm_fused_wide.cu) for 128 < H <= 512 with C + H <= 1280, and past
+    them, up to H = 768, "projection+lstm_bidir2": x @ W_ih + b as torch
+    matmuls, then csrc/lstm_bidir2.cu, as the JAX function does past its fused
+    kernel's VMEM budget (pallas_lstm.py:864-880; it takes B5 in bfloat16 and
+    two B4 scans in float32 by another VMEM rule: both are the same two
+    independent scans, and the port takes B5 in both). Raises past H = 768."""
+    if H <= _MAX_H:
+        return "lstm_fused"
+    if H <= _FUSED_WIDE_MAX_H and C + H <= _FUSED_WIDE_MAX_K:
+        return "lstm_fused_wide"
+    if H <= _WIDE_MAX_H:
+        return "projection+lstm_bidir2"
+    raise NotImplementedError(
+        f"lstm_scan_fused on the card handles H <= {_WIDE_MAX_H}: fused kernels for H <= "
+        f"{_FUSED_WIDE_MAX_H} with C + H <= {_FUSED_WIDE_MAX_K}, past them the projection "
+        f"and csrc/lstm_bidir2.cu (H <= {_WIDE_MAX_H}); got C={C}, H={H}")
+
+
+def _fused_shapes(name, x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b):
+    """One float32 or bfloat16 dtype, x (B, T, C) and weights of one (C, H):
+    -> (B, T, C, H)."""
     args = (x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b)
-    for a in args:
-        if not a.is_contiguous():
-            raise ValueError("lstm_scan_fused kernel needs contiguous tensors "
-                             "(call .contiguous() on the input first)")
     if x.dtype not in _DTYPE_CODE or any(a.dtype != x.dtype for a in args):
-        raise TypeError("lstm_scan_fused kernel takes float32 or bfloat16, "
-                        "one dtype for x and all weights; got "
-                        f"{sorted({str(a.dtype) for a in args})}")
+        raise TypeError(f"{name} takes float32 or bfloat16, one dtype for x and all "
+                        f"weights; got {sorted({str(a.dtype) for a in args})}")
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, C), got {tuple(x.shape)}")
     B, T, C = x.shape
@@ -144,6 +173,17 @@ def _check_kernel_args(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b):
     shapes = {w_ih_f.shape, w_ih_b.shape}, {w_hh_f.shape, w_hh_b.shape}, {b_f.shape, b_b.shape}
     if shapes != ({(C, 4 * H)}, {(H, 4 * H)}, {(4 * H,)}):
         raise ValueError(f"weight shapes {shapes} do not match C={C}, H={H}")
+    return B, T, C, H
+
+
+def _check_kernel_args(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b):
+    """Validate what csrc/lstm_fused.cu takes; raises, never falls back."""
+    args = (x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b)
+    for a in args:
+        if not a.is_contiguous():
+            raise ValueError("lstm_scan_fused kernel needs contiguous tensors "
+                             "(call .contiguous() on the input first)")
+    B, T, C, H = _fused_shapes("lstm_scan_fused kernel", *args)
     if (H % 8 or C % 4 or H > _FUSED_WIDE_MAX_H
             or (H > _MAX_H and C + H > _FUSED_WIDE_MAX_K)):
         raise NotImplementedError(
@@ -224,21 +264,39 @@ def lstm_scan_fused(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.Tensor
 
     When autograd will differentiate the call (grad enabled and any
     input requires grad) it takes the residual-saving training route,
-    `_BiLSTMSaving`. Otherwise CUDA tensors go to a hand-written inference
-    kernel that replaces nvse_tpu/ops/pallas_lstm.py:lstm_scan_fused, that
-    of csrc/lstm_fused.cu for H <= 128, that of csrc/lstm_fused_wide.cu for
-    128 < H <= 512 (C + H <= 1280), and CPU tensors to
-    lstm_scan_fused_plain. Counts inference-kernel launches in
+    `_BiLSTMSaving`. Otherwise CUDA tensors take the route `_fused_route`
+    picks: a hand-written inference kernel that replaces
+    nvse_tpu/ops/pallas_lstm.py:lstm_scan_fused, that of csrc/lstm_fused.cu
+    for H <= 128, that of csrc/lstm_fused_wide.cu for 128 < H <= 512
+    (C + H <= 1280), and past them (H <= 768) the projection as torch
+    matmuls and lstm_scan_bidir2's kernel; CPU tensors go to
+    lstm_scan_fused_plain. Counts fused-kernel launches in
     `lstm_scan_fused.launches` (per (B, T, C, H, dtype) in
     `lstm_scan_fused.launches_by_shape`, per kernel in
-    `lstm_scan_fused.launches_by_kernel`).
+    `lstm_scan_fused.launches_by_kernel`); the third route's launches are
+    lstm_scan_bidir2's, counted there.
     """
     args = (x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         return _BiLSTMSaving.apply(*args)
     if x.device.type == "cpu":
         return lstm_scan_fused_plain(*args)
+    if _fused_route(x.shape[-1], w_hh_f.shape[0]) == "projection+lstm_bidir2":
+        return _projected_bidir2(*args)
     return _launch_kernel(*args)
+
+
+def _projected_bidir2(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.Tensor:
+    """lstm_scan_fused past the fused kernels: xg = x @ W_ih + b per
+    direction as torch matmuls in x's dtype, time-major, the backward
+    direction's input flipped in time (pallas_lstm.py:867-868), then both
+    scans in one launch of lstm_scan_bidir2, the backward output unflipped."""
+    B, T, C, H = _fused_shapes("lstm_scan_fused", x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b)
+    xt = x.transpose(0, 1)                                           # (T, B, C)
+    xg_f = torch.addmm(b_f, xt.reshape(T * B, C), w_ih_f).view(T, B, 4 * H)
+    xg_b = torch.addmm(b_b, xt.flip(0).reshape(T * B, C), w_ih_b).view(T, B, 4 * H)
+    hs_f, hs_b = lstm_scan_bidir2(xg_f, xg_b, w_hh_f, w_hh_b)
+    return torch.cat([hs_f.transpose(0, 1), hs_b.flip(0).transpose(0, 1)], dim=-1)
 
 
 def _reset_counts(*fns) -> None:
@@ -391,9 +449,10 @@ def _n_sm(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _count(fn, key) -> None:
-    """One launch of fn's kernel at key = (..., H, dtype)."""
-    kernel = _kernel_source(fn.__name__, key[-2])
+def _count(fn, key, kernel: str | None = None) -> None:
+    """One launch of fn's kernel (by default the one `_SOURCES` names for the
+    H of key = (..., H, dtype)) at key."""
+    kernel = kernel or _kernel_source(fn.__name__, key[-2])
     fn.launches += 1
     fn.launches_by_shape[key] = fn.launches_by_shape.get(key, 0) + 1
     fn.launches_by_kernel[kernel] = fn.launches_by_kernel.get(kernel, 0) + 1
@@ -529,7 +588,8 @@ def _scan_lib() -> ctypes.CDLL:
     ptr, i = ctypes.c_void_p, ctypes.c_int
     lib.lstm_scan_launch.argtypes = [i, ptr, ptr, ptr, i, i, i, i, ptr]
     lib.lstm_scan_stateful_launch.argtypes = [i, ptr, ptr, ptr, ptr, ptr, ptr, i, i, i, i, ptr]
-    for fn in (lib.lstm_scan_launch, lib.lstm_scan_stateful_launch):
+    lib.lstm_scan_bidir_launch.argtypes = [i, ptr, ptr, ptr, i, i, i, i, ptr]
+    for fn in (lib.lstm_scan_launch, lib.lstm_scan_stateful_launch, lib.lstm_scan_bidir_launch):
         fn.restype = ctypes.c_int
     return lib
 
@@ -542,7 +602,9 @@ def _scan_wide_lib() -> ctypes.CDLL:
     ptr, i = ctypes.c_void_p, ctypes.c_int
     lib.lstm_scan_wide_launch.argtypes = [i, ptr, ptr, ptr, ptr, i, i, i, ptr]
     lib.lstm_scan_stateful_wide_launch.argtypes = [i, *[ptr] * 7, i, i, i, ptr]
-    for fn in (lib.lstm_scan_wide_launch, lib.lstm_scan_stateful_wide_launch):
+    lib.lstm_scan_bidir_wide_launch.argtypes = [i, *[ptr] * 5, i, i, i, ptr]
+    for fn in (lib.lstm_scan_wide_launch, lib.lstm_scan_stateful_wide_launch,
+               lib.lstm_scan_bidir_wide_launch):
         fn.restype = ctypes.c_int
     return lib
 
@@ -689,6 +751,108 @@ def lstm_scan_bidir2(xp_a, xp_b, w_a, w_b):
 
 
 _reset_counts(lstm_scan_bidir2)
+
+
+# ---------------------------------------------------------------------------
+# both directions as stacked rows of one scan (no model calls it)
+# ---------------------------------------------------------------------------
+
+def lstm_scan_bidir_plain(xp_cat: torch.Tensor, w_stack: torch.Tensor) -> torch.Tensor:
+    """Plain version of the lstm_scan_bidir kernel: (T, 2B, 4H), (2H, 4H) ->
+    (T, 2B, H) in xp_cat's dtype; rows [0, B) scan with w_stack[:H], rows
+    [B, 2B) with w_stack[H:], each forward in time from zero state. Mirrors
+    `_xla_lstm_scan_bidir` with the kernel's numerics (`_scan_plain`)."""
+    B, H = xp_cat.shape[1] // 2, xp_cat.shape[-1] // 4
+    return torch.cat([lstm_scan_plain(xp_cat[:, :B], w_stack[:H]),
+                      lstm_scan_plain(xp_cat[:, B:], w_stack[H:])], dim=1)
+
+
+def _launch_scan_bidir(xp_cat: torch.Tensor, w_stack: torch.Tensor) -> torch.Tensor:
+    """The kernel of lstm_scan_bidir on CUDA tensors: csrc/lstm_scan.cu for
+    H <= 128 (a grid of (row tiles of one direction, 2)), csrc/lstm_scan_wide.cu
+    for 128 < H <= 768."""
+    name = "lstm_scan_bidir"
+    if w_stack.dtype != xp_cat.dtype:
+        raise TypeError(f"{name} kernel takes one dtype for xp_cat and w_stack; got "
+                        f"{xp_cat.dtype} and {w_stack.dtype}")
+    T, R2, H = _check_seq_args(name, xp_cat, None, max_h=_WIDE_MAX_H)
+    if (R2 % 2 or tuple(w_stack.shape) != (2 * H, 4 * H) or not w_stack.is_contiguous()
+            or w_stack.device != xp_cat.device):
+        raise ValueError(f"{name}: xp_cat (T, 2B, 4H) = {tuple(xp_cat.shape)} needs an even "
+                         f"row count and a contiguous w_stack (2H, 4H) on its device; got "
+                         f"{tuple(w_stack.shape)} on {w_stack.device}")
+    B = R2 // 2
+    wide = H > _MAX_H
+    if wide:
+        _check_aligned(name, xp_cat, w_stack)
+    hs = torch.empty(T, R2, H, device=xp_cat.device, dtype=xp_cat.dtype)
+    if T == 0 or B == 0:
+        return hs
+    dtype = _DTYPE_CODE[xp_cat.dtype]
+    with torch.cuda.device(xp_cat.device):
+        stream = torch.cuda.current_stream(xp_cat.device).cuda_stream
+        if wide:
+            # kernel scratch: the float32 c of each (direction, row, unit)
+            c_state = torch.empty(2, B, H, device=xp_cat.device, dtype=torch.float32)
+            err = _scan_wide_lib().lstm_scan_bidir_wide_launch(
+                dtype, xp_cat.data_ptr(), w_stack.data_ptr(), w_stack[H:].data_ptr(),
+                hs.data_ptr(), c_state.data_ptr(), B, T, H, stream)
+        else:
+            err = _scan_lib().lstm_scan_bidir_launch(
+                dtype, xp_cat.data_ptr(), w_stack.data_ptr(), hs.data_ptr(), B, T, H,
+                _rows_per_block(B, _n_sm(xp_cat.device), 2), stream)
+    _raise_on(err, name)
+    _count(lstm_scan_bidir, (T, R2, H, str(xp_cat.dtype).replace("torch.", "")))
+    return hs
+
+
+def _scan_bidir(xp_cat, w_stack):
+    if xp_cat.device.type == "cpu":
+        return lstm_scan_bidir_plain(xp_cat, w_stack)
+    return _launch_scan_bidir(xp_cat, w_stack)
+
+
+class _BidirRecompute(torch.autograd.Function):
+    """lstm_scan_bidir under autograd, as the JAX custom_vjp
+    (pallas_lstm.py:959-981): the forward is the kernel's (the plain version
+    on the CPU), the backward differentiates the plain version recomputed, as
+    `_bidir_bwd` differentiates `_xla_lstm_scan_bidir`. The TPU kernel has no
+    backward kernel, and neither has the port."""
+
+    @staticmethod
+    def forward(ctx, xp_cat, w_stack):
+        ctx.save_for_backward(xp_cat, w_stack)
+        return _scan_bidir(xp_cat, w_stack)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            out = lstm_scan_bidir_plain(*leaves)
+            got = iter(torch.autograd.grad(out, [t for t, n in zip(leaves, need) if n], g))
+        return tuple(next(got) if n else None for n in need)
+
+
+def lstm_scan_bidir(xp_cat: torch.Tensor, w_stack: torch.Tensor) -> torch.Tensor:
+    """(T, 2B, 4H), (2H, 4H) -> (T, 2B, H): both directions of a BiLSTM
+    as stacked rows of one scan from zero state. Rows [0, B) use
+    w_stack[:H], rows [B, 2B) w_stack[H:]; every row runs forward in time, so
+    the caller flips the backward rows' input and output.
+
+    CUDA tensors launch the hand-written kernel that replaces
+    nvse_tpu/ops/pallas_lstm.py:_pallas_lstm_scan_bidir (csrc/lstm_scan.cu
+    for H <= 128, csrc/lstm_scan_wide.cu for 128 < H <= 768), CPU tensors run
+    lstm_scan_bidir_plain, and a call that autograd will differentiate goes
+    through `_BidirRecompute`. Counts launches in `lstm_scan_bidir.launches`
+    (per (T, 2B, H, dtype) in `lstm_scan_bidir.launches_by_shape`, per kernel
+    in `lstm_scan_bidir.launches_by_kernel`)."""
+    if torch.is_grad_enabled() and (xp_cat.requires_grad or w_stack.requires_grad):
+        return _BidirRecompute.apply(xp_cat, w_stack)
+    return _scan_bidir(xp_cat, w_stack)
+
+
+_reset_counts(lstm_scan_bidir)
 
 
 class _ScanSaving(torch.autograd.Function):

@@ -26,7 +26,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from .lstm import _DTYPE_CODE, _raise_on, _reset_counts
+from .lstm import _DTYPE_CODE, _count, _raise_on, _reset_counts
 
 __all__ = ["tcn_block_tail", "tcn_block_tail_kernel", "tcn_block_tail_plain"]
 
@@ -126,11 +126,7 @@ def tcn_block_tail_kernel(c, x, a, b2, w_dw, b_dw, w_rs, b_rs, dilation: int):
         err = _kernel_lib().tcn_tail_launch(_DTYPE_CODE[c.dtype], *ptrs, B, T, H, Bc,
                                             dilation, stream)
     _raise_on(err, _SOURCE)
-    key = (B, T, H, Bc, dilation, str(c.dtype).replace("torch.", ""))
-    fn = tcn_block_tail
-    fn.launches += 1
-    fn.launches_by_shape[key] = fn.launches_by_shape.get(key, 0) + 1
-    fn.launches_by_kernel[_SOURCE] = fn.launches_by_kernel.get(_SOURCE, 0) + 1
+    _count(tcn_block_tail, (B, T, H, Bc, dilation, str(c.dtype).replace("torch.", "")), _SOURCE)
     return e, s
 
 

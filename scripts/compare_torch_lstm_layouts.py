@@ -27,6 +27,7 @@ sys.path.insert(0, REPO)
 
 import chip_smoke as smoke                  # noqa: E402  (input makers, timer, tolerances)
 from nvse_tpu_torch.ops import lstm as L    # noqa: E402
+from nvse_tpu_torch.ops._measure import launch_delta  # noqa: E402
 
 H = 128
 # (label, rows, steps) of lstm_scan_fused on BSRNN-M's paths: the B=8 x 1024 decode,
@@ -78,7 +79,7 @@ def _measure(name, label, R, T, dtype, case):
                 got = run()
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
-            kernel = smoke._delta(wrapper.launches_by_kernel, n0)
+            kernel = launch_delta(wrapper.launches_by_kernel, n0)
             err = max((a.float() - r.float()).abs().max().item() for a, r in zip(got, ref))
             outs[grid] = dict(kernel=kernel, err=err)
 

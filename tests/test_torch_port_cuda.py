@@ -15,7 +15,12 @@ GCRN's grouped LSTM under autograd, and the wide inference kernels
 slices) from one row to 700 at H = 136-768, with the BSRNN-L (H = 256)
 forward, causal forward and stream; the TCN block tail (csrc/tcn_tail.cu)
 from one step to 700, dilations 1-300 (past T), 2 Bc over two column tiles,
-under autograd, and a 24-block ConvTasNet forward (24 launches).
+under autograd, and a 24-block ConvTasNet forward (24 launches); the
+two-direction scan lstm_scan_bidir (csrc/lstm_scan.cu, csrc/lstm_scan_wide.cu
+mode kScanBidir) from one row to 616 a direction at H = 64-768 with its halves
+of w_stack swapped as the control, and under autograd; every per-step ablation
+variant (nvse_tpu_torch/ops/lstm_step.py) at H = 128 and 256; lstm_scan_fused
+past its fused kernels (HD-Demucs's C = 1536, H = 768) on csrc/lstm_bidir2.cu.
 """
 import math
 
@@ -60,9 +65,11 @@ def test_kernel_matches_plain(cuda, B, T, C, H, dtype, tol):
 
 
 def test_kernel_raises_on_unsupported_hidden_size(cuda):
-    # past the wide kernel's H; HD-Demucs's H = 768 layers (C = 768, 1536): past C + H
-    for C, H in ((8, port_lstm._FUSED_WIDE_MAX_H + 8), (768, 768), (1536, 768)):
-        with pytest.raises(NotImplementedError, match=f"C \\+ H <= {port_lstm._FUSED_WIDE_MAX_K}"):
+    # past the fused kernels (H > 512, or C + H > 1280) the route is the projection and
+    # csrc/lstm_bidir2.cu, which takes H <= 768: past that the wrapper raises
+    H = port_lstm._WIDE_MAX_H + 8
+    for C in (8, 1536):
+        with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._WIDE_MAX_H}"):
             port_lstm.lstm_scan_fused(*_args(2, 3, C, H, torch.float32))
 
 
@@ -634,3 +641,120 @@ def test_convtasnet_forward_launches_24_tails(cuda):
     assert [f.launches for f in lstms] == l0
     torch.testing.assert_close(gpu, InferenceEngine(h, device="cpu").forward(mel),
                                rtol=2e-3, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# both directions as stacked rows of one scan: lstm_scan_bidir
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", [(1, 1, 128), (17, 20, 128), (9, 616, 64), (64, 20, 256),
+                                   (5, 3, 136), (9, 40, 256), (4, 5, 768)])
+def test_bidir_scan_kernel_matches_plain(cuda, T, B, H, dtype):
+    """Ragged B (20, 616: no tile straddles row B), one row, H = 768 (one launch
+    a direction: both directions' blocks are not co-resident)."""
+    g = torch.Generator().manual_seed(T + B + H)
+    xp = (0.5 * torch.randn(T, 2 * B, 4 * H, generator=g)).to("cuda", dtype)
+    ws = torch.empty(2 * H, 4 * H).uniform_(-1 / math.sqrt(H), 1 / math.sqrt(H),
+                                            generator=g).to("cuda", dtype)
+    n0 = dict(port_lstm.lstm_scan_bidir.launches_by_kernel)
+    with torch.inference_mode():
+        got = port_lstm.lstm_scan_bidir(xp, ws)
+        torch.cuda.synchronize()
+        ref = port_lstm.lstm_scan_bidir_plain(xp, ws)
+        ctl = port_lstm.lstm_scan_bidir(xp, torch.cat([ws[H:], ws[:H]]))
+    assert _kernel_delta(port_lstm.lstm_scan_bidir, n0) == {
+        "lstm_scan" if H <= 128 else "lstm_scan_wide": 2}
+    tol = SCAN_TOL[dtype]
+    assert got.dtype == dtype and got.shape == (T, 2 * B, H)
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    if T > 1:     # the control: each direction's rows on the other's W_hh
+        assert (ctl.float() - ref.float()).abs().max().item() > tol
+
+
+def test_bidir_scan_kernel_raises_on_what_it_does_not_take(cuda):
+    H = port_lstm._WIDE_MAX_H + 8
+    with torch.inference_mode():
+        with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._WIDE_MAX_H}"):
+            port_lstm.lstm_scan_bidir(torch.zeros(2, 4, 4 * H, device="cuda"),
+                                      torch.zeros(2 * H, 4 * H, device="cuda"))
+        xp, ws = torch.zeros(3, 5, 64, device="cuda"), torch.zeros(32, 64, device="cuda")
+        with pytest.raises(ValueError, match="even"):
+            port_lstm.lstm_scan_bidir(xp, ws)
+        with pytest.raises(ValueError, match="w_stack"):
+            port_lstm.lstm_scan_bidir(xp[:, :4].contiguous(), ws[:16])
+        with pytest.raises(TypeError):
+            port_lstm.lstm_scan_bidir(xp[:, :4].contiguous(), ws.bfloat16())
+
+
+def test_autograd_bidir_scan_on_card_matches_cpu(cuda):
+    g = torch.Generator().manual_seed(3)
+    host = [0.5 * torch.randn(9, 10, 64, generator=g), 0.2 * torch.randn(32, 64, generator=g)]
+    cot = torch.randn(9, 10, 16, generator=g)
+
+    def run(device):
+        args = [a.to(device).requires_grad_() for a in host]
+        out = port_lstm.lstm_scan_bidir(*args)
+        out.backward(cot.to(device))
+        return [out.detach().cpu()] + [a.grad.cpu() for a in args]
+
+    n0 = port_lstm.lstm_scan_bidir.launches
+    gpu = run("cuda")
+    assert port_lstm.lstm_scan_bidir.launches == n0 + 1
+    for a, b in zip(gpu, run("cpu")):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the per-step ablation variants of the fused kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,R,C,H", [(9, 20, 128, 128), (5, 40, 256, 256), (3, 300, 64, 64)])
+@pytest.mark.parametrize("mode", ["full", "no_indma", "no_dot", "no_vpu", "empty"])
+def test_step_variant_kernels_match_plain(cuda, mode, T, R, C, H, dtype):
+    from nvse_tpu_torch.ops import lstm_step
+
+    g = torch.Generator().manual_seed(R + T)
+    b = 1 / math.sqrt(H)
+    x = torch.randn(R, T, C, generator=g).to("cuda", dtype)
+    w_ih, w_hh, bias = (torch.empty(s).uniform_(-b, b, generator=g).to("cuda", dtype)
+                        for s in ((C, 4 * H), (H, 4 * H), (4 * H,)))
+    n0 = dict(lstm_step.lstm_step_variant.launches_by_kernel)
+    with torch.inference_mode():
+        got = lstm_step.lstm_step_variant(x, w_ih, w_hh, bias, mode)
+        torch.cuda.synchronize()
+        ref = lstm_step.lstm_step_variant_plain(x, w_ih, w_hh, bias, mode)
+    assert _kernel_delta(lstm_step.lstm_step_variant, n0) == {
+        "lstm_fused" if H <= 128 else "lstm_fused_wide": 1}
+    assert got.dtype == dtype and got.shape == (R, T, H)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err / max(1.0, ref.float().abs().max().item()) <= SCAN_TOL[dtype]
+    if mode == "full":            # the production kernel: the forward half of the fused BiLSTM
+        with torch.inference_mode():
+            fused = port_lstm.lstm_scan_fused(x, w_ih, w_ih, bias, bias, w_hh, w_hh)
+        torch.testing.assert_close(got, fused[..., :H], atol=SCAN_TOL[dtype],
+                                   rtol=SCAN_TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# lstm_scan_fused past its fused kernels: projection + lstm_scan_bidir2
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("C,H", [(1536, 768), (768, 768), (8, 520)])
+def test_fused_past_its_kernels_takes_the_bidir2_route(cuda, C, H, dtype, tol):
+    """HD-Demucs's bottleneck BiLSTM layers (C = 768 and 1536, H = 768) and a
+    shape just past the wide fused kernel's H: the projection as torch
+    matmuls, then one lstm_scan_bidir2 launch, none of a fused kernel."""
+    args = _args(8, 64 if C == 1536 else 9, C, H, dtype, seed=C + H)
+    n0 = (dict(port_lstm.lstm_scan_fused.launches_by_kernel),
+          dict(port_lstm.lstm_scan_bidir2.launches_by_kernel))
+    with torch.inference_mode():
+        got = port_lstm.lstm_scan_fused(*args)
+    torch.cuda.synchronize()
+    assert _kernel_delta(port_lstm.lstm_scan_fused, n0[0]) == {}
+    assert _kernel_delta(port_lstm.lstm_scan_bidir2, n0[1]) == {"lstm_bidir2": 1}
+    ref = port_lstm.lstm_scan_fused_plain(*args)
+    assert got.dtype == dtype and got.shape == ref.shape
+    assert (got.float() - ref.float()).abs().max().item() <= tol

@@ -115,7 +115,8 @@ def test_port_scripts_and_smoke_name_no_jax_import():
     import glob
 
     files = ([os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "scripts", "sweep_lstm_rows.py"),
-              os.path.join(REPO, "scripts", "compare_torch_lstm_layouts.py")]
+              os.path.join(REPO, "scripts", "compare_torch_lstm_layouts.py"),
+              os.path.join(REPO, "scripts", "bench_torch_lstm_kernel.py")]
              + glob.glob(os.path.join(REPO, "scripts", "profile_torch_*.py"))
              + glob.glob(os.path.join(REPO, "nvse_tpu_torch", "**", "*.py"), recursive=True))
     assert len(files) >= 30
