@@ -18,7 +18,8 @@ the last line:
      BSRNN-M training shapes (batch 16: 544 rows x 65 steps, 1040 rows x
      34 steps), with cuDNN's BiLSTM forward + backward beside the port's,
      and at GCRN's (16 rows x 65 steps, H = 448: the wide kernels of
-     csrc/lstm_wide.cu), with one cuBLAS GEMM beside the dW_hh reduction; lstm_scan at the
+     csrc/lstm_wide.cu), with one cuBLAS GEMM beside the dW_hh reduction (float32
+     out, as the kernel's, where torch.mm takes out_dtype); lstm_scan at the
      causal decode and context-recompute window shapes (272 rows x 1024
      steps, 34 x 96) and lstm_scan_stateful at the streaming chunk shapes
      (272 x 80 for 8 streams, 34 x 80 for one; seeded nonzero state; hs
@@ -142,7 +143,9 @@ the last line:
      kernel-vs-plain row in the dtype it ran in, and a launch at a shape with
      no row fails the run;
  19. print the kernels line (one entry per kernel, shape and dtype, each
-     with its launches summed over the main paths), then the ok line.
+     with its launches summed over the main paths; the redesigned dW_hh
+     reduction and wide fused BiLSTM name their design and plan), then the ok
+     line.
 Exits nonzero without output when no CUDA GPU is visible.
 """
 import contextlib
@@ -280,6 +283,7 @@ def phase_kernels(cases, phase="kernel_vs_plain"):
         bound, bound_by, ops = _bound_ms(R, T, C, H, dtype)
         row = dict(name="lstm_scan_fused", shape=label, rows=R, steps=T, C=C, H=H,
                    dtype=DT_NAME[dtype], source=_source("lstm_scan_fused", H),
+                   design=_design("lstm_scan_fused", H, dtype, R=R, T=T, C=C),
                    max_abs_err=err, tol=TOL[dtype], control_max_abs_err=control,
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    library_max_abs_err=lib_err, bound_ms=bound, bound_by=bound_by,
@@ -463,6 +467,42 @@ def _str_keys(counts):
     return {k: {str(s): n for s, n in d.items()} for k, d in counts.items() if d}
 
 
+def _dw_library(hs, dx):
+    """The dW yardstick: one cuBLAS GEMM of h_{t-1}^T and dx_proj returning what
+    the kernel returns, float32 (H, 4H), through torch.mm's out_dtype where this
+    build takes it (bf16 in, float32 out); else in the input dtype, its output
+    rounded. -> (the call, what it is)."""
+    H, G = hs.shape[-1], dx.shape[-1]
+    a, b = hs[:-1].reshape(-1, H).T, dx[1:].reshape(-1, G)
+    if hs.dtype == torch.float32:
+        return (lambda: torch.mm(a, b)), "cuBLAS GEMM, float32"
+    try:
+        torch.mm(a[:, :8], b[:8], out_dtype=torch.float32)
+        return ((lambda: torch.mm(a, b, out_dtype=torch.float32)),
+                "cuBLAS GEMM, bfloat16 in, float32 out (torch.mm out_dtype)")
+    except (TypeError, RuntimeError, NotImplementedError):
+        return (lambda: torch.mm(a, b)), "cuBLAS GEMM, bfloat16 out (out_dtype not taken here)"
+
+
+def _design(name, H, dtype, R=None, T=None, C=None):
+    """The design of the redesigned kernels at a row's shape, for the kernels
+    line: the dW_hh reduction's and the wide fused BiLSTM's plans (ops/lstm.py
+    `dw_plan`, `fused_wide_plan`) as this card takes them; None elsewhere."""
+    from nvse_tpu_torch.ops import lstm as L
+
+    if name == "lstm_bwd_dw":
+        p = L._dw_card_plan(0, T, R, H, dtype)
+        return (f"{'mma.sync m16n8k16 bf16' if dtype == torch.bfloat16 else 'f32 FMA 8x8/thread'}, "
+                f"128x128 tiles, cp.async ring of {p['stages']} x {p['tile_k']} rows, "
+                f"{p['nsplit']} splits of {p['rows_per_split']} rows")
+    if name in ("lstm_scan_fused", "lstm_step_variant") and 128 < H and L._fused_route(C, H) == "lstm_fused_wide":
+        p = L._fused_wide_card_plan(0, R, C, H, dtype, 0)
+        return (f"{'mma.sync m16n8k16 bf16' if dtype == torch.bfloat16 else 'f32 FMA'}, "
+                f"{p['units']} units x {p['tile_rows']}-row tiles, cp.async ring of "
+                f"{p['stages']} x {p['kc']} k, {p['groups']} row groups")
+    return None
+
+
 def phase_train_kernels(shapes=TRAIN_SHAPES, phase="kernel_vs_plain"):
     """lstm_fwd_hc, the lstm_bwd recurrence and the dW_hh reduction at the
     BSRNN-M and GCRN training shapes (or BSRNN-L's), against their plain
@@ -495,9 +535,7 @@ def phase_train_kernels(shapes=TRAIN_SHAPES, phase="kernel_vs_plain"):
                 dx_ctl.view(-1, G)[-DW_CONTROL_ROWS:] = 0
                 dw_control = _err(L.lstm_dw_hh_plain(hs, dx_ctl), dw_ref)[1]
 
-                def dw_library():                  # one cuBLAS GEMM, in the input dtype
-                    return torch.mm(hs[:-1].reshape(-1, H).T, dx[1:].reshape(-1, G))
-
+                dw_library, dw_library_name = _dw_library(hs, dx)
                 dw_library_err = _err(dw_library(), dw_ref)[1]
                 dw_library_ms = cuda_ms(dw_library, iters=10)
                 times = {
@@ -525,7 +563,8 @@ def phase_train_kernels(shapes=TRAIN_SHAPES, phase="kernel_vs_plain"):
                            tflops=flops[name] / (ms * 1e-3) / 1e12)
                 if name == "lstm_bwd_dw":
                     row.update(library_ms=dw_library_ms, library_rel_err=dw_library_err,
-                               control_rel_err=dw_control)
+                               library=dw_library_name, control_rel_err=dw_control,
+                               design=_design(name, H, dtype, R=R, T=T))
                 say(phase=phase, **row)
                 if not (rel <= tols[name]):
                     raise SystemExit(f"{name} {label} {DT_NAME[dtype]}: error {err} "
@@ -1713,6 +1752,7 @@ def phase_lstm_step_ablation():
         bound, bound_by = _ablation_bound(mode, R, T, C, H, dtype)
         row = dict(name="lstm_step_variant", shape=r["shape"], mode=mode, rows=R, steps=T, C=C,
                    H=H, dtype=r["dtype"], source=f"nvse_tpu_torch/csrc/{LS._kernel_source(H)}.cu",
+                   design=_design("lstm_step_variant", H, dtype, R=R, T=T, C=C),
                    max_abs_err=err, rel_err=rel, tol=TOL[dtype], control_rel_err=control,
                    ms=r["ms"], us_per_step=r["us_per_step"], plain_ms=plain_ms,
                    library_ms=library_ms, library_max_abs_err=lib_err,
@@ -1878,7 +1918,8 @@ def main():
                                          else {"replaces": replaces[r["name"]]})}
         kernels.append({
             "name": r["name"], "shape": r["shape"], "rows": r["rows"], "steps": r["steps"],
-            "H": r["H"], **{k: r[k] for k in ("C", "mode", "Bc", "dilation", "library") if k in r},
+            "H": r["H"], **{k: r[k] for k in ("C", "mode", "Bc", "dilation", "library", "design")
+                            if r.get(k) is not None},
             "dtype": r["dtype"], "route": "cuda", **src,
             "launches": launched.get(r["name"], {}).get(_key(r), 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],

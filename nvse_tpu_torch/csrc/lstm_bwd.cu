@@ -4,7 +4,8 @@
 //   lstm_fwd_hc_kernel <- `_fwd_kernel_hc` / `_fwd_kernel_hc_unrolled`
 //                         (launched by `lstm_fwd_hc`, pallas_lstm_bwd.py:181)
 //   lstm_bwd_kernel    <- `_bwd_kernel` / `_bwd_kernel_unrolled`
-//   lstm_dw_kernel        (both launched by `lstm_bwd`, pallas_lstm_bwd.py:339;
+//   lstm_dw_mma_kernel / lstm_dw_fma_kernel (bfloat16 / float32)
+//                         (both launched by `lstm_bwd`, pallas_lstm_bwd.py:339;
 //                         dW_hh is summed there inside the kernel body)
 // The unrolled TPU variants are the same functions at other unroll factors.
 //
@@ -14,7 +15,7 @@
 //   backward: dh = dhs[t] + dh_carry;  dc = dc_carry + dh * o * (1 - tanh(c_t)^2)
 //             dgates = [dc*g*i*(1-i), dc*c_{t-1}*f*(1-f), dc*i*(1-g^2), dh*tanh(c_t)*o*(1-o)]
 //             dx_proj[t] = dgates;  dh_carry = dgates @ W_hh^T;  dc_carry = dc * f
-//             dW_hh = sum_{t, r} h_{t-1}^T dgates                    (lstm_dw_kernel)
+//             dW_hh = sum_{t, r} h_{t-1}^T dgates                    (the dW kernels)
 // with h_{-1} = c_{-1} = 0 read as zeros at t = 0 (no shifted copies in memory).
 // Types follow the TPU residual kernels: x_proj, W_hh, hs, cs, dhs and dx_proj
 // are all float32 or all bfloat16. The forward state is float32 and the product
@@ -22,8 +23,8 @@
 // inference kernel; pallas_lstm_bwd.py:148); hs and cs are stored in the
 // x_proj type. The backward reads h_{t-1}, c_t and c_{t-1} as stored, sums
 // both products in float32, keeps the carries in float32 and stores dx_proj in
-// the x_proj type. dW sums the stored dx_proj in float32 into per-split
-// partials; the caller adds the partials and casts once.
+// the x_proj type. dW sums the stored dx_proj in float32; the splits of the
+// rows add their sums into one float32 dW, and the caller casts once.
 //
 // What bounds them. At the BSRNN-M training shapes (H = 128; 544 rows x 65
 // steps for the time BiLSTM, 1040 rows x 34 steps for the band BiLSTM, i.e.
@@ -54,18 +55,26 @@
 //     added with warp shuffles.
 //   * dc_carry stays in registers (each thread owns the same pairs every
 //     step); dh_carry in shared memory.
-// - lstm_dw_kernel: dW_hh is (H, 4H) = 256 KiB in float32, which fits
+// - The dW kernels: dW_hh is (H, 4H) = 256 KiB in float32, which fits
 //   neither a block's shared memory nor its registers, so it is a second
 //   kernel (also that of the wide recurrence of csrc/lstm_wide.cu, up to
-//   H = 768): a tiled reduction over the T*R rows of [h_{t-1} | dx_proj]
-//   (64 x 64 output tiles, 4 x 4 per thread, 16 rows staged per pass),
-//   split over the rows so that the grid fills the card; each split writes
-//   float32 partials (nsplit, H, 4H).
-// wgmma, TMA and clusters are later work.
+//   H = 768): a GEMM over the T*R rows of [h_{t-1} | dx_proj], 128 x 128
+//   output tiles, split over the rows so that the grid fills the card; the
+//   splits add their sums into the float32 (H, 4H) with atomics (in an order
+//   that varies from run to run; a single split stores).
+//   At BSRNN-L's training shapes it is 18.5 GFLOP on 90 MB (bf16): bound by
+//   operations in float32 (0.28 ms), by bytes in bfloat16 (0.027 ms).
+//   bfloat16 runs on the tensor cores (mma.sync m16n8k16, float32 sums, each
+//   product exact), float32 on CUDA cores with 8 x 8 outputs a thread; both
+//   stage the rows with cp.async into a ring, the next chunks' copies in
+//   flight while the current one is multiplied.
+// wgmma, TMA and clusters are later work for the recurrences.
 //
 // Built with nvcc by nvse_tpu_torch/ops/_build.py into a shared library with
-// plain C entries (lstm_fwd_hc_launch, lstm_bwd_launch, lstm_dw_launch),
-// loaded through ctypes.
+// plain C entries (lstm_fwd_hc_launch, lstm_bwd_launch, lstm_dw_launch,
+// lstm_dw_blocks_per_sm), loaded through ctypes.
+#include <type_traits>
+
 #include "lstm_cell.cuh"
 
 namespace {
@@ -271,60 +280,191 @@ lstm_bwd_kernel(const T* __restrict__ xp, const T* __restrict__ hs, const T* __r
   }
 }
 
-// partial[split][k][j] = sum over rows n of this split of h_{t-1}[n][k] * dx[n][j],
-// n = t * R + r over all T*R rows; h_{t-1} of row n is hs row n - R (zero for n < R).
-constexpr int DW_TK = 64, DW_TJ = 64, DW_NB = 16;
+// The dW_hh reduction: dw[m][j] += sum over the rows n of the block's split
+// of h_{t-1}[n][m] * dx[n][j], n = t * R + r over all T*R rows; h_{t-1}
+// of row n is hs row n - R (zero for n < R), read so by the tile loader. A
+// GEMM (H x T*R) . (T*R x 4H) whose operands are both MN-major: a row n of hs
+// is contiguous along m, one of dx along j. The split over n, its rows and
+// the tiles below are the plan of ops/lstm.py `dw_plan`, which mirrors them.
+namespace dw {
+constexpr int THREADS = 256, BM = 128, BN = 128;   // output tile (m, j)
+// bfloat16: tensor cores, 32 rows n a stage in a ring of 4; rows padded by
+// 16 bytes so that ldmatrix's 8 rows of a tile fall in distinct banks
+constexpr int MMA_BK = 32, MMA_STAGES = 4, MMA_PITCH = BM + 8;
+// float32: CUDA cores, 8 rows n a stage in a ring of 3
+constexpr int FMA_BK = 8, FMA_STAGES = 3;
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-lstm_dw_kernel(const T* __restrict__ hs, const T* __restrict__ dx, float* __restrict__ partial,
-               int R, int N, int H, int rows_per_split) {
+// a block's sum into dw: stored where one split covers the rows
+// (gridDim.z == 1), else added with an atomic
+__device__ __forceinline__ void add_out(float* dst, float v) {
+  if (gridDim.z == 1) *dst = v;
+  else atomicAdd(dst, v);
+}
+template <typename T> constexpr int smem_bytes();
+template <> constexpr int smem_bytes<__nv_bfloat16>() {
+  return MMA_STAGES * MMA_BK * 2 * MMA_PITCH * 2;
+}
+template <> constexpr int smem_bytes<float>() { return FMA_STAGES * FMA_BK * (BM + BN) * 4; }
+}  // namespace dw
+
+// bfloat16: a block owns a 128 x 128 tile of (m, j) and the split's rows;
+// 8 warps as 2 (m) x 4 (j), 64 x 32 outputs each, as 4 x 4 mma.sync
+// m16n8k16 tiles with float32 sums in registers. Both operands come through
+// ldmatrix.trans (A's rows n are contiguous along m, B's along j). The
+// stages are filled by cp.async, three chunks of 32 rows in flight ahead of
+// the one being multiplied.
+__global__ void __launch_bounds__(dw::THREADS)
+lstm_dw_mma_kernel(const __nv_bfloat16* __restrict__ hs, const __nv_bfloat16* __restrict__ dx,
+                   float* __restrict__ dw, int R, int N, int H, int rows_per_split) {
+  using namespace dw;
+  constexpr int STAGE = 2 * MMA_BK * MMA_PITCH;       // A then B, bf16 elements
   const int G = 4 * H;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;           // 16 x 16 threads, 4 x 4 outputs each
-  const int j0 = blockIdx.x * DW_TJ, k0 = blockIdx.y * DW_TK;
+  const int m0 = blockIdx.y * BM, j0 = blockIdx.x * BN;
   const int n_begin = blockIdx.z * rows_per_split;
   const int n_end = min(N, n_begin + rows_per_split);
+  const int nk = (n_end - n_begin + MMA_BK - 1) / MMA_BK;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
 
-  __shared__ float4 a_s4[DW_NB * DW_TK / 4];         // [NB][TK] h_{t-1}
-  __shared__ float4 b_s4[DW_NB * DW_TJ / 4];         // [NB][TJ] dx
-  float* a_s = reinterpret_cast<float*>(a_s4);
-  float* b_s = reinterpret_cast<float*>(b_s4);
+  extern __shared__ float4 smem_f4[];
+  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem_f4);
 
-  float acc[4][4] = {};
-  for (int n0 = n_begin; n0 < n_end; n0 += DW_NB) {
-    for (int i = tid; i < DW_NB * DW_TK; i += 256) {
-      const int nn = i / DW_TK, kk = i - nn * DW_TK;
-      const int n = n0 + nn, k = k0 + kk;
-      a_s[i] = (n < n_end && n >= R && k < H) ? to_f<T>(hs[(size_t)(n - R) * H + k]) : 0.0f;
+  auto fetch = [&](int c) {                           // chunk c into its stage, one group
+    if (c < nk) {
+      __nv_bfloat16* a_s = sm + (c % MMA_STAGES) * STAGE;
+      __nv_bfloat16* b_s = a_s + MMA_BK * MMA_PITCH;
+      const int n0 = n_begin + c * MMA_BK;
+      for (int i = tid; i < MMA_BK * (BM / 8); i += THREADS) {
+        const int nn = i / (BM / 8), q = (i % (BM / 8)) * 8, n = n0 + nn;
+        const bool va = n < n_end && n >= R && m0 + q < H;
+        cp_async16(a_s + nn * MMA_PITCH + q, va ? hs + (size_t)(n - R) * H + m0 + q : hs,
+                   va ? 16 : 0);
+        const bool vb = n < n_end && j0 + q < G;
+        cp_async16(b_s + nn * MMA_PITCH + q, vb ? dx + (size_t)n * G + j0 + q : dx,
+                   vb ? 16 : 0);
+      }
     }
-    for (int i = tid; i < DW_NB * DW_TJ; i += 256) {
-      const int nn = i / DW_TJ, jj = i - nn * DW_TJ;
-      const int n = n0 + nn, jc = j0 + jj;
-      b_s[i] = (n < n_end && jc < G) ? to_f<T>(dx[(size_t)n * G + jc]) : 0.0f;
+    cp_async_commit();
+  };
+
+  float acc[4][4][4] = {};
+  for (int c = 0; c < MMA_STAGES - 1; ++c) fetch(c);
+  const int mat = lane >> 3, r8 = lane & 7;
+  for (int c = 0; c < nk; ++c) {
+    cp_async_wait<MMA_STAGES - 2>();                  // chunk c has landed (this thread's part)
+    __syncthreads();                                  // ... every thread's; stage c - 1 is free
+    fetch(c + MMA_STAGES - 1);
+    const __nv_bfloat16* a_s = sm + (c % MMA_STAGES) * STAGE;
+    const __nv_bfloat16* b_s = a_s + MMA_BK * MMA_PITCH;
+#pragma unroll
+    for (int ks = 0; ks < MMA_BK; ks += 16) {
+      unsigned af[4][4], bf[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)                  // tiles (m 0-7 | 8-15) x (k 0-7 | 8-15)
+        ldsm_x4_trans(af[mt], a_s + (ks + (mat >> 1) * 8 + r8) * MMA_PITCH + wm * 64 + mt * 16 +
+                                  (mat & 1) * 8);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {                // (k 0-7 | 8-15) x (j 0-7 | 8-15)
+        unsigned t[4];
+        ldsm_x4_trans(t, b_s + (ks + (mat & 1) * 8 + r8) * MMA_PITCH + wn * 32 + np * 16 +
+                             (mat >> 1) * 8);
+        bf[2 * np][0] = t[0];
+        bf[2 * np][1] = t[1];
+        bf[2 * np + 1][0] = t[2];
+        bf[2 * np + 1][1] = t[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
     }
-    __syncthreads();
-#pragma unroll
-    for (int nn = 0; nn < DW_NB; ++nn) {
-      float a[4], b[4];
-      load4(a_s + nn * DW_TK + ty * 4, a);
-      load4(b_s + nn * DW_TJ + tx * 4, b);
-#pragma unroll
-      for (int y = 0; y < 4; ++y)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) acc[y][x] = fmaf(a[y], b[x], acc[y][x]);
-    }
-    __syncthreads();
   }
-  float* out = partial + (size_t)blockIdx.z * H * G;
+  const int g = lane >> 2, q2 = (lane & 3) * 2;
 #pragma unroll
-  for (int y = 0; y < 4; ++y) {
-    const int k = k0 + ty * 4 + y;
-    if (k >= H) continue;
+  for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const int jc = j0 + tx * 4 + x;
-      if (jc < G) out[(size_t)k * G + jc] = acc[y][x];
+    for (int nt = 0; nt < 4; ++nt) {
+      const int m = m0 + wm * 64 + mt * 16 + g, j = j0 + wn * 32 + nt * 8 + q2;
+      if (j >= G) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (m + 8 * h < H) {
+          float* o = dw + (size_t)(m + 8 * h) * G + j;
+          add_out(o, acc[mt][nt][2 * h]);
+          add_out(o + 1, acc[mt][nt][2 * h + 1]);
+        }
+    }
+}
+
+// float32 (true float32: no TF32): the same tile on CUDA cores; 16 x 16
+// threads with 8 x 8 outputs each, at m = 4 ty + (0..3, 64..67) and j = 4 tx
+// + (0..3, 64..67), so that a warp's float4 reads of a staged row are
+// contiguous. Per row n a thread reads 4 float4 for 64 FMAs (a warp 384
+// distinct bytes for 2048 FMAs, 0.19 B an FMA). Stages by cp.async, two
+// chunks of 8 rows in flight ahead.
+__global__ void __launch_bounds__(dw::THREADS)
+lstm_dw_fma_kernel(const float* __restrict__ hs, const float* __restrict__ dx,
+                   float* __restrict__ dw, int R, int N, int H, int rows_per_split) {
+  using namespace dw;
+  constexpr int STAGE = FMA_BK * (BM + BN);           // A [FMA_BK][BM] then B [FMA_BK][BN]
+  const int G = 4 * H;
+  const int m0 = blockIdx.y * BM, j0 = blockIdx.x * BN;
+  const int n_begin = blockIdx.z * rows_per_split;
+  const int n_end = min(N, n_begin + rows_per_split);
+  const int nk = (n_end - n_begin + FMA_BK - 1) / FMA_BK;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+
+  extern __shared__ float4 smem_f4[];
+  float* sm = reinterpret_cast<float*>(smem_f4);
+
+  auto fetch = [&](int c) {
+    if (c < nk) {
+      float* a_s = sm + (c % FMA_STAGES) * STAGE;
+      float* b_s = a_s + FMA_BK * BM;
+      const int n0 = n_begin + c * FMA_BK;
+      for (int i = tid; i < FMA_BK * (BM / 4); i += THREADS) {
+        const int nn = i / (BM / 4), q = (i % (BM / 4)) * 4, n = n0 + nn;
+        const bool va = n < n_end && n >= R && m0 + q < H;
+        cp_async16(a_s + nn * BM + q, va ? hs + (size_t)(n - R) * H + m0 + q : hs, va ? 16 : 0);
+        const bool vb = n < n_end && j0 + q < G;
+        cp_async16(b_s + nn * BN + q, vb ? dx + (size_t)n * G + j0 + q : dx, vb ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[8][8] = {};
+  for (int c = 0; c < FMA_STAGES - 1; ++c) fetch(c);
+  for (int c = 0; c < nk; ++c) {
+    cp_async_wait<FMA_STAGES - 2>();
+    __syncthreads();
+    fetch(c + FMA_STAGES - 1);
+    const float* a_s = sm + (c % FMA_STAGES) * STAGE;
+    const float* b_s = a_s + FMA_BK * BM;
+#pragma unroll
+    for (int nn = 0; nn < FMA_BK; ++nn) {
+      const float4 a0 = *reinterpret_cast<const float4*>(a_s + nn * BM + ty * 4);
+      const float4 a1 = *reinterpret_cast<const float4*>(a_s + nn * BM + 64 + ty * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(b_s + nn * BN + tx * 4);
+      const float4 b1 = *reinterpret_cast<const float4*>(b_s + nn * BN + 64 + tx * 4);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int y = 0; y < 8; ++y)
+#pragma unroll
+        for (int x = 0; x < 8; ++x) acc[y][x] = fmaf(av[y], bv[x], acc[y][x]);
+    }
+  }
+#pragma unroll
+  for (int y = 0; y < 8; ++y) {
+    const int m = m0 + (y >> 2) * 64 + ty * 4 + (y & 3);
+    if (m >= H) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = j0 + h * 64 + tx * 4;
+      if (j < G)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) add_out(dw + (size_t)m * G + j + e, acc[y][4 * h + e]);
     }
   }
 }
@@ -370,15 +510,49 @@ int launch_bwd(const void* xp, const void* hs, const void* cs, const void* dhs,
 }
 
 template <typename T>
-int launch_dw(const void* hs, const void* dx, float* partial, int R, int Tn, int H, int nsplit,
-              cudaStream_t stream) {
+cudaError_t dw_set_smem() {
+  if constexpr (std::is_same_v<T, float>)
+    return cudaFuncSetAttribute(lstm_dw_fma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                dw::smem_bytes<T>());
+  else
+    return cudaFuncSetAttribute(lstm_dw_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                dw::smem_bytes<T>());
+}
+
+// The plan (nsplit splits of rows_per_split rows, smem bytes) comes from the
+// caller; it must cover every row exactly once and match this build's tiles.
+template <typename T>
+int launch_dw(const void* hs, const void* dx, float* dw, int R, int Tn, int H, int nsplit,
+              int rows_per_split, int smem, cudaStream_t stream) {
+  const long N = (long)R * Tn;
+  if (smem != dw::smem_bytes<T>() || rows_per_split <= 0 || (long)nsplit * rows_per_split < N ||
+      (long)(nsplit - 1) * rows_per_split >= N)
+    return cudaErrorInvalidValue;
+  cudaError_t e = dw_set_smem<T>();
+  if (e != cudaSuccess) return e;
   const int G = 4 * H;
-  const int N = R * Tn;
-  const int per = (N + nsplit - 1) / nsplit;
-  const dim3 grid((G + DW_TJ - 1) / DW_TJ, (H + DW_TK - 1) / DW_TK, nsplit);
-  lstm_dw_kernel<T><<<grid, 256, 0, stream>>>(static_cast<const T*>(hs),
-                                              static_cast<const T*>(dx), partial, R, N, H, per);
+  const dim3 grid((G + dw::BN - 1) / dw::BN, (H + dw::BM - 1) / dw::BM, nsplit);
+  if constexpr (std::is_same_v<T, float>)
+    lstm_dw_fma_kernel<<<grid, dw::THREADS, smem, stream>>>(
+        static_cast<const float*>(hs), static_cast<const float*>(dx), dw, R, (int)N, H,
+        rows_per_split);
+  else
+    lstm_dw_mma_kernel<<<grid, dw::THREADS, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(hs), static_cast<const __nv_bfloat16*>(dx), dw,
+        R, (int)N, H, rows_per_split);
   return cudaGetLastError();
+}
+
+template <typename T>
+int dw_blocks_per_sm(int* blocks) {
+  cudaError_t e = dw_set_smem<T>();
+  if (e != cudaSuccess) return e;
+  if constexpr (std::is_same_v<T, float>)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, lstm_dw_fma_kernel, dw::THREADS,
+                                                         dw::smem_bytes<T>());
+  else
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, lstm_dw_mma_kernel, dw::THREADS,
+                                                         dw::smem_bytes<T>());
 }
 
 // the recurrences run one thread per gate column (4H <= 512); the dW
@@ -430,13 +604,27 @@ extern "C" int lstm_bwd_launch(int dtype, const void* xp, const void* hs, const 
   return cudaErrorInvalidValue;
 }
 
-// hs (T, R, H), dx_proj (T, R, 4H) -> float32 partial (nsplit, H, 4H).
-extern "C" int lstm_dw_launch(int dtype, const void* hs, const void* dx, void* partial, int R,
-                              int Tn, int H, int nsplit, void* stream) {
+// hs (T, R, H), dx_proj (T, R, 4H) -> dw float32 (H, 4H): split s sums rows
+// [s * rows_per_split, (s + 1) * rows_per_split) of the T*R rows and adds them
+// into dw, which the caller zeroes when nsplit > 1 (one split stores); smem is
+// the plan's dynamic shared memory (ops/lstm.py `dw_plan`), checked against
+// this build's. All 16-byte aligned.
+extern "C" int lstm_dw_launch(int dtype, const void* hs, const void* dx, void* dw, int R,
+                              int Tn, int H, int nsplit, int rows_per_split, int smem,
+                              void* stream) {
   if (bad_shape(R, Tn, H, 768) || nsplit <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* out = static_cast<float*>(partial);
-  if (dtype == 0) return launch_dw<float>(hs, dx, out, R, Tn, H, nsplit, s);
-  if (dtype == 1) return launch_dw<__nv_bfloat16>(hs, dx, out, R, Tn, H, nsplit, s);
+  float* out = static_cast<float*>(dw);
+  if (dtype == 0) return launch_dw<float>(hs, dx, out, R, Tn, H, nsplit, rows_per_split, smem, s);
+  if (dtype == 1)
+    return launch_dw<__nv_bfloat16>(hs, dx, out, R, Tn, H, nsplit, rows_per_split, smem, s);
+  return cudaErrorInvalidValue;
+}
+
+// Blocks of the dW kernel for `dtype` that one SM holds at once (the plan's
+// blocks_per_sm), into *blocks.
+extern "C" int lstm_dw_blocks_per_sm(int dtype, int* blocks) {
+  if (dtype == 0) return dw_blocks_per_sm<float>(blocks);
+  if (dtype == 1) return dw_blocks_per_sm<__nv_bfloat16>(blocks);
   return cudaErrorInvalidValue;
 }

@@ -1,55 +1,45 @@
-// The wide inference LSTM recurrence shared by csrc/lstm_fused_wide.cu (the
-// fused bidirectional LSTM and its per-step ablation variants) and
-// csrc/lstm_scan_wide.cu (the unidirectional scans and the two-direction
-// scan), for 128 < H and many rows, for Hopper (sm_90a).
+// The wide inference LSTM scans of csrc/lstm_scan_wide.cu (the unidirectional
+// scans and the two-direction scan), for 128 < H and many rows, for Hopper
+// (sm_90a).
 //
 // Contract, per row r and direction d (gate order i, f, g, o):
-//   gates_t = [x_t @ W_ih_d + b_d | x_proj[t]] + h_{t-1} @ W_hh_d
+//   gates_t = x_proj[t] + h_{t-1} @ W_hh_d
 //   c_t = sigmoid(f) * c_{t-1} + sigmoid(i) * tanh(g);  h_t = sigmoid(o) * tanh(c_t)
-// kFused:    x (R, T, C) batch-first, both directions, zero state; the backward
-//            direction walks t = T-1 .. 0 and writes h at its original time index
-//            into columns [H, 2H) of out (R, T, 2H).
 // kScan:     x_proj (T, R, 4H) time-major, one direction, zero state -> hs (T, R, H).
 // kStateful: the same from the caller's (h0, c0), each (R, H) -> hs and cs.
 // kScanBidir: x_proj (T, 2R, 4H) time-major, zero state -> hs (T, 2R, H); rows
 //            [d R, d R + R) scan with w_hh[d], both directions forward in time.
-// STEP (kFused, one direction; lstm_cell.cuh): kFull is the kernel above, the
-// others the per-step ablation variants of scripts/profile_torch_lstm_step.py.
 // Types: every tensor float32 or every tensor bfloat16; the state and every
 // sum float32. h is rounded to the weight type as stored and the recurrent
 // product reads it back rounded (the `_hdot` rule, pallas_lstm.py:36-43); c is
 // carried in float32 and stored rounded.
 //
-// What bounds it. BSRNN-L (C = H = 256) at a B = 8 x 1024 decode runs the
-// fused BiLSTM at 272 rows x 1024 steps (the time BiLSTM) and 8192 x 34 (the
-// band BiLSTM): each 584 GFLOP on 0.3-1.1 GB, operations, not bytes (8.7 ms of
-// the f32 peak). The time BiLSTM is besides a chain of 1024 dependent steps,
-// the band BiLSTM one of 34 steps over 8192 rows. W_ih and W_hh of one
-// direction are 1 MB each in float32: no block's shared memory holds them.
+// What bounds it. BSRNN-L (H = 256) runs the causal time scan at 272 rows x
+// 1024 steps: 146 GFLOP, operations, not bytes (2.2 ms of the f32 peak), and
+// a chain of 1024 dependent steps. W_hh of one direction is 1 MB in float32:
+// no block's shared memory holds it.
 //
 // Design: the rows are split into row groups and the hidden units into
 // slices of U = 8 units; a block owns one (direction, row group, unit slice).
-// It keeps the float32 (C + H, 32) column slice of [W_ih; W_hh] for its units'
-// four gates in shared memory for the whole launch (64 KB at C = H = 256),
-// computes all four gates of its units for every row of its group, so c stays
-// with the thread that owns (row, unit) (in a float32 scratch only that
-// thread touches), and writes h_t rounded into the output. At the next step
-// every block of the group reads back the whole h_{t-1} of its rows from the
-// output through L2 (`__ldcg`: L1 is not coherent across SMs); one
-// cooperative grid barrier separates the steps, so a grid that cannot be
-// co-resident is a launch error, never a hang. The launcher takes as many row
-// groups as fit one block an SM (2 for the fused BiLSTM at H = 256: 128
-// blocks; 4 for a scan), at least 16 rows a group. kScanBidir runs both
-// directions' blocks in one launch where they are co-resident (H <= 528 on 132
-// SMs) and one launch a direction where not.
+// It keeps the float32 (H, 32) column slice of W_hh for its units' four gates
+// in shared memory for the whole launch (32 KB at H = 256), computes all four
+// gates of its units for every row of its group, so c stays with the thread
+// that owns (row, unit) (in a float32 scratch only that thread touches), and
+// writes h_t rounded into the output. At the next step every block of the
+// group reads back the whole h_{t-1} of its rows from the output through L2
+// (`__ldcg`: L1 is not coherent across SMs); one cooperative grid barrier
+// separates the steps, so a grid that cannot be co-resident is a launch
+// error, never a hang. The launcher takes as many row groups as fit one block
+// an SM (4 for a scan at H = 256), at least 16 rows a group. kScanBidir runs
+// both directions' blocks in one launch where they are co-resident (H <= 528
+// on 132 SMs) and one launch a direction where not.
 // Inside a block, 512 threads as 8 unit lanes x 64 row lanes: a thread owns
 // one unit (its four gate columns, a float4 of the slice) and RM rows (1 or
 // 2, so up to 128 rows a tile); a group's rows run as tiles, and each tile
-// stages its rows of x_t, then of h_{t-1}, in chunks of 256 k into shared
-// memory as float32. The product is f32 FMAs on CUDA cores: per 4 k, 4 float4
-// weight reads and RM float4 row reads for 16 RM FMAs. x @ W_ih + b is
-// computed inside the recurrence, tile by tile, never written to memory.
-// Tensor cores (wgmma), TMA and a barrier per row group are later work.
+// stages its rows of h_{t-1} in chunks of 256 k into shared memory as
+// float32. The product is f32 FMAs on CUDA cores: per 4 k, 4 float4 weight
+// reads and RM float4 row reads for 16 RM FMAs. The tensor-core product of
+// csrc/lstm_fused_wide.cu and a barrier per row group are later work here.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -69,19 +59,17 @@ constexpr int KC = 256;                // k values of a staged chunk
 constexpr int PITCH = KC + 4;          // floats a staged row (conflict-free float4 reads)
 constexpr int MIN_GROUP_ROWS = 16;
 
-enum Mode : int { kFused = 0, kScan = 1, kStateful = 2, kScanBidir = 3 };
+enum Mode : int { kScan = 1, kStateful = 2, kScanBidir = 3 };
 
 struct Args {
-  const void* x;          // kFused: x (R, Tn, C); kScanBidir: (Tn, 2R, 4H); else x_proj (Tn, R, 4H)
-  const void* w_ih[2];    // kFused: (C, 4H) of each direction
-  const void* b[2];       // kFused: (4H) of each direction
+  const void* x;          // kScanBidir: (Tn, 2R, 4H); else x_proj (Tn, R, 4H)
   const void* w_hh[2];    // (H, 4H) of each direction (one for kScan, kStateful)
   const void* h0;         // kStateful: (R, H)
   const void* c0;         // kStateful: (R, H)
-  void* out;              // kFused: (R, Tn, 2H); kScanBidir: (Tn, 2R, H); else hs (Tn, R, H)
+  void* out;              // kScanBidir: (Tn, 2R, H); else hs (Tn, R, H)
   void* cs;               // kStateful: (Tn, R, H)
   float* c_state;         // float32 (directions, R, H) scratch
-  int R, Tn, C, H;
+  int R, Tn, H;
   int groups;             // row groups
   int dir0;               // kScanBidir: the first direction this launch runs
   int ndir;               // directions this launch runs (0: all of the mode's)
@@ -140,12 +128,11 @@ __device__ __forceinline__ void tile_product(float (&acc)[RM][4], const float* a
   }
 }
 
-template <typename T, int MODE, int RM, int STEP = kFull>
+template <typename T, int MODE, int RM>
 __global__ void __launch_bounds__(THREADS, 1) lstm_grid_kernel(const Args a) {
-  constexpr bool FUSED = MODE == kFused, STATEFUL = MODE == kStateful, TWO = MODE == kScanBidir;
+  constexpr bool STATEFUL = MODE == kStateful, TWO = MODE == kScanBidir;
   cg::grid_group grid = cg::this_grid();
   const int H = a.H, R = a.R, Tn = a.Tn, G = 4 * H;
-  const int Cw = FUSED ? a.C : 0;                  // W_ih rows of the staged slice
   const int ns = H / U;                            // unit slices (H % 8 == 0)
   const int slice = blockIdx.x % ns, rest = blockIdx.x / ns;
   const int grp = rest % a.groups, dir = (TWO ? a.dir0 : 0) + rest / a.groups;
@@ -158,41 +145,26 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_grid_kernel(const Args a) {
   const int tid = threadIdx.x, tx = tid % U, ty = tid / U, unit = u0 + tx;
 
   const T* xin = static_cast<const T*>(a.x);
-  const T* w_ih = static_cast<const T*>(a.w_ih[dir]);
   const T* w_hh = static_cast<const T*>(a.w_hh[dir]);
   T* out = static_cast<T*>(a.out);                 // read back at the next step: no __restrict__
   float* cst = a.c_state + (size_t)dir * R * H;
 
   extern __shared__ float4 smem_f4[];
-  float* w_s = reinterpret_cast<float*>(smem_f4);  // [Cw + H][NC]
-  float* b_s = w_s + (size_t)(Cw + H) * NC;        // [NC]
-  float* a_s = b_s + NC;                           // [TY * RM][PITCH]
-  for (int i = tid; i < (Cw + H) * NC; i += THREADS) {
+  float* w_s = reinterpret_cast<float*>(smem_f4);  // [H][NC]
+  float* a_s = w_s + (size_t)H * NC;               // [TY * RM][PITCH]
+  for (int i = tid; i < H * NC; i += THREADS) {
     const int k = i / NC, col = i - k * NC;
-    const size_t src = (size_t)(col & 3) * H + u0 + (col >> 2);
-    w_s[i] = to_f<T>(k < Cw ? w_ih[(size_t)k * G + src] : w_hh[(size_t)(k - Cw) * G + src]);
+    w_s[i] = to_f<T>(w_hh[(size_t)k * G + (size_t)(col & 3) * H + u0 + (col >> 2)]);
   }
-  if (FUSED && tid < NC) {
-    b_s[tid] = to_f<T>(static_cast<const T*>(a.b[dir])[(size_t)(tid & 3) * H + u0 + (tid >> 2)]);
-  }
-  // the first chunk's barrier publishes w_s and b_s; a scan's first step has
-  // no chunk and reads neither
+  // the first chunk's barrier publishes w_s; a scan's first step has no
+  // chunk and reads none of it
 
   for (int n = 0; n < Tn; ++n) {
-    const int t = TWO ? n : dir ? Tn - 1 - n : n;
+    const int t = n;
     for (int p = 0; p < n_tile; ++p) {
       const int pr0 = (int)((long)gr * p / n_tile);
       const int np = (int)((long)gr * (p + 1) / n_tile) - pr0;
       const int row0 = gr0 + pr0;                  // first row of the tile
-      if (STEP == kEmpty) {                        // the zero state, written
-#pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          const int lr = ty * RM + i;
-          if (lr < np)
-            out[((size_t)(row0 + lr) * Tn + t) * 2 * H + (size_t)dir * H + unit] = from_f<T>(0.0f);
-        }
-        continue;
-      }
       float acc[RM][4], xv[RM][4], c_prev[RM];
 #pragma unroll
       for (int i = 0; i < RM; ++i) {               // this thread's (row, unit) values, loaded early
@@ -206,53 +178,20 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_grid_kernel(const Args a) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           acc[i][q] = 0.0f;
-          xv[i][q] = 0.0f;
-          if (!FUSED && on) xv[i][q] = to_f<T>(xin[((size_t)t * Rs + roff + row) * G + q * H + unit]);
+          xv[i][q] = on ? to_f<T>(xin[((size_t)t * Rs + roff + row) * G + q * H + unit]) : 0.0f;
         }
       }
       const bool act = ty * RM < np;               // the thread's first row is in the tile
 
-      if (FUSED) {                                 // x_t @ W_ih, chunk by chunk
-        const int tx_in = STEP == kNoInDma ? 0 : t;
-        for (int k0 = 0; k0 < Cw; k0 += KC) {
-          const int kc = min(KC, Cw - k0);
-          __syncthreads();                         // the previous chunk's readers are done
-          stage_tile(a_s, xin + ((size_t)row0 * Tn + tx_in) * Cw + k0, (size_t)Tn * Cw, np, kc);
-          __syncthreads();
-          if (STEP == kNoDot) {                    // gates = tile(x_t, 4) * 0.25 + b (C == H)
-            if (act && unit >= k0 && unit < k0 + kc) {
-#pragma unroll
-              for (int i = 0; i < RM; ++i) {
-                const float v = 0.25f * a_s[(ty * RM + i) * PITCH + unit - k0];
-#pragma unroll
-                for (int q = 0; q < 4; ++q) acc[i][q] = v;
-              }
-            }
-          } else if (act) {
-            tile_product<RM>(acc, a_s, w_s + (size_t)k0 * NC, kc, tx, ty);
-          }
-        }
-      }
-      if ((n > 0 || STATEFUL) && STEP != kNoDot) { // h_{t-1} @ W_hh (h_{-1} = 0 without a state)
-        const T* hsrc;
-        size_t stride;
-        if (n == 0) {
-          hsrc = static_cast<const T*>(a.h0) + (size_t)row0 * H;
-          stride = H;
-        } else if (FUSED) {
-          const int tp = dir ? t + 1 : t - 1;
-          hsrc = out + ((size_t)row0 * Tn + tp) * 2 * H + (size_t)dir * H;
-          stride = (size_t)Tn * 2 * H;
-        } else {
-          hsrc = out + ((size_t)(t - 1) * Rs + roff + row0) * H;
-          stride = H;
-        }
+      if (n > 0 || STATEFUL) {                     // h_{t-1} @ W_hh (h_{-1} = 0 without a state)
+        const T* hsrc = n == 0 ? static_cast<const T*>(a.h0) + (size_t)row0 * H
+                               : out + ((size_t)(t - 1) * Rs + roff + row0) * H;
         for (int k0 = 0; k0 < H; k0 += KC) {
           const int kc = min(KC, H - k0);
+          __syncthreads();                         // the previous chunk's readers are done
+          stage_tile(a_s, hsrc + k0, (size_t)H, np, kc);
           __syncthreads();
-          stage_tile(a_s, hsrc + k0, stride, np, kc);
-          __syncthreads();
-          if (act) tile_product<RM>(acc, a_s, w_s + (size_t)(Cw + k0) * NC, kc, tx, ty);
+          if (act) tile_product<RM>(acc, a_s, w_s + (size_t)k0 * NC, kc, tx, ty);
         }
       }
 
@@ -262,24 +201,12 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_grid_kernel(const Args a) {
         if (lr >= np) continue;
         float gt[4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) gt[q] = acc[i][q] + (FUSED ? b_s[tx * 4 + q] : xv[i][q]);
-        float c, h;
-        if (STEP == kNoVpu) {
-          // the g and o sums feed nothing here: the zero term keeps their FMAs,
-          // which the compiler would drop, so that only the transcendentals go
-          c = gt[0] + 0.5f * c_prev[i];
-          h = gt[1] + 0.5f * c + 0.0f * (gt[2] + gt[3]);
-        } else {
-          c = sigmoid(gt[1]) * c_prev[i] + sigmoid(gt[0]) * tanhf(gt[2]);
-          h = sigmoid(gt[3]) * tanhf(c);
-        }
-        if (FUSED) {
-          out[((size_t)row * Tn + t) * 2 * H + (size_t)dir * H + unit] = from_f<T>(h);
-        } else {
-          const size_t o = ((size_t)t * Rs + roff + row) * H + unit;
-          out[o] = from_f<T>(h);
-          if (STATEFUL) static_cast<T*>(a.cs)[o] = from_f<T>(c);
-        }
+        for (int q = 0; q < 4; ++q) gt[q] = acc[i][q] + xv[i][q];
+        const float c = sigmoid(gt[1]) * c_prev[i] + sigmoid(gt[0]) * tanhf(gt[2]);
+        const float h = sigmoid(gt[3]) * tanhf(c);
+        const size_t o = ((size_t)t * Rs + roff + row) * H + unit;
+        out[o] = from_f<T>(h);
+        if (STATEFUL) static_cast<T*>(a.cs)[o] = from_f<T>(c);
         cst[(size_t)row * H + unit] = c;
       }
       // the next tile's staging sits behind its own barrier
@@ -291,27 +218,24 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_grid_kernel(const Args a) {
   }
 }
 
-// Launches lstm_grid_kernel<T, MODE, RM, STEP> if its shared memory fits, its
-// grid is co-resident and (for RM = 2) a row group has more rows than row
-// lanes; sets *launched when it tried. The row groups are those of the mode's
-// directions, so a kFused launch of one direction (the step ablation) keeps a
-// decode's groups; those of a kScanBidir launch of one direction are its own.
-template <typename T, int MODE, int RM, int STEP>
+// Launches lstm_grid_kernel<T, MODE, RM> if its shared memory fits, its grid
+// is co-resident and (for RM = 2) a row group has more rows than row lanes;
+// sets *launched when it tried. The row groups of a kScanBidir launch of one
+// direction are its own.
+template <typename T, int MODE, int RM>
 cudaError_t try_launch(const Args& a0, int n_sm, int max_smem, cudaStream_t stream,
                        bool* launched) {
-  const int dirs = MODE == kFused || MODE == kScanBidir ? 2 : 1;
-  const int ndir = a0.ndir ? a0.ndir : dirs;     // directions this launch runs
-  const int kw = (MODE == kFused ? a0.C : 0) + a0.H;
-  const size_t smem = sizeof(float) * ((size_t)kw * NC + NC + (size_t)TY * RM * PITCH);
+  const int ndir = a0.ndir ? a0.ndir : MODE == kScanBidir ? 2 : 1;   // directions this launch runs
+  const size_t smem = sizeof(float) * ((size_t)a0.H * NC + (size_t)TY * RM * PITCH);
   if (smem > (size_t)max_smem) return cudaSuccess;
-  auto kernel = lstm_grid_kernel<T, MODE, RM, STEP>;
+  auto kernel = lstm_grid_kernel<T, MODE, RM>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
   int per_sm = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
   if (e != cudaSuccess) return e;
-  const int per_group = (MODE == kScanBidir ? ndir : dirs) * (a0.H / U);
+  const int per_group = ndir * (a0.H / U);
   const int max_groups = per_sm * n_sm / per_group;
   if (max_groups < 1) return cudaSuccess;
   Args a = a0;
@@ -330,10 +254,9 @@ cudaError_t try_launch(const Args& a0, int n_sm, int max_smem, cudaStream_t stre
 // staged tile fits, else 1) and the row groups, and launches. Returns the
 // cudaError_t of the launch; cudaErrorCooperativeLaunchTooLarge when no grid
 // of whole row groups is co-resident on this device.
-template <typename T, int MODE, int STEP = kFull>
+template <typename T, int MODE>
 int launch(const Args& a, cudaStream_t stream) {
-  if (a.R <= 0 || a.Tn <= 0 || a.H <= 0 || a.H % U || (MODE == kFused && (a.C <= 0 || a.C % 4)))
-    return cudaErrorInvalidValue;
+  if (a.R <= 0 || a.Tn <= 0 || a.H <= 0 || a.H % U) return cudaErrorInvalidValue;
   int dev = 0, n_sm = 0, max_smem = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -342,18 +265,18 @@ int launch(const Args& a, cudaStream_t stream) {
   if ((e = max_dynamic_smem(&max_smem)) != cudaSuccess) return e;
   if (!coop) return cudaErrorNotSupported;
   bool launched = false;
-  e = try_launch<T, MODE, 2, STEP>(a, n_sm, max_smem, stream, &launched);
+  e = try_launch<T, MODE, 2>(a, n_sm, max_smem, stream, &launched);
   if (e != cudaSuccess || launched) return e;
-  e = try_launch<T, MODE, 1, STEP>(a, n_sm, max_smem, stream, &launched);
+  e = try_launch<T, MODE, 1>(a, n_sm, max_smem, stream, &launched);
   if (e != cudaSuccess || launched) return e;
   return cudaErrorCooperativeLaunchTooLarge;
 }
 
-template <int MODE, int STEP = kFull>
+template <int MODE>
 int launch_dtype(int dtype, const Args& a, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, MODE, STEP>(a, s);
-  if (dtype == 1) return launch<__nv_bfloat16, MODE, STEP>(a, s);
+  if (dtype == 0) return launch<float, MODE>(a, s);
+  if (dtype == 1) return launch<__nv_bfloat16, MODE>(a, s);
   return cudaErrorInvalidValue;
 }
 

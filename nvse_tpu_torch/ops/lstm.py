@@ -9,9 +9,10 @@ and nvse_tpu/ops/pallas_lstm_bwd.py (`lstm_fwd_hc`, `lstm_bwd`).
   * inference (grad disabled, or no input requires grad): a fused kernel
     with x @ W_ih inside the recurrence, picked from (C, H) by
     `_fused_route`: that of csrc/lstm_fused.cu (one thread per gate column)
-    for H <= 128, that of csrc/lstm_fused_wide.cu (row groups x slices of 8
-    hidden units over the card, csrc/lstm_grid.cuh) for 128 < H <= 512 with
-    C + H <= 1280; past them, up to H = 768 (HD-Demucs's bottleneck BiLSTM),
+    for H <= 128, that of csrc/lstm_fused_wide.cu (row groups x slices of
+    8-32 hidden units over the card, tensor cores in bfloat16, the plan of
+    `fused_wide_plan`) for 128 < H <= 512 with C + H <= 1280; past them, up
+    to H = 768 (HD-Demucs's bottleneck BiLSTM),
     the decomposition the JAX function takes past its fused kernel's VMEM
     budget (pallas_lstm.py:864-880): x @ W_ih + b per direction as torch
     matmuls, then the two scans of csrc/lstm_bidir2.cu;
@@ -42,7 +43,8 @@ recomputed (the JAX custom_vjp at pallas_lstm.py:959-981).
 The training kernels pick theirs from H too: csrc/lstm_bwd.cu (one thread
 per gate column) for H <= 128, csrc/lstm_wide.cu (the hidden units spread
 over the card, as lstm_bidir2.cu) for 128 < H <= 768; the dW_hh reduction
-of csrc/lstm_bwd.cu is tiled and takes both.
+of csrc/lstm_bwd.cu (a GEMM: tensor cores in bfloat16, CUDA cores in float32,
+split over the rows by `dw_plan`) takes both.
 Every wrapper launches its CUDA kernel on a CUDA tensor or raises, and
 runs its plain PyTorch version only on a CPU tensor. Each counts its
 launches in `<wrapper>.launches`, per shape in
@@ -75,10 +77,11 @@ _MAX_H = 128                    # one thread per gate column: 4H <= 512 threads
 _WIDE_MAX_H = 768               # lstm_bidir2.cu, lstm_wide.cu, lstm_scan_wide.cu: hidden units
                                 # spread over the card, H / 8 blocks a row group
 # lstm_fused_wide.cu: both directions' H / 8 blocks co-resident on 128 SMs, and the
-# float32 (C + H, 32) weight slice beside a 64 x 256 staged row tile in 227 KB
+# float32 (C + H, 32) weight slice of 8 units beside its staging ring in 227 KB
 _FUSED_WIDE_MAX_H, _FUSED_WIDE_MAX_K = 512, 1280
 _ROWS_PER_BLOCK = (2, 4, 8)     # template instances in csrc/*.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ITEM = {torch.float32: 4, torch.bfloat16: 2}      # bytes an element
 # the csrc/<stem>.cu whose kernel each wrapper launches: (H <= _MAX_H, H > _MAX_H)
 _SOURCES = {"lstm_scan_fused": ("lstm_fused", "lstm_fused_wide"),
             "lstm_scan": ("lstm_scan", "lstm_scan_wide"),
@@ -231,9 +234,134 @@ def _fused_wide_lib() -> ctypes.CDLL:
 
     lib = load_library("lstm_fused_wide")
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_fused_wide_launch.argtypes = [i, *[ptr] * 9, i, i, i, i, ptr]
-    lib.lstm_fused_wide_launch.restype = ctypes.c_int
+    lib.lstm_fused_wide_launch.argtypes = [i, *[ptr] * 9, *[i] * 10, ptr]
+    lib.lstm_step_variant_wide_launch.argtypes = [i, i, *[ptr] * 6, *[i] * 10, ptr]
+    lib.lstm_fused_wide_blocks_per_sm.argtypes = [i, i, i, i, i, i, i, i, ptr]
+    for fn in (lib.lstm_fused_wide_launch, lib.lstm_step_variant_wide_launch,
+               lib.lstm_fused_wide_blocks_per_sm):
+        fn.restype = ctypes.c_int
     return lib
+
+
+# csrc/lstm_fused_wide.cu's instances as (units a block, rows a tile), in the
+# order the plan prefers them, and the pad of a staged row (its `Cfg`); the
+# k-chunk of a stage and the ring's stages are chosen here
+_FUSED_TILE = {torch.bfloat16: dict(tiles=((32, 64), (16, 64), (8, 128)), pad=8),
+               torch.float32: dict(tiles=((16, 256), (16, 128), (16, 32), (8, 128)), pad=4)}
+_FUSED_KC = (256, 128, 64, 32)
+_FUSED_MAX_STAGES = 8
+_FUSED_STATIC_SMEM = 8 * _FUSED_MAX_STAGES     # bytes of static shared memory beside the plan's
+_MIN_GROUP_ROWS = 8             # rows a row group at least (more groups help small R)
+_SMALL_GROUP_ROWS = 24          # bf16: fewer rows a group at the widest slice take the next
+
+
+def _fused_smem(U: int, rows: int, C: int, H: int, dtype: torch.dtype, kc: int,
+                stages: int) -> int:
+    """Dynamic shared memory of the wide fused kernel at U units a block: the
+    [W_ih; W_hh] slice in the input dtype (each part padded to the k-chunk kc;
+    in bfloat16 [column][k] rows 8 values longer), b in float32, a ring of
+    `stages` tiles of rows x kc."""
+    kw = math.ceil(C / kc) * kc + math.ceil(H / kc) * kc
+    weights = kw * 4 * U * 4 if dtype == torch.float32 else 4 * U * (kw + 8) * 2
+    return weights + 4 * U * 4 + stages * rows * (kc + _FUSED_TILE[dtype]["pad"]) * _ITEM[dtype]
+
+
+def fused_wide_tile(C: int, H: int, dtype: torch.dtype, smem_limit: int, U: int,
+                    rows: int) -> dict | None:
+    """The ring of the wide fused kernel's instance (U units, tiles of `rows`):
+    the largest k-chunk whose ring holds 2 stages beside the weight slice in
+    smem_limit, with as many stages as then fit up to _FUSED_MAX_STAGES. Few
+    large chunks keep a step's sequential waits few; they beat deeper rings of
+    smaller chunks at BSRNN-L's shapes (scripts/bench_torch_fused_plan.py
+    times every plan). -> U, tile rows, kc, stages and bytes; None when U does
+    not divide H or not even 2 stages of 32 k fit."""
+    if H % U:
+        return None
+    room = smem_limit - _FUSED_STATIC_SMEM
+    depth = {kc: max((st for st in range(2, _FUSED_MAX_STAGES + 1)
+                      if _fused_smem(U, rows, C, H, dtype, kc, st) <= room), default=0)
+             for kc in _FUSED_KC}
+    kc = next((k for k in _FUSED_KC if depth[k] >= 2), None)
+    if kc is None:
+        return None
+    return dict(units=U, tile_rows=rows, kc=kc, stages=depth[kc],
+                smem_bytes=_fused_smem(U, rows, C, H, dtype, kc, depth[kc]))
+
+
+def fused_wide_plan(R: int, C: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: int,
+                    blocks_per_sm: int) -> dict:
+    """Launch plan of the wide fused BiLSTM at x (R, T, C), H (any T) on a card with
+    n_sm SMs, smem_limit bytes a block and blocks_per_sm blocks an SM: the
+    instance (U units a block, rows a tile), its ring (`fused_wide_tile`), and
+    as many row groups (each of both directions' H / U blocks; at most one
+    for every 8 rows) as are co-resident. bfloat16 takes the widest slice that
+    fits (each row of a group is staged H / U times a step), or the next where
+    the widest leaves groups of fewer than 24 rows, whose steps are bound by
+    latency, not by staging. float32 takes the widest slice that fits, in tiles of
+    32 rows for groups of at most 32, of 128 for at most 256, else of 256 (8
+    rows a thread): few rows want large k-chunks, which only small tiles leave
+    room for, and many rows want fewer bytes read an FMA.
+    `co_resident` is False when not even one group is (or nothing fits): the
+    kernel cannot run, and its launch fails."""
+    tiles = [t for U, rows in _FUSED_TILE[dtype]["tiles"]
+             if (t := fused_wide_tile(C, H, dtype, smem_limit, U, rows)) is not None]
+    if not tiles:
+        return dict(units=None, co_resident=False, groups=0)
+
+    def grouped(tile):
+        per_group = 2 * (H // tile["units"])
+        groups = min(max(0, blocks_per_sm) * n_sm // per_group, math.ceil(R / _MIN_GROUP_ROWS), R)
+        rows = math.ceil(R / groups) if groups else 0
+        return dict(tile, co_resident=groups >= 1, groups=groups, blocks=groups * per_group,
+                    rows_per_group=rows, tiles_per_group=math.ceil(rows / tile["tile_rows"]))
+
+    if dtype == torch.bfloat16:
+        plans = [grouped(t) for t in tiles]
+        small = (len(plans) > 1 and plans[1]["co_resident"]
+                 and 0 < plans[0]["rows_per_group"] < _SMALL_GROUP_ROWS)
+        return plans[1] if small else plans[0]
+    plans = [grouped(t) for t in tiles if t["units"] == tiles[0]["units"]]
+    if len(plans) == 1:
+        return plans[0]
+    rows = plans[0]["rows_per_group"]
+    want = 32 if rows <= 32 else 128 if rows <= 256 else 256
+    return next((p for p in plans if p["tile_rows"] == want), plans[0])
+
+
+@functools.cache
+def _fused_wide_card_plan(index: int, R: int, C: int, H: int, dtype: torch.dtype,
+                          step: int) -> dict:
+    """fused_wide_plan on card `index`, its blocks per SM read from the card for
+    the instance the plan picks (step: lstm_cell.cuh `Step`); cached, as the
+    wrapper's host time counts."""
+    dev = torch.device("cuda", index)
+    n_sm, limit = _n_sm(dev), _smem_limit(dev)
+    plan = fused_wide_plan(R, C, H, dtype, n_sm, limit, 1)
+    for _ in range(2):                          # until the occupancy agrees with the plan
+        if plan["units"] is None:
+            return plan
+        bps = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = _fused_wide_lib().lstm_fused_wide_blocks_per_sm(
+                _DTYPE_CODE[dtype], step, plan["units"], plan["tile_rows"], C, H, plan["kc"],
+                plan["stages"], ctypes.byref(bps))
+        _raise_on(err, "lstm_fused_wide (occupancy)")
+        again = fused_wide_plan(R, C, H, dtype, n_sm, limit, bps.value)
+        if (again["units"], again["tile_rows"]) == (plan["units"], plan["tile_rows"]):
+            return again
+        plan = again
+    return plan
+
+
+def _fused_wide_launch_plan(x: torch.Tensor, C: int, H: int, step: int = 0) -> dict:
+    """fused_wide_plan for x (R, T, C) on x's card, blocks per SM read from the
+    card for the plan's instance (step: lstm_cell.cuh `Step`, 0 for the
+    production kernel); raises when the kernel cannot run there."""
+    plan = _fused_wide_card_plan(_device_index(x.device), x.shape[0], C, H, x.dtype, step)
+    if not plan["co_resident"]:
+        raise RuntimeError(f"lstm_fused_wide at C={C}, H={H}, {x.dtype}: no grid of whole row "
+                           f"groups is co-resident on this card ({plan})")
+    return plan
 
 
 def _launch_kernel(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.Tensor:
@@ -246,10 +374,13 @@ def _launch_kernel(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if H > _MAX_H:
+            plan = _fused_wide_launch_plan(x, C, H)
             # kernel scratch: the float32 c of each (direction, row, unit)
             c_state = torch.empty(2, B, H, device=x.device, dtype=torch.float32)
             err = _fused_wide_lib().lstm_fused_wide_launch(
-                _DTYPE_CODE[x.dtype], *ptrs, c_state.data_ptr(), B, T, C, H, stream)
+                _DTYPE_CODE[x.dtype], *ptrs, c_state.data_ptr(), B, T, C, H, plan["units"],
+                plan["tile_rows"], plan["groups"], plan["kc"], plan["stages"], plan["smem_bytes"],
+                stream)
         else:
             err = _kernel_lib().lstm_fused_launch(
                 _DTYPE_CODE[x.dtype], *ptrs, B, T, C, H, _rows_per_block(B, _n_sm(x.device)),
@@ -418,8 +549,10 @@ def _bwd_lib() -> ctypes.CDLL:
     ptr, i = ctypes.c_void_p, ctypes.c_int
     lib.lstm_fwd_hc_launch.argtypes = [i, ptr, ptr, ptr, ptr, i, i, i, i, ptr]
     lib.lstm_bwd_launch.argtypes = [i, ptr, ptr, ptr, ptr, ptr, ptr, i, i, i, i, ptr]
-    lib.lstm_dw_launch.argtypes = [i, ptr, ptr, ptr, i, i, i, i, ptr]
-    for fn in (lib.lstm_fwd_hc_launch, lib.lstm_bwd_launch, lib.lstm_dw_launch):
+    lib.lstm_dw_launch.argtypes = [i, ptr, ptr, ptr, i, i, i, i, i, i, ptr]
+    lib.lstm_dw_blocks_per_sm.argtypes = [i, ptr]
+    for fn in (lib.lstm_fwd_hc_launch, lib.lstm_bwd_launch, lib.lstm_dw_launch,
+               lib.lstm_dw_blocks_per_sm):
         fn.restype = ctypes.c_int
     return lib
 
@@ -494,26 +627,85 @@ def lstm_fwd_hc(x_proj: torch.Tensor, w_hh: torch.Tensor):
     return hs, cs
 
 
+# The dW_hh reduction's tiles, as csrc/lstm_bwd.cu's `dw` namespace builds them:
+# 128 x 128 (m, j) output tiles; tile_k rows of [h_{t-1} | dx_proj] a stage, in
+# a ring of `stages`, each stage's rows padded to `pitch` elements (A and B alike)
+_DW_TILE = {torch.bfloat16: dict(tile_m=128, tile_n=128, tile_k=32, stages=4, pitch=136),
+            torch.float32: dict(tile_m=128, tile_n=128, tile_k=8, stages=3, pitch=128)}
+_DW_MIN_SPLIT_ROWS = 256        # below this a split's ring barely fills
+
+
+def dw_plan(T: int, R: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: int,
+            blocks_per_sm: int) -> dict:
+    """Launch plan of the dW_hh reduction at (T, R, H) on a card with n_sm SMs,
+    smem_limit bytes of shared memory a block and blocks_per_sm blocks an SM:
+    the tiles, the dynamic shared memory (`smem_bytes`), and the split of the
+    T*R rows into `nsplit` runs of `rows_per_split` (the last one shorter) so
+    that tiles x splits fill the card in one wave. `fits` is False when a block's
+    shared memory exceeds the limit."""
+    tile = _DW_TILE[dtype]
+    item = _ITEM[dtype]
+    smem = tile["stages"] * tile["tile_k"] * 2 * tile["pitch"] * item
+    tiles = math.ceil(H / tile["tile_m"]) * math.ceil(4 * H / tile["tile_n"])
+    N = T * R
+    want = max(1, max(1, blocks_per_sm) * n_sm // tiles)     # one wave, never a second
+    rows = max(_DW_MIN_SPLIT_ROWS, math.ceil(N / want))
+    rows = math.ceil(rows / tile["tile_k"]) * tile["tile_k"]
+    nsplit = max(1, math.ceil(N / rows))
+    return dict(tile, smem_bytes=smem, fits=smem <= smem_limit, tiles=tiles, nsplit=nsplit,
+                rows_per_split=rows, blocks=tiles * nsplit)
+
+
+def _smem_limit(device: torch.device) -> int:
+    """Shared memory a block may opt into on the card (232,448 bytes on an H100)."""
+    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+@functools.cache
+def _dw_card_plan(index: int, T: int, R: int, H: int, dtype: torch.dtype) -> dict:
+    """dw_plan on card `index`, blocks per SM read from the card; cached, as
+    the wrapper's host time counts."""
+    dev = torch.device("cuda", index)
+    bps = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _bwd_lib().lstm_dw_blocks_per_sm(_DTYPE_CODE[dtype], ctypes.byref(bps))
+    _raise_on(err, "lstm_dw_hh (occupancy)")
+    plan = dw_plan(T, R, H, dtype, _n_sm(dev), _smem_limit(dev), bps.value)
+    if not plan["fits"]:
+        raise RuntimeError(f"lstm_dw_hh: {plan['smem_bytes']} bytes of shared memory a block "
+                           f"exceed this card's {_smem_limit(dev)}")
+    return plan
+
+
 def lstm_dw_hh(hs: torch.Tensor, dx_proj: torch.Tensor) -> torch.Tensor:
     """dW_hh = sum_{t, r} h_{t-1}^T dx_proj[t] -> float32 (H, 4H). CUDA
     tensors launch the hand-written reduction of csrc/lstm_bwd.cu (the dW
-    sum of nvse_tpu/ops/pallas_lstm_bwd.py:lstm_bwd; tiled, H <= 768):
-    per-split float32 partials, added by a torch sum. CPU tensors run
+    sum of nvse_tpu/ops/pallas_lstm_bwd.py:lstm_bwd; H <= 768; tensor cores
+    in bfloat16, CUDA cores in float32) with the split of `dw_plan`: the
+    splits add their float32 sums into the zeroed output with atomics, in an
+    order that varies from run to run (one split stores). CPU tensors run
     lstm_dw_hh_plain. Counts launches in `lstm_dw_hh.launches`."""
     if hs.device.type == "cpu":
         return lstm_dw_hh_plain(hs, dx_proj)
     T, R, H = _check_seq_args("lstm_dw_hh", dx_proj, None, hs, max_h=_WIDE_MAX_H)
-    tiles = math.ceil(4 * H / 64) * math.ceil(H / 64)
-    nsplit = max(1, min(math.ceil(T * R / 256), math.ceil(2 * _n_sm(hs.device) / tiles)))
-    partial = torch.empty(nsplit, H, 4 * H, device=hs.device, dtype=torch.float32)
-    with torch.cuda.device(hs.device):
-        stream = torch.cuda.current_stream(hs.device).cuda_stream
+    _check_aligned("lstm_dw_hh", hs, dx_proj)
+    dev = hs.device
+    plan = _dw_card_plan(_device_index(dev), T, R, H, hs.dtype)
+    dw = (torch.zeros if plan["nsplit"] > 1 else torch.empty)(H, 4 * H, device=dev,
+                                                                dtype=torch.float32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = _bwd_lib().lstm_dw_launch(_DTYPE_CODE[hs.dtype], hs.data_ptr(),
-                                        dx_proj.data_ptr(), partial.data_ptr(), R, T, H,
-                                        nsplit, stream)
+                                        dx_proj.data_ptr(), dw.data_ptr(), R, T, H,
+                                        plan["nsplit"], plan["rows_per_split"],
+                                        plan["smem_bytes"], stream)
     _raise_on(err, "lstm_dw_hh")
     _count(lstm_dw_hh, (T, R, H, str(hs.dtype).replace("torch.", "")))
-    return partial.sum(0)
+    return dw
 
 
 def lstm_bwd(x_proj, hs, cs, dhs, w_hh):

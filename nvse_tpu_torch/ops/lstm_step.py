@@ -17,8 +17,8 @@ On a CUDA tensor `lstm_step_variant` launches the port's production fused
 kernel with the mode as a compile-time parameter (lstm_cell.cuh `Step`),
 for the forward direction only: that of csrc/lstm_fused.cu for H <= 128 (a
 grid of (row tiles, 1) at 8 rows a block) and that of csrc/lstm_fused_wide.cu
-(csrc/lstm_grid.cuh, mode kFused) for 128 < H <= 512 with C + H <= 1280, with
-the row groups of a two-direction launch. `full` is the production kernel
+for 128 < H <= 512 with C + H <= 1280, with the unit slice and row groups of
+a two-direction launch (ops/lstm.py `fused_wide_plan`). `full` is the production kernel
 itself. Each variant keeps the launch, the step loop with its
 synchronisation (the grid barrier a step in the wide kernel) and the output
 writes. On a CPU tensor it runs `lstm_step_variant_plain`. Launches are
@@ -37,7 +37,8 @@ import functools
 
 import torch
 
-from .lstm import _DTYPE_CODE, _MAX_H, _check_kernel_args, _count, _raise_on, _reset_counts
+from .lstm import (_DTYPE_CODE, _MAX_H, _check_kernel_args, _count, _fused_wide_launch_plan,
+                   _fused_wide_lib, _raise_on, _reset_counts)
 
 __all__ = ["MODES", "lstm_step_variant", "lstm_step_variant_plain"]
 
@@ -97,12 +98,10 @@ def _libs() -> dict[str, ctypes.CDLL]:
     from ._build import load_library
 
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    narrow, wide = load_library("lstm_fused"), load_library("lstm_fused_wide")
+    narrow = load_library("lstm_fused")
     narrow.lstm_step_variant_launch.argtypes = [i, i, *[ptr] * 5, i, i, i, i, ptr]
-    wide.lstm_step_variant_wide_launch.argtypes = [i, i, *[ptr] * 6, i, i, i, i, ptr]
-    for fn in (narrow.lstm_step_variant_launch, wide.lstm_step_variant_wide_launch):
-        fn.restype = ctypes.c_int
-    return {"lstm_fused": narrow, "lstm_fused_wide": wide}
+    narrow.lstm_step_variant_launch.restype = ctypes.c_int
+    return {"lstm_fused": narrow, "lstm_fused_wide": _fused_wide_lib()}
 
 
 def lstm_step_variant(x, w_ih, w_hh, b, mode: str) -> torch.Tensor:
@@ -130,10 +129,14 @@ def _launch_variant(x, w_ih, w_hh, b, mode: str) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if source == "lstm_fused_wide":
+            # the plan of a two-direction launch, blocks per SM those of this variant
+            plan = _fused_wide_launch_plan(x, C, H, step)
             # kernel scratch: the float32 c of each (row, unit)
             c_state = torch.empty(R, H, device=x.device, dtype=torch.float32)
             err = _libs()[source].lstm_step_variant_wide_launch(
-                dtype, step, *ptrs, c_state.data_ptr(), R, T, C, H, stream)
+                dtype, step, *ptrs, c_state.data_ptr(), R, T, C, H, plan["units"],
+                plan["tile_rows"], plan["groups"], plan["kc"], plan["stages"], plan["smem_bytes"],
+                stream)
         else:
             err = _libs()[source].lstm_step_variant_launch(dtype, step, *ptrs, R, T, C, H, stream)
     _raise_on(err, f"lstm_step_variant {mode} ({source})")

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The wide inference layout (csrc/lstm_grid.cuh) at H = 128 against the
-narrow kernels that serve H <= 128 (csrc/lstm_fused.cu, csrc/lstm_scan.cu),
+"""The wide inference kernels (csrc/lstm_fused_wide.cu, csrc/lstm_grid.cuh)
+at H = 128 against the narrow kernels that serve H <= 128 (csrc/lstm_fused.cu,
+csrc/lstm_scan.cu),
 at every shape BSRNN-M's paths give them, in float32 and bfloat16.
 
     python3 scripts/compare_torch_lstm_layouts.py [--out chiprun_out/lstm_layouts.jsonl]

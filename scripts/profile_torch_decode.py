@@ -9,7 +9,7 @@ after one warmup forward, and prints one JSON line per model and dtype
 (ConvTasNet: per dtype with fused_tcn 1, then 0): wall ms per forward,
 device-busy ms per forward (sum of kernel times; one stream, so kernels do
 not overlap), the idle share, the hand-written kernel's share (`kernel`:
-lstm_fused for BSRNN-M, lstm_grid for BSRNN-L, lstm_bidir2 for GCRN,
+lstm_fused for BSRNN-M, lstm_fused_wide for BSRNN-L, lstm_bidir2 for GCRN,
 tcn_tail for ConvTasNet; "both" is BSRNN-M and GCRN), device ms per
 category of kernel name (the hand-written kernels, FFT, convolution, gemm,
 elementwise and copies, other) and the twelve kernels with the most device
@@ -48,7 +48,7 @@ CATEGORIES = (
 )
 # model -> (config, the hand-written kernel's name fragment, config variants)
 CONFIGS = {"bsrnn": ("bsrnn_config.json", "lstm_fused", ({},)),
-           "bsrnn_l": ("bsrnn_l_config.json", "lstm_grid", ({},)),
+           "bsrnn_l": ("bsrnn_l_config.json", "lstm_fused_wide", ({},)),
            "gcrn": ("gcrn_config.json", "lstm_bidir2", ({},)),
            "convtasnet": ("convtasnet_config.json", "tcn_tail",
                           ({"fused_tcn": 1}, {"fused_tcn": 0}))}

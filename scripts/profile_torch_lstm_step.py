@@ -11,7 +11,7 @@ h @ W_hh), the cell's sigmoids and tanhs, and writes h. Timing five variants
 of one direction of the production kernel (nvse_tpu_torch/ops/lstm_step.py)
 splits the step's time into those parts:
   full      the production kernel (csrc/lstm_fused.cu at H = 128,
-            csrc/lstm_fused_wide.cu on csrc/lstm_grid.cuh at H = 256);
+            csrc/lstm_fused_wide.cu at H = 256);
   no_indma  every step reads x[0], which stays in L2: full - no_indma is the
             input's DRAM traffic;
   no_dot    gates = tile(x_t, 4) * 0.25 + b: full - no_dot is both products;

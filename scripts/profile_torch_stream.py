@@ -25,9 +25,10 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# csrc/lstm_scan.cu and csrc/lstm_fused.cu (H <= 128); csrc/lstm_grid.cuh, the
-# layout of both wide kernels (BSRNN-L)
-LSTM_KERNELS = ("lstm_scan_kernel", "lstm_fused_kernel", "lstm_grid_kernel")
+# csrc/lstm_scan.cu and csrc/lstm_fused.cu (H <= 128); csrc/lstm_grid.cuh (the
+# wide scans) and csrc/lstm_fused_wide.cu (BSRNN-L)
+LSTM_KERNELS = ("lstm_scan_kernel", "lstm_fused_kernel", "lstm_grid_kernel",
+                "lstm_fused_wide_kernel")
 
 
 def _device_us(evt) -> float:

@@ -20,7 +20,10 @@ two-direction scan lstm_scan_bidir (csrc/lstm_scan.cu, csrc/lstm_scan_wide.cu
 mode kScanBidir) from one row to 616 a direction at H = 64-768 with its halves
 of w_stack swapped as the control, and under autograd; every per-step ablation
 variant (nvse_tpu_torch/ops/lstm_step.py) at H = 128 and 256; lstm_scan_fused
-past its fused kernels (HD-Demucs's C = 1536, H = 768) on csrc/lstm_bidir2.cu.
+past its fused kernels (HD-Demucs's C = 1536, H = 768) on csrc/lstm_bidir2.cu;
+the redesigned dW_hh reduction at H = 8-768 over T*R = 1-2405 rows, and the
+redesigned wide fused kernel at its tile edges (rows, T = 1, C != H,
+C + H = 1280, H = 136 and 512, unaligned bfloat16 rows of x).
 """
 import math
 
@@ -703,6 +706,70 @@ def test_autograd_bidir_scan_on_card_matches_cpu(cuda):
     assert port_lstm.lstm_scan_bidir.launches == n0 + 1
     for a, b in zip(gpu, run("cpu")):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned kernels at their tile edges: the dW_hh reduction (tensor cores
+# in bfloat16, 128 x 128 tiles, splits of the T*R rows) and the wide fused
+# BiLSTM (unit slices of 8-32, row tiles of 64 / 128, k-chunks of 64 / 32)
+# ---------------------------------------------------------------------------
+
+# T*R = 1, 300 (T = 1: h_{-1} only, dW = 0), 481 and 2405 rows: no multiple of
+# a stage's 8 or 32 rows, one split and several
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [8, 136, 256, 448, 768])
+@pytest.mark.parametrize("T,R", [(1, 1), (1, 300), (13, 37), (65, 37)])
+def test_dw_reduction_matches_plain_at_tile_edges(cuda, T, R, H, dtype):
+    g = torch.Generator().manual_seed(T * R + H)
+    hs = torch.randn(T, R, H, generator=g).to("cuda", dtype)
+    dx = torch.randn(T, R, 4 * H, generator=g).to("cuda", dtype)
+    n0 = port_lstm.lstm_dw_hh.launches
+    with torch.inference_mode():
+        dw = port_lstm.lstm_dw_hh(hs, dx)
+    torch.cuda.synchronize()
+    assert port_lstm.lstm_dw_hh.launches == n0 + 1
+    ref = port_lstm.lstm_dw_hh_plain(hs, dx)
+    assert dw.dtype == torch.float32 and dw.shape == (H, 4 * H)
+    # the same stored values summed in float32 in another order (chip_smoke.py DW_TOL)
+    err = (dw - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+    assert err <= 1e-4
+    if T > 1:                     # the control: h read one step late must fail the limit
+        late = port_lstm.lstm_dw_hh_plain(torch.cat([hs[:1] * 0, hs[:-1]]), dx)
+        assert (late - ref).abs().max().item() / max(1.0, ref.abs().max().item()) > 1e-4
+
+
+# 77 and 130 rows (no multiple of 16 or 64), T = 1, C != H, C + H = 1280 at
+# H = 256 and 512, H = 136 (8-unit slices), C = 252 (bfloat16 rows of x not
+# 16-byte aligned) and 264 (C not a multiple of a k-chunk)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("B,T,C,H", [(77, 3, 256, 256), (130, 2, 136, 136), (200, 1, 264, 256),
+                                     (33, 4, 768, 512), (50, 3, 1024, 256), (65, 3, 252, 256)])
+def test_wide_fused_kernel_matches_plain_at_tile_edges(cuda, B, T, C, H, dtype, tol):
+    args = _args(B, T, C, H, dtype, seed=B + T + C)
+    n0 = dict(port_lstm.lstm_scan_fused.launches_by_kernel)
+    with torch.inference_mode():
+        got = port_lstm.lstm_scan_fused(*args)
+    torch.cuda.synchronize()
+    assert _kernel_delta(port_lstm.lstm_scan_fused, n0) == {"lstm_fused_wide": 1}
+    ref = port_lstm.lstm_scan_fused_plain(*args)
+    assert got.dtype == dtype and got.shape == (B, T, 2 * H)
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+    if T > 1:                     # the control: the two directions' W_hh swapped
+        x, wif, wib, bf, bb, whf, whb = args
+        ctl = port_lstm.lstm_scan_fused(x, wif, wib, bf, bb, whb, whf)
+        assert (ctl.float() - ref.float()).abs().max().item() > tol
+
+
+def test_wide_fused_plan_on_the_card(cuda):
+    """The plan the wrapper reads from this card at BSRNN-L's band shape: a
+    co-resident grid, the widest slice that fits (32 units in bfloat16, 16 in
+    float32 on an H100)."""
+    for dtype, units in ((torch.bfloat16, 32), (torch.float32, 16)):
+        x = torch.zeros(8192, 34, 256, device="cuda", dtype=dtype)
+        plan = port_lstm._fused_wide_launch_plan(x, 256, 256)
+        assert plan["co_resident"] and plan["groups"] >= 1
+        if torch.cuda.get_device_properties(0).shared_memory_per_block_optin >= 232448:
+            assert plan["units"] == units
 
 
 # ---------------------------------------------------------------------------
