@@ -13,7 +13,11 @@ the last line:
      the port never calls): the fused inference LSTM at the BSRNN-M
      decode shapes and at the band shapes of a streaming chunk (640 rows
      x 34 steps for 8 streams, 80 for one) and of a context-recompute
-     window (96), with its two W_hh swapped as the control; lstm_fwd_hc,
+     window (96), and at a ragged 203 x 37 with C = 124, H = 120 (held
+     only), with its two W_hh swapped as the control (csrc/lstm_fused.cu:
+     thread-block clusters with the weights resident, tensor cores in
+     bfloat16, the plan of ops/lstm.py `fused_narrow_plan`, named in each
+     row's design); lstm_fwd_hc,
      lstm_bwd and the dW_hh reduction at the
      BSRNN-M training shapes (batch 16: 544 rows x 65 steps, 1040 rows x
      34 steps), with cuDNN's BiLSTM forward + backward beside the port's,
@@ -144,8 +148,8 @@ the last line:
      no row fails the run;
  19. print the kernels line (one entry per kernel, shape and dtype, each
      with its launches summed over the main paths; the redesigned dW_hh
-     reduction and wide fused BiLSTM name their design and plan), then the ok
-     line.
+     reduction and wide and narrow fused BiLSTMs name their design and plan),
+     then the ok line.
 Exits nonzero without output when no CUDA GPU is visible.
 """
 import contextlib
@@ -243,6 +247,10 @@ def _bound_ms(R, T, C, H, dtype):
 # stream (80) and of one context-recompute window (96)
 FUSED_SHAPES = (("time", 272, 1024), ("band", 8192, 34), ("band_chunk", 640, 34),
                 ("band_chunk1", 80, 34), ("band_window", 96, 34))
+# a ragged case of csrc/lstm_fused.cu held against its plain version on no main path:
+# 203 rows (no multiple of a tile), 37 steps (odd), C = 124 (bfloat16 rows of x not
+# 16-byte aligned), H = 120 (units past H in the last block of a cluster)
+FUSED_RAGGED = ("ragged", 203, 37, 124, 120)
 
 
 def _source(name, H):
@@ -486,10 +494,18 @@ def _dw_library(hs, dx):
 
 def _design(name, H, dtype, R=None, T=None, C=None):
     """The design of the redesigned kernels at a row's shape, for the kernels
-    line: the dW_hh reduction's and the wide fused BiLSTM's plans (ops/lstm.py
-    `dw_plan`, `fused_wide_plan`) as this card takes them; None elsewhere."""
+    line: the dW_hh reduction's, the wide fused BiLSTM's and the narrow fused
+    BiLSTM's plans (ops/lstm.py `dw_plan`, `fused_wide_plan`,
+    `fused_narrow_plan`) as this card takes them; None elsewhere."""
     from nvse_tpu_torch.ops import lstm as L
 
+    if name in ("lstm_scan_fused", "lstm_step_variant") and H <= L._MAX_H:
+        p = L._fused_narrow_card_plan(0, R, C, H, dtype, 0)
+        return (f"{'mma.sync m16n8k16 bf16' if p['tensor_cores'] else 'f32 FMA'}, clusters of "
+                f"{p['cluster']} x {p['units']} units, weights resident (k = C + H whole), "
+                f"{p['ntiles']} tiles of <= {p['rows']} rows ({p['tile_rows']}-row instance) on "
+                f"{p['clusters']} clusters a direction, {p['rounds']} a cluster, x ring of "
+                f"{p['stages']} steps, h by st.async on mbarriers (no barrier a step)")
     if name == "lstm_bwd_dw":
         p = L._dw_card_plan(0, T, R, H, dtype)
         return (f"{'mma.sync m16n8k16 bf16' if dtype == torch.bfloat16 else 'f32 FMA 8x8/thread'}, "
@@ -1555,7 +1571,8 @@ BIDIR_SHAPES = tuple((label, T, B, H) for H in (128, 256)
                      for label, T, B in (("time", 1024, 544), ("band", 68, 8192),
                                          ("ragged", 64, 20)))
 # rows held against their plain version on no main path: not in the kernels line
-HELD_ONLY = {"lstm_scan_bidir2": ("small",), "lstm_scan_bidir": ("ragged",)}
+HELD_ONLY = {"lstm_scan_bidir2": ("small",), "lstm_scan_bidir": ("ragged",),
+             "lstm_scan_fused": ("ragged",)}
 
 
 def _script(name):
@@ -1845,6 +1862,7 @@ def main():
 
     phase_build()
     m_fused = [(label, R, T, 128, 128, dt) for label, R, T in FUSED_SHAPES for dt in DTYPES]
+    m_fused += [(*FUSED_RAGGED, dt) for dt in DTYPES]
     m_scans = [(n, label, R, T, 128, dt) for n, label, R, T in SCAN_SHAPES for dt in DTYPES]
     rows = phase_kernels(m_fused) + phase_train_kernels() + phase_scan_kernels(m_scans)
     # the main paths, each with its launches per wrapper and shape

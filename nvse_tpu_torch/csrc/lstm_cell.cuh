@@ -1,6 +1,7 @@
 // Pieces shared by the LSTM kernels of csrc/.
 //
-// Layout of the H <= 128 kernels (lstm_fused.cu, lstm_bwd.cu, lstm_scan.cu):
+// Layout of the H <= 128 kernels of lstm_bwd.cu and lstm_scan.cu (lstm_fused.cu
+// has its own: clusters that keep the weights in shared memory):
 // a block owns a tile of RT rows and runs 4H threads;
 // thread j owns gate column j (gate order i, f, g, o). W_hh (H, 4H) sits in
 // shared memory as far as it fits, rows [0, ksm), packed [ksm/4][4H][4] so

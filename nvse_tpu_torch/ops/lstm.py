@@ -8,8 +8,10 @@ and nvse_tpu/ops/pallas_lstm_bwd.py (`lstm_fwd_hc`, `lstm_bwd`).
 `lstm_scan_fused` is the switch between two routes:
   * inference (grad disabled, or no input requires grad): a fused kernel
     with x @ W_ih inside the recurrence, picked from (C, H) by
-    `_fused_route`: that of csrc/lstm_fused.cu (one thread per gate column)
-    for H <= 128, that of csrc/lstm_fused_wide.cu (row groups x slices of
+    `_fused_route`: that of csrc/lstm_fused.cu (thread-block clusters that
+    keep the weights in shared memory and pass h through distributed shared
+    memory, tensor cores in bfloat16, the plan of `fused_narrow_plan`) for
+    H <= 128, that of csrc/lstm_fused_wide.cu (row groups x slices of
     8-32 hidden units over the card, tensor cores in bfloat16, the plan of
     `fused_wide_plan`) for 128 < H <= 512 with C + H <= 1280; past them, up
     to H = 768 (HD-Demucs's bottleneck BiLSTM),
@@ -73,7 +75,8 @@ __all__ = ["lstm_bwd", "lstm_bwd_plain", "lstm_dw_hh", "lstm_dw_hh_plain", "lstm
            "lstm_scan_bidir2_plain", "lstm_scan_plain", "lstm_scan_stateful",
            "lstm_scan_stateful_plain"]
 
-_MAX_H = 128                    # one thread per gate column: 4H <= 512 threads
+_MAX_H = 128                    # lstm_fused.cu: a cluster's blocks hold the weights; the
+                                # training and scan kernels: one thread per gate column
 _WIDE_MAX_H = 768               # lstm_bidir2.cu, lstm_wide.cu, lstm_scan_wide.cu: hidden units
                                 # spread over the card, H / 8 blocks a row group
 # lstm_fused_wide.cu: both directions' H / 8 blocks co-resident on 128 SMs, and the
@@ -195,13 +198,12 @@ def _check_kernel_args(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b):
             f"(csrc/lstm_fused_wide.cu), H % 8 == 0 and C % 4 == 0; got C={C}, H={H}")
     if any(a.device != x.device for a in args) or x.device.type != "cuda":
         raise ValueError("lstm_scan_fused kernel needs all tensors on one CUDA device")
-    if H > _MAX_H:
-        _check_aligned("lstm_scan_fused", *args)
+    _check_aligned("lstm_scan_fused", *args)
     return B, T, C, H
 
 
 def _check_aligned(name: str, *tensors) -> None:
-    """The wide inference kernels read 16 bytes at a time."""
+    """The fused and wide inference kernels read 16 bytes at a time."""
     if any(a.data_ptr() % 16 for a in tensors):
         raise ValueError(f"{name} kernel needs 16-byte aligned tensors (a contiguous view "
                          "at an odd offset is not: call .clone() on it)")
@@ -222,10 +224,127 @@ def _kernel_lib() -> ctypes.CDLL:
 
     lib = load_library("lstm_fused")
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_fused_launch.argtypes = [i, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                      i, i, i, i, i, ptr]
-    lib.lstm_fused_launch.restype = ctypes.c_int
+    lib.lstm_fused_launch.argtypes = [i, *[ptr] * 8, *[i] * 10, ptr]
+    lib.lstm_step_variant_launch.argtypes = [i, i, *[ptr] * 5, *[i] * 10, ptr]
+    lib.lstm_fused_max_clusters.argtypes = [i, i, i, i, i, i, ptr]
+    for fn in (lib.lstm_fused_launch, lib.lstm_step_variant_launch, lib.lstm_fused_max_clusters):
+        fn.restype = ctypes.c_int
     return lib
+
+
+# csrc/lstm_fused.cu's tiles (its `Narrow`): the units a block may own, the rows
+# of a tile at one instance and one unit (a tile of instance `inst` at U units
+# has rows * inst / U rows), the k of one product step C and H are padded to,
+# and the pad of a staged row
+_NARROW = {torch.bfloat16: dict(units=(64, 32, 16, 8), rows=1024, kt=16, pad=8),
+           torch.float32: dict(units=(32, 16, 8), rows=256, kt=4, pad=4)}
+_NARROW_INST = (1, 2, 4)        # m16 tiles of a warp (bfloat16), rows of a thread (float32)
+_NARROW_STAGES = (3, 2)         # the x ring, deepest first
+_NARROW_MAX_CLUSTER = 8         # the portable cluster size
+_NARROW_STATIC_SMEM = 16        # bytes of static shared memory beside the plan's (two mbarriers)
+
+
+def _narrow_tile_rows(U: int, inst: int, dtype: torch.dtype) -> int:
+    return _NARROW[dtype]["rows"] * inst // U
+
+
+def _narrow_smem(U: int, inst: int, C: int, H: int, dtype: torch.dtype, stages: int) -> int:
+    """Dynamic shared memory of the narrow fused kernel: the [W_ih; W_hh] slice
+    of U units in the input dtype (C and H padded to the product's k; in
+    bfloat16 [column][k] rows 8 values longer), b in float32, two h buffers and
+    a ring of `stages` x steps, each of the tile's rows (padded)."""
+    d = _NARROW[dtype]
+    cp, hp = math.ceil(C / d["kt"]) * d["kt"], math.ceil(H / d["kt"]) * d["kt"]
+    bm = _narrow_tile_rows(U, inst, dtype)
+    w = (cp + hp) * 4 * U * 4 if dtype == torch.float32 else 4 * U * (cp + hp + 8) * 2
+    return w + 16 * U + (2 * bm * (hp + d["pad"]) + stages * bm * (cp + d["pad"])) * _ITEM[dtype]
+
+
+def fused_narrow_plan(R: int, C: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: int,
+                      max_clusters: int | None = None) -> dict:
+    """Launch plan of the narrow fused BiLSTM (csrc/lstm_fused.cu, H <= 128) at
+    x (R, T, C) (any T) on a card with n_sm SMs and smem_limit bytes a block,
+    holding max_clusters clusters at once (default: one block an SM).
+
+    A cluster of K = ceil(H / U) blocks owns a (direction, row tile); each
+    block keeps its U units' weight slice in shared memory. The plan takes the
+    widest slice (fewest blocks a cluster, most clusters) that fits beside the
+    smallest tile; then as many tiles a direction as half the clusters, each
+    of ceil(R / tiles) rows, in the instance with the smallest tile that holds
+    them, when the card's clusters hold every row at once (one wave); else
+    tiles of the largest instance that fits, a whole number of them for each
+    cluster; the clusters walk their tiles with the weights loaded once.
+    The x ring is as deep as fits (3 or 2 steps). -> units, cluster (K),
+    inst, tile_rows (the instance's), rows (of the largest tile), ntiles,
+    clusters (a direction), rounds (tiles a cluster), stages, smem_bytes,
+    blocks, tensor_cores; `co_resident` False (and units None) when nothing
+    fits: the kernel cannot run."""
+    d = _NARROW[dtype]
+    none = dict(units=None, co_resident=False, ntiles=0, clusters=0)
+    top = min((u for u in d["units"] if u >= H), default=max(d["units"]))
+
+    def depth(U, inst):
+        return next((st for st in _NARROW_STAGES if _narrow_smem(U, inst, C, H, dtype, st)
+                     + _NARROW_STATIC_SMEM <= smem_limit), 0)
+
+    for U in (u for u in d["units"] if u <= top):
+        K = math.ceil(H / U)
+        fits = {inst: depth(U, inst) for inst in _NARROW_INST if depth(U, inst)}
+        if K <= _NARROW_MAX_CLUSTER and fits:
+            break
+    else:
+        return none
+    clusters = n_sm // K if max_clusters is None else max_clusters
+    per_dir = clusters // 2
+    if per_dir < 1 or R < 1:
+        return dict(none, units=U, cluster=K)
+    top_rows = _narrow_tile_rows(U, max(fits), dtype)
+    if R <= per_dir * top_rows:
+        ntiles = min(per_dir, R)
+    else:
+        ntiles = per_dir * math.ceil(R / (per_dir * top_rows))
+    rows = math.ceil(R / ntiles)
+    inst = min(i for i in fits if _narrow_tile_rows(U, i, dtype) >= rows)
+    ncl = min(per_dir, ntiles)
+    return dict(units=U, cluster=K, inst=inst, tile_rows=_narrow_tile_rows(U, inst, dtype),
+                rows=rows, ntiles=ntiles, clusters=ncl, rounds=math.ceil(ntiles / ncl),
+                stages=fits[inst], smem_bytes=_narrow_smem(U, inst, C, H, dtype, fits[inst]),
+                blocks=2 * ncl * K, tensor_cores=dtype == torch.bfloat16, co_resident=True)
+
+
+@functools.cache
+def _fused_narrow_card_plan(index: int, R: int, C: int, H: int, dtype: torch.dtype,
+                            step: int) -> dict:
+    """fused_narrow_plan on card `index`, its clusters read from the card
+    (cudaOccupancyMaxActiveClusters) for the instance the plan picks (step:
+    lstm_cell.cuh `Step`); cached, as the wrapper's host time counts."""
+    dev = torch.device("cuda", index)
+    n_sm, limit = _n_sm(dev), _smem_limit(dev)
+    plan = fused_narrow_plan(R, C, H, dtype, n_sm, limit)
+    for _ in range(2):                          # until the co-residency agrees with the plan
+        if not plan["co_resident"]:
+            return plan
+        n = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = _kernel_lib().lstm_fused_max_clusters(
+                _DTYPE_CODE[dtype], step, plan["units"], plan["inst"], H, plan["smem_bytes"],
+                ctypes.byref(n))
+        _raise_on(err, "lstm_fused (occupancy)")
+        again = fused_narrow_plan(R, C, H, dtype, n_sm, limit, n.value)
+        if again == plan:
+            return again
+        plan = again
+    return plan
+
+
+def _fused_narrow_launch_plan(x: torch.Tensor, C: int, H: int, step: int = 0) -> dict:
+    """fused_narrow_plan for x (R, T, C) on x's card (step: lstm_cell.cuh `Step`,
+    0 for the production kernel); raises when the kernel cannot run there."""
+    plan = _fused_narrow_card_plan(_device_index(x.device), x.shape[0], C, H, x.dtype, step)
+    if not plan["co_resident"]:
+        raise NotImplementedError(f"lstm_fused at C={C}, H={H}, {x.dtype}: no cluster of the "
+                                  f"weight slices fits this card ({plan})")
+    return plan
 
 
 @functools.cache
@@ -382,9 +501,10 @@ def _launch_kernel(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.Tensor:
                 plan["tile_rows"], plan["groups"], plan["kc"], plan["stages"], plan["smem_bytes"],
                 stream)
         else:
+            plan = _fused_narrow_launch_plan(x, C, H)
             err = _kernel_lib().lstm_fused_launch(
-                _DTYPE_CODE[x.dtype], *ptrs, B, T, C, H, _rows_per_block(B, _n_sm(x.device)),
-                stream)
+                _DTYPE_CODE[x.dtype], *ptrs, B, T, C, H, plan["units"], plan["inst"],
+                plan["ntiles"], plan["clusters"], plan["stages"], plan["smem_bytes"], stream)
     _raise_on(err, _kernel_source("lstm_scan_fused", H))
     _count(lstm_scan_fused, (B, T, C, H, str(x.dtype).replace("torch.", "")))
     return out
@@ -398,7 +518,9 @@ def lstm_scan_fused(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.Tensor
     `_BiLSTMSaving`. Otherwise CUDA tensors take the route `_fused_route`
     picks: a hand-written inference kernel that replaces
     nvse_tpu/ops/pallas_lstm.py:lstm_scan_fused, that of csrc/lstm_fused.cu
-    for H <= 128, that of csrc/lstm_fused_wide.cu for 128 < H <= 512
+    for H <= 128 (raising where no cluster holds the weight slices beside the
+    x ring: C + H past about 590 on an H100), that of csrc/lstm_fused_wide.cu
+    for 128 < H <= 512
     (C + H <= 1280), and past them (H <= 768) the projection as torch
     matmuls and lstm_scan_bidir2's kernel; CPU tensors go to
     lstm_scan_fused_plain. Counts fused-kernel launches in

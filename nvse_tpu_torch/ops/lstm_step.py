@@ -15,14 +15,15 @@ step:
 
 On a CUDA tensor `lstm_step_variant` launches the port's production fused
 kernel with the mode as a compile-time parameter (lstm_cell.cuh `Step`),
-for the forward direction only: that of csrc/lstm_fused.cu for H <= 128 (a
-grid of (row tiles, 1) at 8 rows a block) and that of csrc/lstm_fused_wide.cu
-for 128 < H <= 512 with C + H <= 1280, with the unit slice and row groups of
-a two-direction launch (ops/lstm.py `fused_wide_plan`). `full` is the production kernel
-itself. Each variant keeps the launch, the step loop with its
-synchronisation (the grid barrier a step in the wide kernel) and the output
-writes. On a CPU tensor it runs `lstm_step_variant_plain`. Launches are
-counted in `lstm_step_variant.launches`, per (T, R, C, H, mode, dtype) in
+for the forward direction only, at the plan of a two-direction launch: that
+of csrc/lstm_fused.cu for H <= 128 (its clusters, tiles and instance: ops/lstm.py
+`fused_narrow_plan`) and that of csrc/lstm_fused_wide.cu for 128 < H <= 512
+with C + H <= 1280 (its unit slice and row groups: `fused_wide_plan`). `full`
+is the production kernel itself. Each variant keeps the launch, the step
+loop with its synchronisation (the h exchange between a cluster's blocks in
+the narrow kernel, a grid barrier in the wide one) and the output writes. On
+a CPU tensor it runs `lstm_step_variant_plain`. Launches are counted in
+`lstm_step_variant.launches`, per (T, R, C, H, mode, dtype) in
 `lstm_step_variant.launches_by_shape` and per kernel source in
 `lstm_step_variant.launches_by_kernel`.
 
@@ -32,13 +33,11 @@ output is (R, T, H) in x's dtype.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from .lstm import (_DTYPE_CODE, _MAX_H, _check_kernel_args, _count, _fused_wide_launch_plan,
-                   _fused_wide_lib, _raise_on, _reset_counts)
+from .lstm import (_DTYPE_CODE, _MAX_H, _check_kernel_args, _count, _fused_narrow_launch_plan,
+                   _fused_wide_launch_plan, _fused_wide_lib, _kernel_lib, _raise_on,
+                   _reset_counts)
 
 __all__ = ["MODES", "lstm_step_variant", "lstm_step_variant_plain"]
 
@@ -93,17 +92,6 @@ def _kernel_source(H: int) -> str:
     return "lstm_fused" if H <= _MAX_H else "lstm_fused_wide"
 
 
-@functools.cache
-def _libs() -> dict[str, ctypes.CDLL]:
-    from ._build import load_library
-
-    ptr, i = ctypes.c_void_p, ctypes.c_int
-    narrow = load_library("lstm_fused")
-    narrow.lstm_step_variant_launch.argtypes = [i, i, *[ptr] * 5, i, i, i, i, ptr]
-    narrow.lstm_step_variant_launch.restype = ctypes.c_int
-    return {"lstm_fused": narrow, "lstm_fused_wide": _fused_wide_lib()}
-
-
 def lstm_step_variant(x, w_ih, w_hh, b, mode: str) -> torch.Tensor:
     """x (R, T, C) -> (R, T, H): the variant `mode` of one fused LSTM
     direction. CPU tensors run lstm_step_variant_plain. CUDA tensors launch
@@ -133,12 +121,16 @@ def _launch_variant(x, w_ih, w_hh, b, mode: str) -> torch.Tensor:
             plan = _fused_wide_launch_plan(x, C, H, step)
             # kernel scratch: the float32 c of each (row, unit)
             c_state = torch.empty(R, H, device=x.device, dtype=torch.float32)
-            err = _libs()[source].lstm_step_variant_wide_launch(
+            err = _fused_wide_lib().lstm_step_variant_wide_launch(
                 dtype, step, *ptrs, c_state.data_ptr(), R, T, C, H, plan["units"],
                 plan["tile_rows"], plan["groups"], plan["kc"], plan["stages"], plan["smem_bytes"],
                 stream)
         else:
-            err = _libs()[source].lstm_step_variant_launch(dtype, step, *ptrs, R, T, C, H, stream)
+            # the plan of a two-direction launch, clusters those of this variant
+            plan = _fused_narrow_launch_plan(x, C, H, step)
+            err = _kernel_lib().lstm_step_variant_launch(
+                dtype, step, *ptrs, R, T, C, H, plan["units"], plan["inst"], plan["ntiles"],
+                plan["clusters"], plan["stages"], plan["smem_bytes"], stream)
     _raise_on(err, f"lstm_step_variant {mode} ({source})")
     _count(lstm_step_variant, (T, R, C, H, mode, str(x.dtype).replace("torch.", "")), source)
     return out[..., :H]

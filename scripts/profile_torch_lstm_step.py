@@ -19,8 +19,9 @@ splits the step's time into those parts:
   empty     the zero state written at every step: the floor (launch, step
             loop, its synchronisation, the output writes).
 Each variant keeps the launch, the grid of a decode's launch (one direction's
-blocks of it), the step loop with its synchronisation (the wide kernel's grid
-barrier a step) and the output writes. The shapes are the port's decode shapes
+blocks of it), the step loop with its synchronisation (the narrow kernel's
+h exchange between a cluster's blocks, the wide kernel's grid barrier) and the
+output writes. The shapes are the port's decode shapes
 of one direction: BSRNN-M's time LSTM (272 rows x 1024 steps) and band LSTM
 (8192 x 34), C = H = 128, and BSRNN-L's at C = H = 256. The TPU script's
 unroll k (steps a grid step) is a grid artefact and is not ported

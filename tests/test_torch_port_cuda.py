@@ -21,9 +21,13 @@ mode kScanBidir) from one row to 616 a direction at H = 64-768 with its halves
 of w_stack swapped as the control, and under autograd; every per-step ablation
 variant (nvse_tpu_torch/ops/lstm_step.py) at H = 128 and 256; lstm_scan_fused
 past its fused kernels (HD-Demucs's C = 1536, H = 768) on csrc/lstm_bidir2.cu;
-the redesigned dW_hh reduction at H = 8-768 over T*R = 1-2405 rows, and the
+the redesigned dW_hh reduction at H = 8-768 over T*R = 1-2405 rows, the
 redesigned wide fused kernel at its tile edges (rows, T = 1, C != H,
-C + H = 1280, H = 136 and 512, unaligned bfloat16 rows of x).
+C + H = 1280, H = 136 and 512, unaligned bfloat16 rows of x), and the
+redesigned narrow fused kernel (csrc/lstm_fused.cu: clusters holding the
+weights, tensor cores in bfloat16) at H = 16 and 128 from one row to BSRNN-M's
+band shape, ragged tiles, C != H, H = 120 (units past H) and unaligned
+bfloat16 rows of x, with the plan it reads from the card.
 """
 import math
 
@@ -825,3 +829,90 @@ def test_fused_past_its_kernels_takes_the_bidir2_route(cuda, C, H, dtype, tol):
     ref = port_lstm.lstm_scan_fused_plain(*args)
     assert got.dtype == dtype and got.shape == ref.shape
     assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+# ---------------------------------------------------------------------------
+# the redesigned narrow fused kernel (csrc/lstm_fused.cu, H <= 128)
+# ---------------------------------------------------------------------------
+
+# H = 16 (one block a cluster) and 128 (clusters of 2 in bfloat16, 4 in float32):
+# one row, ragged tiles (203 rows, 37 steps), more tiles than clusters (1000 rows),
+# BSRNN-M's band shape; C != H, C % 8 == 4 (bfloat16 rows of x not 16-byte aligned)
+# and H = 120 (units past H in a cluster's last block)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("B,T,C,H", [(1, 5, 16, 16), (203, 37, 16, 16), (1000, 6, 20, 16),
+                                     (1, 5, 128, 128), (203, 37, 128, 128), (8192, 34, 128, 128),
+                                     (203, 37, 124, 120), (65, 9, 252, 128)])
+def test_narrow_fused_kernel_matches_plain(cuda, B, T, C, H, dtype, tol):
+    args = _args(B, T, C, H, dtype, seed=B + T + C)
+    n0 = dict(port_lstm.lstm_scan_fused.launches_by_kernel)
+    with torch.inference_mode():
+        got = port_lstm.lstm_scan_fused(*args)
+    torch.cuda.synchronize()
+    assert _kernel_delta(port_lstm.lstm_scan_fused, n0) == {"lstm_fused": 1}
+    ref = port_lstm.lstm_scan_fused_plain(*args)
+    assert got.dtype == dtype and got.shape == (B, T, 2 * H)
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+    x, wif, wib, bf, bb, whf, whb = args       # the control: the two directions' W_hh swapped
+    ctl = port_lstm.lstm_scan_fused(x, wif, wib, bf, bb, whb, whf)
+    assert (ctl.float() - ref.float()).abs().max().item() > tol
+
+
+def test_narrow_fused_plan_on_the_card(cuda):
+    """The plan the wrapper reads from this card at BSRNN-M's time shape: clusters
+    of 2 blocks of 64 units in bfloat16 and of 4 of 32 in float32 (on a card with an
+    H100's shared memory), every tile resident at once."""
+    for dtype, units in ((torch.bfloat16, 64), (torch.float32, 32)):
+        x = torch.zeros(272, 1024, 128, device="cuda", dtype=dtype)
+        plan = port_lstm._fused_narrow_launch_plan(x, 128, 128)
+        assert plan["co_resident"] and plan["rounds"] == 1
+        if torch.cuda.get_device_properties(0).shared_memory_per_block_optin >= 232448:
+            assert (plan["units"], plan["cluster"]) == (units, 128 // units)
+
+
+def test_narrow_fused_kernel_raises_where_no_cluster_fits(cuda):
+    # C + H past what the blocks of any cluster hold in shared memory (the weight slice
+    # beside the x ring)
+    with pytest.raises(NotImplementedError, match="no cluster"):
+        port_lstm.lstm_scan_fused(*_args(4, 3, 1400, 128, torch.bfloat16))
+
+
+def _narrow_launch(args, inst, ntiles, ncl):
+    """csrc/lstm_fused.cu at a plan of the caller's: `ntiles` row tiles of the
+    instance `inst` a direction, walked by `ncl` clusters a direction."""
+    x = args[0]
+    R, T, C = x.shape
+    H = args[-1].shape[0]
+    plan = port_lstm._fused_narrow_launch_plan(x, C, H)
+    U, stages = plan["units"], plan["stages"]
+    smem = port_lstm._narrow_smem(U, inst, C, H, x.dtype, stages)
+    out = torch.empty(R, T, 2 * H, device="cuda", dtype=x.dtype)
+    err = port_lstm._kernel_lib().lstm_fused_launch(
+        port_lstm._DTYPE_CODE[x.dtype], *[a.data_ptr() for a in args], out.data_ptr(), R, T, C, H,
+        U, inst, ntiles, ncl, stages, smem, torch.cuda.current_stream().cuda_stream)
+    port_lstm._raise_on(err, "lstm_fused")
+    torch.cuda.synchronize()
+    return out
+
+
+# Clusters that walk many short tiles: every tile boundary of a cluster, where
+# the h exchange of one tile ends and the next begins, 1-3 steps apart, at
+# 1, 3 and 7 clusters a direction over 16-row tiles (up to 126 tiles a cluster)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("T", [1, 2, 3])
+@pytest.mark.parametrize("H", [16, 128])
+def test_narrow_fused_kernel_walks_many_tiles(cuda, T, H, dtype, tol):
+    R = 2011
+    args = _args(R, T, H, H, dtype, seed=T + H)
+    ref = port_lstm.lstm_scan_fused_plain(*args)
+    x, wif, wib, bf, bb, whf, whb = args
+    plan = port_lstm._fused_narrow_launch_plan(x, H, H)
+    inst = next(i for i in port_lstm._NARROW_INST
+                if port_lstm._narrow_tile_rows(plan["units"], i, dtype) >= 16)
+    ntiles = math.ceil(R / 16)
+    for ncl in (1, 3, 7):
+        got = _narrow_launch(args, inst, ntiles, ncl)
+        assert (got.float() - ref.float()).abs().max().item() <= tol, ncl
+    ctl = _narrow_launch([x, wif, wib, bf, bb, whb, whf], inst, ntiles, 3)   # W_hh swapped
+    if T > 1:                                  # at T = 1 no step reads W_hh
+        assert (ctl.float() - ref.float()).abs().max().item() > tol

@@ -1,14 +1,16 @@
-"""The launch plans of the two redesigned kernels, on the CPU.
+"""The launch plans of the three redesigned kernels, on the CPU.
 
-`dw_plan` (the dW_hh reduction of csrc/lstm_bwd.cu) and `fused_wide_plan` (the
-wide fused BiLSTM of csrc/lstm_fused_wide.cu) are plain functions of the shape,
-the dtype and the card's SM count, shared-memory limit and blocks per SM; the
-C entries take their plans as arguments. Checked here at an H100's figures
-(132 SMs, 232,448 bytes a block) and at a smaller card's (46 SMs, 101,376
-bytes): every (row, step) pair in exactly one dW split, each tile and ring in
-the shared-memory limit, the fused grid co-resident or the plan saying it is
-not, and the plans the port reports for BSRNN-L's shapes and the H = 136, 448
-and 512 edges.
+`dw_plan` (the dW_hh reduction of csrc/lstm_bwd.cu), `fused_wide_plan` (the
+wide fused BiLSTM of csrc/lstm_fused_wide.cu) and `fused_narrow_plan` (the
+narrow fused BiLSTM of csrc/lstm_fused.cu) are plain functions of the shape,
+the dtype and the card's SM count, shared-memory limit and blocks (or
+clusters) it holds; the C entries take their plans as arguments. Checked here
+at an H100's figures (132 SMs, 232,448 bytes a block) and at a smaller card's
+(46 SMs, 101,376 bytes): every (row, step) pair in exactly one dW split, every
+row in exactly one narrow tile, each tile and ring in the shared-memory limit,
+the fused grid co-resident or the plan saying it is not, and the plans the
+port reports for BSRNN-L's and BSRNN-M's shapes and the H = 8, 16, 120, 128,
+136, 448 and 512 edges.
 """
 import pytest
 import torch
@@ -136,3 +138,120 @@ def test_fused_tile_none_where_the_slice_does_not_divide_h_or_fit():
     assert L.fused_wide_tile(768, 512, F32, 232448, 16, 256) is None        # 328 KB of weights
     t = L.fused_wide_tile(256, 256, BF, 232448, 32, 64)
     assert (t["kc"], t["stages"]) == (256, 2)
+
+
+# ---------------------------------------------------------------------------
+# the narrow fused BiLSTM (csrc/lstm_fused.cu, H <= 128): clusters of K blocks,
+# each holding the weight slice of U units
+# ---------------------------------------------------------------------------
+
+# (R, C, H): BSRNN-M's decode (time, band), the offline decode beside the streams,
+# a streaming chunk of 8 streams and of one, a context-recompute window, serving's
+# 128-frame bucket (time, band), the validation crop (time, band); the edges H = 8,
+# 16, 120 and 128 with C != H
+NARROW_SHAPES = [(272, 128, 128), (8192, 128, 128), (4096, 128, 128), (640, 128, 128),
+                 (80, 128, 128), (96, 128, 128), (272, 128, 128), (1024, 128, 128),
+                 (34, 128, 128), (129, 128, 128), (3, 12, 8), (7, 16, 16), (203, 124, 120),
+                 (300, 64, 32), (50, 256, 128), (1, 4, 8), (100000, 128, 128)]
+
+
+def _tiles(p, R):
+    """The rows of each tile as the kernel cuts them: R * p / ntiles."""
+    n = p["ntiles"]
+    return [range(R * i // n, R * (i + 1) // n) for i in range(n)]
+
+
+@pytest.mark.parametrize("card", [H100, SMALL], ids=["h100", "small"])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_narrow_plan_covers_every_row_once_within_shared_memory(card, dtype):
+    n_sm, limit = card
+    for R, C, H in NARROW_SHAPES:
+        p = L.fused_narrow_plan(R, C, H, dtype, n_sm, limit)
+        if p["units"] is None:                               # nothing fits this card
+            assert not p["co_resident"]
+            continue
+        assert p["co_resident"]
+        U, K = p["units"], p["cluster"]
+        assert U in L._NARROW[dtype]["units"] and K == -(-H // U) <= L._NARROW_MAX_CLUSTER
+        assert p["inst"] in L._NARROW_INST and p["stages"] in L._NARROW_STAGES
+        assert p["smem_bytes"] == L._narrow_smem(U, p["inst"], C, H, dtype, p["stages"])
+        assert p["smem_bytes"] + L._NARROW_STATIC_SMEM <= limit
+        tiles = _tiles(p, R)
+        assert [r for t in tiles for r in t] == list(range(R))   # every row once, in order
+        assert all(0 < len(t) <= p["tile_rows"] for t in tiles)
+        assert p["tile_rows"] == L._narrow_tile_rows(U, p["inst"], dtype) and p["rows"] == max(map(len, tiles))
+        # every cluster of one wave is busy, and the clusters share the tiles evenly
+        assert 1 <= p["clusters"] <= min(p["ntiles"], n_sm // K // 2)
+        assert p["blocks"] == 2 * p["clusters"] * K <= n_sm
+        assert p["rounds"] == -(-p["ntiles"] // p["clusters"])
+        assert p["ntiles"] % p["clusters"] == 0 or p["ntiles"] < p["clusters"] * 2
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_narrow_plan_holds_bsrnn_m_time_shape_in_one_wave(dtype):
+    """272 rows of both directions at once: a tile for every cluster, every
+    tile resident, against 68 blocks of 8 rows before."""
+    for clusters in (None, 66 if dtype == BF else 30):       # by SM count; as an H100 reports
+        p = L.fused_narrow_plan(272, 128, 128, dtype, *H100, clusters)
+        assert p["rounds"] == 1 and p["ntiles"] == p["clusters"]
+        assert p["blocks"] >= 120 and p["rows"] * p["ntiles"] >= 272
+
+
+def test_narrow_plan_at_bsrnn_m_shapes_on_an_h100():
+    keys = ("units", "cluster", "inst", "rows", "ntiles", "clusters", "stages")
+    got = {(dt, R): tuple(p[k] for k in keys)
+           for dt, n in ((BF, 66), (F32, 30)) for R in (272, 8192, 4096, 640, 80, 96, 1024, 34, 129)
+           for p in [L.fused_narrow_plan(R, 128, 128, dt, *H100, n)]}
+    assert got == {
+        (BF, 272): (64, 2, 1, 9, 33, 33, 3), (BF, 8192): (64, 2, 4, 63, 132, 33, 3),
+        (BF, 4096): (64, 2, 4, 63, 66, 33, 3), (BF, 640): (64, 2, 2, 20, 33, 33, 3),
+        (BF, 80): (64, 2, 1, 3, 33, 33, 3), (BF, 96): (64, 2, 1, 3, 33, 33, 3),
+        (BF, 1024): (64, 2, 2, 32, 33, 33, 3), (BF, 34): (64, 2, 1, 2, 33, 33, 3),
+        (BF, 129): (64, 2, 1, 4, 33, 33, 3),
+        (F32, 272): (32, 4, 4, 19, 15, 15, 3), (F32, 8192): (32, 4, 4, 31, 270, 15, 3),
+        (F32, 4096): (32, 4, 4, 31, 135, 15, 3), (F32, 640): (32, 4, 4, 22, 30, 15, 3),
+        (F32, 80): (32, 4, 1, 6, 15, 15, 3), (F32, 96): (32, 4, 1, 7, 15, 15, 3),
+        (F32, 1024): (32, 4, 4, 23, 45, 15, 3),
+        (F32, 34): (32, 4, 1, 3, 15, 15, 3), (F32, 129): (32, 4, 2, 9, 15, 15, 3)}
+    # tensor cores in bfloat16, CUDA-core FMAs in float32
+    assert L.fused_narrow_plan(272, 128, 128, BF, *H100)["tensor_cores"]
+    assert not L.fused_narrow_plan(272, 128, 128, F32, *H100)["tensor_cores"]
+
+
+def test_narrow_plan_at_the_edges_of_h():
+    # H = 8 and 16: one block a cluster; H = 120: two blocks of 64 units in bfloat16 (8
+    # past H), four of 32 in float32; C != H, C % 8 == 4 (bfloat16 rows of x not 16-byte aligned)
+    for H, C, dt, U, K in ((8, 12, BF, 8, 1), (8, 12, F32, 8, 1), (16, 16, BF, 16, 1),
+                           (16, 16, F32, 16, 1), (120, 124, BF, 64, 2), (120, 124, F32, 32, 4),
+                           (128, 256, BF, 64, 2), (128, 256, F32, 32, 4), (24, 24, BF, 32, 1)):
+        p = L.fused_narrow_plan(203, C, H, dt, *H100)
+        assert (p["units"], p["cluster"]) == (U, K) and p["co_resident"]
+    # C + H past what a cluster of 8 holds: nothing fits, and the wrapper raises
+    assert not L.fused_narrow_plan(272, 1400, 128, BF, *H100)["co_resident"]
+    assert L.fused_narrow_plan(272, 1400, 128, BF, *H100)["units"] is None
+    # a card that holds no cluster
+    assert not L.fused_narrow_plan(272, 128, 128, BF, *H100, 1)["co_resident"]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF])
+def test_narrow_plan_persistent_or_waves(dtype):
+    """Where the card's clusters hold every row, each cluster takes one tile
+    (one wave); past that the clusters of a direction are all co-resident and
+    walk a whole number of tiles each (persistent), never a second wave."""
+    for R in (80, 272, 640, 4096, 8192):
+        plan = L.fused_narrow_plan(R, 128, 128, dtype, *H100)
+        per_dir = 132 // plan["cluster"] // 2
+        assert plan["clusters"] == min(per_dir, plan["ntiles"])
+        assert plan["ntiles"] == plan["clusters"] * plan["rounds"]
+        assert plan["blocks"] <= 132
+        if plan["rounds"] > 1:
+            assert plan["clusters"] == per_dir
+            assert plan["rows"] > plan["tile_rows"] // 2
+
+
+def test_narrow_smem_matches_the_kernels_layout():
+    # bfloat16, 64 units, 16-row tiles, C = H = 128, 3 stages: the [256][264] slice,
+    # b, two h buffers of 16 x 136, three x stages of 16 x 136
+    assert L._narrow_smem(64, 1, 128, 128, BF, 3) == 256 * 264 * 2 + 256 * 4 + (2 + 3) * 16 * 136 * 2
+    # float32, 32 units, 32-row tiles: the [256][128] slice, b, h and x rows padded by 4
+    assert L._narrow_smem(32, 4, 128, 128, F32, 3) == 256 * 128 * 4 + 128 * 4 + (2 + 3) * 32 * 132 * 4
