@@ -21,16 +21,22 @@ the last line:
      lstm_bwd and the dW_hh reduction at the
      BSRNN-M training shapes (batch 16: 544 rows x 65 steps, 1040 rows x
      34 steps), with cuDNN's BiLSTM forward + backward beside the port's,
-     and at GCRN's (16 rows x 65 steps, H = 448: the wide kernels of
-     csrc/lstm_wide.cu), with one cuBLAS GEMM beside the dW_hh reduction (float32
-     out, as the kernel's, where torch.mm takes out_dtype); lstm_scan at the
-     causal decode and context-recompute window shapes (272 rows x 1024
-     steps, 34 x 96) and lstm_scan_stateful at the streaming chunk shapes
-     (272 x 80 for 8 streams, 34 x 80 for one; seeded nonzero state; hs
-     and cs), with cuDNN's unidirectional LSTM forward (projection
-     included) beside them and, as the control the limit must refuse,
-     the stateful kernel fed zeros in place of its initial state; a
-     cuDNN call that compacts its weights at every call fails the run;
+     and at GCRN's (16 rows x 65 steps, H = 448: the wide forward of
+     csrc/lstm_wide.cu and the wide backward of csrc/lstm_bwd_wide.cu, the
+     plan of ops/lstm.py `bwd_wide_plan` named in its row's design), with
+     one cuBLAS GEMM beside the dW_hh reduction (float32 out, as the
+     kernel's, where torch.mm takes out_dtype) and the backward recurrence
+     fed W_hh's rows reversed as the control the limit must refuse;
+     lstm_scan at the causal decode and context-recompute window shapes
+     (272 rows x 1024 steps, 34 x 96) and lstm_scan_stateful at the
+     streaming chunk shapes (272 x 80 for 8 streams, 34 x 80 for one;
+     seeded nonzero state; hs and cs) on csrc/lstm_scan.cu (clusters with
+     W_hh in registers, h by st.async, tensor cores in bfloat16, the plan
+     of ops/lstm.py `scan_narrow_plan` named in each row's design), with
+     cuDNN's unidirectional LSTM forward (projection included) beside them
+     and, as controls the limit must refuse, W_hh's rows reversed and the
+     stateful kernel fed zeros in place of its initial state; a cuDNN call
+     that compacts its weights at every call fails the run;
   3. decode B=8 x 1024 mel frames through InferenceEngine with seeded
      random BSRNN-M weights in float32 and bfloat16 (16 kernel launches
      per forward), check the card's output against the CPU's plain path
@@ -75,7 +81,8 @@ the last line:
  12. the gradient route of lstm_scan_bidir2 on the card (2 lstm_fwd_hc + 2
      lstm_bwd + 2 dW, none of the inference kernel) against the CPU's
      plain autograd at 65 steps x 16 rows, H = 128 and GCRN's H = 448 (the
-     wide kernels of csrc/lstm_wide.cu), with the two W_hh swapped as the
+     wide kernels of csrc/lstm_wide.cu and csrc/lstm_bwd_wide.cu), with the
+     two W_hh swapped as the
      control the limit must refuse;
  13. GCRN training (gcrn_train): GANTrainer steps at its full width, batch
      16 x 16384, in float32 and bfloat16 (ms per step, peak memory; a
@@ -94,7 +101,8 @@ the last line:
      streaming serve on csrc/lstm_scan_wide.cu and csrc/lstm_fused_wide.cu
      (bsrnn_l_stream, bsrnn_l_decode_causal, bsrnn_l_serve_stream); GAN steps
      at batch 16 x 16384 in float32 and bfloat16 (32 launches per step of each
-     wide training kernel of csrc/lstm_wide.cu, a gradient on all 96 LSTM
+     wide training kernel of csrc/lstm_wide.cu and csrc/lstm_bwd_wide.cu, and
+     of the dW_hh reduction, a gradient on all 96 LSTM
      parameters, device busy time and idle share, peak memory) with
      GANTrainer.eval_step on a validation crop (16 wide fused launches;
      bsrnn_l_train, bsrnn_l_validation), one step of 2 BSNets at full width
@@ -102,8 +110,9 @@ the last line:
      wide kernel against its plain version at BSRNN-M's shapes (fused 272 x
      1024, 8192 x 34, 640 / 80 / 96 x 34; the scans at 272 x 1024, 34 x 96,
      272 x 80, 34 x 80; the training kernels at 544 x 65 and 1040 x 34), with
-     the fused kernel's W_hh swapped and the stateful kernel's state zeroed as
-     controls the limits must refuse;
+     the fused kernel's W_hh swapped, the scans' and the backward's W_hh rows
+     reversed and the stateful kernel's state zeroed as controls the limits
+     must refuse;
  15. ConvTasNet (nvse_tpu_torch/configs/convtasnet_config.json with fused_tcn
      1: 4,960,409 parameters, Griffin-Lim front, 24 TCN blocks): tcn_kernels,
      the tail kernel of csrc/tcn_tail.cu against tcn_block_tail_plain at the
@@ -121,7 +130,8 @@ the last line:
      a small input with zero initial phase (TF32 as the control) and the
      Griffin-Lim front on its own;
  16. lstm_scan_bidir (both directions as stacked rows of one scan:
-     csrc/lstm_scan.cu at H = 128, csrc/lstm_scan_wide.cu mode kScanBidir at
+     csrc/lstm_scan.cu at H = 128, each direction's clusters on its own W_hh,
+     csrc/lstm_scan_wide.cu mode kScanBidir at
      H = 256) against its plain version at the bench's default shapes (1024
      steps x 2 x 544 rows, 68 x 2 x 8192) at H = 128 and 256 and at a ragged
      64 x 2 x 20, in float32 and bfloat16, with two cuDNN LSTM forwards beside
@@ -148,7 +158,8 @@ the last line:
      no row fails the run;
  19. print the kernels line (one entry per kernel, shape and dtype, each
      with its launches summed over the main paths; the redesigned dW_hh
-     reduction and wide and narrow fused BiLSTMs name their design and plan),
+     reduction, wide and narrow fused BiLSTMs, narrow scans and wide backward
+     recurrence name their design and plan),
      then the ok line.
 Exits nonzero without output when no CUDA GPU is visible.
 """
@@ -411,9 +422,9 @@ def phase_serve(name="bsrnn"):
 
 # training shapes at batch 16 x 16384 samples (65 frames) as (label, rows, steps, H):
 # BSRNN-M's time and band BiLSTMs (34 bands, H = 128, csrc/lstm_bwd.cu) and GCRN's
-# group LSTMs (H = 448, the wide kernels of csrc/lstm_wide.cu)
+# group LSTMs (H = 448, the wide kernels of csrc/lstm_wide.cu and csrc/lstm_bwd_wide.cu)
 TRAIN_SHAPES = (("time", 544, 65, 128), ("band", 1040, 34, 128), ("gcrn", 16, 65, 448))
-# BSRNN-L's (H = 256, csrc/lstm_wide.cu)
+# BSRNN-L's (H = 256, csrc/lstm_wide.cu and csrc/lstm_bwd_wide.cu)
 L_TRAIN_SHAPES = (("time", 544, 65, 256), ("band", 1040, 34, 256))
 # training kernels vs plain, as max abs error over max(1, max |plain|):
 # float32 sums in another order; bfloat16 stores hs, cs and dx with 8 bits
@@ -494,9 +505,11 @@ def _dw_library(hs, dx):
 
 def _design(name, H, dtype, R=None, T=None, C=None):
     """The design of the redesigned kernels at a row's shape, for the kernels
-    line: the dW_hh reduction's, the wide fused BiLSTM's and the narrow fused
-    BiLSTM's plans (ops/lstm.py `dw_plan`, `fused_wide_plan`,
-    `fused_narrow_plan`) as this card takes them; None elsewhere."""
+    line: the dW_hh reduction's, the wide fused BiLSTM's, the narrow fused
+    BiLSTM's, the narrow scan's (R: the rows of one direction) and the wide
+    backward's plans (ops/lstm.py `dw_plan`, `fused_wide_plan`,
+    `fused_narrow_plan`, `scan_narrow_plan`, `bwd_wide_plan`) as this card
+    takes them; None elsewhere."""
     from nvse_tpu_torch.ops import lstm as L
 
     if name in ("lstm_scan_fused", "lstm_step_variant") and H <= L._MAX_H:
@@ -511,6 +524,21 @@ def _design(name, H, dtype, R=None, T=None, C=None):
         return (f"{'mma.sync m16n8k16 bf16' if dtype == torch.bfloat16 else 'f32 FMA 8x8/thread'}, "
                 f"128x128 tiles, cp.async ring of {p['stages']} x {p['tile_k']} rows, "
                 f"{p['nsplit']} splits of {p['rows_per_split']} rows")
+    if name in ("lstm_scan", "lstm_scan_stateful", "lstm_scan_bidir") and H <= L._MAX_H:
+        dirs = 2 if name == "lstm_scan_bidir" else 1
+        p = L._scan_card_plan(0, R, H, dtype, dirs)
+        return (f"{'mma.sync m16n8k16 bf16' if p['tensor_cores'] else 'f32 FMA, 8 k-slices a unit'}"
+                f", clusters of {p['cluster']} x {p['units']} units, W_hh in registers, "
+                f"{p['ntiles']} tiles of <= {p['rows']} rows ({p['tile_rows']}-row instance) on "
+                f"{p['clusters']} clusters a direction, {p['rounds']} a cluster, x ring of "
+                f"{p['stages']} steps, h by st.async on mbarriers, exact cell")
+    if name == "lstm_bwd" and H > L._MAX_H:
+        p = L._bwd_wide_card_plan(0, R, H, dtype)
+        mma = "mma.sync m16n8k16 bf16, carry dgates split hi + lo"
+        return (f"{mma if p['tensor_cores'] else 'f32 FMA'}, {p['groups']} row groups x "
+                f"{H // p['units']} slices of {p['units']} units ({p['blocks']} blocks), {p['tiles_per_group']} tiles of <= {p['tile_rows']} rows "
+                f"a group, W_hh column slice resident, carry shares of R_g x H a block, one grid "
+                f"barrier a step")
     if name in ("lstm_scan_fused", "lstm_step_variant") and 128 < H and L._fused_route(C, H) == "lstm_fused_wide":
         p = L._fused_wide_card_plan(0, R, C, H, dtype, 0)
         return (f"{'mma.sync m16n8k16 bf16' if dtype == torch.bfloat16 else 'f32 FMA'}, "
@@ -547,6 +575,9 @@ def phase_train_kernels(shapes=TRAIN_SHAPES, phase="kernel_vs_plain"):
                 dw_ref = L.lstm_dw_hh_plain(hs, dx)
                 errs = {"lstm_fwd_hc": max(_err(hs, hs_ref), _err(cs, cs_ref), key=lambda e: e[1]),
                         "lstm_bwd": _err(dx, dx_ref), "lstm_bwd_dw": _err(dw, dw_ref)}
+                # the recurrence's control: W_hh's rows reversed
+                bwd_control = _err(L.lstm_bwd_recurrence(xp, hs, cs, dhs, whh.flip(0).contiguous()),
+                                   dx_ref)[1]
                 dx_ctl = dx.clone()
                 dx_ctl.view(-1, G)[-DW_CONTROL_ROWS:] = 0
                 dw_control = _err(L.lstm_dw_hh_plain(hs, dx_ctl), dw_ref)[1]
@@ -581,11 +612,16 @@ def phase_train_kernels(shapes=TRAIN_SHAPES, phase="kernel_vs_plain"):
                     row.update(library_ms=dw_library_ms, library_rel_err=dw_library_err,
                                library=dw_library_name, control_rel_err=dw_control,
                                design=_design(name, H, dtype, R=R, T=T))
+                if name == "lstm_bwd":
+                    row.update(control_rel_err=bwd_control, design=_design(name, H, dtype, R=R))
                 say(phase=phase, **row)
                 if not (rel <= tols[name]):
                     raise SystemExit(f"{name} {label} {DT_NAME[dtype]}: error {err} "
                                      f"({rel} relative) over tolerance {tols[name]}")
                 rows.append(row)
+            if not (bwd_control > TRAIN_TOL[dtype]):
+                raise SystemExit(f"lstm_bwd {label} {DT_NAME[dtype]}: the control with W_hh's "
+                                 f"rows reversed ({bwd_control}) passes the tolerance")
             if not (dw_control > DW_TOL):
                 raise SystemExit(f"lstm_bwd_dw {label} {DT_NAME[dtype]}: the control with "
                                  f"{DW_CONTROL_ROWS} pairs dropped ({dw_control}) passes "
@@ -652,10 +688,16 @@ def phase_scan_kernels(cases, phase="kernel_vs_plain"):
                 ctl = L.lstm_scan_stateful(xp, whh, z, z)
                 control = max((a.float() - r.float()).abs().max().item()
                               for a, r in zip(ctl, ref))
+            # W_hh's rows reversed: the limit must refuse it too
+            w_rev = whh.flip(0).contiguous()
+            ctl = (L.lstm_scan_stateful(xp, w_rev, h0, c0) if stateful
+                   else (L.lstm_scan(xp, w_rev),))
+            w_control = max((a.float() - r.float()).abs().max().item() for a, r in zip(ctl, ref))
         bound, bound_by = _bound(nbytes, ops, dtype)
         row = dict(name=name, shape=label, rows=R, steps=T, H=H, dtype=DT_NAME[dtype],
-                   source=_source(name, H),
+                   source=_source(name, H), design=_design(name, H, dtype, R=R),
                    max_abs_err=err, tol=TOL[dtype], ms=ms, plain_ms=plain_ms,
+                   control_whh_max_abs_err=w_control,
                    library_ms=library_ms, library="cuDNN LSTM forward, projection included",
                    library_max_abs_err=lib_err, bound_ms=bound, bound_by=bound_by,
                    tflops=ops / (ms * 1e-3) / 1e12)
@@ -668,6 +710,9 @@ def phase_scan_kernels(cases, phase="kernel_vs_plain"):
         if stateful and not (control > TOL[dtype]):
             raise SystemExit(f"{name} {label} H={H} {DT_NAME[dtype]}: the control with a zero "
                              f"initial state ({control}) passes the tolerance {TOL[dtype]}")
+        if (T > 1 or stateful) and not (w_control > TOL[dtype]):
+            raise SystemExit(f"{name} {label} H={H} {DT_NAME[dtype]}: the control with W_hh's "
+                             f"rows reversed ({w_control}) passes the tolerance {TOL[dtype]}")
         rows.append(row)
     return rows
 
@@ -714,7 +759,8 @@ def phase_train(model="bsrnn", causal=False, validate=False):
     """Full-width GAN steps, batch 16 x 16384: BSRNN-M's non-causal config in
     float32 and bfloat16, its causal one (the time LSTM one direction,
     through lstm_scan's residual-saving route) in float32; BSRNN-L (H = 256:
-    the wide training kernels of csrc/lstm_wide.cu at 544 x 65 and 1040 x 34)
+    the wide training kernels of csrc/lstm_wide.cu and csrc/lstm_bwd_wide.cu at
+    544 x 65 and 1040 x 34)
     in float32 and bfloat16; GCRN (its four group LSTMs through
     lstm_scan_bidir2's residual-saving route, the wide training kernels at 65
     steps x 16 rows x H = 448) in float32 and bfloat16. Device busy time and
@@ -1625,6 +1671,7 @@ def phase_bidir_kernels(cases, phase="lstm_scan_bidir_kernels"):
         bound, bound_by = _bound(nbytes, ops, dtype)
         row = dict(name="lstm_scan_bidir", shape=label, rows=2 * B, steps=T, H=H,
                    dtype=DT_NAME[dtype], source=_source("lstm_scan_bidir", H),
+                   design=_design("lstm_scan_bidir", H, dtype, R=B),
                    max_abs_err=err, tol=TOL[dtype], ms=ms, us_per_step=ms * 1e3 / T,
                    plain_ms=plain_ms, library_ms=library_ms,
                    library="2 cuDNN LSTM forwards, projection included",

@@ -1,7 +1,7 @@
 // Pieces shared by the LSTM kernels of csrc/.
 //
-// Layout of the H <= 128 kernels of lstm_bwd.cu and lstm_scan.cu (lstm_fused.cu
-// has its own: clusters that keep the weights in shared memory):
+// Layout of the H <= 128 kernels of lstm_bwd.cu (lstm_fused.cu and lstm_scan.cu
+// have their own: clusters that keep the weights in shared memory or registers):
 // a block owns a tile of RT rows and runs 4H threads;
 // thread j owns gate column j (gate order i, f, g, o). W_hh (H, 4H) sits in
 // shared memory as far as it fits, rows [0, ksm), packed [ksm/4][4H][4] so
@@ -108,7 +108,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ float sigmoid(float v) { return 1.0f / (1.0f + expf(-v)); }
+// 1 / (1 + e^-v), the reciprocal rounded as IEEE division rounds the quotient
+__device__ __forceinline__ float sigmoid(float v) { return __frcp_rn(1.0f + expf(-v)); }
 
 // What a step of a fused kernel computes: kFull, the production cell, or one
 // of the per-step ablation variants of scripts/profile_torch_lstm_step.py

@@ -1,15 +1,18 @@
-// Unidirectional LSTM scans over a projected input for Hopper (sm_90a).
+// Unidirectional LSTM scans over a projected input for narrow hidden sizes
+// (H <= 128), for Hopper (sm_90a).
 //
-// Replaces the TPU kernels of nvse_tpu/ops/pallas_lstm.py:
+// Replaces the TPU kernels of nvse_tpu/ops/pallas_lstm.py at those sizes:
 //   lstm_scan_kernel<.., false> <- `_lstm_kernel` / `_lstm_kernel_unrolled`
 //                                  (launched by `_pallas_lstm_scan`, pallas_lstm.py:212)
 //   lstm_scan_kernel<.., true>  <- `_lstm_kernel_stateful`
 //                                  (launched by `_pallas_lstm_scan_stateful`, pallas_lstm.py:297)
-//   lstm_scan_kernel<.., false, true> <- `_make_bidir_kernel`, the two-direction scan
-//                                  (launched by `_pallas_lstm_scan_bidir`, pallas_lstm.py:427)
+//   lstm_scan_kernel<.., false> with two directions <- `_make_bidir_kernel`, the
+//                                  two-direction scan (launched by `_pallas_lstm_scan_bidir`,
+//                                  pallas_lstm.py:427)
 // The unrolled TPU variants are the same functions at other unroll factors.
+// csrc/lstm_scan_wide.cu takes 128 < H.
 //
-// Contract (time-major, one direction, gate order i, f, g, o):
+// Contract (time-major, gate order i, f, g, o):
 //   gates_t = x_proj[t] + h_{t-1} @ W_hh
 //   c_t = sigmoid(f) * c_{t-1} + sigmoid(i) * tanh(g);  h_t = sigmoid(o) * tanh(c_t)
 //   lstm_scan:          h_{-1} = c_{-1} = 0                  -> hs (T, R, H)
@@ -21,167 +24,594 @@
 // state and every sum are float32. h is rounded to the weight type before the
 // recurrent product (the `_hdot` rule, pallas_lstm.py:36-43), so in bfloat16
 // the product sees exactly the h that was stored; c is stored rounded but
-// carried in float32. (The residual-saving forward of lstm_bwd.cu does not
-// round h: the two differ in bfloat16, as the TPU kernels do.)
+// carried in float32. The cell is exact: expf and tanhf, as the plain version.
+// H % 8 == 0; every pointer 16-byte aligned.
 //
-// What bounds them. At the BSRNN-M shapes (H = 128) the causal time LSTM of
-// an offline decode is 272 rows x 1024 steps: 36.5 GFLOP on 0.71 GB (f32),
-// operations, not bytes, on CUDA cores, and above all a chain of 1024
-// dependent steps of a 4-row product each. A streaming chunk is 272 rows x 80
-// steps (2.9 GFLOP, 78 MB with cs): the same chain, 80 long.
+// What bounds it. At BSRNN-M's shapes (H = 128) the causal time LSTM of a
+// B = 8 x 1024 decode is 272 rows x 1024 steps: 36.5 GFLOP (0.55 ms at the
+// float32 peak, 0.04 ms at the bfloat16 tensor-core peak), and above all a
+// chain of 1024 dependent steps, each a product of 272 rows with the 128 x 512
+// W_hh. A streaming chunk is 272 (8 streams) or 34 rows (one) x 80 steps: the
+// same chain, 80 long, and at 34 rows almost nothing else. So the time is the
+// latency of a step: the recurrent product, the cell and the exchange of h.
 //
-// Design (first version: right and simple, CUDA cores in float32): the
-// residual-saving forward of lstm_bwd.cu with three switches. One block per
-// tile of RT rows loops over all T steps; 4H threads, thread j owns gate
-// column j; W_hh in shared memory as far as it fits (lstm_cell.cuh), h and c
-// in shared memory; x_proj[t + 1] is loaded into registers while step t
-// computes. The switches: h is rounded as stored, the state starts from
-// (h0, c0), and cs is written only by the stateful kernel. The caller picks
-// RT so that the tiles fill the SMs in one wave where they can (272 rows ->
-// 68 blocks of 4). wgmma, TMA and clusters are later work.
-// The two-direction scan is the same kernel on a grid (tiles of B, 2):
-// blockIdx.y picks the direction, its rows and its W_hh, and tiles are cut
-// per direction, so none straddles row B. Each row multiplies by its own
-// direction's W_hh only: the TPU kernel's block-diagonal product
-// ([h m | h (1 - m)] @ [W_f; W_b], one MXU dot a grid step) doubles the
-// FLOPs and is not carried over.
+// Design: the cluster layout of csrc/lstm_fused.cu without the x @ W_ih half.
+// A thread-block cluster of K = ceil(H / U) blocks owns one (direction, row
+// tile) at a time; block `rank` owns U hidden units, [rank U, rank U + U), and
+// keeps the W_hh columns of their four gates in REGISTERS for the whole launch
+// (the slice is 64 KB: 32 registers a thread in bfloat16, 64 in float32), so a
+// step reads no weights from shared memory. A cluster walks its tiles (j, j + ncl, ...) with the weights
+// loaded once; the caller's plan (ops/lstm.py `scan_narrow_plan`) names the
+// tile instance, the tiles, the clusters and the x ring.
+// - No barrier on the chain: h travels by dataflow, as in lstm_fused.cu. A
+//   block runs the cell of its units for the tile's rows and stores h rounded
+//   into hs, into its own h buffer and into every peer's (st.async into
+//   distributed shared memory), into one of two buffers by step parity; each
+//   st.async completes its bytes on the peer's mbarrier of that buffer, whose
+//   one arrival is the peer's own thread 0 announcing the bytes it expects. A
+//   peer can store h_n only after reading h_{n-1} from every block, so the two
+//   buffers need no other ordering within a tile; one cluster barrier orders
+//   each tile boundary (arrive after the last product of a tile, wait before
+//   the first store of the next). The last step of a tile sends nothing.
+// - x_proj[t] is not on the chain: each block stages the 4 x U columns of its
+//   units for the tile's rows by cp.async, `stages` steps ahead, into a ring;
+//   the cell adds them to the product's sums. One block barrier a step orders
+//   the block's own h and the ring.
+// - bfloat16 (U = 64, so K <= 2; 512 threads): the product runs on the tensor
+//   cores, mma.sync m16n8k16 with float32 sums (each bf16 x bf16 product
+//   exact; only the order of the sums differs from the plain version). Warp w
+//   owns units 4w ... 4w + 3 (16 columns, unit-major: column = 4 unit + gate)
+//   and INST m16 tiles of rows; its B fragments (8 k-steps x 2 n-tiles) sit in
+//   registers, the row operand h comes through ldmatrix from rows padded by 16
+//   bytes, all 8 k-steps (k past H is zero on both sides). The C fragments go
+//   through a per-warp scratch in shared memory so that lane (r, u) of 8 rows
+//   x 4 units runs the cell of one (row, unit): a tile of up to 8 rows costs a
+//   lane one exact cell a step, not the four its fragments hold.
+// - float32 (true float32: no TF32; U = 32, so K <= 4): CUDA-core FMAs. Lane
+//   (ks, unit) of 8 k-slices x 4 units a warp holds W_hh[k][4 gates of its
+//   unit] for k in its slice (k-chunks of 4 taken ks, ks + 8, ...: a warp's
+//   h reads are 8 consecutive float4, conflict-free), runs all INST rows of
+//   the tile, and the 8 slices meet by a shuffle reduce-scatter that leaves
+//   each lane the four gates of its rows. The chain a thread runs is 16 k
+//   deep, not 128.
+// Units past H (K U > H) have zero weights and are not written.
 //
 // Built with nvcc by nvse_tpu_torch/ops/_build.py into a shared library with
 // plain C entries (lstm_scan_launch, lstm_scan_stateful_launch,
-// lstm_scan_bidir_launch), loaded through ctypes.
+// lstm_scan_bidir_launch, lstm_scan_max_clusters), loaded through ctypes.
+#include <type_traits>
+
 #include "lstm_cell.cuh"
+#include "lstm_cluster.cuh"
 
 namespace {
 
 using namespace lstm;
 
-// BIDIR: R is the rows of one direction; blockIdx.y = direction d owns rows
-// [d R, d R + R) of the 2R and rows [d H, d H + H) of w_hh (2H, 4H).
-template <typename T, int RT, bool STATEFUL, bool BIDIR = false>
-__global__ void __launch_bounds__(512, 1)
-lstm_scan_kernel(const T* __restrict__ xp, const T* __restrict__ w_hh_all,
-                 const T* __restrict__ h0, const T* __restrict__ c0,
-                 T* __restrict__ hs, T* __restrict__ cs, int R, int Tn, int H, int ksm) {
-  const int G = 4 * H;                 // == blockDim.x
-  const int j = threadIdx.x;
-  const int dir = BIDIR ? blockIdx.y : 0;
-  const int Rs = BIDIR ? 2 * R : R;    // row stride of x_proj and hs
-  const int nr = min(RT, R - (int)blockIdx.x * RT);  // valid rows of this (maybe ragged) tile
-  const int r0 = dir * R + blockIdx.x * RT;
-  const T* __restrict__ w_hh = w_hh_all + (size_t)dir * H * G;
+constexpr int MAX_CLUSTER = 8;          // the portable cluster size
+constexpr int MAX_STAGES = 4;
+constexpr int HP = 128;                 // k of the recurrent product: H padded with zeros
 
-  extern __shared__ float4 smem_f4[];
-  float* h_s = reinterpret_cast<float*>(smem_f4);   // [RT][H]
-  float* c_s = h_s + RT * H;                        // [RT][H]
-  float* g_s = c_s + RT * H;                        // [RT][G]
-  T* whh_s = reinterpret_cast<T*>(g_s + RT * G);    // [ksm/4][G][4]
+// the tile constants; ops/lstm.py `_SCAN` mirrors them. A tile of instance
+// INST has ROWS * INST rows: bfloat16, INST m16 tiles a warp; float32, INST
+// rows a thread. Then the threads of a block and the gate scratch (bfloat16).
+template <typename T> struct Scan;
+template <> struct Scan<__nv_bfloat16> {
+  static constexpr int THREADS = 512;   // 16 warps of 4 units (2 n8 tiles)
+  static constexpr int U = 64;
+  static constexpr int HPP = HP + 8;    // pitch of an h row: ldmatrix rows in distinct banks
+  static constexpr int ROWS = 16;
+  static constexpr int GWP = 24;        // pitch of a gate-scratch row (16 columns + 8)
+  static constexpr int GW = 16 * 16 * GWP * 4;   // bytes of the warps' [16][GWP] gate scratch
+};
+template <> struct Scan<float> {
+  static constexpr int THREADS = 256;   // 32 units x 8 k-slices
+  static constexpr int U = 32;
+  static constexpr int HPP = HP;
+  static constexpr int ROWS = 1;
+  static constexpr int GWP = 0;
+  static constexpr int GW = 0;
+};
 
-  stage_whh(whh_s, w_hh, ksm, G);
-  for (int p = j; p < RT * H; p += G) {
-    const int r = p / H, u = p - r * H;
-    float h = 0.0f, c = 0.0f;
-    if (STATEFUL && r < nr) {
-      h = to_f<T>(h0[(size_t)(r0 + r) * H + u]);
-      c = to_f<T>(c0[(size_t)(r0 + r) * H + u]);
-    }
-    h_s[p] = h;
-    c_s[p] = c;
-  }
+template <typename T>
+__host__ __device__ constexpr int tile_rows(int inst) {
+  return Scan<T>::ROWS * inst;
+}
 
-  float xn[RT];                        // x_proj of the next step
+// dynamic shared memory at INST with a ring of `stages` x steps: two h buffers
+// and the ring, each of the tile's rows (x: the 4 x U columns of the block's
+// units), then (bfloat16) the warps' gate scratch
+template <typename T>
+constexpr long smem_bytes(int inst, int stages) {
+  const long bm = tile_rows<T>(inst);
+  return (2 * bm * Scan<T>::HPP + (long)stages * bm * 4 * Scan<T>::U) * (long)sizeof(T) +
+         Scan<T>::GW;
+}
+
+struct Args {
+  const void* xp;         // (Tn, ndir R, 4H)
+  const void* w;          // (ndir H, 4H): each direction's W_hh
+  const void* h0;         // (R, H) (stateful)
+  const void* c0;         // (R, H) (stateful)
+  void* hs;               // (Tn, ndir R, H)
+  void* cs;               // (Tn, R, H) (stateful)
+  int R, Tn, H;           // R: the rows of one direction
+  int ntiles;             // row tiles of a direction (balanced: R * p / ntiles)
+  int ncl;                // clusters of a direction; cluster j walks tiles j, j + ncl, ...
+  int ndir;               // directions: 1, or 2 for lstm_scan_bidir
+  int stages;             // x ring (2 ... MAX_STAGES)
+};
+
+// The float32 k-slices' partial sums v (N = 4 x rows values, row-major (row,
+// gate)) summed over the M-aligned groups of lanes, M = 16 / 2 ... 1: while a
+// lane holds more than one row it keeps half of them (the upper half where
+// lane & M) and adds the partner's half, so lane ks of the group ends with
+// rows [ks rows / KS, ...) when rows >= KS; then the last row's four sums are
+// added across the remaining lanes.
+template <int N, int M, int NV>
+__device__ __forceinline__ void reduce_scatter(float (&v)[NV], int lane) {
+  if constexpr (M >= 1) {
+    if constexpr (N > 4) {
+      const bool up = lane & M;
 #pragma unroll
-  for (int r = 0; r < RT; ++r) xn[r] = r < nr ? to_f<T>(xp[(size_t)(r0 + r) * G + j]) : 0.0f;
-  __syncthreads();
-
-  for (int t = 0; t < Tn; ++t) {
-    float acc[RT];
-#pragma unroll
-    for (int r = 0; r < RT; ++r) acc[r] = xn[r];
-    if (t + 1 < Tn) {
-#pragma unroll
-      for (int r = 0; r < RT; ++r)
-        xn[r] = r < nr ? to_f<T>(xp[((size_t)(t + 1) * Rs + r0 + r) * G + j]) : 0.0f;
-    }
-    recurrent_product<T, RT>(acc, h_s, whh_s, w_hh, ksm, H, G, j);
-#pragma unroll
-    for (int r = 0; r < RT; ++r) g_s[r * G + j] = acc[r];
-    __syncthreads();
-
-    for (int p = j; p < RT * H; p += G) {
-      const int r = p / H, u = p - r * H;
-      float c, h;
-      cell(g_s + r * G, H, u, c_s[p], c, h);
-      const T hv = from_f<T>(h);
-      c_s[p] = c;
-      h_s[p] = to_f<T>(hv);            // h as the recurrent product sees it
-      if (r < nr) {
-        const size_t o = ((size_t)t * Rs + r0 + r) * H + u;
-        hs[o] = hv;
-        if (STATEFUL) cs[o] = from_f<T>(c);
+      for (int i = 0; i < N / 2; ++i) {
+        const float send = up ? v[i] : v[i + N / 2];
+        const float keep = up ? v[i + N / 2] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, M);
       }
+      reduce_scatter<N / 2, M / 2, NV>(v, lane);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], M);
+      reduce_scatter<N, M / 2, NV>(v, lane);
     }
-    __syncthreads();
   }
 }
 
-template <typename T, int RT, bool STATEFUL, bool BIDIR>
-int launch(const void* xp, const void* w_hh, const void* h0, const void* c0, void* hs, void* cs,
-           int R, int Tn, int H, cudaStream_t stream) {
-  const int G = 4 * H;
-  int max_smem = 0, ksm = 0;
-  cudaError_t e = max_dynamic_smem(&max_smem);
+template <typename T, int INST, bool STATEFUL>
+__global__ void __launch_bounds__(Scan<T>::THREADS, 1) lstm_scan_kernel(const Args a) {
+  using SC = Scan<T>;
+  constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int THREADS = SC::THREADS, GWP = SC::GWP;
+  constexpr int U = SC::U, HPP = SC::HPP, BM = tile_rows<T>(INST), XP = 4 * U;
+  constexpr int E = 16 / sizeof(T);                // elements of a 16-byte copy
+  constexpr int NT = 2;                            // bfloat16: n8 tiles (4 units) of a warp
+  constexpr int KS = THREADS / U;                  // float32: k-slices of a unit
+  constexpr int J = HP / (4 * KS);                 // float32: k-chunks of 4 a slice
+  const int H = a.H, G = 4 * H, Tn = a.Tn, R = a.R, Rs = a.ndir * R, S = a.stages;
+  const unsigned K = cluster_size(), rank = cluster_rank();
+  const int cl = blockIdx.x / K;
+  const int dir = cl % a.ndir, j = cl / a.ndir, rb = dir * R;   // rb: the direction's first row
+  const int u0 = rank * U, own = min(U, H - u0);
+  const int nmine = j < a.ntiles ? (a.ntiles - j + a.ncl - 1) / a.ncl : 0;   // tiles of this cluster
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  const T* xp = static_cast<const T*>(a.xp);
+  const T* w = static_cast<const T*>(a.w) + (size_t)dir * H * G;
+  T* hs = static_cast<T*>(a.hs);
+  // rows [row0, row0 + np) of the cluster's tile kt (the balanced tiles of R)
+  auto bounds = [&](int kt, int& row0, int& np) {
+    const long long p = j + (long long)kt * a.ncl;
+    row0 = (int)(R * p / a.ntiles);
+    np = (int)(R * (p + 1) / a.ntiles) - row0;
+  };
+
+  extern __shared__ float4 smem_f4[];
+  T* h_s = reinterpret_cast<T*>(smem_f4);          // [2][BM][HPP]
+  T* x_s = h_s + 2 * BM * HPP;                     // [S][BM][4 gates][U]
+  float* g_s = reinterpret_cast<float*>(x_s + (size_t)S * BM * XP);   // bfloat16: [16][16][GWP]
+
+  // zeros in the h buffers (the pad of k past H is read, times zero weights),
+  // then the two buffers' mbarriers (by step parity), before any peer can store
+  for (int i = tid; i < (int)((2L * BM * HPP * sizeof(T)) / 16); i += THREADS)
+    smem_f4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __shared__ alignas(8) unsigned long long h_bar[2];
+  if (tid == 0) {
+    mbar_init(&h_bar[0]);
+    mbar_init(&h_bar[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  // the block's W_hh columns, into registers for the whole launch (zeros past H)
+  auto wval = [&](int k, int gate, int unit) -> T {
+    return k < H && unit < H ? w[(size_t)k * G + gate * H + unit] : from_f<T>(0.0f);
+  };
+  // bfloat16: warp w owns units 4w ... 4w + 3; the B fragment of k-step ks and
+  // n-tile nt: column nt * 8 + lane / 4 (unit nt * 2 + lane / 16, gate (lane / 4) & 3),
+  // k = 16 ks + 2 (lane & 3) + {0, 1} and + 8
+  // float32: lane (ks, unit ul): k = 4 (ks + KS jj) + e
+  const int ks = lane % KS, ful = warp * (32 / KS) + lane / KS;
+  using Frag = std::conditional_t<BF, unsigned[HP / 16][NT][2], float[J][4][4]>;
+  Frag wr;
+  if constexpr (BF) {
+    const int n = lane >> 2, unit = u0 + warp * 4 + (n >> 2), gate = n & 3;
+#pragma unroll
+    for (int k16 = 0; k16 < HP / 16; ++k16)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int k = 16 * k16 + 2 * (lane & 3) + 8 * hi;
+          wr[k16][nt][hi] = bits(wval(k, gate, unit + 2 * nt)) |
+                            (bits(wval(k + 1, gate, unit + 2 * nt)) << 16);
+        }
+  } else {
+#pragma unroll
+    for (int jj = 0; jj < J; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) wr[jj][e][g] = to_f<T>(wval(4 * (ks + KS * jj) + e, g, u0 + ful));
+  }
+
+  // The x ring. fetch() stages the next item (tile f_kt of the cluster, step
+  // f_n) into the next stage as one cp.async group (empty past the last
+  // item): the 4 gates x U units of each of the tile's rows, 16 bytes a copy;
+  // units past H are not copied (their cells are not stored).
+  int f_kt = 0, f_n = 0, f_stage = 0, f_row0 = 0, f_np = 0;
+  if (nmine > 0) bounds(0, f_row0, f_np);
+  auto fetch = [&]() {
+    if (f_kt < nmine) {
+      T* dst = x_s + (size_t)f_stage * BM * XP;
+      const T* src = xp + ((size_t)f_n * Rs + rb + f_row0) * G + u0;
+      for (int i = tid; i < f_np * 4 * (U / E); i += THREADS) {
+        const int r = i / (4 * (U / E)), q = (i / (U / E)) & 3, ul = (i % (U / E)) * E;
+        if (u0 + ul < H) cp_async16(dst + r * XP + q * U + ul, src + (size_t)r * G + q * H + ul, 16);
+      }
+      if (++f_n == Tn) {
+        f_n = 0;
+        if (++f_kt < nmine) bounds(f_kt, f_row0, f_np);
+      }
+    }
+    if (++f_stage == S) f_stage = 0;
+    cp_async_commit();
+  };
+
+  constexpr int PJ = BF ? NT : 1;
+  constexpr int RPL = BF ? INST : (INST >= KS ? INST / KS : 1);   // float32: rows of a lane
+  constexpr int DUP = BF ? 1 : (INST >= KS ? 1 : KS / INST);      // float32: lanes of a row
+  constexpr int NCELL = BF ? INST * 2 : RPL;       // the (row, unit) pairs a lane holds
+  float acc[INST][PJ][4];
+  float c_reg[NCELL];                              // their c, carried in float32
+#pragma unroll
+  for (int i = 0; i < NCELL; ++i) c_reg[i] = 0.0f;
+
+  // acc = h rows (the tile's np) x the block's W_hh columns
+  auto product = [&](const T* a_s, int np) {
+#pragma unroll
+    for (int i = 0; i < INST; ++i)
+#pragma unroll
+      for (int jj = 0; jj < PJ; ++jj)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][jj][q] = 0.0f;
+    if constexpr (BF) {
+      // all 8 k-steps (k past H is zero on both sides): a runtime bound on the
+      // unrolled loop costs more than the zeros; the row operand of 4 k-steps
+      // is loaded before their products, so that the loads do not wait on them
+      const T* arow = a_s + (lane & 15) * HPP + (lane >> 4) * 8;
+#pragma unroll
+      for (int mt = 0; mt < INST; ++mt) {
+        if (mt * 16 >= np) break;                  // warp-uniform: no row of this tile
+#pragma unroll
+        for (int k0 = 0; k0 < HP / 16; k0 += 4) {
+          unsigned af[4][4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) ldsm_x4(af[j], arow + mt * 16 * HPP + (k0 + j) * 16);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+              mma_bf16(acc[mt][nt], af[j], wr[k0 + j][nt][0], wr[k0 + j][nt][1]);
+        }
+      }
+    } else {
+      const float* hb = reinterpret_cast<const float*>(a_s) + 4 * ks;
+#pragma unroll
+      for (int r = 0; r < INST; ++r) {
+        if (r >= np) break;                        // uniform
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj) {
+          const float4 hv = *reinterpret_cast<const float4*>(hb + r * HPP + 4 * KS * jj);
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            float s = acc[r][0][g];
+            s = fmaf(hv.x, wr[jj][0][g], s);
+            s = fmaf(hv.y, wr[jj][1][g], s);
+            s = fmaf(hv.z, wr[jj][2][g], s);
+            s = fmaf(hv.w, wr[jj][3][g], s);
+            acc[r][0][g] = s;
+          }
+        }
+      }
+    }
+  };
+
+  for (int s = 0; s < S; ++s) fetch();
+  cluster_arrive();                                // every block of the cluster has started
+  cluster_wait();                                  // and set up its barriers
+  if (nmine > 0) {
+    cp_async_wait_dyn(S - 1);                      // item 0's x (this thread's copies)
+    __syncthreads();                               // ... every thread's, and the zeroed buffers
+  }
+
+  const T* c0 = static_cast<const T*>(a.c0);
+  unsigned parity[2] = {0u, 0u};                   // of each h buffer's next phase
+  int m = 0, stage = 0;                            // item (tile kt, step n) and its x stage
+  for (int kt = 0; kt < nmine; ++kt) {
+    int row0, np;
+    bounds(kt, row0, np);
+    for (int n = 0; n < Tn; ++n, ++m) {
+      T* hb = h_s + (size_t)(m & 1) * BM * HPP;                  // h_{n-1}
+      T* hw = h_s + (size_t)((m + 1) & 1) * BM * HPP;            // where h_n goes
+      if (n > 0) {                                 // h_{n-1} of every block has landed
+        mbar_wait(&h_bar[m & 1], parity[m & 1]);
+        parity[m & 1] ^= 1u;
+      } else {
+        if (kt > 0) cluster_wait();                // every block is done with the last tile's h
+        if constexpr (STATEFUL) {                  // h0 of the tile's rows, every unit, as stored
+          const T* h0 = static_cast<const T*>(a.h0) + (size_t)row0 * H;
+          for (int i = tid; i < np * (H / E); i += THREADS) {
+            const int r = i / (H / E), k = (i % (H / E)) * E;
+            *reinterpret_cast<uint4*>(hb + r * HPP + k) =
+                *reinterpret_cast<const uint4*>(h0 + (size_t)r * H + k);
+          }
+          __syncthreads();
+        }
+      }
+      const bool send = n + 1 < Tn;                // h_n is read at step n + 1
+      if (send && tid == 0)                        // the bytes of h_n the peers store here
+        mbar_expect(&h_bar[(m + 1) & 1], (unsigned)(np * (H - own) * (int)sizeof(T)));
+      product(hb, n > 0 || STATEFUL ? np : 0);     // h_{-1} = 0: no product, zero sums
+      if (n + 1 == Tn && kt + 1 < nmine) cluster_arrive();   // this tile's h buffers read
+      const T* xb = x_s + (size_t)stage * BM * XP;
+
+      // The cell of (row lr, unit ul of the block) from its four gate sums, where
+      // `ok` (rows past the tile read x that was never staged); then h into hs
+      // and, where step n + 1 reads it, into this block's h buffer and
+      // (st.async) every peer's
+      auto cell = [&](int lr, int ul, const float (&gs)[4], float& c_state, bool ok) {
+        T hv = from_f<T>(0.0f);
+        float c = 0.0f;
+        if (ok) {
+          float z[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) z[q] = gs[q] + to_f<T>(xb[lr * XP + q * U + ul]);
+          float c_prev = c_state;
+          if (n == 0) c_prev = STATEFUL ? to_f<T>(c0[(size_t)(row0 + lr) * H + u0 + ul]) : 0.0f;
+          c = sigmoid(z[1]) * c_prev + sigmoid(z[0]) * tanhf(z[2]);
+          hv = from_f<T>(sigmoid(z[3]) * tanhf(c));
+          c_state = c;
+        }
+        // bfloat16: lanes l and l ^ 1 hold units u and u + 1 of one row; the
+        // one with u sends both, as st.async moves 4 bytes at least
+        unsigned word = bits(hv);
+        if (BF) word |= __shfl_xor_sync(0xffffffffu, word, 1) << 16;
+        if (!ok) return;
+        const int unit = u0 + ul;
+        T* dst = hw + lr * HPP + unit;
+        if (send) {
+          *dst = hv;
+          if (!BF || (lane & 1) == 0) {
+            const unsigned at = smem_u32(dst), bar = smem_u32(&h_bar[(m + 1) & 1]);
+            for (unsigned r = 0; r < K; ++r)
+              if (r != rank) st_async(cluster_map(at, r), word, cluster_map(bar, r));
+          }
+        }
+        const size_t o = ((size_t)n * Rs + rb + row0 + lr) * H + unit;
+        hs[o] = hv;
+        if (STATEFUL) static_cast<T*>(a.cs)[o] = from_f<T>(c);
+      };
+
+      if constexpr (BF) {
+        // the warp's C fragments hold two gates of one (row, unit) a lane, for
+        // every 16 rows whether in the tile or not: through the warp's [16][GWP]
+        // scratch, lane (r, u) of 8 rows x 4 units takes the four gates of its
+        // (row, unit), so a tile of up to 8 rows costs a lane one cell a step
+        float* gw = g_s + warp * 16 * GWP;
+        const int ul = warp * 4 + (lane & 3);
+#pragma unroll
+        for (int mt = 0; mt < INST; ++mt) {
+          if (mt * 16 >= np) break;                // warp-uniform: no row of this tile
+          __syncwarp();                            // the last m16 tile's reads are done
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int col = nt * 8 + 2 * (lane & 3);
+            *reinterpret_cast<float2*>(gw + (lane >> 2) * GWP + col) =
+                make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+            *reinterpret_cast<float2*>(gw + ((lane >> 2) + 8) * GWP + col) =
+                make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+          }
+          __syncwarp();
+#pragma unroll
+          for (int it = 0; it < 2; ++it) {
+            if (mt * 16 + it * 8 >= np) break;     // warp-uniform
+            const int r = it * 8 + (lane >> 2), lr = mt * 16 + r;
+            const float4 v = *reinterpret_cast<const float4*>(gw + r * GWP + 4 * (lane & 3));
+            const float gs[4] = {v.x, v.y, v.z, v.w};
+            cell(lr, ul, gs, c_reg[mt * 2 + it], lr < np && u0 + ul < H);
+          }
+        }
+      } else {
+        // the 8 k-slices' sums meet by the reduce-scatter: lane ks holds the
+        // four gates of its RPL rows (DUP lanes hold each row: the first runs it)
+        float v[4 * INST];
+#pragma unroll
+        for (int r = 0; r < INST; ++r)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) v[4 * r + q] = acc[r][0][q];
+        reduce_scatter<4 * INST, KS / 2>(v, lane);
+#pragma unroll
+        for (int i = 0; i < RPL; ++i) {
+          const int lr = INST >= KS ? ks * RPL + i : ks / DUP;
+          const float gs[4] = {v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]};
+          cell(lr, ful, gs, c_reg[i], ks % DUP == 0 && lr < np && u0 + ful < H);
+        }
+      }
+      if (++stage == S) stage = 0;
+      if (n + 1 < Tn || kt + 1 < nmine) {
+        // every thread's h_n stores into this block's buffer before step n + 1
+        // reads them, and every thread done with the x stage just used
+        cp_async_wait_dyn(S - 2);                  // the next item's x (this thread's copies)
+        __syncthreads();
+        fetch();
+      }
+    }
+  }
+}
+
+template <typename T, int INST, bool ST>
+cudaError_t configure(int K, int smem, cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr) {
+  cudaError_t e = cudaFuncSetAttribute(lstm_scan_kernel<T, INST, ST>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const long fixed = (long)sizeof(float) * (2 * RT * H + RT * G);
-  const size_t smem = smem_with_whh<T>(fixed, H, max_smem, &ksm);
-  if (smem == 0) return cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute(lstm_scan_kernel<T, RT, STATEFUL, BIDIR>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.blockDim = dim3(Scan<T>::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <typename T>
+int cluster_of(int H) {
+  return (H + Scan<T>::U - 1) / Scan<T>::U;
+}
+
+// clusters of the instance that the card holds at once
+template <typename T, int INST, bool ST>
+int max_clusters(int H, int smem, int* clusters) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  const int K = cluster_of<T>(H);
+  cudaError_t e = configure<T, INST, ST>(K, smem, cfg, attr);
   if (e != cudaSuccess) return e;
-  const dim3 grid((R + RT - 1) / RT, BIDIR ? 2 : 1);
-  lstm_scan_kernel<T, RT, STATEFUL, BIDIR><<<grid, G, smem, stream>>>(
-      static_cast<const T*>(xp), static_cast<const T*>(w_hh), static_cast<const T*>(h0),
-      static_cast<const T*>(c0), static_cast<T*>(hs), static_cast<T*>(cs), R, Tn, H, ksm);
+  cfg.gridDim = dim3(K);
+  return cudaOccupancyMaxActiveClusters(clusters, lstm_scan_kernel<T, INST, ST>, &cfg);
+}
+
+// Launches a.ndir directions with the caller's plan; cudaErrorLaunchOutOfResources
+// when not even one cluster fits on this device.
+template <typename T, int INST, bool ST>
+int launch(const Args& a, int smem, cudaStream_t stream) {
+  const int K = cluster_of<T>(a.H), BM = tile_rows<T>(INST);
+  if (K > MAX_CLUSTER || a.ntiles < 1 || a.ntiles > a.R || a.ncl < 1 || a.ncl > a.ntiles ||
+      (a.R + a.ntiles - 1) / a.ntiles > BM || a.stages < 2 || a.stages > MAX_STAGES ||
+      smem != smem_bytes<T>(INST, a.stages))
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = configure<T, INST, ST>(K, smem, cfg, attr);
+  if (e != cudaSuccess) return e;
+  int fit = 0;
+  cfg.gridDim = dim3(K);
+  if ((e = cudaOccupancyMaxActiveClusters(&fit, lstm_scan_kernel<T, INST, ST>, &cfg)) !=
+      cudaSuccess)
+    return e;
+  if (fit < 1) return cudaErrorLaunchOutOfResources;
+  cfg.gridDim = dim3(K * a.ncl * a.ndir);
+  cfg.stream = stream;
+  e = cudaLaunchKernelEx(&cfg, lstm_scan_kernel<T, INST, ST>, a);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <bool STATEFUL, bool BIDIR = false>
-int launch_any(int dtype, int rt, const void* xp, const void* w_hh, const void* h0,
-               const void* c0, void* hs, void* cs, int R, int Tn, int H, void* stream) {
-  if (R <= 0 || Tn <= 0 || H <= 0 || 4 * H > 512 || H % 8) return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SCAN(TY, RTV) return launch<TY, RTV, STATEFUL, BIDIR>(xp, w_hh, h0, c0, hs, cs, R, Tn, H, s)
-  if (dtype == 0) {
-    if (rt == 2) SCAN(float, 2);
-    if (rt == 4) SCAN(float, 4);
-    if (rt == 8) SCAN(float, 8);
-  } else if (dtype == 1) {
-    if (rt == 2) SCAN(__nv_bfloat16, 2);
-    if (rt == 4) SCAN(__nv_bfloat16, 4);
-    if (rt == 8) SCAN(__nv_bfloat16, 8);
+// the instances: INST 1, 2 or 4 m16 tiles of a warp in bfloat16; 1, 2, 4, 8 or
+// 16 rows of a thread in float32; stateful or not
+template <bool ST, typename F>
+int with_instance(int dtype, int inst, F&& f) {
+  using bf = __nv_bfloat16;
+  using std::integral_constant;
+  if (dtype == 1) {
+    switch (inst) {
+      case 1: return f((bf*)nullptr, integral_constant<int, 1>{});
+      case 2: return f((bf*)nullptr, integral_constant<int, 2>{});
+      case 4: return f((bf*)nullptr, integral_constant<int, 4>{});
+      default: return cudaErrorInvalidValue;
+    }
   }
-#undef SCAN
+  if (dtype == 0) {
+    switch (inst) {
+      case 1: return f((float*)nullptr, integral_constant<int, 1>{});
+      case 2: return f((float*)nullptr, integral_constant<int, 2>{});
+      case 4: return f((float*)nullptr, integral_constant<int, 4>{});
+      case 8: return f((float*)nullptr, integral_constant<int, 8>{});
+      case 16: return f((float*)nullptr, integral_constant<int, 16>{});
+      default: return cudaErrorInvalidValue;
+    }
+  }
   return cudaErrorInvalidValue;
+}
+
+template <bool ST>
+int launch_any(int dtype, int inst, const Args& a, int smem, void* stream) {
+  if (a.R <= 0 || a.Tn <= 0 || a.H <= 0 || a.H % 8 || a.H > HP) return cudaErrorInvalidValue;
+  return with_instance<ST>(dtype, inst, [&](auto* ty, auto in) {
+    using T = std::remove_pointer_t<decltype(ty)>;
+    return launch<T, decltype(in)::value, ST>(a, smem, static_cast<cudaStream_t>(stream));
+  });
+}
+
+Args make_args(const void* xp, const void* w, const void* h0, const void* c0, void* hs, void* cs,
+               int R, int Tn, int H, int ntiles, int ncl, int ndir, int stages) {
+  Args a{};
+  a.xp = xp;
+  a.w = w;
+  a.h0 = h0;
+  a.c0 = c0;
+  a.hs = hs;
+  a.cs = cs;
+  a.R = R;
+  a.Tn = Tn;
+  a.H = H;
+  a.ntiles = ntiles;
+  a.ncl = ncl;
+  a.ndir = ndir;
+  a.stages = stages;
+  return a;
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16. x_proj (T, R, 4H), w_hh (H, 4H), h0/c0 (R, H),
-// hs/cs (T, R, H), all contiguous on the current device. rt: rows per block
-// (2, 4 or 8). Each entry returns the cudaError_t of the launch (0 on success).
-extern "C" int lstm_scan_launch(int dtype, const void* xp, const void* w_hh, void* hs,
-                                int R, int Tn, int H, int rt, void* stream) {
-  return launch_any<false>(dtype, rt, xp, w_hh, nullptr, nullptr, hs, nullptr, R, Tn, H, stream);
+// hs/cs (T, R, H), all contiguous and 16-byte aligned on the current device;
+// H <= 128, H % 8 == 0. The plan (instance, row tiles, clusters, x stages, smem
+// bytes) is ops/lstm.py `scan_narrow_plan`'s. Each entry returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int lstm_scan_launch(int dtype, const void* xp, const void* w_hh, void* hs, int R,
+                                int Tn, int H, int inst, int ntiles, int ncl, int stages, int smem,
+                                void* stream) {
+  const Args a = make_args(xp, w_hh, nullptr, nullptr, hs, nullptr, R, Tn, H, ntiles, ncl, 1,
+                           stages);
+  return launch_any<false>(dtype, inst, a, smem, stream);
 }
 
 extern "C" int lstm_scan_stateful_launch(int dtype, const void* xp, const void* w_hh,
                                          const void* h0, const void* c0, void* hs, void* cs,
-                                         int R, int Tn, int H, int rt, void* stream) {
-  return launch_any<true>(dtype, rt, xp, w_hh, h0, c0, hs, cs, R, Tn, H, stream);
+                                         int R, int Tn, int H, int inst, int ntiles, int ncl,
+                                         int stages, int smem, void* stream) {
+  const Args a = make_args(xp, w_hh, h0, c0, hs, cs, R, Tn, H, ntiles, ncl, 1, stages);
+  return launch_any<true>(dtype, inst, a, smem, stream);
 }
 
-// x_proj (T, 2B, 4H), w_stack (2H, 4H), hs (T, 2B, H); B the rows of one direction.
+// x_proj (T, 2B, 4H), w_stack (2H, 4H), hs (T, 2B, H); B the rows of one
+// direction, the plan's tiles and clusters those of one direction.
 extern "C" int lstm_scan_bidir_launch(int dtype, const void* xp, const void* w_stack, void* hs,
-                                      int B, int Tn, int H, int rt, void* stream) {
-  return launch_any<false, true>(dtype, rt, xp, w_stack, nullptr, nullptr, hs, nullptr, B, Tn, H,
-                                 stream);
+                                      int B, int Tn, int H, int inst, int ntiles, int ncl,
+                                      int stages, int smem, void* stream) {
+  const Args a = make_args(xp, w_stack, nullptr, nullptr, hs, nullptr, B, Tn, H, ntiles, ncl, 2,
+                           stages);
+  return launch_any<false>(dtype, inst, a, smem, stream);
+}
+
+// Clusters of ceil(H / units) blocks of the kernel (dtype, instance) with smem
+// bytes that the card holds at once, into *clusters (the plan's co-residency).
+extern "C" int lstm_scan_max_clusters(int dtype, int inst, int H, int smem, int* clusters) {
+  if (H <= 0 || H > HP) return cudaErrorInvalidValue;
+  return with_instance<false>(dtype, inst, [&](auto* ty, auto in) {
+    using T = std::remove_pointer_t<decltype(ty)>;
+    return max_clusters<T, decltype(in)::value, false>(H, smem, clusters);
+  });
 }

@@ -7,17 +7,18 @@ and nvse_tpu/ops/pallas_lstm_bwd.py (`lstm_fwd_hc`, `lstm_bwd`).
 
 `lstm_scan_fused` is the switch between two routes:
   * inference (grad disabled, or no input requires grad): a fused kernel
-    with x @ W_ih inside the recurrence, picked from (C, H) by
-    `_fused_route`: that of csrc/lstm_fused.cu (thread-block clusters that
-    keep the weights in shared memory and pass h through distributed shared
-    memory, tensor cores in bfloat16, the plan of `fused_narrow_plan`) for
-    H <= 128, that of csrc/lstm_fused_wide.cu (row groups x slices of
-    8-32 hidden units over the card, tensor cores in bfloat16, the plan of
-    `fused_wide_plan`) for 128 < H <= 512 with C + H <= 1280; past them, up
-    to H = 768 (HD-Demucs's bottleneck BiLSTM),
-    the decomposition the JAX function takes past its fused kernel's VMEM
-    budget (pallas_lstm.py:864-880): x @ W_ih + b per direction as torch
-    matmuls, then the two scans of csrc/lstm_bidir2.cu;
+    with x @ W_ih inside the recurrence, picked from (C, H, dtype) and the
+    card by `_fused_route`: that of csrc/lstm_fused.cu (thread-block clusters
+    that keep the weights in shared memory and pass h through distributed
+    shared memory, tensor cores in bfloat16, the plan of `fused_narrow_plan`)
+    for H <= 128 where a cluster of its weight slices fits the card, that of
+    csrc/lstm_fused_wide.cu (row groups x slices of 8-32 hidden units over the
+    card, tensor cores in bfloat16, the plan of `fused_wide_plan`) for
+    128 < H <= 512 with C + H <= 1280; past them, up to H = 768 (HD-Demucs's
+    bottleneck BiLSTM), and at H <= 128 where no cluster fits (C + H past
+    about 590 on an H100), the decomposition the JAX function takes past its
+    fused kernel's VMEM budget (pallas_lstm.py:864-880): x @ W_ih + b per
+    direction as torch matmuls, then the two scans of csrc/lstm_bidir2.cu;
   * training: `_BiLSTMSaving`, an autograd Function mirroring the JAX
     custom_vjp's `_fused_fwd_saving` / `_fused_bwd_saved`
     (pallas_lstm.py:904-952): torch matmuls for x @ W_ih + b, then
@@ -29,8 +30,10 @@ a scan kernel for inference, `_ScanSaving` (`lstm_fwd_hc` forward,
 `lstm_bwd` backward, as the JAX custom_vjp at pallas_lstm.py:331-351)
 under autograd. `lstm_scan_stateful` (streaming decode: the scan from a
 caller's (h0, c0), returning hs and cs) has no gradient. Both scans pick
-their kernel from H: csrc/lstm_scan.cu for H <= 128, csrc/lstm_scan_wide.cu
-(the layout of csrc/lstm_grid.cuh) for 128 < H <= 768.
+their kernel from H: csrc/lstm_scan.cu for H <= 128 (the cluster layout of
+csrc/lstm_fused.cu without the input product: W_hh in registers, h by
+st.async, tensor cores in bfloat16, the plan of `scan_narrow_plan`),
+csrc/lstm_scan_wide.cu (the layout of csrc/lstm_grid.cuh) for 128 < H <= 768.
 `lstm_scan_bidir2` (two independent scans in one launch: the grouped
 LSTM of GCRN, H = 448 over batch rows) is the kernel of
 csrc/lstm_bidir2.cu, which spreads the hidden units over the card and
@@ -43,10 +46,12 @@ kScanBidir of csrc/lstm_grid.cuh) for 128 < H <= 768; under autograd it is
 `_BidirRecompute`, whose backward differentiates the plain version
 recomputed (the JAX custom_vjp at pallas_lstm.py:959-981).
 The training kernels pick theirs from H too: csrc/lstm_bwd.cu (one thread
-per gate column) for H <= 128, csrc/lstm_wide.cu (the hidden units spread
-over the card, as lstm_bidir2.cu) for 128 < H <= 768; the dW_hh reduction
-of csrc/lstm_bwd.cu (a GEMM: tensor cores in bfloat16, CUDA cores in float32,
-split over the rows by `dw_plan`) takes both.
+per gate column) for H <= 128; for 128 < H <= 768 the residual-saving
+forward of csrc/lstm_wide.cu and the backward recurrence of
+csrc/lstm_bwd_wide.cu (row groups x slices of hidden units over the card,
+W_hh resident, tensor cores in bfloat16, the plan of `bwd_wide_plan`); the
+dW_hh reduction of csrc/lstm_bwd.cu (a GEMM: tensor cores in bfloat16, CUDA
+cores in float32, split over the rows by `dw_plan`) takes both.
 Every wrapper launches its CUDA kernel on a CUDA tensor or raises, and
 runs its plain PyTorch version only on a CPU tensor. Each counts its
 launches in `<wrapper>.launches`, per shape in
@@ -75,14 +80,14 @@ __all__ = ["lstm_bwd", "lstm_bwd_plain", "lstm_dw_hh", "lstm_dw_hh_plain", "lstm
            "lstm_scan_bidir2_plain", "lstm_scan_plain", "lstm_scan_stateful",
            "lstm_scan_stateful_plain"]
 
-_MAX_H = 128                    # lstm_fused.cu: a cluster's blocks hold the weights; the
-                                # training and scan kernels: one thread per gate column
-_WIDE_MAX_H = 768               # lstm_bidir2.cu, lstm_wide.cu, lstm_scan_wide.cu: hidden units
-                                # spread over the card, H / 8 blocks a row group
+_MAX_H = 128                    # lstm_fused.cu, lstm_scan.cu: a cluster's blocks hold the
+                                # weights; lstm_bwd.cu: one thread per gate column
+_WIDE_MAX_H = 768               # lstm_bidir2.cu, lstm_wide.cu, lstm_bwd_wide.cu,
+                                # lstm_scan_wide.cu: hidden units spread over the card
 # lstm_fused_wide.cu: both directions' H / 8 blocks co-resident on 128 SMs, and the
 # float32 (C + H, 32) weight slice of 8 units beside its staging ring in 227 KB
 _FUSED_WIDE_MAX_H, _FUSED_WIDE_MAX_K = 512, 1280
-_ROWS_PER_BLOCK = (2, 4, 8)     # template instances in csrc/*.cu
+_ROWS_PER_BLOCK = (2, 4, 8)     # template instances in csrc/lstm_bwd.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ITEM = {torch.float32: 4, torch.bfloat16: 2}      # bytes an element
 # the csrc/<stem>.cu whose kernel each wrapper launches: (H <= _MAX_H, H > _MAX_H)
@@ -90,7 +95,7 @@ _SOURCES = {"lstm_scan_fused": ("lstm_fused", "lstm_fused_wide"),
             "lstm_scan": ("lstm_scan", "lstm_scan_wide"),
             "lstm_scan_stateful": ("lstm_scan", "lstm_scan_wide"),
             "lstm_fwd_hc": ("lstm_bwd", "lstm_wide"),
-            "lstm_bwd": ("lstm_bwd", "lstm_wide"),
+            "lstm_bwd": ("lstm_bwd", "lstm_bwd_wide"),
             "lstm_dw_hh": ("lstm_bwd", "lstm_bwd"),
             "lstm_scan_bidir2": ("lstm_bidir2", "lstm_bidir2"),
             "lstm_scan_bidir": ("lstm_scan", "lstm_scan_wide")}
@@ -144,18 +149,22 @@ def lstm_scan_fused_plain(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.
     return torch.cat(outs, dim=-1).to(x.dtype)
 
 
-def _fused_route(C: int, H: int) -> str:
+def _fused_route(C: int, H: int, narrow_fits: bool = True) -> str:
     """The inference route of lstm_scan_fused on the card at (C, H):
-    "lstm_fused" (csrc/lstm_fused.cu) for H <= 128, "lstm_fused_wide"
-    (csrc/lstm_fused_wide.cu) for 128 < H <= 512 with C + H <= 1280, and past
-    them, up to H = 768, "projection+lstm_bidir2": x @ W_ih + b as torch
-    matmuls, then csrc/lstm_bidir2.cu, as the JAX function does past its fused
-    kernel's VMEM budget (pallas_lstm.py:864-880; it takes B5 in bfloat16 and
-    two B4 scans in float32 by another VMEM rule: both are the same two
-    independent scans, and the port takes B5 in both). Raises past H = 768."""
-    if H <= _MAX_H:
+    "lstm_fused" (csrc/lstm_fused.cu) for H <= 128 where a cluster of its
+    weight slices fits the card (`narrow_fits`: `fused_narrow_plan`'s
+    co_resident, which is False past C + H of about 590 on an H100),
+    "lstm_fused_wide" (csrc/lstm_fused_wide.cu) for 128 < H <= 512 with
+    C + H <= 1280, and past them, up to H = 768, "projection+lstm_bidir2":
+    x @ W_ih + b as torch matmuls, then csrc/lstm_bidir2.cu, as the JAX function
+    does past its fused kernel's VMEM budget (pallas_lstm.py:864-880; it takes
+    B5 in bfloat16 and two B4 scans in float32 by another VMEM rule: both are
+    the same two independent scans, and the port takes B5 in both). A route by
+    shape, picked before any launch: a failed build or launch of a kernel
+    still raises. Raises past H = 768."""
+    if H <= _MAX_H and narrow_fits:
         return "lstm_fused"
-    if H <= _FUSED_WIDE_MAX_H and C + H <= _FUSED_WIDE_MAX_K:
+    if _MAX_H < H <= _FUSED_WIDE_MAX_H and C + H <= _FUSED_WIDE_MAX_K:
         return "lstm_fused_wide"
     if H <= _WIDE_MAX_H:
         return "projection+lstm_bidir2"
@@ -163,6 +172,23 @@ def _fused_route(C: int, H: int) -> str:
         f"lstm_scan_fused on the card handles H <= {_WIDE_MAX_H}: fused kernels for H <= "
         f"{_FUSED_WIDE_MAX_H} with C + H <= {_FUSED_WIDE_MAX_K}, past them the projection "
         f"and csrc/lstm_bidir2.cu (H <= {_WIDE_MAX_H}); got C={C}, H={H}")
+
+
+def fused_route(C: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: int) -> str:
+    """`_fused_route` at (C, H, dtype) on a card with n_sm SMs and smem_limit
+    bytes of shared memory a block (a pure function of them)."""
+    fits = H > _MAX_H or fused_narrow_plan(1, C, H, dtype, n_sm, smem_limit)["co_resident"]
+    return _fused_route(C, H, fits)
+
+
+def _card_fused_route(x: torch.Tensor, C: int, H: int) -> str:
+    """`_fused_route` for x (B, T, C) on x's card: at H <= 128 from the narrow
+    kernel's plan as the card reports it (`_fused_narrow_card_plan`)."""
+    fits = True
+    if H <= _MAX_H and x.dtype in _NARROW and x.dim() == 3:
+        fits = _fused_narrow_card_plan(_device_index(x.device), max(1, x.shape[0]), C, H,
+                                       x.dtype, 0)["co_resident"]
+    return _fused_route(C, H, fits)
 
 
 def _fused_shapes(name, x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b):
@@ -203,7 +229,7 @@ def _check_kernel_args(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b):
 
 
 def _check_aligned(name: str, *tensors) -> None:
-    """The fused and wide inference kernels read 16 bytes at a time."""
+    """The fused, scan and wide kernels read 16 bytes at a time."""
     if any(a.data_ptr() % 16 for a in tensors):
         raise ValueError(f"{name} kernel needs 16-byte aligned tensors (a contiguous view "
                          "at an odd offset is not: call .clone() on it)")
@@ -518,11 +544,11 @@ def lstm_scan_fused(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.Tensor
     `_BiLSTMSaving`. Otherwise CUDA tensors take the route `_fused_route`
     picks: a hand-written inference kernel that replaces
     nvse_tpu/ops/pallas_lstm.py:lstm_scan_fused, that of csrc/lstm_fused.cu
-    for H <= 128 (raising where no cluster holds the weight slices beside the
-    x ring: C + H past about 590 on an H100), that of csrc/lstm_fused_wide.cu
-    for 128 < H <= 512
-    (C + H <= 1280), and past them (H <= 768) the projection as torch
-    matmuls and lstm_scan_bidir2's kernel; CPU tensors go to
+    for H <= 128 where a cluster of its weight slices fits the card, that of
+    csrc/lstm_fused_wide.cu for 128 < H <= 512 (C + H <= 1280), and past them
+    (H <= 768, and at H <= 128 where no cluster fits: C + H past about 590 on
+    an H100) the projection as torch matmuls and lstm_scan_bidir2's kernel;
+    CPU tensors go to
     lstm_scan_fused_plain. Counts fused-kernel launches in
     `lstm_scan_fused.launches` (per (B, T, C, H, dtype) in
     `lstm_scan_fused.launches_by_shape`, per kernel in
@@ -534,7 +560,7 @@ def lstm_scan_fused(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.Tensor
         return _BiLSTMSaving.apply(*args)
     if x.device.type == "cpu":
         return lstm_scan_fused_plain(*args)
-    if _fused_route(x.shape[-1], w_hh_f.shape[0]) == "projection+lstm_bidir2":
+    if _card_fused_route(x, x.shape[-1], w_hh_f.shape[0]) == "projection+lstm_bidir2":
         return _projected_bidir2(*args)
     return _launch_kernel(*args)
 
@@ -686,16 +712,115 @@ def _wide_lib() -> ctypes.CDLL:
     lib = load_library("lstm_wide")
     ptr, i = ctypes.c_void_p, ctypes.c_int
     lib.lstm_fwd_hc_wide_launch.argtypes = [i, ptr, ptr, ptr, ptr, ptr, ptr, i, i, i, ptr]
-    lib.lstm_bwd_wide_launch.argtypes = [i, *[ptr] * 8, i, i, i, ptr]
-    for fn in (lib.lstm_fwd_hc_wide_launch, lib.lstm_bwd_wide_launch):
+    lib.lstm_fwd_hc_wide_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _bwd_wide_lib() -> ctypes.CDLL:
+    from ._build import load_library
+
+    lib = load_library("lstm_bwd_wide")
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_bwd_wide_launch.argtypes = [i, *[ptr] * 8, *[i] * 7, ptr]
+    lib.lstm_bwd_wide_blocks_per_sm.argtypes = [i, i, i, i, ptr]
+    for fn in (lib.lstm_bwd_wide_launch, lib.lstm_bwd_wide_blocks_per_sm):
         fn.restype = ctypes.c_int
     return lib
+
+
+# csrc/lstm_bwd_wide.cu's instances as (units a block, rows a tile), widest
+# slice first (its `with_instance`)
+_BWD_WIDE = {torch.bfloat16: ((32, 64), (32, 32), (16, 64), (16, 32), (8, 64)),
+             torch.float32: ((16, 64), (16, 32), (8, 64), (8, 32))}
+_BWD_MIN_GROUP_ROWS = {torch.bfloat16: 4, torch.float32: 8}
+
+
+def _bwd_wide_smem(U: int, tile_rows: int, H: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of the wide backward (its `Lay`): the W_hh column
+    slice, the h tile, the gate sums and (bfloat16) the dgates split hi / lo,
+    each 16-byte aligned. bfloat16 pads k to 16 and each row of the slice and
+    the h tile by 8 values."""
+    up = lambda v: -(-v // 16) * 16
+    TM, NC = tile_rows, 4 * U
+    if dtype == torch.bfloat16:
+        kp = up(H) + 8
+        parts = (NC * kp * 2, TM * kp * 2, TM * NC * 4, 2 * TM * (NC + 8) * 2)
+    else:
+        parts = (H * (NC + 1) * 4, TM * (H + 4) * 4, TM * (NC + 4) * 4, 0)
+    return sum(up(p) for p in parts)
+
+
+def bwd_wide_plan(R: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: int,
+                  blocks_per_sm: int | dict = 1) -> dict:
+    """Launch plan of the wide backward recurrence (csrc/lstm_bwd_wide.cu,
+    128 < H <= 768) at (T, R, H) (any T) on a card with n_sm SMs, smem_limit
+    bytes a block and blocks_per_sm blocks an SM (one number, or one for each
+    instance (units, tile rows) as the card reports it): the widest slice of U
+    units that divides H and fits and whose row groups hold at least
+    _BWD_MIN_GROUP_ROWS rows (else the widest that fits), as many row groups
+    of H / U blocks as are co-resident (at most one a row), and of its tile
+    instances the one that holds the most groups; at a tie, tiles of 32 rows
+    where a group has at most 32, else of 64. A narrower slice halves a
+    block's products; more rows a group cost a bfloat16 block nothing up to
+    an m16 tile, and keep a float32 block's warps (a quarter or an eighth of a
+    tile's rows each) busy: GCRN's 16 rows take 8 or 16 units, not 16 or 32
+    (scripts/bench_torch_scan_plan.py). -> units, tile_rows, groups,
+    rows_per_group, tiles_per_group, smem_bytes, blocks, tensor_cores;
+    `co_resident` False when nothing fits: the kernel cannot run, and its
+    launch fails."""
+    bps = (blocks_per_sm if isinstance(blocks_per_sm, dict)
+           else {t: blocks_per_sm for t in _BWD_WIDE[dtype]})
+    widest = None
+    for U in dict.fromkeys(u for u, _ in _BWD_WIDE[dtype]):
+        if H % U or H > _WIDE_MAX_H:
+            continue
+        per_group = H // U
+        plans = []
+        for TM in (tm for u, tm in _BWD_WIDE[dtype] if u == U):
+            smem = _bwd_wide_smem(U, TM, H, dtype)
+            groups = min(max(0, bps.get((U, TM), 0)) * n_sm // per_group, R)
+            if smem > smem_limit or groups < 1:
+                continue
+            rows = math.ceil(R / groups)
+            plans.append(dict(units=U, tile_rows=TM, groups=groups, rows_per_group=rows,
+                              tiles_per_group=math.ceil(rows / TM), smem_bytes=smem,
+                              blocks=groups * per_group, tensor_cores=dtype == torch.bfloat16,
+                              co_resident=True))
+        if plans:
+            plan = max(plans, key=lambda p: (p["groups"],
+                                             (p["tile_rows"] == 32) == (p["rows_per_group"] <= 32)))
+            if plan["rows_per_group"] >= _BWD_MIN_GROUP_ROWS[dtype]:
+                return plan
+            widest = widest or plan
+    return widest or dict(units=None, co_resident=False, groups=0)
+
+
+@functools.cache
+def _bwd_wide_card_plan(index: int, R: int, H: int, dtype: torch.dtype) -> dict:
+    """bwd_wide_plan on card `index`, the blocks per SM of every instance that
+    fits read from the card; cached, as the wrapper's host time counts."""
+    dev = torch.device("cuda", index)
+    n_sm, limit = _n_sm(dev), _smem_limit(dev)
+    bps = {}
+    for U, TM in _BWD_WIDE[dtype]:
+        smem = _bwd_wide_smem(U, TM, H, dtype)
+        if H % U or smem > limit:
+            continue
+        n = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = _bwd_wide_lib().lstm_bwd_wide_blocks_per_sm(_DTYPE_CODE[dtype], U, TM, smem,
+                                                              ctypes.byref(n))
+        _raise_on(err, "lstm_bwd_wide (occupancy)")
+        bps[(U, TM)] = n.value
+    return bwd_wide_plan(R, H, dtype, n_sm, limit, bps)
 
 
 def _check_train_args(name: str, x_proj, w_hh, *states):
     """_check_seq_args for the training kernels, which take H <= 768, and
     which of their kernels H picks: -> (T, R, H, wide), wide for the kernels
-    of csrc/lstm_wide.cu (128 < H), else those of csrc/lstm_bwd.cu."""
+    of csrc/lstm_wide.cu and csrc/lstm_bwd_wide.cu (128 < H), else those of
+    csrc/lstm_bwd.cu."""
     T, R, H = _check_seq_args(name, x_proj, w_hh, *states, max_h=_WIDE_MAX_H)
     return T, R, H, H > _MAX_H
 
@@ -846,22 +971,30 @@ def lstm_bwd(x_proj, hs, cs, dhs, w_hh):
 def lstm_bwd_recurrence(x_proj, hs, cs, dhs, w_hh) -> torch.Tensor:
     """The reverse-time kernel of lstm_bwd alone (CUDA tensors only):
     -> dx_proj (T, R, 4H); that of csrc/lstm_bwd.cu for H <= 128, that of
-    csrc/lstm_wide.cu for 128 < H <= 768. Counts in `lstm_bwd.launches`."""
+    csrc/lstm_bwd_wide.cu (the plan of `bwd_wide_plan`) for 128 < H <= 768.
+    Counts in `lstm_bwd.launches`."""
     T, R, H, wide = _check_train_args("lstm_bwd", x_proj, w_hh, hs, cs, dhs)
+    if wide:
+        _check_aligned("lstm_bwd", x_proj, hs, cs, dhs, w_hh)
     dx = torch.empty_like(x_proj)
     args = (_DTYPE_CODE[x_proj.dtype], x_proj.data_ptr(), hs.data_ptr(), cs.data_ptr(),
             dhs.data_ptr(), w_hh.data_ptr(), dx.data_ptr())
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream(x_proj.device).cuda_stream
         if wide:
-            # kernel scratch: each block's float32 share of the next dh carry,
-            # two slots by step parity, for at most ceil(H / 8) blocks; the
-            # float32 dc carry of each (row, unit)
-            part = torch.empty(2, math.ceil(H / 8), R, H, device=x_proj.device,
-                               dtype=torch.float32)
+            plan = _bwd_wide_card_plan(_device_index(x_proj.device), R, H, x_proj.dtype)
+            if not plan["co_resident"]:
+                raise RuntimeError(f"lstm_bwd_wide at R={R}, H={H}, {x_proj.dtype}: no row "
+                                   f"group is co-resident on this card ({plan})")
+            # kernel scratch: each block's float32 share of the next dh carry for
+            # its group's rows, two slots by step parity; the float32 dc carry of
+            # each (row, unit)
+            U = plan["units"]
+            share = torch.empty(2, H // U, R, H, device=x_proj.device, dtype=torch.float32)
             dc = torch.empty(R, H, device=x_proj.device, dtype=torch.float32)
-            err = _wide_lib().lstm_bwd_wide_launch(*args, part.data_ptr(), dc.data_ptr(),
-                                                   R, T, H, stream)
+            err = _bwd_wide_lib().lstm_bwd_wide_launch(
+                *args, share.data_ptr(), dc.data_ptr(), R, T, H, U, plan["tile_rows"],
+                plan["groups"], plan["smem_bytes"], stream)
         else:
             err = _bwd_lib().lstm_bwd_launch(
                 *args, R, T, H, _rows_per_block(R, _n_sm(x_proj.device), 1), stream)
@@ -900,12 +1033,109 @@ def _scan_lib() -> ctypes.CDLL:
 
     lib = load_library("lstm_scan")
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_scan_launch.argtypes = [i, ptr, ptr, ptr, i, i, i, i, ptr]
-    lib.lstm_scan_stateful_launch.argtypes = [i, ptr, ptr, ptr, ptr, ptr, ptr, i, i, i, i, ptr]
-    lib.lstm_scan_bidir_launch.argtypes = [i, ptr, ptr, ptr, i, i, i, i, ptr]
-    for fn in (lib.lstm_scan_launch, lib.lstm_scan_stateful_launch, lib.lstm_scan_bidir_launch):
+    lib.lstm_scan_launch.argtypes = [i, ptr, ptr, ptr, *[i] * 8, ptr]
+    lib.lstm_scan_stateful_launch.argtypes = [i, *[ptr] * 6, *[i] * 8, ptr]
+    lib.lstm_scan_bidir_launch.argtypes = [i, ptr, ptr, ptr, *[i] * 8, ptr]
+    lib.lstm_scan_max_clusters.argtypes = [i, i, i, i, ptr]
+    for fn in (lib.lstm_scan_launch, lib.lstm_scan_stateful_launch, lib.lstm_scan_bidir_launch,
+               lib.lstm_scan_max_clusters):
         fn.restype = ctypes.c_int
     return lib
+
+
+# csrc/lstm_scan.cu's tiles (its `Scan`): the units a block owns (its W_hh
+# columns in registers), the rows of a tile at instance 1 (a tile of instance
+# `inst` has rows * inst), the instances, the pitch of an h row in shared memory
+# and the bytes of the warps' gate scratch
+_SCAN = {torch.bfloat16: dict(units=64, rows=16, insts=(1, 2, 4), hpp=136,
+                              scratch=16 * 16 * 24 * 4),
+         torch.float32: dict(units=32, rows=1, insts=(1, 2, 4, 8, 16), hpp=128, scratch=0)}
+_SCAN_STAGES = 3                # the x ring
+_SCAN_STATIC_SMEM = 16          # bytes of static shared memory beside the plan's (two mbarriers)
+
+
+def _scan_smem(inst: int, dtype: torch.dtype, stages: int) -> int:
+    """Dynamic shared memory of the narrow scan at instance `inst`: two h buffers,
+    a ring of `stages` x steps (the 4 gates x U units of each row) and the
+    warps' gate scratch (bfloat16)."""
+    d = _SCAN[dtype]
+    bm = d["rows"] * inst
+    return (2 * bm * d["hpp"] + stages * bm * 4 * d["units"]) * _ITEM[dtype] + d["scratch"]
+
+
+def scan_narrow_plan(R: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: int,
+                     max_clusters: int | None = None, directions: int = 1) -> dict:
+    """Launch plan of the narrow scan (csrc/lstm_scan.cu, H <= 128) at x_proj
+    (T, directions x R, 4H) (any T) on a card with n_sm SMs and smem_limit bytes
+    a block, holding max_clusters clusters at once (default: one block an SM).
+
+    A cluster of K = ceil(H / U) blocks owns a (direction, row tile); each block
+    keeps its U units' W_hh columns in registers (U = 64 in bfloat16, 32 in
+    float32). As `fused_narrow_plan`: as many tiles a direction as its share
+    of the clusters, each of ceil(R / tiles) rows in the smallest instance that
+    holds them, when the card's clusters hold every row at once (one wave:
+    few rows spread over many clusters, 34 rows over 33 or 34); else tiles of
+    the largest instance, a whole number for each cluster, walked with the
+    weights loaded once. -> units, cluster (K), inst, tile_rows (the
+    instance's), rows (of the largest tile), ntiles, clusters (a direction),
+    rounds (tiles a cluster), stages, smem_bytes, blocks, tensor_cores;
+    `co_resident` False when the kernel cannot run (H > 128, no instance fits
+    or no cluster is held)."""
+    d = _SCAN[dtype]
+    U = d["units"]
+    K = math.ceil(H / U)
+    none = dict(units=U, cluster=K, co_resident=False, ntiles=0, clusters=0)
+    fits = [i for i in d["insts"]
+            if _scan_smem(i, dtype, _SCAN_STAGES) + _SCAN_STATIC_SMEM <= smem_limit]
+    clusters = n_sm // K if max_clusters is None else max_clusters
+    per_dir = clusters // directions
+    if H > _MAX_H or not fits or per_dir < 1 or R < 1:
+        return none
+    top_rows = d["rows"] * max(fits)
+    if R <= per_dir * top_rows:
+        ntiles = min(per_dir, R)
+    else:
+        ntiles = per_dir * math.ceil(R / (per_dir * top_rows))
+    rows = math.ceil(R / ntiles)
+    inst = min(i for i in fits if d["rows"] * i >= rows)
+    ncl = min(per_dir, ntiles)
+    return dict(units=U, cluster=K, inst=inst, tile_rows=d["rows"] * inst, rows=rows,
+                ntiles=ntiles, clusters=ncl, rounds=math.ceil(ntiles / ncl), stages=_SCAN_STAGES,
+                smem_bytes=_scan_smem(inst, dtype, _SCAN_STAGES), blocks=directions * ncl * K,
+                tensor_cores=dtype == torch.bfloat16, co_resident=True)
+
+
+@functools.cache
+def _scan_card_plan(index: int, R: int, H: int, dtype: torch.dtype, directions: int) -> dict:
+    """scan_narrow_plan on card `index`, its clusters read from the card
+    (cudaOccupancyMaxActiveClusters) for the instance the plan picks; cached,
+    as the wrapper's host time counts."""
+    dev = torch.device("cuda", index)
+    n_sm, limit = _n_sm(dev), _smem_limit(dev)
+    plan = scan_narrow_plan(R, H, dtype, n_sm, limit, directions=directions)
+    for _ in range(2):                          # until the co-residency agrees with the plan
+        if not plan["co_resident"]:
+            return plan
+        n = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = _scan_lib().lstm_scan_max_clusters(_DTYPE_CODE[dtype], plan["inst"], H,
+                                                     plan["smem_bytes"], ctypes.byref(n))
+        _raise_on(err, "lstm_scan (occupancy)")
+        again = scan_narrow_plan(R, H, dtype, n_sm, limit, n.value, directions)
+        if again == plan:
+            return again
+        plan = again
+    return plan
+
+
+def _scan_launch_plan(x_proj: torch.Tensor, R: int, H: int, directions: int = 1) -> dict:
+    """scan_narrow_plan for R rows a direction on x_proj's card; raises when
+    the kernel cannot run there."""
+    plan = _scan_card_plan(_device_index(x_proj.device), R, H, x_proj.dtype, directions)
+    if not plan["co_resident"]:
+        raise RuntimeError(f"lstm_scan at R={R}, H={H}, {x_proj.dtype}: no cluster of the "
+                           f"narrow scan is held by this card ({plan})")
+    return plan
 
 
 @functools.cache
@@ -930,8 +1160,7 @@ def _launch_scan(fn, x_proj, w_hh, initial=()):
     name = fn.__name__
     T, R, H = _check_seq_args(name, x_proj, w_hh, initial=initial, max_h=_WIDE_MAX_H)
     wide = H > _MAX_H
-    if wide:
-        _check_aligned(name, x_proj, w_hh, *initial)
+    _check_aligned(name, x_proj, w_hh, *initial)
     hs = torch.empty(T, R, H, device=x_proj.device, dtype=x_proj.dtype)
     outs = (hs, torch.empty_like(hs)) if initial else (hs,)
     if T == 0 or R == 0:
@@ -947,10 +1176,11 @@ def _launch_scan(fn, x_proj, w_hh, initial=()):
                       else _scan_wide_lib().lstm_scan_wide_launch)
             err = launch(dtype, *ptrs, c_state.data_ptr(), R, T, H, stream)
         else:
+            plan = _scan_launch_plan(x_proj, R, H)
             launch = (_scan_lib().lstm_scan_stateful_launch if initial
                       else _scan_lib().lstm_scan_launch)
-            err = launch(dtype, *ptrs, R, T, H, _rows_per_block(R, _n_sm(x_proj.device), 1),
-                         stream)
+            err = launch(dtype, *ptrs, R, T, H, plan["inst"], plan["ntiles"], plan["clusters"],
+                         plan["stages"], plan["smem_bytes"], stream)
     _raise_on(err, name)
     _count(fn, (T, R, H, str(x_proj.dtype).replace("torch.", "")))
     return outs
@@ -1083,8 +1313,8 @@ def lstm_scan_bidir_plain(xp_cat: torch.Tensor, w_stack: torch.Tensor) -> torch.
 
 def _launch_scan_bidir(xp_cat: torch.Tensor, w_stack: torch.Tensor) -> torch.Tensor:
     """The kernel of lstm_scan_bidir on CUDA tensors: csrc/lstm_scan.cu for
-    H <= 128 (a grid of (row tiles of one direction, 2)), csrc/lstm_scan_wide.cu
-    for 128 < H <= 768."""
+    H <= 128 (each direction's clusters on its own tiles, with its own W_hh),
+    csrc/lstm_scan_wide.cu for 128 < H <= 768."""
     name = "lstm_scan_bidir"
     if w_stack.dtype != xp_cat.dtype:
         raise TypeError(f"{name} kernel takes one dtype for xp_cat and w_stack; got "
@@ -1097,8 +1327,7 @@ def _launch_scan_bidir(xp_cat: torch.Tensor, w_stack: torch.Tensor) -> torch.Ten
                          f"{tuple(w_stack.shape)} on {w_stack.device}")
     B = R2 // 2
     wide = H > _MAX_H
-    if wide:
-        _check_aligned(name, xp_cat, w_stack)
+    _check_aligned(name, xp_cat, w_stack)
     hs = torch.empty(T, R2, H, device=xp_cat.device, dtype=xp_cat.dtype)
     if T == 0 or B == 0:
         return hs
@@ -1112,9 +1341,11 @@ def _launch_scan_bidir(xp_cat: torch.Tensor, w_stack: torch.Tensor) -> torch.Ten
                 dtype, xp_cat.data_ptr(), w_stack.data_ptr(), w_stack[H:].data_ptr(),
                 hs.data_ptr(), c_state.data_ptr(), B, T, H, stream)
         else:
+            plan = _scan_launch_plan(xp_cat, B, H, directions=2)
             err = _scan_lib().lstm_scan_bidir_launch(
                 dtype, xp_cat.data_ptr(), w_stack.data_ptr(), hs.data_ptr(), B, T, H,
-                _rows_per_block(B, _n_sm(xp_cat.device), 2), stream)
+                plan["inst"], plan["ntiles"], plan["clusters"], plan["stages"],
+                plan["smem_bytes"], stream)
     _raise_on(err, name)
     _count(lstm_scan_bidir, (T, R2, H, str(xp_cat.dtype).replace("torch.", "")))
     return hs

@@ -9,8 +9,8 @@ instance, T = 1, float32 and bfloat16, the 16-launch BSRNN forward, the
 causal forward (8 lstm_scan + 8 fused), a streaming chunk (8 or 16
 lstm_scan_stateful + 8 fused), lstm_scan_bidir2 from one row to 33 at
 H = 64, 128 and GCRN's 448 with the GCRN forward (2 launches), and the
-wide training kernels (csrc/lstm_wide.cu) at H = 256, 448 and 768 with
-GCRN's grouped LSTM under autograd, and the wide inference kernels
+wide training kernels (csrc/lstm_wide.cu, csrc/lstm_bwd_wide.cu) at H = 256,
+448 and 768 with GCRN's grouped LSTM under autograd, and the wide inference kernels
 (csrc/lstm_fused_wide.cu, csrc/lstm_scan_wide.cu: row groups x unit
 slices) from one row to 700 at H = 136-768, with the BSRNN-L (H = 256)
 forward, causal forward and stream; the TCN block tail (csrc/tcn_tail.cu)
@@ -27,7 +27,15 @@ C + H = 1280, H = 136 and 512, unaligned bfloat16 rows of x), and the
 redesigned narrow fused kernel (csrc/lstm_fused.cu: clusters holding the
 weights, tensor cores in bfloat16) at H = 16 and 128 from one row to BSRNN-M's
 band shape, ragged tiles, C != H, H = 120 (units past H) and unaligned
-bfloat16 rows of x, with the plan it reads from the card.
+bfloat16 rows of x, with the plan it reads from the card; lstm_scan_fused at
+H = 128 where no cluster of that kernel fits (C = 1400): the projection and
+csrc/lstm_bidir2.cu; the redesigned narrow scan (csrc/lstm_scan.cu: clusters
+with W_hh in registers, tensor cores in bfloat16) at H = 8-128 from one row to
+700, from zero and from (h0, c0), B7's two W_hh, clusters walking 1-401 tiles
+of one to three steps, with W_hh's rows reversed as the control; and the
+redesigned wide backward recurrence (csrc/lstm_bwd_wide.cu: row groups x unit
+slices, tensor cores in bfloat16) at H = 136-768 from one row and step to 300
+rows, with the same control; each with the plan it reads from the card.
 """
 import math
 
@@ -150,7 +158,8 @@ def test_training_kernels_raise_on_unsupported(cuda):
         port_lstm.lstm_bwd(xp.transpose(0, 1), dhs, dhs, dhs, whh)
 
 
-# the wide kernels of csrc/lstm_wide.cu (128 < H <= 768): one row and one step,
+# the wide kernels of csrc/lstm_wide.cu and csrc/lstm_bwd_wide.cu (128 < H <= 768):
+# one row and one step,
 # GCRN's training shape (65 steps x 16 rows), and ragged row tiles
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H", [256, 448, 768])
@@ -870,11 +879,21 @@ def test_narrow_fused_plan_on_the_card(cuda):
             assert (plan["units"], plan["cluster"]) == (units, 128 // units)
 
 
-def test_narrow_fused_kernel_raises_where_no_cluster_fits(cuda):
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+def test_narrow_fused_takes_the_bidir2_route_where_no_cluster_fits(cuda, dtype, tol):
     # C + H past what the blocks of any cluster hold in shared memory (the weight slice
-    # beside the x ring)
-    with pytest.raises(NotImplementedError, match="no cluster"):
-        port_lstm.lstm_scan_fused(*_args(4, 3, 1400, 128, torch.bfloat16))
+    # beside the x ring): the projection as torch matmuls and csrc/lstm_bidir2.cu
+    args = _args(4, 3, 1400, 128, dtype)
+    n0 = {k: dict(f.launches_by_kernel)
+          for k, f in (("fused", port_lstm.lstm_scan_fused), ("bidir2", port_lstm.lstm_scan_bidir2))}
+    with torch.inference_mode():
+        got = port_lstm.lstm_scan_fused(*args)
+        torch.cuda.synchronize()
+    assert _kernel_delta(port_lstm.lstm_scan_fused, n0["fused"]) == {}
+    assert _kernel_delta(port_lstm.lstm_scan_bidir2, n0["bidir2"]) == {"lstm_bidir2": 1}
+    ref = port_lstm.lstm_scan_fused_plain(*args)
+    assert got.dtype == dtype and got.shape == (4, 3, 256)
+    assert (got.float() - ref.float()).abs().max().item() <= tol
 
 
 def _narrow_launch(args, inst, ntiles, ncl):
@@ -916,3 +935,161 @@ def test_narrow_fused_kernel_walks_many_tiles(cuda, T, H, dtype, tol):
     ctl = _narrow_launch([x, wif, wib, bf, bb, whb, whf], inst, ntiles, 3)   # W_hh swapped
     if T > 1:                                  # at T = 1 no step reads W_hh
         assert (ctl.float() - ref.float()).abs().max().item() > tol
+
+
+# ---------------------------------------------------------------------------
+# the redesigned narrow scan (csrc/lstm_scan.cu: clusters, W_hh in registers,
+# h by st.async, tensor cores in bfloat16) at the plans of scan_narrow_plan
+# ---------------------------------------------------------------------------
+
+def _reversed_rows(w):
+    """W_hh with its k rows reversed: the control a limit must refuse."""
+    return w.flip(0).contiguous()
+
+
+# H = 8 (one block a cluster), 64, 120 (units past H in the last block) and 128;
+# one row, ragged rows, 34 (one row a cluster), 272 (BSRNN-M's decode), 700 (more
+# than one wave's rows: clusters walk several tiles)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [8, 64, 120, 128])
+@pytest.mark.parametrize("T,R", [(1, 1), (5, 34), (9, 203), (3, 700)])
+def test_narrow_scan_matches_plain(cuda, T, R, H, dtype):
+    xp, whh, _ = _seq_args(T, R, H, dtype, seed=T + R + H)
+    h0, c0 = _state_args(R, H, dtype, seed=R + H)
+    tol = SCAN_TOL[dtype]
+    n0 = {f.__name__: dict(f.launches_by_kernel)
+          for f in (port_lstm.lstm_scan, port_lstm.lstm_scan_stateful)}
+    with torch.inference_mode():
+        hs = port_lstm.lstm_scan(xp, whh)
+        hs_st, cs_st = port_lstm.lstm_scan_stateful(xp, whh, h0, c0)
+        torch.cuda.synchronize()
+        ctl = port_lstm.lstm_scan_stateful(xp, _reversed_rows(whh), h0, c0)[0]
+    for f in (port_lstm.lstm_scan, port_lstm.lstm_scan_stateful):
+        assert _kernel_delta(f, n0[f.__name__]) == {"lstm_scan": 1 + (f is port_lstm.lstm_scan_stateful)}
+    ref = port_lstm.lstm_scan_plain(xp, whh)
+    ref_h, ref_c = port_lstm.lstm_scan_stateful_plain(xp, whh, h0, c0)
+    for got, want in ((hs, ref), (hs_st, ref_h), (cs_st, ref_c)):
+        assert got.dtype == dtype and got.shape == (T, R, H)
+        assert (got.float() - want.float()).abs().max().item() <= tol
+    # the control: W_hh's rows reversed (from (h0, c0) every step reads W_hh); one
+    # row of one step may move by less than the limit
+    if T * R > 1:
+        assert (ctl.float() - ref_h.float()).abs().max().item() > tol
+
+
+def _scan_launch(xp, whh, state, inst, ntiles, ncl):
+    """csrc/lstm_scan.cu at a plan of the caller's: `ntiles` row tiles of the
+    instance `inst`, walked by `ncl` clusters; state (h0, c0) or None."""
+    T, R, G = xp.shape
+    H = G // 4
+    smem = port_lstm._scan_smem(inst, xp.dtype, port_lstm._SCAN_STAGES)
+    hs = torch.empty(T, R, H, device="cuda", dtype=xp.dtype)
+    cs = torch.empty_like(hs)
+    lib, code = port_lstm._scan_lib(), port_lstm._DTYPE_CODE[xp.dtype]
+    plan = (R, T, H, inst, ntiles, ncl, port_lstm._SCAN_STAGES, smem,
+            torch.cuda.current_stream().cuda_stream)
+    if state is None:
+        err = lib.lstm_scan_launch(code, xp.data_ptr(), whh.data_ptr(), hs.data_ptr(), *plan)
+    else:
+        err = lib.lstm_scan_stateful_launch(code, xp.data_ptr(), whh.data_ptr(), state[0].data_ptr(),
+                                            state[1].data_ptr(), hs.data_ptr(), cs.data_ptr(), *plan)
+    port_lstm._raise_on(err, "lstm_scan")
+    torch.cuda.synchronize()
+    return hs, cs
+
+
+# Clusters that walk many short tiles (T = 1-3: every tile boundary, where one
+# tile's h exchange ends and the next begins, a step or three apart), 1, 3 and 7
+# clusters over tiles of 1 and 16 rows, from zero state and from (h0, c0)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 2, 3])
+@pytest.mark.parametrize("H", [16, 128])
+def test_narrow_scan_walks_many_tiles(cuda, T, H, dtype):
+    R = 401
+    xp, whh, _ = _seq_args(T, R, H, dtype, seed=T + H)
+    h0, c0 = _state_args(R, H, dtype, seed=H)
+    tol = SCAN_TOL[dtype]
+    ref = port_lstm.lstm_scan_plain(xp, whh)
+    ref_h, ref_c = port_lstm.lstm_scan_stateful_plain(xp, whh, h0, c0)
+    rows = port_lstm._SCAN[dtype]["rows"]
+    inst = next(i for i in port_lstm._SCAN[dtype]["insts"] if rows * i >= 16)
+    for ntiles in (R, math.ceil(R / 16)):
+        for ncl in (1, 3, 7):
+            hs, _ = _scan_launch(xp, whh, None, inst, ntiles, ncl)
+            assert (hs.float() - ref.float()).abs().max().item() <= tol, (ntiles, ncl)
+            hs, cs = _scan_launch(xp, whh, (h0, c0), inst, ntiles, ncl)
+            assert (hs.float() - ref_h.float()).abs().max().item() <= tol, (ntiles, ncl)
+            assert (cs.float() - ref_c.float()).abs().max().item() <= tol, (ntiles, ncl)
+    ctl, _ = _scan_launch(xp, _reversed_rows(whh), (h0, c0), inst, math.ceil(R / 16), 3)
+    assert (ctl.float() - ref_h.float()).abs().max().item() > tol
+
+
+# B7 on the narrow scan: each direction's rows on its own W_hh, tiles that never
+# straddle row B, one row to more rows than a wave holds
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [8, 64, 120, 128])
+@pytest.mark.parametrize("T,B", [(1, 1), (3, 37), (6, 600)])
+def test_narrow_bidir_scan_matches_plain(cuda, T, B, H, dtype):
+    g = torch.Generator().manual_seed(T + B + H)
+    xp = (0.5 * torch.randn(T, 2 * B, 4 * H, generator=g)).to("cuda", dtype)
+    ws = torch.empty(2 * H, 4 * H).uniform_(-1 / math.sqrt(H), 1 / math.sqrt(H),
+                                            generator=g).to("cuda", dtype)
+    with torch.inference_mode():
+        got = port_lstm.lstm_scan_bidir(xp, ws)
+        torch.cuda.synchronize()
+        ctl = port_lstm.lstm_scan_bidir(xp, torch.cat([ws[H:], ws[:H]]))
+    ref = port_lstm.lstm_scan_bidir_plain(xp, ws)
+    tol = SCAN_TOL[dtype]
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+    if T > 1:                                  # the control: the two W_hh swapped
+        assert (ctl.float() - ref.float()).abs().max().item() > tol
+
+
+def test_narrow_scan_plan_on_the_card(cuda):
+    """The plan the wrapper reads from this card: 34 rows over at least 17
+    clusters (more than one), 272 rows in one wave."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for R in (34, 272):
+            x = torch.zeros(3, R, 512, device="cuda", dtype=dtype)
+            plan = port_lstm._scan_launch_plan(x, R, 128)
+            assert plan["co_resident"] and plan["rounds"] == 1 and plan["clusters"] > 1
+
+
+# ---------------------------------------------------------------------------
+# the redesigned wide backward recurrence (csrc/lstm_bwd_wide.cu: row groups x
+# unit slices, W_hh resident, tensor cores in bfloat16) at the plans of
+# bwd_wide_plan
+# ---------------------------------------------------------------------------
+
+# one row and step; a few rows and steps; 300 rows (groups of many 32- and 64-row
+# tiles); GCRN's 65 x 16; a band-like 34 x 130; H = 136 (k padded to 16 in
+# bfloat16, units of 8), 256 (BSRNN-L), 448 (GCRN), 768 (the widest)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [136, 256, 448, 768])
+@pytest.mark.parametrize("T,R", [(1, 1), (3, 5), (2, 300), (65, 16), (34, 130)])
+def test_wide_backward_matches_plain(cuda, T, R, H, dtype):
+    xp, whh, dhs = _seq_args(T, R, H, dtype, seed=T + R + H)
+    xp = 0.5 * xp
+    hs, cs = (t.to(dtype) for t in port_lstm.lstm_fwd_hc_plain(xp, whh))
+    n0 = dict(port_lstm.lstm_bwd.launches_by_kernel)
+    dx = port_lstm.lstm_bwd_recurrence(xp, hs, cs, dhs, whh)
+    torch.cuda.synchronize()
+    assert _kernel_delta(port_lstm.lstm_bwd, n0) == {"lstm_bwd_wide": 1}
+    ctl = port_lstm.lstm_bwd_recurrence(xp, hs, cs, dhs, _reversed_rows(whh))
+    ref, _ = port_lstm.lstm_bwd_plain(xp, hs, cs, dhs, whh)
+    tol = SEQ_TOL[dtype][0]
+    scale = max(1.0, ref.float().abs().max().item())
+    assert dx.dtype == dtype and dx.shape == (T, R, 4 * H)
+    assert (dx.float() - ref.float()).abs().max().item() <= tol * scale
+    if T > 1:                                  # the control: W_hh's rows reversed
+        assert (ctl.float() - ref.float()).abs().max().item() > tol * scale
+
+
+def test_wide_backward_plan_on_the_card(cuda):
+    """The plan the wrapper reads from this card at BSRNN-L's shapes: every
+    row group co-resident, more than 100 blocks, tensor cores in bfloat16."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for R in (544, 1040):
+            plan = port_lstm._bwd_wide_card_plan(0, R, 256, dtype)
+            assert plan["co_resident"] and plan["blocks"] > 100
+            assert plan["tensor_cores"] == (dtype == torch.bfloat16)

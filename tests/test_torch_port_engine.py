@@ -118,6 +118,7 @@ def test_port_scripts_and_smoke_name_no_jax_import():
               os.path.join(REPO, "scripts", "compare_torch_lstm_layouts.py"),
               os.path.join(REPO, "scripts", "bench_torch_lstm_kernel.py"),
               os.path.join(REPO, "scripts", "bench_torch_fused_plan.py"),
+              os.path.join(REPO, "scripts", "bench_torch_scan_plan.py"),
               os.path.join(REPO, "scripts", "compare_torch_fused_error.py")]
              + glob.glob(os.path.join(REPO, "scripts", "profile_torch_*.py"))
              + glob.glob(os.path.join(REPO, "nvse_tpu_torch", "**", "*.py"), recursive=True))

@@ -1,16 +1,20 @@
-"""The launch plans of the three redesigned kernels, on the CPU.
+"""The launch plans of the five redesigned kernels, on the CPU.
 
 `dw_plan` (the dW_hh reduction of csrc/lstm_bwd.cu), `fused_wide_plan` (the
-wide fused BiLSTM of csrc/lstm_fused_wide.cu) and `fused_narrow_plan` (the
-narrow fused BiLSTM of csrc/lstm_fused.cu) are plain functions of the shape,
-the dtype and the card's SM count, shared-memory limit and blocks (or
-clusters) it holds; the C entries take their plans as arguments. Checked here
-at an H100's figures (132 SMs, 232,448 bytes a block) and at a smaller card's
-(46 SMs, 101,376 bytes): every (row, step) pair in exactly one dW split, every
-row in exactly one narrow tile, each tile and ring in the shared-memory limit,
-the fused grid co-resident or the plan saying it is not, and the plans the
-port reports for BSRNN-L's and BSRNN-M's shapes and the H = 8, 16, 120, 128,
-136, 448 and 512 edges.
+wide fused BiLSTM of csrc/lstm_fused_wide.cu), `fused_narrow_plan` (the
+narrow fused BiLSTM of csrc/lstm_fused.cu), `scan_narrow_plan` (the narrow
+scans of csrc/lstm_scan.cu) and `bwd_wide_plan` (the wide backward
+recurrence of csrc/lstm_bwd_wide.cu) are plain functions of the shape, the
+dtype and the card's SM count, shared-memory limit and blocks (or clusters)
+it holds; the C entries take their plans as arguments. Checked here at an
+H100's figures (132 SMs, 232,448 bytes a block) and at a smaller card's (46
+SMs, 101,376 bytes): every (row, step) pair in exactly one dW split, every
+row in exactly one narrow tile or row group and every unit in one block,
+each tile and ring in the shared-memory limit, the grids co-resident or the
+plan saying they are not, few rows spread over many clusters, and the plans
+the port reports for BSRNN-L's, BSRNN-M's and GCRN's shapes and the H = 8,
+16, 64, 120, 128, 136, 448, 512 and 768 edges; and lstm_scan_fused's route
+at H <= 128 by whether a cluster of the narrow kernel fits (C1).
 """
 import pytest
 import torch
@@ -255,3 +259,165 @@ def test_narrow_smem_matches_the_kernels_layout():
     assert L._narrow_smem(64, 1, 128, 128, BF, 3) == 256 * 264 * 2 + 256 * 4 + (2 + 3) * 16 * 136 * 2
     # float32, 32 units, 32-row tiles: the [256][128] slice, b, h and x rows padded by 4
     assert L._narrow_smem(32, 4, 128, 128, F32, 3) == 256 * 128 * 4 + 128 * 4 + (2 + 3) * 32 * 132 * 4
+
+
+# ---------------------------------------------------------------------------
+# C1: lstm_scan_fused's route at H <= 128 where no cluster of the narrow kernel fits
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_fused_route_by_the_narrow_kernels_fit(dtype):
+    # C + H past what a cluster of 8 holds: the projection and csrc/lstm_bidir2.cu
+    assert L.fused_route(1400, 128, dtype, *H100) == "projection+lstm_bidir2"
+    assert L.fused_route(128, 128, dtype, *H100) == "lstm_fused"
+    assert L.fused_route(256, 256, dtype, *H100) == "lstm_fused_wide"
+    assert L._fused_route(1400, 128, narrow_fits=False) == "projection+lstm_bidir2"
+
+
+# ---------------------------------------------------------------------------
+# the narrow scan (csrc/lstm_scan.cu): scan_narrow_plan
+# ---------------------------------------------------------------------------
+
+# (R, H, directions): BSRNN-M's decode, window, chunk and chunk1; B7's time and band
+# (rows of one direction); ragged and one-row cases; the H = 8 / 64 / 120 edges;
+# more rows than one wave holds
+SCAN_SHAPES = [(272, 128, 1), (34, 128, 1), (3, 128, 1), (1, 8, 1), (203, 120, 1), (700, 64, 1),
+               (544, 128, 2), (8192, 128, 2), (20, 128, 2), (37, 8, 2), (100000, 128, 1)]
+
+
+@pytest.mark.parametrize("card", [H100, SMALL], ids=["h100", "small"])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_scan_plan_covers_every_row_and_unit_once_within_shared_memory(card, dtype):
+    n_sm, limit = card
+    for R, H, dirs in SCAN_SHAPES:
+        p = L.scan_narrow_plan(R, H, dtype, n_sm, limit, directions=dirs)
+        assert p["co_resident"]
+        U, K = p["units"], p["cluster"]
+        assert U == L._SCAN[dtype]["units"] and K == -(-H // U) <= 8
+        # every unit of H in one block of the cluster
+        assert [u for b in range(K) for u in range(b * U, min(H, b * U + U))] == list(range(H))
+        assert p["inst"] in L._SCAN[dtype]["insts"] and p["stages"] == L._SCAN_STAGES
+        assert p["smem_bytes"] == L._scan_smem(p["inst"], dtype, p["stages"])
+        assert p["smem_bytes"] + L._SCAN_STATIC_SMEM <= limit
+        tiles = _tiles(p, R)
+        assert [r for t in tiles for r in t] == list(range(R))   # every row once, in order
+        assert all(0 < len(t) <= p["tile_rows"] for t in tiles)
+        assert p["rows"] == max(map(len, tiles))
+        assert 1 <= p["clusters"] <= min(p["ntiles"], n_sm // K // dirs)
+        assert p["blocks"] == dirs * p["clusters"] * K <= n_sm
+        assert p["rounds"] == -(-p["ntiles"] // p["clusters"])
+        # one wave where the card's clusters hold every row; else every cluster busy
+        if R <= (n_sm // K // dirs) * p["tile_rows"] and p["inst"] < max(L._SCAN[dtype]["insts"]):
+            assert p["rounds"] == 1
+        if p["rounds"] > 1:
+            assert p["clusters"] == n_sm // K // dirs and p["ntiles"] % p["clusters"] == 0
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_scan_plan_spreads_few_rows_and_holds_the_decode_in_one_wave(dtype):
+    # 34 rows (one stream's chunk or window): a tile for each of more than one cluster,
+    # at most two rows a tile; 272 (8 streams, the decode): one wave, every SM
+    p = L.scan_narrow_plan(34, 128, dtype, *H100)
+    assert p["clusters"] > 1 and p["rows"] <= 2 and p["rounds"] == 1
+    p = L.scan_narrow_plan(272, 128, dtype, *H100)
+    assert p["rounds"] == 1 and p["blocks"] == 132
+    assert p["tensor_cores"] == (dtype == BF)
+
+
+def test_scan_plan_at_bsrnn_m_shapes_on_an_h100():
+    keys = ("units", "cluster", "inst", "rows", "ntiles", "clusters", "rounds")
+    got = {(dt, R, d): tuple(p[k] for k in keys)
+           for dt in (BF, F32) for R, d in ((272, 1), (34, 1), (544, 2), (8192, 2))
+           for p in [L.scan_narrow_plan(R, 128, dt, *H100, directions=d)]}
+    assert got == {
+        (BF, 272, 1): (64, 2, 1, 5, 66, 66, 1), (BF, 34, 1): (64, 2, 1, 1, 34, 34, 1),
+        (BF, 544, 2): (64, 2, 2, 17, 33, 33, 1), (BF, 8192, 2): (64, 2, 4, 63, 132, 33, 4),
+        (F32, 272, 1): (32, 4, 16, 9, 33, 33, 1), (F32, 34, 1): (32, 4, 2, 2, 33, 33, 1),
+        (F32, 544, 2): (32, 4, 16, 12, 48, 16, 3), (F32, 8192, 2): (32, 4, 16, 16, 512, 16, 32)}
+
+
+def test_scan_plan_says_when_it_cannot_run():
+    assert not L.scan_narrow_plan(34, 136, BF, *H100)["co_resident"]     # past H = 128
+    assert not L.scan_narrow_plan(34, 128, BF, *H100, 0)["co_resident"]  # no cluster held
+    assert not L.scan_narrow_plan(34, 128, F32, 3, 232448)["co_resident"]
+
+
+def test_scan_smem_matches_the_kernels_layout():
+    # bfloat16, 16-row tiles: two h buffers of 16 x 136, three x stages of 16 x 4 x 64,
+    # and the 16 warps' float32 gate scratch of 16 x 24
+    assert L._scan_smem(1, BF, 3) == (2 * 16 * 136 + 3 * 16 * 256) * 2 + 16 * 16 * 24 * 4
+    # float32, 16 rows a thread: two h buffers of 16 x 128, three stages of 16 x 4 x 32
+    assert L._scan_smem(16, F32, 3) == (2 * 16 * 128 + 3 * 16 * 128) * 4
+
+
+# ---------------------------------------------------------------------------
+# the wide backward recurrence (csrc/lstm_bwd_wide.cu): bwd_wide_plan
+# ---------------------------------------------------------------------------
+
+# (R, H): BSRNN-L training (time, band), GCRN, one row, ragged rows, the edges
+BWD_SHAPES = [(544, 256), (1040, 256), (16, 448), (1, 136), (19, 768), (300, 768), (130, 136),
+              (5000, 256)]
+
+
+def _groups(p, R):
+    """The rows of each row group as the kernel cuts them: R * g / groups."""
+    n = p["groups"]
+    return [range(R * g // n, R * (g + 1) // n) for g in range(n)]
+
+
+@pytest.mark.parametrize("card", [H100, SMALL], ids=["h100", "small"])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_bwd_wide_plan_covers_every_row_and_unit_once_within_shared_memory(card, dtype):
+    n_sm, limit = card
+    for R, H in BWD_SHAPES:
+        p = L.bwd_wide_plan(R, H, dtype, n_sm, limit)
+        if not p["co_resident"]:         # the widest slices need more than the small card's
+            assert card == SMALL and H >= 448 and p["units"] is None
+            continue
+        U, TM = p["units"], p["tile_rows"]
+        assert (U, TM) in L._BWD_WIDE[dtype] and H % U == 0
+        groups = _groups(p, R)
+        assert [r for g in groups for r in g] == list(range(R))   # every row once
+        assert max(map(len, groups)) == p["rows_per_group"]
+        assert p["tiles_per_group"] == -(-p["rows_per_group"] // TM)
+        # the group's H / U blocks hold every unit once; one wave of co-resident blocks
+        assert p["blocks"] == p["groups"] * (H // U) <= n_sm
+        assert p["smem_bytes"] == L._bwd_wide_smem(U, TM, H, dtype)
+        assert p["smem_bytes"] <= limit
+        # as many groups as the card holds, at most one a row
+        assert p["groups"] == min(n_sm // (H // U), R)
+
+
+def test_bwd_wide_plan_at_bsrnn_l_and_gcrn_on_an_h100():
+    keys = ("units", "tile_rows", "groups", "rows_per_group", "tiles_per_group", "blocks")
+    got = {(dt, R, H): tuple(p[k] for k in keys)
+           for dt in (BF, F32) for R, H in ((544, 256), (1040, 256), (16, 448))
+           for p in [L.bwd_wide_plan(R, H, dt, *H100)]}
+    assert got == {
+        (BF, 544, 256): (32, 64, 16, 34, 1, 128), (BF, 1040, 256): (32, 64, 16, 65, 2, 128),
+        (BF, 16, 448): (16, 32, 4, 4, 1, 112),
+        (F32, 544, 256): (16, 64, 8, 68, 2, 128), (F32, 1040, 256): (16, 64, 8, 130, 3, 128),
+        (F32, 16, 448): (8, 32, 2, 8, 1, 112)}
+    # GCRN's 16 rows: the widest slice leaves groups of 2 (bfloat16) or 4 (float32) rows,
+    # so the next slice is taken; with the blocks an H100 reports for each instance, the
+    # float32 time shape takes 32-row tiles at 2 blocks an SM: 16 groups of 34 rows
+    bps = {(16, 64): 1, (16, 32): 2, (8, 64): 2, (8, 32): 2}
+    p = L.bwd_wide_plan(544, 256, F32, *H100, bps)
+    assert (p["units"], p["tile_rows"], p["groups"], p["blocks"]) == (16, 32, 16, 256)
+    assert L.bwd_wide_plan(544, 256, BF, *H100)["tensor_cores"]
+    assert not L.bwd_wide_plan(544, 256, F32, *H100)["tensor_cores"]
+
+
+def test_bwd_wide_plan_says_when_nothing_fits():
+    assert not L.bwd_wide_plan(16, 768, F32, 132, 101376)["co_resident"]   # the slice alone
+    assert not L.bwd_wide_plan(16, 776, BF, *H100)["co_resident"]          # past H = 768
+    assert not L.bwd_wide_plan(16, 256, BF, 4, 232448)["co_resident"]      # no group fits
+
+
+def test_bwd_wide_smem_matches_the_kernels_layout():
+    # bfloat16, U = 32, 64-row tiles, H = 256: the [128][264] slice, the [64][264] h
+    # tile, float32 [64][128] gates, hi and lo [64][136]
+    assert L._bwd_wide_smem(32, 64, 256, BF) == (128 * 264 * 2 + 64 * 264 * 2 + 64 * 128 * 4
+                                                 + 2 * 64 * 136 * 2)
+    # float32, U = 16: the [256][65] slice, the [64][260] h tile, [64][68] gates
+    assert L._bwd_wide_smem(16, 64, 256, F32) == 256 * 65 * 4 + 64 * 260 * 4 + 64 * 68 * 4

@@ -1,7 +1,8 @@
 """Port parity: the LSTM training route at a wide hidden size (GCRN's
 H = 448) and one GCRN GAN step, against the JAX package, on the CPU.
 
-On the card, H = 448 runs the kernels of csrc/lstm_wide.cu; their plain
+On the card, H = 448 runs the kernels of csrc/lstm_wide.cu and
+csrc/lstm_bwd_wide.cu; their plain
 versions `lstm_fwd_hc_plain` / `lstm_bwd_plain` (what the CPU runs, and
 what chip_smoke.py holds the kernels against) are held here against the
 Pallas kernels `lstm_fwd_hc` / `lstm_bwd` in interpret mode (unroll 1, as
