@@ -22,11 +22,12 @@ the last line:
      BSRNN-M training shapes (batch 16: 544 rows x 65 steps, 1040 rows x
      34 steps), with cuDNN's BiLSTM forward + backward beside the port's,
      and at GCRN's (16 rows x 65 steps, H = 448: the wide forward of
-     csrc/lstm_wide.cu and the wide backward of csrc/lstm_bwd_wide.cu, the
-     plan of ops/lstm.py `bwd_wide_plan` named in its row's design), with
-     one cuBLAS GEMM beside the dW_hh reduction (float32 out, as the
-     kernel's, where torch.mm takes out_dtype) and the backward recurrence
-     fed W_hh's rows reversed as the control the limit must refuse;
+     csrc/lstm_scan_wide.cu and the wide backward of csrc/lstm_bwd_wide.cu,
+     the plans of ops/lstm.py `scan_wide_plan` and `bwd_wide_plan` named in
+     their rows' design), with one cuBLAS GEMM beside the dW_hh reduction
+     (float32 out, as the kernel's, where torch.mm takes out_dtype) and the
+     forward and the backward recurrence fed W_hh's rows reversed as the
+     controls the limit must refuse;
      lstm_scan at the causal decode and context-recompute window shapes
      (272 rows x 1024 steps, 34 x 96) and lstm_scan_stateful at the
      streaming chunk shapes (272 x 80 for 8 streams, 34 x 80 for one;
@@ -81,7 +82,7 @@ the last line:
  12. the gradient route of lstm_scan_bidir2 on the card (2 lstm_fwd_hc + 2
      lstm_bwd + 2 dW, none of the inference kernel) against the CPU's
      plain autograd at 65 steps x 16 rows, H = 128 and GCRN's H = 448 (the
-     wide kernels of csrc/lstm_wide.cu and csrc/lstm_bwd_wide.cu), with the
+     wide kernels of csrc/lstm_scan_wide.cu and csrc/lstm_bwd_wide.cu), with the
      two W_hh swapped as the
      control the limit must refuse;
  13. GCRN training (gcrn_train): GANTrainer steps at its full width, batch
@@ -101,7 +102,8 @@ the last line:
      streaming serve on csrc/lstm_scan_wide.cu and csrc/lstm_fused_wide.cu
      (bsrnn_l_stream, bsrnn_l_decode_causal, bsrnn_l_serve_stream); GAN steps
      at batch 16 x 16384 in float32 and bfloat16 (32 launches per step of each
-     wide training kernel of csrc/lstm_wide.cu and csrc/lstm_bwd_wide.cu, and
+     wide training kernel of csrc/lstm_scan_wide.cu (mode kFwdHc) and
+     csrc/lstm_bwd_wide.cu, and
      of the dW_hh reduction, a gradient on all 96 LSTM
      parameters, device busy time and idle share, peak memory) with
      GANTrainer.eval_step on a validation crop (16 wide fused launches;
@@ -110,9 +112,11 @@ the last line:
      wide kernel against its plain version at BSRNN-M's shapes (fused 272 x
      1024, 8192 x 34, 640 / 80 / 96 x 34; the scans at 272 x 1024, 34 x 96,
      272 x 80, 34 x 80; the training kernels at 544 x 65 and 1040 x 34), with
-     the fused kernel's W_hh swapped, the scans' and the backward's W_hh rows
-     reversed and the stateful kernel's state zeroed as controls the limits
-     must refuse;
+     the fused kernel's W_hh swapped, the scans', the training forward's and
+     the backward's W_hh rows reversed and the stateful kernel's state zeroed
+     as controls the limits must refuse (the wide scans of
+     csrc/lstm_scan_wide.cu name the plan of ops/lstm.py `scan_wide_plan` in
+     their design);
  15. ConvTasNet (nvse_tpu_torch/configs/convtasnet_config.json with fused_tcn
      1: 4,960,409 parameters, Griffin-Lim front, 24 TCN blocks): tcn_kernels,
      the tail kernel of csrc/tcn_tail.cu against tcn_block_tail_plain at the
@@ -135,7 +139,8 @@ the last line:
      H = 256) against its plain version at the bench's default shapes (1024
      steps x 2 x 544 rows, 68 x 2 x 8192) at H = 128 and 256 and at a ragged
      64 x 2 x 20, in float32 and bfloat16, with two cuDNN LSTM forwards beside
-     it and the halves of w_stack swapped as the control the limit must refuse
+     it and the halves of w_stack swapped and each half's rows reversed as the
+     controls the limit must refuse
      (lstm_scan_bidir_kernels); the port's LSTM-layout bench
      (scripts/bench_torch_lstm_kernel.py) in this process at its default
      shapes and at --hidden 256, 3 timed calls a variant (bench_lstm_kernel);
@@ -158,8 +163,9 @@ the last line:
      no row fails the run;
  19. print the kernels line (one entry per kernel, shape and dtype, each
      with its launches summed over the main paths; the redesigned dW_hh
-     reduction, wide and narrow fused BiLSTMs, narrow scans and wide backward
-     recurrence name their design and plan),
+     reduction, wide and narrow fused BiLSTMs, narrow and wide scans (the
+     wide training forward among them) and wide backward recurrence name
+     their design and plan),
      then the ok line.
 Exits nonzero without output when no CUDA GPU is visible.
 """
@@ -422,9 +428,9 @@ def phase_serve(name="bsrnn"):
 
 # training shapes at batch 16 x 16384 samples (65 frames) as (label, rows, steps, H):
 # BSRNN-M's time and band BiLSTMs (34 bands, H = 128, csrc/lstm_bwd.cu) and GCRN's
-# group LSTMs (H = 448, the wide kernels of csrc/lstm_wide.cu and csrc/lstm_bwd_wide.cu)
+# group LSTMs (H = 448, the wide kernels of csrc/lstm_scan_wide.cu and csrc/lstm_bwd_wide.cu)
 TRAIN_SHAPES = (("time", 544, 65, 128), ("band", 1040, 34, 128), ("gcrn", 16, 65, 448))
-# BSRNN-L's (H = 256, csrc/lstm_wide.cu and csrc/lstm_bwd_wide.cu)
+# BSRNN-L's (H = 256, csrc/lstm_scan_wide.cu and csrc/lstm_bwd_wide.cu)
 L_TRAIN_SHAPES = (("time", 544, 65, 256), ("band", 1040, 34, 256))
 # training kernels vs plain, as max abs error over max(1, max |plain|):
 # float32 sums in another order; bfloat16 stores hs, cs and dx with 8 bits
@@ -506,11 +512,23 @@ def _dw_library(hs, dx):
 def _design(name, H, dtype, R=None, T=None, C=None):
     """The design of the redesigned kernels at a row's shape, for the kernels
     line: the dW_hh reduction's, the wide fused BiLSTM's, the narrow fused
-    BiLSTM's, the narrow scan's (R: the rows of one direction) and the wide
-    backward's plans (ops/lstm.py `dw_plan`, `fused_wide_plan`,
-    `fused_narrow_plan`, `scan_narrow_plan`, `bwd_wide_plan`) as this card
-    takes them; None elsewhere."""
+    BiLSTM's, the narrow and wide scans' (R: the rows of one direction; the
+    wide training forward is a mode of the wide scan) and the wide backward's
+    plans (ops/lstm.py `dw_plan`, `fused_wide_plan`, `fused_narrow_plan`,
+    `scan_narrow_plan`, `scan_wide_plan`, `bwd_wide_plan`) as this card takes
+    them; None elsewhere."""
     from nvse_tpu_torch.ops import lstm as L
+
+    if name in L._SCAN_WIDE_MODE and H > L._MAX_H:
+        dirs = 2 if name == "lstm_scan_bidir" else 1
+        p = L._scan_wide_card_plan(0, R, H, dtype, dirs, name)
+        mma = ("mma.sync m16n8k16 bf16, "
+               + ("f32 h split hi + lo" if name == "lstm_fwd_hc" else "h as stored"))
+        return (f"{mma if p['tensor_cores'] else 'f32 FMA'}, {p['groups']} row groups x "
+                f"{H // p['units']} slices of {p['units']} units a direction ({p['blocks']} "
+                f"blocks, {p['launch_dirs']} direction(s) a launch), {p['tiles_per_group']} "
+                f"tiles of <= {p['tile_rows']} rows a group, W_hh column slice resident, x_proj "
+                f"prefetched by cp.async, one grid barrier a step")
 
     if name in ("lstm_scan_fused", "lstm_step_variant") and H <= L._MAX_H:
         p = L._fused_narrow_card_plan(0, R, C, H, dtype, 0)
@@ -575,9 +593,10 @@ def phase_train_kernels(shapes=TRAIN_SHAPES, phase="kernel_vs_plain"):
                 dw_ref = L.lstm_dw_hh_plain(hs, dx)
                 errs = {"lstm_fwd_hc": max(_err(hs, hs_ref), _err(cs, cs_ref), key=lambda e: e[1]),
                         "lstm_bwd": _err(dx, dx_ref), "lstm_bwd_dw": _err(dw, dw_ref)}
-                # the recurrence's control: W_hh's rows reversed
-                bwd_control = _err(L.lstm_bwd_recurrence(xp, hs, cs, dhs, whh.flip(0).contiguous()),
-                                   dx_ref)[1]
+                # the forward's and the recurrence's control: W_hh's rows reversed
+                w_rev = whh.flip(0).contiguous()
+                fwd_control = _err(L.lstm_fwd_hc(xp, w_rev)[0], hs_ref)[1]
+                bwd_control = _err(L.lstm_bwd_recurrence(xp, hs, cs, dhs, w_rev), dx_ref)[1]
                 dx_ctl = dx.clone()
                 dx_ctl.view(-1, G)[-DW_CONTROL_ROWS:] = 0
                 dw_control = _err(L.lstm_dw_hh_plain(hs, dx_ctl), dw_ref)[1]
@@ -614,11 +633,16 @@ def phase_train_kernels(shapes=TRAIN_SHAPES, phase="kernel_vs_plain"):
                                design=_design(name, H, dtype, R=R, T=T))
                 if name == "lstm_bwd":
                     row.update(control_rel_err=bwd_control, design=_design(name, H, dtype, R=R))
+                if name == "lstm_fwd_hc":
+                    row.update(control_rel_err=fwd_control, design=_design(name, H, dtype, R=R))
                 say(phase=phase, **row)
                 if not (rel <= tols[name]):
                     raise SystemExit(f"{name} {label} {DT_NAME[dtype]}: error {err} "
                                      f"({rel} relative) over tolerance {tols[name]}")
                 rows.append(row)
+            if not (fwd_control > TRAIN_TOL[dtype]):
+                raise SystemExit(f"lstm_fwd_hc {label} {DT_NAME[dtype]}: the control with W_hh's "
+                                 f"rows reversed ({fwd_control}) passes the tolerance")
             if not (bwd_control > TRAIN_TOL[dtype]):
                 raise SystemExit(f"lstm_bwd {label} {DT_NAME[dtype]}: the control with W_hh's "
                                  f"rows reversed ({bwd_control}) passes the tolerance")
@@ -759,7 +783,7 @@ def phase_train(model="bsrnn", causal=False, validate=False):
     """Full-width GAN steps, batch 16 x 16384: BSRNN-M's non-causal config in
     float32 and bfloat16, its causal one (the time LSTM one direction,
     through lstm_scan's residual-saving route) in float32; BSRNN-L (H = 256:
-    the wide training kernels of csrc/lstm_wide.cu and csrc/lstm_bwd_wide.cu at
+    the wide training kernels of csrc/lstm_scan_wide.cu and csrc/lstm_bwd_wide.cu at
     544 x 65 and 1040 x 34)
     in float32 and bfloat16; GCRN (its four group LSTMs through
     lstm_scan_bidir2's residual-saving route, the wide training kernels at 65
@@ -1297,7 +1321,7 @@ def phase_bidir2_grad():
     """lstm_scan_bidir2 under autograd on the card, its residual-saving route
     (lstm_fwd_hc and lstm_bwd per scan) against the CPU's plain autograd:
     at H = 128 (the kernels of csrc/lstm_bwd.cu) and at GCRN's training
-    shape, 65 steps x 16 rows x H = 448 (csrc/lstm_wide.cu); the control,
+    shape, 65 steps x 16 rows x H = 448 (csrc/lstm_scan_wide.cu); the control,
     which the limit must refuse, is the card's route with the two W_hh
     swapped."""
     from nvse_tpu_torch.ops import lstm as L
@@ -1665,6 +1689,8 @@ def phase_bidir_kernels(cases, phase="lstm_scan_bidir_kernels"):
             lib_err = (torch.cat(library(), dim=1).float() - ref.float()).abs().max().item()
             ctl = L.lstm_scan_bidir(xp, torch.cat(whh[::-1]).contiguous())
             control = (ctl.float() - ref.float()).abs().max().item()
+            ctl = L.lstm_scan_bidir(xp, torch.cat([w.flip(0) for w in whh]).contiguous())
+            w_control = (ctl.float() - ref.float()).abs().max().item()
             ms = cuda_ms(run, iters=10)
             plain_ms = cuda_ms(plain, iters=2, warmup=0)
             library_ms = cuda_ms(library, iters=10)
@@ -1676,6 +1702,7 @@ def phase_bidir_kernels(cases, phase="lstm_scan_bidir_kernels"):
                    plain_ms=plain_ms, library_ms=library_ms,
                    library="2 cuDNN LSTM forwards, projection included",
                    library_max_abs_err=lib_err, control_max_abs_err=control,
+                   control_whh_max_abs_err=w_control,
                    bound_ms=bound, bound_by=bound_by, tflops=ops / (ms * 1e-3) / 1e12)
         say(phase=phase, **row)
         if not (err <= TOL[dtype]):
@@ -1684,6 +1711,9 @@ def phase_bidir_kernels(cases, phase="lstm_scan_bidir_kernels"):
         if not (control > TOL[dtype]):
             raise SystemExit(f"lstm_scan_bidir {label} H={H} {DT_NAME[dtype]}: the control with "
                              f"the halves of w_stack swapped ({control}) passes the tolerance")
+        if not (w_control > TOL[dtype]):
+            raise SystemExit(f"lstm_scan_bidir {label} H={H} {DT_NAME[dtype]}: the control with "
+                             f"each half's rows reversed ({w_control}) passes the tolerance")
         rows.append(row)
     return rows
 

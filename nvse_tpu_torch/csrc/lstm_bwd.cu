@@ -57,8 +57,8 @@
 //     step); dh_carry in shared memory.
 // - The dW kernels: dW_hh is (H, 4H) = 256 KiB in float32, which fits
 //   neither a block's shared memory nor its registers, so it is a second
-//   kernel (also that of the wide recurrence of csrc/lstm_wide.cu, up to
-//   H = 768): a GEMM over the T*R rows of [h_{t-1} | dx_proj], 128 x 128
+//   kernel (also that of the wide recurrence of csrc/lstm_bwd_wide.cu, up
+//   to H = 768): a GEMM over the T*R rows of [h_{t-1} | dx_proj], 128 x 128
 //   output tiles, split over the rows so that the grid fills the card; the
 //   splits add their sums into the float32 (H, 4H) with atomics (in an order
 //   that varies from run to run; a single split stores).
@@ -556,7 +556,7 @@ int dw_blocks_per_sm(int* blocks) {
 }
 
 // the recurrences run one thread per gate column (4H <= 512); the dW
-// reduction is tiled and takes the wide kernels' H <= 768 (csrc/lstm_wide.cu)
+// reduction is tiled and takes the wide kernels' H <= 768 (csrc/lstm_bwd_wide.cu)
 bool bad_shape(int R, int Tn, int H, int max_h = 128) {
   return R <= 0 || Tn <= 0 || H <= 0 || H > max_h || H % 8;
 }

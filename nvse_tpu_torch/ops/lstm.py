@@ -33,7 +33,9 @@ caller's (h0, c0), returning hs and cs) has no gradient. Both scans pick
 their kernel from H: csrc/lstm_scan.cu for H <= 128 (the cluster layout of
 csrc/lstm_fused.cu without the input product: W_hh in registers, h by
 st.async, tensor cores in bfloat16, the plan of `scan_narrow_plan`),
-csrc/lstm_scan_wide.cu (the layout of csrc/lstm_grid.cuh) for 128 < H <= 768.
+csrc/lstm_scan_wide.cu for 128 < H <= 768 (the layout of
+csrc/lstm_bwd_wide.cu: row groups x slices of hidden units over the card,
+W_hh resident, tensor cores in bfloat16, the plan of `scan_wide_plan`).
 `lstm_scan_bidir2` (two independent scans in one launch: the grouped
 LSTM of GCRN, H = 448 over batch rows) is the kernel of
 csrc/lstm_bidir2.cu, which spreads the hidden units over the card and
@@ -42,14 +44,15 @@ and `lstm_bwd` per scan, as the JAX custom_vjp at pallas_lstm.py:545-563).
 `lstm_scan_bidir` (both directions of a BiLSTM as stacked rows of one
 scan; no model calls it, as in the JAX package) is the kernel of
 csrc/lstm_scan.cu for H <= 128 and of csrc/lstm_scan_wide.cu (mode
-kScanBidir of csrc/lstm_grid.cuh) for 128 < H <= 768; under autograd it is
+kScanBidir) for 128 < H <= 768; under autograd it is
 `_BidirRecompute`, whose backward differentiates the plain version
 recomputed (the JAX custom_vjp at pallas_lstm.py:959-981).
 The training kernels pick theirs from H too: csrc/lstm_bwd.cu (one thread
 per gate column) for H <= 128; for 128 < H <= 768 the residual-saving
-forward of csrc/lstm_wide.cu and the backward recurrence of
-csrc/lstm_bwd_wide.cu (row groups x slices of hidden units over the card,
-W_hh resident, tensor cores in bfloat16, the plan of `bwd_wide_plan`); the
+forward of csrc/lstm_scan_wide.cu (mode kFwdHc) and the backward recurrence
+of csrc/lstm_bwd_wide.cu (row groups x slices of hidden units over the card,
+W_hh resident, tensor cores in bfloat16, the plans of `scan_wide_plan` and
+`bwd_wide_plan`); the
 dW_hh reduction of csrc/lstm_bwd.cu (a GEMM: tensor cores in bfloat16, CUDA
 cores in float32, split over the rows by `dw_plan`) takes both.
 Every wrapper launches its CUDA kernel on a CUDA tensor or raises, and
@@ -82,8 +85,8 @@ __all__ = ["lstm_bwd", "lstm_bwd_plain", "lstm_dw_hh", "lstm_dw_hh_plain", "lstm
 
 _MAX_H = 128                    # lstm_fused.cu, lstm_scan.cu: a cluster's blocks hold the
                                 # weights; lstm_bwd.cu: one thread per gate column
-_WIDE_MAX_H = 768               # lstm_bidir2.cu, lstm_wide.cu, lstm_bwd_wide.cu,
-                                # lstm_scan_wide.cu: hidden units spread over the card
+_WIDE_MAX_H = 768               # lstm_bidir2.cu, lstm_bwd_wide.cu, lstm_scan_wide.cu:
+                                # hidden units spread over the card
 # lstm_fused_wide.cu: both directions' H / 8 blocks co-resident on 128 SMs, and the
 # float32 (C + H, 32) weight slice of 8 units beside its staging ring in 227 KB
 _FUSED_WIDE_MAX_H, _FUSED_WIDE_MAX_K = 512, 1280
@@ -94,7 +97,7 @@ _ITEM = {torch.float32: 4, torch.bfloat16: 2}      # bytes an element
 _SOURCES = {"lstm_scan_fused": ("lstm_fused", "lstm_fused_wide"),
             "lstm_scan": ("lstm_scan", "lstm_scan_wide"),
             "lstm_scan_stateful": ("lstm_scan", "lstm_scan_wide"),
-            "lstm_fwd_hc": ("lstm_bwd", "lstm_wide"),
+            "lstm_fwd_hc": ("lstm_bwd", "lstm_scan_wide"),
             "lstm_bwd": ("lstm_bwd", "lstm_bwd_wide"),
             "lstm_dw_hh": ("lstm_bwd", "lstm_bwd"),
             "lstm_scan_bidir2": ("lstm_bidir2", "lstm_bidir2"),
@@ -706,17 +709,6 @@ def _bwd_lib() -> ctypes.CDLL:
 
 
 @functools.cache
-def _wide_lib() -> ctypes.CDLL:
-    from ._build import load_library
-
-    lib = load_library("lstm_wide")
-    ptr, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_fwd_hc_wide_launch.argtypes = [i, ptr, ptr, ptr, ptr, ptr, ptr, i, i, i, ptr]
-    lib.lstm_fwd_hc_wide_launch.restype = ctypes.c_int
-    return lib
-
-
-@functools.cache
 def _bwd_wide_lib() -> ctypes.CDLL:
     from ._build import load_library
 
@@ -819,8 +811,8 @@ def _bwd_wide_card_plan(index: int, R: int, H: int, dtype: torch.dtype) -> dict:
 def _check_train_args(name: str, x_proj, w_hh, *states):
     """_check_seq_args for the training kernels, which take H <= 768, and
     which of their kernels H picks: -> (T, R, H, wide), wide for the kernels
-    of csrc/lstm_wide.cu and csrc/lstm_bwd_wide.cu (128 < H), else those of
-    csrc/lstm_bwd.cu."""
+    of csrc/lstm_scan_wide.cu and csrc/lstm_bwd_wide.cu (128 < H), else those
+    of csrc/lstm_bwd.cu."""
     T, R, H = _check_seq_args(name, x_proj, w_hh, *states, max_h=_WIDE_MAX_H)
     return T, R, H, H > _MAX_H
 
@@ -847,8 +839,9 @@ def lstm_fwd_hc(x_proj: torch.Tensor, w_hh: torch.Tensor):
     """(T, R, 4H), (H, 4H) -> (hs, cs), each (T, R, H): the residual-saving
     forward scan from zero state. CUDA tensors launch a hand-written
     kernel that replaces nvse_tpu/ops/pallas_lstm_bwd.py:lstm_fwd_hc, that
-    of csrc/lstm_bwd.cu for H <= 128, that of csrc/lstm_wide.cu for
-    128 < H <= 768; CPU tensors run lstm_fwd_hc_plain. Counts launches in
+    of csrc/lstm_bwd.cu for H <= 128, mode kFwdHc of csrc/lstm_scan_wide.cu
+    (the plan of `scan_wide_plan`) for 128 < H <= 768; CPU tensors run
+    lstm_fwd_hc_plain. Counts launches in
     `lstm_fwd_hc.launches` (and per (T, R, H, dtype) in
     `lstm_fwd_hc.launches_by_shape`)."""
     if x_proj.device.type == "cpu":
@@ -861,11 +854,16 @@ def lstm_fwd_hc(x_proj: torch.Tensor, w_hh: torch.Tensor):
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream(x_proj.device).cuda_stream
         if wide:
-            # kernel scratch: the float32 h exchanged between blocks, two slots
-            # by step parity, and the float32 c of each (row, unit)
-            state = torch.empty(3, R, H, device=x_proj.device, dtype=torch.float32)
-            err = _wide_lib().lstm_fwd_hc_wide_launch(*args, state.data_ptr(),
-                                                      state[2].data_ptr(), R, T, H, stream)
+            _check_aligned("lstm_fwd_hc", x_proj, w_hh)
+            plan = _scan_wide_launch_plan("lstm_fwd_hc", x_proj, R, H)
+            # kernel scratch: in bfloat16 h - bf16(h) of each (row, unit), two
+            # slots by step parity (hs holds bf16(h)); the float32 c of each (row, unit)
+            lo = (torch.empty(2, R, H, device=x_proj.device, dtype=torch.bfloat16)
+                  if x_proj.dtype == torch.bfloat16 else None)
+            c_state = torch.empty(R, H, device=x_proj.device, dtype=torch.float32)
+            err = _scan_wide_lib().lstm_fwd_hc_wide_launch(
+                *args, None if lo is None else lo.data_ptr(), c_state.data_ptr(), R, T, H,
+                *_scan_wide_plan_args(plan), stream)
         else:
             err = _bwd_lib().lstm_fwd_hc_launch(
                 *args, R, T, H, _rows_per_block(R, _n_sm(x_proj.device), 1), stream)
@@ -1144,13 +1142,134 @@ def _scan_wide_lib() -> ctypes.CDLL:
 
     lib = load_library("lstm_scan_wide")
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_scan_wide_launch.argtypes = [i, ptr, ptr, ptr, ptr, i, i, i, ptr]
-    lib.lstm_scan_stateful_wide_launch.argtypes = [i, *[ptr] * 7, i, i, i, ptr]
-    lib.lstm_scan_bidir_wide_launch.argtypes = [i, *[ptr] * 5, i, i, i, ptr]
-    for fn in (lib.lstm_scan_wide_launch, lib.lstm_scan_stateful_wide_launch,
-               lib.lstm_scan_bidir_wide_launch):
+    lib.lstm_fwd_hc_wide_launch.argtypes = [i, *[ptr] * 6, *[i] * 7, ptr]
+    lib.lstm_scan_wide_launch.argtypes = [i, *[ptr] * 4, *[i] * 7, ptr]
+    lib.lstm_scan_stateful_wide_launch.argtypes = [i, *[ptr] * 7, *[i] * 7, ptr]
+    lib.lstm_scan_bidir_wide_launch.argtypes = [i, *[ptr] * 5, *[i] * 8, ptr]
+    lib.lstm_scan_wide_blocks_per_sm.argtypes = [i, i, i, i, i, ptr]
+    for fn in (lib.lstm_fwd_hc_wide_launch, lib.lstm_scan_wide_launch,
+               lib.lstm_scan_stateful_wide_launch, lib.lstm_scan_bidir_wide_launch,
+               lib.lstm_scan_wide_blocks_per_sm):
         fn.restype = ctypes.c_int
     return lib
+
+
+# csrc/lstm_scan_wide.cu's instances as (units a block, rows a tile), widest
+# slice first (its `with_instance`), and its modes (its `Mode`): the wrapper
+# that launches each
+_SCAN_WIDE = {torch.bfloat16: ((32, 64), (32, 32), (16, 64), (16, 32), (8, 64), (8, 32)),
+              torch.float32: ((16, 64), (16, 32), (8, 64), (8, 32))}
+_SCAN_WIDE_MODE = {"lstm_scan": 1, "lstm_scan_stateful": 2, "lstm_scan_bidir": 3,
+                   "lstm_fwd_hc": 4}
+
+
+def _scan_wide_min_group_rows(dtype: torch.dtype, mode: str) -> int:
+    """Rows a row group of the wide scan at least (where R has them): 8; 4 for
+    lstm_fwd_hc in bfloat16, whose h goes in as two products (hi + lo)."""
+    return 4 if dtype == torch.bfloat16 and mode == "lstm_fwd_hc" else 8
+
+
+def _scan_wide_smem(U: int, tile_rows: int, H: int, dtype: torch.dtype,
+                    mode: str = "lstm_scan") -> int:
+    """Dynamic shared memory of the wide scan (its `Lay`): the W_hh column
+    slice, the h tile (two planes, hi and lo, for lstm_fwd_hc in bfloat16), the
+    gate sums and the ring of two x tiles, each 16-byte aligned. bfloat16 pads k
+    to 16 and each row of the slice and the h tile by 8 values, each row of the
+    gate sums by 8 floats."""
+    up = lambda v: -(-v // 16) * 16
+    TM, NC, item = tile_rows, 4 * U, _ITEM[dtype]
+    if dtype == torch.bfloat16:
+        kp = up(H) + 8
+        planes = 2 if mode == "lstm_fwd_hc" else 1
+        parts = (NC * kp * 2, planes * TM * kp * 2, TM * (NC + 8) * 4)
+    else:
+        parts = (H * (NC + 1) * 4, TM * (H + 4) * 4, TM * (NC + 4) * 4)
+    return sum(up(p) for p in (*parts, 2 * TM * NC * item))
+
+
+def scan_wide_plan(R: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: int,
+                   blocks_per_sm: int | dict = 1, directions: int = 1,
+                   mode: str = "lstm_scan") -> dict:
+    """Launch plan of the wide forward scans (csrc/lstm_scan_wide.cu, 128 < H <=
+    768) for the wrapper `mode` (lstm_scan, lstm_scan_stateful, lstm_scan_bidir,
+    lstm_fwd_hc) at R rows a direction (any T) on a card with n_sm SMs,
+    smem_limit bytes a block and blocks_per_sm blocks an SM (one number, or one
+    for each instance (units, tile rows) as the card reports it). Of every
+    instance that fits, row groups of H / U blocks a direction: as many as are
+    co-resident, at most one block an SM and at least 8 rows a group (4 for
+    lstm_fwd_hc in bfloat16; one group where R is fewer); the
+    plan with the most blocks, at a tie the widest slice, then tiles of 32 rows
+    where a group has at most 32, else of 64. A step is a product, a cell and a
+    grid barrier: more blocks share the product, while a second block on an SM
+    or a group of fewer rows buys nothing (scripts/bench_torch_scan_plan.py
+    --kernel scan_wide). Two directions run in one launch where both
+    directions' groups are co-resident, else one launch a direction
+    (`launch_dirs` 1). -> units, tile_rows, groups (a direction),
+    rows_per_group, tiles_per_group, launch_dirs, blocks (a launch),
+    smem_bytes, tensor_cores; `co_resident` False when nothing fits: the
+    kernel cannot run, and its launch fails."""
+    inst = _SCAN_WIDE[dtype]
+    bps = (blocks_per_sm if isinstance(blocks_per_sm, dict) else {t: blocks_per_sm for t in inst})
+    plans = []
+    for U, TM in inst:
+        smem = _scan_wide_smem(U, TM, H, dtype, mode)
+        if H % U or H > _WIDE_MAX_H or R < 1 or smem > smem_limit:
+            continue
+        per_group = H // U
+        slots = max(0, bps.get((U, TM), 0)) * n_sm // per_group
+        dirs = directions if slots >= directions else 1
+        groups = min(slots // dirs, max(1, n_sm // (per_group * dirs)),
+                     max(1, R // _scan_wide_min_group_rows(dtype, mode)))
+        if groups < 1:
+            continue
+        rows = math.ceil(R / groups)
+        plans.append(dict(units=U, tile_rows=TM, groups=groups, rows_per_group=rows,
+                          tiles_per_group=math.ceil(rows / TM), launch_dirs=dirs,
+                          smem_bytes=smem, blocks=dirs * groups * per_group,
+                          tensor_cores=dtype == torch.bfloat16, co_resident=True))
+    if not plans:
+        return dict(units=None, co_resident=False, groups=0)
+    return max(plans, key=lambda p: (p["launch_dirs"], p["blocks"], p["units"],
+                                     (p["tile_rows"] == 32) == (p["rows_per_group"] <= 32)))
+
+
+@functools.cache
+def _scan_wide_card_plan(index: int, R: int, H: int, dtype: torch.dtype, directions: int = 1,
+                         mode: str = "lstm_scan") -> dict:
+    """scan_wide_plan on card `index`, the blocks per SM of every instance that
+    fits read from the card; cached, as the wrapper's host time counts."""
+    dev = torch.device("cuda", index)
+    n_sm, limit = _n_sm(dev), _smem_limit(dev)
+    bps = {}
+    for U, TM in _SCAN_WIDE[dtype]:
+        smem = _scan_wide_smem(U, TM, H, dtype, mode)
+        if H % U or smem > limit:
+            continue
+        n = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = _scan_wide_lib().lstm_scan_wide_blocks_per_sm(
+                _DTYPE_CODE[dtype], _SCAN_WIDE_MODE[mode], U, TM, smem, ctypes.byref(n))
+        _raise_on(err, f"{mode} (occupancy)")
+        bps[(U, TM)] = n.value
+    return scan_wide_plan(R, H, dtype, n_sm, limit, bps, directions, mode)
+
+
+def _scan_wide_launch_plan(name: str, x_proj: torch.Tensor, R: int, H: int,
+                           directions: int = 1) -> dict:
+    """scan_wide_plan for the wrapper `name` at R rows a direction on x_proj's
+    card; raises when nothing fits there."""
+    plan = _scan_wide_card_plan(_device_index(x_proj.device), R, H, x_proj.dtype, directions,
+                                name)
+    if not plan["co_resident"]:
+        raise RuntimeError(f"{name} at R={R}, H={H}, {x_proj.dtype}: no row group of the wide "
+                           f"scan (csrc/lstm_scan_wide.cu) is co-resident on this card ({plan})")
+    return plan
+
+
+def _scan_wide_plan_args(plan: dict) -> tuple:
+    """(units, tile rows, row groups, smem bytes): the plan as the C entries
+    take it (the bidir entry takes the directions a launch before the smem)."""
+    return plan["units"], plan["tile_rows"], plan["groups"], plan["smem_bytes"]
 
 
 def _launch_scan(fn, x_proj, w_hh, initial=()):
@@ -1170,11 +1289,13 @@ def _launch_scan(fn, x_proj, w_hh, initial=()):
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream(x_proj.device).cuda_stream
         if wide:
+            plan = _scan_wide_launch_plan(name, x_proj, R, H)
             # kernel scratch: the float32 c of each (row, unit)
             c_state = torch.empty(R, H, device=x_proj.device, dtype=torch.float32)
             launch = (_scan_wide_lib().lstm_scan_stateful_wide_launch if initial
                       else _scan_wide_lib().lstm_scan_wide_launch)
-            err = launch(dtype, *ptrs, c_state.data_ptr(), R, T, H, stream)
+            err = launch(dtype, *ptrs, c_state.data_ptr(), R, T, H, *_scan_wide_plan_args(plan),
+                         stream)
         else:
             plan = _scan_launch_plan(x_proj, R, H)
             launch = (_scan_lib().lstm_scan_stateful_launch if initial
@@ -1335,11 +1456,14 @@ def _launch_scan_bidir(xp_cat: torch.Tensor, w_stack: torch.Tensor) -> torch.Ten
     with torch.cuda.device(xp_cat.device):
         stream = torch.cuda.current_stream(xp_cat.device).cuda_stream
         if wide:
+            plan = _scan_wide_launch_plan(name, xp_cat, B, H, directions=2)
             # kernel scratch: the float32 c of each (direction, row, unit)
             c_state = torch.empty(2, B, H, device=xp_cat.device, dtype=torch.float32)
+            U, TM, groups, smem = _scan_wide_plan_args(plan)
             err = _scan_wide_lib().lstm_scan_bidir_wide_launch(
                 dtype, xp_cat.data_ptr(), w_stack.data_ptr(), w_stack[H:].data_ptr(),
-                hs.data_ptr(), c_state.data_ptr(), B, T, H, stream)
+                hs.data_ptr(), c_state.data_ptr(), B, T, H, U, TM, groups, plan["launch_dirs"],
+                smem, stream)
         else:
             plan = _scan_launch_plan(xp_cat, B, H, directions=2)
             err = _scan_lib().lstm_scan_bidir_launch(

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""The wide inference kernels (csrc/lstm_fused_wide.cu, csrc/lstm_grid.cuh)
+"""The wide inference kernels (csrc/lstm_fused_wide.cu, csrc/lstm_scan_wide.cu)
 at H = 128 against the narrow kernels that serve H <= 128 (csrc/lstm_fused.cu,
-the cluster kernel of `fused_narrow_plan`, and csrc/lstm_scan.cu, one thread a
-gate column), at every shape BSRNN-M's paths give them, in float32 and
-bfloat16.
+the cluster kernel of `fused_narrow_plan`, and csrc/lstm_scan.cu, the cluster
+kernel of `scan_narrow_plan`), at every shape BSRNN-M's paths give them, in
+float32 and bfloat16.
 
     python3 scripts/compare_torch_lstm_layouts.py [--out chiprun_out/lstm_layouts.jsonl]
 

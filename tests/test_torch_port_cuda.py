@@ -9,10 +9,11 @@ instance, T = 1, float32 and bfloat16, the 16-launch BSRNN forward, the
 causal forward (8 lstm_scan + 8 fused), a streaming chunk (8 or 16
 lstm_scan_stateful + 8 fused), lstm_scan_bidir2 from one row to 33 at
 H = 64, 128 and GCRN's 448 with the GCRN forward (2 launches), and the
-wide training kernels (csrc/lstm_wide.cu, csrc/lstm_bwd_wide.cu) at H = 256,
-448 and 768 with GCRN's grouped LSTM under autograd, and the wide inference kernels
-(csrc/lstm_fused_wide.cu, csrc/lstm_scan_wide.cu: row groups x unit
-slices) from one row to 700 at H = 136-768, with the BSRNN-L (H = 256)
+wide training kernels (csrc/lstm_scan_wide.cu mode kFwdHc, csrc/lstm_bwd_wide.cu)
+at H = 136-768 up to BSRNN-L's shapes with GCRN's grouped LSTM under autograd, and the
+wide inference kernels (csrc/lstm_fused_wide.cu, csrc/lstm_scan_wide.cu: row groups x
+unit slices) from one row to 700 at H = 136-768 with W_hh's rows reversed as the
+control and a plan that does not fit raising, with the BSRNN-L (H = 256)
 forward, causal forward and stream; the TCN block tail (csrc/tcn_tail.cu)
 from one step to 700, dilations 1-300 (past T), 2 Bc over two column tiles,
 under autograd, and a 24-block ConvTasNet forward (24 launches); the
@@ -158,21 +159,26 @@ def test_training_kernels_raise_on_unsupported(cuda):
         port_lstm.lstm_bwd(xp.transpose(0, 1), dhs, dhs, dhs, whh)
 
 
-# the wide kernels of csrc/lstm_wide.cu and csrc/lstm_bwd_wide.cu (128 < H <= 768):
-# one row and one step,
-# GCRN's training shape (65 steps x 16 rows), and ragged row tiles
+# the wide kernels of csrc/lstm_scan_wide.cu (mode kFwdHc) and csrc/lstm_bwd_wide.cu
+# (128 < H <= 768): one row and one step, GCRN's training shape (65 steps x 16
+# rows), ragged row tiles, BSRNN-L's time and band shapes (544 x 65, 1040 x 34),
+# H = 136 and 264 (k padded to 16 in bfloat16, units of 8) and many rows at the widest H
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H", [256, 448, 768])
-@pytest.mark.parametrize("T,R", [(1, 1), (65, 16), (9, 19)])
+@pytest.mark.parametrize("T,R,H", [(1, 1, 256), (65, 16, 256), (9, 19, 256), (1, 1, 448),
+                                   (65, 16, 448), (9, 19, 448), (1, 1, 768), (65, 16, 768),
+                                   (9, 19, 768), (65, 544, 256), (34, 1040, 256), (9, 37, 136),
+                                   (9, 37, 264), (5, 300, 768)])
 def test_wide_training_kernels_match_plain(cuda, T, R, H, dtype):
     xp, whh, dhs = _seq_args(T, R, H, dtype, seed=H + R)
     xp = 0.5 * xp
     fns = port_lstm.lstm_fwd_hc, port_lstm.lstm_bwd, port_lstm.lstm_dw_hh
     n = [f.launches for f in fns]
+    k0 = dict(port_lstm.lstm_fwd_hc.launches_by_kernel)
     hs, cs = port_lstm.lstm_fwd_hc(xp, whh)
     dx, dw = port_lstm.lstm_bwd(xp, hs, cs, dhs, whh)
     torch.cuda.synchronize()
     assert [f.launches - k for f, k in zip(fns, n)] == [1, 1, 1]
+    assert _kernel_delta(port_lstm.lstm_fwd_hc, k0) == {"lstm_scan_wide": 1}
     assert port_lstm.lstm_fwd_hc.launches_by_shape[(T, R, H, str(dtype)[6:])] >= 1
     hs_ref, cs_ref = port_lstm.lstm_fwd_hc_plain(xp, whh)
     dx_ref, dw_ref = port_lstm.lstm_bwd_plain(xp, hs, cs, dhs, whh)
@@ -180,6 +186,9 @@ def test_wide_training_kernels_match_plain(cuda, T, R, H, dtype):
     for got, ref in ((hs, hs_ref), (cs, cs_ref), (dx, dx_ref)):
         assert got.dtype == dtype and got.shape == ref.shape
         torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    if T > 1:                                  # the control: W_hh's rows reversed
+        ctl, _ = port_lstm.lstm_fwd_hc(xp, _reversed_rows(whh))
+        assert (ctl.float() - hs_ref.float()).abs().max().item() > atol
     # dW sums up to T * R products of stored values: held relative to its largest entry
     scale = max(1.0, dw_ref.float().abs().max().item())
     assert dw.dtype == dtype and (dw.float() - dw_ref.float()).abs().max().item() <= atol * scale
@@ -496,9 +505,14 @@ def test_wide_fused_kernel_matches_plain(cuda, B, T, C, H, dtype, tol):
         assert (ctl.float() - ref.float()).abs().max().item() > tol
 
 
+# one row and step; ragged rows at H = 136, 264, 448 and 768; BSRNN-L's decode,
+# window and chunk shapes (272 x 1024, 34 x 96, 272 x 80, 34 x 80); 700 rows (groups
+# of many tiles)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,R,H", [(1, 1, 256), (17, 3, 136), (9, 272, 256), (34, 34, 256),
-                                   (6, 700, 256), (5, 40, 768)])
+                                   (6, 700, 256), (5, 40, 768), (1024, 272, 256),
+                                   (96, 34, 256), (80, 272, 256), (80, 34, 256), (9, 37, 264),
+                                   (7, 53, 448), (5, 203, 768)])
 def test_wide_scan_kernels_match_plain(cuda, T, R, H, dtype):
     xp, whh, _ = _seq_args(T, R, H, dtype, seed=T + R)
     xp = 0.5 * xp
@@ -520,7 +534,50 @@ def test_wide_scan_kernels_match_plain(cuda, T, R, H, dtype):
     with torch.inference_mode():
         torch.testing.assert_close(port_lstm.lstm_scan_stateful(xp, whh, z, z)[0], hs,
                                    atol=0, rtol=0)
+        w_rev = _reversed_rows(whh)            # the control: W_hh's rows reversed
+        ctl = port_lstm.lstm_scan(xp, w_rev), *port_lstm.lstm_scan_stateful(xp, w_rev, h0, c0)
     assert not torch.equal(hs_st, hs)
+    for got, want in zip(ctl, (ref, ref_h, ref_c)):
+        if T > 1 or got is not ctl[0]:        # the stateful scan multiplies h0 at step 0
+            assert (got.float() - want.float()).abs().max().item() > tol
+
+
+def test_wide_scan_raises_where_no_plan_fits(cuda, monkeypatch):
+    """A plan that is not co-resident raises before the launch, and a grid that
+    is too large for the card is a launch error, never a hang."""
+    xp, whh, _ = _seq_args(3, 1000, 256, torch.float32)
+    with torch.inference_mode():
+        lib = port_lstm._scan_wide_lib()
+        hs = torch.empty(3, 1000, 256, device="cuda")
+        c_state = torch.empty_like(hs[0])
+        plan = port_lstm._scan_wide_card_plan(0, 1000, 256, torch.float32)
+        U, TM, _, smem = port_lstm._scan_wide_plan_args(plan)
+        err = lib.lstm_scan_wide_launch(0, xp.data_ptr(), whh.data_ptr(), hs.data_ptr(),
+                                        c_state.data_ptr(), 1000, 3, 256, U, TM, 1000, smem,
+                                        torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err != 0                        # 1000 row groups of 256 / U blocks
+        monkeypatch.setattr(port_lstm, "_scan_wide_card_plan",
+                            lambda *a: dict(units=None, co_resident=False, groups=0))
+        for call in (lambda: port_lstm.lstm_scan(xp, whh),
+                     lambda: port_lstm.lstm_fwd_hc(xp, whh),
+                     lambda: port_lstm.lstm_scan_bidir(xp[:, :10].contiguous(),
+                                                       torch.cat([whh, whh]))):
+            with pytest.raises(RuntimeError, match="R=.*H=256.*co-resident"):
+                call()
+
+
+def test_wide_scan_plan_on_the_card(cuda):
+    """The plan the wrappers read from this card at BSRNN-L's shapes: every row
+    group co-resident, more than 100 blocks, tensor cores in bfloat16."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for mode, R in (("lstm_fwd_hc", 544), ("lstm_fwd_hc", 1040), ("lstm_scan", 272),
+                        ("lstm_scan_stateful", 272), ("lstm_scan", 34)):
+            plan = port_lstm._scan_wide_card_plan(0, R, 256, dtype, 1, mode)
+            assert plan["co_resident"] and plan["blocks"] > 100
+            assert plan["tensor_cores"] == (dtype == torch.bfloat16)
+        plan = port_lstm._scan_wide_card_plan(0, 544, 256, dtype, 2, "lstm_scan_bidir")
+        assert plan["co_resident"] and plan["launch_dirs"] == 2
 
 
 def _bsrnn_l(causal):
@@ -665,10 +722,12 @@ def test_convtasnet_forward_launches_24_tails(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,B,H", [(1, 1, 128), (17, 20, 128), (9, 616, 64), (64, 20, 256),
-                                   (5, 3, 136), (9, 40, 256), (4, 5, 768)])
+                                   (5, 3, 136), (9, 40, 256), (4, 5, 768), (9, 37, 264),
+                                   (6, 45, 448), (1024, 544, 256), (68, 8192, 256)])
 def test_bidir_scan_kernel_matches_plain(cuda, T, B, H, dtype):
-    """Ragged B (20, 616: no tile straddles row B), one row, H = 768 (one launch
-    a direction: both directions' blocks are not co-resident)."""
+    """Ragged B (20, 616: no tile straddles row B), one row, H = 768 (in float32
+    one launch a direction: both directions' blocks are not co-resident), the
+    bench's time and band shapes at H = 256."""
     g = torch.Generator().manual_seed(T + B + H)
     xp = (0.5 * torch.randn(T, 2 * B, 4 * H, generator=g)).to("cuda", dtype)
     ws = torch.empty(2 * H, 4 * H).uniform_(-1 / math.sqrt(H), 1 / math.sqrt(H),

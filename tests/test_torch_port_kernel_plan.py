@@ -421,3 +421,147 @@ def test_bwd_wide_smem_matches_the_kernels_layout():
                                                  + 2 * 64 * 136 * 2)
     # float32, U = 16: the [256][65] slice, the [64][260] h tile, [64][68] gates
     assert L._bwd_wide_smem(16, 64, 256, F32) == 256 * 65 * 4 + 64 * 260 * 4 + 64 * 68 * 4
+
+
+# ---------------------------------------------------------------------------
+# the wide forward scans (csrc/lstm_scan_wide.cu): scan_wide_plan
+# ---------------------------------------------------------------------------
+
+# (wrapper, directions): the kernel's four modes
+SCAN_WIDE_MODES = [("lstm_scan", 1), ("lstm_scan_stateful", 1), ("lstm_fwd_hc", 1),
+                   ("lstm_scan_bidir", 2)]
+# (R, H): BSRNN-L's paths (training, decode, chunks, windows), GCRN's training
+# forward, B7's band rows, one row, ragged rows, the edges
+SCAN_WIDE_SHAPES = [(544, 256), (1040, 256), (272, 256), (34, 256), (16, 448), (8192, 256),
+                    (1, 136), (19, 768), (300, 768), (130, 264), (37, 760)]
+
+
+def _random_cards(n, seed=0):
+    """(n_sm, smem limit, blocks an SM of each instance) of n made-up cards."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [(int(rng.integers(8, 200)), int(rng.integers(96, 228)) * 1024,
+             {dt: {i: int(rng.integers(0, 4)) for i in L._SCAN_WIDE[dt]} for dt in (BF, F32)})
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("mode,dirs", SCAN_WIDE_MODES, ids=[m for m, _ in SCAN_WIDE_MODES])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_scan_wide_plan_covers_every_row_and_unit_once_within_shared_memory(mode, dirs, dtype):
+    for n_sm, limit, bps in [(*H100, None), (*SMALL, None), *_random_cards(12)]:
+        bps = 1 if bps is None else bps[dtype]
+        for R, H in SCAN_WIDE_SHAPES:
+            p = L.scan_wide_plan(R, H, dtype, n_sm, limit, bps, dirs, mode)
+            if not p["co_resident"]:         # no instance fits this card: checked below
+                continue
+            U, TM = p["units"], p["tile_rows"]
+            assert (U, TM) in L._SCAN_WIDE[dtype] and H % U == 0
+            groups = _groups(p, R)
+            assert [r for g in groups for r in g] == list(range(R))   # every row once
+            assert max(map(len, groups)) == p["rows_per_group"]
+            assert p["tiles_per_group"] == -(-p["rows_per_group"] // TM)
+            assert p["smem_bytes"] == L._scan_wide_smem(U, TM, H, dtype, mode) <= limit
+            # the group's H / U blocks hold every unit once; one wave of co-resident blocks
+            per_sm = bps if isinstance(bps, int) else bps[(U, TM)]
+            slots = per_sm * n_sm // (H // U)
+            d = p["launch_dirs"]
+            assert d == (dirs if slots >= dirs else 1)
+            # co-resident; one block an SM (one group where a group alone needs more);
+            # at least 8 rows a group where R has them (4 for the training forward
+            # in bfloat16)
+            least = 4 if dtype == BF and mode == "lstm_fwd_hc" else 8
+            assert p["groups"] == min(slots // d, max(1, n_sm // (d * H // U)), max(1, R // least))
+            assert p["blocks"] == d * p["groups"] * (H // U) <= per_sm * n_sm
+            assert p["blocks"] <= n_sm or p["groups"] == 1
+            assert p["tensor_cores"] == (dtype == BF)
+
+
+def test_scan_wide_plan_at_bsrnn_l_gcrn_and_b7_on_an_h100():
+    keys = ("units", "tile_rows", "groups", "rows_per_group", "tiles_per_group", "launch_dirs",
+            "blocks")
+    cases = [("lstm_fwd_hc", 544, 65), ("lstm_fwd_hc", 1040, 34), ("lstm_fwd_hc", 16, 65),
+             ("lstm_scan", 272, 1024), ("lstm_scan_stateful", 272, 80), ("lstm_scan", 34, 96),
+             ("lstm_scan_stateful", 34, 80), ("lstm_scan_bidir", 544, 1024),
+             ("lstm_scan_bidir", 8192, 68)]
+    got = {(dt, mode, R, T): tuple(p[k] for k in keys)
+           for dt in (BF, F32) for mode, R, T in cases
+           for p in [L.scan_wide_plan(R, 448 if R == 16 else 256, dt, *H100, 1,
+                                      2 if mode == "lstm_scan_bidir" else 1, mode)]}
+    assert got == {
+        # BSRNN-L's training forward: the time and band BiLSTMs, one block an SM
+        (BF, "lstm_fwd_hc", 544, 65): (32, 64, 16, 34, 1, 1, 128),
+        (BF, "lstm_fwd_hc", 1040, 34): (32, 64, 16, 65, 2, 1, 128),
+        (F32, "lstm_fwd_hc", 544, 65): (16, 64, 8, 68, 2, 1, 128),
+        (F32, "lstm_fwd_hc", 1040, 34): (16, 64, 8, 130, 3, 1, 128),
+        # GCRN's 16 rows at H = 448: groups of 4 (bfloat16) or 8 (float32) rows, the
+        # widest slice that then fills the card
+        (BF, "lstm_fwd_hc", 16, 65): (16, 32, 4, 4, 1, 1, 112),
+        (F32, "lstm_fwd_hc", 16, 65): (8, 32, 2, 8, 1, 1, 112),
+        # the causal decode (and the offline decode beside the streams), a chunk of 8 streams
+        (BF, "lstm_scan", 272, 1024): (32, 32, 16, 17, 1, 1, 128),
+        (BF, "lstm_scan_stateful", 272, 80): (32, 32, 16, 17, 1, 1, 128),
+        (F32, "lstm_scan", 272, 1024): (16, 64, 8, 34, 1, 1, 128),
+        (F32, "lstm_scan_stateful", 272, 80): (16, 64, 8, 34, 1, 1, 128),
+        # a window and a chunk of one stream: 34 rows, 4 groups of 8-9
+        (BF, "lstm_scan", 34, 96): (8, 32, 4, 9, 1, 1, 128),
+        (BF, "lstm_scan_stateful", 34, 80): (8, 32, 4, 9, 1, 1, 128),
+        (F32, "lstm_scan", 34, 96): (8, 32, 4, 9, 1, 1, 128),
+        (F32, "lstm_scan_stateful", 34, 80): (8, 32, 4, 9, 1, 1, 128),
+        # B7: both directions in one launch
+        (BF, "lstm_scan_bidir", 544, 1024): (32, 64, 8, 68, 2, 2, 128),
+        (BF, "lstm_scan_bidir", 8192, 68): (32, 64, 8, 1024, 16, 2, 128),
+        (F32, "lstm_scan_bidir", 544, 1024): (16, 64, 4, 136, 3, 2, 128),
+        (F32, "lstm_scan_bidir", 8192, 68): (16, 64, 4, 2048, 32, 2, 128)}
+    # a second block an SM buys nothing where one block an SM fills the card ...
+    p = L.scan_wide_plan(272, 256, BF, *H100, 2)
+    assert (p["units"], p["groups"], p["blocks"]) == (32, 16, 128)
+    # ... but makes a group co-resident where it needs more blocks than the card has
+    # SMs: at H = 768 in float32 a group is 96 blocks of 8 units
+    assert L.scan_wide_plan(16, 768, F32, 46, 232448, 2)["co_resident"] is False
+    p = L.scan_wide_plan(16, 768, F32, 46, 232448, 3)
+    assert (p["units"], p["groups"], p["blocks"]) == (8, 1, 96)
+
+
+@pytest.mark.parametrize("mode,dirs", SCAN_WIDE_MODES, ids=[m for m, _ in SCAN_WIDE_MODES])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_scan_wide_plan_fits_at_every_h_on_an_h100(mode, dirs, dtype):
+    """Where the JAX function computes, the port computes: every H of the wide
+    kernel, few rows and many, one block an SM."""
+    for H in range(136, 769, 8):
+        for R in (1, 16, 34, 1040):
+            p = L.scan_wide_plan(R, H, dtype, *H100, 1, dirs, mode)
+            assert p["co_resident"], (H, R, p)
+    # both directions of B7 in one launch up to H = 768 in bfloat16; float32 at H = 768
+    # takes one launch a direction (2 x 96 blocks of 8 units on 132 SMs)
+    assert L.scan_wide_plan(5, 768, BF, *H100, 1, 2, "lstm_scan_bidir")["launch_dirs"] == 2
+    assert L.scan_wide_plan(5, 768, F32, *H100, 1, 2, "lstm_scan_bidir")["launch_dirs"] == 1
+
+
+def test_scan_wide_plan_says_when_nothing_fits():
+    assert not L.scan_wide_plan(16, 776, BF, *H100)["co_resident"]          # past H = 768
+    assert not L.scan_wide_plan(16, 256, F32, 4, 232448)["co_resident"]     # no group fits
+    assert not L.scan_wide_plan(16, 768, F32, 132, 101376)["co_resident"]   # the slice alone
+    assert not L.scan_wide_plan(16, 256, BF, *H100, 0)["co_resident"]       # no block an SM
+    assert not L.scan_wide_plan(0, 256, BF, *H100)["co_resident"]           # no row
+    # the split h of the training forward needs more than the scan: at H = 760 in
+    # bfloat16 (8-unit slices only) a 120 KB card holds the scan but not lstm_fwd_hc
+    assert L.scan_wide_plan(16, 760, BF, 132, 122880)["co_resident"]
+    assert not L.scan_wide_plan(16, 760, BF, 132, 122880, mode="lstm_fwd_hc")["co_resident"]
+
+
+def test_scan_wide_smem_matches_the_kernels_layout():
+    # bfloat16, U = 32, 64-row tiles, H = 256: the [128][264] slice, the [64][264] h
+    # tile (two planes, hi and lo, for lstm_fwd_hc), float32 [64][136] gates, the
+    # x ring [2][64][128]
+    scan = 128 * 264 * 2 + 64 * 264 * 2 + 64 * 136 * 4 + 2 * 64 * 128 * 2
+    assert L._scan_wide_smem(32, 64, 256, BF) == scan
+    assert L._scan_wide_smem(32, 64, 256, BF, "lstm_fwd_hc") == scan + 64 * 264 * 2
+    # float32, U = 16: the [256][65] slice, the [64][260] h tile, [64][68] gates, the
+    # x ring [2][64][64]; one plane in every mode
+    f32 = 256 * 65 * 4 + 64 * 260 * 4 + 64 * 68 * 4 + 2 * 64 * 64 * 4
+    assert L._scan_wide_smem(16, 64, 256, F32) == f32
+    assert L._scan_wide_smem(16, 64, 256, F32, "lstm_fwd_hc") == f32
+    # H = 136 in bfloat16 pads k to 144, then 8: rows of 152
+    assert L._scan_wide_smem(8, 32, 136, BF) == (32 * 152 * 2 + 32 * 152 * 2 + 32 * 40 * 4
+                                                 + 2 * 32 * 32 * 2)

@@ -6,7 +6,10 @@ versions of the kernels of csrc/lstm_scan.cu) are held against the XLA
 references `_xla_lstm_scan` / `_xla_lstm_scan_stateful` and against the
 Pallas kernels in interpret mode, on the same numpy inputs, time-major.
 Row counts are no multiple of the Pallas tile's 8 rows and T no multiple
-of the unroll, so the kernels' padding is exercised.
+of the unroll, so the kernels' padding is exercised; bfloat16 also at
+H = 136, a hidden size of csrc/lstm_scan_wide.cu, where the residual-saving
+forward's plain version (float32 h in the product) and the scan's (h rounded)
+are each held to their own JAX function.
 Tolerances: float32 rtol/atol 1e-5 (the same arithmetic, summed in another
 order); bfloat16 rtol/atol 0.05, the limit of the JAX package's own bf16
 kernel test (tests/test_pallas_lstm.py:273-287).
@@ -79,6 +82,36 @@ def test_scan_plain_bf16_matches_pallas_interpret():
     np.testing.assert_allclose(_np32(got), np.asarray(ref, np.float32), **BF16_TOL)
 
 
+def test_scan_plain_bf16_matches_pallas_interpret_at_a_wide_h():
+    # H = 136: the hidden sizes of csrc/lstm_scan_wide.cu (128 < H), k no multiple of 16
+    args = _data(9, 5, 136, seed=3)
+    ref = jax_lstm._pallas_lstm_scan(*_j(*args, dtype=jnp.bfloat16), interpret=True, unroll=1)
+    got = port_lstm.lstm_scan_plain(*_t(*args, dtype=torch.bfloat16))
+    assert got.dtype == torch.bfloat16 and got.shape == (9, 5, 136)
+    np.testing.assert_allclose(_np32(got), np.asarray(ref, np.float32), **BF16_TOL)
+
+
+def test_fwd_hc_plain_multiplies_unrounded_h_where_scan_plain_rounds_it():
+    """bfloat16 at H = 136: lstm_fwd_hc_plain (the training forward) multiplies
+    the float32 h, lstm_scan_plain (inference) h rounded to bfloat16, each as
+    its JAX function does (pallas_lstm_bwd.py:147-160; `_hdot`, pallas_lstm.py:
+    36-43). Each agrees with its own JAX function but for a rare rounding flip,
+    and the two differ by a bfloat16 step at many outputs."""
+    from nvse_tpu.ops.pallas_lstm_bwd import lstm_fwd_hc as jax_fwd_hc
+
+    xp, whh = _data(9, 5, 136, seed=5)
+    jargs, targs = _j(xp, whh, dtype=jnp.bfloat16), _t(xp, whh, dtype=torch.bfloat16)
+    j_scan = np.asarray(jax_lstm._pallas_lstm_scan(*jargs, interpret=True, unroll=1), np.float32)
+    j_fwd = np.asarray(jax_fwd_hc(*jargs, interpret=True, unroll=1)[0], np.float32)
+    p_scan = _np32(port_lstm.lstm_scan_plain(*targs))
+    p_fwd = _np32(port_lstm.lstm_fwd_hc_plain(*targs)[0])
+    share = lambda a, b: float(np.mean(a != b))     # outputs that differ
+    for got, ref in ((p_scan, j_scan), (p_fwd, j_fwd)):
+        np.testing.assert_allclose(got, ref, **BF16_TOL)
+        assert share(got, ref) < 0.01
+    assert share(p_fwd, p_scan) > 0.05 and share(p_fwd, j_scan) > 0.05
+
+
 def test_scan_cpu_wrapper_runs_plain_and_counts_no_launch():
     xp, whh = _t(*_data(7, 5, 8))
     n = port_lstm.lstm_scan.launches, port_lstm.lstm_scan_stateful.launches
@@ -118,6 +151,16 @@ def test_stateful_plain_bf16_matches_pallas_interpret():
                                                        interpret=True, unroll=1)
     hs, cs = port_lstm.lstm_scan_stateful_plain(*_t(*args, dtype=torch.bfloat16))
     assert hs.dtype == cs.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np32(hs), np.asarray(ref_h, np.float32), **BF16_TOL)
+    np.testing.assert_allclose(_np32(cs), np.asarray(ref_c, np.float32), **BF16_TOL)
+
+
+def test_stateful_plain_bf16_matches_pallas_interpret_at_a_wide_h():
+    args = _data(9, 5, 136, seed=10, state=True)
+    ref_h, ref_c = jax_lstm._pallas_lstm_scan_stateful(*_j(*args, dtype=jnp.bfloat16),
+                                                       interpret=True, unroll=1)
+    hs, cs = port_lstm.lstm_scan_stateful_plain(*_t(*args, dtype=torch.bfloat16))
+    assert hs.dtype == cs.dtype == torch.bfloat16 and hs.shape == (9, 5, 136)
     np.testing.assert_allclose(_np32(hs), np.asarray(ref_h, np.float32), **BF16_TOL)
     np.testing.assert_allclose(_np32(cs), np.asarray(ref_c, np.float32), **BF16_TOL)
 

@@ -1,8 +1,8 @@
 """Port parity: the LSTM training route at a wide hidden size (GCRN's
 H = 448) and one GCRN GAN step, against the JAX package, on the CPU.
 
-On the card, H = 448 runs the kernels of csrc/lstm_wide.cu and
-csrc/lstm_bwd_wide.cu; their plain
+On the card, H = 448 runs the kernels of csrc/lstm_scan_wide.cu (mode
+kFwdHc) and csrc/lstm_bwd_wide.cu; their plain
 versions `lstm_fwd_hc_plain` / `lstm_bwd_plain` (what the CPU runs, and
 what chip_smoke.py holds the kernels against) are held here against the
 Pallas kernels `lstm_fwd_hc` / `lstm_bwd` in interpret mode (unroll 1, as
@@ -127,6 +127,9 @@ def test_training_kernels_take_h_up_to_768_before_touching_gpu(name, h, accepted
 def test_training_kernels_pick_the_wide_kernels_above_h_128(monkeypatch, h, wide):
     monkeypatch.setattr(port_lstm, "_check_seq_args", lambda *a, **kw: (5, 3, h))
     assert port_lstm._check_train_args("lstm_fwd_hc", None, None) == (5, 3, h, wide)
+    # the launch counters name the source: the forward is a mode of the wide scan
+    assert port_lstm._kernel_source("lstm_fwd_hc", h) == ("lstm_scan_wide" if wide else "lstm_bwd")
+    assert port_lstm._kernel_source("lstm_bwd", h) == ("lstm_bwd_wide" if wide else "lstm_bwd")
 
 
 def test_cpu_tensors_at_h448_run_the_plain_versions_and_count_no_launch():
