@@ -20,7 +20,11 @@ the last line:
      row's design); lstm_fwd_hc,
      lstm_bwd and the dW_hh reduction at the
      BSRNN-M training shapes (batch 16: 544 rows x 65 steps, 1040 rows x
-     34 steps), with cuDNN's BiLSTM forward + backward beside the port's,
+     34 steps: the narrow kernels, mode kFwdHc of csrc/lstm_scan.cu and the
+     cluster recurrence of csrc/lstm_bwd.cu, or the wide ones where
+     ops/lstm.py `train_route` picks them, the plans of `scan_narrow_plan` and
+     `bwd_narrow_plan` named in their rows' design and the kernel in their
+     source), with cuDNN's BiLSTM forward + backward beside the port's,
      and at GCRN's (16 rows x 65 steps, H = 448: the wide forward of
      csrc/lstm_scan_wide.cu and the wide backward of csrc/lstm_bwd_wide.cu,
      the plans of ops/lstm.py `scan_wide_plan` and `bwd_wide_plan` named in
@@ -164,8 +168,8 @@ the last line:
  19. print the kernels line (one entry per kernel, shape and dtype, each
      with its launches summed over the main paths; the redesigned dW_hh
      reduction, wide and narrow fused BiLSTMs, narrow and wide scans (the
-     wide training forward among them) and wide backward recurrence name
-     their design and plan),
+     training forwards among them) and narrow and wide backward recurrences
+     name their design and plan),
      then the ok line.
 Exits nonzero without output when no CUDA GPU is visible.
 """
@@ -270,13 +274,26 @@ FUSED_SHAPES = (("time", 272, 1024), ("band", 8192, 34), ("band_chunk", 640, 34)
 FUSED_RAGGED = ("ragged", 203, 37, 124, 120)
 
 
-def _source(name, H):
+def _source(name, H, R=None, dtype=None):
     """The csrc path of the kernel that the wrapper `name` launches at H (the
-    smoke's lstm_bwd_dw is the wrapper lstm_dw_hh)."""
-    from nvse_tpu_torch.ops.lstm import _kernel_source
+    smoke's lstm_bwd_dw is the wrapper lstm_dw_hh); for the training kernels
+    at R rows and dtype, the one `train_route` picks on this card."""
+    from nvse_tpu_torch.ops import lstm as L
 
-    stem = _kernel_source({"lstm_bwd_dw": "lstm_dw_hh"}.get(name, name), H)
+    if name in L._TRAIN_KERNELS and R is not None:
+        stem = _train_route(name, H, dtype, R)[0]
+    else:
+        stem = L._kernel_source({"lstm_bwd_dw": "lstm_dw_hh"}.get(name, name), H)
     return f"nvse_tpu_torch/csrc/{stem}.cu"
+
+
+def _train_route(name, H, dtype, R):
+    """(kernel stem, its plan) of the training wrapper `name` (lstm_fwd_hc,
+    lstm_bwd) at (R, H, dtype) on this card, as the wrapper picks it."""
+    from nvse_tpu_torch.ops import lstm as L
+
+    probe = torch.empty(1, R, 4 * H, device="cuda", dtype=dtype)
+    return L._card_train_route(name, probe, R, H)
 
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -427,7 +444,8 @@ def phase_serve(name="bsrnn"):
 
 
 # training shapes at batch 16 x 16384 samples (65 frames) as (label, rows, steps, H):
-# BSRNN-M's time and band BiLSTMs (34 bands, H = 128, csrc/lstm_bwd.cu) and GCRN's
+# BSRNN-M's time and band BiLSTMs (34 bands, H = 128, csrc/lstm_scan.cu mode kFwdHc and
+# csrc/lstm_bwd.cu) and GCRN's
 # group LSTMs (H = 448, the wide kernels of csrc/lstm_scan_wide.cu and csrc/lstm_bwd_wide.cu)
 TRAIN_SHAPES = (("time", 544, 65, 128), ("band", 1040, 34, 128), ("gcrn", 16, 65, 448))
 # BSRNN-L's (H = 256, csrc/lstm_scan_wide.cu and csrc/lstm_bwd_wide.cu)
@@ -513,13 +531,35 @@ def _design(name, H, dtype, R=None, T=None, C=None):
     """The design of the redesigned kernels at a row's shape, for the kernels
     line: the dW_hh reduction's, the wide fused BiLSTM's, the narrow fused
     BiLSTM's, the narrow and wide scans' (R: the rows of one direction; the
-    wide training forward is a mode of the wide scan) and the wide backward's
+    training forward is a mode of the scans), the narrow and wide backward's
     plans (ops/lstm.py `dw_plan`, `fused_wide_plan`, `fused_narrow_plan`,
-    `scan_narrow_plan`, `scan_wide_plan`, `bwd_wide_plan`) as this card takes
-    them; None elsewhere."""
+    `scan_narrow_plan`, `scan_wide_plan`, `bwd_narrow_plan`, `bwd_wide_plan`)
+    as this card takes them; None elsewhere."""
     from nvse_tpu_torch.ops import lstm as L
 
-    if name in L._SCAN_WIDE_MODE and H > L._MAX_H:
+    wide = H > L._MAX_H
+    if name in L._TRAIN_KERNELS:              # the kernel that train_route picks
+        stem, p = _train_route(name, H, dtype, R)
+        wide = stem != L._TRAIN_KERNELS[name][0]
+        if name == "lstm_fwd_hc" and not wide:
+            mma = "mma.sync m16n8k16 bf16, f32 h split hi + lo"
+            f32 = "f32 FMA, 8 k-slices a unit" + (", passes of 16 rows" if p["inst"] > 16 else "")
+            return (f"{mma if p['tensor_cores'] else f32}, clusters of {p['cluster']} x "
+                    f"{p['units']} units, W_hh in registers, {p['ntiles']} tiles of <= {p['rows']} "
+                    f"rows ({p['tile_rows']}-row instance) on {p['clusters']} clusters, "
+                    f"{p['rounds']} a cluster, x ring of {p['stages']} steps, h (and lo) by "
+                    f"st.async on mbarriers, exact cell")
+        if name == "lstm_bwd" and not wide:
+            mma = ("mma.sync m16n8k16 bf16, W_hh column slice in shared memory, carry dgates "
+                   "split hi + lo")
+            f32 = "f32 FMA, W_hh in registers (8 k-slices / column slices), reduce-scatter"
+            return (f"{mma if p['tensor_cores'] else f32}, clusters of {p['cluster']} x "
+                    f"{p['units']} units, {p['ntiles']} tiles of <= {p['rows']} rows "
+                    f"({p['tile_rows']}-row instance) on {p['clusters']} clusters, {p['rounds']} "
+                    f"a cluster, ring of {p['stages']} steps, carry shares by st.async into "
+                    f"distributed shared memory (no grid barrier), exact cell")
+
+    if name in L._SCAN_WIDE_MODE and wide:
         dirs = 2 if name == "lstm_scan_bidir" else 1
         p = L._scan_wide_card_plan(0, R, H, dtype, dirs, name)
         mma = ("mma.sync m16n8k16 bf16, "
@@ -550,7 +590,7 @@ def _design(name, H, dtype, R=None, T=None, C=None):
                 f"{p['ntiles']} tiles of <= {p['rows']} rows ({p['tile_rows']}-row instance) on "
                 f"{p['clusters']} clusters a direction, {p['rounds']} a cluster, x ring of "
                 f"{p['stages']} steps, h by st.async on mbarriers, exact cell")
-    if name == "lstm_bwd" and H > L._MAX_H:
+    if name == "lstm_bwd" and wide:
         p = L._bwd_wide_card_plan(0, R, H, dtype)
         mma = "mma.sync m16n8k16 bf16, carry dgates split hi + lo"
         return (f"{mma if p['tensor_cores'] else 'f32 FMA'}, {p['groups']} row groups x "
@@ -623,7 +663,7 @@ def phase_train_kernels(shapes=TRAIN_SHAPES, phase="kernel_vs_plain"):
             for name in ("lstm_fwd_hc", "lstm_bwd", "lstm_bwd_dw"):
                 (err, rel), (ms, plain_ms), (bound, bound_by) = errs[name], times[name], bounds[name]
                 row = dict(name=name, shape=label, rows=R, steps=T, H=H, dtype=DT_NAME[dtype],
-                           source=_source(name, H),
+                           source=_source(name, H, R, dtype),
                            max_abs_err=err, rel_err=rel, tol=tols[name], ms=ms,
                            plain_ms=plain_ms, library_ms=None, bound_ms=bound, bound_by=bound_by,
                            tflops=flops[name] / (ms * 1e-3) / 1e12)

@@ -4,8 +4,8 @@
 // Replaces, at those sizes, the reverse-time recurrence of the TPU kernel
 // `lstm_bwd` of nvse_tpu/ops/pallas_lstm_bwd.py (`_bwd_kernel` /
 // `_bwd_kernel_unrolled`, launched at pallas_lstm_bwd.py:339); its dW_hh sum is
-// the reduction of csrc/lstm_bwd.cu. csrc/lstm_bwd.cu's recurrence (one thread
-// per gate column) takes H <= 128.
+// the reduction of csrc/lstm_bwd.cu. csrc/lstm_bwd.cu's recurrence (clusters of
+// H / U blocks) takes H <= 128.
 //
 // Contract: that of csrc/lstm_bwd.cu (time-major, one scan, zero initial state,
 // gate order i, f, g, o), for t = T-1 .. 0:

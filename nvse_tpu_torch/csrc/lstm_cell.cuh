@@ -1,12 +1,6 @@
-// Pieces shared by the LSTM kernels of csrc/.
-//
-// Layout of the H <= 128 kernels of lstm_bwd.cu (lstm_fused.cu and lstm_scan.cu
-// have their own: clusters that keep the weights in shared memory or registers):
-// a block owns a tile of RT rows and runs 4H threads;
-// thread j owns gate column j (gate order i, f, g, o). W_hh (H, 4H) sits in
-// shared memory as far as it fits, rows [0, ksm), packed [ksm/4][4H][4] so
-// that a thread reads 4 consecutive k of its column in one vector load; the
-// remaining rows are read through L1/L2. State and every sum are float32.
+// Pieces shared by the LSTM kernels of csrc/: conversions, vector and
+// asynchronous copies, ldmatrix and mma.sync, a warp's reduce-scatter, the sigmoid, the per-step
+// ablation variants and the card's shared-memory limit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,18 +18,6 @@ template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
-}
-
-// four consecutive elements (16-byte aligned for float, 8-byte for bf16)
-__device__ __forceinline__ void load4(const float* p, float w[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float w[4]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  w[0] = a.x; w[1] = a.y; w[2] = b.x; w[3] = b.y;
 }
 
 // 16 bytes (4 float32 or 8 bfloat16 values) from global memory through L2,
@@ -108,6 +90,33 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The float32 k-slices' partial sums v (N = 4 x rows values, row-major (row,
+// gate or output)) summed over the M-aligned groups of lanes, M = 16 / 2 ... 1
+// (csrc/lstm_scan.cu, csrc/lstm_bwd.cu): while a
+// lane holds more than one row it keeps half of them (the upper half where
+// lane & M) and adds the partner's half, so lane ks of the group ends with
+// rows [ks rows / KS, ...) when rows >= KS; then the last row's four sums are
+// added across the remaining lanes.
+template <int N, int M, int NV>
+__device__ __forceinline__ void reduce_scatter(float (&v)[NV], int lane) {
+  if constexpr (M >= 1) {
+    if constexpr (N > 4) {
+      const bool up = lane & M;
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        const float send = up ? v[i] : v[i + N / 2];
+        const float keep = up ? v[i + N / 2] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+      }
+      reduce_scatter<N / 2, M / 2, NV>(v, lane);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], M);
+      reduce_scatter<N, M / 2, NV>(v, lane);
+    }
+  }
+}
+
 // 1 / (1 + e^-v), the reciprocal rounded as IEEE division rounds the quotient
 __device__ __forceinline__ float sigmoid(float v) { return __frcp_rn(1.0f + expf(-v)); }
 
@@ -121,86 +130,6 @@ __device__ __forceinline__ float sigmoid(float v) { return __frcp_rn(1.0f + expf
 //   kNoVpu    c = g_i + 0.5 c; h = g_f + 0.5 c: the sigmoids and tanhs go
 //   kEmpty    the zero state written at every step: the floor
 enum Step : int { kFull = 0, kNoInDma = 1, kNoDot = 2, kNoVpu = 3, kEmpty = 4 };
-
-// Rows [0, ksm) of w_hh (H, G) into whh_s, packed [ksm/4][G][4].
-template <typename T>
-__device__ __forceinline__ void stage_whh(T* whh_s, const T* __restrict__ w_hh, int ksm, int G) {
-  for (int i = threadIdx.x; i < ksm * G; i += blockDim.x) {
-    const int k = i / G, col = i - k * G;
-    whh_s[((k >> 2) * G + col) * 4 + (k & 3)] = w_hh[i];
-  }
-}
-
-// W_hh[k .. k+3][j] as floats, from shared memory below ksm, else global.
-template <typename T>
-__device__ __forceinline__ void whh_col4(const T* whh_s, const T* __restrict__ w_hh,
-                                         int ksm, int G, int k, int j, float w[4]) {
-  if (k < ksm) {
-    load4(whh_s + ((k >> 2) * G + j) * 4, w);
-  } else {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) w[q] = to_f<T>(w_hh[(size_t)(k + q) * G + j]);
-  }
-}
-
-// acc[r] += sum_k h_s[r * H + k] * W_hh[k][j] for the RT rows of the tile.
-template <typename T, int RT>
-__device__ __forceinline__ void recurrent_product(float acc[RT], const float* h_s,
-                                                  const T* whh_s, const T* __restrict__ w_hh,
-                                                  int ksm, int H, int G, int j) {
-  for (int k = 0; k < ksm; k += 4) {
-    float w[4];
-    load4(whh_s + ((k >> 2) * G + j) * 4, w);
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      float hv[4];
-      load4(h_s + r * H + k, hv);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[r] = fmaf(hv[q], w[q], acc[r]);
-    }
-  }
-  for (int k = ksm; k < H; k += 4) {
-    float w[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) w[q] = to_f<T>(w_hh[(size_t)(k + q) * G + j]);
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      float hv[4];
-      load4(h_s + r * H + k, hv);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[r] = fmaf(hv[q], w[q], acc[r]);
-    }
-  }
-}
-
-// Gate activations of hidden unit u from one row's pre-activations gr[0, 4H).
-struct Gates {
-  float i, f, g, o;
-};
-__device__ __forceinline__ Gates gates_of(const float* gr, int H, int u) {
-  return {sigmoid(gr[u]), sigmoid(gr[H + u]), tanhf(gr[2 * H + u]), sigmoid(gr[3 * H + u])};
-}
-
-// One cell step: c = f * c_prev + i * g; h = o * tanh(c).
-__device__ __forceinline__ void cell(const float* gr, int H, int u, float c_prev,
-                                     float& c, float& h) {
-  const Gates a = gates_of(gr, H, u);
-  c = a.f * c_prev + a.i * a.g;
-  h = a.o * tanhf(c);
-}
-
-// Bytes of dynamic shared memory for `fixed` bytes of other buffers plus as
-// many W_hh rows (a multiple of 4) as fit; sets ksm. Returns 0 if even the
-// fixed part does not fit.
-template <typename T>
-inline size_t smem_with_whh(long fixed, int H, int max_smem, int* ksm) {
-  const long row = (long)sizeof(T) * 4 * H;
-  if (fixed > max_smem) return 0;
-  int k = (int)((max_smem - fixed) / row);
-  k = (k < H ? k : H) & ~3;
-  *ksm = k;
-  return (size_t)(fixed + k * row);
-}
 
 inline cudaError_t max_dynamic_smem(int* bytes) {
   int dev = 0;

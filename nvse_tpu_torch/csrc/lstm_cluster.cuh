@@ -1,5 +1,5 @@
 // Thread-block cluster pieces shared by the cluster kernels of csrc/
-// (lstm_fused.cu, lstm_scan.cu): rank and size, the cluster barrier, the
+// (lstm_fused.cu, lstm_scan.cu, lstm_bwd.cu): rank and size, the cluster barrier, the
 // address of a peer's shared memory, and the mbarriers on which st.async
 // completes the bytes of h that the peers store.
 #pragma once
@@ -64,6 +64,18 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned pari
 __device__ __forceinline__ void st_async(unsigned addr, unsigned v, unsigned bar) {
   asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(
                    addr), "r"(v), "r"(bar) : "memory");
+}
+// 8 and 16 bytes (16-byte aligned), the same way
+__device__ __forceinline__ void st_async2(unsigned addr, float2 v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];\n"
+               ::"r"(addr), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)), "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void st_async4(unsigned addr, float4 v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];\n"
+      ::"r"(addr), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)), "r"(__float_as_uint(v.z)),
+      "r"(__float_as_uint(v.w)), "r"(bar) : "memory");
 }
 __device__ __forceinline__ unsigned bits(float v) { return __float_as_uint(v); }
 __device__ __forceinline__ unsigned bits(__nv_bfloat16 v) { return __bfloat16_as_ushort(v); }

@@ -5,7 +5,7 @@
 // `lstm_scan_fused`: `_fused_kernel` (launched by `_pallas_lstm_fused`,
 // pallas_lstm.py:815) and `_fused_kernel_unrolled` (launched by
 // `_pallas_lstm_fused_unrolled`, pallas_lstm.py:727), one function at two TPU
-// unroll factors. csrc/lstm_fused.cu (one thread per gate column) takes H <= 128.
+// unroll factors. csrc/lstm_fused.cu (clusters of H / U blocks) takes H <= 128.
 // At the same sizes it also holds the per-step ablation variants of the TPU
 // harness `build` / `_variant_kernel` (scripts/profile_lstm_step.py:99 / :44):
 // this kernel with a compile-time STEP (lstm_cell.cuh), launched for one

@@ -1,14 +1,17 @@
 // Unidirectional LSTM scans over a projected input for narrow hidden sizes
-// (H <= 128), for Hopper (sm_90a).
+// (H <= 128), for Hopper (sm_90a): the inference scans and the residual-saving
+// forward of the training route, one kernel template with three modes.
 //
-// Replaces the TPU kernels of nvse_tpu/ops/pallas_lstm.py at those sizes:
-//   lstm_scan_kernel<.., false> <- `_lstm_kernel` / `_lstm_kernel_unrolled`
-//                                  (launched by `_pallas_lstm_scan`, pallas_lstm.py:212)
-//   lstm_scan_kernel<.., true>  <- `_lstm_kernel_stateful`
-//                                  (launched by `_pallas_lstm_scan_stateful`, pallas_lstm.py:297)
-//   lstm_scan_kernel<.., false> with two directions <- `_make_bidir_kernel`, the
-//                                  two-direction scan (launched by `_pallas_lstm_scan_bidir`,
-//                                  pallas_lstm.py:427)
+// Replaces the TPU kernels at those sizes:
+//   kScan     <- `_lstm_kernel` / `_lstm_kernel_unrolled` of nvse_tpu/ops/pallas_lstm.py
+//                (launched by `_pallas_lstm_scan`, pallas_lstm.py:212)
+//   kStateful <- `_lstm_kernel_stateful`
+//                (launched by `_pallas_lstm_scan_stateful`, pallas_lstm.py:297)
+//   kScan with two directions <- `_make_bidir_kernel`, the two-direction scan
+//                (launched by `_pallas_lstm_scan_bidir`, pallas_lstm.py:427)
+//   kFwdHc    <- `_fwd_kernel_hc` / `_fwd_kernel_hc_unrolled` of
+//                nvse_tpu/ops/pallas_lstm_bwd.py (launched by `lstm_fwd_hc`,
+//                pallas_lstm_bwd.py:181)
 // The unrolled TPU variants are the same functions at other unroll factors.
 // csrc/lstm_scan_wide.cu takes 128 < H.
 //
@@ -20,11 +23,17 @@
 //   lstm_scan_bidir:    x_proj (T, 2B, 4H), w_stack (2H, 4H), zero state -> hs (T, 2B, H);
 //                       rows [0, B) scan with w_stack[:H], rows [B, 2B) with w_stack[H:],
 //                       all forward in time (the caller flips the backward rows)
+//   lstm_fwd_hc:        zero state -> hs, cs (T, R, H)
 // Types: x_proj, W_hh, h0, c0, hs and cs are all float32 or all bfloat16; the
-// state and every sum are float32. h is rounded to the weight type before the
-// recurrent product (the `_hdot` rule, pallas_lstm.py:36-43), so in bfloat16
-// the product sees exactly the h that was stored; c is stored rounded but
-// carried in float32. The cell is exact: expf and tanhf, as the plain version.
+// state and every sum are float32. The inference modes round h to the weight
+// type before the recurrent product (the `_hdot` rule, pallas_lstm.py:36-43), so
+// in bfloat16 the product sees exactly the h that was stored; kFwdHc multiplies
+// the unrounded float32 h (pallas_lstm_bwd.py:147-160): in float32 that is the
+// same kernel, in bfloat16 h reaches the product as two planes, hi = bf16(h)
+// (what is stored) and lo = bf16(h - hi), both exchanged and multiplied by the
+// same W_hh fragment (two mma), which makes h to about 2^-17 of it (the split
+// of csrc/lstm_scan_wide.cu). c is stored rounded but carried in float32. The
+// cell is exact: expf and tanhf, as the plain version.
 // H % 8 == 0; every pointer 16-byte aligned.
 //
 // What bounds it. At BSRNN-M's shapes (H = 128) the causal time LSTM of a
@@ -73,12 +82,16 @@
 //   h reads are 8 consecutive float4, conflict-free), runs all INST rows of
 //   the tile, and the 8 slices meet by a shuffle reduce-scatter that leaves
 //   each lane the four gates of its rows. The chain a thread runs is 16 k
-//   deep, not 128.
+//   deep, not 128. kFwdHc adds tiles of 32 and 48 rows, run as passes of 16
+//   (product, reduce-scatter, cells), so that one tile a cluster holds the
+//   training forward's 544 or 1040 rows on the 30 clusters of 4 blocks an H100
+//   holds (tiles of 16 took 2 and 3 a cluster).
 // Units past H (K U > H) have zero weights and are not written.
 //
 // Built with nvcc by nvse_tpu_torch/ops/_build.py into a shared library with
 // plain C entries (lstm_scan_launch, lstm_scan_stateful_launch,
-// lstm_scan_bidir_launch, lstm_scan_max_clusters), loaded through ctypes.
+// lstm_scan_bidir_launch, lstm_fwd_hc_launch, lstm_scan_max_clusters), loaded
+// through ctypes.
 #include <type_traits>
 
 #include "lstm_cell.cuh"
@@ -91,6 +104,12 @@ using namespace lstm;
 constexpr int MAX_CLUSTER = 8;          // the portable cluster size
 constexpr int MAX_STAGES = 4;
 constexpr int HP = 128;                 // k of the recurrent product: H padded with zeros
+
+enum Mode : int { kScan = 0, kStateful = 1, kFwdHc = 2 };
+
+// h reaches the product as two bfloat16 planes, hi + lo
+template <typename T, int MODE>
+constexpr bool kSplit = std::is_same<T, __nv_bfloat16>::value && MODE == kFwdHc;
 
 // the tile constants; ops/lstm.py `_SCAN` mirrors them. A tile of instance
 // INST has ROWS * INST rows: bfloat16, INST m16 tiles a warp; float32, INST
@@ -119,12 +138,14 @@ __host__ __device__ constexpr int tile_rows(int inst) {
 }
 
 // dynamic shared memory at INST with a ring of `stages` x steps: two h buffers
-// and the ring, each of the tile's rows (x: the 4 x U columns of the block's
-// units), then (bfloat16) the warps' gate scratch
-template <typename T>
+// (and two of lo for kFwdHc in bfloat16) and the ring, each of the tile's rows
+// (x: the 4 x U columns of the block's units), then (bfloat16) the warps' gate
+// scratch
+template <typename T, int MODE>
 constexpr long smem_bytes(int inst, int stages) {
   const long bm = tile_rows<T>(inst);
-  return (2 * bm * Scan<T>::HPP + (long)stages * bm * 4 * Scan<T>::U) * (long)sizeof(T) +
+  return ((kSplit<T, MODE> ? 4 : 2) * bm * Scan<T>::HPP + (long)stages * bm * 4 * Scan<T>::U) *
+             (long)sizeof(T) +
          Scan<T>::GW;
 }
 
@@ -134,7 +155,7 @@ struct Args {
   const void* h0;         // (R, H) (stateful)
   const void* c0;         // (R, H) (stateful)
   void* hs;               // (Tn, ndir R, H)
-  void* cs;               // (Tn, R, H) (stateful)
+  void* cs;               // (Tn, R, H) (stateful, kFwdHc)
   int R, Tn, H;           // R: the rows of one direction
   int ntiles;             // row tiles of a direction (balanced: R * p / ntiles)
   int ncl;                // clusters of a direction; cluster j walks tiles j, j + ncl, ...
@@ -142,36 +163,12 @@ struct Args {
   int stages;             // x ring (2 ... MAX_STAGES)
 };
 
-// The float32 k-slices' partial sums v (N = 4 x rows values, row-major (row,
-// gate)) summed over the M-aligned groups of lanes, M = 16 / 2 ... 1: while a
-// lane holds more than one row it keeps half of them (the upper half where
-// lane & M) and adds the partner's half, so lane ks of the group ends with
-// rows [ks rows / KS, ...) when rows >= KS; then the last row's four sums are
-// added across the remaining lanes.
-template <int N, int M, int NV>
-__device__ __forceinline__ void reduce_scatter(float (&v)[NV], int lane) {
-  if constexpr (M >= 1) {
-    if constexpr (N > 4) {
-      const bool up = lane & M;
-#pragma unroll
-      for (int i = 0; i < N / 2; ++i) {
-        const float send = up ? v[i] : v[i + N / 2];
-        const float keep = up ? v[i + N / 2] : v[i];
-        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, M);
-      }
-      reduce_scatter<N / 2, M / 2, NV>(v, lane);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], M);
-      reduce_scatter<N, M / 2, NV>(v, lane);
-    }
-  }
-}
-
-template <typename T, int INST, bool STATEFUL>
+template <typename T, int INST, int MODE>
 __global__ void __launch_bounds__(Scan<T>::THREADS, 1) lstm_scan_kernel(const Args a) {
   using SC = Scan<T>;
   constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
+  constexpr bool STATEFUL = MODE == kStateful, SPLIT = kSplit<T, MODE>;
+  constexpr bool WRITE_C = MODE != kScan;
   constexpr int THREADS = SC::THREADS, GWP = SC::GWP;
   constexpr int U = SC::U, HPP = SC::HPP, BM = tile_rows<T>(INST), XP = 4 * U;
   constexpr int E = 16 / sizeof(T);                // elements of a 16-byte copy
@@ -197,13 +194,14 @@ __global__ void __launch_bounds__(Scan<T>::THREADS, 1) lstm_scan_kernel(const Ar
   };
 
   extern __shared__ float4 smem_f4[];
-  T* h_s = reinterpret_cast<T*>(smem_f4);          // [2][BM][HPP]
-  T* x_s = h_s + 2 * BM * HPP;                     // [S][BM][4 gates][U]
+  constexpr int NH = SPLIT ? 4 : 2;                // h buffers (then lo buffers), by step parity
+  T* h_s = reinterpret_cast<T*>(smem_f4);          // [2][BM][HPP], then (kFwdHc in bfloat16) lo
+  T* x_s = h_s + NH * BM * HPP;                    // [S][BM][4 gates][U]
   float* g_s = reinterpret_cast<float*>(x_s + (size_t)S * BM * XP);   // bfloat16: [16][16][GWP]
 
   // zeros in the h buffers (the pad of k past H is read, times zero weights),
   // then the two buffers' mbarriers (by step parity), before any peer can store
-  for (int i = tid; i < (int)((2L * BM * HPP * sizeof(T)) / 16); i += THREADS)
+  for (int i = tid; i < (int)((NH * (long)BM * HPP * sizeof(T)) / 16); i += THREADS)
     smem_f4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __shared__ alignas(8) unsigned long long h_bar[2];
   if (tid == 0) {
@@ -268,18 +266,22 @@ __global__ void __launch_bounds__(Scan<T>::THREADS, 1) lstm_scan_kernel(const Ar
   };
 
   constexpr int PJ = BF ? NT : 1;
-  constexpr int RPL = BF ? INST : (INST >= KS ? INST / KS : 1);   // float32: rows of a lane
-  constexpr int DUP = BF ? 1 : (INST >= KS ? 1 : KS / INST);      // float32: lanes of a row
-  constexpr int NCELL = BF ? INST * 2 : RPL;       // the (row, unit) pairs a lane holds
-  float acc[INST][PJ][4];
+  // float32 tiles past 16 rows (kFwdHc's) run the product and the cells in
+  // NPASS passes of CH = 16 rows, so that their sums fit the registers
+  constexpr int CH = BF ? INST : (INST > 16 ? 16 : INST), NPASS = INST / CH;
+  constexpr int RPL = BF ? INST : (CH >= KS ? CH / KS : 1);       // float32: rows of a lane a pass
+  constexpr int DUP = BF ? 1 : (CH >= KS ? 1 : KS / CH);          // float32: lanes of a row
+  constexpr int NCELL = BF ? INST * 2 : NPASS * RPL;              // the (row, unit) pairs a lane holds
+  float acc[CH][PJ][4];
   float c_reg[NCELL];                              // their c, carried in float32
 #pragma unroll
   for (int i = 0; i < NCELL; ++i) c_reg[i] = 0.0f;
 
-  // acc = h rows (the tile's np) x the block's W_hh columns
+  // acc = h rows (np of them, at most CH) x the block's W_hh columns (kFwdHc in
+  // bfloat16: + the lo rows at a_s + 2 BM HPP x the same columns)
   auto product = [&](const T* a_s, int np) {
 #pragma unroll
-    for (int i = 0; i < INST; ++i)
+    for (int i = 0; i < CH; ++i)
 #pragma unroll
       for (int jj = 0; jj < PJ; ++jj)
 #pragma unroll
@@ -294,20 +296,28 @@ __global__ void __launch_bounds__(Scan<T>::THREADS, 1) lstm_scan_kernel(const Ar
         if (mt * 16 >= np) break;                  // warp-uniform: no row of this tile
 #pragma unroll
         for (int k0 = 0; k0 < HP / 16; k0 += 4) {
-          unsigned af[4][4];
+          unsigned af[4][4], al[SPLIT ? 4 : 1][4];
 #pragma unroll
           for (int j = 0; j < 4; ++j) ldsm_x4(af[j], arow + mt * 16 * HPP + (k0 + j) * 16);
+          if constexpr (SPLIT) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              ldsm_x4(al[j], arow + 2 * BM * HPP + mt * 16 * HPP + (k0 + j) * 16);
+          }
 #pragma unroll
           for (int j = 0; j < 4; ++j)
 #pragma unroll
-            for (int nt = 0; nt < NT; ++nt)
+            for (int nt = 0; nt < NT; ++nt) {
               mma_bf16(acc[mt][nt], af[j], wr[k0 + j][nt][0], wr[k0 + j][nt][1]);
+              if constexpr (SPLIT)
+                mma_bf16(acc[mt][nt], al[SPLIT ? j : 0], wr[k0 + j][nt][0], wr[k0 + j][nt][1]);
+            }
         }
       }
     } else {
       const float* hb = reinterpret_cast<const float*>(a_s) + 4 * ks;
 #pragma unroll
-      for (int r = 0; r < INST; ++r) {
+      for (int r = 0; r < CH; ++r) {
         if (r >= np) break;                        // uniform
 #pragma unroll
         for (int jj = 0; jj < J; ++jj) {
@@ -359,18 +369,21 @@ __global__ void __launch_bounds__(Scan<T>::THREADS, 1) lstm_scan_kernel(const Ar
         }
       }
       const bool send = n + 1 < Tn;                // h_n is read at step n + 1
-      if (send && tid == 0)                        // the bytes of h_n the peers store here
-        mbar_expect(&h_bar[(m + 1) & 1], (unsigned)(np * (H - own) * (int)sizeof(T)));
-      product(hb, n > 0 || STATEFUL ? np : 0);     // h_{-1} = 0: no product, zero sums
-      if (n + 1 == Tn && kt + 1 < nmine) cluster_arrive();   // this tile's h buffers read
+      if (send && tid == 0)                        // the bytes of h_n (and lo) the peers store here
+        mbar_expect(&h_bar[(m + 1) & 1],
+                    (unsigned)((SPLIT ? 2 : 1) * np * (H - own) * (int)sizeof(T)));
+      if constexpr (BF) {
+        product(hb, n > 0 || STATEFUL ? np : 0);   // h_{-1} = 0: no product, zero sums
+        if (n + 1 == Tn && kt + 1 < nmine) cluster_arrive();   // this tile's h buffers read
+      }
       const T* xb = x_s + (size_t)stage * BM * XP;
 
       // The cell of (row lr, unit ul of the block) from its four gate sums, where
       // `ok` (rows past the tile read x that was never staged); then h into hs
       // and, where step n + 1 reads it, into this block's h buffer and
-      // (st.async) every peer's
+      // (st.async) every peer's (kFwdHc in bfloat16: lo = bf16(h - hi) too)
       auto cell = [&](int lr, int ul, const float (&gs)[4], float& c_state, bool ok) {
-        T hv = from_f<T>(0.0f);
+        T hv = from_f<T>(0.0f), lv = from_f<T>(0.0f);
         float c = 0.0f;
         if (ok) {
           float z[4];
@@ -379,27 +392,35 @@ __global__ void __launch_bounds__(Scan<T>::THREADS, 1) lstm_scan_kernel(const Ar
           float c_prev = c_state;
           if (n == 0) c_prev = STATEFUL ? to_f<T>(c0[(size_t)(row0 + lr) * H + u0 + ul]) : 0.0f;
           c = sigmoid(z[1]) * c_prev + sigmoid(z[0]) * tanhf(z[2]);
-          hv = from_f<T>(sigmoid(z[3]) * tanhf(c));
+          const float h = sigmoid(z[3]) * tanhf(c);
+          hv = from_f<T>(h);
+          if constexpr (SPLIT) lv = from_f<T>(h - to_f<T>(hv));
           c_state = c;
         }
         // bfloat16: lanes l and l ^ 1 hold units u and u + 1 of one row; the
         // one with u sends both, as st.async moves 4 bytes at least
-        unsigned word = bits(hv);
+        unsigned word = bits(hv), lword = bits(lv);
         if (BF) word |= __shfl_xor_sync(0xffffffffu, word, 1) << 16;
+        if (SPLIT) lword |= __shfl_xor_sync(0xffffffffu, lword, 1) << 16;
         if (!ok) return;
         const int unit = u0 + ul;
         T* dst = hw + lr * HPP + unit;
         if (send) {
           *dst = hv;
+          if constexpr (SPLIT) dst[2 * BM * HPP] = lv;
           if (!BF || (lane & 1) == 0) {
             const unsigned at = smem_u32(dst), bar = smem_u32(&h_bar[(m + 1) & 1]);
+            const unsigned lat = smem_u32(dst + 2 * BM * HPP);
             for (unsigned r = 0; r < K; ++r)
-              if (r != rank) st_async(cluster_map(at, r), word, cluster_map(bar, r));
+              if (r != rank) {
+                st_async(cluster_map(at, r), word, cluster_map(bar, r));
+                if (SPLIT) st_async(cluster_map(lat, r), lword, cluster_map(bar, r));
+              }
           }
         }
         const size_t o = ((size_t)n * Rs + rb + row0 + lr) * H + unit;
         hs[o] = hv;
-        if (STATEFUL) static_cast<T*>(a.cs)[o] = from_f<T>(c);
+        if (WRITE_C) static_cast<T*>(a.cs)[o] = from_f<T>(c);
       };
 
       if constexpr (BF) {
@@ -432,20 +453,28 @@ __global__ void __launch_bounds__(Scan<T>::THREADS, 1) lstm_scan_kernel(const Ar
           }
         }
       } else {
-        // the 8 k-slices' sums meet by the reduce-scatter: lane ks holds the
-        // four gates of its RPL rows (DUP lanes hold each row: the first runs it)
-        float v[4 * INST];
+        // a pass: the product of CH rows, then the 8 k-slices' sums meet by the
+        // reduce-scatter: lane ks holds the four gates of its RPL rows (DUP lanes
+        // hold each row: the first runs it)
 #pragma unroll
-        for (int r = 0; r < INST; ++r)
+        for (int pass = 0; pass < NPASS; ++pass) {
+          const int p0 = pass * CH;
+          if (p0 > 0 && p0 >= np) break;           // uniform
+          product(hb + (size_t)p0 * HPP, n > 0 || STATEFUL ? np - p0 : 0);
+          float v[4 * CH];
 #pragma unroll
-          for (int q = 0; q < 4; ++q) v[4 * r + q] = acc[r][0][q];
-        reduce_scatter<4 * INST, KS / 2>(v, lane);
+          for (int r = 0; r < CH; ++r)
 #pragma unroll
-        for (int i = 0; i < RPL; ++i) {
-          const int lr = INST >= KS ? ks * RPL + i : ks / DUP;
-          const float gs[4] = {v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]};
-          cell(lr, ful, gs, c_reg[i], ks % DUP == 0 && lr < np && u0 + ful < H);
+            for (int q = 0; q < 4; ++q) v[4 * r + q] = acc[r][0][q];
+          reduce_scatter<4 * CH, KS / 2>(v, lane);
+#pragma unroll
+          for (int i = 0; i < RPL; ++i) {
+            const int lr = p0 + (CH >= KS ? ks * RPL + i : ks / DUP);
+            const float gs[4] = {v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]};
+            cell(lr, ful, gs, c_reg[pass * RPL + i], ks % DUP == 0 && lr < np && u0 + ful < H);
+          }
         }
+        if (n + 1 == Tn && kt + 1 < nmine) cluster_arrive();   // this tile's h buffers read
       }
       if (++stage == S) stage = 0;
       if (n + 1 < Tn || kt + 1 < nmine) {
@@ -459,9 +488,9 @@ __global__ void __launch_bounds__(Scan<T>::THREADS, 1) lstm_scan_kernel(const Ar
   }
 }
 
-template <typename T, int INST, bool ST>
+template <typename T, int INST, int MODE>
 cudaError_t configure(int K, int smem, cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr) {
-  cudaError_t e = cudaFuncSetAttribute(lstm_scan_kernel<T, INST, ST>,
+  cudaError_t e = cudaFuncSetAttribute(lstm_scan_kernel<T, INST, MODE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -481,46 +510,46 @@ int cluster_of(int H) {
 }
 
 // clusters of the instance that the card holds at once
-template <typename T, int INST, bool ST>
+template <typename T, int INST, int MODE>
 int max_clusters(int H, int smem, int* clusters) {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   const int K = cluster_of<T>(H);
-  cudaError_t e = configure<T, INST, ST>(K, smem, cfg, attr);
+  cudaError_t e = configure<T, INST, MODE>(K, smem, cfg, attr);
   if (e != cudaSuccess) return e;
   cfg.gridDim = dim3(K);
-  return cudaOccupancyMaxActiveClusters(clusters, lstm_scan_kernel<T, INST, ST>, &cfg);
+  return cudaOccupancyMaxActiveClusters(clusters, lstm_scan_kernel<T, INST, MODE>, &cfg);
 }
 
 // Launches a.ndir directions with the caller's plan; cudaErrorLaunchOutOfResources
 // when not even one cluster fits on this device.
-template <typename T, int INST, bool ST>
+template <typename T, int INST, int MODE>
 int launch(const Args& a, int smem, cudaStream_t stream) {
   const int K = cluster_of<T>(a.H), BM = tile_rows<T>(INST);
   if (K > MAX_CLUSTER || a.ntiles < 1 || a.ntiles > a.R || a.ncl < 1 || a.ncl > a.ntiles ||
       (a.R + a.ntiles - 1) / a.ntiles > BM || a.stages < 2 || a.stages > MAX_STAGES ||
-      smem != smem_bytes<T>(INST, a.stages))
+      smem != smem_bytes<T, MODE>(INST, a.stages))
     return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
-  cudaError_t e = configure<T, INST, ST>(K, smem, cfg, attr);
+  cudaError_t e = configure<T, INST, MODE>(K, smem, cfg, attr);
   if (e != cudaSuccess) return e;
   int fit = 0;
   cfg.gridDim = dim3(K);
-  if ((e = cudaOccupancyMaxActiveClusters(&fit, lstm_scan_kernel<T, INST, ST>, &cfg)) !=
+  if ((e = cudaOccupancyMaxActiveClusters(&fit, lstm_scan_kernel<T, INST, MODE>, &cfg)) !=
       cudaSuccess)
     return e;
   if (fit < 1) return cudaErrorLaunchOutOfResources;
   cfg.gridDim = dim3(K * a.ncl * a.ndir);
   cfg.stream = stream;
-  e = cudaLaunchKernelEx(&cfg, lstm_scan_kernel<T, INST, ST>, a);
+  e = cudaLaunchKernelEx(&cfg, lstm_scan_kernel<T, INST, MODE>, a);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 // the instances: INST 1, 2 or 4 m16 tiles of a warp in bfloat16; 1, 2, 4, 8 or
-// 16 rows of a thread in float32; stateful or not
-template <bool ST, typename F>
+// 16 rows of a thread in float32 in each mode, and 32 or 48 (passes of 16) in kFwdHc
+template <int MODE, typename F>
 int with_instance(int dtype, int inst, F&& f) {
   using bf = __nv_bfloat16;
   using std::integral_constant;
@@ -539,18 +568,24 @@ int with_instance(int dtype, int inst, F&& f) {
       case 4: return f((float*)nullptr, integral_constant<int, 4>{});
       case 8: return f((float*)nullptr, integral_constant<int, 8>{});
       case 16: return f((float*)nullptr, integral_constant<int, 16>{});
+      case 32:                                     // kFwdHc's tiles of 17 ... 48 rows
+        if constexpr (MODE == kFwdHc) return f((float*)nullptr, integral_constant<int, 32>{});
+        return cudaErrorInvalidValue;
+      case 48:
+        if constexpr (MODE == kFwdHc) return f((float*)nullptr, integral_constant<int, 48>{});
+        return cudaErrorInvalidValue;
       default: return cudaErrorInvalidValue;
     }
   }
   return cudaErrorInvalidValue;
 }
 
-template <bool ST>
+template <int MODE>
 int launch_any(int dtype, int inst, const Args& a, int smem, void* stream) {
   if (a.R <= 0 || a.Tn <= 0 || a.H <= 0 || a.H % 8 || a.H > HP) return cudaErrorInvalidValue;
-  return with_instance<ST>(dtype, inst, [&](auto* ty, auto in) {
+  return with_instance<MODE>(dtype, inst, [&](auto* ty, auto in) {
     using T = std::remove_pointer_t<decltype(ty)>;
-    return launch<T, decltype(in)::value, ST>(a, smem, static_cast<cudaStream_t>(stream));
+    return launch<T, decltype(in)::value, MODE>(a, smem, static_cast<cudaStream_t>(stream));
   });
 }
 
@@ -585,7 +620,7 @@ extern "C" int lstm_scan_launch(int dtype, const void* xp, const void* w_hh, voi
                                 void* stream) {
   const Args a = make_args(xp, w_hh, nullptr, nullptr, hs, nullptr, R, Tn, H, ntiles, ncl, 1,
                            stages);
-  return launch_any<false>(dtype, inst, a, smem, stream);
+  return launch_any<kScan>(dtype, inst, a, smem, stream);
 }
 
 extern "C" int lstm_scan_stateful_launch(int dtype, const void* xp, const void* w_hh,
@@ -593,7 +628,16 @@ extern "C" int lstm_scan_stateful_launch(int dtype, const void* xp, const void* 
                                          int R, int Tn, int H, int inst, int ntiles, int ncl,
                                          int stages, int smem, void* stream) {
   const Args a = make_args(xp, w_hh, h0, c0, hs, cs, R, Tn, H, ntiles, ncl, 1, stages);
-  return launch_any<true>(dtype, inst, a, smem, stream);
+  return launch_any<kStateful>(dtype, inst, a, smem, stream);
+}
+
+// x_proj (T, R, 4H), w_hh (H, 4H) -> hs, cs (T, R, H): the residual-saving
+// forward from zero state, h multiplied unrounded.
+extern "C" int lstm_fwd_hc_launch(int dtype, const void* xp, const void* w_hh, void* hs, void* cs,
+                                  int R, int Tn, int H, int inst, int ntiles, int ncl, int stages,
+                                  int smem, void* stream) {
+  const Args a = make_args(xp, w_hh, nullptr, nullptr, hs, cs, R, Tn, H, ntiles, ncl, 1, stages);
+  return launch_any<kFwdHc>(dtype, inst, a, smem, stream);
 }
 
 // x_proj (T, 2B, 4H), w_stack (2H, 4H), hs (T, 2B, H); B the rows of one
@@ -603,15 +647,26 @@ extern "C" int lstm_scan_bidir_launch(int dtype, const void* xp, const void* w_s
                                       int stages, int smem, void* stream) {
   const Args a = make_args(xp, w_stack, nullptr, nullptr, hs, nullptr, B, Tn, H, ntiles, ncl, 2,
                            stages);
-  return launch_any<false>(dtype, inst, a, smem, stream);
+  return launch_any<kScan>(dtype, inst, a, smem, stream);
 }
 
-// Clusters of ceil(H / units) blocks of the kernel (dtype, instance) with smem
-// bytes that the card holds at once, into *clusters (the plan's co-residency).
-extern "C" int lstm_scan_max_clusters(int dtype, int inst, int H, int smem, int* clusters) {
+// Clusters of ceil(H / units) blocks of the kernel (dtype, mode 0-2 as `Mode`,
+// instance) with smem bytes that the card holds at once, into *clusters (the
+// plan's co-residency).
+extern "C" int lstm_scan_max_clusters(int dtype, int mode, int inst, int H, int smem,
+                                      int* clusters) {
   if (H <= 0 || H > HP) return cudaErrorInvalidValue;
-  return with_instance<false>(dtype, inst, [&](auto* ty, auto in) {
-    using T = std::remove_pointer_t<decltype(ty)>;
-    return max_clusters<T, decltype(in)::value, false>(H, smem, clusters);
-  });
+  auto query = [&](auto md) {
+    constexpr int M = decltype(md)::value;
+    return with_instance<M>(dtype, inst, [&](auto* ty, auto in) {
+      using T = std::remove_pointer_t<decltype(ty)>;
+      return max_clusters<T, decltype(in)::value, M>(H, smem, clusters);
+    });
+  };
+  switch (mode) {
+    case kScan: return query(std::integral_constant<int, kScan>{});
+    case kStateful: return query(std::integral_constant<int, kStateful>{});
+    case kFwdHc: return query(std::integral_constant<int, kFwdHc>{});
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -12,7 +12,7 @@
 //                 pallas_lstm.py:297)
 //   kScanBidir <- `_make_bidir_kernel`, the two-direction scan over stacked rows
 //                 (launched by `_pallas_lstm_scan_bidir`, pallas_lstm.py:427)
-// csrc/lstm_bwd.cu (kFwdHc) and csrc/lstm_scan.cu (the scans) take H <= 128.
+// csrc/lstm_scan.cu takes H <= 128 (its kFwdHc too).
 //
 // Contract, per row (gate order i, f, g, o), time-major:
 //   gates_t = x_proj[t] + h_{t-1} @ W_hh

@@ -47,14 +47,19 @@ csrc/lstm_scan.cu for H <= 128 and of csrc/lstm_scan_wide.cu (mode
 kScanBidir) for 128 < H <= 768; under autograd it is
 `_BidirRecompute`, whose backward differentiates the plain version
 recomputed (the JAX custom_vjp at pallas_lstm.py:959-981).
-The training kernels pick theirs from H too: csrc/lstm_bwd.cu (one thread
-per gate column) for H <= 128; for 128 < H <= 768 the residual-saving
-forward of csrc/lstm_scan_wide.cu (mode kFwdHc) and the backward recurrence
-of csrc/lstm_bwd_wide.cu (row groups x slices of hidden units over the card,
+The training kernels pick theirs by `train_route` before any launch: for
+H <= 128 the residual-saving forward as mode kFwdHc of csrc/lstm_scan.cu (the
+plan of `scan_narrow_plan`; h multiplied unrounded, as hi + lo planes in
+bfloat16) and the backward recurrence of csrc/lstm_bwd.cu (clusters of H / U
+blocks, W_hh resident, the carry's shares exchanged in distributed shared
+memory, tensor cores in bfloat16, the plan of `bwd_narrow_plan`); for
+128 < H <= 768, and at H <= 128 where no cluster of a narrow kernel is held,
+the forward as mode kFwdHc of csrc/lstm_scan_wide.cu and the backward of
+csrc/lstm_bwd_wide.cu (row groups x slices of hidden units over the card,
 W_hh resident, tensor cores in bfloat16, the plans of `scan_wide_plan` and
-`bwd_wide_plan`); the
-dW_hh reduction of csrc/lstm_bwd.cu (a GEMM: tensor cores in bfloat16, CUDA
-cores in float32, split over the rows by `dw_plan`) takes both.
+`bwd_wide_plan`); the dW_hh reduction of csrc/lstm_bwd.cu (a GEMM: tensor
+cores in bfloat16, CUDA cores in float32, split over the rows by `dw_plan`)
+takes both.
 Every wrapper launches its CUDA kernel on a CUDA tensor or raises, and
 runs its plain PyTorch version only on a CPU tensor. Each counts its
 launches in `<wrapper>.launches`, per shape in
@@ -83,21 +88,20 @@ __all__ = ["lstm_bwd", "lstm_bwd_plain", "lstm_dw_hh", "lstm_dw_hh_plain", "lstm
            "lstm_scan_bidir2_plain", "lstm_scan_plain", "lstm_scan_stateful",
            "lstm_scan_stateful_plain"]
 
-_MAX_H = 128                    # lstm_fused.cu, lstm_scan.cu: a cluster's blocks hold the
-                                # weights; lstm_bwd.cu: one thread per gate column
+_MAX_H = 128                    # lstm_fused.cu, lstm_scan.cu, lstm_bwd.cu: a cluster's
+                                # blocks hold the weights
 _WIDE_MAX_H = 768               # lstm_bidir2.cu, lstm_bwd_wide.cu, lstm_scan_wide.cu:
                                 # hidden units spread over the card
 # lstm_fused_wide.cu: both directions' H / 8 blocks co-resident on 128 SMs, and the
 # float32 (C + H, 32) weight slice of 8 units beside its staging ring in 227 KB
 _FUSED_WIDE_MAX_H, _FUSED_WIDE_MAX_K = 512, 1280
-_ROWS_PER_BLOCK = (2, 4, 8)     # template instances in csrc/lstm_bwd.cu
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ITEM = {torch.float32: 4, torch.bfloat16: 2}      # bytes an element
 # the csrc/<stem>.cu whose kernel each wrapper launches: (H <= _MAX_H, H > _MAX_H)
 _SOURCES = {"lstm_scan_fused": ("lstm_fused", "lstm_fused_wide"),
             "lstm_scan": ("lstm_scan", "lstm_scan_wide"),
             "lstm_scan_stateful": ("lstm_scan", "lstm_scan_wide"),
-            "lstm_fwd_hc": ("lstm_bwd", "lstm_scan_wide"),
+            "lstm_fwd_hc": ("lstm_scan", "lstm_scan_wide"),
             "lstm_bwd": ("lstm_bwd", "lstm_bwd_wide"),
             "lstm_dw_hh": ("lstm_bwd", "lstm_bwd"),
             "lstm_scan_bidir2": ("lstm_bidir2", "lstm_bidir2"),
@@ -236,15 +240,6 @@ def _check_aligned(name: str, *tensors) -> None:
     if any(a.data_ptr() % 16 for a in tensors):
         raise ValueError(f"{name} kernel needs 16-byte aligned tensors (a contiguous view "
                          "at an odd offset is not: call .clone() on it)")
-
-
-def _rows_per_block(rows: int, n_sm: int, directions: int = 2) -> int:
-    """Rows of one direction per block: the fewest that fit every
-    direction's blocks in one wave on the card, else the most."""
-    for rt in _ROWS_PER_BLOCK:
-        if directions * math.ceil(rows / rt) <= n_sm:
-            return rt
-    return _ROWS_PER_BLOCK[-1]
 
 
 @functools.cache
@@ -698,11 +693,11 @@ def _bwd_lib() -> ctypes.CDLL:
 
     lib = load_library("lstm_bwd")
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_fwd_hc_launch.argtypes = [i, ptr, ptr, ptr, ptr, i, i, i, i, ptr]
-    lib.lstm_bwd_launch.argtypes = [i, ptr, ptr, ptr, ptr, ptr, ptr, i, i, i, i, ptr]
+    lib.lstm_bwd_launch.argtypes = [i, *[ptr] * 6, *[i] * 8, ptr]
+    lib.lstm_bwd_max_clusters.argtypes = [i, i, i, i, ptr]
     lib.lstm_dw_launch.argtypes = [i, ptr, ptr, ptr, i, i, i, i, i, i, ptr]
     lib.lstm_dw_blocks_per_sm.argtypes = [i, ptr]
-    for fn in (lib.lstm_fwd_hc_launch, lib.lstm_bwd_launch, lib.lstm_dw_launch,
+    for fn in (lib.lstm_bwd_launch, lib.lstm_bwd_max_clusters, lib.lstm_dw_launch,
                lib.lstm_dw_blocks_per_sm):
         fn.restype = ctypes.c_int
     return lib
@@ -808,13 +803,142 @@ def _bwd_wide_card_plan(index: int, R: int, H: int, dtype: torch.dtype) -> dict:
     return bwd_wide_plan(R, H, dtype, n_sm, limit, bps)
 
 
+# csrc/lstm_bwd.cu's backward recurrence for H <= 128 (its `rec::Cfg`): the units a
+# block owns, the most blocks a cluster, its tile instances (rows), the pitches
+# of an h row, of a slice row and of a dgates hi / lo row (bfloat16), the rows of
+# the slice; then the ring's depths, deepest first
+_BWD_NARROW = {torch.bfloat16: dict(units=64, max_cluster=2, tiles=(16,), kp=136, wp=136, dp=264,
+                                    wrows=256),
+               torch.float32: dict(units=32, max_cluster=4, tiles=(16, 32, 48), kp=132, wp=0, dp=0,
+                                   wrows=0)}
+_BWD_NARROW_STAGES = (3, 2)
+_BWD_NARROW_STATIC_SMEM = 16    # bytes of static shared memory beside the plan's (two mbarriers)
+
+
+def _bwd_narrow_smem(tile_rows: int, dtype: torch.dtype, stages: int) -> int:
+    """Dynamic shared memory of the narrow backward recurrence at tiles of
+    `tile_rows` and a ring of `stages` steps (its `rec::smem_bytes`): the W_hh
+    column slice of U units (bfloat16 [4U][136]; float32 keeps it in registers); the
+    ring, a step of h_{t-1} (rows of 136 / 132), x_proj (4U) and dhs, c_t and
+    c_{t-1} (U each) for each row; the float32 gate sums (rows of 4U + 4); the
+    bfloat16 dgates hi and lo (rows of 4U + 8); the float32 carry shares, two
+    parities x the most blocks a cluster, rows of U + 4; each 16-byte aligned."""
+    d = _BWD_NARROW[dtype]
+    U, BM, item = d["units"], tile_rows, _ITEM[dtype]
+    up = lambda v: -(-v // 16) * 16
+    parts = (d["wrows"] * d["wp"] * item, stages * BM * (d["kp"] + 7 * U) * item,
+             BM * (4 * U + 4) * 4, 2 * BM * d["dp"] * 2, 2 * d["max_cluster"] * BM * (U + 4) * 4)
+    return sum(up(p) for p in parts)
+
+
+def bwd_narrow_plan(R: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: int,
+                    max_clusters: int | None = None) -> dict:
+    """Launch plan of the narrow backward recurrence (csrc/lstm_bwd.cu, H <= 128)
+    at (T, R, H) (any T) on a card with n_sm SMs and smem_limit bytes a block,
+    holding max_clusters clusters at once (default: one block an SM).
+
+    A cluster of K = ceil(H / U) blocks owns a row tile (U = 64 units a block in
+    bfloat16, 32 in float32); each block keeps its units' W_hh column slice in
+    shared memory. As `scan_narrow_plan`: a tile for each cluster, each of
+    ceil(R / tiles) rows in the smallest instance that holds them (bfloat16:
+    16 rows, float32: 16, 32 or 48), when the card's clusters hold every row at
+    once; else tiles of the largest instance, a whole number for each cluster,
+    walked with the slice loaded once. The ring is as deep as fits (3 or 2
+    steps). -> units, cluster (K), tile_rows, rows (of the largest tile),
+    ntiles, clusters, rounds (tiles a cluster), stages, smem_bytes, blocks,
+    tensor_cores; `co_resident` False when the kernel cannot run (H > 128,
+    nothing fits or no cluster is held)."""
+    d = _BWD_NARROW[dtype]
+    U = d["units"]
+    K = math.ceil(H / U)
+    none = dict(units=U, cluster=K, co_resident=False, ntiles=0, clusters=0)
+
+    def depth(BM):
+        return next((st for st in _BWD_NARROW_STAGES if _bwd_narrow_smem(BM, dtype, st)
+                     + _BWD_NARROW_STATIC_SMEM <= smem_limit), 0)
+
+    fits = {BM: depth(BM) for BM in d["tiles"] if depth(BM)}
+    clusters = n_sm // K if max_clusters is None else max_clusters
+    if H > _MAX_H or not fits or clusters < 1 or R < 1:
+        return none
+    top = max(fits)
+    if R <= clusters * top:
+        ntiles = min(clusters, R)
+    else:
+        ntiles = clusters * math.ceil(R / (clusters * top))
+    rows = math.ceil(R / ntiles)
+    BM = min(b for b in fits if b >= rows)
+    ncl = min(clusters, ntiles)
+    return dict(units=U, cluster=K, tile_rows=BM, rows=rows, ntiles=ntiles, clusters=ncl,
+                rounds=math.ceil(ntiles / ncl), stages=fits[BM],
+                smem_bytes=_bwd_narrow_smem(BM, dtype, fits[BM]), blocks=ncl * K,
+                tensor_cores=dtype == torch.bfloat16, co_resident=True)
+
+
+@functools.cache
+def _bwd_narrow_card_plan(index: int, R: int, H: int, dtype: torch.dtype) -> dict:
+    """bwd_narrow_plan on card `index`, its clusters read from the card
+    (cudaOccupancyMaxActiveClusters) for the instance the plan picks; cached,
+    as the wrapper's host time counts."""
+    dev = torch.device("cuda", index)
+    n_sm, limit = _n_sm(dev), _smem_limit(dev)
+    plan = bwd_narrow_plan(R, H, dtype, n_sm, limit)
+    for _ in range(2):                          # until the co-residency agrees with the plan
+        if not plan["co_resident"]:
+            return plan
+        n = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = _bwd_lib().lstm_bwd_max_clusters(_DTYPE_CODE[dtype], plan["tile_rows"], H,
+                                                   plan["smem_bytes"], ctypes.byref(n))
+        _raise_on(err, "lstm_bwd (occupancy)")
+        again = bwd_narrow_plan(R, H, dtype, n_sm, limit, n.value)
+        if again == plan:
+            return again
+        plan = again
+    return plan
+
+
+# the training wrappers' kernels (csrc/<stem>.cu): narrow (H <= 128) and wide
+_TRAIN_KERNELS = {"lstm_fwd_hc": ("lstm_scan", "lstm_scan_wide"),
+                  "lstm_bwd": ("lstm_bwd", "lstm_bwd_wide")}
+
+
+def train_route(name: str, H: int, narrow_plan: dict) -> str:
+    """The kernel (csrc/<stem>.cu) that the training wrapper `name`
+    (lstm_fwd_hc, lstm_bwd) launches at H, given its narrow kernel's plan
+    (`scan_narrow_plan` with mode lstm_fwd_hc, `bwd_narrow_plan`): for H <= 128
+    the narrow kernel (csrc/lstm_scan.cu mode kFwdHc, csrc/lstm_bwd.cu) where
+    its plan runs, else the wide one (csrc/lstm_scan_wide.cu mode kFwdHc,
+    csrc/lstm_bwd_wide.cu), which takes every H % 8 == 0; the wide one past 128.
+    A route by shape and card, picked before any launch: a failed build or
+    launch still raises."""
+    narrow, wide = _TRAIN_KERNELS[name]
+    return narrow if H <= _MAX_H and narrow_plan["co_resident"] else wide
+
+
+def _card_train_route(name: str, x_proj: torch.Tensor, R: int, H: int) -> tuple:
+    """train_route on x_proj's card -> (kernel stem, the plan it launches with)."""
+    index, dtype = _device_index(x_proj.device), x_proj.dtype
+    narrow = dict(co_resident=False)
+    if H <= _MAX_H:
+        narrow = (_scan_card_plan(index, R, H, dtype, 1, name) if name == "lstm_fwd_hc"
+                  else _bwd_narrow_card_plan(index, R, H, dtype))
+    stem = train_route(name, H, narrow)
+    if stem == _TRAIN_KERNELS[name][0]:
+        return stem, narrow
+    if name == "lstm_fwd_hc":
+        return stem, _scan_wide_launch_plan(name, x_proj, R, H)
+    plan = _bwd_wide_card_plan(index, R, H, dtype)
+    if not plan["co_resident"]:
+        raise RuntimeError(f"lstm_bwd_wide at R={R}, H={H}, {dtype}: no row group is "
+                           f"co-resident on this card ({plan})")
+    return stem, plan
+
+
 def _check_train_args(name: str, x_proj, w_hh, *states):
-    """_check_seq_args for the training kernels, which take H <= 768, and
-    which of their kernels H picks: -> (T, R, H, wide), wide for the kernels
-    of csrc/lstm_scan_wide.cu and csrc/lstm_bwd_wide.cu (128 < H), else those
-    of csrc/lstm_bwd.cu."""
-    T, R, H = _check_seq_args(name, x_proj, w_hh, *states, max_h=_WIDE_MAX_H)
-    return T, R, H, H > _MAX_H
+    """_check_seq_args for the training kernels, which take H <= 768 (the narrow
+    kernels H <= 128, the wide ones every H; `train_route` picks): -> (T, R, H)."""
+    return _check_seq_args(name, x_proj, w_hh, *states, max_h=_WIDE_MAX_H)
 
 
 def _n_sm(device: torch.device) -> int:
@@ -838,24 +962,32 @@ def _raise_on(err: int, name: str) -> None:
 def lstm_fwd_hc(x_proj: torch.Tensor, w_hh: torch.Tensor):
     """(T, R, 4H), (H, 4H) -> (hs, cs), each (T, R, H): the residual-saving
     forward scan from zero state. CUDA tensors launch a hand-written
-    kernel that replaces nvse_tpu/ops/pallas_lstm_bwd.py:lstm_fwd_hc, that
-    of csrc/lstm_bwd.cu for H <= 128, mode kFwdHc of csrc/lstm_scan_wide.cu
-    (the plan of `scan_wide_plan`) for 128 < H <= 768; CPU tensors run
-    lstm_fwd_hc_plain. Counts launches in
-    `lstm_fwd_hc.launches` (and per (T, R, H, dtype) in
-    `lstm_fwd_hc.launches_by_shape`)."""
+    kernel that replaces nvse_tpu/ops/pallas_lstm_bwd.py:lstm_fwd_hc, the one
+    `train_route` picks: mode kFwdHc of csrc/lstm_scan.cu (H <= 128, the plan
+    of `scan_narrow_plan`) or of csrc/lstm_scan_wide.cu (the plan of
+    `scan_wide_plan`; 128 < H <= 768, and at H <= 128 where no cluster of the
+    narrow kernel is held); CPU tensors run lstm_fwd_hc_plain. Counts launches
+    in `lstm_fwd_hc.launches` (per (T, R, H, dtype) in
+    `lstm_fwd_hc.launches_by_shape`, per kernel in
+    `lstm_fwd_hc.launches_by_kernel`)."""
     if x_proj.device.type == "cpu":
         return lstm_fwd_hc_plain(x_proj, w_hh)
-    T, R, H, wide = _check_train_args("lstm_fwd_hc", x_proj, w_hh)
+    T, R, H = _check_train_args("lstm_fwd_hc", x_proj, w_hh)
+    _check_aligned("lstm_fwd_hc", x_proj, w_hh)
     hs = torch.empty(T, R, H, device=x_proj.device, dtype=x_proj.dtype)
     cs = torch.empty_like(hs)
+    if T == 0 or R == 0:
+        return hs, cs
     args = (_DTYPE_CODE[x_proj.dtype], x_proj.data_ptr(), w_hh.data_ptr(), hs.data_ptr(),
             cs.data_ptr())
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream(x_proj.device).cuda_stream
-        if wide:
-            _check_aligned("lstm_fwd_hc", x_proj, w_hh)
-            plan = _scan_wide_launch_plan("lstm_fwd_hc", x_proj, R, H)
+        stem, plan = _card_train_route("lstm_fwd_hc", x_proj, R, H)
+        if stem == "lstm_scan":
+            err = _scan_lib().lstm_fwd_hc_launch(*args, R, T, H, plan["inst"], plan["ntiles"],
+                                                 plan["clusters"], plan["stages"],
+                                                 plan["smem_bytes"], stream)
+        else:
             # kernel scratch: in bfloat16 h - bf16(h) of each (row, unit), two
             # slots by step parity (hs holds bf16(h)); the float32 c of each (row, unit)
             lo = (torch.empty(2, R, H, device=x_proj.device, dtype=torch.bfloat16)
@@ -864,11 +996,8 @@ def lstm_fwd_hc(x_proj: torch.Tensor, w_hh: torch.Tensor):
             err = _scan_wide_lib().lstm_fwd_hc_wide_launch(
                 *args, None if lo is None else lo.data_ptr(), c_state.data_ptr(), R, T, H,
                 *_scan_wide_plan_args(plan), stream)
-        else:
-            err = _bwd_lib().lstm_fwd_hc_launch(
-                *args, R, T, H, _rows_per_block(R, _n_sm(x_proj.device), 1), stream)
-    _raise_on(err, "lstm_fwd_hc")
-    _count(lstm_fwd_hc, (T, R, H, str(x_proj.dtype).replace("torch.", "")))
+    _raise_on(err, f"lstm_fwd_hc ({stem})")
+    _count(lstm_fwd_hc, (T, R, H, str(x_proj.dtype).replace("torch.", "")), stem)
     return hs, cs
 
 
@@ -968,22 +1097,26 @@ def lstm_bwd(x_proj, hs, cs, dhs, w_hh):
 
 def lstm_bwd_recurrence(x_proj, hs, cs, dhs, w_hh) -> torch.Tensor:
     """The reverse-time kernel of lstm_bwd alone (CUDA tensors only):
-    -> dx_proj (T, R, 4H); that of csrc/lstm_bwd.cu for H <= 128, that of
-    csrc/lstm_bwd_wide.cu (the plan of `bwd_wide_plan`) for 128 < H <= 768.
-    Counts in `lstm_bwd.launches`."""
-    T, R, H, wide = _check_train_args("lstm_bwd", x_proj, w_hh, hs, cs, dhs)
-    if wide:
-        _check_aligned("lstm_bwd", x_proj, hs, cs, dhs, w_hh)
+    -> dx_proj (T, R, 4H); the one `train_route` picks: that of csrc/lstm_bwd.cu
+    (H <= 128, the plan of `bwd_narrow_plan`) or that of csrc/lstm_bwd_wide.cu
+    (the plan of `bwd_wide_plan`; 128 < H <= 768, and at H <= 128 where no
+    cluster of the narrow kernel is held). Counts in `lstm_bwd.launches` (per
+    kernel in `lstm_bwd.launches_by_kernel`)."""
+    T, R, H = _check_train_args("lstm_bwd", x_proj, w_hh, hs, cs, dhs)
+    _check_aligned("lstm_bwd", x_proj, hs, cs, dhs, w_hh)
     dx = torch.empty_like(x_proj)
+    if T == 0 or R == 0:
+        return dx
     args = (_DTYPE_CODE[x_proj.dtype], x_proj.data_ptr(), hs.data_ptr(), cs.data_ptr(),
             dhs.data_ptr(), w_hh.data_ptr(), dx.data_ptr())
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream(x_proj.device).cuda_stream
-        if wide:
-            plan = _bwd_wide_card_plan(_device_index(x_proj.device), R, H, x_proj.dtype)
-            if not plan["co_resident"]:
-                raise RuntimeError(f"lstm_bwd_wide at R={R}, H={H}, {x_proj.dtype}: no row "
-                                   f"group is co-resident on this card ({plan})")
+        stem, plan = _card_train_route("lstm_bwd", x_proj, R, H)
+        if stem == "lstm_bwd":
+            err = _bwd_lib().lstm_bwd_launch(*args, R, T, H, plan["tile_rows"], plan["ntiles"],
+                                             plan["clusters"], plan["stages"], plan["smem_bytes"],
+                                             stream)
+        else:
             # kernel scratch: each block's float32 share of the next dh carry for
             # its group's rows, two slots by step parity; the float32 dc carry of
             # each (row, unit)
@@ -993,11 +1126,8 @@ def lstm_bwd_recurrence(x_proj, hs, cs, dhs, w_hh) -> torch.Tensor:
             err = _bwd_wide_lib().lstm_bwd_wide_launch(
                 *args, share.data_ptr(), dc.data_ptr(), R, T, H, U, plan["tile_rows"],
                 plan["groups"], plan["smem_bytes"], stream)
-        else:
-            err = _bwd_lib().lstm_bwd_launch(
-                *args, R, T, H, _rows_per_block(R, _n_sm(x_proj.device), 1), stream)
-    _raise_on(err, "lstm_bwd")
-    _count(lstm_bwd, (T, R, H, str(x_proj.dtype).replace("torch.", "")))
+    _raise_on(err, f"lstm_bwd ({stem})")
+    _count(lstm_bwd, (T, R, H, str(x_proj.dtype).replace("torch.", "")), stem)
     return dx
 
 
@@ -1034,38 +1164,53 @@ def _scan_lib() -> ctypes.CDLL:
     lib.lstm_scan_launch.argtypes = [i, ptr, ptr, ptr, *[i] * 8, ptr]
     lib.lstm_scan_stateful_launch.argtypes = [i, *[ptr] * 6, *[i] * 8, ptr]
     lib.lstm_scan_bidir_launch.argtypes = [i, ptr, ptr, ptr, *[i] * 8, ptr]
-    lib.lstm_scan_max_clusters.argtypes = [i, i, i, i, ptr]
+    lib.lstm_fwd_hc_launch.argtypes = [i, *[ptr] * 4, *[i] * 8, ptr]
+    lib.lstm_scan_max_clusters.argtypes = [i, i, i, i, i, ptr]
     for fn in (lib.lstm_scan_launch, lib.lstm_scan_stateful_launch, lib.lstm_scan_bidir_launch,
-               lib.lstm_scan_max_clusters):
+               lib.lstm_fwd_hc_launch, lib.lstm_scan_max_clusters):
         fn.restype = ctypes.c_int
     return lib
 
 
 # csrc/lstm_scan.cu's tiles (its `Scan`): the units a block owns (its W_hh
 # columns in registers), the rows of a tile at instance 1 (a tile of instance
-# `inst` has rows * inst), the instances, the pitch of an h row in shared memory
-# and the bytes of the warps' gate scratch
-_SCAN = {torch.bfloat16: dict(units=64, rows=16, insts=(1, 2, 4), hpp=136,
-                              scratch=16 * 16 * 24 * 4),
-         torch.float32: dict(units=32, rows=1, insts=(1, 2, 4, 8, 16), hpp=128, scratch=0)}
+# `inst` has rows * inst), the instances (and those of mode kFwdHc: float32 adds
+# tiles of 32 and 48 rows, run in passes of 16), the pitch of an h row in shared
+# memory and the bytes of the warps' gate scratch
+_SCAN = {torch.bfloat16: dict(units=64, rows=16, insts=(1, 2, 4), fwd_hc_insts=(1, 2, 4),
+                              hpp=136, scratch=16 * 16 * 24 * 4),
+         torch.float32: dict(units=32, rows=1, insts=(1, 2, 4, 8, 16),
+                             fwd_hc_insts=(1, 2, 4, 8, 16, 32, 48), hpp=128, scratch=0)}
 _SCAN_STAGES = 3                # the x ring
 _SCAN_STATIC_SMEM = 16          # bytes of static shared memory beside the plan's (two mbarriers)
+# csrc/lstm_scan.cu's modes (its `Mode`): the wrapper that launches each
+_SCAN_MODE = {"lstm_scan": 0, "lstm_scan_stateful": 1, "lstm_scan_bidir": 0, "lstm_fwd_hc": 2}
 
 
-def _scan_smem(inst: int, dtype: torch.dtype, stages: int) -> int:
-    """Dynamic shared memory of the narrow scan at instance `inst`: two h buffers,
-    a ring of `stages` x steps (the 4 gates x U units of each row) and the
-    warps' gate scratch (bfloat16)."""
+def _scan_insts(dtype: torch.dtype, mode: str = "lstm_scan") -> tuple:
+    """The narrow scan's instances for the wrapper `mode`."""
+    return _SCAN[dtype]["fwd_hc_insts" if mode == "lstm_fwd_hc" else "insts"]
+
+
+def _scan_smem(inst: int, dtype: torch.dtype, stages: int, mode: str = "lstm_scan") -> int:
+    """Dynamic shared memory of the narrow scan at instance `inst` for the
+    wrapper `mode`: two h buffers (and two of lo, h - bf16(h), for lstm_fwd_hc
+    in bfloat16), a ring of `stages` x steps (the 4 gates x U units of each row)
+    and the warps' gate scratch (bfloat16)."""
     d = _SCAN[dtype]
     bm = d["rows"] * inst
-    return (2 * bm * d["hpp"] + stages * bm * 4 * d["units"]) * _ITEM[dtype] + d["scratch"]
+    planes = 4 if dtype == torch.bfloat16 and mode == "lstm_fwd_hc" else 2
+    return (planes * bm * d["hpp"] + stages * bm * 4 * d["units"]) * _ITEM[dtype] + d["scratch"]
 
 
 def scan_narrow_plan(R: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: int,
-                     max_clusters: int | None = None, directions: int = 1) -> dict:
-    """Launch plan of the narrow scan (csrc/lstm_scan.cu, H <= 128) at x_proj
-    (T, directions x R, 4H) (any T) on a card with n_sm SMs and smem_limit bytes
-    a block, holding max_clusters clusters at once (default: one block an SM).
+                     max_clusters: int | None = None, directions: int = 1,
+                     mode: str = "lstm_scan") -> dict:
+    """Launch plan of the narrow scan (csrc/lstm_scan.cu, H <= 128) for the
+    wrapper `mode` (lstm_scan, lstm_scan_stateful, lstm_scan_bidir, lstm_fwd_hc)
+    at x_proj (T, directions x R, 4H) (any T) on a card with n_sm SMs and
+    smem_limit bytes a block, holding max_clusters clusters at once (default:
+    one block an SM).
 
     A cluster of K = ceil(H / U) blocks owns a (direction, row tile); each block
     keeps its U units' W_hh columns in registers (U = 64 in bfloat16, 32 in
@@ -1083,8 +1228,8 @@ def scan_narrow_plan(R: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: 
     U = d["units"]
     K = math.ceil(H / U)
     none = dict(units=U, cluster=K, co_resident=False, ntiles=0, clusters=0)
-    fits = [i for i in d["insts"]
-            if _scan_smem(i, dtype, _SCAN_STAGES) + _SCAN_STATIC_SMEM <= smem_limit]
+    fits = [i for i in _scan_insts(dtype, mode)
+            if _scan_smem(i, dtype, _SCAN_STAGES, mode) + _SCAN_STATIC_SMEM <= smem_limit]
     clusters = n_sm // K if max_clusters is None else max_clusters
     per_dir = clusters // directions
     if H > _MAX_H or not fits or per_dir < 1 or R < 1:
@@ -1099,27 +1244,29 @@ def scan_narrow_plan(R: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: 
     ncl = min(per_dir, ntiles)
     return dict(units=U, cluster=K, inst=inst, tile_rows=d["rows"] * inst, rows=rows,
                 ntiles=ntiles, clusters=ncl, rounds=math.ceil(ntiles / ncl), stages=_SCAN_STAGES,
-                smem_bytes=_scan_smem(inst, dtype, _SCAN_STAGES), blocks=directions * ncl * K,
+                smem_bytes=_scan_smem(inst, dtype, _SCAN_STAGES, mode), blocks=directions * ncl * K,
                 tensor_cores=dtype == torch.bfloat16, co_resident=True)
 
 
 @functools.cache
-def _scan_card_plan(index: int, R: int, H: int, dtype: torch.dtype, directions: int) -> dict:
-    """scan_narrow_plan on card `index`, its clusters read from the card
-    (cudaOccupancyMaxActiveClusters) for the instance the plan picks; cached,
-    as the wrapper's host time counts."""
+def _scan_card_plan(index: int, R: int, H: int, dtype: torch.dtype, directions: int,
+                    mode: str = "lstm_scan") -> dict:
+    """scan_narrow_plan on card `index` for the wrapper `mode`, its clusters read
+    from the card (cudaOccupancyMaxActiveClusters) for the instance the plan
+    picks; cached, as the wrapper's host time counts."""
     dev = torch.device("cuda", index)
     n_sm, limit = _n_sm(dev), _smem_limit(dev)
-    plan = scan_narrow_plan(R, H, dtype, n_sm, limit, directions=directions)
+    plan = scan_narrow_plan(R, H, dtype, n_sm, limit, directions=directions, mode=mode)
     for _ in range(2):                          # until the co-residency agrees with the plan
         if not plan["co_resident"]:
             return plan
         n = ctypes.c_int(0)
         with torch.cuda.device(index):
-            err = _scan_lib().lstm_scan_max_clusters(_DTYPE_CODE[dtype], plan["inst"], H,
-                                                     plan["smem_bytes"], ctypes.byref(n))
-        _raise_on(err, "lstm_scan (occupancy)")
-        again = scan_narrow_plan(R, H, dtype, n_sm, limit, n.value, directions)
+            err = _scan_lib().lstm_scan_max_clusters(_DTYPE_CODE[dtype], _SCAN_MODE[mode],
+                                                     plan["inst"], H, plan["smem_bytes"],
+                                                     ctypes.byref(n))
+        _raise_on(err, f"{mode} (occupancy)")
+        again = scan_narrow_plan(R, H, dtype, n_sm, limit, n.value, directions, mode)
         if again == plan:
             return again
         plan = again

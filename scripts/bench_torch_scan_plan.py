@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """The narrow scan (csrc/lstm_scan.cu), the wide backward recurrence
-(csrc/lstm_bwd_wide.cu) and the wide forward scans (csrc/lstm_scan_wide.cu) at
-each launch plan they could take, against the plan ops/lstm.py picks.
+(csrc/lstm_bwd_wide.cu), the wide forward scans (csrc/lstm_scan_wide.cu) and
+the narrow training kernels (csrc/lstm_scan.cu mode kFwdHc, csrc/lstm_bwd.cu)
+at each launch plan they could take, against the plan ops/lstm.py picks.
 
-    python3 scripts/bench_torch_scan_plan.py [--kernel scan|bwd|scan_wide|all] [--iters 5]
-                                             [--out FILE]
+    python3 scripts/bench_torch_scan_plan.py [--kernel scan|bwd|scan_wide|train_narrow|all]
+                                             [--iters 5] [--out FILE]
+    python3 scripts/bench_torch_scan_plan.py --kernel train_wrappers [--repo DIR]
 
 scan: at every shape the BSRNN-M paths and the LSTM-layout bench give it (H =
 128: the causal decode's time LSTM, a context-recompute window of one file, a
@@ -21,7 +23,19 @@ offline decode beside the streams, a streaming chunk of 8 streams and of one,
 a context-recompute window), GCRN's training forward (16 x 65, H = 448) and
 B7's bench (both directions, 544 x 1024 and 8192 x 68) give it, each dtype,
 every instance (units a block, rows a tile) that fits, with a quarter, a half
-and all of the row groups the card holds (and the plan's own). As a yardstick that no route takes,
+and all of the row groups the card holds (and the plan's own). train_narrow: at
+BSRNN-M's training shapes (H = 128: 544 rows x 65 steps, 1040 x 34), each dtype,
+the residual-saving forward and the backward recurrence as the wrappers route
+them (`train_route`), the wide kernels at H = 128 through their plans
+(csrc/lstm_scan_wide.cu mode kFwdHc with `scan_wide_plan`, csrc/lstm_bwd_wide.cu
+with `bwd_wide_plan`; a yardstick that costs no new kernel), and every plan of
+the narrow kernels (`scan_narrow_plan` with mode lstm_fwd_hc and
+`bwd_narrow_plan` for a quarter, a half, three quarters and all of the clusters
+the card holds, each at its own tile instance and every larger one), each with
+its bound (bytes over 3.35 TB/s or FLOPs over 67 / 989 TFLOP/s) and its us a
+step. train_wrappers: the wrappers lstm_fwd_hc and lstm_bwd_recurrence alone at
+those shapes, of the package in DIR (default: this checkout), so that one call
+can time a parent checkout's kernels beside these. As a yardstick that no route takes,
 beside each scan shape: cuDNN's unidirectional torch.nn.LSTM forward, one a
 direction, the projection included.
 
@@ -41,6 +55,8 @@ import sys
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if "--repo" in sys.argv:                 # the package of another checkout (train_wrappers)
+    REPO = os.path.abspath(sys.argv[sys.argv.index("--repo") + 1])
 sys.path.insert(0, REPO)
 
 # (label, rows of a direction, steps, directions, stateful) of the narrow scan, H = 128
@@ -58,6 +74,10 @@ SCAN_WIDE_SHAPES = (("time", "lstm_fwd_hc", 544, 65, 256), ("band", "lstm_fwd_hc
                     ("chunk1", "lstm_scan_stateful", 34, 80, 256),
                     ("bidir_time", "lstm_scan_bidir", 544, 1024, 256),
                     ("bidir_band", "lstm_scan_bidir", 8192, 68, 256))
+# (label, rows, steps) of the narrow training kernels, H = 128
+TRAIN_NARROW_SHAPES = (("time", 544, 65), ("band", 1040, 34))
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_BYTES = 3.35e12
 
 
 def _ms(fn, iters):
@@ -72,22 +92,23 @@ def _ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _scan_variants(R, H, dtype, dirs, n_sm, limit):
+def _scan_variants(R, H, dtype, dirs, n_sm, limit, mode="lstm_scan"):
     """(inst, ntiles, clusters) of every plan the bench tries."""
     from nvse_tpu_torch.ops import lstm as L
 
-    d = L._SCAN[dtype]
+    insts = L._scan_insts(dtype, mode)
     out = []
-    for inst in d["insts"]:
+    for inst in insts:
         n = ctypes.c_int(0)
         L._raise_on(L._scan_lib().lstm_scan_max_clusters(
-            L._DTYPE_CODE[dtype], inst, H, L._scan_smem(inst, dtype, L._SCAN_STAGES),
-            ctypes.byref(n)), "lstm_scan (occupancy)")
+            L._DTYPE_CODE[dtype], L._SCAN_MODE[mode], inst, H,
+            L._scan_smem(inst, dtype, L._SCAN_STAGES, mode), ctypes.byref(n)),
+            "lstm_scan (occupancy)")
         for c in sorted({n.value * q // 4 for q in (1, 2, 3, 4)}):
-            p = L.scan_narrow_plan(R, H, dtype, n_sm, limit, c, dirs)
+            p = L.scan_narrow_plan(R, H, dtype, n_sm, limit, c, dirs, mode)
             if not p["co_resident"]:
                 continue
-            for i in d["insts"]:
+            for i in insts:
                 if i >= p["inst"]:
                     out.append((i, p["ntiles"], p["clusters"]))
     return sorted(set(out))
@@ -330,10 +351,173 @@ def _bench_scan_wide(emit, iters, n_sm, limit):
                       fastest=dict(zip(("ms", "units", "tile_rows", "groups", "picked"), best))))
 
 
+def _train_inputs(R, T, H, dtype):
+    """x_proj, W_hh and dhs as chip_smoke.py's training-kernel phase makes them."""
+    g = torch.Generator().manual_seed(R + T)
+    b = 1.0 / math.sqrt(H)
+    xp = (0.5 * torch.randn(T, R, 4 * H, generator=g)).to("cuda", dtype)
+    whh = torch.empty(H, 4 * H).uniform_(-b, b, generator=g).to("cuda", dtype)
+    dhs = torch.randn(T, R, H, generator=g).to("cuda", dtype)
+    return xp, whh, dhs
+
+
+def _train_bounds(R, T, H, dtype):
+    """The least ms the card could take for the forward and the backward
+    recurrence (chip_smoke.py's: each input read once, each output written once;
+    one product of R T x H x 4H forward, two backward)."""
+    G, item = 4 * H, torch.tensor([], dtype=dtype).element_size()
+    ops = 2 * R * T * H * G
+    nb_f = (R * T * G + H * G + 2 * R * T * H) * item
+    nb_b = (2 * R * T * G + 3 * R * T * H + H * G) * item
+    return (max(nb_f / PEAK_BYTES, ops / PEAK_FLOPS[dtype]) * 1e3,
+            max(nb_b / PEAK_BYTES, 2 * ops / PEAK_FLOPS[dtype]) * 1e3)
+
+
+def _bench_train_wrappers(emit, iters):
+    from nvse_tpu_torch.ops import lstm as L
+
+    H = 128
+    for label, R, T in TRAIN_NARROW_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            xp, whh, dhs = _train_inputs(R, T, H, dtype)
+            with torch.inference_mode():
+                hs, cs = L.lstm_fwd_hc(xp, whh)
+                fwd = _ms(lambda: L.lstm_fwd_hc(xp, whh), iters)
+                bwd = _ms(lambda: L.lstm_bwd_recurrence(xp, hs, cs, dhs, whh), iters)
+            bf, bb = _train_bounds(R, T, H, dtype)
+            emit(dict(kernel="train_wrappers", repo=REPO, shape=label, rows=R, steps=T, H=H,
+                      dtype=str(dtype)[6:], fwd_ms=fwd, bwd_ms=bwd, fwd_us_per_step=fwd * 1e3 / T,
+                      bwd_us_per_step=bwd * 1e3 / T, fwd_bound_ms=bf, bwd_bound_ms=bb))
+
+
+def _bwd_narrow_variants(R, H, dtype, n_sm, limit):
+    """(tile rows, ntiles, clusters, stages) of every narrow backward plan the bench tries."""
+    from nvse_tpu_torch.ops import lstm as L
+
+    d = L._BWD_NARROW[dtype]
+    out = []
+    for BM in d["tiles"]:
+        for st in L._BWD_NARROW_STAGES:
+            smem = L._bwd_narrow_smem(BM, dtype, st)
+            if smem + L._BWD_NARROW_STATIC_SMEM > limit:
+                continue
+            n = ctypes.c_int(0)
+            L._raise_on(L._bwd_lib().lstm_bwd_max_clusters(L._DTYPE_CODE[dtype], BM, H, smem,
+                                                          ctypes.byref(n)), "lstm_bwd (occupancy)")
+            for c in sorted({n.value * q // 4 for q in (1, 2, 3, 4)}):
+                p = L.bwd_narrow_plan(R, H, dtype, n_sm, limit, c)
+                if p["co_resident"] and BM >= p["tile_rows"]:
+                    out.append((BM, p["ntiles"], p["clusters"], st))
+    return sorted(set(out))
+
+
+def _bench_train_narrow(emit, iters, n_sm, limit):
+    from nvse_tpu_torch.ops import lstm as L
+
+    H = 128
+    for label, R, T in TRAIN_NARROW_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            xp, whh, dhs = _train_inputs(R, T, H, dtype)
+            code, dt = L._DTYPE_CODE[dtype], str(dtype)[6:]
+            bf, bb = _train_bounds(R, T, H, dtype)
+            with torch.inference_mode():
+                hs, cs = L.lstm_fwd_hc(xp, whh)
+                ref_f = hs.float()
+                ref_b = L.lstm_bwd_recurrence(xp, hs, cs, dhs, whh).float()
+                route_f, plan_f = L._card_train_route("lstm_fwd_hc", xp, R, H)
+                route_b, plan_b = L._card_train_route("lstm_bwd", xp, R, H)
+                emit(dict(kernel="route", shape=label, rows=R, steps=T, H=H, dtype=dt,
+                          fwd=route_f, bwd=route_b,
+                          fwd_ms=_ms(lambda: L.lstm_fwd_hc(xp, whh), iters),
+                          bwd_ms=_ms(lambda: L.lstm_bwd_recurrence(xp, hs, cs, dhs, whh), iters),
+                          fwd_bound_ms=bf, bwd_bound_ms=bb))
+            best = {}
+
+            def timed(kind, run, ref, **plan):
+                diff = (run().float() - ref).abs().max().item()
+                ms = _ms(run, iters)
+                chain = plan.get("rounds", 1) * T
+                emit(dict(kernel=kind, shape=label, rows=R, steps=T, H=H, dtype=dt, **plan,
+                          ms=ms, us_per_step=ms * 1e3 / T, us_per_chain_step=ms * 1e3 / chain,
+                          bound_ms=bf if "fwd" in kind else bb, max_abs_diff_vs_route=diff))
+                side = "fwd" if "fwd" in kind else "bwd"
+                if side not in best or ms < best[side][0]:
+                    best[side] = (ms, kind, plan)
+
+            # (b) the wide kernels at H = 128 through their plans
+            pw = L._scan_wide_card_plan(0, R, H, dtype, 1, "lstm_fwd_hc")
+            if pw["co_resident"]:
+                hs_w, cs_w = torch.empty_like(hs), torch.empty_like(cs)
+                lo = torch.empty(2, R, H, device="cuda", dtype=torch.bfloat16)
+                c_state = torch.empty(R, H, device="cuda", dtype=torch.float32)
+
+                def fwd_wide():
+                    L._raise_on(L._scan_wide_lib().lstm_fwd_hc_wide_launch(
+                        code, xp.data_ptr(), whh.data_ptr(), hs_w.data_ptr(), cs_w.data_ptr(),
+                        lo.data_ptr(), c_state.data_ptr(), R, T, H, *L._scan_wide_plan_args(pw),
+                        torch.cuda.current_stream().cuda_stream), "lstm_fwd_hc (wide)")
+                    return hs_w
+                timed("fwd_wide", fwd_wide, ref_f, units=pw["units"], tile_rows=pw["tile_rows"],
+                      groups=pw["groups"])
+            pb = L._bwd_wide_card_plan(0, R, H, dtype)
+            if pb["co_resident"]:
+                U = pb["units"]
+                share = torch.empty(2, H // U, R, H, device="cuda", dtype=torch.float32)
+                dc = torch.empty(R, H, device="cuda", dtype=torch.float32)
+                dx_w = torch.empty_like(xp)
+
+                def bwd_wide():
+                    L._raise_on(L._bwd_wide_lib().lstm_bwd_wide_launch(
+                        code, xp.data_ptr(), hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
+                        whh.data_ptr(), dx_w.data_ptr(), share.data_ptr(), dc.data_ptr(), R, T, H,
+                        U, pb["tile_rows"], pb["groups"], pb["smem_bytes"],
+                        torch.cuda.current_stream().cuda_stream), "lstm_bwd (wide)")
+                    return dx_w
+                timed("bwd_wide", bwd_wide, ref_b, units=U, tile_rows=pb["tile_rows"],
+                      groups=pb["groups"])
+
+            # (c) every plan of the narrow kernels; picked: the route's own plan
+            for inst, ntiles, ncl in _scan_variants(R, H, dtype, 1, n_sm, limit, "lstm_fwd_hc"):
+                hs_n, cs_n = torch.empty_like(hs), torch.empty_like(cs)
+                smem = L._scan_smem(inst, dtype, L._SCAN_STAGES, "lstm_fwd_hc")
+
+                def fwd_narrow(inst=inst, ntiles=ntiles, ncl=ncl, smem=smem, hs_n=hs_n, cs_n=cs_n):
+                    L._raise_on(L._scan_lib().lstm_fwd_hc_launch(
+                        code, xp.data_ptr(), whh.data_ptr(), hs_n.data_ptr(), cs_n.data_ptr(), R,
+                        T, H, inst, ntiles, ncl, L._SCAN_STAGES, smem,
+                        torch.cuda.current_stream().cuda_stream), "lstm_fwd_hc (narrow)")
+                    return hs_n
+                picked = route_f == "lstm_scan" and (inst, ntiles, ncl) == (
+                    plan_f["inst"], plan_f["ntiles"], plan_f["clusters"])
+                timed("fwd_narrow", fwd_narrow, ref_f, inst=inst, tile_rows=L._SCAN[dtype]["rows"] * inst,
+                      ntiles=ntiles, clusters=ncl, rounds=math.ceil(ntiles / ncl), picked=picked)
+            for BM, ntiles, ncl, st in _bwd_narrow_variants(R, H, dtype, n_sm, limit):
+                dx_n = torch.empty_like(xp)
+                smem = L._bwd_narrow_smem(BM, dtype, st)
+
+                def bwd_narrow(BM=BM, ntiles=ntiles, ncl=ncl, st=st, smem=smem, dx_n=dx_n):
+                    L._raise_on(L._bwd_lib().lstm_bwd_launch(
+                        code, xp.data_ptr(), hs.data_ptr(), cs.data_ptr(), dhs.data_ptr(),
+                        whh.data_ptr(), dx_n.data_ptr(), R, T, H, BM, ntiles, ncl, st, smem,
+                        torch.cuda.current_stream().cuda_stream), "lstm_bwd (narrow)")
+                    return dx_n
+                picked = route_b == "lstm_bwd" and (BM, ntiles, ncl, st) == (
+                    plan_b["tile_rows"], plan_b["ntiles"], plan_b["clusters"], plan_b["stages"])
+                timed("bwd_narrow", bwd_narrow, ref_b, tile_rows=BM, ntiles=ntiles, clusters=ncl,
+                      stages=st, rounds=math.ceil(ntiles / ncl), picked=picked)
+            for side in ("fwd", "bwd"):
+                ms, kind, plan = best[side]
+                emit(dict(kernel=f"train_narrow_{side}", shape=label, dtype=dt,
+                          fastest=dict(ms=ms, kind=kind, **plan)))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--kernel", default="all", choices=("scan", "bwd", "scan_wide", "all"))
+    p.add_argument("--kernel", default="all",
+                   choices=("scan", "bwd", "scan_wide", "train_narrow", "train_wrappers", "all"))
     p.add_argument("--iters", type=int, default=5)
+    p.add_argument("--repo", default=REPO,
+                   help="train_wrappers: the checkout whose package is timed (default: this one)")
     p.add_argument("--out", default=None, help="also write the lines to this file")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -359,6 +543,10 @@ def main(argv=None):
         _bench_bwd(emit, args.iters, n_sm, limit)
     if args.kernel in ("scan_wide", "all"):
         _bench_scan_wide(emit, args.iters, n_sm, limit)
+    if args.kernel in ("train_narrow", "all"):
+        _bench_train_narrow(emit, args.iters, n_sm, limit)
+    if args.kernel == "train_wrappers":
+        _bench_train_wrappers(emit, args.iters)
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")

@@ -36,9 +36,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 BATCH, STEPS, DTYPES = 16, 3, ("float32", "bfloat16")
+# csrc/lstm_scan.cu (mode kFwdHc, the only scan of a training step) and
 # csrc/lstm_bwd.cu (H <= 128), csrc/lstm_scan_wide.cu (mode kFwdHc) and
-# csrc/lstm_bwd_wide.cu (128 < H <= 768)
-LSTM_KERNELS = ("lstm_fwd_hc_kernel", "lstm_bwd_kernel", "lstm_dw_mma_kernel",
+# csrc/lstm_bwd_wide.cu (128 < H <= 768), and the dW_hh reduction of csrc/lstm_bwd.cu
+LSTM_KERNELS = ("lstm_scan_kernel", "lstm_bwd_cluster_kernel", "lstm_dw_mma_kernel",
                 "lstm_dw_fma_kernel", "lstm_scan_wide_kernel", "lstm_bwd_wide_kernel")
 
 

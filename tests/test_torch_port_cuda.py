@@ -36,7 +36,13 @@ with W_hh in registers, tensor cores in bfloat16) at H = 8-128 from one row to
 of one to three steps, with W_hh's rows reversed as the control; and the
 redesigned wide backward recurrence (csrc/lstm_bwd_wide.cu: row groups x unit
 slices, tensor cores in bfloat16) at H = 136-768 from one row and step to 300
-rows, with the same control; each with the plan it reads from the card.
+rows, with the same control; and the redesigned narrow training kernels
+(csrc/lstm_scan.cu mode kFwdHc and csrc/lstm_bwd.cu: clusters with W_hh
+resident, the carry exchanged in distributed shared memory, tensor cores in
+bfloat16) at H = 8-128, T = 1 and 2, ragged rows, clusters walking several
+tiles and BSRNN-M's training shapes, with W_hh's rows reversed as the
+control, and the wide route where the plan says no cluster is held; each
+with the plan it reads from the card.
 """
 import math
 
@@ -122,17 +128,24 @@ def _seq_args(T, R, H, dtype, seed=0):
 SEQ_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 3e-2)}
 
 
+# the narrow training kernels (csrc/lstm_scan.cu mode kFwdHc, csrc/lstm_bwd.cu): H = 8,
+# 32, 64, 120 (units past H) and 128; T = 1 and 2; rows no multiple of a tile (37, 203);
+# clusters walking several row tiles (2000 rows); BSRNN-M's time and band shapes
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,R,H", [(7, 3, 8), (9, 200, 128), (5, 300, 32), (34, 37, 128)])
+@pytest.mark.parametrize("T,R,H", [(7, 3, 8), (9, 200, 128), (5, 300, 32), (34, 37, 128),
+                                   (1, 5, 128), (2, 5, 128), (9, 37, 120), (9, 203, 64),
+                                   (3, 2000, 128), (65, 544, 128), (34, 1040, 128)])
 def test_fwd_hc_and_bwd_match_plain(cuda, T, R, H, dtype):
     xp, whh, dhs = _seq_args(T, R, H, dtype)
-    n = (port_lstm.lstm_fwd_hc.launches, port_lstm.lstm_bwd.launches,
-         port_lstm.lstm_dw_hh.launches)
+    fns = port_lstm.lstm_fwd_hc, port_lstm.lstm_bwd, port_lstm.lstm_dw_hh
+    n = [f.launches for f in fns]
+    k0 = [dict(f.launches_by_kernel) for f in fns[:2]]
     hs, cs = port_lstm.lstm_fwd_hc(xp, whh)
     dx, dw = port_lstm.lstm_bwd(xp, hs, cs, dhs, whh)
     torch.cuda.synchronize()
-    assert (port_lstm.lstm_fwd_hc.launches, port_lstm.lstm_bwd.launches,
-            port_lstm.lstm_dw_hh.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    assert [f.launches - k for f, k in zip(fns, n)] == [1, 1, 1]
+    assert _kernel_delta(port_lstm.lstm_fwd_hc, k0[0]) == {"lstm_scan": 1}
+    assert _kernel_delta(port_lstm.lstm_bwd, k0[1]) == {"lstm_bwd": 1}
     hs_ref, cs_ref = port_lstm.lstm_fwd_hc_plain(xp, whh)
     # the backward's reference from the kernel's own residuals, so that a
     # rounding flip in hs/cs does not count twice
@@ -140,6 +153,35 @@ def test_fwd_hc_and_bwd_match_plain(cuda, T, R, H, dtype):
     atol, rtol = SEQ_TOL[dtype]
     for got, ref in ((hs, hs_ref), (cs, cs_ref), (dx, dx_ref), (dw, dw_ref)):
         assert got.dtype == dtype and got.shape == ref.shape
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    if T > 1:                                  # the controls: W_hh's rows reversed
+        w_rev = _reversed_rows(whh)
+        ctl, _ = port_lstm.lstm_fwd_hc(xp, w_rev)
+        assert (ctl.float() - hs_ref.float()).abs().max().item() > atol
+        ctl = port_lstm.lstm_bwd_recurrence(xp, hs, cs, dhs, w_rev)
+        assert (ctl.float() - dx_ref.float()).abs().max().item() > atol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_training_kernels_take_the_wide_route_where_the_plan_says(cuda, monkeypatch, dtype):
+    """At H <= 128, where a narrow kernel's plan says no cluster is held, the
+    wrappers take the wide kernels (chosen before the launch, counted under
+    their name) and compute the same."""
+    T, R, H = 9, 37, 128
+    xp, whh, dhs = _seq_args(T, R, H, dtype)
+    hs_ref, cs_ref = port_lstm.lstm_fwd_hc_plain(xp, whh)
+    none = dict(co_resident=False)
+    monkeypatch.setattr(port_lstm, "_scan_card_plan", lambda *a, **kw: none)
+    monkeypatch.setattr(port_lstm, "_bwd_narrow_card_plan", lambda *a, **kw: none)
+    k0 = [dict(f.launches_by_kernel) for f in (port_lstm.lstm_fwd_hc, port_lstm.lstm_bwd)]
+    hs, cs = port_lstm.lstm_fwd_hc(xp, whh)
+    dx = port_lstm.lstm_bwd_recurrence(xp, hs, cs, dhs, whh)
+    torch.cuda.synchronize()
+    assert _kernel_delta(port_lstm.lstm_fwd_hc, k0[0]) == {"lstm_scan_wide": 1}
+    assert _kernel_delta(port_lstm.lstm_bwd, k0[1]) == {"lstm_bwd_wide": 1}
+    dx_ref, _ = port_lstm.lstm_bwd_plain(xp, hs, cs, dhs, whh)
+    atol, rtol = SEQ_TOL[dtype]
+    for got, ref in ((hs, hs_ref), (cs, cs_ref), (dx, dx_ref)):
         torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
 
 

@@ -1,10 +1,13 @@
-"""The launch plans of the five redesigned kernels, on the CPU.
+"""The launch plans of the redesigned kernels, on the CPU.
 
 `dw_plan` (the dW_hh reduction of csrc/lstm_bwd.cu), `fused_wide_plan` (the
 wide fused BiLSTM of csrc/lstm_fused_wide.cu), `fused_narrow_plan` (the
 narrow fused BiLSTM of csrc/lstm_fused.cu), `scan_narrow_plan` (the narrow
-scans of csrc/lstm_scan.cu) and `bwd_wide_plan` (the wide backward
-recurrence of csrc/lstm_bwd_wide.cu) are plain functions of the shape, the
+scans of csrc/lstm_scan.cu, and in mode lstm_fwd_hc its residual-saving
+forward), `bwd_narrow_plan` (the narrow backward recurrence of
+csrc/lstm_bwd.cu), `bwd_wide_plan` (the wide backward recurrence of
+csrc/lstm_bwd_wide.cu) and `scan_wide_plan` (csrc/lstm_scan_wide.cu) are
+plain functions of the shape, the
 dtype and the card's SM count, shared-memory limit and blocks (or clusters)
 it holds; the C entries take their plans as arguments. Checked here at an
 H100's figures (132 SMs, 232,448 bytes a block) and at a smaller card's (46
@@ -13,8 +16,10 @@ row in exactly one narrow tile or row group and every unit in one block,
 each tile and ring in the shared-memory limit, the grids co-resident or the
 plan saying they are not, few rows spread over many clusters, and the plans
 the port reports for BSRNN-L's, BSRNN-M's and GCRN's shapes and the H = 8,
-16, 64, 120, 128, 136, 448, 512 and 768 edges; and lstm_scan_fused's route
-at H <= 128 by whether a cluster of the narrow kernel fits (C1).
+16, 64, 120, 128, 136, 448, 512 and 768 edges; lstm_scan_fused's route
+at H <= 128 by whether a cluster of the narrow kernel fits (C1); and the
+training wrappers' route (`train_route`): the narrow kernels where their plans
+run, the wide ones past H = 128 and where nothing fits or no cluster is held.
 """
 import pytest
 import torch
@@ -565,3 +570,136 @@ def test_scan_wide_smem_matches_the_kernels_layout():
     # H = 136 in bfloat16 pads k to 144, then 8: rows of 152
     assert L._scan_wide_smem(8, 32, 136, BF) == (32 * 152 * 2 + 32 * 152 * 2 + 32 * 40 * 4
                                                  + 2 * 32 * 32 * 2)
+
+
+# ---------------------------------------------------------------------------
+# the narrow training kernels: scan_narrow_plan in mode lstm_fwd_hc (csrc/lstm_scan.cu
+# mode kFwdHc), bwd_narrow_plan (csrc/lstm_bwd.cu) and the route between them and the
+# wide kernels (train_route)
+# ---------------------------------------------------------------------------
+
+# (R, H): BSRNN-M's training shapes (time, band), a few rows, one row, ragged rows,
+# the H = 8 / 64 / 120 edges, more rows than one wave holds
+TRAIN_SHAPES = [(544, 128), (1040, 128), (16, 128), (1, 8), (37, 120), (203, 64), (2000, 128),
+                (100000, 128)]
+# cards: an H100's and a smaller card's figures, and made-up ones; clusters the card
+# holds: one block an SM (None), and fewer
+TRAIN_CARDS = [H100, SMALL, (80, 232448), (17, 200000), (132, 120000)]
+
+
+def _train_plan_coverage(p, R, H, n_sm, clusters, units, insts):
+    """Every row in one tile and every unit of H in one block of the cluster;
+    the clusters one wave of the card, sharing the tiles evenly."""
+    U, K = p["units"], p["cluster"]
+    assert U == units and K == -(-H // U) <= 8
+    assert [u for b in range(K) for u in range(b * U, min(H, b * U + U))] == list(range(H))
+    tiles = _tiles(p, R)
+    assert [r for t in tiles for r in t] == list(range(R))      # every row once, in order
+    assert all(0 < len(t) <= p["tile_rows"] for t in tiles) and p["rows"] == max(map(len, tiles))
+    held = n_sm // K if clusters is None else clusters
+    assert 1 <= p["clusters"] <= min(p["ntiles"], held)
+    assert p["blocks"] == p["clusters"] * K <= n_sm
+    assert p["rounds"] == -(-p["ntiles"] // p["clusters"])
+    if p["rounds"] > 1:                        # past one wave: every cluster busy, even shares
+        assert p["clusters"] == held and p["ntiles"] % p["clusters"] == 0
+    if R <= held * max(insts):                 # one wave where the clusters hold every row
+        assert p["rounds"] == 1
+
+
+@pytest.mark.parametrize("card", TRAIN_CARDS, ids=lambda c: f"{c[0]}sm_{c[1]}")
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_fwd_hc_plan_covers_every_row_and_unit_once_within_shared_memory(card, dtype):
+    n_sm, limit = card
+    insts = L._scan_insts(dtype, "lstm_fwd_hc")
+    for R, H in TRAIN_SHAPES:
+        for clusters in (None, 3):
+            p = L.scan_narrow_plan(R, H, dtype, n_sm, limit, clusters, mode="lstm_fwd_hc")
+            assert p["co_resident"] and L.train_route("lstm_fwd_hc", H, p) == "lstm_scan"
+            assert p["inst"] in insts and p["stages"] == L._SCAN_STAGES
+            assert p["tile_rows"] == L._SCAN[dtype]["rows"] * p["inst"]
+            assert p["smem_bytes"] == L._scan_smem(p["inst"], dtype, p["stages"], "lstm_fwd_hc")
+            assert p["smem_bytes"] + L._SCAN_STATIC_SMEM <= limit
+            fit = [i for i in insts if L._scan_smem(i, dtype, L._SCAN_STAGES, "lstm_fwd_hc")
+                   + L._SCAN_STATIC_SMEM <= limit]
+            _train_plan_coverage(p, R, H, n_sm, clusters, L._SCAN[dtype]["units"],
+                                 [L._SCAN[dtype]["rows"] * i for i in fit])
+
+
+@pytest.mark.parametrize("card", TRAIN_CARDS, ids=lambda c: f"{c[0]}sm_{c[1]}")
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_bwd_narrow_plan_covers_every_row_and_unit_once_within_shared_memory(card, dtype):
+    n_sm, limit = card
+    d = L._BWD_NARROW[dtype]
+    fit = [b for b in d["tiles"] if L._bwd_narrow_smem(b, dtype, min(L._BWD_NARROW_STAGES))
+           + L._BWD_NARROW_STATIC_SMEM <= limit]
+    for R, H in TRAIN_SHAPES:
+        for clusters in (None, 3):
+            p = L.bwd_narrow_plan(R, H, dtype, n_sm, limit, clusters)
+            if not fit:                        # bfloat16's slice and ring need ~158 KB
+                assert dtype == BF and limit < 160000 and not p["co_resident"]
+                assert L.train_route("lstm_bwd", H, p) == "lstm_bwd_wide"
+                continue
+            assert p["co_resident"] and L.train_route("lstm_bwd", H, p) == "lstm_bwd"
+            assert p["tile_rows"] in d["tiles"] and p["stages"] in L._BWD_NARROW_STAGES
+            assert p["smem_bytes"] == L._bwd_narrow_smem(p["tile_rows"], dtype, p["stages"])
+            assert p["smem_bytes"] + L._BWD_NARROW_STATIC_SMEM <= limit
+            # the ring as deep as fits
+            deeper = [s for s in L._BWD_NARROW_STAGES if s > p["stages"]]
+            assert all(L._bwd_narrow_smem(p["tile_rows"], dtype, s) + L._BWD_NARROW_STATIC_SMEM
+                       > limit for s in deeper)
+            _train_plan_coverage(p, R, H, n_sm, clusters, d["units"], fit)
+            assert p["tensor_cores"] == (dtype == BF)
+
+
+def test_train_narrow_plans_at_bsrnn_m_training_shapes_on_an_h100():
+    """With the clusters an H100 holds (66 of 2 blocks in bfloat16, 30 of 4 in
+    float32): one tile a cluster, one wave, at both shapes; float32 takes
+    tiles of 32 and 48 rows (the forward in passes of 16)."""
+    fkeys = ("units", "cluster", "inst", "rows", "ntiles", "clusters", "rounds")
+    bkeys = ("units", "cluster", "tile_rows", "rows", "ntiles", "clusters", "rounds", "stages")
+    got = {(dt, R): (tuple(L.scan_narrow_plan(R, 128, dt, *H100, n, mode="lstm_fwd_hc")[k]
+                           for k in fkeys),
+                     tuple(L.bwd_narrow_plan(R, 128, dt, *H100, n)[k] for k in bkeys))
+           for dt, n in ((BF, 66), (F32, 30)) for R in (544, 1040)}
+    assert got == {
+        (BF, 544): ((64, 2, 1, 9, 66, 66, 1), (64, 2, 16, 9, 66, 66, 1, 3)),
+        (BF, 1040): ((64, 2, 1, 16, 66, 66, 1), (64, 2, 16, 16, 66, 66, 1, 3)),
+        (F32, 544): ((32, 4, 32, 19, 30, 30, 1), (32, 4, 32, 19, 30, 30, 1, 3)),
+        (F32, 1040): ((32, 4, 48, 35, 30, 30, 1), (32, 4, 48, 35, 30, 30, 1, 2))}
+    # the inference modes keep their float32 instances (up to 16 rows a thread)
+    assert L.scan_narrow_plan(1040, 128, F32, *H100, 30)["inst"] == 16
+
+
+@pytest.mark.parametrize("name", ["lstm_fwd_hc", "lstm_bwd"])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_train_narrow_plans_say_when_they_cannot_run_and_take_the_wide_route(name, dtype):
+    plan = (lambda R, H, *card, clusters=None: L.scan_narrow_plan(
+                R, H, dtype, *card, clusters, mode="lstm_fwd_hc")) if name == "lstm_fwd_hc" \
+        else (lambda R, H, *card, clusters=None: L.bwd_narrow_plan(R, H, dtype, *card, clusters))
+    narrow, wide = L._TRAIN_KERNELS[name]
+    assert L.train_route(name, 128, plan(544, 128, *H100)) == narrow
+    for p in (plan(544, 136, *H100),                 # past H = 128
+              plan(544, 128, *H100, clusters=0),     # no cluster held
+              plan(544, 128, 132, 2000),             # no tile fits the shared memory
+              plan(0, 128, *H100)):                  # no row
+        assert not p["co_resident"] and L.train_route(name, 128, p) == wide
+    # past H = 128 the wide kernel, whatever a plan says
+    assert L.train_route(name, 136, dict(co_resident=True)) == wide
+
+
+def test_fwd_hc_and_bwd_narrow_smem_match_the_kernels_layout():
+    # the forward, bfloat16, 16-row tiles: two h and two lo buffers of 16 x 136, three x
+    # stages of 16 x 4 x 64, the warps' gate scratch; float32, 48 rows (no lo planes)
+    assert L._scan_smem(1, BF, 3, "lstm_fwd_hc") == ((4 * 16 * 136 + 3 * 16 * 256) * 2
+                                                     + 16 * 16 * 24 * 4)
+    assert L._scan_smem(48, F32, 3, "lstm_fwd_hc") == (2 * 48 * 128 + 3 * 48 * 128) * 4
+    # the backward, bfloat16, 16 rows, 3 stages: the [256][136] slice, stages of h (136),
+    # x (256) and dhs, c_t, c_{t-1} (64 each), gate sums [16][260] float32, dgates hi
+    # and lo [16][264], shares [2][2][16][68] float32
+    assert L._bwd_narrow_smem(16, BF, 3) == (256 * 136 * 2 + 3 * 16 * (136 + 448) * 2
+                                             + 16 * 260 * 4 + 2 * 16 * 264 * 2
+                                             + 2 * 2 * 16 * 68 * 4)
+    # float32, 48 rows, 2 stages: no slice (registers), stages of h (132), x (128) and
+    # three planes of 32, gate sums [48][132], shares [2][4][48][36]
+    assert L._bwd_narrow_smem(48, F32, 2) == (2 * 48 * (132 + 224) * 4 + 48 * 132 * 4
+                                              + 2 * 4 * 48 * 36 * 4)

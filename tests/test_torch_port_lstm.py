@@ -105,7 +105,3 @@ def test_kernel_wrapper_rejects_unsupported_shapes():
         with pytest.raises(ValueError, match="CUDA"):
             port_lstm._check_kernel_args(*args)
 
-
-@pytest.mark.parametrize("rows,n_sm,rt", [(272, 132, 8), (64, 132, 2), (200, 132, 4), (8192, 132, 8)])
-def test_rows_per_block(rows, n_sm, rt):
-    assert port_lstm._rows_per_block(rows, n_sm) == rt

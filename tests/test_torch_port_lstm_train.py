@@ -131,7 +131,3 @@ def test_training_wrappers_reject_before_touching_gpu():
     with pytest.raises(NotImplementedError, match="H <= 768"):
         port_lstm._check_train_args("lstm_fwd_hc", big, torch.zeros(776, 4 * 776))
 
-
-@pytest.mark.parametrize("rows,n_sm,rt", [(544, 132, 8), (1040, 132, 8), (200, 132, 2), (400, 132, 4)])
-def test_rows_per_block_one_direction(rows, n_sm, rt):
-    assert port_lstm._rows_per_block(rows, n_sm, directions=1) == rt

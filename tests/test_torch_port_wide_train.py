@@ -126,9 +126,18 @@ def test_training_kernels_take_h_up_to_768_before_touching_gpu(name, h, accepted
                                     (768, True)])
 def test_training_kernels_pick_the_wide_kernels_above_h_128(monkeypatch, h, wide):
     monkeypatch.setattr(port_lstm, "_check_seq_args", lambda *a, **kw: (5, 3, h))
-    assert port_lstm._check_train_args("lstm_fwd_hc", None, None) == (5, 3, h, wide)
-    # the launch counters name the source: the forward is a mode of the wide scan
-    assert port_lstm._kernel_source("lstm_fwd_hc", h) == ("lstm_scan_wide" if wide else "lstm_bwd")
+    assert port_lstm._check_train_args("lstm_fwd_hc", None, None) == (5, 3, h)
+    # the narrow kernels' plans run up to H = 128 (on an H100's figures), and the route
+    # takes them there; past it the wide kernels
+    for dtype in (torch.float32, torch.bfloat16):
+        fwd = port_lstm.scan_narrow_plan(16, h, dtype, 132, 232448, mode="lstm_fwd_hc")
+        bwd = port_lstm.bwd_narrow_plan(16, h, dtype, 132, 232448)
+        assert fwd["co_resident"] == bwd["co_resident"] == (not wide)
+        assert port_lstm.train_route("lstm_fwd_hc", h, fwd) == (
+            "lstm_scan_wide" if wide else "lstm_scan")
+        assert port_lstm.train_route("lstm_bwd", h, bwd) == ("lstm_bwd_wide" if wide else "lstm_bwd")
+    # the launch counters name the source: the forward is a mode of the scans
+    assert port_lstm._kernel_source("lstm_fwd_hc", h) == ("lstm_scan_wide" if wide else "lstm_scan")
     assert port_lstm._kernel_source("lstm_bwd", h) == ("lstm_bwd_wide" if wide else "lstm_bwd")
 
 
