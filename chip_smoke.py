@@ -72,15 +72,20 @@ the last line:
      16384 in float32 (a finite nonzero gradient on all 72 LSTM
      parameters, 24 launches per step of each training kernel, none of
      an inference kernel);
- 10. lstm_scan_bidir2 (two scans in one cooperative launch, the hidden
-     units spread over the card) against its plain version at the GCRN
-     shapes (decode: 1024 steps x 8 rows x H = 448; serving the synthetic
-     set: 128 x 8 x 448) and at one H <= 128 shape, in float32 and
-     bfloat16, with two cuDNN unidirectional LSTM forwards beside it and,
-     as the control the limit must refuse, the two W_hh swapped;
+ 10. lstm_scan_bidir2 (two scans in one launch, on the route ops/lstm.py
+     `bidir2_plan` picks: GCRN's on the cluster kernel of csrc/lstm_bidir2.cu,
+     one thread-block cluster of 14 blocks a scan with W_hh resident and h by
+     st.async, tensor cores in bfloat16; H <= 128 on csrc/lstm_scan.cu; H = 768
+     on csrc/lstm_scan_wide.cu kScanBidir; the route and plan in each row's
+     source and design) against its plain version at the GCRN shapes (decode:
+     1024 steps x 8 rows x H = 448; serving the synthetic set: 128 x 8 x 448)
+     and at one H <= 128 shape, in float32 and bfloat16, with two cuDNN
+     unidirectional LSTM forwards beside it and, as the control the limit must
+     refuse, the two W_hh swapped;
  11. GCRN at its full (only) width through InferenceEngine: decode B=8 x
      1024 frames in float32 and bfloat16 (2 lstm_scan_bidir2 launches per
-     forward, none of any other LSTM kernel), run_inference on the
+     forward, all on the cluster kernel, none of any other LSTM kernel),
+     run_inference on the
      synthetic set, and the card's decode against the CPU's plain path
      on a small input;
  12. the gradient route of lstm_scan_bidir2 on the card (2 lstm_fwd_hc + 2
@@ -123,15 +128,19 @@ the last line:
      their design);
  15. ConvTasNet (nvse_tpu_torch/configs/convtasnet_config.json with fused_tcn
      1: 4,960,409 parameters, Griffin-Lim front, 24 TCN blocks): tcn_kernels,
-     the tail kernel of csrc/tcn_tail.cu against tcn_block_tail_plain at the
-     decode shape (8 x 32,735 encoder frames, H = 512, Bc = 128) at each
-     dilation 1 ... 128 in float32 and bfloat16, with the wrapper's time (gLN
-     fold + kernel), the plain version's and the unfused tail as several
+     the tail kernel of csrc/tcn_tail.cu (wgmma in bfloat16, register-blocked
+     float32 FMAs; the plan of ops/tcn.py `tail_plan` in each row's design)
+     against tcn_block_tail_plain at the decode shape (8 x 32,735 encoder
+     frames, H = 512, Bc = 128) at each dilation 1 ... 128 in float32 and
+     bfloat16, and its gLN statistics kernel against `_fold` (tcn_gln_stats,
+     torch.var_mean beside it, gln_w and gln_b swapped as the control), with the
+     wrapper's time (statistics + tail kernels), the plain version's and the unfused tail as several
      PyTorch calls (gLN, F.conv1d depthwise, one cuBLAS 1x1) as the library
      yardstick, and two controls the limit must refuse (w_rs's res and skip
      halves swapped; at d = 128, c zero-padded before the norm);
      convtasnet_decode, B = 8 x 1024 mel frames in float32 and bfloat16 (24
-     tail launches per forward, 3 per dilation, none of an LSTM kernel) with
+     tail and 24 statistics launches per forward, 3 per dilation, none of an
+     LSTM kernel) with
      the same decode with fused_tcn 0 timed beside it and held to it;
      convtasnet_serve, run_inference on the synthetic set in both dtypes;
      convtasnet_decode_vs_cpu_plain, the card against the CPU's plain path on
@@ -150,8 +159,9 @@ the last line:
      shapes and at --hidden 256, 3 timed calls a variant (bench_lstm_kernel);
      lstm_scan_fused at HD-Demucs's
      bottleneck (8 x 1024, H = 768, C = 768 and 1536) in both dtypes, past its
-     fused kernels: the projection and one lstm_scan_bidir2 launch a call,
-     held to lstm_scan_fused_plain (hddemucs_bottleneck);
+     fused kernels: the projection and one lstm_scan_bidir2 launch a call
+     (csrc/lstm_scan_wide.cu kScanBidir: no cluster holds H = 768), held to
+     lstm_scan_fused_plain (hddemucs_bottleneck);
  17. the per-step ablation harness (scripts/profile_torch_lstm_step.py) in this
      process at its four shapes in float32 and bfloat16: five variants of one
      direction of csrc/lstm_fused.cu (H = 128) and csrc/lstm_fused_wide.cu
@@ -168,8 +178,9 @@ the last line:
  19. print the kernels line (one entry per kernel, shape and dtype, each
      with its launches summed over the main paths; the redesigned dW_hh
      reduction, wide and narrow fused BiLSTMs, narrow and wide scans (the
-     training forwards among them) and narrow and wide backward recurrences
-     name their design and plan),
+     training forwards among them), narrow and wide backward recurrences, the
+     two-scan LSTM's routes and the TCN tail name their design and plan; the
+     gLN statistics kernel has its own entry, tcn_gln_stats),
      then the ok line.
 Exits nonzero without output when no CUDA GPU is visible.
 """
@@ -493,11 +504,11 @@ def _launched(counters, fn):
 def _all_counters():
     from nvse_tpu_torch.ops import lstm as L
     from nvse_tpu_torch.ops.lstm_step import lstm_step_variant
-    from nvse_tpu_torch.ops.tcn import tcn_block_tail
+    from nvse_tpu_torch.ops.tcn import tcn_block_tail, tcn_gln_fold_kernel
 
     return {**_training_counters(), "lstm_scan_bidir2": L.lstm_scan_bidir2,
-            "tcn_block_tail": tcn_block_tail, "lstm_scan_bidir": L.lstm_scan_bidir,
-            "lstm_step_variant": lstm_step_variant}
+            "tcn_block_tail": tcn_block_tail, "tcn_gln_stats": tcn_gln_fold_kernel,
+            "lstm_scan_bidir": L.lstm_scan_bidir, "lstm_step_variant": lstm_step_variant}
 
 
 def _shape_counts():
@@ -1221,12 +1232,31 @@ def phase_stream(name="bsrnn"):
 BIDIR2_SHAPES = (("decode", 1024, 8, 448), ("serve", 128, 8, 448), ("small", 65, 16, 128))
 
 
+def _bidir2_design(route, p, dtype):
+    """The route's plan of lstm_scan_bidir2 (ops/lstm.py `bidir2_plan`) in words."""
+    if route == "lstm_bidir2":
+        prod = ("mma.sync m16n8k16 bf16, W_hh slice in registers" if dtype == torch.bfloat16
+                else "f32 FMA, W_hh slice in registers + shared memory")
+        return (f"{prod}, clusters of {p['cluster']} x {p['units']} units a scan, {p['ntiles']} "
+                f"tiles of <= {p['rows']} rows ({p['tile_rows']}-row instance), {p['blocks']} "
+                f"blocks, h by st.async on mbarriers (no grid barrier), one block barrier a "
+                f"step, exact cell")
+    if route == "lstm_scan":
+        return (f"csrc/lstm_scan.cu two-direction clusters of {p['cluster']} x {p['units']} "
+                f"units, {p['ntiles']} tiles of <= {p['rows']} rows a scan, two pointers")
+    return (f"csrc/lstm_scan_wide.cu kScanBidir, {p['groups']} row groups x slices of "
+            f"{p['units']} units ({p['tile_rows']}-row tiles), {p['launch_dirs']} direction(s) "
+            f"a launch, two pointers, one grid barrier a step")
+
+
 def phase_bidir2_kernels(cases, phase="kernel_vs_plain"):
     """lstm_scan_bidir2 against its plain version at each (label, steps,
-    rows, H, dtype) of cases; the library yardstick is
-    two cuDNN unidirectional LSTM forwards (input H, hidden H) on the x that
-    the port projects outside its kernel; the control, which the limit must
-    refuse, is the kernel with its two W_hh swapped."""
+    rows, H, dtype) of cases, on the route ops/lstm.py `bidir2_plan` picks on
+    this card (the cluster kernel of csrc/lstm_bidir2.cu, csrc/lstm_scan.cu or
+    csrc/lstm_scan_wide.cu), named in the row's source and design; the
+    library yardstick is two cuDNN unidirectional LSTM forwards (input H,
+    hidden H) on the x that the port projects outside its kernel; the control,
+    which the limit must refuse, is the kernel with its two W_hh swapped."""
     from nvse_tpu_torch.ops import lstm as L
 
     rows = []
@@ -1258,8 +1288,11 @@ def phase_bidir2_kernels(cases, phase="kernel_vs_plain"):
             plain_ms = cuda_ms(plain, iters=2)
             library_ms = cuda_ms(library, iters=10)
         bound, bound_by = _bound(nbytes, ops, dtype)
+        plan = L._bidir2_card_plan(0, R, H, dtype)
+        route = plan["route"]
         row = dict(name="lstm_scan_bidir2", shape=label, rows=R, steps=T, H=H,
-                   dtype=DT_NAME[dtype], source="nvse_tpu_torch/csrc/lstm_bidir2.cu",
+                   dtype=DT_NAME[dtype], source=f"nvse_tpu_torch/csrc/{route}.cu",
+                   design=_bidir2_design(route, plan["plan"], dtype),
                    max_abs_err=err, tol=TOL[dtype], ms=ms,
                    us_per_step=ms * 1e3 / T, plain_ms=plain_ms, library_ms=library_ms,
                    library="2 cuDNN LSTM forwards, projection included",
@@ -1314,6 +1347,10 @@ def phase_gcrn():
         if counts != expect:
             raise SystemExit(f"GCRN decode {dtype}: launches {counts} for {iters} forwards, "
                              "expected 2 lstm_scan_bidir2 per forward and no other LSTM kernel")
+        by_kernel = dict(counters["lstm_scan_bidir2"].launches_by_kernel)
+        if set(by_kernel) != {"lstm_bidir2"}:
+            raise SystemExit(f"GCRN decode {dtype}: lstm_scan_bidir2 launched {by_kernel}, "
+                             "expected the cluster kernel of csrc/lstm_bidir2.cu only")
         if wav.shape != (B, (T - 1) * base.hop_size) or not torch.isfinite(wav).all():
             raise SystemExit(f"GCRN decode {dtype}: bad output {tuple(wav.shape)}")
         if not 0.98 * 8.28e6 <= n_params <= 1.02 * 8.28e6:
@@ -1476,8 +1513,8 @@ def phase_tcn_kernels(cases, phase="tcn_kernels"):
     dilation 128, on c zero-padded before the norm."""
     import torch.nn.functional as F
 
-    from nvse_tpu_torch.ops.tcn import (_fold, tcn_block_tail, tcn_block_tail_kernel,
-                                        tcn_block_tail_plain)
+    from nvse_tpu_torch.ops.tcn import (_card_tail_plan, _fold, tcn_block_tail,
+                                        tcn_block_tail_kernel, tcn_block_tail_plain)
 
     rows = []
     for label, B, T, H, Bc, d, dtype in cases:
@@ -1507,8 +1544,12 @@ def phase_tcn_kernels(cases, phase="tcn_kernels"):
             library_ms = cuda_ms(lambda: _tail_library(c, x, gw, gb, wdw, bdw, wrs, brs, d),
                                  iters=10)
         bound, bound_by, ops = _tail_bound(B, T, H, Bc, dtype)
+        p = _card_tail_plan(0, B, T, H, Bc, d, dtype)
+        design = (f"{'wgmma m64n256k16 bf16, A (q) from registers' if p['tensor_cores'] else 'f32 FMA, 8 x 16 a thread'}"
+                  f", 128 x 256 tiles on {p['blocks']} persistent blocks, chunks of {p['kc']} "
+                  f"channels in {p['stages']} cp.async stages")
         row = dict(name="tcn_block_tail", shape=label, rows=B, steps=T, H=H, Bc=Bc, dilation=d,
-                   dtype=DT_NAME[dtype], source="nvse_tpu_torch/csrc/tcn_tail.cu",
+                   dtype=DT_NAME[dtype], source="nvse_tpu_torch/csrc/tcn_tail.cu", design=design,
                    max_abs_err=err[0], rel_err=err[1], tol=TOL[dtype],
                    control_rel_err=controls, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                    library_ms=library_ms, library_max_rel_err=lib_err,
@@ -1523,6 +1564,50 @@ def phase_tcn_kernels(cases, phase="tcn_kernels"):
         if passed:
             raise SystemExit(f"tcn_block_tail {label} {DT_NAME[dtype]}: controls {passed} pass "
                              f"the tolerance: {controls}")
+        rows.append(row)
+    return rows
+
+
+def phase_gln_stats(cases, phase="tcn_kernels"):
+    """The gLN statistics kernel of csrc/tcn_tail.cu (tcn_gln_fold_kernel: a, b2
+    from one read of c) against `_fold`, its plain version, at each (label, B,
+    T, H, dtype) of cases, with torch.var_mean over (T, H) as the library
+    yardstick; the control, which the limit must refuse, is the kernel fed
+    gln_w and gln_b swapped."""
+    from nvse_tpu_torch.ops.tcn import _fold, gln_stats_partials, tcn_gln_fold_kernel
+
+    rows = []
+    for label, B, T, H, dtype in cases:
+        c, _, gw, gb, *_ = _tail_inputs(B, T, H, 8, dtype, seed=T + H)
+        with torch.inference_mode():
+            got = tcn_gln_fold_kernel(c, gw, gb, 1e-5)
+            torch.cuda.synchronize()
+            ref = _fold(c, gw, gb, 1e-5)
+            err = max((_err(g, r) for g, r in zip(got, ref)), key=lambda e: e[1])
+            ctl = tcn_gln_fold_kernel(c, gb, gw, 1e-5)
+            control = max(_err(g, r)[1] for g, r in zip(ctl, ref))
+            ms = cuda_ms(lambda: tcn_gln_fold_kernel(c, gw, gb, 1e-5), iters=20)
+            plain_ms = cuda_ms(lambda: _fold(c, gw, gb, 1e-5), iters=10)
+            library_ms = cuda_ms(lambda: torch.var_mean(c, dim=(1, 2), correction=0), iters=20)
+        item = c.element_size()
+        # c read once, gln_w and gln_b, a and b2 written; a sum and a fma an element
+        bound, bound_by = _bound(B * T * H * item + 2 * H * item + 2 * B * H * 4, 2 * B * T * H,
+                                 torch.float32)
+        P = gln_stats_partials(B, T, H, torch.cuda.get_device_properties(0).multi_processor_count)
+        row = dict(name="tcn_gln_stats", shape=label, rows=B, steps=T, H=H, dtype=DT_NAME[dtype],
+                   source="nvse_tpu_torch/csrc/tcn_tail.cu",
+                   design=f"{P} runs a batch element, float32 sums, two stages of fixed order",
+                   max_abs_err=err[0], rel_err=err[1], tol=TOL[dtype], control_rel_err=control,
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   library="torch.var_mean over (T, H)", bound_ms=bound, bound_by=bound_by,
+                   gb_per_s=B * T * H * item / (ms * 1e-3) / 1e9)
+        say(phase=phase, **row)
+        if not (err[1] <= TOL[dtype]):
+            raise SystemExit(f"tcn_gln_stats {label} {DT_NAME[dtype]}: error {err} over "
+                             f"tolerance {TOL[dtype]}")
+        if not (control > TOL[dtype]):
+            raise SystemExit(f"tcn_gln_stats {label} {DT_NAME[dtype]}: the control with gln_w "
+                             f"and gln_b swapped ({control}) passes the tolerance")
         rows.append(row)
     return rows
 
@@ -1579,13 +1664,14 @@ def phase_convtasnet():
                 rtf=audio_sec / wall, launches_per_forward={k: v / iters for k, v in counts.items()},
                 tail_launches_per_forward_by_dilation=by_dilation,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-            expect = {k: (n_blocks * iters * fused if k == "tcn_block_tail" else 0)
-                      for k in counters}
+            expect = {k: (n_blocks * iters * fused if k in ("tcn_block_tail", "tcn_gln_stats")
+                          else 0) for k in counters}
             want_d = {d: 3 for d in TCN_DILATIONS} if fused else {}
             if counts != expect or by_dilation != want_d:
                 raise SystemExit(f"ConvTasNet decode {dtype} fused_tcn={fused}: launches {counts}"
-                                 f" by dilation {by_dilation}, expected {n_blocks} tail launches "
-                                 "per forward when fused (3 per dilation), no other kernel")
+                                 f" by dilation {by_dilation}, expected {n_blocks} tail and "
+                                 f"{n_blocks} statistics launches per forward when fused (3 per "
+                                 "dilation), no other kernel")
             if wav.shape != (B, (T - 1) * base.hop_size) or not torch.isfinite(wav).all():
                 raise SystemExit(f"ConvTasNet decode {dtype}: bad output {tuple(wav.shape)}")
             if n_params != CONVTASNET_PARAMS:
@@ -1622,9 +1708,10 @@ def phase_convtasnet():
             written = sorted(os.listdir(out))
         say(phase="convtasnet_serve", dtype=dtype, line=lines[-1], files=stats["files"],
             rtf=stats["rtf"], launches=counts)
-        others = sum(v for k, v in counts.items() if k != "tcn_block_tail")
+        others = sum(v for k, v in counts.items() if k not in ("tcn_block_tail", "tcn_gln_stats"))
         if (stats["files"] != 6 or len(written) != 6 or counts["tcn_block_tail"] == 0
-                or counts["tcn_block_tail"] % n_blocks or others):
+                or counts["tcn_block_tail"] % n_blocks or others
+                or counts["tcn_gln_stats"] != counts["tcn_block_tail"]):
             raise SystemExit(f"ConvTasNet serving {dtype}: {stats} wrote {written}, "
                              f"launches {counts}")
     main_counts = _shape_counts()                  # ... and ends here
@@ -1788,7 +1875,8 @@ HDDEMUCS_SHAPES = ((8, 1024, 768, 768), (8, 1024, 1536, 768))
 def phase_hddemucs_bottleneck():
     """lstm_scan_fused past its fused kernels, at HD-Demucs's bottleneck shapes
     in float32 and bfloat16: the projection as torch matmuls and one
-    lstm_scan_bidir2 launch a call (csrc/lstm_bidir2.cu), none of a fused
+    lstm_scan_bidir2 launch a call (at H = 768 mode kScanBidir of
+    csrc/lstm_scan_wide.cu: no cluster holds the slice), none of a fused
     kernel, against lstm_scan_fused_plain. -> its launches per wrapper and
     shape (the bidir2 rows come from phase_rest)."""
     from nvse_tpu_torch.ops import lstm as L
@@ -1810,9 +1898,9 @@ def phase_hddemucs_bottleneck():
             say(phase="hddemucs_bottleneck", rows=B, steps=T, C=C, H=H, dtype=DT_NAME[dtype],
                 route=L._fused_route(C, H), launches=launches, max_abs_err=err,
                 tol=TOL[dtype], ms=ms)
-            if launches != {"lstm_scan_bidir2": {"lstm_bidir2": 1}}:
+            if launches != {"lstm_scan_bidir2": {"lstm_scan_wide": 1}}:
                 raise SystemExit(f"lstm_scan_fused C={C} H={H}: launches {launches}, expected one "
-                                 "of lstm_scan_bidir2 (csrc/lstm_bidir2.cu)")
+                                 "of lstm_scan_bidir2 (csrc/lstm_scan_wide.cu kScanBidir)")
             if not (err <= TOL[dtype]) or got.shape != (B, T, 2 * H):
                 raise SystemExit(f"lstm_scan_fused C={C} H={H} {DT_NAME[dtype]}: max abs err "
                                  f"{err} over tolerance {TOL[dtype]}")
@@ -1922,6 +2010,8 @@ def _key(r):
         return (r["rows"], r["steps"], r["C"], r["H"], r["dtype"])
     if r["name"] == "tcn_block_tail":
         return (r["rows"], r["steps"], r["H"], r["Bc"], r["dilation"], r["dtype"])
+    if r["name"] == "tcn_gln_stats":
+        return (r["rows"], r["steps"], r["H"], r["dtype"])
     if r["name"] == "lstm_step_variant":
         return (r["steps"], r["rows"], r["C"], r["H"], r["mode"], r["dtype"])
     return (r["steps"], r["rows"], r["H"], r["dtype"])
@@ -1937,7 +2027,7 @@ def _missing(rows, paths):
 def phase_rest(rows, paths, phase="kernel_vs_plain"):
     """Rows for the inference kernels' launches on the main paths that no row
     holds yet, each at its shape and dtype, labelled <path>_<rows>x<steps>."""
-    fused, scans, bidir2, bidir, tails = {}, {}, {}, {}, {}
+    fused, scans, bidir2, bidir, tails, stats = {}, {}, {}, {}, {}, {}
     for p, k, key in _missing(rows, paths):
         dtype = getattr(torch, key[-1])
         if k == "lstm_scan_fused":
@@ -1955,10 +2045,13 @@ def phase_rest(rows, paths, phase="kernel_vs_plain"):
         elif k == "tcn_block_tail":
             B, T, H, Bc, d, _ = key
             tails.setdefault(key, (f"{p}_{B}x{T}_d{d}", B, T, H, Bc, d, dtype))
+        elif k == "tcn_gln_stats":
+            B, T, H, _ = key
+            stats.setdefault(key, (f"{p}_{B}x{T}", B, T, H, dtype))
     return (phase_kernels(fused.values(), phase) + phase_scan_kernels(scans.values(), phase)
             + phase_bidir2_kernels(bidir2.values(), phase)
             + phase_bidir_kernels(bidir.values(), phase)
-            + phase_tcn_kernels(tails.values(), phase))
+            + phase_tcn_kernels(tails.values(), phase) + phase_gln_stats(stats.values(), phase))
 
 
 def main():
@@ -2011,6 +2104,7 @@ def main():
     # dilation, the decode and serving main path, then the shapes serving launched
     rows += phase_tcn_kernels([(f"decode_d{d}", TCN_B, TCN_T, TCN_H, TCN_BC, d, dt)
                                for d in TCN_DILATIONS for dt in DTYPES])
+    rows += phase_gln_stats([("decode", TCN_B, TCN_T, TCN_H, dt) for dt in DTYPES])
     c_paths = {"convtasnet": phase_convtasnet()}
     rows += phase_rest(rows, c_paths, phase="tcn_kernels")
     # the two-direction scan (B7), its bench, lstm_scan_fused at HD-Demucs's bottleneck,
@@ -2043,6 +2137,7 @@ def main():
                 "lstm_scan_stateful": "nvse_tpu/ops/pallas_lstm.py:297",
                 "lstm_scan_bidir2": "nvse_tpu/ops/pallas_lstm.py:499",
                 "tcn_block_tail": "nvse_tpu/ops/pallas_tcn.py:136",
+                "tcn_gln_stats": "nvse_tpu/ops/pallas_tcn.py:175",
                 "lstm_scan_bidir": "nvse_tpu/ops/pallas_lstm.py:427",
                 "lstm_step_variant": "scripts/profile_lstm_step.py:99"}
     kernels = []

@@ -8,7 +8,9 @@
 //   kStateful <- `_lstm_kernel_stateful`
 //                (launched by `_pallas_lstm_scan_stateful`, pallas_lstm.py:297)
 //   kScan with two directions <- `_make_bidir_kernel`, the two-direction scan
-//                (launched by `_pallas_lstm_scan_bidir`, pallas_lstm.py:427)
+//                (launched by `_pallas_lstm_scan_bidir`, pallas_lstm.py:427), and
+//                with a pointer for each direction `_dualdot_kernel` (launched by
+//                `_pallas_lstm_scan_bidir2`, pallas_lstm.py:499) at H <= 128
 //   kFwdHc    <- `_fwd_kernel_hc` / `_fwd_kernel_hc_unrolled` of
 //                nvse_tpu/ops/pallas_lstm_bwd.py (launched by `lstm_fwd_hc`,
 //                pallas_lstm_bwd.py:181)
@@ -23,6 +25,8 @@
 //   lstm_scan_bidir:    x_proj (T, 2B, 4H), w_stack (2H, 4H), zero state -> hs (T, 2B, H);
 //                       rows [0, B) scan with w_stack[:H], rows [B, 2B) with w_stack[H:],
 //                       all forward in time (the caller flips the backward rows)
+//   lstm_scan_bidir2:   the same with each direction's x_proj (T, R, 4H), W_hh and
+//                       hs (T, R, H) in its own tensors
 //   lstm_fwd_hc:        zero state -> hs, cs (T, R, H)
 // Types: x_proj, W_hh, h0, c0, hs and cs are all float32 or all bfloat16; the
 // state and every sum are float32. The inference modes round h to the weight
@@ -90,8 +94,8 @@
 //
 // Built with nvcc by nvse_tpu_torch/ops/_build.py into a shared library with
 // plain C entries (lstm_scan_launch, lstm_scan_stateful_launch,
-// lstm_scan_bidir_launch, lstm_fwd_hc_launch, lstm_scan_max_clusters), loaded
-// through ctypes.
+// lstm_scan_bidir_launch, lstm_scan_bidir2_launch, lstm_fwd_hc_launch,
+// lstm_scan_max_clusters), loaded through ctypes.
 #include <type_traits>
 
 #include "lstm_cell.cuh"
@@ -152,6 +156,9 @@ constexpr long smem_bytes(int inst, int stages) {
 struct Args {
   const void* xp;         // (Tn, ndir R, 4H)
   const void* w;          // (ndir H, 4H): each direction's W_hh
+  const void* xp2;        // two pointers: direction 1's x_proj (Tn, R, 4H), W_hh, hs
+  const void* w2;
+  void* hs2;
   const void* h0;         // (R, H) (stateful)
   const void* c0;         // (R, H) (stateful)
   void* hs;               // (Tn, ndir R, H)
@@ -175,17 +182,18 @@ __global__ void __launch_bounds__(Scan<T>::THREADS, 1) lstm_scan_kernel(const Ar
   constexpr int NT = 2;                            // bfloat16: n8 tiles (4 units) of a warp
   constexpr int KS = THREADS / U;                  // float32: k-slices of a unit
   constexpr int J = HP / (4 * KS);                 // float32: k-chunks of 4 a slice
-  const int H = a.H, G = 4 * H, Tn = a.Tn, R = a.R, Rs = a.ndir * R, S = a.stages;
+  const bool two = a.xp2 != nullptr;               // each direction in its own tensors
+  const int H = a.H, G = 4 * H, Tn = a.Tn, R = a.R, Rs = two ? R : a.ndir * R, S = a.stages;
   const unsigned K = cluster_size(), rank = cluster_rank();
   const int cl = blockIdx.x / K;
-  const int dir = cl % a.ndir, j = cl / a.ndir, rb = dir * R;   // rb: the direction's first row
+  const int dir = cl % a.ndir, j = cl / a.ndir, rb = two ? 0 : dir * R;   // rb: its first row
   const int u0 = rank * U, own = min(U, H - u0);
   const int nmine = j < a.ntiles ? (a.ntiles - j + a.ncl - 1) / a.ncl : 0;   // tiles of this cluster
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  const T* xp = static_cast<const T*>(a.xp);
-  const T* w = static_cast<const T*>(a.w) + (size_t)dir * H * G;
-  T* hs = static_cast<T*>(a.hs);
+  const T* xp = static_cast<const T*>(two && dir ? a.xp2 : a.xp);
+  const T* w = two && dir ? static_cast<const T*>(a.w2) : static_cast<const T*>(a.w) + (size_t)dir * H * G;
+  T* hs = static_cast<T*>(two && dir ? a.hs2 : a.hs);
   // rows [row0, row0 + np) of the cluster's tile kt (the balanced tiles of R)
   auto bounds = [&](int kt, int& row0, int& np) {
     const long long p = j + (long long)kt * a.ncl;
@@ -647,6 +655,21 @@ extern "C" int lstm_scan_bidir_launch(int dtype, const void* xp, const void* w_s
                                       int stages, int smem, void* stream) {
   const Args a = make_args(xp, w_stack, nullptr, nullptr, hs, nullptr, B, Tn, H, ntiles, ncl, 2,
                            stages);
+  return launch_any<kScan>(dtype, inst, a, smem, stream);
+}
+
+// The two scans of lstm_scan_bidir2, each direction in its own tensors: xa / xb
+// (T, R, 4H), wa / wb (H, 4H) -> ha / hb (T, R, H); the plan as
+// lstm_scan_bidir_launch's at B = R.
+extern "C" int lstm_scan_bidir2_launch(int dtype, const void* xa, const void* xb, const void* wa,
+                                       const void* wb, void* ha, void* hb, int R, int Tn, int H,
+                                       int inst, int ntiles, int ncl, int stages, int smem,
+                                       void* stream) {
+  Args a = make_args(xa, wa, nullptr, nullptr, ha, nullptr, R, Tn, H, ntiles, ncl, 2, stages);
+  a.xp2 = xb;
+  a.w2 = wb;
+  a.hs2 = hb;
+  if (!xb || !wb || !hb) return cudaErrorInvalidValue;
   return launch_any<kScan>(dtype, inst, a, smem, stream);
 }
 

@@ -11,7 +11,10 @@
 //   kStateful  <- `_lstm_kernel_stateful` (launched by `_pallas_lstm_scan_stateful`,
 //                 pallas_lstm.py:297)
 //   kScanBidir <- `_make_bidir_kernel`, the two-direction scan over stacked rows
-//                 (launched by `_pallas_lstm_scan_bidir`, pallas_lstm.py:427)
+//                 (launched by `_pallas_lstm_scan_bidir`, pallas_lstm.py:427), and,
+//                 with a pointer for each direction, `_dualdot_kernel` (launched by
+//                 `_pallas_lstm_scan_bidir2`, pallas_lstm.py:499) where ops/lstm.py
+//                 `bidir2_plan` takes no cluster of csrc/lstm_bidir2.cu
 // csrc/lstm_scan.cu takes H <= 128 (its kFwdHc too).
 //
 // Contract, per row (gate order i, f, g, o), time-major:
@@ -25,7 +28,8 @@
 // kScanBidir: x_proj (T, 2R, 4H), zero state -> hs (T, 2R, H); rows [d R, d R + R)
 //             scan with w_hh[d], both directions forward in time (the TPU
 //             kernel's block-diagonal product, which doubles the FLOPs, is not
-//             carried over).
+//             carried over). With two pointers (lstm_scan_bidir2): x_proj and
+//             hs of each direction (T, R, ...) in their own tensors.
 // The inference modes round h to the weight type as stored and the product
 // reads it back rounded (the `_hdot` rule, pallas_lstm.py:36-43). Every tensor
 // is float32 or every tensor bfloat16; c and every sum are float32, hs and cs
@@ -62,7 +66,8 @@
 //   tensor cores (mma.sync m16n8k16, the slice [column][k] read through
 //   ldmatrix), float32 as true float32 FMAs on the CUDA cores (no TF32: the
 //   tile's rows dealt to the warps in turn and broadcast, the lanes over the
-//   columns, the slice [k][column] with an odd pitch);
+//   columns, the slice [k][column] with an odd pitch; the 8-row instance instead
+//   splits k over the warps and a lane takes 8 rows x 8 columns);
 // - the cell of each (row, unit) by one thread, c carried in a float32 scratch
 //   that only that thread touches, hs (and cs, and the lo plane) written.
 // The first step of a zero-state scan has no product (h_{-1} = 0).
@@ -72,7 +77,7 @@
 // Built with nvcc by nvse_tpu_torch/ops/_build.py into a shared library with
 // plain C entries (lstm_fwd_hc_wide_launch, lstm_scan_wide_launch,
 // lstm_scan_stateful_wide_launch, lstm_scan_bidir_wide_launch,
-// lstm_scan_wide_blocks_per_sm), loaded through ctypes.
+// lstm_scan_bidir2_wide_launch, lstm_scan_wide_blocks_per_sm), loaded through ctypes.
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -124,10 +129,12 @@ __host__ __device__ long smem_bytes(int U, int TM, int H) {
 
 struct Args {
   const void* xp;         // (Tn, Rt, 4H)
+  const void* xp2;        // kScanBidir with two pointers: direction 1's x_proj (Tn, R, 4H)
   const void* w_hh[2];    // (H, 4H) of each direction (one but for kScanBidir)
   const void* h0;         // kStateful: (R, H)
   const void* c0;         // kStateful: (R, H)
   void* hs;               // (Tn, Rt, H)
+  void* hs2;              // kScanBidir with two pointers: direction 1's hs (Tn, R, H)
   void* cs;               // kFwdHc, kStateful: (Tn, Rt, H)
   __nv_bfloat16* lo;      // kFwdHc in bfloat16: (2, Rt, H) scratch, h - bf16(h) by step parity
   float* c_state;         // float32 (Rt, H) scratch: the c of each (row, unit)
@@ -203,14 +210,16 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_scan_wide_kernel(const Args a
   const int gi = rest % a.groups, dir = a.dir0 + rest / a.groups;
   const int u0 = si * U;
   const int glo = (int)((long long)R * gi / a.groups);
-  const int grow0 = dir * R + glo;                 // the group's first row of x_proj / hs
+  const bool two = a.xp2 != nullptr;               // each direction in its own tensors
+  const int grow0 = (two ? 0 : dir * R) + glo;     // the group's first row of x_proj / hs
+  const int crow0 = dir * R + glo;                 // ... of c_state
   const int grows = (int)((long long)R * (gi + 1) / a.groups) - glo;
   const int ntile = (grows + TM - 1) / TM;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  const T* xp = static_cast<const T*>(a.xp);
+  const T* xp = static_cast<const T*>(two && dir ? a.xp2 : a.xp);
   const T* w = static_cast<const T*>(a.w_hh[dir]);
-  T* hs = static_cast<T*>(a.hs);                   // read back at the next step: no __restrict__
+  T* hs = static_cast<T*>(two && dir ? a.hs2 : a.hs);   // read back at the next step: no __restrict__
   T* cs = static_cast<T*>(a.cs);
 
   const int KP = L::kp(H);                         // pitch of an h row
@@ -320,6 +329,59 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_scan_wide_kernel(const Args a
                   make_float2(acc[nt][2], acc[nt][3]);
             }
           }
+        } else if constexpr (TM == 8) {
+          // few rows (the 8-row instance, H >= 512): warp w takes the k-slice
+          // [w KW, w KW + KW) of all 8 rows; lane (c, kq) of 8 x 4 the columns
+          // 8 c ... 8 c + 7 (NC = 64) at every fourth k of the slice, from kq: a
+          // k step is 8 loads of h (4 words a load) and 8 of the slice for 64 FMAs a
+          // lane. The 4 kq lanes' sums meet by shuffles, then the 8 slices' in the h
+          // tile's memory once every warp has read it
+          static_assert(NC == 64, "the 8-row product takes 16-unit slices");
+          const float* hf = reinterpret_cast<const float*>(h_s);
+          const float* wf = reinterpret_cast<const float*>(w_s);
+          const int c8 = lane & 7, kq = lane >> 3;
+          const int KW = (H + 8 * 4 - 1) / (8 * 4) * 4;
+          float acc[8][8];
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int i = 0; i < 8; ++i) acc[r][i] = 0.0f;
+          const int kend = min(H, warp * KW + KW);
+#pragma unroll 2
+          for (int k = warp * KW + kq; k < kend; k += 4) {
+            float hv[8], wv[8];
+#pragma unroll
+            for (int r = 0; r < 8; ++r) hv[r] = hf[r * KP + k];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) wv[i] = wf[k * WP + 8 * c8 + i];
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+#pragma unroll
+              for (int i = 0; i < 8; ++i) acc[r][i] = fmaf(hv[r], wv[i], acc[r][i]);
+          }
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], 8);
+              acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], 16);
+            }
+          __syncthreads();                           // every warp done with the h tile
+          float* part = reinterpret_cast<float*>(h_s);   // [8 slices][8 rows][NC]
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+            if ((r >> 1) == kq) {                    // lane kq writes rows 2 kq, 2 kq + 1
+#pragma unroll
+              for (int i = 0; i < 8; ++i) part[(warp * 8 + r) * NC + 8 * c8 + i] = acc[r][i];
+            }
+          __syncthreads();
+          for (int o = tid; o < np * NC; o += THREADS) {
+            const int r = o / NC, col = o - r * NC;
+            float sum = 0.0f;
+#pragma unroll
+            for (int w8 = 0; w8 < 8; ++w8) sum += part[(w8 * 8 + r) * NC + col];
+            g_s[r * GP + col] = sum;
+          }
         } else {
           // warp: the tile's rows warp, warp + 8, ... (nr of them, so that a ragged
           // tile keeps every warp busy); lane: columns lane + 32 i
@@ -339,7 +401,7 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_scan_wide_kernel(const Args a
         const float z[4] = {to_f<T>(xt[r * NC + ul]) + gv.x, to_f<T>(xt[r * NC + U + ul]) + gv.y,
                             to_f<T>(xt[r * NC + 2 * U + ul]) + gv.z,
                             to_f<T>(xt[r * NC + 3 * U + ul]) + gv.w};
-        float* cp = a.c_state + (size_t)row * H + unit;
+        float* cp = a.c_state + (size_t)(crow0 + r0 + r) * H + unit;
         float c_prev = 0.0f;
         if (t > 0) c_prev = __ldcg(cp);
         else if (STATEFUL) c_prev = to_f<T>(static_cast<const T*>(a.c0)[(size_t)row * H + unit]);
@@ -364,7 +426,10 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_scan_wide_kernel(const Args a
   }
 }
 
-// the instances (dtype, U, TM); ops/lstm.py `_SCAN_WIDE` mirrors them
+// the instances (dtype, U, TM); ops/lstm.py `_SCAN_WIDE` mirrors them (float32's
+// (16, 8), with its own product over k-slices, only lstm_scan_bidir2 takes, at
+// H >= 512: at H = 768 its 48-block groups put both directions' blocks on the card
+// in one launch, with 8 rows a group)
 template <typename F>
 int with_instance(int dtype, int U, int TM, F&& f) {
   using bf = __nv_bfloat16;
@@ -377,7 +442,7 @@ int with_instance(int dtype, int U, int TM, F&& f) {
     SCAN_INST(bf, 8, 64) SCAN_INST(bf, 8, 32)
   } else if (dtype == 0) {
     SCAN_INST(float, 16, 64) SCAN_INST(float, 16, 32) SCAN_INST(float, 8, 64)
-    SCAN_INST(float, 8, 32)
+    SCAN_INST(float, 8, 32) SCAN_INST(float, 16, 8)
   }
 #undef SCAN_INST
   return cudaErrorInvalidValue;
@@ -392,6 +457,7 @@ int launch(int dtype, Args a, int units, int tile_rows, int ndir, int smem, void
     using T = std::remove_pointer_t<decltype(ty)>;
     constexpr int U = decltype(uu)::value, TM = decltype(mm)::value;
     if (smem != smem_bytes<T, MODE>(U, TM, a.H)) return (int)cudaErrorInvalidValue;
+    if (TM == 8 && a.H < 512) return (int)cudaErrorInvalidValue;   // the slices' sums fit the h tile
     auto kernel = lstm_scan_wide_kernel<T, MODE, U, TM>;
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
@@ -482,6 +548,27 @@ extern "C" int lstm_scan_bidir_wide_launch(int dtype, const void* xp, const void
                                            int Tn, int H, int units, int tile_rows, int groups,
                                            int launch_dirs, int smem, void* stream) {
   Args a = make_args(xp, w_f, w_b, hs, c_state, B, 2 * B, Tn, H, groups);
+  if (launch_dirs == 2) return launch<kScanBidir>(dtype, a, units, tile_rows, 2, smem, stream);
+  if (launch_dirs != 1) return cudaErrorInvalidValue;
+  for (a.dir0 = 0; a.dir0 < 2; ++a.dir0) {
+    const int err = launch<kScanBidir>(dtype, a, units, tile_rows, 1, smem, stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// The two scans of lstm_scan_bidir2 in mode kScanBidir, each direction in its own
+// tensors: xa / xb (T, R, 4H), wa / wb (H, 4H) -> ha / hb (T, R, H); c_state
+// (2R, H); the plan as lstm_scan_bidir_wide_launch's at B = R.
+extern "C" int lstm_scan_bidir2_wide_launch(int dtype, const void* xa, const void* xb,
+                                            const void* wa, const void* wb, void* ha, void* hb,
+                                            void* c_state, int R, int Tn, int H, int units,
+                                            int tile_rows, int groups, int launch_dirs, int smem,
+                                            void* stream) {
+  Args a = make_args(xa, wa, wb, ha, c_state, R, R, Tn, H, groups);
+  a.xp2 = xb;
+  a.hs2 = hb;
+  if (!xb || !hb) return cudaErrorInvalidValue;
   if (launch_dirs == 2) return launch<kScanBidir>(dtype, a, units, tile_rows, 2, smem, stream);
   if (launch_dirs != 1) return cudaErrorInvalidValue;
   for (a.dir0 = 0; a.dir0 < 2; ++a.dir0) {

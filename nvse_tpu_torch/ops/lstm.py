@@ -18,7 +18,7 @@ and nvse_tpu/ops/pallas_lstm_bwd.py (`lstm_fwd_hc`, `lstm_bwd`).
     bottleneck BiLSTM), and at H <= 128 where no cluster fits (C + H past
     about 590 on an H100), the decomposition the JAX function takes past its
     fused kernel's VMEM budget (pallas_lstm.py:864-880): x @ W_ih + b per
-    direction as torch matmuls, then the two scans of csrc/lstm_bidir2.cu;
+    direction as torch matmuls, then the two scans of lstm_scan_bidir2;
   * training: `_BiLSTMSaving`, an autograd Function mirroring the JAX
     custom_vjp's `_fused_fwd_saving` / `_fused_bwd_saved`
     (pallas_lstm.py:904-952): torch matmuls for x @ W_ih + b, then
@@ -37,9 +37,14 @@ csrc/lstm_scan_wide.cu for 128 < H <= 768 (the layout of
 csrc/lstm_bwd_wide.cu: row groups x slices of hidden units over the card,
 W_hh resident, tensor cores in bfloat16, the plan of `scan_wide_plan`).
 `lstm_scan_bidir2` (two independent scans in one launch: the grouped
-LSTM of GCRN, H = 448 over batch rows) is the kernel of
-csrc/lstm_bidir2.cu, which spreads the hidden units over the card and
-takes H up to 768; under autograd it is `_Bidir2Saving` (`lstm_fwd_hc`
+LSTM of GCRN, H = 448 over batch rows) takes the route `bidir2_plan` picks
+before the launch: for 128 < H the cluster kernel of csrc/lstm_bidir2.cu
+(one thread-block cluster of up to 16 blocks a scan keeps its W_hh resident
+and passes h through distributed shared memory; tensor cores in bfloat16)
+where one wave of its clusters fits the card, else mode kScanBidir of
+csrc/lstm_scan_wide.cu (to H = 768); for H <= 128 the two-direction cluster
+scan of csrc/lstm_scan.cu; the two scan kernels through entries that take a
+pointer for each scan. Under autograd it is `_Bidir2Saving` (`lstm_fwd_hc`
 and `lstm_bwd` per scan, as the JAX custom_vjp at pallas_lstm.py:545-563).
 `lstm_scan_bidir` (both directions of a BiLSTM as stacked rows of one
 scan; no model calls it, as in the JAX package) is the kernel of
@@ -84,27 +89,27 @@ import torch
 
 __all__ = ["lstm_bwd", "lstm_bwd_plain", "lstm_dw_hh", "lstm_dw_hh_plain", "lstm_fwd_hc",
            "lstm_fwd_hc_plain", "lstm_scan", "lstm_scan_fused", "lstm_scan_fused_plain",
-           "lstm_scan_bidir", "lstm_scan_bidir_plain", "lstm_scan_bidir2",
+           "lstm_scan_bidir", "lstm_scan_bidir_plain", "lstm_scan_bidir2", "bidir2_plan",
            "lstm_scan_bidir2_plain", "lstm_scan_plain", "lstm_scan_stateful",
            "lstm_scan_stateful_plain"]
 
 _MAX_H = 128                    # lstm_fused.cu, lstm_scan.cu, lstm_bwd.cu: a cluster's
                                 # blocks hold the weights
-_WIDE_MAX_H = 768               # lstm_bidir2.cu, lstm_bwd_wide.cu, lstm_scan_wide.cu:
-                                # hidden units spread over the card
+_WIDE_MAX_H = 768               # lstm_bwd_wide.cu, lstm_scan_wide.cu: hidden units
+                                # spread over the card (and lstm_scan_bidir2's routes)
 # lstm_fused_wide.cu: both directions' H / 8 blocks co-resident on 128 SMs, and the
 # float32 (C + H, 32) weight slice of 8 units beside its staging ring in 227 KB
 _FUSED_WIDE_MAX_H, _FUSED_WIDE_MAX_K = 512, 1280
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ITEM = {torch.float32: 4, torch.bfloat16: 2}      # bytes an element
 # the csrc/<stem>.cu whose kernel each wrapper launches: (H <= _MAX_H, H > _MAX_H)
+# (lstm_scan_bidir2's is the route `bidir2_plan` picks)
 _SOURCES = {"lstm_scan_fused": ("lstm_fused", "lstm_fused_wide"),
             "lstm_scan": ("lstm_scan", "lstm_scan_wide"),
             "lstm_scan_stateful": ("lstm_scan", "lstm_scan_wide"),
             "lstm_fwd_hc": ("lstm_scan", "lstm_scan_wide"),
             "lstm_bwd": ("lstm_bwd", "lstm_bwd_wide"),
             "lstm_dw_hh": ("lstm_bwd", "lstm_bwd"),
-            "lstm_scan_bidir2": ("lstm_bidir2", "lstm_bidir2"),
             "lstm_scan_bidir": ("lstm_scan", "lstm_scan_wide")}
 
 
@@ -163,10 +168,11 @@ def _fused_route(C: int, H: int, narrow_fits: bool = True) -> str:
     co_resident, which is False past C + H of about 590 on an H100),
     "lstm_fused_wide" (csrc/lstm_fused_wide.cu) for 128 < H <= 512 with
     C + H <= 1280, and past them, up to H = 768, "projection+lstm_bidir2":
-    x @ W_ih + b as torch matmuls, then csrc/lstm_bidir2.cu, as the JAX function
-    does past its fused kernel's VMEM budget (pallas_lstm.py:864-880; it takes
-    B5 in bfloat16 and two B4 scans in float32 by another VMEM rule: both are
-    the same two independent scans, and the port takes B5 in both). A route by
+    x @ W_ih + b as torch matmuls, then lstm_scan_bidir2 (the kernel its
+    `bidir2_plan` picks), as the JAX function does past its fused kernel's VMEM
+    budget (pallas_lstm.py:864-880; it takes B5 in bfloat16 and two B4 scans in
+    float32 by another VMEM rule: both are the same two independent scans, and
+    the port takes B5 in both). A route by
     shape, picked before any launch: a failed build or launch of a kernel
     still raises. Raises past H = 768."""
     if H <= _MAX_H and narrow_fits:
@@ -178,7 +184,7 @@ def _fused_route(C: int, H: int, narrow_fits: bool = True) -> str:
     raise NotImplementedError(
         f"lstm_scan_fused on the card handles H <= {_WIDE_MAX_H}: fused kernels for H <= "
         f"{_FUSED_WIDE_MAX_H} with C + H <= {_FUSED_WIDE_MAX_K}, past them the projection "
-        f"and csrc/lstm_bidir2.cu (H <= {_WIDE_MAX_H}); got C={C}, H={H}")
+        f"and lstm_scan_bidir2 (H <= {_WIDE_MAX_H}); got C={C}, H={H}")
 
 
 def fused_route(C: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: int) -> str:
@@ -1164,10 +1170,11 @@ def _scan_lib() -> ctypes.CDLL:
     lib.lstm_scan_launch.argtypes = [i, ptr, ptr, ptr, *[i] * 8, ptr]
     lib.lstm_scan_stateful_launch.argtypes = [i, *[ptr] * 6, *[i] * 8, ptr]
     lib.lstm_scan_bidir_launch.argtypes = [i, ptr, ptr, ptr, *[i] * 8, ptr]
+    lib.lstm_scan_bidir2_launch.argtypes = [i, *[ptr] * 6, *[i] * 8, ptr]
     lib.lstm_fwd_hc_launch.argtypes = [i, *[ptr] * 4, *[i] * 8, ptr]
     lib.lstm_scan_max_clusters.argtypes = [i, i, i, i, i, ptr]
     for fn in (lib.lstm_scan_launch, lib.lstm_scan_stateful_launch, lib.lstm_scan_bidir_launch,
-               lib.lstm_fwd_hc_launch, lib.lstm_scan_max_clusters):
+               lib.lstm_scan_bidir2_launch, lib.lstm_fwd_hc_launch, lib.lstm_scan_max_clusters):
         fn.restype = ctypes.c_int
     return lib
 
@@ -1293,10 +1300,11 @@ def _scan_wide_lib() -> ctypes.CDLL:
     lib.lstm_scan_wide_launch.argtypes = [i, *[ptr] * 4, *[i] * 7, ptr]
     lib.lstm_scan_stateful_wide_launch.argtypes = [i, *[ptr] * 7, *[i] * 7, ptr]
     lib.lstm_scan_bidir_wide_launch.argtypes = [i, *[ptr] * 5, *[i] * 8, ptr]
+    lib.lstm_scan_bidir2_wide_launch.argtypes = [i, *[ptr] * 7, *[i] * 8, ptr]
     lib.lstm_scan_wide_blocks_per_sm.argtypes = [i, i, i, i, i, ptr]
     for fn in (lib.lstm_fwd_hc_wide_launch, lib.lstm_scan_wide_launch,
                lib.lstm_scan_stateful_wide_launch, lib.lstm_scan_bidir_wide_launch,
-               lib.lstm_scan_wide_blocks_per_sm):
+               lib.lstm_scan_bidir2_wide_launch, lib.lstm_scan_wide_blocks_per_sm):
         fn.restype = ctypes.c_int
     return lib
 
@@ -1306,6 +1314,18 @@ def _scan_wide_lib() -> ctypes.CDLL:
 # that launches each
 _SCAN_WIDE = {torch.bfloat16: ((32, 64), (32, 32), (16, 64), (16, 32), (8, 64), (8, 32)),
               torch.float32: ((16, 64), (16, 32), (8, 64), (8, 32))}
+# and those lstm_scan_bidir2 takes: float32 adds (16 units, 8 rows) at H >= 512 (its
+# product's k-slice sums fill the h tile's memory), whose slice and h tile fit beside
+# each other at H = 768, so that both directions' 48-block groups run in one launch
+# (HD-Demucs's bottleneck, 8 rows)
+_SCAN_WIDE_BIDIR2 = {torch.bfloat16: _SCAN_WIDE[torch.bfloat16],
+                     torch.float32: (*_SCAN_WIDE[torch.float32], (16, 8))}
+_SCAN_WIDE_MIN_H8 = 512
+
+
+def _bidir2_wide_instances(H: int, dtype: torch.dtype) -> tuple:
+    """The wide scan's instances lstm_scan_bidir2 takes at H."""
+    return _SCAN_WIDE_BIDIR2[dtype] if H >= _SCAN_WIDE_MIN_H8 else _SCAN_WIDE[dtype]
 _SCAN_WIDE_MODE = {"lstm_scan": 1, "lstm_scan_stateful": 2, "lstm_scan_bidir": 3,
                    "lstm_fwd_hc": 4}
 
@@ -1336,7 +1356,7 @@ def _scan_wide_smem(U: int, tile_rows: int, H: int, dtype: torch.dtype,
 
 def scan_wide_plan(R: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: int,
                    blocks_per_sm: int | dict = 1, directions: int = 1,
-                   mode: str = "lstm_scan") -> dict:
+                   mode: str = "lstm_scan", instances: tuple | None = None) -> dict:
     """Launch plan of the wide forward scans (csrc/lstm_scan_wide.cu, 128 < H <=
     768) for the wrapper `mode` (lstm_scan, lstm_scan_stateful, lstm_scan_bidir,
     lstm_fwd_hc) at R rows a direction (any T) on a card with n_sm SMs,
@@ -1344,18 +1364,21 @@ def scan_wide_plan(R: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: in
     for each instance (units, tile rows) as the card reports it). Of every
     instance that fits, row groups of H / U blocks a direction: as many as are
     co-resident, at most one block an SM and at least 8 rows a group (4 for
-    lstm_fwd_hc in bfloat16; one group where R is fewer); the
-    plan with the most blocks, at a tie the widest slice, then tiles of 32 rows
+    lstm_fwd_hc in bfloat16; one group where R is fewer); the plan within one
+    block an SM (where a group alone needs more, past H of about 520: a second
+    block an SM was 20 % slower at H = 768), then with the most blocks, at a
+    tie the widest slice, then tiles of 32 rows
     where a group has at most 32, else of 64. A step is a product, a cell and a
     grid barrier: more blocks share the product, while a second block on an SM
     or a group of fewer rows buys nothing (scripts/bench_torch_scan_plan.py
     --kernel scan_wide). Two directions run in one launch where both
     directions' groups are co-resident, else one launch a direction
-    (`launch_dirs` 1). -> units, tile_rows, groups (a direction),
+    (`launch_dirs` 1). `instances`: the (units, tile rows) to choose from
+    (default `_SCAN_WIDE[dtype]`). -> units, tile_rows, groups (a direction),
     rows_per_group, tiles_per_group, launch_dirs, blocks (a launch),
     smem_bytes, tensor_cores; `co_resident` False when nothing fits: the
     kernel cannot run, and its launch fails."""
-    inst = _SCAN_WIDE[dtype]
+    inst = instances or _SCAN_WIDE[dtype]
     bps = (blocks_per_sm if isinstance(blocks_per_sm, dict) else {t: blocks_per_sm for t in inst})
     plans = []
     for U, TM in inst:
@@ -1376,19 +1399,19 @@ def scan_wide_plan(R: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: in
                           tensor_cores=dtype == torch.bfloat16, co_resident=True))
     if not plans:
         return dict(units=None, co_resident=False, groups=0)
-    return max(plans, key=lambda p: (p["launch_dirs"], p["blocks"], p["units"],
+    return max(plans, key=lambda p: (p["launch_dirs"], p["blocks"] <= n_sm, p["blocks"], p["units"],
                                      (p["tile_rows"] == 32) == (p["rows_per_group"] <= 32)))
 
 
 @functools.cache
 def _scan_wide_card_plan(index: int, R: int, H: int, dtype: torch.dtype, directions: int = 1,
-                         mode: str = "lstm_scan") -> dict:
+                         mode: str = "lstm_scan", instances: tuple | None = None) -> dict:
     """scan_wide_plan on card `index`, the blocks per SM of every instance that
     fits read from the card; cached, as the wrapper's host time counts."""
     dev = torch.device("cuda", index)
     n_sm, limit = _n_sm(dev), _smem_limit(dev)
     bps = {}
-    for U, TM in _SCAN_WIDE[dtype]:
+    for U, TM in instances or _SCAN_WIDE[dtype]:
         smem = _scan_wide_smem(U, TM, H, dtype, mode)
         if H % U or smem > limit:
             continue
@@ -1398,7 +1421,7 @@ def _scan_wide_card_plan(index: int, R: int, H: int, dtype: torch.dtype, directi
                 _DTYPE_CODE[dtype], _SCAN_WIDE_MODE[mode], U, TM, smem, ctypes.byref(n))
         _raise_on(err, f"{mode} (occupancy)")
         bps[(U, TM)] = n.value
-    return scan_wide_plan(R, H, dtype, n_sm, limit, bps, directions, mode)
+    return scan_wide_plan(R, H, dtype, n_sm, limit, bps, directions, mode, instances)
 
 
 def _scan_wide_launch_plan(name: str, x_proj: torch.Tensor, R: int, H: int,
@@ -1519,12 +1542,171 @@ def _bidir2_lib() -> ctypes.CDLL:
 
     lib = load_library("lstm_bidir2")
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_bidir2_launch.argtypes = [i, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i, i, i, ptr]
-    lib.lstm_bidir2_launch.restype = ctypes.c_int
+    lib.lstm_bidir2_launch.argtypes = [i, *[ptr] * 6, *[i] * 6, ptr]
+    lib.lstm_bidir2_step_launch.argtypes = [i, i, *[ptr] * 6, *[i] * 6, ptr]
+    lib.lstm_bidir2_max_clusters.argtypes = [i, i, i, i, ptr]
+    for fn in (lib.lstm_bidir2_launch, lib.lstm_bidir2_step_launch, lib.lstm_bidir2_max_clusters):
+        fn.restype = ctypes.c_int
     return lib
 
 
-def lstm_scan_bidir2(xp_a, xp_b, w_a, w_b):
+# csrc/lstm_bidir2.cu's cluster kernel (its `Lay`): the units a block owns, the
+# most blocks a cluster (non-portable on an H100), the rows its buffers hold, the
+# instances' tile rows (`with_rows`), the k of a float32 thread's slice held in
+# registers, the pitch of a row of partial sums, the x ring's steps and the widest H
+_BIDIR2 = dict(units=32, max_cluster=16, rows={torch.bfloat16: 16, torch.float32: 8},
+               insts={torch.bfloat16: (16,), torch.float32: (4, 8)},
+               wr=32, pp=132, stages=3, max_h=512)
+_BIDIR2_STATIC_SMEM = 16        # bytes of static shared memory beside the plan's (two mbarriers)
+
+
+def _bidir2_cluster_smem(H: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of the cluster kernel at H (its `smem_bytes`):
+    bfloat16, two h buffers of 16 rows (H padded to 16, + 8), the partial sums of
+    4 k-quarters (two sets, by step parity) and the x ring; float32, the part of
+    the W_hh slice past a thread's 32 registers' k (KSL = ceil(H / 32) 4 k a
+    slice, 8 slices x 128 columns), two k-major h buffers of 8 rows, the partial
+    sums of 8 k-slices (two sets) and the x ring (rows of 32 + 4 units)."""
+    up = lambda v: -(-v // 16) * 16
+    U, pp, st = _BIDIR2["units"], _BIDIR2["pp"], _BIDIR2["stages"]
+    rows = _BIDIR2["rows"][dtype]
+    if dtype == torch.bfloat16:
+        return up(2 * rows * (up(H) + 8) * 2) + 2 * 4 * rows * pp * 4 + st * rows * 4 * U * 2
+    ksl = math.ceil(math.ceil(H / 8) / 4) * 4
+    w = max(0, ksl - _BIDIR2["wr"]) * 8 * 4 * U * 4
+    return w + 2 * ksl * 8 * 8 * 4 + 2 * 8 * rows * pp * 4 + st * 4 * rows * (U + 4) * 4
+
+
+def bidir2_cluster_plan(R: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: int,
+                        max_clusters: int | None = None) -> dict:
+    """Launch plan of the cluster kernel of csrc/lstm_bidir2.cu at R rows a scan
+    and H (any T) on a card with n_sm SMs and smem_limit bytes a block, holding
+    max_clusters clusters at once (default: one block an SM): clusters of
+    K = ceil(H / 32) blocks, each owning (scan, row tile), the tiles balanced.
+    bfloat16 tiles hold up to 16 rows (one m16 tile of the tensor cores);
+    float32, whose product is bound by its shared-memory loads of h, takes as
+    many tiles as one wave of clusters holds, of at least 4 rows each (tiles of
+    2 were 50 % slower than of 4 at GCRN's 8 rows) and at most 8, in the
+    smallest instance of 4 or 8 rows that holds them. `fits`: K <= 16, H <= 512 and the block's shared memory within the
+    limit; `co_resident`: it fits and the card holds a cluster (the clusters are
+    independent: more than the card holds run in `waves`). -> units, cluster,
+    ntiles, rows (of the largest tile), tile_rows (the instance's), clusters,
+    waves, smem_bytes, blocks, tensor_cores, fits, co_resident."""
+    K = math.ceil(H / _BIDIR2["units"])
+    held = n_sm // K if max_clusters is None else max_clusters
+    most = _BIDIR2["rows"][dtype]
+    ntiles = max(1, math.ceil(R / most))
+    if dtype == torch.float32:
+        ntiles = max(ntiles, min(math.ceil(R / 4), held // 2))
+    rows = math.ceil(R / ntiles)
+    inst = min(i for i in _BIDIR2["insts"][dtype] if i >= rows) if rows <= most else most
+    smem = _bidir2_cluster_smem(H, dtype)
+    fits = (K <= _BIDIR2["max_cluster"] and H <= _BIDIR2["max_h"] and H % 8 == 0
+            and smem + _BIDIR2_STATIC_SMEM <= smem_limit)
+    return dict(units=_BIDIR2["units"], cluster=K, ntiles=ntiles, rows=rows, tile_rows=inst,
+                clusters=2 * ntiles, waves=math.ceil(2 * ntiles / held) if held > 0 else 0,
+                smem_bytes=smem, blocks=2 * ntiles * K, tensor_cores=dtype == torch.bfloat16,
+                fits=fits, co_resident=fits and R >= 1 and held >= 1)
+
+
+def bidir2_plan(T: int, R: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: int,
+                max_clusters: int | None = None, blocks_per_sm: int | dict = 1) -> dict:
+    """The route and plan of lstm_scan_bidir2 at two scans of (T, R, 4H) (any T)
+    on a card with n_sm SMs and smem_limit bytes a block (a pure function of
+    them; the wrapper reads max_clusters, the cluster kernel's co-residency, and
+    blocks_per_sm, the wide scan's, from the card):
+      * H <= 128: "lstm_scan", the two-direction cluster scan of csrc/lstm_scan.cu
+        (`scan_narrow_plan`, two directions of R rows);
+      * 128 < H: "lstm_bidir2", the cluster kernel of csrc/lstm_bidir2.cu
+        (`bidir2_cluster_plan`), where all its clusters run in one wave (GCRN's
+        8 rows at H = 448 in both dtypes on an H100);
+      * else "lstm_scan_wide", mode kScanBidir of csrc/lstm_scan_wide.cu
+        (`scan_wide_plan`, two directions, the instances of `_bidir2_wide_instances`),
+        to H = 768 (HD-Demucs's); where that
+        does not fit the card either, the cluster kernel in waves.
+    -> {"route": the csrc stem, "plan": that kernel's plan}; the plan's
+    `co_resident` False when the route cannot run on this card."""
+    if H <= _MAX_H:
+        return dict(route="lstm_scan", plan=scan_narrow_plan(R, H, dtype, n_sm, smem_limit,
+                                                             directions=2))
+    cluster = bidir2_cluster_plan(R, H, dtype, n_sm, smem_limit, max_clusters)
+    return _bidir2_pick(cluster, lambda: scan_wide_plan(R, H, dtype, n_sm, smem_limit,
+                                                        blocks_per_sm, 2, "lstm_scan_bidir",
+                                                        _bidir2_wide_instances(H, dtype)))
+
+
+def _bidir2_pick(cluster: dict, wide) -> dict:
+    """The cluster kernel in one wave, else the wide scan (`wide()`, its plan)
+    where it runs, else the cluster kernel in waves where it runs."""
+    if cluster["co_resident"] and cluster["waves"] == 1:
+        return dict(route="lstm_bidir2", plan=cluster)
+    plan = wide()
+    if plan["co_resident"] or not cluster["co_resident"]:
+        return dict(route="lstm_scan_wide", plan=plan)
+    return dict(route="lstm_bidir2", plan=cluster)
+
+
+@functools.cache
+def _bidir2_card_plan(index: int, R: int, H: int, dtype: torch.dtype) -> dict:
+    """bidir2_plan on card `index`: the cluster kernel's clusters read from the
+    card (cudaOccupancyMaxActiveClusters), the narrow scan's as `_scan_card_plan`
+    reads them, the wide scan's blocks per SM as `_scan_wide_card_plan`; cached,
+    as the wrapper's host time counts."""
+    dev = torch.device("cuda", index)
+    n_sm, limit = _n_sm(dev), _smem_limit(dev)
+    if H <= _MAX_H:
+        return dict(route="lstm_scan", plan=_scan_card_plan(index, R, H, dtype, 2))
+    cluster = bidir2_cluster_plan(R, H, dtype, n_sm, limit)
+    for _ in range(2):                          # until the co-residency agrees with the plan
+        if not cluster["fits"]:
+            break
+        n = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = _bidir2_lib().lstm_bidir2_max_clusters(
+                _DTYPE_CODE[dtype], H, cluster["tile_rows"], cluster["smem_bytes"], ctypes.byref(n))
+        _raise_on(err, "lstm_bidir2 (occupancy)")
+        again = bidir2_cluster_plan(R, H, dtype, n_sm, limit, n.value)
+        if again == cluster:
+            break
+        cluster = again
+    return _bidir2_pick(cluster, lambda: _scan_wide_card_plan(index, R, H, dtype, 2,
+                                                              "lstm_scan_bidir",
+                                                              _bidir2_wide_instances(H, dtype)))
+
+
+def _bidir2_launch_plan(xp: torch.Tensor, R: int, H: int) -> tuple:
+    """(route, plan) of lstm_scan_bidir2 on xp's card; raises when it cannot run there."""
+    got = _bidir2_card_plan(_device_index(xp.device), R, H, xp.dtype)
+    if not got["plan"]["co_resident"]:
+        raise RuntimeError(f"lstm_scan_bidir2 at R={R}, H={H}, {xp.dtype}: the route "
+                           f"{got['route']} cannot run on this card ({got['plan']})")
+    return got["route"], got["plan"]
+
+
+def _launch_bidir2(route: str, plan: dict, xp_a, xp_b, w_a, w_b, hs_a, hs_b) -> int:
+    """Launches lstm_scan_bidir2's two scans on the route and plan given; -> the
+    CUDA error of the launch."""
+    T, R, H = hs_a.shape
+    ptrs = [t.data_ptr() for t in (xp_a, xp_b, w_a, w_b, hs_a, hs_b)]
+    dtype = _DTYPE_CODE[xp_a.dtype]
+    with torch.cuda.device(xp_a.device):
+        stream = torch.cuda.current_stream(xp_a.device).cuda_stream
+        if route == "lstm_bidir2":
+            return _bidir2_lib().lstm_bidir2_launch(dtype, *ptrs, R, T, H, plan["ntiles"],
+                                                    plan["tile_rows"], plan["smem_bytes"], stream)
+        if route == "lstm_scan":
+            return _scan_lib().lstm_scan_bidir2_launch(
+                dtype, *ptrs, R, T, H, plan["inst"], plan["ntiles"], plan["clusters"],
+                plan["stages"], plan["smem_bytes"], stream)
+        # kernel scratch: the float32 c of each (scan, row, unit)
+        c_state = torch.empty(2, R, H, device=xp_a.device, dtype=torch.float32)
+        U, TM, groups, smem = _scan_wide_plan_args(plan)
+        return _scan_wide_lib().lstm_scan_bidir2_wide_launch(
+            dtype, *ptrs, c_state.data_ptr(), R, T, H, U, TM, groups, plan["launch_dirs"], smem,
+            stream)
+
+
+def lstm_scan_bidir2(xp_a, xp_b, w_a, w_b, route: str | None = None, plan: dict | None = None):
     """(T, R, 4H) x 2, (H, 4H) x 2 -> (hs_a, hs_b), each (T, R, H): two
     independent unidirectional LSTM scans from zero state that advance in
     the same launch (GCRN's pairs of group LSTMs). A caller that wants a
@@ -1532,11 +1714,15 @@ def lstm_scan_bidir2(xp_a, xp_b, w_a, w_b):
 
     When autograd will differentiate the call it takes the
     residual-saving route, `_Bidir2Saving`. Otherwise CUDA tensors launch
-    the hand-written kernel of csrc/lstm_bidir2.cu, which replaces
-    nvse_tpu/ops/pallas_lstm.py:_pallas_lstm_scan_bidir2 and takes
-    H <= 768, and CPU tensors run lstm_scan_bidir2_plain. Counts
-    inference-kernel launches in `lstm_scan_bidir2.launches` (and per
-    (T, R, H, dtype) in `lstm_scan_bidir2.launches_by_shape`)."""
+    the hand-written kernel that `bidir2_plan` picks on this card (or the
+    route and plan given: the plan bench), each replacing
+    nvse_tpu/ops/pallas_lstm.py:_pallas_lstm_scan_bidir2 (H <= 768): the
+    cluster kernel of csrc/lstm_bidir2.cu, mode kScanBidir of
+    csrc/lstm_scan_wide.cu or the cluster scan of csrc/lstm_scan.cu, each with
+    a pointer for each scan; CPU tensors run lstm_scan_bidir2_plain. Counts
+    launches in `lstm_scan_bidir2.launches` (per (T, R, H, dtype) in
+    `lstm_scan_bidir2.launches_by_shape`, per route's kernel in
+    `lstm_scan_bidir2.launches_by_kernel`)."""
     args = (xp_a, xp_b, w_a, w_b)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         return _Bidir2Saving.apply(*args)
@@ -1547,18 +1733,16 @@ def lstm_scan_bidir2(xp_a, xp_b, w_a, w_b):
             or _check_seq_args("lstm_scan_bidir2", xp_b, w_b, max_h=_WIDE_MAX_H) != (T, R, H)):
         raise ValueError("lstm_scan_bidir2: the two scans must agree in shape, dtype and "
                          f"device; got {[(tuple(a.shape), a.dtype, a.device) for a in args]}")
+    _check_aligned("lstm_scan_bidir2", *args)
     hs_a = torch.empty(T, R, H, device=xp_a.device, dtype=xp_a.dtype)
     hs_b = torch.empty_like(hs_a)
     if T == 0 or R == 0:
         return hs_a, hs_b
-    c_state = torch.empty(2, R, H, device=xp_a.device, dtype=torch.float32)   # kernel scratch
-    with torch.cuda.device(xp_a.device):
-        stream = torch.cuda.current_stream(xp_a.device).cuda_stream
-        err = _bidir2_lib().lstm_bidir2_launch(
-            _DTYPE_CODE[xp_a.dtype], xp_a.data_ptr(), xp_b.data_ptr(), w_a.data_ptr(),
-            w_b.data_ptr(), hs_a.data_ptr(), hs_b.data_ptr(), c_state.data_ptr(), R, T, H, stream)
-    _raise_on(err, "lstm_scan_bidir2")
-    _count(lstm_scan_bidir2, (T, R, H, str(xp_a.dtype).replace("torch.", "")))
+    if route is None:
+        route, plan = _bidir2_launch_plan(xp_a, R, H)
+    err = _launch_bidir2(route, plan, xp_a, xp_b, w_a, w_b, hs_a, hs_b)
+    _raise_on(err, f"lstm_scan_bidir2 ({route})")
+    _count(lstm_scan_bidir2, (T, R, H, str(xp_a.dtype).replace("torch.", "")), route)
     return hs_a, hs_b
 
 

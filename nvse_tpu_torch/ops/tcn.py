@@ -2,17 +2,22 @@
 -> concatenated res|skip 1x1 -> residual add.
 
 Counterpart of nvse_tpu/ops/pallas_tcn.py. `tcn_block_tail` folds the
-global layer norm into per-batch scale and shift (a, b2) with a plain
-PyTorch reduction (one pass, m2 - m1^2 clamped at 0, as `_tail_fwd_impl`,
-pallas_tcn.py:168-182), then
-  * on a CUDA tensor launches the hand-written kernel of csrc/tcn_tail.cu
-    (`tcn_block_tail_kernel`), or raises;
-  * on a CPU tensor runs `tcn_block_tail_plain`.
+global layer norm into per-batch scale and shift (a, b2) (one pass, m2 - m1^2
+clamped at 0, as `_tail_fwd_impl`, pallas_tcn.py:168-182), then runs the tail:
+  * on a CUDA tensor the fold is the statistics kernel of csrc/tcn_tail.cu
+    (`tcn_gln_fold_kernel`: one read of c, two stages in a fixed order) and the
+    tail its hand-written kernel (`tcn_block_tail_kernel`: wgmma in bfloat16,
+    register-blocked float32 FMAs, the plan of `tail_plan`); each raises on
+    what it does not take;
+  * on a CPU tensor the fold is `_fold` (a plain PyTorch reduction) and the
+    tail `tcn_block_tail_plain`.
 Under autograd it is `_TailRecompute`, whose backward recomputes the fold
 and the plain tail and differentiates them (the custom VJP of
-pallas_tcn.py:185-205). Launches are counted in `tcn_block_tail.launches`,
+pallas_tcn.py:185-205). Tail launches are counted in `tcn_block_tail.launches`,
 per (B, T, H, Bc, dilation, dtype) in `tcn_block_tail.launches_by_shape`
-and per kernel source in `tcn_block_tail.launches_by_kernel`.
+and per kernel in `tcn_block_tail.launches_by_kernel`, where the statistics
+kernel counts under its own key, "tcn_gln_stats"; `tcn_gln_fold_kernel`
+counts its launches per (B, T, H, dtype) too.
 
 Layouts follow the JAX package: c (B, T, H) the PReLU'd output of the
 block's input 1x1, x (B, T, Bc) the residual stream, gln_w / gln_b (1, H),
@@ -22,16 +27,72 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
 
-from .lstm import _DTYPE_CODE, _count, _raise_on, _reset_counts
+from .lstm import _DTYPE_CODE, _ITEM, _count, _device_index, _n_sm, _raise_on, _reset_counts
 
-__all__ = ["tcn_block_tail", "tcn_block_tail_kernel", "tcn_block_tail_plain"]
+__all__ = ["tail_plan", "tcn_block_tail", "tcn_block_tail_kernel", "tcn_block_tail_plain",
+           "tcn_gln_fold_kernel"]
 
 _SOURCE = "tcn_tail"               # csrc/tcn_tail.cu
-_MAX_GRID_YZ = 65535               # the kernel's grid: (T / 64, 2 Bc / 256, B)
+_STATS_KEY = "tcn_gln_stats"       # the statistics kernel's key in launches_by_kernel
+_MAX_B = 65535                     # the statistics kernel's grid: (P, B)
+_MAX_ROWS = 2 ** 31 - 1            # B x T a tile index can hold
+# csrc/tcn_tail.cu's tiles: time steps and output columns of a tile, and its
+# instances as (channels a chunk, stages of the ring), in the order the plan
+# prefers them (its `with_tail`)
+_BM, _BN = 128, 256
+_TAIL = {torch.bfloat16: ((64, 3), (32, 3), (16, 3)),
+         torch.float32: ((32, 2), (16, 2), (8, 2))}
+
+
+def _tail_smem(kc: int, stages: int, d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of the tail at a chunk of kc channels, `stages`
+    stages and dilation d (its `smem_bytes`): a stage holds the w_rs chunk
+    (kc x 256), BM + 2 min(d, BM) staged rows of c (kc + 16 bytes long) and the
+    chunk's constants, each part 128-byte aligned; float32 adds the q tile
+    [kc][BM + 4]; bfloat16 stages start on 1024 bytes (the swizzle atoms of the
+    w_rs chunk), with 1024 bytes of slack to align the first."""
+    up = lambda v, m=128: -(-v // m) * m
+    item = _ITEM[dtype]
+    rows = _BM + 2 * min(d, _BM)
+    stage = (kc * _BN * item + up(rows * (kc + 16 // item) * item)
+             + up(2 * kc * 4 + 4 * kc * item))
+    if dtype == torch.float32:
+        return stages * stage + kc * (_BM + 4) * 4
+    return stages * up(stage, 1024) + 1024
+
+
+def tail_plan(B: int, T: int, H: int, Bc: int, d: int, dtype: torch.dtype, n_sm: int,
+              smem_limit: int) -> dict:
+    """Launch plan of the tail (csrc/tcn_tail.cu) at c (B, T, H), x (B, T, Bc) and
+    dilation d on a card with n_sm SMs and smem_limit bytes of shared memory a
+    block: tiles of 128 time steps x 256 output columns, one persistent block an
+    SM (at most one a tile) walking them in T order, and the first instance
+    (channels a chunk, ring stages) whose stages fit: bfloat16 chunks of 64
+    channels in 3 stages where d leaves room (d <= 64 on an H100), else of 32;
+    float32 chunks of 32 in 2 stages. Larger chunks beat deeper rings (a fourth
+    stage of 64 was 3-5 % slower than three, chunks of 32 17-19 % slower than 64
+    at d = 32 and 64: scripts/bench_torch_scan_plan.py --kernel tail). -> kc,
+    stages, smem_bytes, tiles, blocks, tensor_cores, fits (False: nothing fits;
+    the kernel cannot run)."""
+    tiles = B * math.ceil(T / _BM) * math.ceil(2 * Bc / _BN)
+    for kc, stages in _TAIL[dtype]:
+        smem = _tail_smem(kc, stages, d, dtype)
+        if smem <= smem_limit:
+            return dict(kc=kc, stages=stages, smem_bytes=smem, tiles=tiles,
+                        blocks=max(1, min(tiles, n_sm)), tensor_cores=dtype == torch.bfloat16,
+                        fits=True)
+    return dict(fits=False, tiles=tiles)
+
+
+def gln_stats_partials(B: int, T: int, H: int, n_sm: int) -> int:
+    """The statistics kernel's runs a batch element (P): four blocks an SM over
+    the batch, each of at least 4,096 elements."""
+    return max(1, min(math.ceil(4 * n_sm / B), math.ceil(T * H / 4096)))
 
 
 def tcn_block_tail_plain(c, x, a, b2, w_dw, b_dw, w_rs, b_rs, dilation: int):
@@ -80,9 +141,9 @@ def _check_kernel_args(c, x, a, b2, w_dw, b_dw, w_rs, b_rs, dilation):
             or tuple(a.shape) != (B, H) or tuple(b2.shape) != (B, H)):
         raise ValueError(f"tcn_block_tail: shapes {[tuple(t.shape) for t in (a, b2, b_dw, w_rs, b_rs)]}"
                          f" do not match B={B}, H={H}, Bc={Bc}")
-    if B > _MAX_GRID_YZ or (2 * Bc + 255) // 256 > _MAX_GRID_YZ:
-        raise NotImplementedError(f"tcn_tail kernel takes B <= {_MAX_GRID_YZ} and "
-                                  f"2 Bc <= {256 * _MAX_GRID_YZ}; got B={B}, Bc={Bc}")
+    if B * math.ceil(T / _BM) * math.ceil(2 * Bc / _BN) > _MAX_ROWS:
+        raise NotImplementedError(f"tcn_tail kernel takes fewer than 2^31 tiles of "
+                                  f"{_BM} x {_BN}; got B={B}, T={T}, Bc={Bc}")
     if not isinstance(dilation, int) or dilation < 1:
         raise ValueError(f"tcn_block_tail: dilation must be an int >= 1, got {dilation!r}")
     args = (c, x, w_dw, b_dw, w_rs, b_rs)
@@ -104,15 +165,32 @@ def _kernel_lib() -> ctypes.CDLL:
 
     lib = load_library(_SOURCE)
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    lib.tcn_tail_launch.argtypes = [i, *[ptr] * 10, i, i, i, i, i, ptr]
-    lib.tcn_tail_launch.restype = ctypes.c_int
+    lib.tcn_tail_launch.argtypes = [i, *[ptr] * 10, *[i] * 10, ptr]
+    lib.tcn_gln_stats_launch.argtypes = [i, i, *[ptr] * 6, i, i, i, i, ctypes.c_float, i, ptr]
+    for fn in (lib.tcn_tail_launch, lib.tcn_gln_stats_launch):
+        fn.restype = ctypes.c_int
     return lib
 
 
-def tcn_block_tail_kernel(c, x, a, b2, w_dw, b_dw, w_rs, b_rs, dilation: int):
-    """Launch the kernel of csrc/tcn_tail.cu (replaces
+@functools.cache
+def _card_tail_plan(index: int, B: int, T: int, H: int, Bc: int, d: int,
+                    dtype: torch.dtype) -> dict:
+    """tail_plan on card `index` (its SMs and shared memory); cached, as the
+    wrapper's host time counts."""
+    props = torch.cuda.get_device_properties(index)
+    return tail_plan(B, T, H, Bc, d, dtype, props.multi_processor_count,
+                     props.shared_memory_per_block_optin)
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def tcn_block_tail_kernel(c, x, a, b2, w_dw, b_dw, w_rs, b_rs, dilation: int, plan=None):
+    """Launch the tail kernel of csrc/tcn_tail.cu (replaces
     nvse_tpu/ops/pallas_tcn.py:_pallas_tail) on CUDA tensors: the function
-    of tcn_block_tail_plain. Counts the launch on `tcn_block_tail`."""
+    of tcn_block_tail_plain, with the plan of `tail_plan` on this card (or the
+    given one: the plan bench). Counts the launch on `tcn_block_tail`."""
     B, T, H, Bc = _check_kernel_args(c, x, a, b2, w_dw, b_dw, w_rs, b_rs, dilation)
     e = torch.empty(B, T, Bc, device=c.device, dtype=x.dtype)
     s = torch.empty_like(e)
@@ -120,20 +198,73 @@ def tcn_block_tail_kernel(c, x, a, b2, w_dw, b_dw, w_rs, b_rs, dilation: int):
         return e, s
     w = [t.contiguous() for t in (w_dw, b_dw, w_rs, b_rs)]
     a, b2 = a.contiguous(), b2.contiguous()
+    item = _ITEM[c.dtype]
+    vec = int(H % (16 // item) == 0 and (2 * Bc) % (16 // item) == 0
+              and _aligned(c, x, a, b2, *w))
+    plan = plan or _card_tail_plan(_device_index(c.device), B, T, H, Bc, dilation, c.dtype)
+    if not plan["fits"]:
+        raise RuntimeError(f"tcn_tail at d={dilation}, {c.dtype}: no instance's shared memory "
+                           f"fits this card ({plan})")
     ptrs = [t.data_ptr() for t in (c, x, a, b2, *w, e, s)]
     with torch.cuda.device(c.device):
         stream = torch.cuda.current_stream(c.device).cuda_stream
-        err = _kernel_lib().tcn_tail_launch(_DTYPE_CODE[c.dtype], *ptrs, B, T, H, Bc,
-                                            dilation, stream)
+        err = _kernel_lib().tcn_tail_launch(
+            _DTYPE_CODE[c.dtype], *ptrs, B, T, H, Bc, dilation, plan["kc"], plan["stages"],
+            plan["blocks"], plan["smem_bytes"], vec, stream)
     _raise_on(err, _SOURCE)
     _count(tcn_block_tail, (B, T, H, Bc, dilation, str(c.dtype).replace("torch.", "")), _SOURCE)
     return e, s
 
 
+def tcn_gln_fold_kernel(c, gln_w, gln_b, eps: float):
+    """The gLN fold of `_fold` by the statistics kernel of csrc/tcn_tail.cu on
+    CUDA tensors: c (B, T, H) read once, a float32 sum and sum of squares a
+    batch element in two stages of fixed order (no float atomics: two runs give
+    the same bits), then a, b2 (B, H) float32. Counts the launch on
+    `tcn_gln_fold_kernel` and under "tcn_gln_stats" in
+    `tcn_block_tail.launches_by_kernel`."""
+    if c.dim() != 3 or not c.is_contiguous():
+        raise ValueError(f"tcn_gln_stats kernel needs a contiguous c (B, T, H), got "
+                         f"{tuple(c.shape)}")
+    B, T, H = c.shape
+    if gln_w.numel() != H or gln_b.numel() != H:
+        raise ValueError(f"tcn_gln_stats: gln_w / gln_b of {gln_w.numel()} / {gln_b.numel()} "
+                         f"values for H = {H}")
+    if c.dtype not in _DTYPE_CODE or gln_w.dtype not in _DTYPE_CODE or gln_b.dtype != gln_w.dtype:
+        raise TypeError("tcn_gln_stats kernel takes float32 or bfloat16 c and one of them for "
+                        f"gln_w and gln_b; got {c.dtype}, {gln_w.dtype}, {gln_b.dtype}")
+    if any(t.device != c.device for t in (gln_w, gln_b)) or c.device.type != "cuda":
+        raise ValueError("tcn_gln_stats kernel needs all tensors on one CUDA device")
+    if B > _MAX_B:
+        raise NotImplementedError(f"tcn_gln_stats kernel takes B <= {_MAX_B}; got B={B}")
+    a = torch.empty(B, H, device=c.device, dtype=torch.float32)
+    b2 = torch.empty_like(a)
+    if B == 0:
+        return a, b2
+    if T == 0:
+        raise ValueError("tcn_gln_stats: the mean over T = 0 steps is not defined")
+    gw, gb = gln_w.contiguous(), gln_b.contiguous()
+    P = gln_stats_partials(B, T, H, _n_sm(c.device))
+    part = torch.empty(B, P, 2, device=c.device, dtype=torch.float32)
+    vec = int((T * H * _ITEM[c.dtype]) % 16 == 0 and _aligned(c))
+    with torch.cuda.device(c.device):
+        stream = torch.cuda.current_stream(c.device).cuda_stream
+        err = _kernel_lib().tcn_gln_stats_launch(
+            _DTYPE_CODE[c.dtype], _DTYPE_CODE[gw.dtype], c.data_ptr(), gw.data_ptr(),
+            gb.data_ptr(), part.data_ptr(), a.data_ptr(), b2.data_ptr(), B, T, H, P, eps, vec,
+            stream)
+    _raise_on(err, f"{_SOURCE} ({_STATS_KEY})")
+    _count(tcn_gln_fold_kernel, (B, T, H, str(c.dtype).replace("torch.", "")), _STATS_KEY)
+    tcn_block_tail.launches_by_kernel[_STATS_KEY] = (
+        tcn_block_tail.launches_by_kernel.get(_STATS_KEY, 0) + 1)
+    return a, b2
+
+
 def _tail(c, x, gln_w, gln_b, w_dw, b_dw, w_rs, b_rs, dilation, eps):
-    a, b2 = _fold(c, gln_w, gln_b, eps)
     if c.device.type == "cpu":
+        a, b2 = _fold(c, gln_w, gln_b, eps)
         return tcn_block_tail_plain(c, x, a, b2, w_dw, b_dw, w_rs, b_rs, dilation)
+    a, b2 = tcn_gln_fold_kernel(c, gln_w, gln_b, eps)
     return tcn_block_tail_kernel(c, x, a, b2, w_dw, b_dw, w_rs, b_rs, dilation)
 
 
@@ -163,13 +294,14 @@ class _TailRecompute(torch.autograd.Function):
 def tcn_block_tail(c, x, gln_w, gln_b, w_dw, b_dw, w_rs, b_rs, dilation: int,
                    eps: float = 1e-5):
     """Fused TCN block tail: (e_next, skip), each (B, T, Bc) in x's dtype.
-    Shapes as in the module docstring; CUDA tensors go to the kernel of
-    csrc/tcn_tail.cu (it raises on what it does not take), CPU tensors to
-    tcn_block_tail_plain, differentiable calls to `_TailRecompute`."""
+    Shapes as in the module docstring; CUDA tensors go to the statistics and
+    tail kernels of csrc/tcn_tail.cu (each raises on what it does not take), CPU
+    tensors to `_fold` and tcn_block_tail_plain, differentiable calls to
+    `_TailRecompute`."""
     args = (c, x, gln_w, gln_b, w_dw, b_dw, w_rs, b_rs)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _TailRecompute.apply(*args, dilation, eps)
     return _tail(*args, dilation, eps)
 
 
-_reset_counts(tcn_block_tail)
+_reset_counts(tcn_block_tail, tcn_gln_fold_kernel)

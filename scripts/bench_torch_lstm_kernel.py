@@ -8,7 +8,7 @@ scripts/bench_lstm_kernel.py, on the kernels of nvse_tpu_torch.
 At BSRNN's time-LSTM shape (T = frames over batch x bands rows) and band-LSTM
 shape (T = bands over batch x frames rows) it times, as the JAX script does:
   unfused    two lstm_scan calls (two launches);
-  dualdot    lstm_scan_bidir2, both scans in one launch (csrc/lstm_bidir2.cu);
+  dualdot    lstm_scan_bidir2, both scans in one launch (the kernel bidir2_plan picks);
   blockdiag  lstm_scan_bidir, both directions as stacked rows of one scan
              (csrc/lstm_scan.cu, csrc/lstm_scan_wide.cu); the label is the JAX
              one, but the port's kernel multiplies each row by its own W_hh only;

@@ -7,6 +7,7 @@ at each launch plan they could take, against the plan ops/lstm.py picks.
     python3 scripts/bench_torch_scan_plan.py [--kernel scan|bwd|scan_wide|train_narrow|all]
                                              [--iters 5] [--out FILE]
     python3 scripts/bench_torch_scan_plan.py --kernel train_wrappers [--repo DIR]
+    python3 scripts/bench_torch_scan_plan.py --kernel bidir2|tail [--out FILE]
 
 scan: at every shape the BSRNN-M paths and the LSTM-layout bench give it (H =
 128: the causal decode's time LSTM, a context-recompute window of one file, a
@@ -35,7 +36,17 @@ the card holds, each at its own tile instance and every larger one), each with
 its bound (bytes over 3.35 TB/s or FLOPs over 67 / 989 TFLOP/s) and its us a
 step. train_wrappers: the wrappers lstm_fwd_hc and lstm_bwd_recurrence alone at
 those shapes, of the package in DIR (default: this checkout), so that one call
-can time a parent checkout's kernels beside these. As a yardstick that no route takes,
+can time a parent checkout's kernels beside these. bidir2: lstm_scan_bidir2 at
+GCRN's decode and serving shapes (8 rows x 1024 and 128 steps, H = 448),
+HD-Demucs's (8 x 1024, H = 768) and B7's small one (16 x 65, H = 128), each dtype,
+on every route that runs there (`bidir2_plan`'s pick, the cluster kernel of
+csrc/lstm_bidir2.cu at each float32 tiling of the rows, mode kScanBidir of
+csrc/lstm_scan_wide.cu, csrc/lstm_scan.cu), with the cluster kernel's per-step
+split (its step variants: no product, no exchange, no cell) and us a step. tail:
+the TCN tail (csrc/tcn_tail.cu) at ConvTasNet's decode shape (8 x 32,735, H = 512,
+Bc = 128) at every dilation and at serving's (8 x 4,063), each dtype, every
+instance of `tail_plan` (channels a chunk, stages) that fits, with the statistics
+kernel beside it, its bound, GB/s and TFLOP/s. As a yardstick that no route takes,
 beside each scan shape: cuDNN's unidirectional torch.nn.LSTM forward, one a
 direction, the projection included.
 
@@ -511,10 +522,133 @@ def _bench_train_narrow(emit, iters, n_sm, limit):
                           fastest=dict(ms=ms, kind=kind, **plan)))
 
 
+# (label, steps, rows, H) of lstm_scan_bidir2: GCRN's decode and serving, HD-Demucs's
+# bottleneck, B7's small shape
+BIDIR2_SHAPES = (("gcrn_decode", 1024, 8, 448), ("gcrn_serve", 128, 8, 448),
+                 ("hddemucs", 1024, 8, 768), ("small", 65, 16, 128))
+# the tail at ConvTasNet's decode shape (every dilation of a repeat) and serving's
+TAIL_SHAPES = tuple((f"decode_d{d}", 8, (256 * 1023 - 16) // 8 + 1, 512, 128, d)
+                    for d in (1, 2, 4, 8, 16, 32, 64, 128)) + (("serve_d16", 8, 4063, 512, 128, 16),)
+
+
+def _bench_bidir2(emit, iters, n_sm, limit):
+    from nvse_tpu_torch.ops import lstm as L
+
+    for label, T, R, H in BIDIR2_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(T + R + H)
+            xs = [(0.5 * torch.randn(T, R, 4 * H, generator=g)).to("cuda", dtype) for _ in range(2)]
+            ws = [(torch.rand(H, 4 * H, generator=g) * 2 - 1).div(math.sqrt(H)).to("cuda", dtype)
+                  for _ in range(2)]
+            args = (*xs, *ws)
+            dt = str(dtype)[6:]
+            pick = L._bidir2_card_plan(0, R, H, dtype)
+            variants = [(pick["route"], pick["plan"], True)]
+            if H > L._MAX_H:
+                cl = L.bidir2_cluster_plan(R, H, dtype, n_sm, limit)
+                if cl["fits"]:
+                    tilings = ([(nt, tr) for nt in range(1, R + 1)
+                                for tr in L._BIDIR2["insts"][dtype] if -(-R // nt) <= tr
+                                and (tr == 4 or -(-R // nt) > 4) and nt <= 4]
+                               if dtype == torch.float32 else [(cl["ntiles"], cl["tile_rows"])])
+                    for nt, tr in tilings:
+                        if -(-R // nt) <= tr:
+                            variants.append(("lstm_bidir2", dict(cl, ntiles=nt, tile_rows=tr,
+                                                                 rows=-(-R // nt)), False))
+                wide = L._scan_wide_card_plan(0, R, H, dtype, 2, "lstm_scan_bidir",
+                                              L._bidir2_wide_instances(H, dtype))
+                if wide["co_resident"]:
+                    variants.append(("lstm_scan_wide", wide, False))
+            with torch.inference_mode():
+                ref = L.lstm_scan_bidir2_plain(*args)
+                best = None
+                for route, plan, picked in variants:
+                    if not picked and (route, plan) == (pick["route"], pick["plan"]):
+                        continue
+                    got = L.lstm_scan_bidir2(*args, route=route, plan=plan)
+                    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+                    ms = _ms(lambda: L.lstm_scan_bidir2(*args, route=route, plan=plan), iters)
+                    row = dict(kernel="bidir2", shape=label, rows=R, steps=T, H=H, dtype=dt,
+                               route=route, picked=picked, ms=ms, us_per_step=ms * 1e3 / T,
+                               max_abs_err=err, **{k: plan.get(k) for k in (
+                                   "ntiles", "tile_rows", "units", "groups", "launch_dirs",
+                                   "blocks")})
+                    if route == "lstm_bidir2":
+                        outs = [torch.empty(T, R, H, device="cuda", dtype=dtype) for _ in range(2)]
+                        ptrs = [t.data_ptr() for t in (*args, *outs)]
+                        for step, name in ((1, "no_product"), (2, "no_exchange"), (3, "no_cell")):
+                            def run():
+                                e = L._bidir2_lib().lstm_bidir2_step_launch(
+                                    L._DTYPE_CODE[dtype], step, *ptrs, R, T, H, plan["ntiles"],
+                                    plan["tile_rows"], plan["smem_bytes"],
+                                    torch.cuda.current_stream().cuda_stream)
+                                if e:
+                                    raise RuntimeError(f"lstm_bidir2 step variant: CUDA error {e}")
+                            v = _ms(run, iters) * 1e3 / T
+                            row[f"us_{name}"] = v
+                        # the per-step split: each part is the full step less its variant's
+                        row["split_us"] = {part: row["us_per_step"] - row[f"us_no_{part}"]
+                                           for part in ("product", "exchange", "cell")}
+                    emit(row)
+                    if best is None or ms < best[0]:
+                        best = (ms, route, {k: plan.get(k) for k in ("ntiles", "tile_rows", "units")})
+                emit(dict(kernel="bidir2", shape=label, dtype=dt, fastest=dict(
+                    ms=best[0], route=best[1], **best[2]), picked_route=pick["route"]))
+
+
+def _bench_tail(emit, iters, limit):
+    from nvse_tpu_torch.ops import tcn
+
+    for label, B, T, H, Bc, d in TAIL_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(T + d)
+            c = (torch.randn(B, T, H, generator=g) + 0.5).to("cuda", dtype)
+            x = torch.randn(B, T, Bc, generator=g).to("cuda", dtype)
+            gw = (1.0 + 0.1 * torch.randn(1, H, generator=g)).to("cuda", dtype)
+            gb = (0.5 * torch.randn(1, H, generator=g)).to("cuda", dtype)
+            wdw = (torch.randn(3, H, generator=g) / 3).to("cuda", dtype)
+            bdw = (0.1 * torch.randn(1, H, generator=g)).to("cuda", dtype)
+            wrs = (torch.randn(H, 2 * Bc, generator=g) / math.sqrt(H)).to("cuda", dtype)
+            brs = (0.1 * torch.randn(1, 2 * Bc, generator=g)).to("cuda", dtype)
+            dt, item = str(dtype)[6:], c.element_size()
+            nbytes = B * T * (H + 3 * Bc) * item
+            flops = 2 * B * T * H * 2 * Bc
+            bound = max(nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]) * 1e3
+            pick = tcn._card_tail_plan(0, B, T, H, Bc, d, dtype)
+            with torch.inference_mode():
+                a, b2 = tcn.tcn_gln_fold_kernel(c, gw, gb, 1e-5)
+                ref = tcn.tcn_block_tail_plain(c, x, a, b2, wdw, bdw, wrs, brs, d)
+                stats_ms = _ms(lambda: tcn.tcn_gln_fold_kernel(c, gw, gb, 1e-5), iters)
+                best = None
+                for kc, st in tcn._TAIL[dtype]:
+                    smem = tcn._tail_smem(kc, st, d, dtype)
+                    if smem > limit:
+                        continue
+                    plan = dict(pick, kc=kc, stages=st, smem_bytes=smem)
+                    got = tcn.tcn_block_tail_kernel(c, x, a, b2, wdw, bdw, wrs, brs, d, plan=plan)
+                    err = max(((u.float() - v.float()).abs().max()
+                               / max(1.0, v.float().abs().max().item())).item()
+                              for u, v in zip(got, ref))
+                    ms = _ms(lambda: tcn.tcn_block_tail_kernel(c, x, a, b2, wdw, bdw, wrs, brs, d,
+                                                               plan=plan), iters)
+                    picked = (kc, st) == (pick["kc"], pick["stages"])
+                    emit(dict(kernel="tail", shape=label, rows=B, steps=T, H=H, Bc=Bc, dilation=d,
+                              dtype=dt, kc=kc, stages=st, smem_bytes=smem, picked=picked, ms=ms,
+                              stats_ms=stats_ms, bound_ms=bound, rel_err=err,
+                              gb_per_s=nbytes / (ms * 1e-3) / 1e9,
+                              tflops=flops / (ms * 1e-3) / 1e12))
+                    if best is None or ms < best[0]:
+                        best = (ms, kc, st)
+                emit(dict(kernel="tail", shape=label, dtype=dt, fastest=dict(
+                    ms=best[0], kc=best[1], stages=best[2]),
+                    picked=dict(kc=pick["kc"], stages=pick["stages"])))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--kernel", default="all",
-                   choices=("scan", "bwd", "scan_wide", "train_narrow", "train_wrappers", "all"))
+                   choices=("scan", "bwd", "scan_wide", "train_narrow", "train_wrappers", "bidir2",
+                            "tail", "all"))
     p.add_argument("--iters", type=int, default=5)
     p.add_argument("--repo", default=REPO,
                    help="train_wrappers: the checkout whose package is timed (default: this one)")
@@ -547,6 +681,10 @@ def main(argv=None):
         _bench_train_narrow(emit, args.iters, n_sm, limit)
     if args.kernel == "train_wrappers":
         _bench_train_wrappers(emit, args.iters)
+    if args.kernel in ("bidir2", "all"):
+        _bench_bidir2(emit, args.iters, n_sm, limit)
+    if args.kernel in ("tail", "all"):
+        _bench_tail(emit, args.iters, limit)
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")

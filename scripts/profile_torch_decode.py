@@ -10,7 +10,8 @@ after one warmup forward, and prints one JSON line per model and dtype
 device-busy ms per forward (sum of kernel times; one stream, so kernels do
 not overlap), the idle share, the hand-written kernel's share (`kernel`:
 lstm_fused for BSRNN-M, lstm_fused_wide for BSRNN-L, lstm_bidir2 for GCRN,
-tcn_tail for ConvTasNet; "both" is BSRNN-M and GCRN), device ms per
+the tail and its gLN statistics (tcn_) for ConvTasNet; "both" is BSRNN-M and
+GCRN), device ms per
 category of kernel name (the hand-written kernels, FFT, convolution, gemm,
 elementwise and copies, other) and the twelve kernels with the most device
 time. Needs a CUDA GPU.
@@ -38,7 +39,7 @@ def _device_us(evt) -> float:
 # kernel-name fragments of each category, tried in this order
 CATEGORIES = (
     ("lstm", ("lstm_",)),
-    ("tcn_tail", ("tcn_tail",)),
+    ("tcn_tail", ("tcn_tail", "tcn_gln")),
     ("fft", ("fft",)),
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit", "cudnn", "winograd",
                      "im2col", "col2im", "nchwtonhwc", "nhwctonchw")),
@@ -50,7 +51,7 @@ CATEGORIES = (
 CONFIGS = {"bsrnn": ("bsrnn_config.json", "lstm_fused", ({},)),
            "bsrnn_l": ("bsrnn_l_config.json", "lstm_fused_wide", ({},)),
            "gcrn": ("gcrn_config.json", "lstm_bidir2", ({},)),
-           "convtasnet": ("convtasnet_config.json", "tcn_tail",
+           "convtasnet": ("convtasnet_config.json", "tcn_",
                           ({"fused_tcn": 1}, {"fused_tcn": 0}))}
 
 

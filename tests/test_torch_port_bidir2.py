@@ -2,8 +2,9 @@
 scans in one call: GCRN's grouped LSTM) against the JAX package, on the
 CPU.
 
-`lstm_scan_bidir2_plain` (the plain PyTorch version of the kernel of
-csrc/lstm_bidir2.cu) is held against the XLA reference
+`lstm_scan_bidir2_plain` (the plain PyTorch version of the kernels that
+`bidir2_plan` picks: csrc/lstm_bidir2.cu, csrc/lstm_scan_wide.cu, csrc/lstm_scan.cu)
+is held against the XLA reference
 `_xla_lstm_scan_bidir2` and against the Pallas kernel in interpret mode,
 on the same numpy inputs, time-major; the gradient of the port's wrapper
 (its residual-saving route, `_Bidir2Saving`) against `jax.grad` of the JAX

@@ -21,7 +21,12 @@ two-direction scan lstm_scan_bidir (csrc/lstm_scan.cu, csrc/lstm_scan_wide.cu
 mode kScanBidir) from one row to 616 a direction at H = 64-768 with its halves
 of w_stack swapped as the control, and under autograd; every per-step ablation
 variant (nvse_tpu_torch/ops/lstm_step.py) at H = 128 and 256; lstm_scan_fused
-past its fused kernels (HD-Demucs's C = 1536, H = 768) on csrc/lstm_bidir2.cu;
+past its fused kernels (HD-Demucs's C = 1536, H = 768) on lstm_scan_bidir2's wide route
+(csrc/lstm_scan_wide.cu kScanBidir); every route of lstm_scan_bidir2 forced (the
+cluster kernel of csrc/lstm_bidir2.cu, csrc/lstm_scan_wide.cu, csrc/lstm_scan.cu) with
+the two W_hh swapped as the control, and the route bidir2_plan reads from the card;
+the tail at every instance of its plan, and the gLN
+statistics kernel against `_fold` (two runs, the same bits);
 the redesigned dW_hh reduction at H = 8-768 over T*R = 1-2405 rows, the
 redesigned wide fused kernel at its tile edges (rows, T = 1, C != H,
 C + H = 1280, H = 136 and 512, unaligned bfloat16 rows of x), and the
@@ -30,7 +35,7 @@ weights, tensor cores in bfloat16) at H = 16 and 128 from one row to BSRNN-M's
 band shape, ragged tiles, C != H, H = 120 (units past H) and unaligned
 bfloat16 rows of x, with the plan it reads from the card; lstm_scan_fused at
 H = 128 where no cluster of that kernel fits (C = 1400): the projection and
-csrc/lstm_bidir2.cu; the redesigned narrow scan (csrc/lstm_scan.cu: clusters
+lstm_scan_bidir2 on csrc/lstm_scan.cu; the redesigned narrow scan (csrc/lstm_scan.cu: clusters
 with W_hh in registers, tensor cores in bfloat16) at H = 8-128 from one row to
 700, from zero and from (h0, c0), B7's two W_hh, clusters walking 1-401 tiles
 of one to three steps, with W_hh's rows reversed as the control; and the
@@ -88,7 +93,7 @@ def test_kernel_matches_plain(cuda, B, T, C, H, dtype, tol):
 
 def test_kernel_raises_on_unsupported_hidden_size(cuda):
     # past the fused kernels (H > 512, or C + H > 1280) the route is the projection and
-    # csrc/lstm_bidir2.cu, which takes H <= 768: past that the wrapper raises
+    # lstm_scan_bidir2, which takes H <= 768: past that the wrapper raises
     H = port_lstm._WIDE_MAX_H + 8
     for C in (8, 1536):
         with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._WIDE_MAX_H}"):
@@ -430,6 +435,64 @@ def test_bidir2_kernel_raises_on_unsupported(cuda):
             port_lstm.lstm_scan_bidir2(xa, xb, wa, wb.cpu())
 
 
+# every route of lstm_scan_bidir2, forced: the cluster kernel of csrc/lstm_bidir2.cu
+# (one and more blocks a cluster, one and more row tiles, units past H, T = 1), mode
+# kScanBidir of csrc/lstm_scan_wide.cu and csrc/lstm_scan.cu, each through its
+# two-pointer entry, with the two W_hh swapped as the control the limit must refuse
+BIDIR2_ROUTES = [("lstm_bidir2", 1, 1, 448), ("lstm_bidir2", 65, 8, 448), ("lstm_bidir2", 9, 33, 448),
+                 ("lstm_bidir2", 17, 7, 136), ("lstm_bidir2", 5, 3, 24), ("lstm_bidir2", 33, 20, 512),
+                 ("lstm_scan_wide", 65, 8, 448), ("lstm_scan_wide", 9, 5, 768),
+                 ("lstm_scan_wide", 17, 3, 136), ("lstm_scan", 65, 16, 128), ("lstm_scan", 9, 3, 64)]
+
+
+def _bidir2_route_plan(route, R, H, dtype):
+    """The plan of `route` for R rows at H on this card (as bidir2_plan would make it)."""
+    props = torch.cuda.get_device_properties(0)
+    if route == "lstm_bidir2":
+        return port_lstm.bidir2_cluster_plan(R, H, dtype, props.multi_processor_count,
+                                             props.shared_memory_per_block_optin)
+    if route == "lstm_scan":
+        return port_lstm._scan_card_plan(0, R, H, dtype, 2)
+    return port_lstm._scan_wide_card_plan(0, R, H, dtype, 2, "lstm_scan_bidir",
+                                          port_lstm._bidir2_wide_instances(H, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route,T,R,H", BIDIR2_ROUTES)
+def test_bidir2_every_route_matches_plain(cuda, route, T, R, H, dtype):
+    args = _bidir2_args(T, R, H, dtype, seed=T + R + H)
+    plan = _bidir2_route_plan(route, R, H, dtype)
+    if not plan["co_resident"]:               # the f32 slice at H = 512 (240 KB): the plan says so
+        assert route == "lstm_bidir2" and not plan["fits"] and dtype == torch.float32
+        return
+    n0 = dict(port_lstm.lstm_scan_bidir2.launches_by_kernel)
+    with torch.inference_mode():
+        got = port_lstm.lstm_scan_bidir2(*args, route=route, plan=plan)
+        torch.cuda.synchronize()
+        ref = port_lstm.lstm_scan_bidir2_plain(*args)
+        ctl = port_lstm.lstm_scan_bidir2(args[0], args[1], args[3], args[2], route=route, plan=plan)
+    assert _kernel_delta(port_lstm.lstm_scan_bidir2, n0) == {route: 2}
+    tol = SCAN_TOL[dtype]
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype and g.shape == (T, R, H)
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol)
+    control = max((c.float() - r.float()).abs().max().item() for c, r in zip(ctl, ref))
+    assert T == 1 or control > tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bidir2_plan_on_the_card(cuda, dtype):
+    """GCRN's shapes take the cluster kernel on an H100 (14 blocks of 32 units a
+    scan); HD-Demucs's H = 768 the wide scan; H <= 128 csrc/lstm_scan.cu; each
+    plan co-resident."""
+    for T, R, H, want in ((1024, 8, 448, "lstm_bidir2"), (128, 8, 448, "lstm_bidir2"),
+                          (1024, 8, 768, "lstm_scan_wide"), (65, 16, 128, "lstm_scan")):
+        got = port_lstm._bidir2_card_plan(0, R, H, dtype)
+        assert got["plan"]["co_resident"]
+        if torch.cuda.get_device_properties(0).shared_memory_per_block_optin >= 232448:
+            assert got["route"] == want, (R, H, got)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_autograd_bidir2_on_card_matches_cpu(cuda, dtype):
     T, R, H = 11, 5, 128
@@ -702,6 +765,61 @@ def test_tcn_tail_kernel_matches_plain(cuda, B, T, H, Bc, d, dtype, tol):
         assert err <= tol * max(1.0, ref.float().abs().max().item())
 
 
+# every instance of the tail's plan (chunks of 64, 32, 16 channels; 3 or 4 stages in
+# bfloat16), B = 1, T past and below the 128-row tile, d at and past the tile, T < d
+@pytest.mark.parametrize("B,T,H,Bc,d", [(1, 300, 512, 128, 200), (2, 50, 128, 64, 64),
+                                        (1, 129, 256, 128, 128), (3, 257, 64, 32, 1)])
+def test_tcn_tail_every_instance_matches_plain(cuda, B, T, H, Bc, d):
+    from nvse_tpu_torch.ops.tcn import (_TAIL, _card_tail_plan, _fold, _tail_smem,
+                                        tcn_block_tail_kernel, tcn_block_tail_plain)
+
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        c, x, gw, gb, wdw, bdw, wrs, brs = _tail_args(B, T, H, Bc, dtype, seed=T + d)
+        with torch.inference_mode():
+            a, b2 = _fold(c, gw, gb, 1e-5)
+            ref = tcn_block_tail_plain(c, x, a, b2, wdw, bdw, wrs, brs, d)
+            base = _card_tail_plan(0, B, T, H, Bc, d, dtype)
+            for kc, st in _TAIL[dtype]:
+                smem = _tail_smem(kc, st, d, dtype)
+                if smem > limit:
+                    continue
+                plan = dict(base, kc=kc, stages=st, smem_bytes=smem)
+                got = tcn_block_tail_kernel(c, x, a, b2, wdw, bdw, wrs, brs, d, plan=plan)
+                torch.cuda.synchronize()
+                for g, r in zip(got, ref):
+                    err = (g.float() - r.float()).abs().max().item()
+                    assert err <= tol * max(1.0, r.float().abs().max().item()), (kc, st)
+            # the control: w_rs with its res and skip halves swapped
+            swapped = torch.cat([wrs[:, Bc:], wrs[:, :Bc]], dim=1)
+            ctl = tcn_block_tail_kernel(c, x, a, b2, wdw, bdw, swapped, brs, d)
+            assert max((g.float() - r.float()).abs().max().item() for g, r in zip(ctl, ref)) > tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H", [(1, 1, 8), (3, 700, 512), (2, 333, 96), (2, 77, 12)])
+def test_gln_stats_kernel_matches_fold(cuda, B, T, H, dtype):
+    """The statistics kernel against `_fold` (float32 sums in another order: 1e-5
+    of a and b2), its launch counted on its own and under its own key in the
+    tail's launches_by_kernel, the same bits from two runs, and gln_w and gln_b
+    swapped as the control."""
+    from nvse_tpu_torch.ops.tcn import _fold, tcn_block_tail, tcn_gln_fold_kernel
+
+    c, _, gw, gb, *_ = _tail_args(B, T, H, 4, dtype, seed=B + T + H)
+    n0 = (tcn_gln_fold_kernel.launches, tcn_block_tail.launches_by_kernel.get("tcn_gln_stats", 0))
+    with torch.inference_mode():
+        got = tcn_gln_fold_kernel(c, gw, gb, 1e-5)
+        again = tcn_gln_fold_kernel(c, gw, gb, 1e-5)
+        ref = _fold(c, gw, gb, 1e-5)
+        ctl = tcn_gln_fold_kernel(c, gb, gw, 1e-5)
+    assert tcn_gln_fold_kernel.launches == n0[0] + 3
+    assert tcn_block_tail.launches_by_kernel["tcn_gln_stats"] == n0[1] + 3
+    for g, a, r in zip(got, again, ref):
+        assert g.dtype == torch.float32 and g.shape == (B, H) and torch.equal(g, a)
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
+    assert max((g - r).abs().max().item() for g, r in zip(ctl, ref)) > 1e-2
+
+
 def test_tcn_tail_kernel_raises_on_what_it_does_not_take(cuda):
     from nvse_tpu_torch.ops.tcn import tcn_block_tail
 
@@ -935,7 +1053,8 @@ def test_fused_past_its_kernels_takes_the_bidir2_route(cuda, C, H, dtype, tol):
         got = port_lstm.lstm_scan_fused(*args)
     torch.cuda.synchronize()
     assert _kernel_delta(port_lstm.lstm_scan_fused, n0[0]) == {}
-    assert _kernel_delta(port_lstm.lstm_scan_bidir2, n0[1]) == {"lstm_bidir2": 1}
+    # no cluster holds H = 520 or 768 (17 or 24 blocks of 32 units): the wide scan
+    assert _kernel_delta(port_lstm.lstm_scan_bidir2, n0[1]) == {"lstm_scan_wide": 1}
     ref = port_lstm.lstm_scan_fused_plain(*args)
     assert got.dtype == dtype and got.shape == ref.shape
     assert (got.float() - ref.float()).abs().max().item() <= tol
@@ -983,7 +1102,8 @@ def test_narrow_fused_plan_on_the_card(cuda):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 def test_narrow_fused_takes_the_bidir2_route_where_no_cluster_fits(cuda, dtype, tol):
     # C + H past what the blocks of any cluster hold in shared memory (the weight slice
-    # beside the x ring): the projection as torch matmuls and csrc/lstm_bidir2.cu
+    # beside the x ring): the projection as torch matmuls and lstm_scan_bidir2, which
+    # takes csrc/lstm_scan.cu at H <= 128
     args = _args(4, 3, 1400, 128, dtype)
     n0 = {k: dict(f.launches_by_kernel)
           for k, f in (("fused", port_lstm.lstm_scan_fused), ("bidir2", port_lstm.lstm_scan_bidir2))}
@@ -991,7 +1111,7 @@ def test_narrow_fused_takes_the_bidir2_route_where_no_cluster_fits(cuda, dtype, 
         got = port_lstm.lstm_scan_fused(*args)
         torch.cuda.synchronize()
     assert _kernel_delta(port_lstm.lstm_scan_fused, n0["fused"]) == {}
-    assert _kernel_delta(port_lstm.lstm_scan_bidir2, n0["bidir2"]) == {"lstm_bidir2": 1}
+    assert _kernel_delta(port_lstm.lstm_scan_bidir2, n0["bidir2"]) == {"lstm_scan": 1}
     ref = port_lstm.lstm_scan_fused_plain(*args)
     assert got.dtype == dtype and got.shape == (4, 3, 256)
     assert (got.float() - ref.float()).abs().max().item() <= tol

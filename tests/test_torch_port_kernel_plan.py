@@ -272,7 +272,7 @@ def test_narrow_smem_matches_the_kernels_layout():
 
 @pytest.mark.parametrize("dtype", [BF, F32])
 def test_fused_route_by_the_narrow_kernels_fit(dtype):
-    # C + H past what a cluster of 8 holds: the projection and csrc/lstm_bidir2.cu
+    # C + H past what a cluster of 8 holds: the projection and lstm_scan_bidir2
     assert L.fused_route(1400, 128, dtype, *H100) == "projection+lstm_bidir2"
     assert L.fused_route(128, 128, dtype, *H100) == "lstm_fused"
     assert L.fused_route(256, 256, dtype, *H100) == "lstm_fused_wide"
@@ -703,3 +703,194 @@ def test_fwd_hc_and_bwd_narrow_smem_match_the_kernels_layout():
     # three planes of 32, gate sums [48][132], shares [2][4][48][36]
     assert L._bwd_narrow_smem(48, F32, 2) == (2 * 48 * (132 + 224) * 4 + 48 * 132 * 4
                                               + 2 * 4 * 48 * 36 * 4)
+
+
+# ---------------------------------------------------------------------------
+# lstm_scan_bidir2's routes (`bidir2_plan`) and the TCN tail's tiles (`tail_plan`)
+# ---------------------------------------------------------------------------
+
+# (T, R, H): GCRN's decode and serving shapes, its training rows, more rows than
+# one cluster's tile, HD-Demucs's H = 768 (decode and ragged), the H <= 128 routes
+# (B7's small shape, C1), one row, the 136 / 256 / 512 edges
+BIDIR2_SHAPES = [(1024, 8, 448), (128, 8, 448), (65, 16, 448), (65, 33, 448), (1024, 8, 768),
+                 (9, 5, 768), (65, 16, 128), (3, 4, 128), (9, 3, 64), (2, 1, 8), (1, 1, 448),
+                 (17, 7, 136), (5, 200, 256), (5, 64, 512)]
+
+
+def _bidir2_units(p, H):
+    """Every unit of H in exactly one block of a cluster of p's."""
+    U, K = p["units"], p["cluster"]
+    return [u for b in range(K) for u in range(b * U, min(H, b * U + U))] == list(range(H))
+
+
+@pytest.mark.parametrize("card", [H100, SMALL], ids=["h100", "small"])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_bidir2_plan_covers_every_row_and_unit_once(card, dtype):
+    n_sm, limit = card
+    for T, R, H in BIDIR2_SHAPES:
+        got = L.bidir2_plan(T, R, H, dtype, n_sm, limit)
+        route, p = got["route"], got["plan"]
+        assert route == ("lstm_scan" if H <= 128 else route)
+        if not p["co_resident"]:       # neither wide route fits the small card: the plan says so
+            assert card == SMALL and route == "lstm_scan_wide" and H > 128
+            assert not L.bidir2_cluster_plan(R, H, dtype, n_sm, limit)["fits"]
+            continue
+        if route == "lstm_bidir2":
+            # a cluster of at most 16 blocks of 32 units a scan and row tile, one wave
+            assert p["cluster"] <= 16 and _bidir2_units(p, H) and H > 128
+            tiles = _tiles(p, R)
+            assert [r for t in tiles for r in t] == list(range(R))       # every row once
+            assert p["tile_rows"] in L._BIDIR2["insts"][dtype]
+            assert all(0 < len(t) <= p["tile_rows"] for t in tiles) and p["rows"] == max(map(len, tiles))
+            assert p["clusters"] == 2 * p["ntiles"] and p["blocks"] == p["clusters"] * p["cluster"]
+            # one wave, or more where the wide scan does not fit the card either
+            assert p["waves"] == -(-p["clusters"] // (n_sm // p["cluster"]))
+            assert p["waves"] == 1 or not L.scan_wide_plan(R, H, dtype, n_sm, limit, 1, 2,
+                                                           "lstm_scan_bidir")["co_resident"]
+            assert p["smem_bytes"] == L._bidir2_cluster_smem(H, dtype)
+            assert p["smem_bytes"] + L._BIDIR2_STATIC_SMEM <= limit
+        elif route == "lstm_scan":
+            assert p["cluster"] <= 8 and _bidir2_units(p, H)
+            tiles = _tiles(p, R)
+            assert [r for t in tiles for r in t] == list(range(R))
+            assert p["blocks"] == 2 * p["clusters"] * p["cluster"] <= n_sm
+        else:
+            assert route == "lstm_scan_wide" and H % p["units"] == 0
+            groups = _groups(p, R)
+            assert [r for g in groups for r in g] == list(range(R))
+            assert (p["units"], p["tile_rows"]) in L._bidir2_wide_instances(H, dtype)
+            assert p["smem_bytes"] == L._scan_wide_smem(p["units"], p["tile_rows"], H, dtype,
+                                                        "lstm_scan_bidir") <= limit
+        assert p["tensor_cores"] == (dtype == BF)
+
+
+def test_bidir2_plan_routes_on_an_h100():
+    """GCRN's decode and serving (8 rows, H = 448) take the cluster kernel in both
+    dtypes (14 blocks of 32 units a scan); HD-Demucs's H = 768 (24 blocks of 32
+    units: no cluster holds it) takes mode kScanBidir of csrc/lstm_scan_wide.cu;
+    H <= 128 takes csrc/lstm_scan.cu."""
+    routes = {(dt, T, R, H): L.bidir2_plan(T, R, H, dt, *H100)["route"]
+              for dt in (BF, F32) for T, R, H in BIDIR2_SHAPES}
+    for dt in (BF, F32):
+        assert routes[(dt, 1024, 8, 448)] == routes[(dt, 128, 8, 448)] == "lstm_bidir2"
+        assert routes[(dt, 1024, 8, 768)] == routes[(dt, 9, 5, 768)] == "lstm_scan_wide"
+        assert routes[(dt, 65, 16, 128)] == routes[(dt, 2, 1, 8)] == "lstm_scan"
+    p = L.bidir2_plan(1024, 8, 448, BF, *H100)["plan"]
+    assert (p["cluster"], p["ntiles"], p["blocks"], p["smem_bytes"]) == (14, 1, 28, 109056)
+    # float32: the 8 rows in 2 tiles of 4 (tiles of at least 4 rows, as many as one
+    # wave of clusters of 14 holds)
+    p = L.bidir2_plan(1024, 8, 448, F32, *H100)["plan"]
+    assert (p["cluster"], p["ntiles"], p["tile_rows"], p["blocks"], p["smem_bytes"]) == (
+        14, 2, 4, 56, 208384)
+    # float32 at H = 768: both directions' groups of 48 blocks of (16 units, 8 rows) in
+    # one launch (the other instances' groups of 96 blocks take one launch a direction)
+    p = L.bidir2_plan(1024, 8, 768, F32, *H100)["plan"]
+    assert (p["units"], p["tile_rows"], p["launch_dirs"], p["blocks"]) == (16, 8, 2, 96)
+    assert L.scan_wide_plan(8, 768, F32, *H100, 1, 2, "lstm_scan_bidir")["launch_dirs"] == 1
+    # bfloat16 at H = 768: one block an SM (16-unit slices, 96 blocks), not 8-unit
+    # slices at two an SM (192)
+    p = L.bidir2_plan(1024, 8, 768, BF, *H100, blocks_per_sm=2)["plan"]
+    assert (p["units"], p["tile_rows"], p["launch_dirs"], p["blocks"]) == (16, 32, 2, 96)
+    # more rows: bfloat16 tiles of 16 rows still one wave at 64 rows (8 clusters of
+    # 14), float32 tiles of 8 rows do not (16 clusters): the wide scan
+    assert routes[(BF, 5, 64, 512)] == "lstm_bidir2"
+    assert L.bidir2_plan(5, 64, 448, F32, *H100)["route"] == "lstm_scan_wide"
+    p = L.bidir2_plan(65, 16, 448, F32, *H100)["plan"]
+    assert (p["ntiles"], p["rows"], p["tile_rows"]) == (4, 4, 4)
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_bidir2_plan_takes_the_wide_scan_where_no_cluster_fits(dtype):
+    # H = 768 (24 blocks of 32 units), a card that holds one cluster only, a float32
+    # slice past shared memory (H = 512: 240 KB), and the small card's 99 KB a block
+    # (the cluster kernel takes 107 KB in bfloat16 at H = 448)
+    assert L.bidir2_plan(9, 5, 768, dtype, *H100)["route"] == "lstm_scan_wide"
+    assert L.bidir2_plan(9, 5, 448, dtype, *H100, max_clusters=1)["route"] == "lstm_scan_wide"
+    cl = L.bidir2_cluster_plan(5, 512, dtype, *H100)
+    assert cl["fits"] == (dtype == BF) and cl["cluster"] == 16
+    assert not L.bidir2_cluster_plan(8, 448, dtype, *SMALL)["fits"]
+    assert L.bidir2_plan(1024, 8, 448, dtype, *SMALL)["route"] == "lstm_scan_wide"
+
+
+def test_bidir2_cluster_smem_matches_the_kernels_layout():
+    # bfloat16 at H = 448: two h buffers of 16 rows x (448 + 8), two sets (by step
+    # parity) of the partial sums of 4 k-quarters x 16 rows x 132, the x ring of 3
+    # steps x 16 rows x 128
+    p = 2 * 4 * 16 * 132 * 4
+    assert L._bidir2_cluster_smem(448, BF) == 2 * 16 * 456 * 2 + p + 3 * 16 * 128 * 2
+    # float32 at H = 448: slices of 56 k, 32 in registers, 24 x 8 slices x 128 columns
+    # in shared memory; two k-major h buffers of 56 x 8 k x 8 rows; two sets of the
+    # partial sums of 8 k-slices x 8 rows x 132; the x ring of 3 steps x 4 gates x 8
+    # rows x 36
+    assert L._bidir2_cluster_smem(448, F32) == (24 * 8 * 128 * 4 + 2 * 56 * 8 * 8 * 4
+                                                + 2 * 8 * 8 * 132 * 4 + 3 * 4 * 8 * 36 * 4)
+    assert L._bidir2_cluster_smem(136, BF) == 2 * 16 * 152 * 2 + p + 3 * 16 * 128 * 2
+
+
+# (B, T, H, Bc, dilation): ConvTasNet's decode at every dilation, serving, the
+# card tests' ragged shapes (T = 1, d >= the 128-row tile, T < d, 2 Bc over two
+# column tiles, H off the 16-byte rows)
+TAIL_SHAPES = [(8, 32735, 512, 128, d) for d in (1, 2, 4, 8, 16, 32, 64, 128)] + [
+    (8, 4063, 512, 128, 16), (1, 1, 8, 4, 1), (3, 700, 512, 128, 128), (2, 333, 96, 40, 16),
+    (2, 100, 64, 200, 300), (2, 77, 12, 3, 5)]
+
+
+@pytest.mark.parametrize("card", [H100, SMALL], ids=["h100", "small"])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_tail_plan_walks_every_tile_once_within_shared_memory(card, dtype):
+    from nvse_tpu_torch.ops import tcn
+
+    n_sm, limit = card
+    for B, T, H, Bc, d in TAIL_SHAPES:
+        p = tcn.tail_plan(B, T, H, Bc, d, dtype, n_sm, limit)
+        assert p["fits"], (B, T, H, Bc, d, p)
+        assert (p["kc"], p["stages"]) in tcn._TAIL[dtype]
+        assert p["smem_bytes"] == tcn._tail_smem(p["kc"], p["stages"], d, dtype) <= limit
+        tiles = B * -(-T // 128) * -(-2 * Bc // 256)
+        assert p["tiles"] == tiles and 1 <= p["blocks"] <= min(n_sm, tiles)
+        # the persistent blocks walk tiles i, i + blocks, ...: each tile once
+        walked = sorted(i + k * p["blocks"] for i in range(p["blocks"])
+                        for k in range(-(-(tiles - i) // p["blocks"])))
+        assert walked == list(range(tiles))
+        # the first instance in the plan's order that fits
+        first = next(i for i in tcn._TAIL[dtype] if tcn._tail_smem(*i, d, dtype) <= limit)
+        assert (p["kc"], p["stages"]) == first
+        assert p["tensor_cores"] == (dtype == BF)
+
+
+def test_tail_plan_at_convtasnet_decode_on_an_h100():
+    from nvse_tpu_torch.ops import tcn
+
+    got = {(dt, d): (p["kc"], p["stages"], p["blocks"], p["tiles"])
+           for dt in (BF, F32) for d in (1, 16, 32, 128)
+           for p in [tcn.tail_plan(8, 32735, 512, 128, d, dt, *H100)]}
+    assert got == {(BF, 1): (64, 3, 132, 2048), (BF, 16): (64, 3, 132, 2048),
+                   (BF, 32): (64, 3, 132, 2048), (BF, 128): (32, 3, 132, 2048),
+                   (F32, 1): (32, 2, 132, 2048), (F32, 16): (32, 2, 132, 2048),
+                   (F32, 32): (32, 2, 132, 2048), (F32, 128): (32, 2, 132, 2048)}
+    # nothing fits a card with too little shared memory
+    assert not tcn.tail_plan(8, 32735, 512, 128, 128, BF, 132, 64 * 1024)["fits"]
+
+
+def test_tail_smem_matches_the_kernels_layout():
+    from nvse_tpu_torch.ops import tcn
+
+    # bfloat16, chunks of 64 in 3 stages at d = 1: the w_rs chunk 64 x 256, 130 staged rows
+    # of 64 + 8 values (rounded to 128 bytes), a and b2 (float32) and w_dw, b_dw (bf16),
+    # each stage rounded to 1024 bytes, and 1024 bytes of slack to align the first
+    assert tcn._tail_smem(64, 3, 1, BF) == 3 * 53248 + 1024
+    assert 64 * 256 * 2 + 18816 + 1024 == 52608 <= 53248
+    # d >= 128: three boxes of 128 rows
+    assert tcn._tail_smem(32, 3, 300, BF) == 3 * 48128 + 1024
+    assert 32 * 256 * 2 + 384 * 40 * 2 + 512 == 47616 <= 48128
+    # float32, chunks of 32 in 2 stages at d = 128, then the q tile 32 x 132
+    assert tcn._tail_smem(32, 2, 128, F32) == 2 * (32 * 256 * 4 + 384 * 36 * 4 + 768) + 32 * 132 * 4
+
+
+def test_gln_stats_runs_a_batch_element():
+    from nvse_tpu_torch.ops import tcn
+
+    # four blocks an SM over the batch, each run at least 4,096 elements
+    assert tcn.gln_stats_partials(8, 32735, 512, 132) == 66
+    assert tcn.gln_stats_partials(1, 1, 8, 132) == 1
+    assert tcn.gln_stats_partials(3, 700, 96, 132) == 17

@@ -92,6 +92,53 @@ def test_tail_matches_xla_tail(dilation):
     np.testing.assert_allclose(s.numpy(), np.asarray(s_ref), **TOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gln_fold_matches_the_jax_statistics_via_xla_tail(dtype):
+    """`_fold`, the plain version of the statistics kernel of csrc/tcn_tail.cu
+    (per batch element the float32 mean and mean of squares of c, m2 - m1^2
+    clamped at 0), against the m1 / m2 formula of `_tail_fwd_impl`
+    (pallas_tcn.py:168-182), read through `_xla_tail`: with the middle tap only
+    (w_dw = [0, 1, 0], b_dw = 0), w_rs = [I | 0] (Bc = H) and x = 0, e is the
+    normalised n = gln_w rstd (c - m1) + gln_b. c has a mean of 3 and a standard
+    deviation of 1, so a fold that dropped m1 or m2 - m1^2 would show. In
+    bfloat16 (c rounded on both sides) _xla_tail rounds n once to bfloat16, so
+    the port's n rounded the same way must agree to one bfloat16 ulp. In float32
+    both are one-pass float32 statistics, and at a mean of 3 m2 - m1^2 loses a
+    digit to cancellation: against float64, XLA's n is off by 8e-6 of its peak
+    and the port's by 1.2e-6 (measured on the CPU); the limits are 2e-5 of the
+    peak against XLA and 2e-6 against float64."""
+    B, T, H = 2, 50, 32
+    rng = np.random.default_rng(21)
+    c = (rng.standard_normal((B, T, H)) + 3.0).astype(np.float32)
+    gw = (1.0 + 0.1 * rng.standard_normal((1, H))).astype(np.float32)
+    gb = (0.5 * rng.standard_normal((1, H))).astype(np.float32)
+    wdw = np.zeros((3, H), np.float32)
+    wdw[1] = 1.0
+    wrs = np.concatenate([np.eye(H), np.zeros((H, H))], axis=1).astype(np.float32)
+    zeros = [np.zeros(s, np.float32) for s in ((B, T, H), (1, H), (1, 2 * H))]
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    cj = jnp.asarray(c, jdt)
+    e_ref, _ = _xla_tail(cj, jnp.asarray(zeros[0], jdt), jnp.asarray(gw), jnp.asarray(gb),
+                         jnp.asarray(wdw, jdt), jnp.asarray(zeros[1], jdt), jnp.asarray(wrs, jdt),
+                         jnp.asarray(zeros[2], jdt), 1, 1e-5)
+    e_ref = np.asarray(e_ref, np.float32)
+    ct = torch.from_numpy(np.asarray(cj, np.float32)).to(getattr(torch, dtype))
+    a, b2 = _fold(ct, torch.from_numpy(gw), torch.from_numpy(gb), 1e-5)
+    n = ct.float() * a[:, None, :] + b2[:, None, :]
+    assert abs(e_ref).max() > 1.0 and abs(e_ref.mean()) < 1.0      # normalised: the mean is gone
+    peak = np.abs(e_ref).max()
+    if dtype == "float32":
+        c64 = c.astype(np.float64)
+        m1 = c64.mean(axis=(1, 2), keepdims=True)
+        var = (c64 ** 2).mean(axis=(1, 2), keepdims=True) - m1 ** 2
+        n64 = gw * (c64 - m1) / np.sqrt(var + 1e-5) + gb
+        assert np.abs(n.numpy() - e_ref).max() <= 2e-5 * peak
+        assert np.abs(n.numpy() - n64).max() <= 2e-6 * peak
+    else:
+        got = n.to(torch.bfloat16).float().numpy()
+        assert np.abs(got - e_ref).max() <= 2.0 ** -7 * peak
+
+
 def test_padding_after_the_norm_matters():
     """Zero-padding c before the norm (taps read b2, not 0) is wrong at the
     first and last d rows: the check above would see it."""
