@@ -57,7 +57,17 @@ the last line:
      control that the limits must refuse;
   7. the training CLI (its main(), in this process) for 2 steps with a
      validation pass on the synthetic data, then run_inference decoding
-     from the g_ bundle it wrote;
+     from the g_ bundle it wrote; then the joint denoise+vocoder BSRNN_24k
+     (configs/bsrnn_joint_denoise_vocoder_config.json: 34 bands at 24 kHz,
+     BSRNN-M's shapes): joint_train, GANTrainer(joint=True) steps at full
+     width, batch 16 x 16384, each task in float32 and bfloat16 (the checks
+     of phase 5: 32 launches per step of each training kernel, none of an
+     inference kernel); joint_train_vs_cpu_plain, one small step per task
+     against the CPU at the limits of phase 6 (TF32 as the control);
+     joint_train_cli, main() with --joint for 2 steps on lists written from
+     DatasetsScp/synth24 (the noise list with this checkout's paths), with
+     the validation of both tasks, then the joint inference entry
+     (run_joint_inference) in each mode from the g_ bundle it wrote;
   8. stream, at full BSRNN-M width in float32 and bfloat16: 8 streams x 512
      frames through synthesize_streaming_stateful (chunk 64, lookahead
      16) on the causal config (8 lstm_scan_stateful + 8 fused launches
@@ -161,7 +171,13 @@ the last line:
      bottleneck (8 x 1024, H = 768, C = 768 and 1536) in both dtypes, past its
      fused kernels: the projection and one lstm_scan_bidir2 launch a call
      (csrc/lstm_scan_wide.cu kScanBidir: no cluster holds H = 768), held to
-     lstm_scan_fused_plain (hddemucs_bottleneck);
+     lstm_scan_fused_plain (hddemucs_bottleneck); then HD-Demucs itself
+     (configs/hddemucas_config.json, 38,913,021 parameters, Griffin-Lim
+     front): decode B = 8 x 1024 mel frames in float32 and bfloat16 (a
+     1022-step bottleneck, 2 lstm_scan_bidir2 launches per forward, all on
+     csrc/lstm_scan_wide.cu, none of any other kernel), run_inference on the
+     synthetic set in both dtypes, the card against the CPU's plain path on
+     a small input at zero initial phase with TF32 as the control (hddemucs);
  17. the per-step ablation harness (scripts/profile_torch_lstm_step.py) in this
      process at its four shapes in float32 and bfloat16: five variants of one
      direction of csrc/lstm_fused.cu (H = 128) and csrc/lstm_fused_wide.cu
@@ -171,8 +187,10 @@ the last line:
  18. each main path above sets the launch counts to 0 when it starts and
      reads them per wrapper and shape when it ends; every other shape that a
      main path launched (serving's 128-frame bucket, the validations, the
-     offline decodes beside the streams, ConvTasNet's serving buckets, the
-     bench's scans and fused BiLSTMs, HD-Demucs's lstm_scan_bidir2) gets its
+     offline decodes beside the streams, the joint CLI's validation and
+     serving buckets, ConvTasNet's serving buckets, the bench's scans and
+     fused BiLSTMs, HD-Demucs's lstm_scan_bidir2 at its bottleneck and its
+     serving bucket) gets its
      kernel-vs-plain row in the dtype it ran in, and a launch at a shape with
      no row fails the run;
  19. print the kernels line (one entry per kernel, shape and dtype, each
@@ -813,13 +831,31 @@ def _bilstm_fwd_bwd_ms(R, T, H, dtype):
         return dict(port_ms=cuda_ms(port, iters=5), cudnn_ms=cuda_ms(cudnn, iters=5))
 
 
+# config files by phase name where the two differ
+CONFIG_FILES = {"joint": "bsrnn_joint_denoise_vocoder"}
+JOINT_TASKS = ("denoise", "vocoder")
+
+
 def _config(name, **kw):
-    """The port's copy of a reference config (bsrnn, gcrn) with overrides."""
+    """The port's copy of a reference config (bsrnn, gcrn, joint, ...) with overrides."""
     from nvse_tpu_torch.utils import load_config
 
-    h = load_config(os.path.join(REPO, "nvse_tpu_torch", "configs", f"{name}_config.json"))
+    h = load_config(os.path.join(REPO, "nvse_tpu_torch", "configs",
+                                 f"{CONFIG_FILES.get(name, name)}_config.json"))
     h.update(kw)
     return h
+
+
+def _step_args(audio, task, seed):
+    """GANTrainer.step's arguments: the batch, or for a joint task the clean
+    batch, the input wave (the clean one plus noise for denoise) and the task."""
+    if task is None:
+        return (audio,)
+    if task == "vocoder":
+        return audio, audio, task
+    g = torch.Generator().manual_seed(seed)
+    noise = 0.05 * torch.randn(audio.shape, generator=g).to(audio.device)
+    return audio, audio + noise, task
 
 
 def _audio_batch(B, n, sr, seed):
@@ -841,7 +877,9 @@ def phase_train(model="bsrnn", causal=False, validate=False):
     steps x 16 rows x H = 448) in float32 and bfloat16. Device busy time and
     the idle share from torch.profiler over one more step. With validate,
     GANTrainer.eval_step on a validation crop after the steps: 16 launches
-    of the fused inference kernel."""
+    of the fused inference kernel. The joint BSRNN_24k (34 bands at 24 kHz:
+    BSRNN-M's training shapes) trains each task in each dtype from one
+    trainer a run, the denoise input the clean batch plus noise."""
     from nvse_tpu_torch.ops.lstm import _reset_counts
     from nvse_tpu_torch.train import GANTrainer, fetch_scalars
 
@@ -855,20 +893,23 @@ def phase_train(model="bsrnn", causal=False, validate=False):
         n_lstm, is_lstm = 8 * (1 + 2) if causal else 8 * (2 + 2), (lambda n: ".lstm." in n)
     counters = _all_counters()
     _reset_counts(*counters.values())              # this main path starts here
-    for dtype in ("float32",) if causal else ("float32", "bfloat16"):
+    dtypes = ("float32",) if causal else ("float32", "bfloat16")
+    tasks = JOINT_TASKS if model == "joint" else (None,)
+    for dtype, task in [(d, t) for d in dtypes for t in tasks]:
         h = _config(model, compute_dtype=dtype, causal=causal)
         audio = _audio_batch(B, int(h.segment_size), h.sampling_rate, seed=0).to("cuda")
-        tr = GANTrainer(h, device="cuda", steps_per_epoch=2)
+        args = _step_args(audio, task, seed=0)
+        tr = GANTrainer(h, device="cuda", steps_per_epoch=2, joint=task is not None)
         before = {n: p.detach().clone() for n, p in
                   [*tr.generator.named_parameters(), *tr.disc.named_parameters()]}
         torch.cuda.reset_peak_memory_stats()
         n0 = {k: (c.launches, dict(c.launches_by_shape), dict(c.launches_by_kernel))
               for k, c in counters.items()}
-        metrics = tr.step(audio)                   # warmup
+        metrics = tr.step(*args)                   # warmup
         torch.cuda.synchronize()
         t0 = time.time()
         for _ in range(iters):
-            metrics = tr.step(audio)
+            metrics = tr.step(*args)
         torch.cuda.synchronize()
         ms = (time.time() - t0) / iters * 1e3
         per_step = {k: (c.launches - n0[k][0]) / (iters + 1) for k, c in counters.items()}
@@ -880,14 +921,14 @@ def phase_train(model="bsrnn", causal=False, validate=False):
 
         by_shape = per_step_by(1, "launches_by_shape")
         by_kernel = per_step_by(2, "launches_by_kernel")
-        busy = _busy_ms(lambda: tr.step(audio))
+        busy = _busy_ms(lambda: tr.step(*args))
         losses = fetch_scalars(metrics)
         after = dict([*tr.generator.named_parameters(), *tr.disc.named_parameters()])
         unchanged = [n for n, p in after.items() if torch.equal(p.detach(), before[n])]
         lstm = {n: p for n, p in tr.generator.named_parameters() if is_lstm(n)}
         bad_grad = [n for n, p in lstm.items()
                     if p.grad is None or not torch.isfinite(p.grad).all() or p.grad.abs().sum() == 0]
-        say(phase=_tag(model, "train"), causal=causal, dtype=dtype,
+        say(phase=_tag(model, "train"), causal=causal, dtype=dtype, task=task,
             batch=B, segment=int(h.segment_size), ms_per_step=ms, steps_timed=iters,
             device_busy_ms=busy, idle_share=1.0 - busy / ms if busy else "not measured",
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches_per_step=per_step,
@@ -900,7 +941,7 @@ def phase_train(model="bsrnn", causal=False, validate=False):
             fails.append(f"parameters not updated: {unchanged[:5]} ({len(unchanged)})")
         if len(lstm) != 3 * n_lstm or bad_grad:
             fails.append(f"{len(lstm)} LSTM params, without a finite nonzero grad: {bad_grad[:5]}")
-        if model.startswith("bsrnn"):
+        if model != "gcrn":
             enc = {n: p for n, p in tr.generator.named_parameters()
                    if n.startswith("core.encoder.b_")}
             bad_enc = [n for n, p in enc.items() if p.grad is None or p.grad.abs().sum() == 0]
@@ -913,7 +954,8 @@ def phase_train(model="bsrnn", causal=False, validate=False):
         if validate:
             fails += _validate(tr, h, counters, model)
         if fails:
-            raise SystemExit(f"train {model} causal={causal} {dtype}: " + "; ".join(fails))
+            raise SystemExit(f"train {model} causal={causal} {dtype} task={task}: "
+                             + "; ".join(fails))
         del tr, before, after, lstm
         torch.cuda.empty_cache()
     return _shape_counts()                         # ... and ends here
@@ -977,23 +1019,30 @@ def _set_tf32(on):
 # BSNets; GCRN has no width knobs and runs at its full width (the wide training
 # kernels at 17 steps x 2 rows x H = 448); all at batch 2 x 4096 samples
 SMALL_STEP = {"bsrnn": dict(feature_dim=16, num_repeat=2), "gcrn": {},
-              "bsrnn_l": dict(num_repeat=2)}
+              "bsrnn_l": dict(num_repeat=2), "joint": dict(feature_dim=16, num_repeat=2)}
 
 
 def phase_train_vs_cpu_plain(model="bsrnn"):
     """A small config, one step on the card and one on the CPU's plain path
     from the same seeded weights and batch; and the control: one more card
-    step with TF32 on, which both limits must refuse."""
+    step with TF32 on, which both limits must refuse. The joint model: one
+    step of each task."""
+    for task in JOINT_TASKS if model == "joint" else (None,):
+        _train_vs_cpu_plain(model, task)
+
+
+def _train_vs_cpu_plain(model, task):
     from nvse_tpu_torch.train import GANTrainer, fetch_scalars
 
     h = _config(model, segment_size=4096, batch_size=2, **SMALL_STEP[model])
     audio = _audio_batch(2, 4096, h.sampling_rate, seed=1)
     out = {}
     for run in ("cuda", "cuda_tf32", "cpu"):
-        tr = GANTrainer(h, device="cpu" if run == "cpu" else "cuda", steps_per_epoch=2)
+        tr = GANTrainer(h, device="cpu" if run == "cpu" else "cuda", steps_per_epoch=2,
+                        joint=task is not None)
         _set_tf32(run == "cuda_tf32")
         try:
-            losses = fetch_scalars(tr.step(audio))
+            losses = fetch_scalars(tr.step(*_step_args(audio, task, seed=1)))
         finally:
             _set_tf32(False)
         moments = {n: tr.opt_g.state[p]["exp_avg"].detach().cpu()
@@ -1015,36 +1064,59 @@ def phase_train_vs_cpu_plain(model="bsrnn"):
     ctl_loss_rel, ctl_mom_rel, _ = readings("cuda_tf32")
     ok = loss_rel <= STEP_RTOL and mom_rel <= MOMENT_REL
     refused = ctl_loss_rel > STEP_RTOL and ctl_mom_rel > MOMENT_REL
-    say(phase=_tag(model, "train_vs_cpu_plain"),
+    say(phase=_tag(model, "train_vs_cpu_plain"), task=task,
         **SMALL_STEP[model], segment=4096, batch=2,
         worst_loss_rel=loss_rel, loss_rtol=STEP_RTOL, worst_moment_rel=mom_rel,
         worst_moment=worst, moment_rel_tol=MOMENT_REL, tf32_control_loss_rel=ctl_loss_rel,
         tf32_control_moment_rel=ctl_mom_rel, ok=ok, control_refused=refused)
     if not ok:
-        raise SystemExit(f"one {model} training step on the card disagrees with the CPU plain path")
+        raise SystemExit(f"one {model} training step (task {task}) on the card disagrees with "
+                         "the CPU plain path")
     if not refused:
-        raise SystemExit(f"the {model} TF32 control step passes a limit of the card-vs-CPU "
-                         "comparison")
+        raise SystemExit(f"the {model} TF32 control step (task {task}) passes a limit of the "
+                         "card-vs-CPU comparison")
+
+
+def _joint_lists(tmp):
+    """The joint config's lists on DatasetsScp/synth24 (24 kHz speech, 48 kHz
+    noise), written into tmp with the paths of this checkout: the noise list
+    of the data directory holds absolute paths of another tree."""
+    src = os.path.join(REPO, "DatasetsScp", "synth24")
+    noise = sorted(os.path.join(src, "noise", n) for n in os.listdir(os.path.join(src, "noise"))
+                   if n.endswith(".wav"))
+    nz = os.path.join(tmp, "noise_filelist.scp")
+    with open(nz, "w") as f:
+        f.writelines(p + "\n" for p in noise)
+    return dict(input_training_wav_list=os.path.join(src, "train_filelist.txt"),
+                input_validation_wav_list=os.path.join(src, "val_filelist.txt"),
+                test_input_wavs_dir=os.path.join(src, "test_filelist.txt"),
+                raw_wavfile_path=os.path.join(src, "wavs"), input_noise_wav_list=nz)
 
 
 def phase_train_cli(model="bsrnn"):
     """The training CLI (python -m nvse_tpu_torch.train --cfg_filename, its
     main() run in this process) on a copy of the model's config for 2
     full-width steps with a validation pass on the synthetic data, then
-    run_inference decoding from the g_ bundle it wrote."""
-    from nvse_tpu_torch.infer import run_inference
+    run_inference decoding from the g_ bundle it wrote. The joint model:
+    main() with --joint on lists of DatasetsScp/synth24, validation of both
+    tasks, then the joint inference entry (run_joint_inference) in each
+    mode from the g_ bundle."""
+    from nvse_tpu_torch.infer import run_inference, run_joint_inference
     from nvse_tpu_torch.ops.lstm import _reset_counts
     from nvse_tpu_torch.train.__main__ import main as train_cli
 
+    joint = model == "joint"
     _reset_counts(*_all_counters().values())       # this main path starts here
     with tempfile.TemporaryDirectory() as tmp:
         h = _config(model, checkpoint_path=os.path.join(tmp, "ckpt"), training_steps=1,
                     stdout_interval=1, checkpoint_interval=10 ** 6,
-                    validation_interval=10 ** 6, test_output_dir=os.path.join(tmp, "out"))
+                    validation_interval=10 ** 6, test_output_dir=os.path.join(tmp, "out"),
+                    **(_joint_lists(tmp) if joint else {}))
         cfg = os.path.join(tmp, "config.json")
         with open(cfg, "w") as f:
             json.dump(h, f)
-        argv, sys.argv = sys.argv, ["nvse_tpu_torch.train", "--cfg_filename", cfg]
+        argv, sys.argv = sys.argv, ["nvse_tpu_torch.train", *(["--joint"] if joint else []),
+                                    "--cfg_filename", cfg]
         t0 = time.time()
         try:
             with contextlib.redirect_stdout(io.StringIO()) as log:
@@ -1055,14 +1127,25 @@ def phase_train_cli(model="bsrnn"):
         lines = log.getvalue().splitlines()
         written = sorted(os.listdir(h.checkpoint_path))
         h.checkpoint_file_load = os.path.join(h.checkpoint_path, "g_00000001")
-        served = []
-        stats = run_inference(h, limit=1, log_fn=served.append, device="cuda")
+        served, files = [], []
+        if joint:
+            for mode in JOINT_TASKS:
+                h.test_output_dir = os.path.join(tmp, mode)
+                stats = run_joint_inference(h, mode, limit=2, log_fn=served.append,
+                                            device="cuda")
+                files.append(stats["files"] == len(os.listdir(h.test_output_dir)) == 2)
+        else:
+            stats = run_inference(h, limit=1, log_fn=served.append, device="cuda")
+            files.append(stats["files"] == 1)
     counts = _shape_counts()                       # ... and ends here
-    ok = ({"g_00000001", "do_00000001"} <= set(written) and stats["files"] == 1
-          and any(l.startswith("step 0 validation:") for l in lines)
+    validated = ([f"step 0 val[{t}]:" for t in JOINT_TASKS] if joint
+                 else ["step 0 validation:"])
+    ok = ({"g_00000001", "do_00000001"} <= set(written) and all(files)
+          and all(any(l.startswith(v) for l in lines) for v in validated)
           and any("training finished" in l for l in lines))
-    say(phase=_tag(model, "train_cli"), seconds=secs, written=written, log=lines[-4:],
-        serve=served[-1:], launches_by_shape=_str_keys(counts), ok=ok)
+    say(phase=_tag(model, "train_cli"), seconds=secs, written=written,
+        log=lines[-(6 if joint else 4):], serve=served[-2:], launches_by_shape=_str_keys(counts),
+        ok=ok)
     if not ok:
         raise SystemExit(f"the {model} training CLI path did not checkpoint, validate and serve")
     return counts
@@ -1907,6 +1990,116 @@ def phase_hddemucs_bottleneck():
     return _shape_counts()                         # ... and ends here
 
 
+# HD-Demucs at its shipped width (hidden 48, depth 5, growth 2): 38,925,309 parameters
+# in the JAX tree less the 4 x 4 x 768 b_hh entries that the port sums into one bias
+HDDEMUCS_PARAMS = 38_913_021
+
+
+def phase_hddemucs():
+    """HD-Demucs (configs/hddemucas_config.json: Griffin-Lim front, 5 GLU stages,
+    the BiLSTM bottleneck at H = 768) through the engine: decode B = 8 x 1024
+    mel frames in float32 and bfloat16 (a bottleneck of 1022 steps; 2
+    lstm_scan_bidir2 launches per forward, on csrc/lstm_scan_wide.cu
+    kScanBidir, none of any other LSTM kernel), then run_inference on the
+    synthetic set in both dtypes; afterwards the card against the CPU's plain
+    path on a small input with zero initial phase (TF32 as the control)."""
+    from nvse_tpu_torch.infer import InferenceEngine, run_inference
+    from nvse_tpu_torch.ops.lstm import _reset_counts
+    from nvse_tpu_torch.ops.spectral import mel_spectrogram
+
+    counters = _all_counters()
+    _reset_counts(*counters.values())              # this main path starts here
+    base = _config("hddemucas")
+    B, T, iters = 8, 1024, 3
+    rng = np.random.default_rng(5)
+    mel = torch.from_numpy(rng.standard_normal((B, base.num_mels, T)).astype(np.float32) - 4.0)
+    melc = mel.to("cuda")
+    audio_sec = B * (T - 1) * base.hop_size / base.sampling_rate
+    wavs = {}
+    for dtype in ("float32", "bfloat16"):
+        eng = InferenceEngine(_config("hddemucas", compute_dtype=dtype), device="cuda")
+        n_params = sum(p.numel() for p in eng.generator.parameters())
+        steps = eng.generator.valid_length((T - 1) * base.hop_size) * base.resample
+        for _ in range(int(base.depth)):
+            steps = (steps - int(base.kernel_size)) // int(base.stride) + 1
+        eng.forward(melc)                          # warmup
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = dict(counters["lstm_scan_bidir2"].launches_by_kernel)
+        t0 = time.time()
+        wav, counts = _launched(counters, lambda: [eng.forward(melc) for _ in range(iters)][-1])
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) / iters
+        by_kernel = launch_delta(counters["lstm_scan_bidir2"].launches_by_kernel, n0)
+        say(phase="hddemucs_decode", dtype=dtype, batch=B, frames=T, bottleneck_steps=steps,
+            parameters=n_params, wall_ms=wall * 1e3, rtf=audio_sec / wall,
+            launches_per_forward={k: v / iters for k, v in counts.items()},
+            bidir2_by_kernel=by_kernel, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        expect = {k: (2 * iters if k == "lstm_scan_bidir2" else 0) for k in counters}
+        if counts != expect or by_kernel != {"lstm_scan_wide": 2 * iters}:
+            raise SystemExit(f"HD-Demucs decode {dtype}: launches {counts} ({by_kernel}), expected "
+                             "2 lstm_scan_bidir2 per forward on csrc/lstm_scan_wide.cu, no other")
+        if wav.shape != (B, (T - 1) * base.hop_size) or not torch.isfinite(wav).all():
+            raise SystemExit(f"HD-Demucs decode {dtype}: bad output {tuple(wav.shape)}")
+        if n_params != HDDEMUCS_PARAMS:
+            raise SystemExit(f"HD-Demucs has {n_params} parameters, not {HDDEMUCS_PARAMS}")
+        wavs[dtype] = wav
+        del eng
+        torch.cuda.empty_cache()
+    f32, bf = wavs["float32"], wavs["bfloat16"]
+    margs = (base.n_fft, base.num_mels, base.sampling_rate, base.hop_size, base.win_size,
+             base.fmin, base.sampling_rate / 2)
+    say(phase="hddemucs_decode",
+        bf16_vs_f32_mel_l1=(mel_spectrogram(f32, *margs) - mel_spectrogram(bf, *margs))
+        .abs().mean().item(), bf16_vs_f32_wav_rel_l2=_rel_l2(bf, f32))
+
+    # run_inference on the synthetic set (weights from the seed)
+    for dtype in ("float32", "bfloat16"):
+        with tempfile.TemporaryDirectory() as out:
+            lines = []
+            stats, counts = _launched(counters, lambda: run_inference(
+                _config("hddemucas", compute_dtype=dtype, test_output_dir=out), device="cuda",
+                log_fn=lines.append))
+            written = sorted(os.listdir(out))
+        say(phase="hddemucs_serve", dtype=dtype, line=lines[-1], files=stats["files"],
+            rtf=stats["rtf"], launches=counts)
+        others = sum(v for k, v in counts.items() if k != "lstm_scan_bidir2")
+        if (stats["files"] != 6 or len(written) != 6 or counts["lstm_scan_bidir2"] == 0
+                or counts["lstm_scan_bidir2"] % 2 or others):
+            raise SystemExit(f"HD-Demucs serving {dtype}: {stats} wrote {written}, "
+                             f"launches {counts}")
+    main_counts = _shape_counts()                  # ... and ends here
+
+    # the card against the CPU's plain path, same weights, small input, zero phase
+    small = mel[:2, :, :64]
+    h0 = _config("hddemucas", init_phase="zero")
+    cpu = InferenceEngine(h0, device="cpu").forward(small)
+    gpu_eng = InferenceEngine(h0, device="cuda")
+    gpu = gpu_eng.forward(small).cpu()
+    _set_tf32(True)
+    try:
+        tf32 = gpu_eng.forward(small).cpu()
+    finally:
+        _set_tf32(False)
+
+    def within(got):
+        err = (got - cpu).abs()
+        return bool((err <= MODEL_ATOL + MODEL_RTOL * cpu.abs()).all()) and \
+            _rel_peak(got, cpu) <= MODEL_PEAK_REL
+
+    ok, refused = within(gpu), not within(tf32)
+    say(phase="hddemucs_decode_vs_cpu_plain", batch=2, frames=64, init_phase="zero",
+        max_abs_err=(gpu - cpu).abs().max().item(), peak_rel_err=_rel_peak(gpu, cpu),
+        max_abs_ref=cpu.abs().max().item(), rtol=MODEL_RTOL, atol=MODEL_ATOL,
+        peak_rel_limit=MODEL_PEAK_REL, ok=ok, tf32_control_peak_rel_err=_rel_peak(tf32, cpu),
+        control_refused=refused)
+    if not ok:
+        raise SystemExit("HD-Demucs decode on the card disagrees with the CPU plain path")
+    if not refused:
+        raise SystemExit("HD-Demucs decode vs the CPU: the TF32 control passes the limits")
+    return main_counts
+
+
 # kernel vs plain for the ablation variants, as max |err| over max(1, max |plain|):
 # no_vpu's h has no tanh and may grow; where it passes ABLATION_GROW its output is
 # checked for finiteness only
@@ -2079,6 +2272,10 @@ def main():
     paths = {"decode": phase_decode(), "serve": phase_serve(), "train": phase_train()}
     phase_train_vs_cpu_plain()
     paths["train_cli"] = phase_train_cli()
+    # the joint denoise+vocoder BSRNN_24k (BSRNN-M's shapes at 24 kHz): both tasks
+    paths["joint_train"] = phase_train("joint")
+    phase_train_vs_cpu_plain("joint")
+    paths["joint_train_cli"] = phase_train_cli("joint")
     paths["stream"] = phase_stream()
     paths["train_causal"] = phase_train(causal=True)
     rows += phase_bidir2_kernels([(label, T, R, H, dt) for label, T, R, H in BIDIR2_SHAPES
@@ -2112,7 +2309,7 @@ def main():
     rows += phase_bidir_kernels([(label, T, B, H, dt) for label, T, B, H in BIDIR_SHAPES
                                  for dt in DTYPES])
     b_paths = {"bench_lstm_kernel": phase_bench_lstm_kernel(),
-               "hddemucs_bottleneck": phase_hddemucs_bottleneck()}
+               "hddemucs_bottleneck": phase_hddemucs_bottleneck(), "hddemucs": phase_hddemucs()}
     rows += phase_rest(rows, b_paths, phase="lstm_scan_bidir_kernels")
     # the per-step ablation harness (B8)
     ablation_rows, ablation_counts = phase_lstm_step_ablation()

@@ -1,8 +1,9 @@
 """Batch inference engine: mel->wav decoding with RTF accounting.
 
 Counterpart of nvse_tpu/infer/engine.py for the generators the port has
-(the BSRNN family, GCRN and ConvTasNet; a time-domain generator returns the
-wave itself, hop * (T - 1) samples, which synthesize_mel crops):
+(the BSRNN family, GCRN, ConvTasNet and HD-Demucs; a time-domain generator
+returns the wave itself, hop * (T - 1) samples, which synthesize_mel crops;
+the joint BSRNN_24k's spectrum input is served by infer/joint.py):
   * length bucketing: utterances are padded to the next multiple of
     `bucket_frames` mel frames with log(1e-5) and the output is cropped
     back, so a batch of mixed lengths decodes at a few fixed shapes;
@@ -14,9 +15,10 @@ wave itself, hop * (T - 1) samples, which synthesize_mel crops):
     `synthesize_streaming` recomputes a context on each side of every
     chunk (any generator), `synthesize_streaming_stateful` carries the
     time LSTMs' state and the overlap-add tail from chunk to chunk (exact
-    for a causal config; the BSRNN family only: GCRN and ConvTasNet have
-    no `supports_stream_state` and raise there, and run_inference streams
-    them by context recompute), batch rows being independent streams.
+    for a causal config; the BSRNN family only: GCRN, ConvTasNet and
+    HD-Demucs have no `supports_stream_state` and raise there, and
+    run_inference streams them by context recompute), batch rows being
+    independent streams.
 Multi-device serving and Orbax checkpoints are not ported yet and raise
 here.
 """
@@ -231,8 +233,9 @@ def run_inference(h, limit: int | None = None, log_fn=print, stream: bool = Fals
     if model_input_bins(h) != h.num_mels and not h.get("test_mel_load"):
         raise ValueError(
             f"model expects {model_input_bins(h)} input bins but run_inference feeds "
-            f"{h.num_mels}-mel features; spectrum-input models need the joint "
-            "inference path, not ported yet")
+            f"{h.num_mels}-mel features; serve spectrum-input models (BSRNN_24k) with "
+            "python -m nvse_tpu_torch.infer --processing_mode denoise|vocoder "
+            "(infer/joint.py: run_joint_inference)")
     files = resolve_filelist(h)
     if limit:
         files = files[:limit]

@@ -2,8 +2,10 @@
 
 `build_generator(h)` returns `(module, domain)` like the JAX package's
 registry (nvse_tpu/models/__init__.py). The BSRNN family, GCRN (T-F
-domain) and ConvTasNet (time domain) are ported so far; any other
-`model_name` raises and lists what is.
+domain), ConvTasNet and HD-Demucs (time domain) are ported so far; any
+other `model_name` raises and lists what is. BSRNN_24k is registered "tf"
+as in the JAX package, but it takes a log-spectrum and trains only in the
+joint domain (train/loop_joint.py).
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 from .bsrnn import BSRNN, BSRNN_24k
 from .convtasnet import ConvTasNet
 from .gcrn import GCRN
+from .hddemucas import HDDemucas
 
 # name -> (factory, domain); names match the reference cfgs' model_name
 _REGISTRY: dict = {
@@ -19,6 +22,7 @@ _REGISTRY: dict = {
     "BSRNN_24k": (BSRNN_24k, "tf"),
     "GCRN": (GCRN, "tf"),
     "ConvTasNet": (ConvTasNet, "time"),
+    "HDDemucas": (HDDemucas, "time"),
 }
 
 

@@ -20,29 +20,20 @@ kernel does not take; no block silently takes the unfused path.
 The DSP front runs in float32 (the inverse mel basis is float32, so a
 bfloat16 mel promotes); the trunk follows its params' dtype. The initial
 phase of "rand" and "griffin_lim" is `theta` when the caller passes one,
-else a uniform draw from a CPU torch.Generator seeded 0, made once per shape
-and device: the card's decode and the CPU's start from the same phase. It
+else ops.griffin_lim.default_phase (a uniform draw from a CPU
+torch.Generator seeded 0, made once per shape and device, which HD-Demucs
+shares): the card's decode and the CPU's start from the same phase. It
 is not the JAX package's jax.random.PRNGKey(0) draw.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 from torch import nn
 
-from ..ops.griffin_lim import griffin_lim, random_phase
+from ..ops.griffin_lim import default_phase, griffin_lim
 from ..ops.spectral import hann_window, inverse_mel, istft_ri
 from ..ops.tcn import tcn_block_tail
 from .layers import Conv1d, ConvTranspose1d
-
-
-@functools.lru_cache(maxsize=16)
-def _default_phase(shape: tuple, device: torch.device) -> torch.Tensor:
-    # made with inference mode off: a tensor first made under
-    # torch.inference_mode() (a decode) could not be saved for backward later
-    with torch.inference_mode(False):
-        return random_phase(shape, None, device)
 
 
 class PReLU(nn.Module):
@@ -168,7 +159,7 @@ class ConvTasNet(nn.Module):
             return istft_ri(inv_amp, torch.zeros_like(inv_amp), *args,
                             window=hann_window(self.win_size))
         if theta is None:
-            theta = _default_phase(tuple(inv_amp.shape), inv_amp.device)
+            theta = default_phase(tuple(inv_amp.shape), inv_amp.device)
         if self.init_phase == "rand":
             return istft_ri(inv_amp * torch.cos(theta), inv_amp * torch.sin(theta), *args,
                             window=hann_window(self.win_size))

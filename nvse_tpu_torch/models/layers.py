@@ -260,21 +260,23 @@ class Conv1d(nn.Module):
 
 class ConvTranspose1d(nn.Module):
     """torch.nn.ConvTranspose1d on channels-last (B, T, C), without weight
-    norm: out_len = (T - 1) * stride - 2 * padding + k. Counterpart of
-    nvse_tpu/models/layers.py:ConvTranspose1d with its defaults; parameters
-    `kernel` (in, out, k) and `bias` (out,), both U(+-1/sqrt(out * k)),
-    torch's fan-in for a transposed conv. The JAX layer's form (kernel
-    flipped, input dilated by the stride) is F.conv_transpose1d."""
+    norm: out_len = (T - 1) * stride - 2 * padding + dilation * (k - 1) + 1.
+    Counterpart of nvse_tpu/models/layers.py:ConvTranspose1d with its
+    defaults (and `dilation`, :193-207); parameters `kernel` (in, out, k) and
+    `bias` (out,), both U(+-1/sqrt(out * k)), torch's fan-in for a transposed
+    conv. The JAX layer's form (kernel flipped, input dilated by the stride,
+    kernel by `dilation`, padded by dilation * (k - 1) - padding) is
+    F.conv_transpose1d."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
-                 padding: int = 0, gen: torch.Generator | None = None):
+                 padding: int = 0, dilation: int = 1, gen: torch.Generator | None = None):
         super().__init__()
-        self.stride, self.padding = stride, padding
+        self.stride, self.padding, self.dilation = stride, padding, dilation
         bound = 1.0 / math.sqrt(out_channels * kernel_size)
         self.kernel = uniform_((in_channels, out_channels, kernel_size), bound, gen)
         self.bias = uniform_((out_channels,), bound, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv_transpose1d(x.to(self.kernel.dtype).transpose(1, 2), self.kernel, self.bias,
-                               self.stride, self.padding)
+                               self.stride, self.padding, 0, 1, self.dilation)
         return y.transpose(1, 2)

@@ -1,4 +1,4 @@
-from .griffin_lim import griffin_lim, random_phase
+from .griffin_lim import default_phase, griffin_lim, random_phase
 from .lstm import (
     lstm_scan,
     lstm_scan_bidir,
@@ -11,6 +11,7 @@ from .lstm import (
     lstm_scan_stateful,
     lstm_scan_stateful_plain,
 )
+from .resample import downsample2, upsample2
 from .spectral import (
     StreamingOLA,
     amp_pha_spectrum,
@@ -18,6 +19,7 @@ from .spectral import (
     inverse_mel,
     istft_frames,
     istft_ri,
+    joint_input,
     mel_spectrogram,
     mel_spectrogram_np,
     stft_ri,

@@ -17,13 +17,14 @@ decode only when the JAX draw is passed in as theta.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from .spectral import hann_window, istft_ri, stft_ri
 
-__all__ = ["griffin_lim", "random_phase"]
+__all__ = ["default_phase", "griffin_lim", "random_phase"]
 
 
 def random_phase(shape, generator: torch.Generator | None = None,
@@ -33,6 +34,18 @@ def random_phase(shape, generator: torch.Generator | None = None,
     gen = torch.Generator().manual_seed(0) if generator is None else generator
     theta = torch.rand(tuple(shape), generator=gen) * (2 * math.pi) - math.pi
     return theta.to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def default_phase(shape: tuple, device: torch.device) -> torch.Tensor:
+    """The initial phase the mel front ends (ConvTasNet, HD-Demucs) take
+    for "rand" and "griffin_lim" when no theta is passed: random_phase's
+    seed-0 draw, made once per shape and device, so the card's decode and
+    the CPU's start from the same phase."""
+    # made with inference mode off: a tensor first made under
+    # torch.inference_mode() (a decode) could not be saved for backward later
+    with torch.inference_mode(False):
+        return random_phase(shape, None, device)
 
 
 def griffin_lim(magnitude: torch.Tensor, n_fft: int, hop_size: int, win_size: int,

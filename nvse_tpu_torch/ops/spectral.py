@@ -25,6 +25,7 @@ __all__ = [
     "inverse_mel",
     "istft_frames",
     "istft_ri",
+    "joint_input",
     "mel_spectrogram",
     "mel_spectrogram_np",
     "stft_ri",
@@ -354,3 +355,30 @@ def inverse_mel(mel: torch.Tensor, n_fft: int, num_mels: int, sampling_rate: int
     _, _, inv = _mel_consts(sampling_rate, n_fft, num_mels, float(fmin), float(fmax),
                             win_size, mel.device)
     return torch.matmul(inv, torch.exp(mel).float())
+
+
+# ---------------------------------------------------------------------------
+# the joint denoise+vocoder model's input (BSRNN_24k)
+# ---------------------------------------------------------------------------
+
+# the joint domain's log floor: the reference's joint dataset duplicates
+# the T-F features with 1e-5 where the T-F dataset uses 1e-7
+# (nvse_tpu/train/trainer.py:246)
+JOINT_EPS = 1e-5
+JOINT_TASKS = ("denoise", "vocoder")
+
+
+def joint_input(wave: torch.Tensor, task: str, h) -> torch.Tensor:
+    """The joint model's input spectrum (B, n_fft // 2 + 1, T) of a wave
+    (B, L), float32: for "denoise" the log amplitude of the (noisy) wave,
+    log(|STFT| + 1e-5); for "vocoder" the log pseudo-inverse mel of the
+    wave's mel, log(clamp(|pinv(mel_basis) exp(mel)|, 1e-5)). The trainer
+    and the joint inference entry both take it from here
+    (nvse_tpu/train/trainer.py:252-262, infers/inference_joint_denoise_vocoder_bsrnn.py:48-57)."""
+    if task == "denoise":
+        return amp_pha_spectrum(wave, h.n_fft, h.hop_size, h.win_size, eps=JOINT_EPS)[0]
+    if task == "vocoder":
+        melargs = (h.n_fft, h.num_mels, h.sampling_rate, h.hop_size, h.win_size, h.fmin, h.fmax)
+        inv = inverse_mel(mel_spectrogram(wave, *melargs), *melargs)
+        return torch.log(torch.clamp(torch.abs(inv), min=JOINT_EPS))
+    raise ValueError(f"joint task {task!r}: expected one of {JOINT_TASKS}")

@@ -1,7 +1,8 @@
-"""GAN trainer of the T-F domain: one step updates D, then G.
+"""GAN trainer of the T-F and joint domains: one step updates D, then G.
 
 Counterpart of nvse_tpu/train/trainer.py:85-543 with domain "tf"
-(reference train_tf_wi_inv.py:158-305):
+(reference train_tf_wi_inv.py:158-305) and "joint" (the joint
+denoise+vocoder BSRNN_24k, train_tf_wi_inv_joint_denoise_vocoder.py):
   L_D = mrd_weight * L_MRD + L_MPD                      (LS-GAN)
   L_G = 45 L_A + 100 (IP + GD + PTD) + 20 (L_C + 2.25 (L_R + L_I))
         + L_GAN + L_FM + 45 L_Mel
@@ -13,16 +14,28 @@ gradient is left for the next D update. One backward through the G loss
 reaches every generator weight: each BiLSTM's backward is the
 lstm_bwd kernel per direction (ops/lstm.py).
 
+The joint domain (GANTrainer(..., joint=True)) has the same losses and
+discriminators with three differences (nvse_tpu/train/trainer.py:202-262):
+the batch is the clean wave and an input wave (noisy for the "denoise"
+task, clean for "vocoder"), the generator's input is
+ops.spectral.joint_input of the input wave for the step's task, and the
+clean wave's log amplitude takes eps 1e-5 in place of 1e-7. The task is an
+argument of step / eval_step, so one trainer (one generator, one pair of
+discriminators and optimizers) serves both tasks, as the JAX joint loop
+shares its states between its two compiled steps.
+
 compute_dtype "bfloat16" runs the G and D trunks in bf16 from cast copies
 of the float32 master weights (torch.func.functional_call); features,
 losses and optimizer states stay float32, and the casts pass float32
 gradients back, as the JAX step's `_to_compute` does.
 
 Not ported (raise NotImplementedError): the time domain (MSD, SNConv1d),
-use_cqtd, the joint trainer, sp_devices > 1 and compute_dtype "float16"
-(the JAX trainer's float16 trunks: the LSTM kernels take float32 and
-bfloat16 only). A causal config trains on both devices: its time LSTM
-takes lstm_scan's residual-saving route.
+use_cqtd, sp_devices > 1 and compute_dtype "float16" (the JAX trainer's
+float16 trunks: the LSTM kernels take float32 and bfloat16 only). A
+spectrum-input model (BSRNN_24k) given to the T-F trainer raises too,
+before any CUDA call, naming the joint entry (python -m
+nvse_tpu_torch.train --joint). A causal config trains on both devices: its
+time LSTM takes lstm_scan's residual-saving route.
 """
 from __future__ import annotations
 
@@ -41,10 +54,10 @@ from ..losses import (
     stft_consistency_loss,
 )
 from ..losses.spectral import _masked_mean
-from ..models import build_generator
+from ..models import build_generator, model_input_bins
 from ..models.discriminators import MultiPeriodDiscriminator, MultiResolutionDiscriminator
 from ..models.layers import LSTM
-from ..ops.spectral import amp_pha_spectrum, mel_spectrogram
+from ..ops.spectral import JOINT_EPS, JOINT_TASKS, amp_pha_spectrum, joint_input, mel_spectrogram
 
 METRIC_KEYS = ("A", "IP", "GD", "PTD", "C", "R", "I", "Mel", "GAN", "FM", "G", "D")
 
@@ -146,10 +159,18 @@ def _cast(tree, dtype):
 
 
 def _check_supported(h, domain: str) -> None:
-    if domain != "tf":
+    if domain not in ("tf", "joint"):
         raise NotImplementedError(
-            f"{h.model_name} trains in the {domain} domain; only the T-F trainer (MPD + MRD) "
-            "is ported (the time domain's MSD / SNConv1d and the joint trainer are not)")
+            f"{h.model_name} trains in the {domain} domain; only the T-F and joint trainers "
+            "(MPD + MRD) are ported (the time domain's MSD / SNConv1d is not)")
+    spectrum_input = model_input_bins(h) != h.num_mels
+    if domain == "tf" and spectrum_input:
+        raise NotImplementedError(
+            f"{h.model_name} takes a log spectrum and trains in the joint denoise+vocoder "
+            "domain: use python -m nvse_tpu_torch.train --joint (train/loop_joint.py), "
+            "not the T-F trainer")
+    if domain == "joint" and not spectrum_input:
+        raise ValueError(f"the joint trainer feeds a log spectrum; {h.model_name} takes mels")
     if h.get("use_cqtd"):
         raise NotImplementedError("use_cqtd: the CQT discriminator is not ported yet")
     if int(h.get("sp_devices", 1) or 1) > 1:
@@ -164,13 +185,18 @@ class GANTrainer:
 
     Weights are random from torch.Generators seeded with h.seed (the
     generator as build_generator draws it, the discriminators from
-    h.seed + 1), made on the CPU and moved to `device`.
+    h.seed + 1), made on the CPU and moved to `device`. joint=True trains
+    in the joint domain (BSRNN_24k); its steps take the task.
     """
 
-    def __init__(self, h, device: str | torch.device = "cuda", steps_per_epoch: int = 1):
+    def __init__(self, h, device: str | torch.device = "cuda", steps_per_epoch: int = 1,
+                 joint: bool = False):
         self.h = h
         generator, domain = build_generator(h)
-        _check_supported(h, domain)                  # before any CUDA call
+        _check_supported(h, "joint" if joint else domain)   # before any CUDA call
+        self.joint = joint
+        # the joint domain's log amplitude floor (nvse_tpu/train/trainer.py:246)
+        self.amp_eps = JOINT_EPS if joint else 1e-7
         self.device = resolve_device(device)
         dgen = torch.Generator().manual_seed(int(h.get("seed", 1234)) + 1)
         self.generator = generator.to(self.device)
@@ -199,14 +225,25 @@ class GANTrainer:
         out = torch.func.functional_call(module, params, _cast(args, self.compute_dtype))
         return _cast(out, torch.float32)
 
-    def features(self, audio: torch.Tensor):
-        """(mel, mel-loss target, log-amplitude, phase, real, imag) of the
-        clean wave (reference dataset.py:218-244)."""
+    def features(self, audio: torch.Tensor, aux_input: torch.Tensor | None = None,
+                 task: str | None = None):
+        """(generator input, mel-loss target, log-amplitude, phase, real,
+        imag) of the clean wave (reference dataset.py:218-244). The
+        generator input is the clean wave's mel, or in the joint domain
+        joint_input of the input wave `aux_input` for `task`
+        (dataset_joint_denoise_vocoder.py:344-392)."""
         h = self.h
         meloss = mel_spectrogram(audio, *self.melargs, h.fmin, self.meloss_fmax)
-        mel = mel_spectrogram(audio, *self.melargs, h.fmin, h.fmax)
-        logamp, pha, rea, imag = amp_pha_spectrum(audio, h.n_fft, h.hop_size, h.win_size)
-        return mel, meloss, logamp, pha, rea, imag
+        if self.joint:
+            if task not in JOINT_TASKS or aux_input is None:
+                raise ValueError(f"a joint step takes the input wave and a task in "
+                                 f"{JOINT_TASKS}, not {task!r}")
+            inpt = joint_input(aux_input.to(self.device, torch.float32), task, h)
+        else:
+            inpt = mel_spectrogram(audio, *self.melargs, h.fmin, h.fmax)
+        logamp, pha, rea, imag = amp_pha_spectrum(audio, h.n_fft, h.hop_size, h.win_size,
+                                                  eps=self.amp_eps)
+        return inpt, meloss, logamp, pha, rea, imag
 
     def _consistency(self, rea_g, imag_g, y_gc, mask=None):
         h = self.h
@@ -216,10 +253,12 @@ class GANTrainer:
                                      imag_gf[..., :Tc], mask=None if mask is None else mask[:Tc])
 
     # -- the step ---------------------------------------------------------
-    def step(self, audio: torch.Tensor) -> dict:
-        """One GAN step on a (B, segment) float32 batch; returns the metrics
-        as 0-dim float32 tensors on the device (no host sync)."""
-        fwd = self.generator_forward(audio)
+    def step(self, audio: torch.Tensor, aux_input: torch.Tensor | None = None,
+             task: str | None = None) -> dict:
+        """One GAN step on a (B, segment) float32 batch (joint: the clean
+        wave, the input wave and the task); returns the metrics as 0-dim
+        float32 tensors on the device (no host sync)."""
+        fwd = self.generator_forward(audio, aux_input, task)
         L_D, ok_d = self.discriminator_update(fwd)
         metrics, ok_g = self.generator_update(fwd)
         metrics["D"] = L_D.detach().float()
@@ -228,10 +267,11 @@ class GANTrainer:
             metrics["skip"] = torch.tensor((1.0 - ok_d) + (1.0 - ok_g), device=self.device)
         return metrics
 
-    def generator_forward(self, audio: torch.Tensor) -> dict:
+    def generator_forward(self, audio: torch.Tensor, aux_input: torch.Tensor | None = None,
+                          task: str | None = None) -> dict:
         """Features of the batch and the generator's outputs, with grad."""
         audio = audio.to(self.device, torch.float32)
-        feats = self.features(audio)
+        feats = self.features(audio, aux_input, task)
         outs = self._run(self.generator, feats[0])
         y_min = min(outs[-1].shape[-1], audio.shape[-1])
         return {"feats": feats, "outs": outs, "y_c": audio[..., :y_min],
@@ -279,11 +319,13 @@ class GANTrainer:
 
     # -- validation (no grad: the BiLSTMs take the inference kernel) ------
     @torch.no_grad()
-    def eval_step(self, audio: torch.Tensor):
-        """Full losses on a fixed crop (trainer.py:425-453); float32 weights."""
+    def eval_step(self, audio: torch.Tensor, aux_input: torch.Tensor | None = None,
+                  task: str | None = None):
+        """Full losses on a fixed crop (trainer.py:425-453); float32 weights.
+        Joint: the clean wave, the input wave and the task, as step."""
         h = self.h
         audio = audio.to(self.device, torch.float32)
-        mel, meloss, logamp, pha, rea, imag = self.features(audio)
+        mel, meloss, logamp, pha, rea, imag = self.features(audio, aux_input, task)
         logamp_g, pha_g, rea_g, imag_g, y_g = self.generator(mel)
         ip, gd, ptd = phase_loss(pha, pha_g)
         metrics = {"A": amplitude_loss(logamp, logamp_g), "IP": ip, "GD": gd, "PTD": ptd,
@@ -301,7 +343,11 @@ class GANTrainer:
         """Full-utterance validation (trainer.py:455-508): `audio` (1, L) is
         the utterance zero-padded to a bucket; every metric is masked to the
         frames whose reference features depend only on real samples,
-        t * hop + n_fft/2 <= n_samples."""
+        t * hop + n_fft/2 <= n_samples. T-F domain only: the joint loop
+        validates crops with eval_step."""
+        if self.joint:
+            raise ValueError("eval_full validates T-F utterances; a joint trainer "
+                             "validates crops with eval_step")
         h = self.h
         audio = audio.to(self.device, torch.float32)
         mel, meloss, logamp, pha, rea, imag = self.features(audio)

@@ -1,6 +1,5 @@
-"""Map JAX-package parameter trees (BSRNN, GCRN, ConvTasNet, the T-F
-discriminators)
-onto the port's state_dicts.
+"""Map JAX-package parameter trees (BSRNN, GCRN, ConvTasNet, HD-Demucs, the
+T-F discriminators) onto the port's state_dicts.
 
 Reads plain numpy (e.g. `jax.tree.map(np.asarray, variables["params"])`
 done by the caller), so this module imports nothing of JAX. The tests
@@ -121,10 +120,38 @@ def _convtasnet_params(p: dict, h) -> dict[str, torch.Tensor]:
     return out
 
 
+def _hddemucas_params(p: dict, h) -> dict[str, torch.Tensor]:
+    """Tree (the order of nvse_tpu/utils/torch_import.py:import_hddemucas):
+    Conv1d_{2i} / Conv1d_{2i+1} (encoder stage i: strided conv, 1x1),
+    BLSTM_0/{LSTM_0, LSTM_1, Linear_0 (absent when causal)}, then per
+    decoder stage s (coarse -> fine) Conv1d_{2d+s} / ConvTranspose1d_{s}
+    (mask) and Conv1d_{3d+s} / ConvTranspose1d_{d+s} (map), the fusion
+    convs Conv1d_{4d+j}, and the scalar `weight`."""
+    d = int(h.depth)
+    out: dict[str, torch.Tensor] = {}
+    for i in range(d):
+        _conv1d(p[f"Conv1d_{2 * i}"], f"encoder.{i}.first", out)
+        _conv1d(p[f"Conv1d_{2 * i + 1}"], f"encoder.{i}.second", out)
+    bl = p["BLSTM_0"]
+    _lstm(bl["LSTM_0"], "lstm.lstm0", out)
+    _lstm(bl["LSTM_1"], "lstm.lstm1", out)
+    if "Linear_0" in bl:
+        _copy(bl["Linear_0"], "lstm.linear", out)
+    for s in range(d):
+        _conv1d(p[f"Conv1d_{2 * d + s}"], f"decoder_mask.{s}.first", out)
+        _conv1d(p[f"ConvTranspose1d_{s}"], f"decoder_mask.{s}.second", out, transposed=True)
+        _conv1d(p[f"Conv1d_{3 * d + s}"], f"decoder_map.{s}.first", out)
+        _conv1d(p[f"ConvTranspose1d_{d + s}"], f"decoder_map.{s}.second", out, transposed=True)
+    for j in range(3):
+        _conv1d(p[f"Conv1d_{4 * d + j}"], f"fusion.{j}", out)
+    out["weight"] = _t(np.asarray(p["weight"], np.float32).reshape(()))
+    return out
+
+
 def params_from_jax(flax_params_as_numpy: dict, h) -> dict[str, torch.Tensor]:
     """JAX generator params (numpy leaves) -> port state_dict, for the
-    models the port has: BSRNN / BSRNN_24k, GCRN (`_gcrn_params`) and
-    ConvTasNet (`_convtasnet_params`).
+    models the port has: BSRNN / BSRNN_24k, GCRN (`_gcrn_params`),
+    ConvTasNet (`_convtasnet_params`) and HD-Demucs (`_hddemucas_params`).
 
     BSRNN tree: BSRNNCore_0/{_GroupedBandEncoder_0, BSNet_{r}/{ResRNN_0
     (time), ResRNN_1 (band), LayerNorm_0 (out norm)}, _GroupedBandDecoder_0
@@ -135,6 +162,8 @@ def params_from_jax(flax_params_as_numpy: dict, h) -> dict[str, torch.Tensor]:
         return _gcrn_params(p)
     if h.model_name == "ConvTasNet":
         return _convtasnet_params(p, h)
+    if h.model_name == "HDDemucas":
+        return _hddemucas_params(p, h)
     if h.model_name not in ("BSRNN", "BSRNN_24k"):
         raise NotImplementedError(f"no parameter map for {h.model_name!r} yet")
     core = p["BSRNNCore_0"]
@@ -165,7 +194,8 @@ def disc_params_from_jax(disc_params_as_numpy: dict):
 
     Tree: {"mpd": {DiscriminatorP_i: {Conv2d_j: {v, g, bias}}},
     "scale": {DiscriminatorR_i: {Conv2d_j: {v, g, bias}}}}, as
-    nvse_tpu/train/trainer.py:create_states builds it for domain "tf".
+    nvse_tpu/train/trainer.py:create_states builds it for the domains "tf"
+    and "joint" (the same MPD + MRD, `_build_discs`).
     """
     sds = []
     for key, sub in (("mpd", "DiscriminatorP"), ("scale", "DiscriminatorR")):

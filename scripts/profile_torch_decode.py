@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's BSRNN-M, BSRNN-L, GCRN and ConvTasNet decodes on one GPU.
+"""Where the time goes in the port's BSRNN-M, BSRNN-L, GCRN, ConvTasNet and HD-Demucs decodes on one GPU.
 
-    python3 scripts/profile_torch_decode.py [--iters 3] [--model bsrnn|bsrnn_l|gcrn|convtasnet|both]
+    python3 scripts/profile_torch_decode.py [--iters 3] [--model bsrnn|bsrnn_l|gcrn|convtasnet|hddemucs|both]
 
 Runs the B=8 x 1024-frame mel->wave decode of nvse_tpu_torch (seeded
 random weights at full width, float32 then bfloat16) under torch.profiler
@@ -10,7 +10,8 @@ after one warmup forward, and prints one JSON line per model and dtype
 device-busy ms per forward (sum of kernel times; one stream, so kernels do
 not overlap), the idle share, the hand-written kernel's share (`kernel`:
 lstm_fused for BSRNN-M, lstm_fused_wide for BSRNN-L, lstm_bidir2 for GCRN,
-the tail and its gLN statistics (tcn_) for ConvTasNet; "both" is BSRNN-M and
+the tail and its gLN statistics (tcn_) for ConvTasNet, the bottleneck's
+lstm_scan_wide (kScanBidir) for HD-Demucs; "both" is BSRNN-M and
 GCRN), device ms per
 category of kernel name (the hand-written kernels, FFT, convolution, gemm,
 elementwise and copies, other) and the twelve kernels with the most device
@@ -52,7 +53,8 @@ CONFIGS = {"bsrnn": ("bsrnn_config.json", "lstm_fused", ({},)),
            "bsrnn_l": ("bsrnn_l_config.json", "lstm_fused_wide", ({},)),
            "gcrn": ("gcrn_config.json", "lstm_bidir2", ({},)),
            "convtasnet": ("convtasnet_config.json", "tcn_",
-                          ({"fused_tcn": 1}, {"fused_tcn": 0}))}
+                          ({"fused_tcn": 1}, {"fused_tcn": 0})),
+           "hddemucs": ("hddemucas_config.json", "lstm_scan_wide", ({},))}
 
 
 def category(kernel_name: str) -> str:
@@ -67,7 +69,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--model", default="both",
-                    choices=("bsrnn", "bsrnn_l", "gcrn", "convtasnet", "both"))
+                    choices=("bsrnn", "bsrnn_l", "gcrn", "convtasnet", "hddemucs", "both"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_decode: needs a CUDA GPU")

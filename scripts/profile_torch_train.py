@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Where the time goes in one GAN training step of the PyTorch port.
 
-    python scripts/profile_torch_train.py [--model bsrnn|bsrnn_l|gcrn]
+    python scripts/profile_torch_train.py [--model bsrnn|bsrnn_l|gcrn|joint]
 
 Full-width BSRNN-M (nvse_tpu_torch/configs/bsrnn_config.json, the default),
-BSRNN-L (bsrnn_l_config.json) or GCRN (gcrn_config.json) with MPD + MRD on
-one CUDA card, random weights from the config's seed, a seeded synthetic
+BSRNN-L (bsrnn_l_config.json), GCRN (gcrn_config.json) or the joint
+denoise+vocoder BSRNN_24k (bsrnn_joint_denoise_vocoder_config.json, a
+GANTrainer in the joint domain, each task: denoise on the batch plus seeded
+noise, vocoder on the batch itself) with MPD + MRD on one CUDA card, random weights from the config's seed, a seeded synthetic
 batch of 16 16384-sample segments (the training shapes of the LSTM kernels:
 BSRNN 544 rows x 65 steps and 1040 rows x 34 steps, at H = 128 for BSRNN-M
-and 256 for BSRNN-L, GCRN 16 rows x 65 steps at H = 448). Per compute dtype (float32, bfloat16), after two warmup steps
-and over three steps it prints one JSON line with:
+and 256 for BSRNN-L, GCRN 16 rows x 65 steps at H = 448). Per compute dtype (float32, bfloat16)
+(and task), after two warmup steps and over three steps it prints one JSON line with:
   * wall ms per step (host clock around synchronised steps);
   * ms per step of the three phases of GANTrainer.step, from CUDA events
     with the card idle at each step's start (so host enqueue time counts
@@ -83,21 +85,31 @@ def _categories(kernels):
     return out
 
 
-def profile(model, dtype):
+CONFIGS = {"joint": "bsrnn_joint_denoise_vocoder"}
+TASKS = {"joint": ("denoise", "vocoder")}
+
+
+def profile(model, dtype, task=None):
     from nvse_tpu_torch.train import GANTrainer
     from nvse_tpu_torch.utils import load_config
 
-    h = load_config(os.path.join(REPO, "nvse_tpu_torch", "configs", f"{model}_config.json"))
+    h = load_config(os.path.join(REPO, "nvse_tpu_torch", "configs",
+                                 f"{CONFIGS.get(model, model)}_config.json"))
     h.compute_dtype = dtype
-    tr = GANTrainer(h, device="cuda", steps_per_epoch=2)
+    tr = GANTrainer(h, device="cuda", steps_per_epoch=2, joint=task is not None)
     audio = _batch(BATCH, int(h.segment_size), h.sampling_rate).cuda()
+    # the step's arguments: the batch; joint, the clean batch, the input wave and the task
+    args = (audio,)
+    if task is not None:
+        noise = 0.1 * _batch(BATCH, int(h.segment_size), h.sampling_rate, seed=1).cuda()
+        args = (audio, audio + noise if task == "denoise" else audio, task)
     for _ in range(2):
-        tr.step(audio)
+        tr.step(*args)
     torch.cuda.synchronize()
 
     t0 = time.time()
     for _ in range(STEPS):
-        tr.step(audio)
+        tr.step(*args)
     torch.cuda.synchronize()
     wall = (time.time() - t0) / STEPS * 1e3
 
@@ -105,7 +117,7 @@ def profile(model, dtype):
     for _ in range(STEPS):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
-        fwd = tr.generator_forward(audio)
+        fwd = tr.generator_forward(*args)
         ev[1].record()
         tr.discriminator_update(fwd)
         ev[2].record()
@@ -119,7 +131,7 @@ def profile(model, dtype):
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(STEPS):
-            tr.step(audio)
+            tr.step(*args)
         torch.cuda.synchronize()
     kernels = _kernel_times(prof, STEPS)
     busy = sum(kernels.values())
@@ -127,7 +139,7 @@ def profile(model, dtype):
             if any(k in n for n in kernels)}
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return {
-        "model": model, "dtype": dtype, "batch": BATCH, "segment": int(h.segment_size), "steps": STEPS,
+        "model": model, "dtype": dtype, "task": task, "batch": BATCH, "segment": int(h.segment_size), "steps": STEPS,
         "wall_ms_per_step": wall, "phase_ms_per_step": phases,
         "device_busy_ms_per_step": busy if kernels else "not measured",
         "idle_share": (1.0 - busy / wall) if kernels else "not measured",
@@ -141,7 +153,7 @@ def profile(model, dtype):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", default="bsrnn", choices=("bsrnn", "bsrnn_l", "gcrn"))
+    ap.add_argument("--model", default="bsrnn", choices=("bsrnn", "bsrnn_l", "gcrn", "joint"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA GPU")
@@ -151,8 +163,9 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     for dtype in DTYPES:
-        print(json.dumps(profile(args.model, dtype)), flush=True)
-        torch.cuda.empty_cache()
+        for task in TASKS.get(args.model, (None,)):
+            print(json.dumps(profile(args.model, dtype, task)), flush=True)
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
