@@ -178,13 +178,25 @@ the last line:
      csrc/lstm_scan_wide.cu, none of any other kernel), run_inference on the
      synthetic set in both dtypes, the card against the CPU's plain path on
      a small input at zero initial phase with TF32 as the control (hddemucs);
- 17. the per-step ablation harness (scripts/profile_torch_lstm_step.py) in this
+ 17. the conv T-F vocoders APNet, APNet2, FreeV and Vocos (configs/apnet_config.json,
+     apnet2_config.json, freeV_config.json, vocos_config.json at their published
+     widths: 72,191,494 / 31,425,539 / 18,218,509 / 13,480,450 parameters, weights
+     from the seed): decode B = 8 x 1024 mel frames in float32 and bfloat16 (APNet's
+     weight norm folded at load), run_inference on the synthetic set in both dtypes
+     and streamed by context recompute, the card against the CPU's plain path on a
+     small input (TF32 as the control) (<name>_decode, <name>_serve,
+     <name>_decode_vs_cpu_plain); GANTrainer steps at batch 16 x 16384 in float32 and
+     bfloat16 with a finite nonzero gradient on every weight-norm v and g (APNet) or
+     GRN gamma and beta (<name>_train), one step at batch 2 x 4096 against the CPU
+     at the limits of phase 6, TF32 as the control (<name>_train_vs_cpu_plain); no
+     kernel of csrc/ is launched on any of these paths;
+ 18. the per-step ablation harness (scripts/profile_torch_lstm_step.py) in this
      process at its four shapes in float32 and bfloat16: five variants of one
      direction of csrc/lstm_fused.cu (H = 128) and csrc/lstm_fused_wide.cu
      (H = 256), each against its plain version, `full` against the forward half
      of lstm_scan_fused, and the split of a step into input, products,
      nonlinearities and floor (lstm_step_ablation, lstm_step_split);
- 18. each main path above sets the launch counts to 0 when it starts and
+ 19. each main path above sets the launch counts to 0 when it starts and
      reads them per wrapper and shape when it ends; every other shape that a
      main path launched (serving's 128-frame bucket, the validations, the
      offline decodes beside the streams, the joint CLI's validation and
@@ -193,7 +205,7 @@ the last line:
      serving bucket) gets its
      kernel-vs-plain row in the dtype it ran in, and a launch at a shape with
      no row fails the run;
- 19. print the kernels line (one entry per kernel, shape and dtype, each
+ 20. print the kernels line (one entry per kernel, shape and dtype, each
      with its launches summed over the main paths; the redesigned dW_hh
      reduction, wide and narrow fused BiLSTMs, narrow and wide scans (the
      training forwards among them), narrow and wide backward recurrences, the
@@ -1017,9 +1029,11 @@ def _set_tf32(on):
 # the small step of phase_train_vs_cpu_plain: BSRNN-M narrowed; BSRNN-L at its
 # full width (H = 256: the wide training kernels at 34 x 17 and 34 x 34), two
 # BSNets; GCRN has no width knobs and runs at its full width (the wide training
-# kernels at 17 steps x 2 rows x H = 448); all at batch 2 x 4096 samples
+# kernels at 17 steps x 2 rows x H = 448), as do the conv T-F vocoders (APNet2's
+# and FreeV's widths are fixed); all at batch 2 x 4096 samples
 SMALL_STEP = {"bsrnn": dict(feature_dim=16, num_repeat=2), "gcrn": {},
-              "bsrnn_l": dict(num_repeat=2), "joint": dict(feature_dim=16, num_repeat=2)}
+              "bsrnn_l": dict(num_repeat=2), "joint": dict(feature_dim=16, num_repeat=2),
+              "apnet": {}, "apnet2": {}, "freeV": {}, "vocos": {}}
 
 
 def phase_train_vs_cpu_plain(model="bsrnn"):
@@ -2100,6 +2114,172 @@ def phase_hddemucs():
     return main_counts
 
 
+# the conv T-F vocoders (ROADMAP A3) at their published widths: config name ->
+# parameters (the JAX trees' counts; APNet's before weight norm is folded)
+TF_VOCODERS = {"apnet": 72_191_494, "apnet2": 31_425_539, "freeV": 18_218_509,
+               "vocos": 13_480_450}
+
+
+def _no_launches(counts):
+    return not any(counts.values())
+
+
+def phase_tf_vocoder(name):
+    """APNet, APNet2, FreeV or Vocos (configs/<name>_config.json, seeded random
+    weights) through the engine: decode B = 8 x 1024 mel frames in float32 and
+    bfloat16 (APNet's weight norm folded at load), run_inference on the
+    synthetic set in both dtypes and streamed by context recompute in
+    float32; no launch of any kernel of csrc/ (these models run convolutions,
+    GELU, LayerNorm and the iSTFT, which stay PyTorch). Then the card against
+    the CPU's plain path on a small input, TF32 as the control."""
+    from nvse_tpu_torch.infer import InferenceEngine, run_inference
+    from nvse_tpu_torch.models import build_generator
+    from nvse_tpu_torch.models.layers import WNConv1d
+    from nvse_tpu_torch.ops.lstm import _reset_counts
+    from nvse_tpu_torch.ops.spectral import mel_spectrogram
+
+    counters = _all_counters()
+    _reset_counts(*counters.values())              # this main path starts here
+    base = _config(name)
+    n_params = sum(p.numel() for p in build_generator(base)[0].parameters())
+    if n_params != TF_VOCODERS[name]:
+        raise SystemExit(f"{name} has {n_params} parameters, not {TF_VOCODERS[name]}")
+    B, T, iters = 8, 1024, 3
+    rng = np.random.default_rng(6)
+    mel = torch.from_numpy(rng.standard_normal((B, base.num_mels, T)).astype(np.float32) - 4.0)
+    melc = mel.to("cuda")
+    audio_sec = B * (T - 1) * base.hop_size / base.sampling_rate
+    wavs = {}
+    for dtype in ("float32", "bfloat16"):
+        eng = InferenceEngine(_config(name, compute_dtype=dtype), device="cuda")
+        wn = [m for m in eng.generator.modules() if isinstance(m, WNConv1d)]
+        eng.forward(melc)                          # warmup
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        wav, counts = _launched(counters, lambda: [eng.forward(melc) for _ in range(iters)][-1])
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) / iters
+        say(phase=_tag(name, "decode"), dtype=dtype, batch=B, frames=T, parameters=n_params,
+            weight_norm_convs_folded=sum(m.folded for m in wn), wall_ms=wall * 1e3,
+            rtf=audio_sec / wall, launches=counts,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if not _no_launches(counts) or not all(m.folded for m in wn):
+            raise SystemExit(f"{name} decode {dtype}: launches {counts}, expected none; "
+                             f"{sum(m.folded for m in wn)} of {len(wn)} weight-norm convs folded")
+        if wav.shape != (B, (T - 1) * base.hop_size) or not torch.isfinite(wav).all():
+            raise SystemExit(f"{name} decode {dtype}: bad output {tuple(wav.shape)}")
+        wavs[dtype] = wav
+        del eng
+        torch.cuda.empty_cache()
+    f32, bf = wavs["float32"], wavs["bfloat16"]
+    margs = (base.n_fft, base.num_mels, base.sampling_rate, base.hop_size, base.win_size,
+             base.fmin, base.sampling_rate / 2)
+    say(phase=_tag(name, "decode"),
+        bf16_vs_f32_mel_l1=(mel_spectrogram(f32, *margs) - mel_spectrogram(bf, *margs))
+        .abs().mean().item(), bf16_vs_f32_wav_rel_l2=_rel_l2(bf, f32))
+
+    # run_inference on the synthetic set (weights from the seed): batched in each
+    # dtype, and file by file in chunks by context recompute
+    for dtype, stream in (("float32", False), ("bfloat16", False), ("float32", True)):
+        with tempfile.TemporaryDirectory() as out:
+            lines = []
+            stats, counts = _launched(counters, lambda: run_inference(
+                _config(name, compute_dtype=dtype, test_output_dir=out), device="cuda",
+                log_fn=lines.append, stream=stream))
+            written = sorted(os.listdir(out))
+        say(phase=_tag(name, "serve"), dtype=dtype, stream=stream, line=lines[-1],
+            files=stats["files"], rtf=stats["rtf"], launches=counts)
+        if stats["files"] != 6 or len(written) != 6 or not _no_launches(counts):
+            raise SystemExit(f"{name} serving {dtype} stream={stream}: {stats} wrote {written}, "
+                             f"launches {counts}")
+    main_counts = _shape_counts()                  # ... and ends here
+
+    # the card against the CPU's plain path, same weights, small input
+    small = mel[:2, :, :64]
+    cpu = InferenceEngine(base, device="cpu").forward(small)
+    gpu_eng = InferenceEngine(base, device="cuda")
+    gpu = gpu_eng.forward(small).cpu()
+    _set_tf32(True)
+    try:
+        tf32 = gpu_eng.forward(small).cpu()
+    finally:
+        _set_tf32(False)
+
+    def within(got):
+        err = (got - cpu).abs()
+        return bool((err <= MODEL_ATOL + MODEL_RTOL * cpu.abs()).all()) and \
+            _rel_peak(got, cpu) <= MODEL_PEAK_REL
+
+    ok, refused = within(gpu), not within(tf32)
+    say(phase=_tag(name, "decode_vs_cpu_plain"), batch=2, frames=64,
+        max_abs_err=(gpu - cpu).abs().max().item(), peak_rel_err=_rel_peak(gpu, cpu),
+        max_abs_ref=cpu.abs().max().item(), rtol=MODEL_RTOL, atol=MODEL_ATOL,
+        peak_rel_limit=MODEL_PEAK_REL, ok=ok, tf32_control_peak_rel_err=_rel_peak(tf32, cpu),
+        control_refused=refused)
+    if not ok:
+        raise SystemExit(f"{name} decode on the card disagrees with the CPU plain path")
+    if not refused:
+        raise SystemExit(f"{name} decode vs the CPU: the TF32 control passes the limits")
+    return main_counts
+
+
+def phase_tf_vocoder_train(name):
+    """GANTrainer steps of APNet, APNet2, FreeV or Vocos at the published
+    width, batch 16 x 16384, in float32 and bfloat16 (ms per step, device busy
+    time and idle share, peak memory, losses): finite losses, every G and D
+    parameter changed, a finite nonzero gradient on every weight-norm v and g
+    (APNet: weight norm is not folded in training) and every GRN gamma and
+    beta (the ConvNeXt families), and no launch of any kernel of csrc/."""
+    from nvse_tpu_torch.ops.lstm import _reset_counts
+    from nvse_tpu_torch.train import GANTrainer, fetch_scalars
+
+    B, iters = 16, 3
+    counters = _all_counters()
+    _reset_counts(*counters.values())              # this main path starts here
+    for dtype in ("float32", "bfloat16"):
+        h = _config(name, compute_dtype=dtype)
+        audio = _audio_batch(B, int(h.segment_size), h.sampling_rate, seed=0).to("cuda")
+        tr = GANTrainer(h, device="cuda", steps_per_epoch=2)
+        before = {n: p.detach().clone() for n, p in
+                  [*tr.generator.named_parameters(), *tr.disc.named_parameters()]}
+        torch.cuda.reset_peak_memory_stats()
+        metrics = tr.step(audio)                   # warmup
+        torch.cuda.synchronize()
+        t0 = time.time()
+        metrics, counts = _launched(counters, lambda: [tr.step(audio) for _ in range(iters)][-1])
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) / iters * 1e3
+        busy = _busy_ms(lambda: tr.step(audio))
+        losses = fetch_scalars(metrics)
+        after = dict([*tr.generator.named_parameters(), *tr.disc.named_parameters()])
+        unchanged = [n for n, p in after.items() if torch.equal(p.detach(), before[n])]
+        leaves = (".v", ".g") if name == "apnet" else (".gamma", ".beta")
+        held = {n: p for n, p in tr.generator.named_parameters() if n.endswith(leaves)}
+        bad_grad = [n for n, p in held.items() if p.grad is None
+                    or not torch.isfinite(p.grad).all() or p.grad.abs().sum() == 0]
+        say(phase=_tag(name, "train"), dtype=dtype, batch=B, segment=int(h.segment_size),
+            ms_per_step=ms, steps_timed=iters, device_busy_ms=busy,
+            idle_share=1.0 - busy / ms if busy else "not measured",
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts,
+            held_params=len(held), held=leaves, losses=losses)
+        fails = []
+        if not all(math.isfinite(v) for v in losses.values()):
+            fails.append(f"non-finite losses {losses}")
+        if unchanged:
+            fails.append(f"parameters not updated: {unchanged[:5]} ({len(unchanged)})")
+        if not held or bad_grad:
+            fails.append(f"{len(held)} {leaves} params, without a finite nonzero grad: "
+                         f"{bad_grad[:5]}")
+        if not _no_launches(counts):
+            fails.append(f"kernel launches {counts}, expected none")
+        if fails:
+            raise SystemExit(f"train {name} {dtype}: " + "; ".join(fails))
+        del tr, before, after, held
+        torch.cuda.empty_cache()
+    return _shape_counts()                         # ... and ends here
+
+
 # kernel vs plain for the ablation variants, as max |err| over max(1, max |plain|):
 # no_vpu's h has no tanh and may grow; where it passes ABLATION_GROW its output is
 # checked for finiteness only
@@ -2311,11 +2491,18 @@ def main():
     b_paths = {"bench_lstm_kernel": phase_bench_lstm_kernel(),
                "hddemucs_bottleneck": phase_hddemucs_bottleneck(), "hddemucs": phase_hddemucs()}
     rows += phase_rest(rows, b_paths, phase="lstm_scan_bidir_kernels")
+    # the conv T-F vocoders: serving and T-F GAN training at their published widths,
+    # on convolutions, GELU, LayerNorm and the iSTFT alone (no kernel of csrc/)
+    v_paths = {}
+    for name in TF_VOCODERS:
+        v_paths[name] = phase_tf_vocoder(name)
+        v_paths[f"{name}_train"] = phase_tf_vocoder_train(name)
+        phase_train_vs_cpu_plain(name)
     # the per-step ablation harness (B8)
     ablation_rows, ablation_counts = phase_lstm_step_ablation()
     rows += ablation_rows
     all_paths = {**paths, **{f"bsrnn_l_{p}": c for p, c in l_paths.items()}, **c_paths,
-                 **b_paths, "lstm_step_ablation": ablation_counts}
+                 **b_paths, **v_paths, "lstm_step_ablation": ablation_counts}
     missing = _missing(rows, all_paths)
     if missing:
         raise SystemExit(f"launches on a main path with no kernel-vs-plain row: {missing}")

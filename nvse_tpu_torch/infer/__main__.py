@@ -1,11 +1,17 @@
-"""Inference CLI of the port for the BSRNN family, GCRN, ConvTasNet and
-HD-Demucs (counterpart of infers/inference_bsrnn.py, inference_gcrn.py,
-inference_convtasnet.py and inference_hddemucas.py) and, with
+"""Inference CLI of the port for the BSRNN family, GCRN, APNet, APNet2, FreeV,
+Vocos, ConvTasNet and HD-Demucs (counterpart of infers/inference_bsrnn.py,
+inference_gcrn.py, inference_apnet.py, inference_apnet2.py,
+inference_freev.py, inference_vocos.py, inference_convtasnet.py and
+inference_hddemucas.py) and, with
 --processing_mode, for the joint denoise+vocoder BSRNN_24k (counterpart of
 infers/inference_joint_denoise_vocoder_bsrnn.py).
 
     python -m nvse_tpu_torch.infer --cfg_filename nvse_tpu_torch/configs/bsrnn_config.json
     python -m nvse_tpu_torch.infer --cfg_filename nvse_tpu_torch/configs/gcrn_config.json
+    python -m nvse_tpu_torch.infer --cfg_filename nvse_tpu_torch/configs/apnet_config.json
+    python -m nvse_tpu_torch.infer --cfg_filename nvse_tpu_torch/configs/apnet2_config.json
+    python -m nvse_tpu_torch.infer --cfg_filename nvse_tpu_torch/configs/freeV_config.json
+    python -m nvse_tpu_torch.infer --cfg_filename nvse_tpu_torch/configs/vocos_config.json
     python -m nvse_tpu_torch.infer --cfg_filename nvse_tpu_torch/configs/convtasnet_config.json
     python -m nvse_tpu_torch.infer --cfg_filename nvse_tpu_torch/configs/hddemucas_config.json
     python -m nvse_tpu_torch.infer --processing_mode denoise|vocoder
@@ -14,7 +20,12 @@ RTF (generated-audio-seconds / wall-seconds). Runs on the GPU unless
 --device cpu is given. --stream decodes in chunks (config keys
 stream_chunk_frames, stream_context_frames; stream_mode "stateful"
 carries the recurrent state instead of recomputing a context, for the
-BSRNN family; GCRN, ConvTasNet and HD-Demucs stream by context recompute).
+BSRNN family; the other models stream by context recompute). Weights come
+from h.checkpoint_file_load when that file exists: a g_ bundle of the
+port's training, or a reference g_ checkpoint converted by
+python -m nvse_tpu_torch.utils.torch_import; else they are random from
+h.seed. Weight norm (APNet) is folded at load unless h.fold_weight_norm is
+false.
 ConvTasNet's config leaves fused_tcn off, as the reference; a copy with
 "fused_tcn": 1 runs every TCN block tail through the kernel of
 csrc/tcn_tail.cu. --processing_mode (default config
@@ -36,7 +47,9 @@ _CONFIGS = os.path.join(os.path.dirname(__file__), "..", "configs")
 def main() -> None:
     p = argparse.ArgumentParser(prog="python -m nvse_tpu_torch.infer")
     p.add_argument("--cfg_filename", default=None,
-                   help="default: configs/bsrnn_config.json, with --processing_mode "
+                   help="a config of configs/ (bsrnn, bsrnn_l, gcrn, apnet, apnet2, freeV, "
+                        "vocos, convtasnet, hddemucas) or a copy; default: "
+                        "configs/bsrnn_config.json, with --processing_mode "
                         "configs/bsrnn_joint_denoise_vocoder_config.json")
     p.add_argument("--processing_mode", choices=JOINT_TASKS, default=None,
                    help="serve the joint denoise+vocoder model in this mode")

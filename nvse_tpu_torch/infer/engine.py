@@ -1,7 +1,8 @@
 """Batch inference engine: mel->wav decoding with RTF accounting.
 
 Counterpart of nvse_tpu/infer/engine.py for the generators the port has
-(the BSRNN family, GCRN, ConvTasNet and HD-Demucs; a time-domain generator
+(the BSRNN family, GCRN, APNet, APNet2, FreeV, Vocos, ConvTasNet and
+HD-Demucs; a time-domain generator
 returns the wave itself, hop * (T - 1) samples, which synthesize_mel crops;
 the joint BSRNN_24k's spectrum input is served by infer/joint.py):
   * length bucketing: utterances are padded to the next multiple of
@@ -9,6 +10,8 @@ the joint BSRNN_24k's spectrum input is served by infer/joint.py):
     back, so a batch of mixed lengths decodes at a few fixed shapes;
   * `compute_dtype: "bfloat16"` runs the trunk in bf16 (params and mel
     cast, as the JAX engine does); the DSP ends stay float32;
+  * weight norm is folded at load (`fold_weight_norm`, default true), the
+    reference's remove_weight_norm before decoding;
   * RTF = generated-audio-seconds / wall-seconds, each bucket warmed up
     outside the timed region;
   * chunked streaming decode at one window shape whatever the length:
@@ -16,8 +19,8 @@ the joint BSRNN_24k's spectrum input is served by infer/joint.py):
     chunk (any generator), `synthesize_streaming_stateful` carries the
     time LSTMs' state and the overlap-add tail from chunk to chunk (exact
     for a causal config; the BSRNN family only: GCRN, ConvTasNet and
-    HD-Demucs have no `supports_stream_state` and raise there, and
-    run_inference streams them by context recompute), batch rows being
+    HD-Demucs and the conv T-F vocoders have no `supports_stream_state` and
+    raise there, and run_inference streams them by context recompute), batch rows being
     independent streams.
 Multi-device serving and Orbax checkpoints are not ported yet and raise
 here.
@@ -34,6 +37,7 @@ from .. import resolve_device
 from ..data import load_wav, write_wav
 from ..models import build_generator, model_input_bins
 from ..models.bsrnn import band_plan
+from ..models.layers import fold_weight_norm
 from ..ops.spectral import (StreamingOLA, hann_window, istft_frames, mel_spectrogram,
                             mel_spectrogram_np)
 
@@ -49,9 +53,11 @@ class InferenceEngine:
 
     params: a port state_dict (e.g. from utils.params_from_jax); when
     None, weights load from h.checkpoint_file_load if that file exists
-    (a g_ bundle {"generator": state_dict} written by the port's
-    training, or a bare state_dict), else they are random from a
-    torch.Generator seeded with h.seed.
+    (a g_ bundle {"generator": state_dict} written by the port's training
+    or by utils.torch_import from a reference g_ checkpoint, or a bare
+    state_dict), else they are random from a torch.Generator seeded with
+    h.seed. Weight-norm pairs (v, g) are then folded into plain kernels
+    unless h.fold_weight_norm is false (nvse_tpu/infer/engine.py:60-68).
     """
 
     def __init__(self, h, params: dict | None = None, device: str = "cuda",
@@ -74,6 +80,11 @@ class InferenceEngine:
                     params = params["generator"]
         if params is not None:
             self.generator.load_state_dict(params)
+        if bool(h.get("fold_weight_norm", True)):
+            sd = self.generator.state_dict()
+            folded = fold_weight_norm(sd)
+            if folded.keys() != sd.keys():
+                self.generator.load_state_dict(folded)
         self.generator.eval()
         if str(h.get("compute_dtype")) == "bfloat16":
             self.dtype = torch.bfloat16

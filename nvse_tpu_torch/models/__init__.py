@@ -1,9 +1,10 @@
 """Model registry of the port.
 
 `build_generator(h)` returns `(module, domain)` like the JAX package's
-registry (nvse_tpu/models/__init__.py). The BSRNN family, GCRN (T-F
-domain), ConvTasNet and HD-Demucs (time domain) are ported so far; any
-other `model_name` raises and lists what is. BSRNN_24k is registered "tf"
+registry (nvse_tpu/models/__init__.py). The BSRNN family, GCRN, the conv
+T-F vocoders APNet, APNet2, FreeV and Vocos (T-F domain), ConvTasNet and
+HD-Demucs (time domain) are ported so far; any other `model_name` (HiFiGAN,
+iSTFTNet) raises and lists what is. BSRNN_24k is registered "tf"
 as in the JAX package, but it takes a log-spectrum and trains only in the
 joint domain (train/loop_joint.py).
 """
@@ -11,18 +12,24 @@ from __future__ import annotations
 
 import torch
 
+from .apnet import APNet, APNet2, FreeV
 from .bsrnn import BSRNN, BSRNN_24k
 from .convtasnet import ConvTasNet
 from .gcrn import GCRN
 from .hddemucas import HDDemucas
+from .vocos import Vocos
 
 # name -> (factory, domain); names match the reference cfgs' model_name
 _REGISTRY: dict = {
+    "APNet": (APNet, "tf"),
+    "APNet2": (APNet2, "tf"),
+    "FreeV": (FreeV, "tf"),
     "BSRNN": (BSRNN, "tf"),
     "BSRNN_24k": (BSRNN_24k, "tf"),
     "GCRN": (GCRN, "tf"),
     "ConvTasNet": (ConvTasNet, "time"),
     "HDDemucas": (HDDemucas, "time"),
+    "Vocos": (Vocos, "tf"),
 }
 
 

@@ -1,5 +1,5 @@
-"""Linear, LayerNorm, LSTM, Conv1d, ConvTranspose1d, Conv2d and
-ConvTranspose2d with torch.nn semantics.
+"""Linear, LayerNorm, LSTM, Conv1d, WNConv1d, ConvTranspose1d, Conv2d and
+ConvTranspose2d with torch.nn semantics, and fold_weight_norm.
 
 Counterparts of nvse_tpu/models/layers.py (Linear, LayerNorm, LSTM
 :466-608; Conv1d, ConvTranspose1d :138-285; Conv2d, ConvTranspose2d,
@@ -9,7 +9,9 @@ is (C, 4H), `w_hh_*` (H, 4H)); the weight-normalised Conv2d keeps the
 names `v`, `g`, `bias` in torch's OIHW layout, Conv1d, ConvTranspose1d,
 PlainConv2d and ConvTranspose2d the names `kernel`, `bias` in torch's
 layouts. The 1-D convs take and return the JAX layers' channels-last
-(B, T, C). utils/jax_params.py maps a flax
+(B, T, C). The weight-normalised WNConv1d keeps `v`, `g`, `bias` in torch's
+layout, or `kernel`, `bias` once fold_weight_norm has folded its state_dict
+(nvse_tpu/models/layers.py:78-192). utils/jax_params.py maps a flax
 tree onto them one to one. Random init draws from the caller's
 torch.Generator with the JAX package's distributions.
 """
@@ -29,14 +31,24 @@ def uniform_(shape, bound: float, gen: torch.Generator | None) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape).uniform_(-bound, bound, generator=gen))
 
 
-class Linear(nn.Module):
-    """torch.nn.Linear semantics, U(+-1/sqrt(fan_in)) init, (in, out) kernel."""
+def _kernel_and_bias(kshape, bshape, bound: float, std: float | None, gen):
+    """U(+-bound) kernel and bias, or with `std` an N(0, std) kernel and a
+    zero bias (the ConvNeXt families' init, nvse_tpu/models/apnet.py:67-72)."""
+    if std is None:
+        return uniform_(kshape, bound, gen), uniform_(bshape, bound, gen)
+    kernel = nn.Parameter(torch.empty(kshape).normal_(0.0, std, generator=gen))
+    return kernel, nn.Parameter(torch.zeros(bshape))
 
-    def __init__(self, in_features: int, out_features: int, gen: torch.Generator):
+
+class Linear(nn.Module):
+    """torch.nn.Linear semantics, U(+-1/sqrt(fan_in)) init (N(0, std) and a
+    zero bias with `std`), (in, out) kernel."""
+
+    def __init__(self, in_features: int, out_features: int, gen: torch.Generator,
+                 std: float | None = None):
         super().__init__()
-        bound = 1.0 / math.sqrt(in_features)
-        self.kernel = uniform_((in_features, out_features), bound, gen)
-        self.bias = uniform_((out_features,), bound, gen)
+        self.kernel, self.bias = _kernel_and_bias((in_features, out_features), (out_features,),
+                                                  1.0 / math.sqrt(in_features), std, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # follows the params' dtype, keeping a bf16 trunk bf16 through the glue
@@ -140,6 +152,12 @@ def get_padding(kernel_size: int, dilation: int = 1) -> int:
     return (kernel_size * dilation - dilation) // 2
 
 
+def _wn_weight(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """g * v / max(||v||, 1e-12), the norm over every axis but the first."""
+    norm = v.flatten(1).norm(dim=1).reshape(-1, *([1] * (v.dim() - 1)))
+    return g * v / torch.clamp(norm, min=1e-12)
+
+
 class Conv2d(nn.Module):
     """Weight-normalised torch.nn.Conv2d on NCHW (the discriminators' conv).
 
@@ -163,8 +181,7 @@ class Conv2d(nn.Module):
         self.bias = uniform_((out_channels,), bound, gen)
 
     def kernel(self) -> torch.Tensor:
-        norm = self.v.flatten(1).norm(dim=1).reshape(-1, 1, 1, 1)
-        return self.g * self.v / torch.clamp(norm, min=1e-12)
+        return _wn_weight(self.v, self.g)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv2d(x, self.kernel(), self.bias, self.stride, self.padding)
@@ -236,18 +253,19 @@ class Conv1d(nn.Module):
     """torch.nn.Conv1d on channels-last (B, T, C), without weight norm.
     Counterpart of nvse_tpu/models/layers.py:Conv1d with its defaults;
     parameters `kernel` (out, in / groups, k) and `bias` (out,), both
-    U(+-1/sqrt(in / groups * k)). The input is cast to the weight dtype. A
-    1x1 conv (stride 1, no padding, one group) is a matrix product over the
-    channels; any other runs F.conv1d on (B, C, T)."""
+    U(+-1/sqrt(in / groups * k)) (N(0, std) and a zero bias with `std`).
+    The input is cast to the weight dtype. A 1x1 conv (stride 1, no padding,
+    one group) is a matrix product over the channels; any other runs
+    F.conv1d on (B, C, T)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
                  padding: int = 0, dilation: int = 1, groups: int = 1,
-                 gen: torch.Generator | None = None):
+                 gen: torch.Generator | None = None, std: float | None = None):
         super().__init__()
         self.stride, self.padding, self.dilation, self.groups = stride, padding, dilation, groups
-        bound = 1.0 / math.sqrt(in_channels // groups * kernel_size)
-        self.kernel = uniform_((out_channels, in_channels // groups, kernel_size), bound, gen)
-        self.bias = uniform_((out_channels,), bound, gen)
+        self.kernel, self.bias = _kernel_and_bias(
+            (out_channels, in_channels // groups, kernel_size), (out_channels,),
+            1.0 / math.sqrt(in_channels // groups * kernel_size), std, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.kernel.dtype)
@@ -280,3 +298,77 @@ class ConvTranspose1d(nn.Module):
         y = F.conv_transpose1d(x.to(self.kernel.dtype).transpose(1, 2), self.kernel, self.bias,
                                self.stride, self.padding, 0, 1, self.dilation)
         return y.transpose(1, 2)
+
+
+class WNConv1d(nn.Module):
+    """Weight-normalised torch.nn.Conv1d on channels-last (B, T, C).
+
+    Counterpart of nvse_tpu/models/layers.py:Conv1d with use_weight_norm
+    (which is WIO): parameters `v` (out, in / groups, k), `g` (out, 1, 1)
+    and `bias` (out,); the weight is g * v / max(||v||, 1e-12), the norm
+    over every axis but out-channels. Init as torch: U(+-1/sqrt(fan_in)) for
+    v and bias, g = ||v|| (nvse_tpu/models/hifigan.py:6-12). Loading a
+    state_dict that fold_weight_norm folded (`kernel` in place of `v`, `g`)
+    turns the layer into a plain conv with that kernel, as the JAX layer
+    detects folded params at apply time; an unfolded state_dict turns it
+    back. The input is cast to the weight dtype."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, dilation: int = 1, groups: int = 1,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        self.stride, self.padding, self.dilation, self.groups = stride, padding, dilation, groups
+        bound = 1.0 / math.sqrt(in_channels // groups * kernel_size)
+        self.v = uniform_((out_channels, in_channels // groups, kernel_size), bound, gen)
+        self.g = nn.Parameter(self.v.data.flatten(1).norm(dim=1).reshape(-1, 1, 1))
+        self.bias = uniform_((out_channels,), bound, gen)
+
+    @property
+    def folded(self) -> bool:
+        return "kernel" in self._parameters
+
+    def weight(self) -> torch.Tensor:
+        return self.kernel if self.folded else _wn_weight(self.v, self.g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight()
+        y = F.conv1d(x.to(w.dtype).transpose(1, 2), w, self.bias, self.stride, self.padding,
+                     self.dilation, self.groups)
+        return y.transpose(1, 2)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        folded = prefix + "kernel" in state_dict
+        if folded != self.folded:
+            like = self.bias.data
+            shape = (self.kernel if self.folded else self.v).shape
+            for name in ("kernel",) if self.folded else ("v", "g"):
+                del self._parameters[name]
+            if folded:
+                self.kernel = nn.Parameter(like.new_empty(shape))
+            else:
+                self.v = nn.Parameter(like.new_empty(shape))
+                self.g = nn.Parameter(like.new_empty((shape[0], 1, 1)))
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+def fold_weight_norm(state_dict: dict) -> dict:
+    """Fold every weight-norm pair of a state_dict: `<p>.v`, `<p>.g` become
+    `<p>.kernel` = g * v / max(||v||, 1e-12) (the norm over every axis but
+    the first), in v's place; every other entry is kept. Counterpart of
+    nvse_tpu/models/layers.py:fold_weight_norm and of the reference's
+    remove_weight_norm before decoding. A `.g` whose shape is not (out, 1,
+    ..., 1) of its `.v` is no pair and stays. Returns a new dict."""
+    def is_pair(prefix):
+        v, g = state_dict.get(prefix + ".v"), state_dict.get(prefix + ".g")
+        return (v is not None and g is not None and g.dim() == v.dim()
+                and g.shape[0] == v.shape[0] and g[0].numel() == 1)
+
+    pairs = {k[:-2] for k in state_dict if k.endswith(".v") and is_pair(k[:-2])}
+    out = {}
+    for key, t in state_dict.items():
+        prefix = key[:-2]
+        if prefix not in pairs or not key.endswith((".v", ".g")):
+            out[key] = t
+        elif key.endswith(".v"):
+            out[prefix + ".kernel"] = _wn_weight(t, state_dict[prefix + ".g"])
+    return out

@@ -7,7 +7,8 @@ card). Semantics are torch.stft/torch.istft (center=True, reflect pad,
 one-sided) and the librosa Slaney mel basis, as in the reference.
 
 Host-side bases (window, mel filterbank, its pseudo-inverse) are numpy,
-computed once and cached; the feature matmuls run in float32 at full
+computed once, cached and read-only (a caller that wrote into one would
+change every later transform of the process); the feature matmuls run in float32 at full
 precision (resolve_device disables TF32 on the card).
 """
 from __future__ import annotations
@@ -36,11 +37,16 @@ __all__ = [
 # windows / filterbanks (host numpy, cached)
 # ---------------------------------------------------------------------------
 
+def _read_only(a: np.ndarray) -> np.ndarray:
+    a.setflags(write=False)
+    return a
+
+
 @functools.lru_cache(maxsize=None)
 def _hann_np(win_size: int) -> np.ndarray:
-    """Periodic Hann window == torch.hann_window(win_size)."""
+    """Periodic Hann window == torch.hann_window(win_size), read-only."""
     n = np.arange(win_size, dtype=np.float64)
-    return (0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_size)).astype(np.float32)
+    return _read_only((0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_size)).astype(np.float32))
 
 
 def hann_window(win_size: int) -> np.ndarray:
@@ -73,7 +79,8 @@ def _mel_to_hz_slaney(m):
 
 @functools.lru_cache(maxsize=None)
 def _mel_filterbank_np(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float) -> np.ndarray:
-    """librosa.filters.mel equivalent (Slaney norm, htk=False), float32 (M, F)."""
+    """librosa.filters.mel equivalent (Slaney norm, htk=False), float32 (M, F),
+    read-only."""
     if fmax is None:
         fmax = sr / 2.0
     fftfreqs = np.linspace(0.0, sr / 2.0, n_fft // 2 + 1)
@@ -88,14 +95,14 @@ def _mel_filterbank_np(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: floa
         weights[i] = np.maximum(0.0, np.minimum(lower, upper))
     enorm = 2.0 / (hz_pts[2 : n_mels + 2] - hz_pts[:n_mels])  # Slaney area norm
     weights *= enorm[:, None]
-    return weights.astype(np.float32)
+    return _read_only(weights.astype(np.float32))
 
 
 @functools.lru_cache(maxsize=None)
 def _inv_mel_basis_np(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float) -> np.ndarray:
-    """Moore-Penrose pseudo-inverse of the mel basis, float32 (F, M)."""
+    """Moore-Penrose pseudo-inverse of the mel basis, float32 (F, M), read-only."""
     basis = _mel_filterbank_np(sr, n_fft, n_mels, fmin, fmax)
-    return np.linalg.pinv(basis.astype(np.float64)).astype(np.float32)
+    return _read_only(np.linalg.pinv(basis.astype(np.float64)).astype(np.float32))
 
 
 def _pad_window(window: np.ndarray, n_fft: int) -> np.ndarray:

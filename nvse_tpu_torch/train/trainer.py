@@ -1,7 +1,8 @@
 """GAN trainer of the T-F and joint domains: one step updates D, then G.
 
 Counterpart of nvse_tpu/train/trainer.py:85-543 with domain "tf"
-(reference train_tf_wi_inv.py:158-305) and "joint" (the joint
+(reference train_tf_wi_inv.py:158-305: the BSRNN family, GCRN, APNet,
+APNet2, FreeV and Vocos) and "joint" (the joint
 denoise+vocoder BSRNN_24k, train_tf_wi_inv_joint_denoise_vocoder.py):
   L_D = mrd_weight * L_MRD + L_MPD                      (LS-GAN)
   L_G = 45 L_A + 100 (IP + GD + PTD) + 20 (L_C + 2.25 (L_R + L_I))
@@ -267,12 +268,21 @@ class GANTrainer:
             metrics["skip"] = torch.tensor((1.0 - ok_d) + (1.0 - ok_g), device=self.device)
         return metrics
 
+    def _gen_args(self, inpt: torch.Tensor, aux_input: torch.Tensor | None):
+        """The generator's arguments: in the T-F domain an aux_input (FreeV's
+        and GCRN's inv_mel_amp) follows the mel, as the JAX step passes it
+        (nvse_tpu/train/trainer.py:300-311); the joint domain's aux_input is
+        the input wave, which joint_input already consumed."""
+        if self.joint or aux_input is None:
+            return (inpt,)
+        return inpt, aux_input.to(self.device, torch.float32)
+
     def generator_forward(self, audio: torch.Tensor, aux_input: torch.Tensor | None = None,
                           task: str | None = None) -> dict:
         """Features of the batch and the generator's outputs, with grad."""
         audio = audio.to(self.device, torch.float32)
         feats = self.features(audio, aux_input, task)
-        outs = self._run(self.generator, feats[0])
+        outs = self._run(self.generator, *self._gen_args(feats[0], aux_input))
         y_min = min(outs[-1].shape[-1], audio.shape[-1])
         return {"feats": feats, "outs": outs, "y_c": audio[..., :y_min],
                 "y_gc": outs[-1][..., :y_min]}
@@ -326,7 +336,7 @@ class GANTrainer:
         h = self.h
         audio = audio.to(self.device, torch.float32)
         mel, meloss, logamp, pha, rea, imag = self.features(audio, aux_input, task)
-        logamp_g, pha_g, rea_g, imag_g, y_g = self.generator(mel)
+        logamp_g, pha_g, rea_g, imag_g, y_g = self.generator(*self._gen_args(mel, aux_input))
         ip, gd, ptd = phase_loss(pha, pha_g)
         metrics = {"A": amplitude_loss(logamp, logamp_g), "IP": ip, "GD": gd, "PTD": ptd,
                    "R": torch.mean(torch.abs(rea - rea_g)),

@@ -1,5 +1,5 @@
-"""Map JAX-package parameter trees (BSRNN, GCRN, ConvTasNet, HD-Demucs, the
-T-F discriminators) onto the port's state_dicts.
+"""Map JAX-package parameter trees (BSRNN, GCRN, ConvTasNet, HD-Demucs, APNet,
+APNet2, FreeV, Vocos, the T-F discriminators) onto the port's state_dicts.
 
 Reads plain numpy (e.g. `jax.tree.map(np.asarray, variables["params"])`
 done by the caller), so this module imports nothing of JAX. The tests
@@ -148,18 +148,123 @@ def _hddemucas_params(p: dict, h) -> dict[str, torch.Tensor]:
     return out
 
 
+def _wn_conv1d(node: dict, prefix: str, out: dict) -> None:
+    """Weight-norm Conv1d: v (k, in / groups, out) -> (out, in / groups, k),
+    g (1, 1, out) -> (out, 1, 1); a folded node (`kernel`) as _conv1d."""
+    if "kernel" in node:
+        _conv1d(node, prefix, out)
+        return
+    out[f"{prefix}.v"] = _t(np.transpose(np.asarray(node["v"]), (2, 1, 0)))
+    out[f"{prefix}.g"] = _t(np.asarray(node["g"]).reshape(-1, 1, 1))
+    out[f"{prefix}.bias"] = _t(node["bias"])
+
+
+def _convnext(node: dict, prefix: str, out: dict) -> None:
+    """ConvNeXtBlock: Conv1d_0 (dwconv), LayerNorm_0 (norm), Linear_0
+    (pwconv1), GRN_0 (grn), Linear_1 (pwconv2)."""
+    _conv1d(node["Conv1d_0"], f"{prefix}.dwconv", out)
+    _copy(node["LayerNorm_0"], f"{prefix}.norm", out)
+    _copy(node["Linear_0"], f"{prefix}.pwconv1", out)
+    _copy(node["GRN_0"], f"{prefix}.grn", out)
+    _copy(node["Linear_1"], f"{prefix}.pwconv2", out)
+
+
+def _count(p: dict, stem: str) -> int:
+    return sum(k.startswith(f"{stem}_") for k in p)
+
+
+def _apnet_params(p: dict) -> dict[str, torch.Tensor]:
+    """Tree (the order of nvse_tpu/utils/torch_import.py:import_apnet):
+    Conv1d_0 (ASP in), ResBlock1_{0..n-1} (ASP; each Conv1d_{2j} = convs1.j,
+    Conv1d_{2j+1} = convs2.j), Conv1d_1 (ASP out), Conv1d_2 (PSP in),
+    ResBlock1_{n..2n-1}, Conv1d_3 / Conv1d_4 (R / I); all weight-normed."""
+    out: dict[str, torch.Tensor] = {}
+    n = _count(p, "ResBlock1") // 2
+    for branch, first, conv_in in (("ASP", 0, 0), ("PSP", n, 2)):
+        _wn_conv1d(p[f"Conv1d_{conv_in}"], f"{branch}_input_conv", out)
+        for k in range(n):
+            blk = p[f"ResBlock1_{first + k}"]
+            for j in range(_count(blk, "Conv1d") // 2):
+                _wn_conv1d(blk[f"Conv1d_{2 * j}"], f"{branch}_ResNet.{k}.convs1.{j}", out)
+                _wn_conv1d(blk[f"Conv1d_{2 * j + 1}"], f"{branch}_ResNet.{k}.convs2.{j}", out)
+    _wn_conv1d(p["Conv1d_1"], "ASP_output_conv", out)
+    _wn_conv1d(p["Conv1d_3"], "PSP_output_R_conv", out)
+    _wn_conv1d(p["Conv1d_4"], "PSP_output_I_conv", out)
+    return out
+
+
+def _phase_trunk(p: dict, first_block: int, n: int, conv_in: int, norms, out: dict) -> None:
+    """APNet2's / FreeV's phase branch: Conv1d_{conv_in}, LayerNorm
+    norms[0], ConvNeXtBlock_{first_block..+n-1}, LayerNorm norms[1], then
+    Conv1d_{conv_in + 1} / _{conv_in + 2} (R / I)."""
+    _conv1d(p[f"Conv1d_{conv_in}"], "PSP_input_conv", out)
+    _copy(p[f"LayerNorm_{norms[0]}"], "norm", out)
+    for i in range(n):
+        _convnext(p[f"ConvNeXtBlock_{first_block + i}"], f"convnext.{i}", out)
+    _copy(p[f"LayerNorm_{norms[1]}"], "final_layer_norm", out)
+    _conv1d(p[f"Conv1d_{conv_in + 1}"], "PSP_output_R_conv", out)
+    _conv1d(p[f"Conv1d_{conv_in + 2}"], "PSP_output_I_conv", out)
+
+
+def _apnet2_params(p: dict) -> dict[str, torch.Tensor]:
+    """Tree (import_apnet2's order): Conv1d_0 (ASP in), LayerNorm_0 (norm2),
+    ConvNeXtBlock_{0..n-1} (convnext2), LayerNorm_1 (final_layer_norm2),
+    Conv1d_1 (ASP out), then the phase branch from Conv1d_2, LayerNorm_2 /
+    _3 and ConvNeXtBlock_{n..2n-1}."""
+    out: dict[str, torch.Tensor] = {}
+    n = _count(p, "ConvNeXtBlock") // 2
+    _conv1d(p["Conv1d_0"], "ASP_input_conv", out)
+    _copy(p["LayerNorm_0"], "norm2", out)
+    for i in range(n):
+        _convnext(p[f"ConvNeXtBlock_{i}"], f"convnext2.{i}", out)
+    _copy(p["LayerNorm_1"], "final_layer_norm2", out)
+    _conv1d(p["Conv1d_1"], "ASP_output_conv", out)
+    _phase_trunk(p, n, n, 2, (2, 3), out)
+    return out
+
+
+def _freev_params(p: dict) -> dict[str, torch.Tensor]:
+    """Tree (import_freev's order): ConvNeXtBlock_0 (the amplitude branch,
+    convnext2.0), then the phase branch from Conv1d_0, LayerNorm_0 / _1 and
+    ConvNeXtBlock_{1..n}."""
+    out: dict[str, torch.Tensor] = {}
+    _convnext(p["ConvNeXtBlock_0"], "convnext2.0", out)
+    _phase_trunk(p, 1, _count(p, "ConvNeXtBlock") - 1, 0, (0, 1), out)
+    return out
+
+
+def _vocos_params(p: dict) -> dict[str, torch.Tensor]:
+    """Tree (import_vocos's order): Conv1d_0 (embed), LayerNorm_0 (norm),
+    ConvNeXtBlock_{0..n-1} (convnext), LayerNorm_1 (final_layer_norm),
+    Linear_0 (head)."""
+    out: dict[str, torch.Tensor] = {}
+    _conv1d(p["Conv1d_0"], "embed", out)
+    _copy(p["LayerNorm_0"], "norm", out)
+    for i in range(_count(p, "ConvNeXtBlock")):
+        _convnext(p[f"ConvNeXtBlock_{i}"], f"convnext.{i}", out)
+    _copy(p["LayerNorm_1"], "final_layer_norm", out)
+    _copy(p["Linear_0"], "head", out)
+    return out
+
+
+_FAMILY_MAPS = {"GCRN": _gcrn_params, "APNet": _apnet_params, "APNet2": _apnet2_params,
+                "FreeV": _freev_params, "Vocos": _vocos_params}
+
+
 def params_from_jax(flax_params_as_numpy: dict, h) -> dict[str, torch.Tensor]:
     """JAX generator params (numpy leaves) -> port state_dict, for the
     models the port has: BSRNN / BSRNN_24k, GCRN (`_gcrn_params`),
-    ConvTasNet (`_convtasnet_params`) and HD-Demucs (`_hddemucas_params`).
+    ConvTasNet (`_convtasnet_params`), HD-Demucs (`_hddemucas_params`),
+    APNet, APNet2, FreeV and Vocos (`_apnet_params`, ...; weight-norm nodes
+    as `v`, `g`, or `kernel` where fold_weight_norm folded them).
 
     BSRNN tree: BSRNNCore_0/{_GroupedBandEncoder_0, BSNet_{r}/{ResRNN_0
     (time), ResRNN_1 (band), LayerNorm_0 (out norm)}, _GroupedBandDecoder_0
     (mag), _GroupedBandDecoder_1 (phase)}.
     """
     p = flax_params_as_numpy.get("params", flax_params_as_numpy)
-    if h.model_name == "GCRN":
-        return _gcrn_params(p)
+    if h.model_name in _FAMILY_MAPS:
+        return _FAMILY_MAPS[h.model_name](p)
     if h.model_name == "ConvTasNet":
         return _convtasnet_params(p, h)
     if h.model_name == "HDDemucas":

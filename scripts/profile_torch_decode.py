@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's BSRNN-M, BSRNN-L, GCRN, ConvTasNet and HD-Demucs decodes on one GPU.
+"""Where the time goes in the port's BSRNN-M, BSRNN-L, GCRN, ConvTasNet, HD-Demucs, APNet,
+APNet2, FreeV and Vocos decodes on one GPU.
 
-    python3 scripts/profile_torch_decode.py [--iters 3] [--model bsrnn|bsrnn_l|gcrn|convtasnet|hddemucs|both]
+    python3 scripts/profile_torch_decode.py [--iters 3]
+        [--model bsrnn|bsrnn_l|gcrn|convtasnet|hddemucs|apnet|apnet2|freeV|vocos|both|tf_vocoders]
 
 Runs the B=8 x 1024-frame mel->wave decode of nvse_tpu_torch (seeded
 random weights at full width, float32 then bfloat16) under torch.profiler
@@ -11,8 +13,9 @@ device-busy ms per forward (sum of kernel times; one stream, so kernels do
 not overlap), the idle share, the hand-written kernel's share (`kernel`:
 lstm_fused for BSRNN-M, lstm_fused_wide for BSRNN-L, lstm_bidir2 for GCRN,
 the tail and its gLN statistics (tcn_) for ConvTasNet, the bottleneck's
-lstm_scan_wide (kScanBidir) for HD-Demucs; "both" is BSRNN-M and
-GCRN), device ms per
+lstm_scan_wide (kScanBidir) for HD-Demucs, none for the conv T-F vocoders,
+which run no kernel of csrc/; "both" is BSRNN-M and GCRN, "tf_vocoders" the
+four conv T-F vocoders), device ms per
 category of kernel name (the hand-written kernels, FFT, convolution, gemm,
 elementwise and copies, other) and the twelve kernels with the most device
 time. Needs a CUDA GPU.
@@ -54,7 +57,12 @@ CONFIGS = {"bsrnn": ("bsrnn_config.json", "lstm_fused", ({},)),
            "gcrn": ("gcrn_config.json", "lstm_bidir2", ({},)),
            "convtasnet": ("convtasnet_config.json", "tcn_",
                           ({"fused_tcn": 1}, {"fused_tcn": 0})),
-           "hddemucs": ("hddemucas_config.json", "lstm_scan_wide", ({},))}
+           "hddemucs": ("hddemucas_config.json", "lstm_scan_wide", ({},)),
+           "apnet": ("apnet_config.json", None, ({},)),
+           "apnet2": ("apnet2_config.json", None, ({},)),
+           "freeV": ("freeV_config.json", None, ({},)),
+           "vocos": ("vocos_config.json", None, ({},))}
+GROUPS = {"both": ("bsrnn", "gcrn"), "tf_vocoders": ("apnet", "apnet2", "freeV", "vocos")}
 
 
 def category(kernel_name: str) -> str:
@@ -69,7 +77,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--model", default="both",
-                    choices=("bsrnn", "bsrnn_l", "gcrn", "convtasnet", "hddemucs", "both"))
+                    choices=(*CONFIGS, *GROUPS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_decode: needs a CUDA GPU")
@@ -85,7 +93,7 @@ def main() -> None:
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     B, T = 8, 1024
-    for model in ("bsrnn", "gcrn") if args.model == "both" else (args.model,):
+    for model in GROUPS.get(args.model, (args.model,)):
         cfg, kernel, variants = CONFIGS[model]
         h = load_config(os.path.join(REPO, "nvse_tpu_torch", "configs", cfg))
         mel = torch.from_numpy(np.random.default_rng(0).standard_normal(
@@ -114,7 +122,8 @@ def main() -> None:
                 if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
                     kernels[evt.key] = kernels.get(evt.key, 0.0) + us
             busy_ms = sum(kernels.values()) / 1e3 / args.iters
-            kernel_ms = sum(v for k, v in kernels.items() if kernel in k) / 1e3 / args.iters
+            kernel_ms = sum(v for k, v in kernels.items()
+                            if kernel and kernel in k) / 1e3 / args.iters
             by_cat = {}
             for k, v in kernels.items():
                 by_cat[category(k)] = by_cat.get(category(k), 0.0) + v / 1e3 / args.iters

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Where the time goes in one GAN training step of the PyTorch port.
 
-    python scripts/profile_torch_train.py [--model bsrnn|bsrnn_l|gcrn|joint]
+    python scripts/profile_torch_train.py [--model bsrnn|bsrnn_l|gcrn|joint|apnet|apnet2|freeV|vocos]
 
 Full-width BSRNN-M (nvse_tpu_torch/configs/bsrnn_config.json, the default),
 BSRNN-L (bsrnn_l_config.json), GCRN (gcrn_config.json) or the joint
 denoise+vocoder BSRNN_24k (bsrnn_joint_denoise_vocoder_config.json, a
 GANTrainer in the joint domain, each task: denoise on the batch plus seeded
-noise, vocoder on the batch itself) with MPD + MRD on one CUDA card, random weights from the config's seed, a seeded synthetic
+noise, vocoder on the batch itself), or one of the conv T-F vocoders
+(apnet, apnet2, freeV, vocos: no LSTM kernel) with MPD + MRD on one CUDA card, random weights from the config's seed, a seeded synthetic
 batch of 16 16384-sample segments (the training shapes of the LSTM kernels:
 BSRNN 544 rows x 65 steps and 1040 rows x 34 steps, at H = 128 for BSRNN-M
 and 256 for BSRNN-L, GCRN 16 rows x 65 steps at H = 448). Per compute dtype (float32, bfloat16)
@@ -153,7 +154,8 @@ def profile(model, dtype, task=None):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", default="bsrnn", choices=("bsrnn", "bsrnn_l", "gcrn", "joint"))
+    ap.add_argument("--model", default="bsrnn", choices=("bsrnn", "bsrnn_l", "gcrn", "joint",
+                                                         "apnet", "apnet2", "freeV", "vocos"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA GPU")

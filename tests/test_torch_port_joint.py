@@ -19,6 +19,7 @@ Compared on seeded numpy inputs:
 BSRNN_24k is narrowed to feature_dim 8 and one BSNet, at segment 2048 and
 batch 2.
 """
+import contextlib
 import json
 import os
 import re
@@ -198,6 +199,18 @@ def _jax_joint_input(wave, task, h):
     return np.asarray(jnp.log(jnp.clip(jnp.abs(inv), 1e-5, None)))
 
 
+def _log_amplitude_f64(wave, h):
+    """log(|STFT| + 1e-5) in float64 numpy (centred, reflect pad, periodic
+    Hann): the denoise input computed apart from both packages."""
+    pad = h.n_fft // 2
+    y = np.pad(wave.astype(np.float64), ((0, 0), (pad, pad)), mode="reflect")
+    win = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(h.win_size) / h.win_size)
+    T = 1 + (y.shape[-1] - h.n_fft) // h.hop_size
+    frames = np.stack([y[:, t * h.hop_size : t * h.hop_size + h.n_fft] * win for t in range(T)],
+                      axis=1)
+    return np.log(np.abs(np.fft.rfft(frames, axis=-1)) + 1e-5).transpose(0, 2, 1)
+
+
 @pytest.mark.parametrize("task", ["denoise", "vocoder"])
 def test_joint_input_matches_jax(task):
     h = _h()
@@ -205,6 +218,12 @@ def test_joint_input_matches_jax(task):
     got = joint_input(torch.from_numpy(noisy), task, h).numpy()
     ref = _jax_joint_input(noisy, task, h)
     assert got.shape == ref.shape == (2, 513, 9)
+    if task == "denoise":
+        # each side against float64 first, so that a failure names the side
+        # that is off (both are within 1e-5 of it near log-amplitude 0)
+        f64 = _log_amplitude_f64(noisy, h)
+        np.testing.assert_allclose(got, f64, **FEATURE_TOL, err_msg="port vs float64")
+        np.testing.assert_allclose(ref, f64, **FEATURE_TOL, err_msg="JAX vs float64")
     np.testing.assert_allclose(got, ref, **FEATURE_TOL)
     with pytest.raises(ValueError, match="denoise"):
         joint_input(torch.from_numpy(noisy), "enhance", h)
@@ -260,7 +279,30 @@ def _loop_config(tmp_path, joint_files, **kw):
     return h
 
 
-def test_train_joint_checkpoints_validates_and_resumes_at_its_epoch(tmp_path, joint_files):
+@contextlib.contextmanager
+def torch_threads(n):
+    """torch on n intra-op threads inside the block, the count put back after.
+    The port's CPU tests run small ops: on a host whose cores other processes
+    keep busy (the tier-1 run's six workers), every parallel region of eight
+    threads waits on descheduled ones. The joint loop below took 111 s with
+    eight threads against 17 s with one (same host, seven other busy
+    processes; 10 s against 17 s on an idle host)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
+@pytest.fixture
+def one_torch_thread():
+    with torch_threads(1):
+        yield
+
+
+def test_train_joint_checkpoints_validates_and_resumes_at_its_epoch(tmp_path, joint_files,
+                                                                      one_torch_thread):
     """3 speech files at batch 2: one step an epoch. Steps 0-1 run epochs 1-2,
     validation of both tasks at step 0 (one item each), the final save at
     step 1 (epoch index 1); the resumed run restores step 2 at that epoch and

@@ -25,6 +25,21 @@ def test_host_bases_match():
                                   _inv_mel_basis_np(22050, 1024, 80, 0.0, 8000.0))
 
 
+@pytest.mark.parametrize("const", ["hann", "mel_basis", "inv_mel_basis"])
+def test_cached_host_constants_are_read_only(const):
+    """The port's cached host constants are shared by every later transform of
+    the process: a caller that wrote into one would change them all. Writing
+    raises."""
+    a = {"hann": lambda: tops.hann_window(1024),
+         "mel_basis": lambda: tops._mel_filterbank_np(22050, 1024, 80, 0.0, 8000.0),
+         "inv_mel_basis": lambda: tops._inv_mel_basis_np(22050, 1024, 80, 0.0, 8000.0)}[const]()
+    before = a.copy()
+    assert not a.flags.writeable
+    with pytest.raises(ValueError, match="read-only"):
+        a[0] = 7.0
+    np.testing.assert_array_equal(a, before)
+
+
 def test_inverse_mel():
     mel = np.random.default_rng(0).standard_normal((2, 80, 17)).astype(np.float32) - 4.0
     ref = np.asarray(jops.inverse_mel(jnp.asarray(mel), *MEL))
