@@ -190,22 +190,42 @@ the last line:
      GRN gamma and beta (<name>_train), one step at batch 2 x 4096 against the CPU
      at the limits of phase 6, TF32 as the control (<name>_train_vs_cpu_plain); no
      kernel of csrc/ is launched on any of these paths;
- 18. the per-step ablation harness (scripts/profile_torch_lstm_step.py) in this
+ 18. the time domain: HiFiGAN and iSTFTNet (configs/hifigan_v1_config.json,
+     istftnet_config.json at their published widths: 13,936,130 / 13,262,244
+     parameters, weights from the seed) through phase 17's decode, serving and
+     card-vs-CPU checks (hifigan_decode, istftnet_serve, ...; their weight-normed
+     transposed convs folded at load; T mel frames decode to hop * T samples); the
+     time trainer (MPD + MSD, the first scale spectral-normalised; LS-GAN for
+     HiFiGAN / iSTFTNet, hinge for ConvTasNet / HD-Demucs): <name>_train, GANTrainer
+     steps at batch 16 x 16384 in float32 and bfloat16 of HiFiGAN, iSTFTNet,
+     ConvTasNet (fused_tcn 1: 24 tail + 24 statistics launches a step) and HD-Demucs
+     (4 lstm_fwd_hc + 4 lstm_bwd + 4 dW launches a step, H = 768), no launch of any
+     other kernel, a first step split into its passes (the MSD's 8 vectors u change
+     in the D pass and not in the G pass; a finite nonzero gradient on every
+     weight-norm v / g, ConvTasNet's tail weights, HD-Demucs's 12 LSTM tensors and
+     the 8 SNConv1d kernels); <name>_train_vs_cpu_plain, one step at 2 x 4096 against
+     the CPU at the limits of phase 6, TF32 as the control (ConvTasNet and HD-Demucs
+     with zero initial phase); hifigan_train_cli, the training CLI with the HiFiGAN
+     config for 2 steps with validation, then serving its g_ bundle; time_kernels, the
+     training kernels at HD-Demucs's step shape (16 rows, H = 768, cuDNN's BiLSTM
+     forward + backward beside them) and the tail and its statistics at ConvTasNet's
+     (16 rows), each against its plain version with phase 2's and phase 15's controls;
+ 19. the per-step ablation harness (scripts/profile_torch_lstm_step.py) in this
      process at its four shapes in float32 and bfloat16: five variants of one
      direction of csrc/lstm_fused.cu (H = 128) and csrc/lstm_fused_wide.cu
      (H = 256), each against its plain version, `full` against the forward half
      of lstm_scan_fused, and the split of a step into input, products,
      nonlinearities and floor (lstm_step_ablation, lstm_step_split);
- 19. each main path above sets the launch counts to 0 when it starts and
+ 20. each main path above sets the launch counts to 0 when it starts and
      reads them per wrapper and shape when it ends; every other shape that a
      main path launched (serving's 128-frame bucket, the validations, the
      offline decodes beside the streams, the joint CLI's validation and
      serving buckets, ConvTasNet's serving buckets, the bench's scans and
      fused BiLSTMs, HD-Demucs's lstm_scan_bidir2 at its bottleneck and its
-     serving bucket) gets its
+     serving bucket, the time steps' tails) gets its
      kernel-vs-plain row in the dtype it ran in, and a launch at a shape with
      no row fails the run;
- 20. print the kernels line (one entry per kernel, shape and dtype, each
+ 21. print the kernels line (one entry per kernel, shape and dtype, each
      with its launches summed over the main paths; the redesigned dW_hh
      reduction, wide and narrow fused BiLSTMs, narrow and wide scans (the
      training forwards among them), narrow and wide backward recurrences, the
@@ -508,6 +528,13 @@ DW_TOL, DW_CONTROL_ROWS = 1e-4, 256
 # H100 the step read 5.3e-7 / 1.6e-4 and the control 3.1e-4 / 6.8e-2; each
 # limit sits near the geometric mean of the two.
 STEP_RTOL, MOMENT_REL = 1e-5, 3e-3
+# The time models' small steps (TIME_TRAIN) move under float32 rounding alone: the
+# CPU's own step on the batch scaled by 1 + 1e-7 (one rounding of the input) moves
+# some moments by a percent (ConvTasNet's PReLU slopes, HD-Demucs's deep encoder
+# biases: activations a 1e-7 change carries across a ReLU / PReLU kink). For them
+# each limit is the larger of the fixed one and PERTURB_FACTOR times that CPU
+# step's own reading, and the TF32 control must still fail it.
+PERTURB, PERTURB_FACTOR = 1e-7, 3.0
 
 
 def _err(got, ref):
@@ -731,7 +758,7 @@ def phase_train_kernels(shapes=TRAIN_SHAPES, phase="kernel_vs_plain"):
                 raise SystemExit(f"lstm_bwd_dw {label} {DT_NAME[dtype]}: the control with "
                                  f"{DW_CONTROL_ROWS} pairs dropped ({dw_control}) passes "
                                  f"the tolerance {DW_TOL}")
-            if label in ("time", "band"):
+            if label in ("time", "band", "hddemucs"):
                 say(phase="bilstm_train_vs_cudnn", shape=label, rows=R, steps=T, H=H,
                     dtype=DT_NAME[dtype], **_bilstm_fwd_bwd_ms(R, T, H, dtype))
     return rows
@@ -844,7 +871,8 @@ def _bilstm_fwd_bwd_ms(R, T, H, dtype):
 
 
 # config files by phase name where the two differ
-CONFIG_FILES = {"joint": "bsrnn_joint_denoise_vocoder"}
+CONFIG_FILES = {"joint": "bsrnn_joint_denoise_vocoder", "hifigan": "hifigan_v1",
+                "hddemucs": "hddemucas"}
 JOINT_TASKS = ("denoise", "vocoder")
 
 
@@ -1033,7 +1061,21 @@ def _set_tf32(on):
 # and FreeV's widths are fixed); all at batch 2 x 4096 samples
 SMALL_STEP = {"bsrnn": dict(feature_dim=16, num_repeat=2), "gcrn": {},
               "bsrnn_l": dict(num_repeat=2), "joint": dict(feature_dim=16, num_repeat=2),
-              "apnet": {}, "apnet2": {}, "freeV": {}, "vocos": {}}
+              "apnet": {}, "apnet2": {}, "freeV": {}, "vocos": {},
+              # the time domain at full width: the MRF vocoders; ConvTasNet and HD-Demucs (the
+              # H = 768 training kernels at 2 rows) with zero initial phase, so that no random
+              # draw or Griffin-Lim differs. Their hinge losses give the post convs' biases a
+              # gradient of -1 + 1 where every logit is inside the margins: exactly 0 on the
+              # CPU, float noise in the card's reductions, and AdamW's first step moves a bias
+              # by a good part of lr for any nonzero noise. At learning rate 0 the D update
+              # leaves the discriminators as they are on both sides, and the G pass is
+              # compared on the same discriminators (the moments are the gradients, lr
+              # aside). ConvTasNet's step runs its plain trunk (fused_tcn 0): at this init its
+              # gradients amplify the tail kernel's float32 forward differences (PERF.md §6),
+              # and the kernel is held at the training shapes by time_kernels.
+              "hifigan": {}, "istftnet": {},
+              "convtasnet": dict(fused_tcn=0, init_phase="zero", learning_rate=0.0),
+              "hddemucs": dict(init_phase="zero", learning_rate=0.0)}
 
 
 def phase_train_vs_cpu_plain(model="bsrnn"):
@@ -1051,18 +1093,21 @@ def _train_vs_cpu_plain(model, task):
     h = _config(model, segment_size=4096, batch_size=2, **SMALL_STEP[model])
     audio = _audio_batch(2, 4096, h.sampling_rate, seed=1)
     out = {}
-    for run in ("cuda", "cuda_tf32", "cpu"):
-        tr = GANTrainer(h, device="cpu" if run == "cpu" else "cuda", steps_per_epoch=2,
+    runs = ("cuda", "cuda_tf32", "cpu") + (("cpu_perturbed",) if model in TIME_TRAIN else ())
+    for run in runs:
+        tr = GANTrainer(h, device="cpu" if run.startswith("cpu") else "cuda", steps_per_epoch=2,
                         joint=task is not None)
+        batch = audio * (1.0 + PERTURB) if run == "cpu_perturbed" else audio
         _set_tf32(run == "cuda_tf32")
         try:
-            losses = fetch_scalars(tr.step(*_step_args(audio, task, seed=1)))
+            losses = fetch_scalars(tr.step(*_step_args(batch, task, seed=1)))
         finally:
             _set_tf32(False)
-        moments = {n: tr.opt_g.state[p]["exp_avg"].detach().cpu()
-                   for n, p in tr.generator.named_parameters()}
-        moments.update({n: tr.opt_d.state[p]["exp_avg"].detach().cpu()
-                        for n, p in tr.disc.named_parameters()})
+        # a parameter that no loss reaches (ConvTasNet's last residual 1x1 when skip
+        # connections sum) has no AdamW state, on either side
+        moments = {n: opt.state[p]["exp_avg"].detach().cpu()
+                   for opt, mod in ((tr.opt_g, tr.generator), (tr.opt_d, tr.disc))
+                   for n, p in mod.named_parameters() if "exp_avg" in opt.state[p]}
         out[run] = losses, moments
     lc, mc = out["cpu"]
     floor = 1e-4 * max(v.norm().item() for v in mc.values())
@@ -1076,13 +1121,21 @@ def _train_vs_cpu_plain(model, task):
 
     loss_rel, mom_rel, worst = readings("cuda")
     ctl_loss_rel, ctl_mom_rel, _ = readings("cuda_tf32")
-    ok = loss_rel <= STEP_RTOL and mom_rel <= MOMENT_REL
-    refused = ctl_loss_rel > STEP_RTOL and ctl_mom_rel > MOMENT_REL
+    loss_tol, mom_tol, perturbed = STEP_RTOL, MOMENT_REL, {}
+    if "cpu_perturbed" in out:
+        p_loss, p_mom, p_worst = readings("cpu_perturbed")
+        loss_tol = max(STEP_RTOL, PERTURB_FACTOR * p_loss)
+        mom_tol = max(MOMENT_REL, PERTURB_FACTOR * p_mom)
+        perturbed = dict(cpu_perturbed_loss_rel=p_loss, cpu_perturbed_moment_rel=p_mom,
+                         cpu_perturbed_worst_moment=p_worst)
+    ok = loss_rel <= loss_tol and mom_rel <= mom_tol
+    refused = ctl_loss_rel > loss_tol and ctl_mom_rel > mom_tol
     say(phase=_tag(model, "train_vs_cpu_plain"), task=task,
         **SMALL_STEP[model], segment=4096, batch=2,
-        worst_loss_rel=loss_rel, loss_rtol=STEP_RTOL, worst_moment_rel=mom_rel,
-        worst_moment=worst, moment_rel_tol=MOMENT_REL, tf32_control_loss_rel=ctl_loss_rel,
-        tf32_control_moment_rel=ctl_mom_rel, ok=ok, control_refused=refused)
+        worst_loss_rel=loss_rel, loss_rtol=loss_tol, worst_moment_rel=mom_rel,
+        worst_moment=worst, moment_rel_tol=mom_tol, **perturbed,
+        tf32_control_loss_rel=ctl_loss_rel, tf32_control_moment_rel=ctl_mom_rel, ok=ok,
+        control_refused=refused)
     if not ok:
         raise SystemExit(f"one {model} training step (task {task}) on the card disagrees with "
                          "the CPU plain path")
@@ -2118,6 +2171,9 @@ def phase_hddemucs():
 # parameters (the JAX trees' counts; APNet's before weight norm is folded)
 TF_VOCODERS = {"apnet": 72_191_494, "apnet2": 31_425_539, "freeV": 18_218_509,
                "vocos": 13_480_450}
+# the MRF vocoders (time domain; configs/hifigan_v1_config.json, istftnet_config.json):
+# parameters at the published widths; T mel frames decode to hop * T samples
+MRF_VOCODERS = {"hifigan": 13_936_130, "istftnet": 13_262_244}
 
 
 def _no_launches(counts):
@@ -2125,13 +2181,15 @@ def _no_launches(counts):
 
 
 def phase_tf_vocoder(name):
-    """APNet, APNet2, FreeV or Vocos (configs/<name>_config.json, seeded random
-    weights) through the engine: decode B = 8 x 1024 mel frames in float32 and
-    bfloat16 (APNet's weight norm folded at load), run_inference on the
-    synthetic set in both dtypes and streamed by context recompute in
-    float32; no launch of any kernel of csrc/ (these models run convolutions,
-    GELU, LayerNorm and the iSTFT, which stay PyTorch). Then the card against
-    the CPU's plain path on a small input, TF32 as the control."""
+    """APNet, APNet2, FreeV or Vocos (configs/<name>_config.json), or the MRF
+    vocoders HiFiGAN and iSTFTNet (MRF_VOCODERS), seeded random weights, through
+    the engine: decode B = 8 x 1024 mel frames in float32 and bfloat16 (weight
+    norm folded at load: APNet's convs, HiFiGAN's and iSTFTNet's convs and
+    transposed convs), run_inference on the synthetic set in both dtypes and
+    streamed by context recompute in float32; no launch of any kernel of csrc/
+    (these models run convolutions, GELU, LayerNorm and the iSTFT, which stay
+    PyTorch). Then the card against the CPU's plain path on a small input, TF32
+    as the control."""
     from nvse_tpu_torch.infer import InferenceEngine, run_inference
     from nvse_tpu_torch.models import build_generator
     from nvse_tpu_torch.models.layers import WNConv1d
@@ -2142,13 +2200,15 @@ def phase_tf_vocoder(name):
     _reset_counts(*counters.values())              # this main path starts here
     base = _config(name)
     n_params = sum(p.numel() for p in build_generator(base)[0].parameters())
-    if n_params != TF_VOCODERS[name]:
-        raise SystemExit(f"{name} has {n_params} parameters, not {TF_VOCODERS[name]}")
+    want_params = {**TF_VOCODERS, **MRF_VOCODERS}[name]
+    if n_params != want_params:
+        raise SystemExit(f"{name} has {n_params} parameters, not {want_params}")
     B, T, iters = 8, 1024, 3
     rng = np.random.default_rng(6)
     mel = torch.from_numpy(rng.standard_normal((B, base.num_mels, T)).astype(np.float32) - 4.0)
     melc = mel.to("cuda")
-    audio_sec = B * (T - 1) * base.hop_size / base.sampling_rate
+    out_len = (T if name in MRF_VOCODERS else T - 1) * base.hop_size
+    audio_sec = B * out_len / base.sampling_rate
     wavs = {}
     for dtype in ("float32", "bfloat16"):
         eng = InferenceEngine(_config(name, compute_dtype=dtype), device="cuda")
@@ -2167,7 +2227,7 @@ def phase_tf_vocoder(name):
         if not _no_launches(counts) or not all(m.folded for m in wn):
             raise SystemExit(f"{name} decode {dtype}: launches {counts}, expected none; "
                              f"{sum(m.folded for m in wn)} of {len(wn)} weight-norm convs folded")
-        if wav.shape != (B, (T - 1) * base.hop_size) or not torch.isfinite(wav).all():
+        if wav.shape != (B, out_len) or not torch.isfinite(wav).all():
             raise SystemExit(f"{name} decode {dtype}: bad output {tuple(wav.shape)}")
         wavs[dtype] = wav
         del eng
@@ -2278,6 +2338,113 @@ def phase_tf_vocoder_train(name):
         del tr, before, after, held
         torch.cuda.empty_cache()
     return _shape_counts()                         # ... and ends here
+
+
+# the time trainer's models (phase name -> config overrides) and the launches a step
+# makes of each counted wrapper (none of any other): ConvTasNet's 24 TCN tails and
+# their gLN statistics in the forward (the backward recomputes the plain tail, as the
+# JAX custom VJP recomputes XLA's); HD-Demucs's two bottleneck BiLSTMs, each direction
+# through the residual-saving training forward, the backward recurrence and the dW_hh
+# reduction (csrc/lstm_scan_wide.cu kFwdHc, csrc/lstm_bwd_wide.cu, csrc/lstm_bwd.cu)
+TIME_TRAIN = {"hifigan": ({}, {}), "istftnet": ({}, {}),
+              "convtasnet": (dict(fused_tcn=1), {"tcn_block_tail": 24, "tcn_gln_stats": 24}),
+              "hddemucs": ({}, {"lstm_fwd_hc": 4, "lstm_bwd": 4, "lstm_bwd_dw": 4})}
+
+
+def _time_held(name, module):
+    """The generator parameters whose gradient a time-domain step must reach:
+    the MRF vocoders' weight-norm v and g (the transposed convs' too);
+    ConvTasNet's fused tail weights (gLN, depthwise conv, skip 1x1); HD-Demucs's
+    12 bottleneck LSTM tensors."""
+    if name in MRF_VOCODERS:
+        keep = lambda n: n.endswith((".v", ".g"))
+    elif name == "convtasnet":
+        keep = lambda n: n.endswith((".norm.weight", ".dwconv.kernel", ".skip_conv.kernel"))
+    else:
+        keep = lambda n: n.startswith("lstm.lstm")
+    return {n: p for n, p in module.named_parameters() if keep(n)}
+
+
+def phase_time_train(name):
+    """GANTrainer steps of a time-domain model at its published width, batch 16 x
+    16384, in float32 and bfloat16, through the time trainer (MPD + MSD; LS-GAN for
+    HiFiGAN / iSTFTNet, hinge for ConvTasNet / HD-Demucs): ms per step, device busy
+    time and idle share, peak memory, finite losses, every parameter changed, the
+    launches per step of TIME_TRAIN. The first step runs split into its passes: the
+    MSD's spectral-norm vectors u must change in the D pass and not in the G pass,
+    and after it every generator parameter of `_time_held` and every SNConv1d kernel
+    must hold a finite nonzero gradient."""
+    from nvse_tpu_torch.ops.lstm import _reset_counts
+    from nvse_tpu_torch.train import GANTrainer, fetch_scalars
+    from nvse_tpu_torch.train.trainer import _spectral_buffers
+
+    kw, per_step = TIME_TRAIN[name]
+    B, iters = 16, 2
+    counters = _all_counters()
+    _reset_counts(*counters.values())              # this main path starts here
+    for dtype in ("float32", "bfloat16"):
+        h = _config(name, compute_dtype=dtype, **kw)
+        audio = _audio_batch(B, int(h.segment_size), h.sampling_rate, seed=0).to("cuda")
+        tr = GANTrainer(h, device="cuda", steps_per_epoch=2)
+        before = {n: p.detach().clone() for n, p in
+                  [*tr.generator.named_parameters(), *tr.disc.named_parameters()]}
+        torch.cuda.reset_peak_memory_stats()
+        u0 = [u.clone() for u in _spectral_buffers(tr.disc)]
+        fwd = tr.generator_forward(audio)
+        tr.discriminator_update(fwd)
+        u1 = [u.clone() for u in _spectral_buffers(tr.disc)]
+        tr.generator_update(fwd)
+        u2 = [u.clone() for u in _spectral_buffers(tr.disc)]
+        del fwd
+        held = {**_time_held(name, tr.generator),
+                **{f"disc.{n}": p for n, p in tr.disc.named_parameters()
+                   if n.startswith("msd.discs.0.") and n.endswith(".kernel")}}
+        bad_grad = [n for n, p in held.items() if p.grad is None
+                    or not torch.isfinite(p.grad).all() or p.grad.abs().sum() == 0]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        metrics, counts = _launched(counters, lambda: [tr.step(audio) for _ in range(iters)][-1])
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) / iters * 1e3
+        busy = _busy_ms(lambda: tr.step(audio))
+        losses = fetch_scalars(metrics)
+        after = dict([*tr.generator.named_parameters(), *tr.disc.named_parameters()])
+        unchanged = [n for n, p in after.items() if torch.equal(p.detach(), before[n])]
+        u_d = sum(not torch.equal(a, b) for a, b in zip(u0, u1))
+        u_g = sum(not torch.equal(a, b) for a, b in zip(u1, u2))
+        per = {k: v / iters for k, v in counts.items()}
+        # f32 steps trace more kernel time than their wall time (kernels overlapped or
+        # ran longer under the profiler): no idle share there
+        say(phase=f"{name}_train", dtype=dtype, batch=B, segment=int(h.segment_size),
+            ms_per_step=ms, steps_timed=iters, device_busy_ms=busy,
+            idle_share=1.0 - busy / ms if busy and busy <= ms else "not measured",
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches_per_step=per,
+            held_params=len(held), u_vectors=len(u0), u_changed_in_d_pass=u_d,
+            u_changed_in_g_pass=u_g, loss=tr.d_loss.__name__, losses=losses)
+        fails = []
+        if not all(math.isfinite(v) for v in losses.values()):
+            fails.append(f"non-finite losses {losses}")
+        if unchanged:
+            fails.append(f"parameters not updated: {unchanged[:5]} ({len(unchanged)})")
+        if len(held) <= 8 or bad_grad:
+            fails.append(f"{len(held)} held params, without a finite nonzero grad: "
+                         f"{bad_grad[:5]}")
+        if len(u0) != 8 or u_d != 8 or u_g:
+            fails.append(f"{len(u0)} spectral-norm vectors, {u_d} changed in the D pass and "
+                         f"{u_g} in the G pass (expected 8, 8, 0)")
+        expect = {k: per_step.get(k, 0) for k in counters}
+        if per != expect:
+            fails.append(f"launches per step {per}, expected {expect}")
+        if fails:
+            raise SystemExit(f"train {name} {dtype}: " + "; ".join(fails))
+        del tr, before, after, held
+        torch.cuda.empty_cache()
+    return _shape_counts()                         # ... and ends here
+
+
+def _train_shapes(counts, label):
+    """(label, rows, steps, H) of each training-forward shape a path launched."""
+    return sorted({(label, R, T, H) for T, R, H, _ in counts["lstm_fwd_hc"]})
 
 
 # kernel vs plain for the ablation variants, as max |err| over max(1, max |plain|):
@@ -2498,11 +2665,25 @@ def main():
         v_paths[name] = phase_tf_vocoder(name)
         v_paths[f"{name}_train"] = phase_tf_vocoder_train(name)
         phase_train_vs_cpu_plain(name)
+    # the time domain: HiFiGAN and iSTFTNet serving (no kernel of csrc/), the time
+    # trainer (MPD + MSD) on them, on ConvTasNet (the TCN tail kernels) and on HD-Demucs
+    # (the H = 768 training kernels), the training CLI with HiFiGAN; then the kernels
+    # against their plain versions at the shapes those steps launched
+    t_paths = {}
+    for name in MRF_VOCODERS:
+        t_paths[name] = phase_tf_vocoder(name)
+    for name in TIME_TRAIN:
+        t_paths[f"{name}_train"] = phase_time_train(name)
+        phase_train_vs_cpu_plain(name)
+    t_paths["hifigan_train_cli"] = phase_train_cli("hifigan")
+    rows += phase_train_kernels(_train_shapes(t_paths["hddemucs_train"], "hddemucs"),
+                                phase="time_kernels")
+    rows += phase_rest(rows, t_paths, phase="time_kernels")
     # the per-step ablation harness (B8)
     ablation_rows, ablation_counts = phase_lstm_step_ablation()
     rows += ablation_rows
     all_paths = {**paths, **{f"bsrnn_l_{p}": c for p, c in l_paths.items()}, **c_paths,
-                 **b_paths, **v_paths, "lstm_step_ablation": ablation_counts}
+                 **b_paths, **v_paths, **t_paths, "lstm_step_ablation": ablation_counts}
     missing = _missing(rows, all_paths)
     if missing:
         raise SystemExit(f"launches on a main path with no kernel-vs-plain row: {missing}")

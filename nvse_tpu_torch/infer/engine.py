@@ -1,25 +1,28 @@
 """Batch inference engine: mel->wav decoding with RTF accounting.
 
 Counterpart of nvse_tpu/infer/engine.py for the generators the port has
-(the BSRNN family, GCRN, APNet, APNet2, FreeV, Vocos, ConvTasNet and
-HD-Demucs; a time-domain generator
-returns the wave itself, hop * (T - 1) samples, which synthesize_mel crops;
+(all ten: the BSRNN family, GCRN, APNet, APNet2, FreeV, Vocos, HiFiGAN,
+iSTFTNet, ConvTasNet and HD-Demucs; a time-domain generator returns the
+wave itself, hop * (T - 1) samples (HiFiGAN's and iSTFTNet's hop * T),
+which synthesize_mel crops;
 the joint BSRNN_24k's spectrum input is served by infer/joint.py):
   * length bucketing: utterances are padded to the next multiple of
     `bucket_frames` mel frames with log(1e-5) and the output is cropped
     back, so a batch of mixed lengths decodes at a few fixed shapes;
   * `compute_dtype: "bfloat16"` runs the trunk in bf16 (params and mel
     cast, as the JAX engine does); the DSP ends stay float32;
-  * weight norm is folded at load (`fold_weight_norm`, default true), the
-    reference's remove_weight_norm before decoding;
+  * weight norm is folded at load (`fold_weight_norm`, default true; the
+    transposed convs of HiFiGAN / iSTFTNet too), the reference's
+    remove_weight_norm before decoding;
   * RTF = generated-audio-seconds / wall-seconds, each bucket warmed up
     outside the timed region;
   * chunked streaming decode at one window shape whatever the length:
     `synthesize_streaming` recomputes a context on each side of every
     chunk (any generator), `synthesize_streaming_stateful` carries the
     time LSTMs' state and the overlap-add tail from chunk to chunk (exact
-    for a causal config; the BSRNN family only: GCRN, ConvTasNet and
-    HD-Demucs and the conv T-F vocoders have no `supports_stream_state` and
+    for a causal config; the BSRNN family only: GCRN, ConvTasNet,
+    HD-Demucs, HiFiGAN, iSTFTNet and the conv T-F vocoders have no
+    `supports_stream_state` and
     raise there, and run_inference streams them by context recompute), batch rows being
     independent streams.
 Multi-device serving and Orbax checkpoints are not ported yet and raise

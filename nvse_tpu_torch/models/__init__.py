@@ -1,10 +1,10 @@
 """Model registry of the port.
 
 `build_generator(h)` returns `(module, domain)` like the JAX package's
-registry (nvse_tpu/models/__init__.py). The BSRNN family, GCRN, the conv
-T-F vocoders APNet, APNet2, FreeV and Vocos (T-F domain), ConvTasNet and
-HD-Demucs (time domain) are ported so far; any other `model_name` (HiFiGAN,
-iSTFTNet) raises and lists what is. BSRNN_24k is registered "tf"
+registry (nvse_tpu/models/__init__.py): all ten of its generators, the BSRNN
+family, GCRN and the conv T-F vocoders APNet, APNet2, FreeV and Vocos (T-F
+domain), HiFiGAN, iSTFTNet, ConvTasNet and HD-Demucs (time domain); any
+other `model_name` raises and lists them. BSRNN_24k is registered "tf"
 as in the JAX package, but it takes a log-spectrum and trains only in the
 joint domain (train/loop_joint.py).
 """
@@ -17,6 +17,8 @@ from .bsrnn import BSRNN, BSRNN_24k
 from .convtasnet import ConvTasNet
 from .gcrn import GCRN
 from .hddemucas import HDDemucas
+from .hifigan import HiFiGAN
+from .istftnet import ISTFTNet
 from .vocos import Vocos
 
 # name -> (factory, domain); names match the reference cfgs' model_name
@@ -27,6 +29,8 @@ _REGISTRY: dict = {
     "BSRNN": (BSRNN, "tf"),
     "BSRNN_24k": (BSRNN_24k, "tf"),
     "GCRN": (GCRN, "tf"),
+    "HiFiGAN": (HiFiGAN, "time"),
+    "iSTFTNet": (ISTFTNet, "time"),
     "ConvTasNet": (ConvTasNet, "time"),
     "HDDemucas": (HDDemucas, "time"),
     "Vocos": (Vocos, "tf"),

@@ -1,5 +1,6 @@
-"""Linear, LayerNorm, LSTM, Conv1d, WNConv1d, ConvTranspose1d, Conv2d and
-ConvTranspose2d with torch.nn semantics, and fold_weight_norm.
+"""Linear, LayerNorm, LSTM, Conv1d, WNConv1d, ConvTranspose1d,
+WNConvTranspose1d, SNConv1d, Conv2d and ConvTranspose2d with torch.nn
+semantics, and fold_weight_norm.
 
 Counterparts of nvse_tpu/models/layers.py (Linear, LayerNorm, LSTM
 :466-608; Conv1d, ConvTranspose1d :138-285; Conv2d, ConvTranspose2d,
@@ -12,7 +13,8 @@ layouts. The 1-D convs take and return the JAX layers' channels-last
 (B, T, C). The weight-normalised WNConv1d keeps `v`, `g`, `bias` in torch's
 layout, or `kernel`, `bias` once fold_weight_norm has folded its state_dict
 (nvse_tpu/models/layers.py:78-192). utils/jax_params.py maps a flax
-tree onto them one to one. Random init draws from the caller's
+tree onto them one to one (SNConv1d's `u` from the flax `spectral`
+collection). Random init draws from the caller's
 torch.Generator with the JAX package's distributions.
 """
 from __future__ import annotations
@@ -349,6 +351,80 @@ class WNConv1d(nn.Module):
                 self.v = nn.Parameter(like.new_empty(shape))
                 self.g = nn.Parameter(like.new_empty((shape[0], 1, 1)))
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+class WNConvTranspose1d(WNConv1d):
+    """Weight-normalised torch.nn.ConvTranspose1d on channels-last (B, T, C).
+
+    Counterpart of nvse_tpu/models/layers.py:ConvTranspose1d with
+    use_weight_norm (:193-285, whose kernel is (k, in, out)): parameters `v`
+    (in, out, k), `g` (in, 1, 1) and `bias` (out,); the weight is
+    g * v / max(||v||, 1e-12), the norm over every axis but the input
+    channel, as torch's weight_norm (dim 0) takes it on a ConvTranspose1d.
+    Init as torch: U(+-1/sqrt(out * k)) for v and bias, g = ||v||. Folds at
+    load as WNConv1d (`kernel` (in, out, k) in place of `v`, `g`).
+    out_len = (T - 1) * stride - 2 * padding + k."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, gen: torch.Generator | None = None):
+        nn.Module.__init__(self)
+        self.stride, self.padding = stride, padding
+        bound = 1.0 / math.sqrt(out_channels * kernel_size)
+        self.v = uniform_((in_channels, out_channels, kernel_size), bound, gen)
+        self.g = nn.Parameter(self.v.data.flatten(1).norm(dim=1).reshape(-1, 1, 1))
+        self.bias = uniform_((out_channels,), bound, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight()
+        y = F.conv_transpose1d(x.to(w.dtype).transpose(1, 2), w, self.bias, self.stride,
+                               self.padding)
+        return y.transpose(1, 2)
+
+
+class SNConv1d(nn.Module):
+    """Spectrally normalised torch.nn.Conv1d on channels-last (B, T, C), one
+    power iteration a call.
+
+    Counterpart of nvse_tpu/models/layers.py:SNConv1d (:397-465), the first
+    scale of the MSD (reference Models/models.py:221): parameters `kernel`
+    (out, in / groups, k) and `bias` (out,), U(+-1/sqrt(in / groups * k)), and
+    the buffer `u` (out,), N(0, 1). The kernel as an (out, in / groups * k)
+    matrix W is divided by sigma = u' W v, with v = W^T u / ||W^T u|| and
+    u' = W v / ||W v|| (each norm + 1e-12) from the stored u. The iteration
+    runs in float32 on u and v detached; sigma stays a function of W, so its
+    gradient reaches the kernel, and is cast back to the kernel's dtype.
+    `u` takes u' only when the caller passes update_stats (the D pass), never
+    at init nor in the G pass. This is the JAX package's estimate, not
+    torch.nn.utils.spectral_norm, which updates u in every forward of a
+    module in training mode."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, groups: int = 1, gen: torch.Generator | None = None):
+        super().__init__()
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.kernel, self.bias = _kernel_and_bias(
+            (out_channels, in_channels // groups, kernel_size), (out_channels,),
+            1.0 / math.sqrt(in_channels // groups * kernel_size), None, gen)
+        self.register_buffer("u", torch.randn(out_channels, generator=gen))
+
+    def weight(self, update_stats: bool = False) -> torch.Tensor:
+        """The normalised kernel; with update_stats, `u` takes u'."""
+        w32 = self.kernel.reshape(self.kernel.shape[0], -1).float()
+        with torch.no_grad():
+            v = w32.T @ self.u
+            v = v / (v.norm() + 1e-12)
+            u_new = w32 @ v
+            u_new = u_new / (u_new.norm() + 1e-12)
+        sigma = u_new @ w32 @ v
+        if update_stats:
+            self.u.copy_(u_new)
+        return self.kernel / sigma.to(self.kernel.dtype)
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+        w = self.weight(update_stats)
+        y = F.conv1d(x.to(w.dtype).transpose(1, 2), w, self.bias, self.stride, self.padding,
+                     1, self.groups)
+        return y.transpose(1, 2)
 
 
 def fold_weight_norm(state_dict: dict) -> dict:

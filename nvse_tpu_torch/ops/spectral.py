@@ -140,8 +140,10 @@ def _istft_envelope(win_bytes: bytes, n_fft: int, hop: int, T: int, device: torc
     1, on device."""
     win = np.frombuffer(win_bytes, np.float32)
     env = np.zeros(n_fft + hop * (T - 1), np.float32)
-    for t in range(T):
-        env[t * hop : t * hop + n_fft] += win * win
+    # one pass per window sample, T frames at a time (iSTFTNet's head: 65,537 frames of 16),
+    # the last sample first: each entry sums its frames in time order, as frame by frame
+    for j in reversed(range(n_fft)):
+        env[j : j + hop * T : hop] += win[j] * win[j]
     env = np.where(env > 1e-11, env, 1.0).astype(np.float32)
     return _on_device(env, device)
 

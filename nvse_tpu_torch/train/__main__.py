@@ -1,10 +1,14 @@
-"""GAN training CLI on the port (counterpart of train_tf_wi_inv.py and, with
---joint, of train_tf_wi_inv_joint_denoise_vocoder.py).
+"""GAN training CLI on the port (counterpart of train_tf_wi_inv.py,
+train_time_wi_inv.py and, with --joint, of
+train_tf_wi_inv_joint_denoise_vocoder.py).
 
     python -m nvse_tpu_torch.train --cfg_filename nvse_tpu_torch/configs/bsrnn_config.json
+    python -m nvse_tpu_torch.train --cfg_filename nvse_tpu_torch/configs/hifigan_v1_config.json
     python -m nvse_tpu_torch.train --joint
-Trains the configured generator with MPD + MRD, writing g_/do_ bundles
-to h.checkpoint_path and resuming from the newest pair there. --joint
+Trains the configured generator in its registry domain, MPD + MRD for a
+T-F model, MPD + MSD for a time-domain one (HiFiGAN, iSTFTNet, ConvTasNet,
+HD-Demucs), writing g_/do_ bundles to h.checkpoint_path and resuming from
+the newest pair there. --joint
 trains the joint denoise+vocoder BSRNN_24k (train/loop_joint.py; default
 config nvse_tpu_torch/configs/bsrnn_joint_denoise_vocoder_config.json),
 a task drawn per batch. Runs on the GPU unless --device cpu is given.

@@ -4,7 +4,10 @@ Counterpart of nvse_tpu/train/checkpoint.py (Orbax there; torch.save
 here, synchronously). Per save step two files, the reference repo's own
 layout (utils.py:51-86, train_tf_wi_inv.py:288-305):
   g_{step:08d}   {"generator": state_dict}   what inference loads
-  do_{step:08d}  {"mpd", "mrd", "optim_g", "optim_d", "steps", "epoch"}
+  do_{step:08d}  {"mpd", "mrd" or "msd", "optim_g", "optim_d", "steps", "epoch"}
+The time domain's "msd" state_dict carries the spectral-norm buffers `u`
+of its first scale, as the JAX bundle's `spectral` (checkpoint.py:89-90);
+resuming restores them.
 Rotation keeps `max_to_keep` of each and writes the checkpoint_g /
 checkpoint_d manifests. Tensors are saved on the CPU, so a bundle written
 on the card loads anywhere.
@@ -58,7 +61,7 @@ def save_checkpoint(path: str, step: int, epoch: int, trainer, max_to_keep: int 
           os.path.join(path, f"g_{step:08d}"))
     _save(_to_cpu({
         "mpd": trainer.disc["mpd"].state_dict(),
-        "mrd": trainer.disc["mrd"].state_dict(),
+        trainer.scale_key: trainer.disc[trainer.scale_key].state_dict(),
         "optim_g": trainer.opt_g.state_dict(),
         "optim_d": trainer.opt_d.state_dict(),
         "steps": int(step),
@@ -79,7 +82,7 @@ def restore_checkpoint(path: str, trainer) -> tuple[int, int]:
     do = torch.load(cp_do, map_location="cpu", weights_only=True)
     trainer.generator.load_state_dict(g["generator"])
     trainer.disc["mpd"].load_state_dict(do["mpd"])
-    trainer.disc["mrd"].load_state_dict(do["mrd"])
+    trainer.disc[trainer.scale_key].load_state_dict(do[trainer.scale_key])
     trainer.opt_g.load_state_dict(do["optim_g"])
     trainer.opt_d.load_state_dict(do["optim_d"])
     return int(do["steps"]) + 1, int(do["epoch"])

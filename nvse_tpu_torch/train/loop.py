@@ -1,7 +1,8 @@
 """Training loop: epochs, checkpoints, optional TensorBoard, validation.
 
-Counterpart of nvse_tpu/train/loop.py:82-330 for the T-F trainer
-(reference train_tf_wi_inv.py:158-430): checkpoint every
+Counterpart of nvse_tpu/train/loop.py:82-330 for the T-F and the time
+trainers (reference train_tf_wi_inv.py:158-430, train_time_wi_inv.py:
+150-430; the domain is the registry's): checkpoint every
 `checkpoint_interval` with keep-N rotation, scalars every
 `summary_interval`, validation every `validation_interval` (step 0
 included unless `skip_step0_validation`), a final save and stop once
@@ -85,7 +86,7 @@ def train(h, device: str = "cuda", log_fn=print) -> None:
             log_fn(f"step {step} validation: "
                    + " ".join(f"{k}={v:.4f}" for k, v in sorted(agg.items())))
 
-    log_fn(f"training {h.model_name} (tf-domain) on {len(train_ds)} files, "
+    log_fn(f"training {h.model_name} ({trainer.domain}-domain) on {len(train_ds)} files, "
            f"{steps_per_epoch} steps/epoch, device {dev}")
 
     def device_batches():

@@ -1,19 +1,32 @@
-"""GAN trainer of the T-F and joint domains: one step updates D, then G.
+"""GAN trainer of the T-F, time and joint domains: one step updates D, then G.
 
 Counterpart of nvse_tpu/train/trainer.py:85-543 with domain "tf"
 (reference train_tf_wi_inv.py:158-305: the BSRNN family, GCRN, APNet,
-APNet2, FreeV and Vocos) and "joint" (the joint
+APNet2, FreeV and Vocos), "time" (train_time_wi_inv.py:150-305: HiFiGAN,
+iSTFTNet, ConvTasNet and HD-Demucs) and "joint" (the joint
 denoise+vocoder BSRNN_24k, train_tf_wi_inv_joint_denoise_vocoder.py):
-  L_D = mrd_weight * L_MRD + L_MPD                      (LS-GAN)
-  L_G = 45 L_A + 100 (IP + GD + PTD) + 20 (L_C + 2.25 (L_R + L_I))
-        + L_GAN + L_FM + 45 L_Mel
-Features (mel, mel-loss target, log-amplitude, phase, real, imag) are
-computed on the device from the raw audio batch. The generator runs once
+  tf, joint: L_D = mrd_weight * L_MRD + L_MPD           (LS-GAN)
+             L_G = 45 L_A + 100 (IP + GD + PTD) + 20 (L_C + 2.25 (L_R + L_I))
+                   + L_GAN + L_FM + 45 L_Mel
+  time:      L_D = L_MSD + L_MPD   (LS-GAN for HiFiGAN / iSTFTNet, else hinge)
+             L_G = L_GAN + L_FM + 45 L_Mel
+Features (mel, mel-loss target, and in the T-F domains log-amplitude,
+phase, real, imag) are computed on the device from the raw audio batch. The generator runs once
 with grad; the discriminators are updated first on its detached output,
 and the G losses use the UPDATED discriminators, frozen, so that no D
 gradient is left for the next D update. One backward through the G loss
 reaches every generator weight: each BiLSTM's backward is the
-lstm_bwd kernel per direction (ops/lstm.py).
+lstm_bwd kernel per direction (ops/lstm.py), ConvTasNet's fused TCN tails
+recompute their plain version (ops/tcn.py).
+
+The time domain's MSD holds spectral norm on its first scale (SNConv1d):
+the D pass advances its power-iteration buffers `u` (twice, real then
+generated wave, as the JAX module's two calls); the G pass only reads them.
+A ConvTasNet / HD-Demucs with init_phase "rand" takes a new initial phase
+every step, a uniform draw from a CPU torch.Generator seeded with
+h.seed + 0x9A5E + the generator's update count (the JAX step folds the step
+into a PRNG key; the draws differ, the rule is the same); validation and
+"griffin_lim" take ops.griffin_lim.default_phase.
 
 The joint domain (GANTrainer(..., joint=True)) has the same losses and
 discriminators with three differences (nvse_tpu/train/trainer.py:202-262):
@@ -30,8 +43,8 @@ of the float32 master weights (torch.func.functional_call); features,
 losses and optimizer states stay float32, and the casts pass float32
 gradients back, as the JAX step's `_to_compute` does.
 
-Not ported (raise NotImplementedError): the time domain (MSD, SNConv1d),
-use_cqtd, sp_devices > 1 and compute_dtype "float16" (the JAX trainer's
+Not ported (raise NotImplementedError): use_cqtd, sp_devices > 1 and
+compute_dtype "float16" (the JAX trainer's
 float16 trunks: the LSTM kernels take float32 and bfloat16 only). A
 spectrum-input model (BSRNN_24k) given to the T-F trainer raises too,
 before any CUDA call, naming the joint entry (python -m
@@ -49,6 +62,8 @@ from .. import resolve_device
 from ..losses import (
     amplitude_loss,
     feature_loss,
+    hinge_discriminator_loss,
+    hinge_generator_loss,
     ls_discriminator_loss,
     ls_generator_loss,
     phase_loss,
@@ -56,11 +71,12 @@ from ..losses import (
 )
 from ..losses.spectral import _masked_mean
 from ..models import build_generator, model_input_bins
-from ..models.discriminators import MultiPeriodDiscriminator, MultiResolutionDiscriminator
+from ..models.discriminators import (MultiPeriodDiscriminator, MultiResolutionDiscriminator,
+                                     MultiScaleDiscriminator)
 from ..models.layers import LSTM
+from ..ops.griffin_lim import random_phase
 from ..ops.spectral import JOINT_EPS, JOINT_TASKS, amp_pha_spectrum, joint_input, mel_spectrogram
 
-METRIC_KEYS = ("A", "IP", "GD", "PTD", "C", "R", "I", "Mel", "GAN", "FM", "G", "D")
 
 
 def learning_rate(h, steps_per_epoch: int, updates: int) -> float:
@@ -159,11 +175,12 @@ def _cast(tree, dtype):
     return type(tree)(_cast(t, dtype) for t in tree)
 
 
+def _spectral_buffers(module: nn.Module) -> list:
+    """The MSD's power-iteration vectors (SNConv1d's `u`), in module order."""
+    return [b for n, b in module.named_buffers() if n.endswith(".u")]
+
+
 def _check_supported(h, domain: str) -> None:
-    if domain not in ("tf", "joint"):
-        raise NotImplementedError(
-            f"{h.model_name} trains in the {domain} domain; only the T-F and joint trainers "
-            "(MPD + MRD) are ported (the time domain's MSD / SNConv1d is not)")
     spectrum_input = model_input_bins(h) != h.num_mels
     if domain == "tf" and spectrum_input:
         raise NotImplementedError(
@@ -182,12 +199,14 @@ def _check_supported(h, domain: str) -> None:
 
 
 class GANTrainer:
-    """Generator, MPD + MRD, their AdamW optimizers and the step functions.
+    """Generator, MPD + MRD (T-F and joint domains) or MPD + MSD (time
+    domain), their AdamW optimizers and the step functions.
 
     Weights are random from torch.Generators seeded with h.seed (the
     generator as build_generator draws it, the discriminators from
     h.seed + 1), made on the CPU and moved to `device`. joint=True trains
-    in the joint domain (BSRNN_24k); its steps take the task.
+    in the joint domain (BSRNN_24k); its steps take the task. The domain
+    is the registry's (models.build_generator).
     """
 
     def __init__(self, h, device: str | torch.device = "cuda", steps_per_epoch: int = 1,
@@ -196,40 +215,62 @@ class GANTrainer:
         generator, domain = build_generator(h)
         _check_supported(h, "joint" if joint else domain)   # before any CUDA call
         self.joint = joint
+        self.domain = "joint" if joint else domain
+        self.tf_like = self.domain in ("tf", "joint")
         # the joint domain's log amplitude floor (nvse_tpu/train/trainer.py:246)
         self.amp_eps = JOINT_EPS if joint else 1e-7
         self.device = resolve_device(device)
         dgen = torch.Generator().manual_seed(int(h.get("seed", 1234)) + 1)
         self.generator = generator.to(self.device)
+        # LS-GAN in the T-F domains and for HiFiGAN / iSTFTNet, hinge for the other
+        # time models (nvse_tpu/train/trainer.py:213-218)
+        use_ls = self.tf_like or h.model_name in ("HiFiGAN", "iSTFTNet")
+        self.d_loss = ls_discriminator_loss if use_ls else hinge_discriminator_loss
+        self.g_loss = ls_generator_loss if use_ls else hinge_generator_loss
+        # the scale discriminator, its key and weight (nvse_tpu/train/trainer.py:152-167);
+        # under the hinge losses the real and generated waves take separate calls
+        # (models/discriminators.py: the exact zero of a post conv's bias gradient)
+        self.scale_key = "mrd" if self.tf_like else "msd"
+        if self.tf_like:
+            scale_disc = MultiResolutionDiscriminator(gen=dgen)
+        else:
+            scale_disc = MultiScaleDiscriminator(gen=dgen, batched=use_ls)
         self.disc = nn.ModuleDict({
-            "mpd": MultiPeriodDiscriminator(tuple(h.mpd_reshapes), gen=dgen),
-            "mrd": MultiResolutionDiscriminator(gen=dgen),
+            "mpd": MultiPeriodDiscriminator(tuple(h.mpd_reshapes), gen=dgen, batched=use_ls),
+            self.scale_key: scale_disc,
         }).to(self.device)
+        self.scale_weight = float(h.mrd_weight) if self.tf_like else 1.0
+        # a fresh initial phase a step for init_phase "rand" (trainer.py:297-312)
+        self.rand_phase = str(getattr(generator, "init_phase", "")).lower() == "rand"
+        self.phase_seed = int(h.get("seed", 0)) + 0x9A5E
         self.opt_g = make_optimizer(self.generator, h, steps_per_epoch)
         self.opt_d = make_optimizer(self.disc, h, steps_per_epoch)
         self.compute_dtype = {"bfloat16": torch.bfloat16}.get(str(h.get("compute_dtype")))
         self.clip = float(h.get("grad_clip_norm", 0.0) or 0.0)
         self.skip_nonfinite = bool(h.get("skip_nonfinite_updates"))
-        self.mrd_weight = float(h.mrd_weight)
         sr = h.sampling_rate
         self.melargs = (h.n_fft, h.num_mels, sr, h.hop_size, h.win_size)
         # h.meloss is the fmax of the mel-loss target; null -> sr/2
         self.meloss_fmax = h.get("meloss") or sr / 2.0
 
     # -- pieces -----------------------------------------------------------
-    def _run(self, module: nn.Module, *args, mixed: bool = True):
-        """module(*args), in the compute dtype from cast copies of the
-        float32 weights when mixed; outputs come back float32."""
+    def _run(self, module: nn.Module, *args, mixed: bool = True, **kwargs):
+        """module(*args, **kwargs), in the compute dtype from cast copies of
+        the float32 weights when mixed; outputs come back float32. The
+        keyword arguments (an initial phase, update_stats) are passed as
+        they are; buffers (the MSD's u) stay float32."""
         if not mixed or self.compute_dtype is None:
-            return module(*args)
+            return module(*args, **kwargs)
         params = {n: p.to(self.compute_dtype) for n, p in module.named_parameters()}
-        out = torch.func.functional_call(module, params, _cast(args, self.compute_dtype))
+        out = torch.func.functional_call(module, params, _cast(args, self.compute_dtype),
+                                         kwargs)
         return _cast(out, torch.float32)
 
     def features(self, audio: torch.Tensor, aux_input: torch.Tensor | None = None,
                  task: str | None = None):
         """(generator input, mel-loss target, log-amplitude, phase, real,
-        imag) of the clean wave (reference dataset.py:218-244). The
+        imag) of the clean wave (reference dataset.py:218-244); the time
+        domain has the first two only, the rest None. The
         generator input is the clean wave's mel, or in the joint domain
         joint_input of the input wave `aux_input` for `task`
         (dataset_joint_denoise_vocoder.py:344-392)."""
@@ -242,6 +283,8 @@ class GANTrainer:
             inpt = joint_input(aux_input.to(self.device, torch.float32), task, h)
         else:
             inpt = mel_spectrogram(audio, *self.melargs, h.fmin, h.fmax)
+        if not self.tf_like:
+            return inpt, meloss, None, None, None, None
         logamp, pha, rea, imag = amp_pha_spectrum(audio, h.n_fft, h.hop_size, h.win_size,
                                                   eps=self.amp_eps)
         return inpt, meloss, logamp, pha, rea, imag
@@ -258,7 +301,9 @@ class GANTrainer:
              task: str | None = None) -> dict:
         """One GAN step on a (B, segment) float32 batch (joint: the clean
         wave, the input wave and the task); returns the metrics as 0-dim
-        float32 tensors on the device (no host sync)."""
+        float32 tensors on the device (no host sync): A, IP, GD, PTD, C, R, I,
+        Mel, GAN, FM, G and D; in the time domain Mel, GAN, FM, G and D
+        (nvse_tpu/train/trainer.py:405-409)."""
         fwd = self.generator_forward(audio, aux_input, task)
         L_D, ok_d = self.discriminator_update(fwd)
         metrics, ok_g = self.generator_update(fwd)
@@ -272,77 +317,111 @@ class GANTrainer:
         """The generator's arguments: in the T-F domain an aux_input (FreeV's
         and GCRN's inv_mel_amp) follows the mel, as the JAX step passes it
         (nvse_tpu/train/trainer.py:300-311); the joint domain's aux_input is
-        the input wave, which joint_input already consumed."""
-        if self.joint or aux_input is None:
+        the input wave, which joint_input already consumed, and the time
+        domain's generators take the mel alone."""
+        if self.domain != "tf" or aux_input is None:
             return (inpt,)
         return inpt, aux_input.to(self.device, torch.float32)
+
+    def step_phase(self, mel: torch.Tensor) -> torch.Tensor:
+        """The initial phase (B, n_fft // 2 + 1, T) of this step's "rand"
+        draw: uniform on [-pi, pi) from a CPU generator seeded with
+        h.seed + 0x9A5E + the generator's updates so far."""
+        h = self.h
+        gen = torch.Generator().manual_seed(self.phase_seed + _updates_done(self.opt_g))
+        return random_phase((mel.shape[0], h.n_fft // 2 + 1, mel.shape[-1]), gen, self.device)
 
     def generator_forward(self, audio: torch.Tensor, aux_input: torch.Tensor | None = None,
                           task: str | None = None) -> dict:
         """Features of the batch and the generator's outputs, with grad."""
         audio = audio.to(self.device, torch.float32)
         feats = self.features(audio, aux_input, task)
-        outs = self._run(self.generator, *self._gen_args(feats[0], aux_input))
-        y_min = min(outs[-1].shape[-1], audio.shape[-1])
+        kw = {"theta": self.step_phase(feats[0])} if self.rand_phase else {}
+        outs = self._run(self.generator, *self._gen_args(feats[0], aux_input), **kw)
+        y_g = outs[-1] if self.tf_like else outs
+        y_min = min(y_g.shape[-1], audio.shape[-1])
         return {"feats": feats, "outs": outs, "y_c": audio[..., :y_min],
-                "y_gc": outs[-1][..., :y_min]}
+                "y_gc": y_g[..., :y_min]}
+
+    def _scale(self, y: torch.Tensor, y_hat: torch.Tensor, update_stats: bool):
+        """The MRD, or the MSD (advancing its u when update_stats)."""
+        if self.tf_like:
+            return self._run(self.disc["mrd"], y, y_hat)
+        return self._run(self.disc["msd"], y, y_hat, update_stats=update_stats)
 
     def discriminator_update(self, fwd: dict):
         """L_D on the detached generated wave and one D update
-        (reference train_tf_wi_inv.py:190-205). Returns (L_D, applied)."""
+        (reference train_tf_wi_inv.py:190-205). The MSD's u advance; a
+        skipped update keeps the old u, as the JAX step. Returns (L_D,
+        applied)."""
         y_c, y_g_det = fwd["y_c"], fwd["y_gc"].detach()
+        u_old = [u.clone() for u in _spectral_buffers(self.disc)] if self.skip_nonfinite else []
         r_f, g_f, _, _ = self._run(self.disc["mpd"], y_c, y_g_det)
-        r_s, g_s, _, _ = self._run(self.disc["mrd"], y_c, y_g_det)
-        L_D = (ls_discriminator_loss(r_s, g_s)[0] * self.mrd_weight
-               + ls_discriminator_loss(r_f, g_f)[0])
+        r_s, g_s, _, _ = self._scale(y_c, y_g_det, update_stats=True)
+        L_D = self.d_loss(r_s, g_s)[0] * self.scale_weight + self.d_loss(r_f, g_f)[0]
         self.opt_d.zero_grad(set_to_none=True)
         L_D.backward()
-        return L_D, apply_update(self.opt_d, self.h, self.clip, self.skip_nonfinite)
+        ok = apply_update(self.opt_d, self.h, self.clip, self.skip_nonfinite)
+        if not ok:
+            for u, old in zip(_spectral_buffers(self.disc), u_old):
+                u.copy_(old)
+        return L_D, ok
 
     def generator_update(self, fwd: dict):
-        """L_G against the updated, frozen discriminators, one backward
-        through the generator and one G update. Returns (metrics, applied)."""
+        """L_G against the updated, frozen discriminators (the MSD's u read,
+        not advanced), one backward through the generator and one G update.
+        Returns (metrics, applied)."""
         h = self.h
         mel, meloss, logamp, pha, rea, imag = fwd["feats"]
-        logamp_g, pha_g, rea_g, imag_g, _ = fwd["outs"]
         y_c, y_gc = fwd["y_c"], fwd["y_gc"]
         with _frozen(self.disc):
-            L_A = amplitude_loss(logamp, logamp_g)
-            ip, gd, ptd = phase_loss(pha, pha_g)
-            # gradients flow through both sides of the consistency loss
-            L_C = self._consistency(rea_g, imag_g, y_gc)
-            L_R = torch.mean(torch.abs(rea - rea_g))
-            L_I = torch.mean(torch.abs(imag - imag_g))
             y_g_mel = mel_spectrogram(y_gc, *self.melargs, h.fmin, self.meloss_fmax)
             L_Mel = torch.mean(torch.abs(meloss - y_g_mel))
             _, g_f, fr_f, fg_f = self._run(self.disc["mpd"], y_c, y_gc)
-            _, g_s, fr_s, fg_s = self._run(self.disc["mrd"], y_c, y_gc)
-            L_GAN = ls_generator_loss(g_s)[0] * self.mrd_weight + ls_generator_loss(g_f)[0]
-            L_FM = feature_loss(fr_s, fg_s) * self.mrd_weight + feature_loss(fr_f, fg_f)
-            L_G = (45.0 * L_A + 100.0 * (ip + gd + ptd) + 20.0 * (L_C + 2.25 * (L_R + L_I))
-                   + L_GAN + L_FM + 45.0 * L_Mel)
+            _, g_s, fr_s, fg_s = self._scale(y_c, y_gc, update_stats=False)
+            w = self.scale_weight
+            L_GAN = self.g_loss(g_s)[0] * w + self.g_loss(g_f)[0]
+            L_FM = feature_loss(fr_s, fg_s) * w + feature_loss(fr_f, fg_f)
+            L_G = L_GAN + L_FM + 45.0 * L_Mel
+            if self.tf_like:
+                logamp_g, pha_g, rea_g, imag_g, _ = fwd["outs"]
+                L_A = amplitude_loss(logamp, logamp_g)
+                ip, gd, ptd = phase_loss(pha, pha_g)
+                # gradients flow through both sides of the consistency loss
+                L_C = self._consistency(rea_g, imag_g, y_gc)
+                L_R = torch.mean(torch.abs(rea - rea_g))
+                L_I = torch.mean(torch.abs(imag - imag_g))
+                L_G = (45.0 * L_A + 100.0 * (ip + gd + ptd) + 20.0 * (L_C + 2.25 * (L_R + L_I))
+                       + L_G)
             self.opt_g.zero_grad(set_to_none=True)
             L_G.backward()
         ok_g = apply_update(self.opt_g, h, self.clip, self.skip_nonfinite)
-        vals = (L_A, ip, gd, ptd, L_C, L_R, L_I, L_Mel, L_GAN, L_FM, L_G)
-        return {k: v.detach().float() for k, v in zip(METRIC_KEYS, vals)}, ok_g
+        metrics = {"Mel": L_Mel, "GAN": L_GAN, "FM": L_FM, "G": L_G}
+        if self.tf_like:
+            metrics.update(A=L_A, IP=ip, GD=gd, PTD=ptd, C=L_C, R=L_R, I=L_I)
+        return {k: v.detach().float() for k, v in metrics.items()}, ok_g
 
     # -- validation (no grad: the BiLSTMs take the inference kernel) ------
     @torch.no_grad()
     def eval_step(self, audio: torch.Tensor, aux_input: torch.Tensor | None = None,
                   task: str | None = None):
         """Full losses on a fixed crop (trainer.py:425-453); float32 weights.
-        Joint: the clean wave, the input wave and the task, as step."""
+        Joint: the clean wave, the input wave and the task, as step. The
+        time domain: Mel only."""
         h = self.h
         audio = audio.to(self.device, torch.float32)
         mel, meloss, logamp, pha, rea, imag = self.features(audio, aux_input, task)
-        logamp_g, pha_g, rea_g, imag_g, y_g = self.generator(*self._gen_args(mel, aux_input))
-        ip, gd, ptd = phase_loss(pha, pha_g)
-        metrics = {"A": amplitude_loss(logamp, logamp_g), "IP": ip, "GD": gd, "PTD": ptd,
-                   "R": torch.mean(torch.abs(rea - rea_g)),
-                   "I": torch.mean(torch.abs(imag - imag_g))}
+        outs = self.generator(*self._gen_args(mel, aux_input))
+        y_g = outs[-1] if self.tf_like else outs
         Tc = min(y_g.shape[-1], audio.shape[-1])
-        metrics["C"] = self._consistency(rea_g, imag_g, y_g[..., :Tc])
+        metrics = {}
+        if self.tf_like:
+            logamp_g, pha_g, rea_g, imag_g, _ = outs
+            ip, gd, ptd = phase_loss(pha, pha_g)
+            metrics = {"A": amplitude_loss(logamp, logamp_g), "IP": ip, "GD": gd, "PTD": ptd,
+                       "R": torch.mean(torch.abs(rea - rea_g)),
+                       "I": torch.mean(torch.abs(imag - imag_g)),
+                       "C": self._consistency(rea_g, imag_g, y_g[..., :Tc])}
         y_g_mel = mel_spectrogram(y_g[..., :Tc], *self.melargs, h.fmin, self.meloss_fmax)
         T = min(meloss.shape[-1], y_g_mel.shape[-1])
         metrics["Mel"] = torch.mean(torch.abs(meloss[..., :T] - y_g_mel[..., :T]))
@@ -353,15 +432,16 @@ class GANTrainer:
         """Full-utterance validation (trainer.py:455-508): `audio` (1, L) is
         the utterance zero-padded to a bucket; every metric is masked to the
         frames whose reference features depend only on real samples,
-        t * hop + n_fft/2 <= n_samples. T-F domain only: the joint loop
-        validates crops with eval_step."""
+        t * hop + n_fft/2 <= n_samples. The time domain: Mel only. Not the
+        joint domain: the joint loop validates crops with eval_step."""
         if self.joint:
-            raise ValueError("eval_full validates T-F utterances; a joint trainer "
-                             "validates crops with eval_step")
+            raise ValueError("eval_full validates T-F and time-domain utterances; a joint "
+                             "trainer validates crops with eval_step")
         h = self.h
         audio = audio.to(self.device, torch.float32)
         mel, meloss, logamp, pha, rea, imag = self.features(audio)
-        logamp_g, pha_g, rea_g, imag_g, y_g = self.generator(mel)
+        outs = self.generator(mel)
+        y_g = outs[-1] if self.tf_like else outs
         y_min = min(y_g.shape[-1], audio.shape[-1])
         y_gc = y_g[..., :y_min]
         y_g_mel = mel_spectrogram(y_gc, *self.melargs, h.fmin, self.meloss_fmax)
@@ -369,6 +449,9 @@ class GANTrainer:
         nf = max(1, (int(n_samples) - h.n_fft // 2) // h.hop_size + 1)
         mask_m = (torch.arange(Tm, device=self.device) < nf).float()
         metrics = {"Mel": _masked_mean(torch.abs(meloss[..., :Tm] - y_g_mel[..., :Tm]), mask_m)}
+        if not self.tf_like:
+            return y_g, metrics
+        logamp_g, pha_g, rea_g, imag_g, _ = outs
         Tf = min(pha.shape[-1], pha_g.shape[-1])
         mask = (torch.arange(Tf, device=self.device) < nf).float()
         metrics["A"] = amplitude_loss(logamp[..., :Tf], logamp_g[..., :Tf], mask=mask)

@@ -1,5 +1,6 @@
 """Map JAX-package parameter trees (BSRNN, GCRN, ConvTasNet, HD-Demucs, APNet,
-APNet2, FreeV, Vocos, the T-F discriminators) onto the port's state_dicts.
+APNet2, FreeV, Vocos, HiFiGAN, iSTFTNet, the discriminators with the MSD's
+spectral-norm vectors) onto the port's state_dicts.
 
 Reads plain numpy (e.g. `jax.tree.map(np.asarray, variables["params"])`
 done by the caller), so this module imports nothing of JAX. The tests
@@ -159,6 +160,38 @@ def _wn_conv1d(node: dict, prefix: str, out: dict) -> None:
     out[f"{prefix}.bias"] = _t(node["bias"])
 
 
+def _wn_conv_transpose1d(node: dict, prefix: str, out: dict) -> None:
+    """Weight-norm ConvTranspose1d: v (k, in, out) -> (in, out, k), g (1, in, 1)
+    -> (in, 1, 1); a folded node (`kernel`) as _conv1d(transposed=True)."""
+    if "kernel" in node:
+        _conv1d(node, prefix, out, transposed=True)
+        return
+    out[f"{prefix}.v"] = _t(np.transpose(np.asarray(node["v"]), (1, 2, 0)))
+    out[f"{prefix}.g"] = _t(np.asarray(node["g"]).reshape(-1, 1, 1))
+    out[f"{prefix}.bias"] = _t(node["bias"])
+
+
+def _mrf_params(p: dict) -> dict[str, torch.Tensor]:
+    """HiFiGAN / iSTFTNet (the order of nvse_tpu/utils/torch_import.py:
+    import_mrf_generator): MRFUpsampler_0/{Conv1d_0 (conv_pre),
+    ConvTranspose1d_{i} (ups.i), ResBlock1_{k}/{Conv1d_{2j} (convs1.j),
+    Conv1d_{2j+1} (convs2.j)} or ResBlock2_{k}/{Conv1d_j (convs.j)}}, Conv1d_0
+    (conv_post); all weight-normed, the port under the reference's names."""
+    out: dict[str, torch.Tensor] = {}
+    trunk = p["MRFUpsampler_0"]
+    _wn_conv1d(trunk["Conv1d_0"], "conv_pre", out)
+    for i in range(_count(trunk, "ConvTranspose1d")):
+        _wn_conv_transpose1d(trunk[f"ConvTranspose1d_{i}"], f"ups.{i}", out)
+    for kind, names in (("1", ("convs1", "convs2")), ("2", ("convs",))):
+        for k in range(_count(trunk, f"ResBlock{kind}")):
+            blk = trunk[f"ResBlock{kind}_{k}"]
+            n = len(names)
+            for j in range(_count(blk, "Conv1d")):
+                _wn_conv1d(blk[f"Conv1d_{j}"], f"resblocks.{k}.{names[j % n]}.{j // n}", out)
+    _wn_conv1d(p["Conv1d_0"], "conv_post", out)
+    return out
+
+
 def _convnext(node: dict, prefix: str, out: dict) -> None:
     """ConvNeXtBlock: Conv1d_0 (dwconv), LayerNorm_0 (norm), Linear_0
     (pwconv1), GRN_0 (grn), Linear_1 (pwconv2)."""
@@ -248,15 +281,17 @@ def _vocos_params(p: dict) -> dict[str, torch.Tensor]:
 
 
 _FAMILY_MAPS = {"GCRN": _gcrn_params, "APNet": _apnet_params, "APNet2": _apnet2_params,
-                "FreeV": _freev_params, "Vocos": _vocos_params}
+                "FreeV": _freev_params, "Vocos": _vocos_params, "HiFiGAN": _mrf_params,
+                "iSTFTNet": _mrf_params}
 
 
 def params_from_jax(flax_params_as_numpy: dict, h) -> dict[str, torch.Tensor]:
     """JAX generator params (numpy leaves) -> port state_dict, for the
     models the port has: BSRNN / BSRNN_24k, GCRN (`_gcrn_params`),
     ConvTasNet (`_convtasnet_params`), HD-Demucs (`_hddemucas_params`),
-    APNet, APNet2, FreeV and Vocos (`_apnet_params`, ...; weight-norm nodes
-    as `v`, `g`, or `kernel` where fold_weight_norm folded them).
+    APNet, APNet2, FreeV, Vocos, HiFiGAN and iSTFTNet (`_apnet_params`, ...,
+    `_mrf_params`; weight-norm nodes as `v`, `g`, or `kernel` where
+    fold_weight_norm folded them).
 
     BSRNN tree: BSRNNCore_0/{_GroupedBandEncoder_0, BSNet_{r}/{ResRNN_0
     (time), ResRNN_1 (band), LayerNorm_0 (out norm)}, _GroupedBandDecoder_0
@@ -294,21 +329,49 @@ def _conv2d_wn(node: dict, prefix: str, out: dict) -> None:
     out[f"{prefix}.bias"] = _t(node["bias"])
 
 
-def disc_params_from_jax(disc_params_as_numpy: dict):
-    """JAX T-F discriminator tree (numpy leaves) -> (MPD, MRD) state_dicts.
+def _msd_params(tree: dict, spectral: dict | None) -> dict[str, torch.Tensor]:
+    """{DiscriminatorS_0: {SNConv1d_j: {kernel, bias}}, DiscriminatorS_{1,2}:
+    {Conv1d_j: {v, g, bias}}} and the flax `spectral` collection
+    {DiscriminatorS_0: {SNConv1d_j: {u}}} -> the port MSD's state_dict."""
+    if spectral is None:
+        raise ValueError("the MSD's state_dict holds the spectral-norm vectors u: pass the "
+                         "JAX disc state's `spectral` collection")
+    spectral = spectral.get("spectral", spectral)
+    out: dict[str, torch.Tensor] = {}
+    for i in range(len(tree)):
+        d = tree[f"DiscriminatorS_{i}"]
+        for j in range(len(d)):
+            if f"SNConv1d_{j}" in d:
+                _conv1d(d[f"SNConv1d_{j}"], f"discs.{i}.convs.{j}", out)
+                u = spectral[f"DiscriminatorS_{i}"][f"SNConv1d_{j}"]["u"]
+                out[f"discs.{i}.convs.{j}.u"] = _t(np.asarray(u, np.float32))
+            else:
+                _wn_conv1d(d[f"Conv1d_{j}"], f"discs.{i}.convs.{j}", out)
+    return out
+
+
+def disc_params_from_jax(disc_params_as_numpy: dict, spectral: dict | None = None):
+    """JAX discriminator tree (numpy leaves) -> (MPD, MRD or MSD) state_dicts.
 
     Tree: {"mpd": {DiscriminatorP_i: {Conv2d_j: {v, g, bias}}},
-    "scale": {DiscriminatorR_i: {Conv2d_j: {v, g, bias}}}}, as
-    nvse_tpu/train/trainer.py:create_states builds it for the domains "tf"
-    and "joint" (the same MPD + MRD, `_build_discs`).
+    "scale": {DiscriminatorR_i: {Conv2d_j: {v, g, bias}}}} for the domains
+    "tf" and "joint", or for "time" "scale": {DiscriminatorS_i: ...} with
+    `spectral` (the DiscState's power-iteration vectors), as
+    nvse_tpu/train/trainer.py:create_states builds them (`_build_discs`).
+    The two packages draw the initial u apart, so a comparison carries it.
     """
-    sds = []
-    for key, sub in (("mpd", "DiscriminatorP"), ("scale", "DiscriminatorR")):
-        tree = disc_params_as_numpy[key]
-        out: dict[str, torch.Tensor] = {}
-        for i in range(len(tree)):
-            d = tree[f"{sub}_{i}"]
-            for j in range(len(d)):
-                _conv2d_wn(d[f"Conv2d_{j}"], f"discs.{i}.convs.{j}", out)
-        sds.append(out)
-    return tuple(sds)
+    mpd: dict[str, torch.Tensor] = {}
+    tree = disc_params_as_numpy["mpd"]
+    for i in range(len(tree)):
+        d = tree[f"DiscriminatorP_{i}"]
+        for j in range(len(d)):
+            _conv2d_wn(d[f"Conv2d_{j}"], f"discs.{i}.convs.{j}", mpd)
+    scale_tree = disc_params_as_numpy["scale"]
+    if "DiscriminatorS_0" in scale_tree:
+        return mpd, _msd_params(scale_tree, spectral)
+    scale: dict[str, torch.Tensor] = {}
+    for i in range(len(scale_tree)):
+        d = scale_tree[f"DiscriminatorR_{i}"]
+        for j in range(len(d)):
+            _conv2d_wn(d[f"Conv2d_{j}"], f"discs.{i}.convs.{j}", scale)
+    return mpd, scale

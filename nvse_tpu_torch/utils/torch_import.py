@@ -43,7 +43,7 @@ import torch
 
 __all__ = ["IMPORTERS", "import_apnet", "import_apnet2", "import_bsrnn", "import_conv_tf",
            "import_convtasnet", "import_freev", "import_gcrn", "import_generator",
-           "import_hddemucas", "import_vocos", "load_torch_generator"]
+           "import_hddemucas", "import_mrf_generator", "import_vocos", "load_torch_generator"]
 
 
 def _to_numpy(t) -> np.ndarray:
@@ -191,6 +191,18 @@ def import_conv_tf(torch_params: dict, h, template: dict | None = None) -> dict:
 import_apnet = import_apnet2 = import_freev = import_vocos = import_conv_tf
 
 
+def import_mrf_generator(torch_params: dict, h, template: dict | None = None) -> dict:
+    """HiFiGAN (reference Models/hifigan.py:83-133) and iSTFTNet
+    (istftnet.py:271-328): conv_pre, ups.{i} (weight-normed transposed convs,
+    weight_v (in, out, k) and weight_g (in, 1, 1) kept split as the port's v
+    and g), resblocks.{k}.convs1 / convs2.{j} (ResBlock1) or convs.{j}
+    (ResBlock2), conv_post; the port keeps these names. Counterpart of
+    nvse_tpu/utils/torch_import.py:import_mrf_generator (:83-135)."""
+    template = _template(h) if template is None else template
+    src = _Source(torch_params)
+    return _finish(src, _by_reference_names(src, template), template)
+
+
 # ---------------------------------------------------------------------------
 # the families whose port names differ from the reference's
 # ---------------------------------------------------------------------------
@@ -331,6 +343,7 @@ IMPORTERS = {
     "APNet": import_apnet, "APNet2": import_apnet2, "FreeV": import_freev,
     "Vocos": import_vocos, "BSRNN": import_bsrnn, "BSRNN_24k": import_bsrnn,
     "GCRN": import_gcrn, "ConvTasNet": import_convtasnet, "HDDemucas": import_hddemucas,
+    "HiFiGAN": import_mrf_generator, "iSTFTNet": import_mrf_generator,
 }
 
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's BSRNN-M, BSRNN-L, GCRN, ConvTasNet, HD-Demucs, APNet,
-APNet2, FreeV and Vocos decodes on one GPU.
+APNet2, FreeV, Vocos, HiFiGAN and iSTFTNet decodes on one GPU.
 
     python3 scripts/profile_torch_decode.py [--iters 3]
-        [--model bsrnn|bsrnn_l|gcrn|convtasnet|hddemucs|apnet|apnet2|freeV|vocos|both|tf_vocoders]
+        [--model bsrnn|bsrnn_l|gcrn|convtasnet|hddemucs|apnet|apnet2|freeV|vocos|hifigan|
+                 istftnet|both|tf_vocoders|mrf]
 
 Runs the B=8 x 1024-frame mel->wave decode of nvse_tpu_torch (seeded
 random weights at full width, float32 then bfloat16) under torch.profiler
@@ -13,9 +14,10 @@ device-busy ms per forward (sum of kernel times; one stream, so kernels do
 not overlap), the idle share, the hand-written kernel's share (`kernel`:
 lstm_fused for BSRNN-M, lstm_fused_wide for BSRNN-L, lstm_bidir2 for GCRN,
 the tail and its gLN statistics (tcn_) for ConvTasNet, the bottleneck's
-lstm_scan_wide (kScanBidir) for HD-Demucs, none for the conv T-F vocoders,
-which run no kernel of csrc/; "both" is BSRNN-M and GCRN, "tf_vocoders" the
-four conv T-F vocoders), device ms per
+lstm_scan_wide (kScanBidir) for HD-Demucs, none for the conv T-F vocoders and
+the MRF vocoders HiFiGAN V1 and iSTFTNet, which run no kernel of csrc/; "both"
+is BSRNN-M and GCRN, "tf_vocoders" the four conv T-F vocoders, "mrf" HiFiGAN
+and iSTFTNet), device ms per
 category of kernel name (the hand-written kernels, FFT, convolution, gemm,
 elementwise and copies, other) and the twelve kernels with the most device
 time. Needs a CUDA GPU.
@@ -61,8 +63,11 @@ CONFIGS = {"bsrnn": ("bsrnn_config.json", "lstm_fused", ({},)),
            "apnet": ("apnet_config.json", None, ({},)),
            "apnet2": ("apnet2_config.json", None, ({},)),
            "freeV": ("freeV_config.json", None, ({},)),
-           "vocos": ("vocos_config.json", None, ({},))}
-GROUPS = {"both": ("bsrnn", "gcrn"), "tf_vocoders": ("apnet", "apnet2", "freeV", "vocos")}
+           "vocos": ("vocos_config.json", None, ({},)),
+           "hifigan": ("hifigan_v1_config.json", None, ({},)),
+           "istftnet": ("istftnet_config.json", None, ({},))}
+GROUPS = {"both": ("bsrnn", "gcrn"), "tf_vocoders": ("apnet", "apnet2", "freeV", "vocos"),
+          "mrf": ("hifigan", "istftnet")}
 
 
 def category(kernel_name: str) -> str:

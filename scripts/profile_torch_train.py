@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
 """Where the time goes in one GAN training step of the PyTorch port.
 
-    python scripts/profile_torch_train.py [--model bsrnn|bsrnn_l|gcrn|joint|apnet|apnet2|freeV|vocos]
+    python scripts/profile_torch_train.py [--model bsrnn|bsrnn_l|gcrn|joint|apnet|apnet2|freeV|vocos|
+                                                   hifigan|istftnet|convtasnet|hddemucs]
 
 Full-width BSRNN-M (nvse_tpu_torch/configs/bsrnn_config.json, the default),
 BSRNN-L (bsrnn_l_config.json), GCRN (gcrn_config.json) or the joint
 denoise+vocoder BSRNN_24k (bsrnn_joint_denoise_vocoder_config.json, a
 GANTrainer in the joint domain, each task: denoise on the batch plus seeded
 noise, vocoder on the batch itself), or one of the conv T-F vocoders
-(apnet, apnet2, freeV, vocos: no LSTM kernel) with MPD + MRD on one CUDA card, random weights from the config's seed, a seeded synthetic
+(apnet, apnet2, freeV, vocos: no LSTM kernel) with MPD + MRD, or a time-domain
+model with MPD + MSD (hifigan: hifigan_v1_config.json, istftnet: no kernel of
+csrc/; convtasnet with fused_tcn 1: the TCN tail and its statistics, 24 each;
+hddemucs: hddemucas_config.json, its bottleneck BiLSTM through the training
+kernels at H = 768) on one CUDA card, random weights from the config's seed, a seeded synthetic
 batch of 16 16384-sample segments (the training shapes of the LSTM kernels:
 BSRNN 544 rows x 65 steps and 1040 rows x 34 steps, at H = 128 for BSRNN-M
-and 256 for BSRNN-L, GCRN 16 rows x 65 steps at H = 448). Per compute dtype (float32, bfloat16)
+and 256 for BSRNN-L, GCRN 16 rows x 65 steps at H = 448, HD-Demucs 16 rows at
+H = 768). Per compute dtype (float32, bfloat16)
 (and task), after two warmup steps and over three steps it prints one JSON line with:
   * wall ms per step (host clock around synchronised steps);
   * ms per step of the three phases of GANTrainer.step, from CUDA events
@@ -59,6 +65,7 @@ CATEGORIES = (
     ("convolutions (cuDNN)", ("conv", "xmma", "dgrad", "wgrad", "cudnn", "implicit")),
     ("matmuls (cuBLAS)", ("gemm", "cublas", "cutlass")),
     ("FFT (cuFFT)", ("fft",)),
+    ("tcn tail kernels", ("tcn_tail", "tcn_gln")),
 )
 
 
@@ -86,7 +93,10 @@ def _categories(kernels):
     return out
 
 
-CONFIGS = {"joint": "bsrnn_joint_denoise_vocoder"}
+CONFIGS = {"joint": "bsrnn_joint_denoise_vocoder", "hifigan": "hifigan_v1",
+           "hddemucs": "hddemucas"}
+# config overrides by model
+OVERRIDES = {"convtasnet": {"fused_tcn": 1}}
 TASKS = {"joint": ("denoise", "vocoder")}
 
 
@@ -96,7 +106,8 @@ def profile(model, dtype, task=None):
 
     h = load_config(os.path.join(REPO, "nvse_tpu_torch", "configs",
                                  f"{CONFIGS.get(model, model)}_config.json"))
-    h.compute_dtype = dtype
+    h.update(OVERRIDES.get(model, {}), compute_dtype=dtype)
+    torch.cuda.reset_peak_memory_stats()            # this dtype's peak, not the run's
     tr = GANTrainer(h, device="cuda", steps_per_epoch=2, joint=task is not None)
     audio = _batch(BATCH, int(h.segment_size), h.sampling_rate).cuda()
     # the step's arguments: the batch; joint, the clean batch, the input wave and the task
@@ -155,7 +166,9 @@ def profile(model, dtype, task=None):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="bsrnn", choices=("bsrnn", "bsrnn_l", "gcrn", "joint",
-                                                         "apnet", "apnet2", "freeV", "vocos"))
+                                                         "apnet", "apnet2", "freeV", "vocos",
+                                                         "hifigan", "istftnet", "convtasnet",
+                                                         "hddemucs"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA GPU")

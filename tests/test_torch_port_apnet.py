@@ -324,7 +324,9 @@ def test_run_inference_on_the_synth_set(tmp_path, monkeypatch, mode):
 
 NEW_MODULES = ["models/apnet.py", "models/hifigan.py", "models/vocos.py", "models/layers.py",
                "models/__init__.py", "utils/torch_import.py", "utils/jax_params.py",
-               "infer/engine.py", "infer/__main__.py", "train/trainer.py"]
+               "infer/engine.py", "infer/__main__.py", "train/trainer.py",
+               "models/istftnet.py", "models/discriminators.py", "ops/spectral.py",
+               "train/checkpoint.py", "train/loop.py", "train/__main__.py"]
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|flax|nvse_tpu)(\.|\s|$)", re.M)
 
 

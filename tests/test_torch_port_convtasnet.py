@@ -246,10 +246,18 @@ def test_config_is_a_copy_of_the_jax_packages():
 
 
 def test_time_domain_training_is_not_ported():
+    """The time domain trains now: the check passes, and the trainer builds MPD +
+    MSD with the hinge losses (ConvTasNet is no HiFiGAN / iSTFTNet)."""
+    from nvse_tpu_torch.train import GANTrainer
     from nvse_tpu_torch.train.trainer import _check_supported
 
-    with pytest.raises(NotImplementedError, match="time domain"):
-        _check_supported(_h(), "time")
+    h = _h(mpd_reshapes=[2], learning_rate=2e-4, adam_b1=0.8, adam_b2=0.99, lr_decay=0.999,
+           segment_size=2048)
+    assert _check_supported(h, "time") is None
+    tr = GANTrainer(h, device="cpu")
+    assert tr.domain == "time" and set(tr.disc) == {"mpd", "msd"}
+    assert tr.d_loss.__name__ == "hinge_discriminator_loss"
+    assert tr.g_loss.__name__ == "hinge_generator_loss"
 
 
 # ---------------------------------------------------------------------------

@@ -306,8 +306,16 @@ def test_run_inference_on_the_synth_set(tmp_path, monkeypatch):
 
 
 def test_time_domain_training_is_not_ported():
+    """The time domain trains now: HD-Demucs's trainer builds MPD + MSD with
+    the hinge losses and the MSD's spectral-norm vectors as buffers."""
     from nvse_tpu_torch.train import GANTrainer
+    from nvse_tpu_torch.train.trainer import _check_supported
 
-    with pytest.raises(NotImplementedError, match="time domain"):
-        GANTrainer(_h(), device="cpu")
+    h = _h(mpd_reshapes=[2], learning_rate=2e-4, adam_b1=0.8, adam_b2=0.99, lr_decay=0.999,
+           segment_size=2048)
+    assert _check_supported(h, "time") is None
+    tr = GANTrainer(h, device="cpu")
+    assert tr.domain == "time" and set(tr.disc) == {"mpd", "msd"}
+    assert tr.d_loss.__name__ == "hinge_discriminator_loss"
+    assert sum(n.endswith(".u") for n, _ in tr.disc.named_buffers()) == 8
     assert hddemucas.HDDemucas.__module__ == "nvse_tpu_torch.models.hddemucas"
