@@ -210,13 +210,37 @@ the last line:
      training kernels at HD-Demucs's step shape (16 rows, H = 768, cuDNN's BiLSTM
      forward + backward beside them) and the tail and its statistics at ConvTasNet's
      (16 rows), each against its plain version with phase 2's and phase 15's controls;
- 19. the per-step ablation harness (scripts/profile_torch_lstm_step.py) in this
+ 19. the CQT discriminator and the evaluation path: cqtd_train, BSRNN-M's T-F
+     GAN step with use_cqtd (the reference's CQTD: hops 512 / 256 / 256, 9
+     octaves of 24 / 36 / 48 bins, 32 filters, dilations 1, 2, 4) at batch 16 x
+     16384 in float32 and bfloat16 (phase 5's checks, 32 launches a step of each
+     training kernel; the first step split into its passes: every CQTD parameter
+     changed by the D pass with a finite nonzero gradient, none by the G pass;
+     the step's CQTs timed in the port's form, one GEMM of the framed wave, and
+     as F.conv1d over the bank, with their share of device-busy time);
+     cqtd_vs_cpu, one small step with the CQTD of BSRNN-M (T-F) and of HiFiGAN
+     (time, LS) against the CPU at phase 6's limits, TF32 as the control; utmos,
+     UTMOS at its published widths with seeded weights (3 waves of 2.3-3.9 s at
+     their lengths, and padded to a 4 s bucket through the masked forward, one at
+     a time and as a batch of 3): card vs CPU within 2e-4, masked vs exact within
+     1e-4, ms a second of audio, one lstm_scan_bidir2 launch a forward (H = 512),
+     and as the control the masked limit must refuse, the backward scan fed the
+     padded input unreversed; crepe, CREPE full with seeded weights in torchcrepe's
+     layout, 32 frames' posteriors card vs CPU within 1e-4, frames a second;
+     eval_cli, run_inference on the synthetic set with seeded BSRNN-M weights, then
+     python -m nvse_tpu_torch.metrics in this process on its output (lsd with 2
+     spawned workers, stoi, pesq, mcd, evaluate with CREPE from a seeded
+     checkpoint and utmos from a seeded lightning-layout checkpoint, both on the
+     card): every number finite, the seconds of each; then (eval_kernels) a row
+     for every shape those paths launched (UTMOS's lstm_scan_bidir2 at T x 1 and 3
+     rows, H = 512, on csrc/lstm_scan_wide.cu kScanBidir);
+ 20. the per-step ablation harness (scripts/profile_torch_lstm_step.py) in this
      process at its four shapes in float32 and bfloat16: five variants of one
      direction of csrc/lstm_fused.cu (H = 128) and csrc/lstm_fused_wide.cu
      (H = 256), each against its plain version, `full` against the forward half
      of lstm_scan_fused, and the split of a step into input, products,
      nonlinearities and floor (lstm_step_ablation, lstm_step_split);
- 20. each main path above sets the launch counts to 0 when it starts and
+ 21. each main path above sets the launch counts to 0 when it starts and
      reads them per wrapper and shape when it ends; every other shape that a
      main path launched (serving's 128-frame bucket, the validations, the
      offline decodes beside the streams, the joint CLI's validation and
@@ -225,7 +249,7 @@ the last line:
      serving bucket, the time steps' tails) gets its
      kernel-vs-plain row in the dtype it ran in, and a launch at a shape with
      no row fails the run;
- 21. print the kernels line (one entry per kernel, shape and dtype, each
+ 22. print the kernels line (one entry per kernel, shape and dtype, each
      with its launches summed over the main paths; the redesigned dW_hh
      reduction, wide and narrow fused BiLSTMs, narrow and wide scans (the
      training forwards among them), narrow and wide backward recurrences, the
@@ -235,6 +259,7 @@ the last line:
 Exits nonzero without output when no CUDA GPU is visible.
 """
 import contextlib
+import functools
 import io
 import json
 import math
@@ -906,7 +931,7 @@ def _audio_batch(B, n, sr, seed):
     return torch.from_numpy(x.astype(np.float32))
 
 
-def phase_train(model="bsrnn", causal=False, validate=False):
+def phase_train(model="bsrnn", causal=False, validate=False, cqtd=False):
     """Full-width GAN steps, batch 16 x 16384: BSRNN-M's non-causal config in
     float32 and bfloat16, its causal one (the time LSTM one direction,
     through lstm_scan's residual-saving route) in float32; BSRNN-L (H = 256:
@@ -919,7 +944,12 @@ def phase_train(model="bsrnn", causal=False, validate=False):
     GANTrainer.eval_step on a validation crop after the steps: 16 launches
     of the fused inference kernel. The joint BSRNN_24k (34 bands at 24 kHz:
     BSRNN-M's training shapes) trains each task in each dtype from one
-    trainer a run, the denoise input the clean batch plus noise."""
+    trainer a run, the denoise input the clean batch plus noise. With cqtd,
+    BSRNN-M's step with the CQT discriminator at the reference's defaults
+    (phase cqtd_train): its first step split into the D and G passes, where
+    the D pass must change every CQTD parameter and leave it a finite nonzero
+    gradient and the G pass must change none; the CQT's share of the step from
+    `_cqt_forms`."""
     from nvse_tpu_torch.ops.lstm import _reset_counts
     from nvse_tpu_torch.train import GANTrainer, fetch_scalars
 
@@ -936,7 +966,8 @@ def phase_train(model="bsrnn", causal=False, validate=False):
     dtypes = ("float32",) if causal else ("float32", "bfloat16")
     tasks = JOINT_TASKS if model == "joint" else (None,)
     for dtype, task in [(d, t) for d in dtypes for t in tasks]:
-        h = _config(model, compute_dtype=dtype, causal=causal)
+        h = _config(model, compute_dtype=dtype, causal=causal, **({"use_cqtd": True} if cqtd
+                                                                   else {}))
         audio = _audio_batch(B, int(h.segment_size), h.sampling_rate, seed=0).to("cuda")
         args = _step_args(audio, task, seed=0)
         tr = GANTrainer(h, device="cuda", steps_per_epoch=2, joint=task is not None)
@@ -945,7 +976,10 @@ def phase_train(model="bsrnn", causal=False, validate=False):
         torch.cuda.reset_peak_memory_stats()
         n0 = {k: (c.launches, dict(c.launches_by_shape), dict(c.launches_by_kernel))
               for k, c in counters.items()}
-        metrics = tr.step(*args)                   # warmup
+        if cqtd:                                   # warmup, split into its passes
+            cqtd_fails, cqtd_info = _cqtd_passes(tr, args)
+        else:
+            tr.step(*args)                         # warmup
         torch.cuda.synchronize()
         t0 = time.time()
         for _ in range(iters):
@@ -968,13 +1002,16 @@ def phase_train(model="bsrnn", causal=False, validate=False):
         lstm = {n: p for n, p in tr.generator.named_parameters() if is_lstm(n)}
         bad_grad = [n for n, p in lstm.items()
                     if p.grad is None or not torch.isfinite(p.grad).all() or p.grad.abs().sum() == 0]
-        say(phase=_tag(model, "train"), causal=causal, dtype=dtype, task=task,
-            batch=B, segment=int(h.segment_size), ms_per_step=ms, steps_timed=iters,
-            device_busy_ms=busy, idle_share=1.0 - busy / ms if busy else "not measured",
+        if cqtd:
+            cqtd_info.update(_cqt_forms(h, B, dtype, busy))
+        say(phase="cqtd_train" if cqtd else _tag(model, "train"), causal=causal, dtype=dtype,
+            task=task, batch=B, segment=int(h.segment_size), ms_per_step=ms,
+            steps_timed=iters, device_busy_ms=busy,
+            idle_share=1.0 - busy / ms if busy else "not measured",
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches_per_step=per_step,
             launches_per_step_by_kernel=by_kernel, launches_per_step_by_shape=by_shape,
-            lstm_params=len(lstm), losses=losses)
-        fails = []
+            lstm_params=len(lstm), losses=losses, **(cqtd_info if cqtd else {}))
+        fails = cqtd_fails if cqtd else []
         if not all(math.isfinite(v) for v in losses.values()):
             fails.append(f"non-finite losses {losses}")
         if unchanged:
@@ -1078,19 +1115,21 @@ SMALL_STEP = {"bsrnn": dict(feature_dim=16, num_repeat=2), "gcrn": {},
               "hddemucs": dict(init_phase="zero", learning_rate=0.0)}
 
 
-def phase_train_vs_cpu_plain(model="bsrnn"):
+def phase_train_vs_cpu_plain(model="bsrnn", cqtd=False):
     """A small config, one step on the card and one on the CPU's plain path
     from the same seeded weights and batch; and the control: one more card
     step with TF32 on, which both limits must refuse. The joint model: one
-    step of each task."""
+    step of each task. With cqtd, the config with the CQT discriminator at the
+    reference's defaults (phase cqtd_vs_cpu)."""
     for task in JOINT_TASKS if model == "joint" else (None,):
-        _train_vs_cpu_plain(model, task)
+        _train_vs_cpu_plain(model, task, cqtd)
 
 
-def _train_vs_cpu_plain(model, task):
+def _train_vs_cpu_plain(model, task, cqtd=False):
     from nvse_tpu_torch.train import GANTrainer, fetch_scalars
 
-    h = _config(model, segment_size=4096, batch_size=2, **SMALL_STEP[model])
+    h = _config(model, segment_size=4096, batch_size=2, **SMALL_STEP[model],
+                **({"use_cqtd": True} if cqtd else {}))
     audio = _audio_batch(2, 4096, h.sampling_rate, seed=1)
     out = {}
     runs = ("cuda", "cuda_tf32", "cpu") + (("cpu_perturbed",) if model in TIME_TRAIN else ())
@@ -1130,8 +1169,8 @@ def _train_vs_cpu_plain(model, task):
                          cpu_perturbed_worst_moment=p_worst)
     ok = loss_rel <= loss_tol and mom_rel <= mom_tol
     refused = ctl_loss_rel > loss_tol and ctl_mom_rel > mom_tol
-    say(phase=_tag(model, "train_vs_cpu_plain"), task=task,
-        **SMALL_STEP[model], segment=4096, batch=2,
+    say(phase="cqtd_vs_cpu" if cqtd else _tag(model, "train_vs_cpu_plain"), task=task,
+        model=model, **SMALL_STEP[model], segment=4096, batch=2,
         worst_loss_rel=loss_rel, loss_rtol=loss_tol, worst_moment_rel=mom_rel,
         worst_moment=worst, moment_rel_tol=mom_tol, **perturbed,
         tf32_control_loss_rel=ctl_loss_rel, tf32_control_moment_rel=ctl_mom_rel, ok=ok,
@@ -2442,6 +2481,272 @@ def phase_time_train(name):
     return _shape_counts()                         # ... and ends here
 
 
+# ---------------------------------------------------------------------------
+# the CQT discriminator in the GAN step, and the evaluation path
+# ---------------------------------------------------------------------------
+
+def _cqtd_passes(tr, args):
+    """One GAN step split into its passes: the D pass must change every CQTD
+    parameter and leave each a finite nonzero gradient, the G pass none.
+    -> (failures, readings)."""
+    cq = tr.disc["cqtd"]
+    p0 = {n: p.detach().clone() for n, p in cq.named_parameters()}
+    fwd = tr.generator_forward(*args)
+    tr.discriminator_update(fwd)
+    p1 = {n: p.detach().clone() for n, p in cq.named_parameters()}
+    bad_grad = [n for n, p in cq.named_parameters() if p.grad is None
+                or not torch.isfinite(p.grad).all() or p.grad.abs().sum() == 0]
+    tr.generator_update(fwd)
+    d_same = [n for n in p0 if torch.equal(p0[n], p1[n])]
+    g_moved = [n for n, p in cq.named_parameters() if not torch.equal(p.detach(), p1[n])]
+    fails = []
+    if d_same or g_moved or bad_grad:
+        fails.append(f"CQTD parameters the D pass left ({d_same[:3]}), the G pass moved "
+                     f"({g_moved[:3]}), without a finite nonzero gradient ({bad_grad[:3]}) "
+                     f"of {len(p0)}")
+    return fails, dict(cqtd_params=len(p0), cqtd_param_count=sum(p.numel() for p in p0.values()),
+                       cqtd_changed_in_d_pass=len(p0) - len(d_same),
+                       cqtd_changed_in_g_pass=len(g_moved))
+
+
+@functools.lru_cache(maxsize=None)
+def _cqt_conv_weight(sr, n_bins, bpo, device, dtype):
+    from nvse_tpu_torch.ops.cqt import cqt_bank
+
+    return torch.from_numpy(cqt_bank(sr, n_bins, bpo).T.copy()).to(device, dtype)[:, None, :]
+
+
+def _cqt_conv1d(x, sr, hop, n_bins, bpo):
+    """The CQT as F.conv1d of the padded wave over the bank (cuDNN): the other
+    form ops/cqt.py could take, timed beside it; the weight made on the card once."""
+    import torch.nn.functional as F
+
+    w = _cqt_conv_weight(sr, n_bins, bpo, x.device, x.dtype)
+    pad = w.shape[-1] // 2
+    out = F.conv1d(F.pad(x[:, None], (pad, pad)), w, stride=hop)
+    return out[:, :n_bins], out[:, n_bins:]
+
+
+def _cqt_forms(h, B, dtype, busy_ms):
+    """The CQTs of one step (per scale: the D pass's real and generated waves, the
+    G pass's real wave, and the G pass's generated wave with its input gradient)
+    at the step's shapes and dtype, in the port's form (ops/cqt.py: one GEMM of
+    the framed wave and the bank) and as F.conv1d over the bank (`_cqt_conv1d`);
+    the forms' max |difference|, each one's ms a step and its share of the step's
+    device-busy time."""
+    from nvse_tpu_torch.models.cqt_discriminator import MultiScaleSubbandCQTDiscriminator
+    from nvse_tpu_torch.ops.cqt import cqt, cqt_bank
+    from nvse_tpu_torch.ops.resample import upsample2
+
+    dt = getattr(torch, dtype)
+    x = upsample2(_audio_batch(B, int(h.segment_size), h.sampling_rate, seed=5).to("cuda"))
+    x = x.to(dt)
+    scales = [(2 * h.sampling_rate, d.hop_length, d.bins_per_octave * d.n_octaves,
+               d.bins_per_octave) for d in MultiScaleSubbandCQTDiscriminator.from_config(h).discs]
+    out, err, flops = {}, 0.0, 0
+    for name, fn in (("unfold_gemm", cqt), ("conv1d", _cqt_conv1d)):
+        xg = x.detach().clone().requires_grad_(True)
+
+        def forward():
+            with torch.no_grad():
+                return [fn(x, *s) for s in scales]
+
+        def with_grad():
+            for s in scales:
+                re, im = fn(xg, *s)
+                (re.sum() + im.sum()).backward()
+
+        fwd_ms, grad_ms = cuda_ms(forward, iters=5), cuda_ms(with_grad, iters=5)
+        out[name] = dict(ms_per_step=3 * fwd_ms + grad_ms, forward_ms=fwd_ms,
+                         forward_backward_ms=grad_ms,
+                         share_of_busy=(3 * fwd_ms + grad_ms) / busy_ms if busy_ms else None)
+        res = forward()
+        if name == "unfold_gemm":
+            ref = res
+            for (sr, _, nb, bpo), (re, _) in zip(scales, res):
+                flops += 2 * B * re.shape[-1] * cqt_bank(sr, nb, bpo).shape[0] * 2 * nb
+        else:
+            err = max((a.float() - b.float()).abs().max().item()
+                      for ra, rb in zip(res, ref) for a, b in zip(ra, rb))
+    return dict(cqt_forms=out, cqt_forms_max_abs_diff=err, cqt_gflop_per_forward=flops / 1e9,
+                cqt_form_used="unfold_gemm")
+
+
+UTMOS_SECONDS, UTMOS_BUCKET = (2.3, 3.1, 3.9), 4 * 16000
+UTMOS_CARD_ATOL, UTMOS_MASK_ATOL = 2e-4, 1e-4
+
+
+def _speechlike(seconds, sr, seed):
+    """A wave with a moving pitch, formant-like amplitude and noise (1, n)."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    f0 = 120 + 60 * np.sin(2 * np.pi * 0.7 * t + seed)
+    x = 0.3 * np.sin(2 * np.pi * np.cumsum(f0) / sr) * (0.5 + 0.5 * np.sin(2 * np.pi * 4 * t))
+    return torch.from_numpy((x + 0.02 * rng.standard_normal(n)).astype(np.float32))[None]
+
+
+def phase_utmos():
+    """UTMOS at its published widths (wav2vec2-base, 12 layers, the decoder
+    BiLSTM C = 1024, H = 512), seeded weights, on the card: 3 waves of 2.3-3.9 s
+    scored at their lengths and, zero-padded to a 4 s bucket, through the masked
+    forward (n_samples), one at a time and as one batch of 3; each card score
+    against the CPU's plain path (UTMOS_CARD_ATOL), each masked score against the
+    exact one (UTMOS_MASK_ATOL); ms per second of audio; one lstm_scan_bidir2
+    launch a forward (lstm_scan_fused's projection route), counted here and held
+    by phase_rest. Control, which the masked limit must refuse: the backward scan
+    fed the padded input unreversed (lstm_scan_fused without lengths)."""
+    from nvse_tpu_torch.metrics import utmos as U
+    from nvse_tpu_torch.ops.lstm import _reset_counts, lstm_scan_bidir2
+
+    wavs = [_speechlike(s, 16000, i) for i, s in enumerate(UTMOS_SECONDS)]
+    cpu = U.UTMOSModel(seed=0).eval()
+    n_params = sum(p.numel() for p in cpu.parameters())
+    cpu_scores = [cpu(w).item() for w in wavs]
+    card = U.UTMOSModel(seed=0).eval().to("cuda")
+    padded = torch.cat([torch.nn.functional.pad(w, (0, UTMOS_BUCKET - w.shape[1]))
+                        for w in wavs]).to("cuda")
+    lengths = [w.shape[1] for w in wavs]
+
+    _reset_counts(*_all_counters().values())       # this main path starts here
+    exact = [card(w.to("cuda")).item() for w in wavs]      # (warmup)
+    forwards = len(wavs)
+    torch.cuda.synchronize()
+    t0, iters = time.time(), 3
+    for _ in range(iters):
+        for w in wavs:
+            card(w.to("cuda"))
+    torch.cuda.synchronize()
+    ms_per_audio_s = (time.time() - t0) * 1e3 / (iters * sum(UTMOS_SECONDS))
+    forwards += iters * len(wavs)
+    masked = [card(padded[i:i + 1], n_samples=n).item() for i, n in enumerate(lengths)]
+    batch = card(padded, n_samples=lengths).cpu().tolist()
+    forwards += len(wavs) + 1
+    counts = _shape_counts()                       # ... and ends here
+    launched = lstm_scan_bidir2.launches
+
+    real = U.lstm_scan_fused
+    U.lstm_scan_fused = lambda *a, lengths=None: real(*a)     # the control: no reversal
+    try:
+        control = [card(padded[i:i + 1], n_samples=n).item() for i, n in enumerate(lengths)]
+    finally:
+        U.lstm_scan_fused = real
+    card_err = max(abs(a - b) for a, b in zip(exact, cpu_scores))
+    mask_err = max(abs(a - b) for a, b in zip(masked + batch, exact + exact))
+    ctl_err = max(abs(a - b) for a, b in zip(control, exact))
+    say(phase="utmos", parameters=n_params, seconds=UTMOS_SECONDS, bucket_samples=UTMOS_BUCKET,
+        scores=exact, cpu_scores=cpu_scores, masked_scores=masked, batch_scores=batch,
+        card_vs_cpu_max_abs=card_err, card_atol=UTMOS_CARD_ATOL, masked_vs_exact_max_abs=mask_err,
+        mask_atol=UTMOS_MASK_ATOL, control_unreversed_max_abs=ctl_err,
+        ms_per_audio_second=ms_per_audio_s, forwards=forwards, bidir2_launches=launched,
+        launches_by_shape=_str_keys(counts))
+    fails = []
+    if not all(math.isfinite(v) for v in exact + masked + batch):
+        fails.append("non-finite scores")
+    if not card_err <= UTMOS_CARD_ATOL:
+        fails.append(f"card vs CPU {card_err} over {UTMOS_CARD_ATOL}")
+    if not mask_err <= UTMOS_MASK_ATOL:
+        fails.append(f"masked vs exact {mask_err} over {UTMOS_MASK_ATOL}")
+    if not ctl_err > UTMOS_MASK_ATOL:
+        fails.append(f"the unreversed control ({ctl_err}) passes {UTMOS_MASK_ATOL}")
+    if launched != forwards or sum(n for d in counts.values() for n in d.values()) != forwards:
+        fails.append(f"{launched} lstm_scan_bidir2 launches for {forwards} forwards: {counts}")
+    if fails:
+        raise SystemExit("utmos: " + "; ".join(fails))
+    return counts
+
+
+CREPE_ATOL = 1e-4
+
+
+def phase_crepe():
+    """CREPE full (22.2 M parameters) with seeded weights in torchcrepe's layout,
+    loaded as a checkpoint is (load_crepe), on the card: the posteriors of 32
+    normalised frames against the CPU's plain path (CREPE_ATOL on values in
+    (0, 1)), and frames a second at 512 frames a batch."""
+    from nvse_tpu_torch.metrics import crepe as C
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "full.pth")
+        torch.save(C.Crepe("full", seed=4).state_dict(), ckpt)
+        net = C.load_crepe(ckpt, "full", "cuda")
+        cpu = C.load_crepe(ckpt, "full", "cpu")
+    frames = C.frames_of(_speechlike(0.4, 16000, 9)[0].numpy(), 16000)[:32]
+    got, ref = C.posteriors(net, frames), C.posteriors(cpu, frames)
+    err = float(np.abs(got - ref).max())
+    batch = torch.randn(512, 1024, generator=torch.Generator().manual_seed(0)).to("cuda")
+    with torch.no_grad():
+        ms = cuda_ms(lambda: net(batch), iters=5)
+    say(phase="crepe", parameters=sum(p.numel() for p in net.parameters()), frames=len(frames),
+        max_abs_err=err, atol=CREPE_ATOL, posterior_range=[float(ref.min()), float(ref.max())],
+        ms_per_512_frames=ms, frames_per_second=512 / (ms * 1e-3))
+    if not (err <= CREPE_ATOL and np.isfinite(got).all()):
+        raise SystemExit(f"crepe: card posteriors off the CPU's by {err} (atol {CREPE_ATOL})")
+
+
+def phase_eval_cli():
+    """The evaluation path: run_inference serves the synthetic test set with
+    seeded BSRNN-M weights on the card, then python -m nvse_tpu_torch.metrics in
+    this process scores the decodes against the clean wavs: lsd (2 spawned
+    workers, after CUDA is up), stoi, pesq, mcd, evaluate (CREPE full from a
+    seeded torchcrepe-layout checkpoint, on the card) and utmos (from a seeded
+    lightning-layout checkpoint, on the card). Every printed number must be
+    finite; the seconds of each."""
+    import re
+
+    from nvse_tpu_torch.infer import run_inference
+    from nvse_tpu_torch.metrics import cli
+    from nvse_tpu_torch.metrics import crepe as C
+    from nvse_tpu_torch.metrics import utmos as U
+    from nvse_tpu_torch.ops.lstm import _reset_counts
+
+    h = _config("bsrnn")
+    _reset_counts(*_all_counters().values())       # this main path starts here
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "decoded")
+        h.test_output_dir = out
+        t0 = time.time()
+        stats = run_inference(h, log_fn=lambda line: None, device="cuda")
+        decode_s = time.time() - t0
+        crepe_ckpt, utmos_ckpt = os.path.join(tmp, "full.pth"), os.path.join(tmp, "utmos.ckpt")
+        torch.save(C.Crepe("full", seed=2).state_dict(), crepe_ckpt)
+        torch.save({"state_dict": U.lightning_state_dict(U.UTMOSModel(seed=3))}, utmos_ckpt)
+        pair = ["--ref_dir", os.path.join(REPO, h.raw_wavfile_path), "--deg_dir", out]
+        runs = [("lsd", pair + ["--jb", "2"]), ("stoi", pair + ["--jb", "1"]),
+                ("pesq", pair + ["--jb", "1"]), ("mcd", pair + ["--jb", "1"]),
+                ("evaluate", pair + ["--jb", "1"]), ("utmos", ["--deg_dir", out, "--ckpt", utmos_ckpt])]
+        env = {k: os.environ.get(k) for k in ("NVSE_CREPE_CKPT", "NVSE_CREPE_MODEL")}
+        os.environ.update(NVSE_CREPE_CKPT=crepe_ckpt, NVSE_CREPE_MODEL="full")
+        results = {}
+        try:
+            for name, argv in runs:
+                buf = io.StringIO()
+                t0 = time.time()
+                with contextlib.redirect_stdout(buf):
+                    cli.main([name, *argv])
+                lines = buf.getvalue().splitlines()
+                nums = [float(v) for l in lines for v in re.findall(r"-?\d+\.\d+|nan|inf", l)]
+                results[name] = dict(lines=lines, seconds=time.time() - t0, numbers=nums)
+        finally:
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            C.load_crepe.cache_clear()
+    counts = _shape_counts()                       # ... and ends here
+    say(phase="eval_cli", files=stats["files"], decode_seconds=decode_s, rtf=stats["rtf"],
+        metrics=results, launches_by_shape=_str_keys(counts))
+    bad = [n for n, r in results.items() if not r["numbers"]
+           or not all(math.isfinite(v) for v in r["numbers"]) or any("n/a" in l for l in r["lines"])]
+    if stats["files"] != 6 or bad or "CREPE full" not in results["evaluate"]["lines"][0]:
+        raise SystemExit(f"eval_cli: {stats['files']} files decoded; metrics without finite "
+                         f"numbers: {bad}; {results.get('evaluate', {}).get('lines')}")
+    if not counts.get("lstm_scan_bidir2"):
+        raise SystemExit(f"eval_cli: UTMOS launched no lstm_scan_bidir2: {counts}")
+    return counts
+
+
 def _train_shapes(counts, label):
     """(label, rows, steps, H) of each training-forward shape a path launched."""
     return sorted({(label, R, T, H) for T, R, H, _ in counts["lstm_fwd_hc"]})
@@ -2679,11 +2984,23 @@ def main():
     rows += phase_train_kernels(_train_shapes(t_paths["hddemucs_train"], "hddemucs"),
                                 phase="time_kernels")
     rows += phase_rest(rows, t_paths, phase="time_kernels")
+    # the CQT discriminator in BSRNN-M's T-F step (f32, bf16) and in small T-F and time
+    # steps against the CPU; the evaluation path: UTMOS (its decoder BiLSTM on
+    # lstm_scan_bidir2 at H = 512), CREPE, the metric CLI on served decodes; then rows
+    # for the lstm_scan_bidir2 shapes UTMOS launched
+    e_paths = {"cqtd_train": phase_train(cqtd=True)}
+    for name in ("bsrnn", "hifigan"):
+        phase_train_vs_cpu_plain(name, cqtd=True)
+    e_paths["utmos"] = phase_utmos()
+    phase_crepe()
+    e_paths["eval_cli"] = phase_eval_cli()
+    rows += phase_rest(rows, e_paths, phase="eval_kernels")
     # the per-step ablation harness (B8)
     ablation_rows, ablation_counts = phase_lstm_step_ablation()
     rows += ablation_rows
     all_paths = {**paths, **{f"bsrnn_l_{p}": c for p, c in l_paths.items()}, **c_paths,
-                 **b_paths, **v_paths, **t_paths, "lstm_step_ablation": ablation_counts}
+                 **b_paths, **v_paths, **t_paths, **e_paths,
+                 "lstm_step_ablation": ablation_counts}
     missing = _missing(rows, all_paths)
     if missing:
         raise SystemExit(f"launches on a main path with no kernel-vs-plain row: {missing}")

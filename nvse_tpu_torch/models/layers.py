@@ -173,10 +173,10 @@ class Conv2d(nn.Module):
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=(1, 1),
-                 padding=(0, 0), gen: torch.Generator | None = None):
+                 padding=(0, 0), gen: torch.Generator | None = None, dilation=(1, 1)):
         super().__init__()
         kh, kw = kernel_size
-        self.stride, self.padding = tuple(stride), tuple(padding)
+        self.stride, self.padding, self.dilation = tuple(stride), tuple(padding), tuple(dilation)
         bound = 1.0 / math.sqrt(in_channels * kh * kw)
         self.v = uniform_((out_channels, in_channels, kh, kw), bound, gen)
         self.g = nn.Parameter(self.v.data.flatten(1).norm(dim=1).reshape(-1, 1, 1, 1))
@@ -186,10 +186,10 @@ class Conv2d(nn.Module):
         return _wn_weight(self.v, self.g)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d(x, self.kernel(), self.bias, self.stride, self.padding)
+        return conv2d(x, self.kernel(), self.bias, self.stride, self.padding, self.dilation)
 
 
-def _conv(fn, x, w, bias, stride, padding):
+def _conv(fn, x, w, bias, stride, padding, **kw):
     """fn = F.conv2d or F.conv_transpose2d on NCHW, the input cast to the
     weight dtype as the JAX layers follow their params."""
     if w.dtype == torch.bfloat16 and w.device.type == "cpu":
@@ -197,13 +197,14 @@ def _conv(fn, x, w, bias, stride, padding):
         # inputs (MRD layer 4, (4, 64, 65, 2) * (64, 64, 3, 3), stride 2);
         # float32 of the bf16 values, rounded once, is a bf16 conv with
         # float32 sums
-        return fn(x.to(w.dtype).float(), w.float(), bias.float(), stride, padding).to(w.dtype)
-    return fn(x.to(w.dtype), w, bias, stride, padding)
+        return fn(x.to(w.dtype).float(), w.float(), bias.float(), stride, padding,
+                  **kw).to(w.dtype)
+    return fn(x.to(w.dtype), w, bias, stride, padding, **kw)
 
 
-def conv2d(x, w, bias, stride=(1, 1), padding=(0, 0)) -> torch.Tensor:
+def conv2d(x, w, bias, stride=(1, 1), padding=(0, 0), dilation=(1, 1)) -> torch.Tensor:
     """torch conv2d: x (B, I, H, W), w (O, I, kh, kw), bias (O,)."""
-    return _conv(F.conv2d, x, w, bias, stride, padding)
+    return _conv(F.conv2d, x, w, bias, stride, padding, dilation=dilation)
 
 
 def conv_transpose2d(x, w, bias, stride=(1, 1), padding=(0, 0)) -> torch.Tensor:
@@ -220,16 +221,16 @@ class PlainConv2d(nn.Module):
     U(+-1/sqrt(in * kh * kw))."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=(1, 1),
-                 padding=(0, 0), gen: torch.Generator | None = None):
+                 padding=(0, 0), gen: torch.Generator | None = None, dilation=(1, 1)):
         super().__init__()
         kh, kw = kernel_size
-        self.stride, self.padding = tuple(stride), tuple(padding)
+        self.stride, self.padding, self.dilation = tuple(stride), tuple(padding), tuple(dilation)
         bound = 1.0 / math.sqrt(in_channels * kh * kw)
         self.kernel = uniform_((out_channels, in_channels, kh, kw), bound, gen)
         self.bias = uniform_((out_channels,), bound, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d(x, self.kernel, self.bias, self.stride, self.padding)
+        return conv2d(x, self.kernel, self.bias, self.stride, self.padding, self.dilation)
 
 
 class ConvTranspose2d(nn.Module):

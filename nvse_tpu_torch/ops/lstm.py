@@ -91,7 +91,7 @@ __all__ = ["lstm_bwd", "lstm_bwd_plain", "lstm_dw_hh", "lstm_dw_hh_plain", "lstm
            "lstm_fwd_hc_plain", "lstm_scan", "lstm_scan_fused", "lstm_scan_fused_plain",
            "lstm_scan_bidir", "lstm_scan_bidir_plain", "lstm_scan_bidir2", "bidir2_plan",
            "lstm_scan_bidir2_plain", "lstm_scan_plain", "lstm_scan_stateful",
-           "lstm_scan_stateful_plain"]
+           "lstm_scan_stateful_plain", "prefix_reversal"]
 
 _MAX_H = 128                    # lstm_fused.cu, lstm_scan.cu, lstm_bwd.cu: a cluster's
                                 # blocks hold the weights
@@ -145,19 +145,44 @@ def _scan_plain(xg: torch.Tensor, w_hh: torch.Tensor, h: torch.Tensor, c: torch.
     return hs, cs
 
 
-def lstm_scan_fused_plain(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.Tensor:
+def prefix_reversal(T: int, lengths, device) -> torch.Tensor:
+    """(T, B) time index reversing each row's first lengths[b] steps and
+    keeping the rest in place: t -> lengths[b] - 1 - t for t < lengths[b],
+    else t. Its own inverse. Raises unless 0 <= lengths[b] <= T."""
+    L = torch.as_tensor(lengths, dtype=torch.long, device=device).reshape(1, -1)
+    if bool(((L < 0) | (L > T)).any()):
+        raise ValueError(f"lengths must lie in [0, {T}], got {L.flatten().tolist()}")
+    t = torch.arange(T, device=device).reshape(-1, 1)
+    return torch.where(t < L, L - 1 - t, t)
+
+
+def _take_time(xt: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """xt (T, B, ...) gathered along time per row: out[t, b] = xt[idx[t, b], b]."""
+    return xt[idx, torch.arange(xt.shape[1], device=xt.device)[None, :]]
+
+
+def lstm_scan_fused_plain(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b,
+                          lengths=None) -> torch.Tensor:
     """Plain PyTorch version of the fused kernel: (B, T, C) -> (B, T, 2H).
 
     Mirrors `_xla_lstm_fused_ref` with the kernel's numerics: the input
     projection x @ W_ih + b accumulates in float32 from the input-dtype
     values, the state is float32, and the output has the input dtype.
+    With `lengths` (B,) the backward direction of row b scans its first
+    lengths[b] steps only, from the last of them (`prefix_reversal`); the
+    outputs past lengths[b] are undefined in both directions.
     """
     outs = []
     for w_ih, b, w_hh, reverse in ((w_ih_f, b_f, w_hh_f, False),
                                    (w_ih_b, b_b, w_hh_b, True)):
         xg = (x.float() @ w_ih.float() + b.float()).transpose(0, 1)
         zero = xg.new_zeros(x.shape[0], w_hh.shape[0])
-        outs.append(_scan_plain(xg, w_hh, zero, zero, reverse)[0].transpose(0, 1))
+        if reverse and lengths is not None:
+            idx = prefix_reversal(xg.shape[0], lengths, xg.device)
+            hs = _take_time(_scan_plain(_take_time(xg, idx), w_hh, zero, zero)[0], idx)
+        else:
+            hs = _scan_plain(xg, w_hh, zero, zero, reverse)[0]
+        outs.append(hs.transpose(0, 1))
     return torch.cat(outs, dim=-1).to(x.dtype)
 
 
@@ -540,7 +565,7 @@ def _launch_kernel(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.Tensor:
     return out
 
 
-def lstm_scan_fused(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.Tensor:
+def lstm_scan_fused(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b, lengths=None) -> torch.Tensor:
     """(B, T, C) -> (B, T, 2H) fused-projection bidirectional LSTM.
 
     When autograd will differentiate the call (grad enabled and any
@@ -558,8 +583,23 @@ def lstm_scan_fused(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.Tensor
     `lstm_scan_fused.launches_by_shape`, per kernel in
     `lstm_scan_fused.launches_by_kernel`); the third route's launches are
     lstm_scan_bidir2's, counted there.
+
+    `lengths` (B,), for inference: row b is lengths[b] valid steps followed by
+    padding. Its backward direction then scans the valid steps only, from the
+    last of them, as a masked scan that leaves the state untouched on padded
+    steps would (UTMOS's decoder, nvse_tpu/metrics/utmos_jax.py:_lstm_dir):
+    the kernels take no mask, so each row's valid prefix is reversed in time by
+    a gather (`prefix_reversal`) before the projection + lstm_scan_bidir2
+    route, whatever (C, H), and the backward output is gathered back. Outputs
+    past lengths[b] are undefined.
     """
     args = (x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b)
+    if lengths is not None:
+        if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+            raise NotImplementedError("lstm_scan_fused with lengths is inference only")
+        if x.device.type == "cpu":
+            return lstm_scan_fused_plain(*args, lengths=lengths)
+        return _projected_bidir2(*args, lengths=lengths)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         return _BiLSTMSaving.apply(*args)
     if x.device.type == "cpu":
@@ -569,17 +609,23 @@ def lstm_scan_fused(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.Tensor
     return _launch_kernel(*args)
 
 
-def _projected_bidir2(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.Tensor:
+def _projected_bidir2(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b, lengths=None) -> torch.Tensor:
     """lstm_scan_fused past the fused kernels: xg = x @ W_ih + b per
     direction as torch matmuls in x's dtype, time-major, the backward
-    direction's input flipped in time (pallas_lstm.py:867-868), then both
-    scans in one launch of lstm_scan_bidir2, the backward output unflipped."""
+    direction's input flipped in time (pallas_lstm.py:867-868; with `lengths`
+    each row's valid prefix reversed), then both scans in one launch of
+    lstm_scan_bidir2, the backward output put back in time order."""
     B, T, C, H = _fused_shapes("lstm_scan_fused", x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b)
     xt = x.transpose(0, 1)                                           # (T, B, C)
+    if lengths is None:
+        back = lambda t: t.flip(0)                                   # noqa: E731
+    else:
+        idx = prefix_reversal(T, lengths, x.device)
+        back = lambda t: _take_time(t, idx)                          # noqa: E731
     xg_f = torch.addmm(b_f, xt.reshape(T * B, C), w_ih_f).view(T, B, 4 * H)
-    xg_b = torch.addmm(b_b, xt.flip(0).reshape(T * B, C), w_ih_b).view(T, B, 4 * H)
+    xg_b = torch.addmm(b_b, back(xt).reshape(T * B, C), w_ih_b).view(T, B, 4 * H)
     hs_f, hs_b = lstm_scan_bidir2(xg_f, xg_b, w_hh_f, w_hh_b)
-    return torch.cat([hs_f.transpose(0, 1), hs_b.flip(0).transpose(0, 1)], dim=-1)
+    return torch.cat([hs_f.transpose(0, 1), back(hs_b).transpose(0, 1)], dim=-1)
 
 
 def _reset_counts(*fns) -> None:

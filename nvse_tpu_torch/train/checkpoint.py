@@ -4,10 +4,11 @@ Counterpart of nvse_tpu/train/checkpoint.py (Orbax there; torch.save
 here, synchronously). Per save step two files, the reference repo's own
 layout (utils.py:51-86, train_tf_wi_inv.py:288-305):
   g_{step:08d}   {"generator": state_dict}   what inference loads
-  do_{step:08d}  {"mpd", "mrd" or "msd", "optim_g", "optim_d", "steps", "epoch"}
+  do_{step:08d}  {"mpd", "mrd" or "msd", ("cqtd",) "optim_g", "optim_d", "steps", "epoch"}
 The time domain's "msd" state_dict carries the spectral-norm buffers `u`
 of its first scale, as the JAX bundle's `spectral` (checkpoint.py:89-90);
-resuming restores them.
+resuming restores them. A trainer with the CQT discriminator (h.use_cqtd)
+adds its state_dict as "cqtd", as the JAX disc state's params hold it.
 Rotation keeps `max_to_keep` of each and writes the checkpoint_g /
 checkpoint_d manifests. Tensors are saved on the CPU, so a bundle written
 on the card loads anywhere.
@@ -60,8 +61,7 @@ def save_checkpoint(path: str, step: int, epoch: int, trainer, max_to_keep: int 
     _save({"generator": _to_cpu(trainer.generator.state_dict())},
           os.path.join(path, f"g_{step:08d}"))
     _save(_to_cpu({
-        "mpd": trainer.disc["mpd"].state_dict(),
-        trainer.scale_key: trainer.disc[trainer.scale_key].state_dict(),
+        **{k: d.state_dict() for k, d in trainer.disc.items()},
         "optim_g": trainer.opt_g.state_dict(),
         "optim_d": trainer.opt_d.state_dict(),
         "steps": int(step),
@@ -81,8 +81,8 @@ def restore_checkpoint(path: str, trainer) -> tuple[int, int]:
     g = torch.load(cp_g, map_location="cpu", weights_only=True)
     do = torch.load(cp_do, map_location="cpu", weights_only=True)
     trainer.generator.load_state_dict(g["generator"])
-    trainer.disc["mpd"].load_state_dict(do["mpd"])
-    trainer.disc[trainer.scale_key].load_state_dict(do[trainer.scale_key])
+    for k, d in trainer.disc.items():
+        d.load_state_dict(do[k])
     trainer.opt_g.load_state_dict(do["optim_g"])
     trainer.opt_d.load_state_dict(do["optim_d"])
     return int(do["steps"]) + 1, int(do["epoch"])

@@ -10,6 +10,10 @@ denoise+vocoder BSRNN_24k, train_tf_wi_inv_joint_denoise_vocoder.py):
                    + L_GAN + L_FM + 45 L_Mel
   time:      L_D = L_MSD + L_MPD   (LS-GAN for HiFiGAN / iSTFTNet, else hinge)
              L_G = L_GAN + L_FM + 45 L_Mel
+With h.use_cqtd every domain adds the multi-scale sub-band CQT discriminator
+(models/cqt_discriminator.py): cqtd_weight x its D loss to L_D, and
+cqtd_weight x its GAN and feature-matching losses to L_GAN and L_FM
+(nvse_tpu/train/trainer.py:152-167, :344-347, :399-404); opt_d covers it.
 Features (mel, mel-loss target, and in the T-F domains log-amplitude,
 phase, real, imag) are computed on the device from the raw audio batch. The generator runs once
 with grad; the discriminators are updated first on its detached output,
@@ -43,7 +47,7 @@ of the float32 master weights (torch.func.functional_call); features,
 losses and optimizer states stay float32, and the casts pass float32
 gradients back, as the JAX step's `_to_compute` does.
 
-Not ported (raise NotImplementedError): use_cqtd, sp_devices > 1 and
+Not ported (raise NotImplementedError): sp_devices > 1 and
 compute_dtype "float16" (the JAX trainer's
 float16 trunks: the LSTM kernels take float32 and bfloat16 only). A
 spectrum-input model (BSRNN_24k) given to the T-F trainer raises too,
@@ -73,6 +77,7 @@ from ..losses.spectral import _masked_mean
 from ..models import build_generator, model_input_bins
 from ..models.discriminators import (MultiPeriodDiscriminator, MultiResolutionDiscriminator,
                                      MultiScaleDiscriminator)
+from ..models.cqt_discriminator import MultiScaleSubbandCQTDiscriminator
 from ..models.layers import LSTM
 from ..ops.griffin_lim import random_phase
 from ..ops.spectral import JOINT_EPS, JOINT_TASKS, amp_pha_spectrum, joint_input, mel_spectrogram
@@ -189,8 +194,6 @@ def _check_supported(h, domain: str) -> None:
             "not the T-F trainer")
     if domain == "joint" and not spectrum_input:
         raise ValueError(f"the joint trainer feeds a log spectrum; {h.model_name} takes mels")
-    if h.get("use_cqtd"):
-        raise NotImplementedError("use_cqtd: the CQT discriminator is not ported yet")
     if int(h.get("sp_devices", 1) or 1) > 1:
         raise NotImplementedError("sp_devices > 1: multi-GPU training is not ported yet")
     if str(h.get("compute_dtype")) == "float16":
@@ -200,7 +203,8 @@ def _check_supported(h, domain: str) -> None:
 
 class GANTrainer:
     """Generator, MPD + MRD (T-F and joint domains) or MPD + MSD (time
-    domain), their AdamW optimizers and the step functions.
+    domain), with h.use_cqtd the CQT discriminator beside them, their AdamW
+    optimizers and the step functions.
 
     Weights are random from torch.Generators seeded with h.seed (the
     generator as build_generator draws it, the discriminators from
@@ -238,7 +242,11 @@ class GANTrainer:
         self.disc = nn.ModuleDict({
             "mpd": MultiPeriodDiscriminator(tuple(h.mpd_reshapes), gen=dgen, batched=use_ls),
             self.scale_key: scale_disc,
-        }).to(self.device)
+        })
+        if h.get("use_cqtd"):
+            self.disc["cqtd"] = MultiScaleSubbandCQTDiscriminator.from_config(h, gen=dgen)
+        self.disc.to(self.device)
+        self.cqtd_weight = float(h.get("cqtd_weight", 1.0))
         self.scale_weight = float(h.mrd_weight) if self.tf_like else 1.0
         # a fresh initial phase a step for init_phase "rand" (trainer.py:297-312)
         self.rand_phase = str(getattr(generator, "init_phase", "")).lower() == "rand"
@@ -359,6 +367,9 @@ class GANTrainer:
         r_f, g_f, _, _ = self._run(self.disc["mpd"], y_c, y_g_det)
         r_s, g_s, _, _ = self._scale(y_c, y_g_det, update_stats=True)
         L_D = self.d_loss(r_s, g_s)[0] * self.scale_weight + self.d_loss(r_f, g_f)[0]
+        if "cqtd" in self.disc:
+            r_c, g_c, _, _ = self._run(self.disc["cqtd"], y_c, y_g_det)
+            L_D = L_D + self.cqtd_weight * self.d_loss(r_c, g_c)[0]
         self.opt_d.zero_grad(set_to_none=True)
         L_D.backward()
         ok = apply_update(self.opt_d, self.h, self.clip, self.skip_nonfinite)
@@ -382,6 +393,10 @@ class GANTrainer:
             w = self.scale_weight
             L_GAN = self.g_loss(g_s)[0] * w + self.g_loss(g_f)[0]
             L_FM = feature_loss(fr_s, fg_s) * w + feature_loss(fr_f, fg_f)
+            if "cqtd" in self.disc:
+                _, g_c, fr_c, fg_c = self._run(self.disc["cqtd"], y_c, y_gc)
+                L_GAN = L_GAN + self.cqtd_weight * self.g_loss(g_c)[0]
+                L_FM = L_FM + self.cqtd_weight * feature_loss(fr_c, fg_c)
             L_G = L_GAN + L_FM + 45.0 * L_Mel
             if self.tf_like:
                 logamp_g, pha_g, rea_g, imag_g, _ = fwd["outs"]

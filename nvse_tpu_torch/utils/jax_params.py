@@ -1,6 +1,6 @@
 """Map JAX-package parameter trees (BSRNN, GCRN, ConvTasNet, HD-Demucs, APNet,
 APNet2, FreeV, Vocos, HiFiGAN, iSTFTNet, the discriminators with the MSD's
-spectral-norm vectors) onto the port's state_dicts.
+spectral-norm vectors, the CQT discriminator) onto the port's state_dicts.
 
 Reads plain numpy (e.g. `jax.tree.map(np.asarray, variables["params"])`
 done by the caller), so this module imports nothing of JAX. The tests
@@ -375,3 +375,22 @@ def disc_params_from_jax(disc_params_as_numpy: dict, spectral: dict | None = Non
         for j in range(len(d)):
             _conv2d_wn(d[f"Conv2d_{j}"], f"discs.{i}.convs.{j}", scale)
     return mpd, scale
+
+
+def cqtd_params_from_jax(cqtd_params_as_numpy: dict) -> dict[str, torch.Tensor]:
+    """The JAX CQT discriminator's tree (the disc state's params["cqtd"]:
+    {DiscriminatorCQT_i: {Conv2d_j: {kernel, bias} or {v, g, bias}}}) -> the
+    port's MultiScaleSubbandCQTDiscriminator state_dict: Conv2d_j is
+    discs.i.convs.j, kernels and v HWIO -> OIHW, g (1, 1, 1, O) -> (O, 1, 1, 1),
+    v and g kept apart."""
+    out: dict[str, torch.Tensor] = {}
+    for i in range(len(cqtd_params_as_numpy)):
+        d = cqtd_params_as_numpy[f"DiscriminatorCQT_{i}"]
+        for j in range(len(d)):
+            node, prefix = d[f"Conv2d_{j}"], f"discs.{i}.convs.{j}"
+            if "v" in node:
+                _conv2d_wn(node, prefix, out)
+            else:
+                out[f"{prefix}.kernel"] = _t(np.transpose(np.asarray(node["kernel"]), (3, 2, 0, 1)))
+                out[f"{prefix}.bias"] = _t(node["bias"])
+    return out
