@@ -234,13 +234,31 @@ the last line:
      card): every number finite, the seconds of each; then (eval_kernels) a row
      for every shape those paths launched (UTMOS's lstm_scan_bidir2 at T x 1 and 3
      rows, H = 512, on csrc/lstm_scan_wide.cu kScanBidir);
- 20. the per-step ablation harness (scripts/profile_torch_lstm_step.py) in this
+ 20. multi-GPU (nvse_tpu_torch/parallel): dryrun, the port's dry run (python -m
+     nvse_tpu_torch.parallel.dryrun --n 4: a DP GAN step of a tiny BSRNN over 4
+     ranks, a dp x sp (2 x 2) step within 1e-3 of it, a checkpoint saved by rank 0,
+     restored on every rank and continued within 1e-5); dp_train, BSRNN-M's GAN
+     step at full width, batch 16 x 16384, in float32 and bfloat16 over the ranks
+     (NCCL with a card a rank where there are 2 or more cards, 4 ranks on 4; else 2
+     ranks sharing cuda:0 over gloo), its losses, AdamW first moments and updates
+     against this process's one-step of phase 5's config (float32 at phase 6's
+     limits, bfloat16 at its own), 32 launches a step of each training kernel on
+     every rank, the states equal on every rank, ms a step and each rank's compute
+     and NCCL device time and idle share; sp_train, the same over a dp x sp mesh
+     (BSRNN's trunk sequence-parallel: 34 bands and 65 frames split over 2 seq
+     ranks, an all-to-all at each transpose), G and D within 1e-3 of the DP step;
+     dp_serve, the engine with infer_dp_devices -1 (a replica a card; two sharing
+     cuda:0 on a one-card machine) at B = 8 x 1024 against the one-card decode,
+     RTF. The ranks count their launches in their own processes and write them to
+     files that this process merges; every shape they launched (their local batch,
+     sp's band and frame slices) gets its kernel-vs-plain row (parallel_kernels);
+ 21. the per-step ablation harness (scripts/profile_torch_lstm_step.py) in this
      process at its four shapes in float32 and bfloat16: five variants of one
      direction of csrc/lstm_fused.cu (H = 128) and csrc/lstm_fused_wide.cu
      (H = 256), each against its plain version, `full` against the forward half
      of lstm_scan_fused, and the split of a step into input, products,
      nonlinearities and floor (lstm_step_ablation, lstm_step_split);
- 21. each main path above sets the launch counts to 0 when it starts and
+ 22. each main path above sets the launch counts to 0 when it starts and
      reads them per wrapper and shape when it ends; every other shape that a
      main path launched (serving's 128-frame bucket, the validations, the
      offline decodes beside the streams, the joint CLI's validation and
@@ -249,7 +267,7 @@ the last line:
      serving bucket, the time steps' tails) gets its
      kernel-vs-plain row in the dtype it ran in, and a launch at a shape with
      no row fails the run;
- 22. print the kernels line (one entry per kernel, shape and dtype, each
+ 23. print the kernels line (one entry per kernel, shape and dtype, each
      with its launches summed over the main paths; the redesigned dW_hh
      reduction, wide and narrow fused BiLSTMs, narrow and wide scans (the
      training forwards among them), narrow and wide backward recurrences, the
@@ -584,13 +602,9 @@ def _launched(counters, fn):
 
 
 def _all_counters():
-    from nvse_tpu_torch.ops import lstm as L
-    from nvse_tpu_torch.ops.lstm_step import lstm_step_variant
-    from nvse_tpu_torch.ops.tcn import tcn_block_tail, tcn_gln_fold_kernel
+    from nvse_tpu_torch.ops._measure import counted_wrappers
 
-    return {**_training_counters(), "lstm_scan_bidir2": L.lstm_scan_bidir2,
-            "tcn_block_tail": tcn_block_tail, "tcn_gln_stats": tcn_gln_fold_kernel,
-            "lstm_scan_bidir": L.lstm_scan_bidir, "lstm_step_variant": lstm_step_variant}
+    return counted_wrappers()
 
 
 def _shape_counts():
@@ -698,17 +712,17 @@ def _design(name, H, dtype, R=None, T=None, C=None):
     return None
 
 
-def phase_train_kernels(shapes=TRAIN_SHAPES, phase="kernel_vs_plain"):
+def phase_train_kernels(shapes=TRAIN_SHAPES, phase="kernel_vs_plain", dtypes=DTYPES):
     """lstm_fwd_hc, the lstm_bwd recurrence and the dW_hh reduction at the
-    BSRNN-M and GCRN training shapes (or BSRNN-L's), against their plain
-    versions; at the BSRNN shapes, cuDNN's BiLSTM forward + backward beside
-    the port's."""
+    BSRNN-M and GCRN training shapes (or BSRNN-L's, or the ranks'), against
+    their plain versions, in `dtypes`; at the BSRNN shapes, cuDNN's BiLSTM
+    forward + backward beside the port's."""
     from nvse_tpu_torch.ops import lstm as L
 
     rows = []
     for label, R, T, H in shapes:
         G = 4 * H
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             g = torch.Generator().manual_seed(R + T)
             b = 1.0 / math.sqrt(H)
             xp = (0.5 * torch.randn(T, R, G, generator=g)).to("cuda", dtype)
@@ -1038,20 +1052,29 @@ def phase_train(model="bsrnn", causal=False, validate=False, cqtd=False):
     return _shape_counts()                         # ... and ends here
 
 
-def _busy_ms(fn):
-    """Device-busy ms of one fn() from torch.profiler (the sum of its kernel
-    times; one stream), or None when the profiler shows no device time."""
+def _device_ms(fn):
+    """(ms of NCCL's kernels, ms of every other kernel) on the device during one
+    fn(), from torch.profiler (one stream). NCCL's kernels count the time they
+    wait for the other ranks too."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)
-             and not e.name.startswith(("Optimizer.", "ProfilerStep")))
-    return us / 1e3 or None
+    us = [0.0, 0.0]
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and not e.name.startswith(("Optimizer.", "ProfilerStep"))):
+            us[not e.name.startswith("nccl")] += e.device_time
+    return us[0] / 1e3, us[1] / 1e3
+
+
+def _busy_ms(fn):
+    """Device-busy ms of one fn() from torch.profiler (the sum of its kernel
+    times; one stream), or None when the profiler shows no device time."""
+    return sum(_device_ms(fn)) or None
 
 
 def _validate(tr, h, counters, model):
@@ -2847,6 +2870,297 @@ def phase_lstm_step_ablation():
     return rows, counts
 
 
+# ---------------------------------------------------------------------------
+# multi-GPU: the port's dry run, data- and sequence-parallel BSRNN-M training over
+# torch.distributed, data-parallel serving (nvse_tpu_torch/parallel)
+# ---------------------------------------------------------------------------
+
+# the DP step against the one-process step (phase 5's config, weights and batch):
+# float32 at phase 6's limits; bfloat16 trunks round each GEMM's output to 8 bits,
+# and a GEMM over another row count may round an element apart, so bfloat16 has
+# limits of its own, set from this comparison's readings on an H100: losses 3.6e-6
+# to 5.7e-6 apart, moments 3.7e-3 to 4.6e-3 (relative L2, the worst tensor); a
+# gradient left out of the all-reduce moves its moments by far more (PERF.md §6).
+# Updated parameters: at most 1 % of the elements whose gradient is not float
+# noise (|mu| >= 1e-4 of the largest) may move by lr / 10 apart
+# (tests/test_torch_port_train.py assert_updates_close). dp x sp against DP: G and
+# D at 1e-3 relative (__graft_entry__.py:181-182).
+PAR_LIMITS = {"float32": (STEP_RTOL, MOMENT_REL), "bfloat16": (1e-4, 2e-2)}
+SP_RTOL = 1e-3
+PAR_ITERS = 3
+
+
+def _rank_layout():
+    """(backend, ranks, DP mesh shape, dp x sp mesh shape): one rank a card over
+    NCCL on a machine of 2 or more cards (4 ranks where there are 4), else 2 ranks
+    sharing cuda:0 over gloo (NCCL holds one rank a card)."""
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        world = 4 if cards >= 4 else 2
+        return "nccl", world, (world,), (world // 2, 2)
+    return "gloo", 2, (2,), (1, 2)
+
+
+def phase_dryrun():
+    """python -m nvse_tpu_torch.parallel.dryrun --n 4 on the card(s): a DP step, a
+    dp x sp step within 1e-3 of it, a rank-0 checkpoint restored on every rank and
+    continued within 1e-5. -> the ranks' launches per wrapper and shape."""
+    from nvse_tpu_torch.parallel.dryrun import merge_counts
+
+    n, cards = 4, torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        counts = os.path.join(tmp, "counts.json")
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, "-m", "nvse_tpu_torch.parallel.dryrun",
+                               "--n", str(n), "--counts", counts], cwd=REPO,
+                              capture_output=True, text=True, timeout=600)
+        lines = proc.stdout.splitlines()
+        say(phase="dryrun", backend="nccl" if n <= cards else "gloo", world=n, cards=cards,
+            rc=proc.returncode, seconds=time.time() - t0, lines=lines)
+        if proc.returncode or not any("save/restore ok" in line for line in lines):
+            raise SystemExit(f"dryrun failed (rc {proc.returncode}): {proc.stderr[-3000:]}")
+        with open(counts) as f:
+            return merge_counts([json.load(f)])
+
+
+def _moment_rel(mu, ref):
+    """Per-tensor relative L2 of AdamW first moments (phase 6's reading): worst
+    (value, name)."""
+    floor = 1e-4 * max(v.norm().item() for v in ref.values())
+    errs = {k: (mu[k] - ref[k]).norm().item() / max(ref[k].norm().item(), floor) for k in ref}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def _update_frac(update, ref_update, ref_mu, lr):
+    """The largest share, over tensors, of elements whose gradient is not float
+    noise and whose update differs from the reference's by more than lr / 10."""
+    floor = 1e-4 * max(v.abs().max().item() for v in ref_mu.values())
+    worst = 0.0
+    for k, ref in ref_update.items():
+        live = ref_mu[k].abs() >= floor
+        if live.any():
+            d = (update[k] - ref).abs()[live]
+            worst = max(worst, (d > lr / 10).float().mean().item())
+    return worst
+
+
+def _named(tr):
+    """(name, parameter) of the generator ("g.") and the discriminators ("d.")."""
+    return [*(("g." + n, p) for n, p in tr.generator.named_parameters()),
+            *(("d." + n, p) for n, p in tr.disc.named_parameters())]
+
+
+def _step_reading(tr, before):
+    """(AdamW first moments, updates since `before`) of every parameter that has
+    an optimizer state, on the CPU."""
+    mu, upd = {}, {}
+    for opt, prefix, module in ((tr.opt_g, "g.", tr.generator), (tr.opt_d, "d.", tr.disc)):
+        for n, p in module.named_parameters():
+            if "exp_avg" in opt.state.get(p, {}):
+                mu[prefix + n] = opt.state[p]["exp_avg"].detach().cpu()
+                upd[prefix + n] = (p.detach() - before[prefix + n]).cpu()
+    return mu, upd
+
+
+def _parallel_rank(dev, jobs, tmp):
+    """Rank worker of dp_train / sp_train: for each (phase, mesh shape, dtype), a
+    GANTrainer over the mesh at BSRNN-M's full width, one step on the rank's rows
+    of phase 5's batch (the compared step: rank 0 reads it against the one-process
+    step, or against the DP step for sp_train), PAR_ITERS timed steps, one more
+    under torch.profiler (this rank's busy time); the launch counts set to 0 when
+    the job starts and read when it ends. Writes its readings as JSON; raises (and
+    fails the run) on a check that fails."""
+    import torch.distributed as dist
+
+    from nvse_tpu_torch.ops.lstm import _reset_counts
+    from nvse_tpu_torch.parallel import get_mesh, mesh_barrier, replicated, shard_batch
+    from nvse_tpu_torch.parallel.dryrun import launch_counts, trainer_state
+    from nvse_tpu_torch.train import GANTrainer, fetch_scalars
+
+    rank = dist.get_rank()
+    counters = _all_counters()
+    dp_losses = {}
+    for phase, shape, dtype in jobs:
+        mesh = get_mesh(math.prod(shape), shape[-1] if len(shape) > 1 else 1, dev)
+        h = _config("bsrnn", compute_dtype=dtype)
+        audio = shard_batch(_audio_batch(16, int(h.segment_size), h.sampling_rate, seed=0),
+                            mesh).to(dev)
+        _reset_counts(*counters.values())          # this main path starts here
+        tr = GANTrainer(h, device=dev, steps_per_epoch=2, mesh=mesh)
+        before = {n: p.detach().clone() for n, p in _named(tr)}
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses = fetch_scalars(tr.step(audio))
+        out = {"losses": losses, "rows": audio.shape[0]}
+        fails = []
+        if rank == 0 and phase == "dp_train":
+            ref = torch.load(os.path.join(tmp, f"ref_{dtype}.pt"), weights_only=True)
+            mu, upd = _step_reading(tr, before)
+            loss_tol, mom_tol = PAR_LIMITS[dtype]
+            loss_rel = max(abs(losses[k] - v) / max(abs(v), 1e-12)
+                           for k, v in ref["losses"].items())
+            mom_rel, worst = _moment_rel(mu, ref["mu"])
+            frac = _update_frac(upd, ref["update"], ref["mu"], float(h.learning_rate))
+            out.update(loss_rel=loss_rel, loss_rtol=loss_tol, moment_rel=mom_rel,
+                       worst_moment=worst, moment_rel_tol=mom_tol, update_frac=frac)
+            if not (loss_rel <= loss_tol and mom_rel <= mom_tol and frac <= 0.01):
+                fails.append(f"DP step off the one-process step: {out}")
+        if rank == 0 and phase == "dp_train":
+            dp_losses[dtype] = losses
+        if rank == 0 and phase == "sp_train":
+            sp_rel = max(abs(losses[k] - dp_losses[dtype][k]) / abs(dp_losses[dtype][k])
+                         for k in ("G", "D"))
+            out.update(vs_dp_rel=sp_rel, vs_dp_rtol=SP_RTOL)
+            if not sp_rel <= SP_RTOL:
+                fails.append(f"dp x sp step {sp_rel} off the DP step")
+        mesh_barrier(mesh, dev)                    # rank 0's reading above is not timed
+        torch.cuda.synchronize(dev)
+        t0 = time.time()
+        for _ in range(PAR_ITERS):
+            metrics = tr.step(audio)
+        torch.cuda.synchronize(dev)
+        ms = (time.time() - t0) / PAR_ITERS * 1e3
+        nccl_ms, busy = _device_ms(lambda: tr.step(audio))
+        steps = PAR_ITERS + 2
+        per_step = {k: c.launches / steps for k, c in counters.items()}
+        expect = {k: 0 for k in counters}
+        expect.update(lstm_fwd_hc=32, lstm_bwd=32, lstm_bwd_dw=32)
+        if per_step != expect:
+            fails.append(f"launches per step {per_step}, expected {expect}")
+        if not all(math.isfinite(v) for v in fetch_scalars(metrics).values()):
+            fails.append("non-finite losses")
+        if not replicated(trainer_state(tr), mesh):
+            fails.append("parameters, buffers or optimizer states differ between ranks")
+        out.update(ms_per_step=ms, device_busy_ms=busy or "not measured", nccl_ms=nccl_ms,
+                   idle_share=1.0 - busy / ms if busy else "not measured",
+                   peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                   launches_per_step={k: v for k, v in per_step.items() if v},
+                   counts=launch_counts(), fails=fails)
+        with open(os.path.join(tmp, f"{phase}_{dtype}.rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        if fails:
+            raise AssertionError(f"{phase} {dtype} rank {rank}: " + "; ".join(fails))
+        del tr, before, audio
+        torch.cuda.empty_cache()
+
+
+def phase_parallel_train():
+    """dp_train and sp_train: BSRNN-M's GAN step at full width, batch 16 x 16384, in
+    float32 and bfloat16, over the ranks of _rank_layout (a DP mesh, then a dp x sp
+    mesh: BSRNN's trunk sequence-parallel, 34 bands and 65 frames split over 2 seq
+    ranks). The one-process step of each dtype (phase 5's config, seeded weights and
+    batch) is taken in this process first. -> {"dp_train": counts, "sp_train": counts},
+    each the ranks' launches per wrapper and shape, summed."""
+    from nvse_tpu_torch.parallel import spawn
+    from nvse_tpu_torch.parallel.dryrun import merge_counts
+    from nvse_tpu_torch.train import GANTrainer, fetch_scalars
+
+    backend, world, dp_shape, sp_shape = _rank_layout()
+    dtypes = ("float32", "bfloat16")
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype in dtypes:
+            h = _config("bsrnn", compute_dtype=dtype)
+            audio = _audio_batch(16, int(h.segment_size), h.sampling_rate, seed=0).to("cuda")
+            tr = GANTrainer(h, device="cuda", steps_per_epoch=2)
+            before = {n: p.detach().clone() for n, p in _named(tr)}
+            losses = fetch_scalars(tr.step(audio))
+            mu, upd = _step_reading(tr, before)
+            torch.save({"losses": losses, "mu": mu, "update": upd},
+                       os.path.join(tmp, f"ref_{dtype}.pt"))
+            del tr, before, mu, upd
+        torch.cuda.empty_cache()
+        jobs = [("dp_train", dp_shape, dt) for dt in dtypes] + [
+            ("sp_train", sp_shape, dt) for dt in dtypes]
+        t0 = time.time()
+        spawn(_parallel_rank, world, args=(jobs, tmp), device="cuda")
+        seconds = time.time() - t0
+        counts = {}
+        for phase, shape, dtype in jobs:
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"{phase}_{dtype}.rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            r0 = ranks[0]
+            extra = {k: r0[k] for k in ("loss_rel", "loss_rtol", "moment_rel", "worst_moment",
+                                        "moment_rel_tol", "update_frac", "vs_dp_rel",
+                                        "vs_dp_rtol") if k in r0}
+            say(phase=phase, dtype=dtype, backend=backend, world=world,
+                mesh=dict(zip(("data", "seq"), shape)), cards=torch.cuda.device_count(),
+                batch=16, rows_per_rank=r0["rows"], segment=16384,
+                ms_per_step=max(r["ms_per_step"] for r in ranks),
+                ms_per_step_by_rank=[r["ms_per_step"] for r in ranks],
+                device_busy_ms_by_rank=[r["device_busy_ms"] for r in ranks],
+                nccl_ms_by_rank=[r["nccl_ms"] for r in ranks],
+                idle_share_by_rank=[r["idle_share"] for r in ranks],
+                peak_mem_gb_by_rank=[r["peak_mem_gb"] for r in ranks],
+                launches_per_step=r0["launches_per_step"], losses=r0["losses"],
+                spawn_seconds=seconds, **extra)
+            counts.setdefault(phase, []).extend(r["counts"] for r in ranks)
+    return {phase: merge_counts(c) for phase, c in counts.items()}
+
+
+def phase_dp_serve():
+    """The engine with infer_dp_devices -1 (one replica a card) decoding B = 8 x 1024
+    mel frames of seeded BSRNN-M weights in float32, against the one-card decode of
+    the same weights; RTF. On a one-card machine the engine gets two replicas on
+    cuda:0, so that the padded, split, gathered and cropped decode runs all the
+    same. -> launches per wrapper and shape."""
+    import copy
+
+    from nvse_tpu_torch.infer import InferenceEngine
+    from nvse_tpu_torch.ops.lstm import _reset_counts
+
+    h = _config("bsrnn")
+    B, T, iters = 8, 1024, 5
+    mel = torch.from_numpy(np.random.default_rng(0).standard_normal((B, h.num_mels, T))
+                           .astype(np.float32) - 4.0).to("cuda")
+    ref = InferenceEngine(h, device="cuda").forward(mel)
+    _reset_counts(*_all_counters().values())       # this main path starts here
+    lines = []
+    eng = InferenceEngine(_config("bsrnn", infer_dp_devices=-1), device="cuda",
+                          log_fn=lines.append)
+    shared = len(eng.replicas) == 1                # one card: two replicas share it
+    if shared:
+        eng.devices = [eng.device] * 2
+        eng.replicas = [eng.generator, copy.deepcopy(eng.generator)]
+    wav = eng.forward(mel)                         # warmup
+    for d in eng.devices:
+        torch.cuda.synchronize(d)
+    t0 = time.time()
+    for _ in range(iters):
+        wav = eng.forward(mel)
+    for d in eng.devices:
+        torch.cuda.synchronize(d)
+    wall = (time.time() - t0) / iters
+    counts = _shape_counts()                       # ... and ends here
+    err = (wav - ref).abs()
+    ok = bool((err <= MODEL_ATOL + MODEL_RTOL * ref.abs()).all())
+    say(phase="dp_serve", dtype="float32", replicas=len(eng.replicas),
+        devices=[str(d) for d in eng.devices], replicas_share_one_card=shared,
+        backend="one process", batch=B, frames=T,
+        wall_ms=wall * 1e3, rtf=B * (T - 1) * h.hop_size / h.sampling_rate / wall,
+        max_abs_err_vs_one_card=err.max().item(), rtol=MODEL_RTOL, atol=MODEL_ATOL, ok=ok,
+        log=lines, launches=_str_keys(counts))
+    if not ok or wav.shape != ref.shape:
+        raise SystemExit("dp_serve: the replicas' decode disagrees with the one-card decode")
+    return counts
+
+
+def phase_parallel_rows(rows, paths, phase="parallel_kernels"):
+    """Kernel-vs-plain rows for the training kernels' shapes that the ranks
+    launched (their local batch and sp's band and frame slices), in the dtypes
+    they ran in, then phase_rest for the rest."""
+    by_dtype = {}
+    for _p, k, key in _missing(rows, paths):
+        if k == "lstm_fwd_hc":
+            T, R, H, dt = key
+            by_dtype.setdefault(dt, set()).add((f"{_p}_{R}x{T}", R, T, H))
+    out = []
+    for dt, shapes in sorted(by_dtype.items()):
+        out += phase_train_kernels(sorted(shapes), phase, dtypes=(getattr(torch, dt),))
+    return out + phase_rest(rows + out, paths, phase)
+
+
 def _key(r):
     """A row's shape as its wrapper counts launches: (rows, steps, C, H, dtype)
     for the fused kernel, (steps, rows, C, H, mode, dtype) for the ablation
@@ -2995,11 +3309,17 @@ def main():
     phase_crepe()
     e_paths["eval_cli"] = phase_eval_cli()
     rows += phase_rest(rows, e_paths, phase="eval_kernels")
+    # multi-GPU: the port's dry run, BSRNN-M's DP and dp x sp steps over ranks, DP
+    # serving; then rows for the shapes the ranks launched (their local batch, sp's
+    # band and frame slices) and the replicas served
+    torch.cuda.empty_cache()
+    p_paths = {"dryrun": phase_dryrun(), **phase_parallel_train(), "dp_serve": phase_dp_serve()}
+    rows += phase_parallel_rows(rows, p_paths)
     # the per-step ablation harness (B8)
     ablation_rows, ablation_counts = phase_lstm_step_ablation()
     rows += ablation_rows
     all_paths = {**paths, **{f"bsrnn_l_{p}": c for p, c in l_paths.items()}, **c_paths,
-                 **b_paths, **v_paths, **t_paths, **e_paths,
+                 **b_paths, **v_paths, **t_paths, **e_paths, **p_paths,
                  "lstm_step_ablation": ablation_counts}
     missing = _missing(rows, all_paths)
     if missing:

@@ -47,18 +47,23 @@ class SegmentDataset:
 
     Mirrors reference Dataset.__getitem__ cropping (dataset.py:208-216):
     random segment_size crop, zero-pad short files. Returns raw audio
-    only; features are computed on device.
+    only; features are computed on device. With num_shards > 1 the
+    (shuffled) list is dealt round-robin and this dataset keeps shard
+    `shard_id`, its rng seeded seed + shard_id (nvse_tpu/data/dataset.py:
+    61-74): a node of a multi-node run reads its own files.
     """
 
     def __init__(self, files: Sequence[str], segment_size: int, sampling_rate: int,
-                 split: bool = True, shuffle: bool = True, seed: int = 1234):
+                 split: bool = True, shuffle: bool = True, seed: int = 1234,
+                 shard_id: int = 0, num_shards: int = 1):
         self.files = list(files)
         if shuffle:
             random.Random(seed).shuffle(self.files)
+        self.files = self.files[shard_id::num_shards]
         self.segment_size = segment_size
         self.sampling_rate = sampling_rate
         self.split = split
-        self.rng = random.Random(seed)
+        self.rng = random.Random(seed + shard_id)
         # decoded wavs, FIFO-bounded so an LJSpeech-scale corpus cannot grow
         # it past host RAM (float32 ~7.6 GB for 24 h); the reader threads
         # share it

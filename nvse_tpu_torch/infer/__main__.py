@@ -31,7 +31,9 @@ ConvTasNet's config leaves fused_tcn off, as the reference; a copy with
 csrc/tcn_tail.cu. --processing_mode (default config
 configs/bsrnn_joint_denoise_vocoder_config.json) feeds the joint model the
 noisy wave's log spectrum (denoise) or the log pseudo-inverse mel of the
-wave (vocoder), file by file (infer/joint.py).
+wave (vocoder), file by file (infer/joint.py). The config key
+infer_dp_devices (N, -1 for every card) serves from one replica per card,
+each batch split over them (infer/engine.py).
 """
 import argparse
 import os

@@ -24,12 +24,20 @@ the joint BSRNN_24k's spectrum input is served by infer/joint.py):
     HD-Demucs, HiFiGAN, iSTFTNet and the conv T-F vocoders have no
     `supports_stream_state` and
     raise there, and run_inference streams them by context recompute), batch rows being
-    independent streams.
-Multi-device serving and Orbax checkpoints are not ported yet and raise
-here.
+    independent streams;
+  * multi-device serving (`infer_dp_devices`: N replicas, -1 for every
+    card; nvse_tpu/infer/engine.py:69-88, 122-176, 270-290): one replica of
+    the generator per card, cuda:0 ... cuda:N-1 (no more than there are),
+    in this process; a batch is padded with log(1e-5) rows to a multiple of
+    the replicas, split, decoded on every card at once, gathered on the
+    first and cropped (synthesize_mel, synthesize_streaming, warmup). The
+    state-carrying stream decodes on the first card alone. On the CPU the
+    replicas are N copies on the CPU.
+Orbax checkpoints of the JAX package are not ported and raise here.
 """
 from __future__ import annotations
 
+import copy
 import os
 import time
 
@@ -43,6 +51,7 @@ from ..models.bsrnn import band_plan
 from ..models.layers import fold_weight_norm
 from ..ops.spectral import (StreamingOLA, hann_window, istft_frames, mel_spectrogram,
                             mel_spectrogram_np)
+from ..parallel import local_devices
 
 _PAD = float(np.log(1e-5))
 
@@ -61,15 +70,21 @@ class InferenceEngine:
     state_dict), else they are random from a torch.Generator seeded with
     h.seed. Weight-norm pairs (v, g) are then folded into plain kernels
     unless h.fold_weight_norm is false (nvse_tpu/infer/engine.py:60-68).
+    h.infer_dp_devices (N, or -1 for every card) serves from N replicas on
+    `devices`, the first of which is `device` and holds `generator`.
     """
 
     def __init__(self, h, params: dict | None = None, device: str = "cuda",
-                 bucket_frames: int = 64):
+                 bucket_frames: int = 64, log_fn=print):
         self.h = h
         self.device = resolve_device(device)
         self.bucket_frames = bucket_frames
-        if int(h.get("infer_dp_devices", 1) or 1) != 1:
-            raise NotImplementedError("multi-GPU serving (infer_dp_devices) is not ported yet")
+        n_dp = int(h.get("infer_dp_devices", 1) or 1)
+        self.devices = [self.device] if n_dp == 1 else local_devices(self.device, n_dp)
+        if n_dp != 1:
+            self.device = self.devices[0]
+            log_fn(f"serving on {len(self.devices)} replica(s) ({self.device.type}; "
+                   f"infer_dp_devices={n_dp})")
         self.generator, _domain = build_generator(h)
         if params is None:
             ckpt = h.get("checkpoint_file_load")
@@ -95,14 +110,27 @@ class InferenceEngine:
         else:
             self.dtype = torch.float32
         self.generator.to(self.device)
+        self.replicas = [self.generator] + [copy.deepcopy(self.generator).to(d)
+                                            for d in self.devices[1:]]
         self._warmed: set = set()
 
     @torch.inference_mode()
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        """mel (B, M, T) on the engine's device -> float32 wav (B, L)."""
-        out = self.generator(mel.to(self.device, self.dtype))
-        out = out[-1] if isinstance(out, tuple) else out
-        return out.float()
+        """mel (B, M, T) -> float32 wav (B, L) on the engine's device. With
+        several replicas the rows are padded to a multiple of them, each
+        replica decodes its share on its device (the launches of one do not
+        wait for another's), and the outputs are gathered and cropped."""
+        n = len(self.replicas)
+        if n == 1:
+            out = self.generator(mel.to(self.device, self.dtype))
+            return (out[-1] if isinstance(out, tuple) else out).float()
+        B = mel.shape[0]
+        mel = torch.nn.functional.pad(mel, (0, 0, 0, 0, 0, _bucket(B, n) - B), value=_PAD)
+        outs = []
+        for rep, dev, rows in zip(self.replicas, self.devices, mel.chunk(n)):
+            out = rep(rows.to(dev, self.dtype, non_blocking=True))
+            outs.append(out[-1] if isinstance(out, tuple) else out)
+        return torch.cat([o.to(self.device).float() for o in outs])[:B]
 
     def mel_of(self, audio: np.ndarray) -> torch.Tensor:
         h = self.h
@@ -212,8 +240,9 @@ class InferenceEngine:
         if (Tb, B) in self._warmed:
             return
         self.forward(torch.full((B, model_input_bins(self.h), Tb), _PAD, device=self.device))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in self.devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         self._warmed.add((Tb, B))
 
 
@@ -243,7 +272,7 @@ def run_inference(h, limit: int | None = None, log_fn=print, stream: bool = Fals
     stream = stream or bool(h.get("stream"))
     chunk = int(h.get("stream_chunk_frames", 64))
     ctx = int(h.get("stream_context_frames", 16))
-    engine = InferenceEngine(h, device=device)
+    engine = InferenceEngine(h, device=device, log_fn=log_fn)
     if model_input_bins(h) != h.num_mels and not h.get("test_mel_load"):
         raise ValueError(
             f"model expects {model_input_bins(h)} input bins but run_inference feeds "

@@ -29,7 +29,7 @@ def run_joint_inference(h, mode: str, limit: int | None = None, log_fn=print,
     """Decode the test set in `mode` file by file; returns the RTF stats."""
     if mode not in JOINT_TASKS:
         raise ValueError(f"processing_mode {mode!r}: expected one of {JOINT_TASKS}")
-    engine = InferenceEngine(h, device=device)
+    engine = InferenceEngine(h, device=device, log_fn=log_fn)
     files = resolve_filelist(h)
     if limit:
         files = files[:limit]

@@ -14,6 +14,17 @@ of the time LSTM's forward direction, carried from chunk to chunk through
 ops.lstm.lstm_scan_stateful; the band BiLSTM runs within a frame and
 carries nothing.
 
+Sequence parallelism (training; BSRNNCore.seq_group, a process group of
+`sp` ranks that hold the same rows; nvse_tpu/models/bsrnn.py sp_axis):
+inside the trunk rank k runs the time LSTM on its slice of the 34 bands
+(B x nband_k rows), an all-to-all gives it a slice of the frames with every
+band for the band BiLSTM (B x T_k rows), and a second one goes back; after
+the last BSNet the bands are gathered. The encoder, the decoders and the
+iSTFT run on every seq rank on the whole spectrum. The collectives are
+differentiable (parallel/collectives.py), so averaging every gradient over
+the whole mesh gives the one-process gradient. Without a group the trunk
+runs as above.
+
 Under a bfloat16 trunk the dtypes follow the JAX package's promotion: the
 DSP front and back ends and the encoder stay float32, LayerNorm and
 Linear outputs follow the params, and residual sums promote.
@@ -30,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.spectral import hann_window, inverse_mel, istft_ri
+from ..parallel.collectives import all_gather_dim, all_to_all_dims, local_slice
 from .layers import LSTM, LayerNorm, Linear, uniform_
 
 
@@ -171,8 +183,15 @@ class BSNet(nn.Module):
         self.out_norm = LayerNorm(feature_dim)
 
     def forward(self, x: torch.Tensor, state=None, return_state: bool = False,
-                carry_idx: int | None = None):
-        # x: (B, nband, T, C); streaming state belongs to the time RNN only
+                carry_idx: int | None = None, seq_group=None, full: tuple = ()):
+        # x: (B, nband, T, C); streaming state belongs to the time RNN only.
+        # With seq_group, x and the output are this rank's slice of the bands
+        # (B, nband_k, T, C) of a (nband, T) = `full` spectrum
+        if seq_group is not None:
+            nband, T = full
+            x = all_to_all_dims(self.time_rnn(x), 2, 1, nband, seq_group)   # (B, nband, T_k, C)
+            x = self.out_norm(self.band_rnn(x.transpose(1, 2)).transpose(1, 2))
+            return all_to_all_dims(x, 1, 2, T, seq_group)
         streaming = state is not None or return_state
         if streaming:
             x, new_state = self.time_rnn(x, state=state, return_state=True, carry_idx=carry_idx)
@@ -203,19 +222,34 @@ class BSRNNCore(nn.Module):
         self.blocks = nn.ModuleList(BSNet(feature_dim, causal, gen) for _ in range(num_repeat))
         self.dec_mag = _GroupedBandDecoder(self.widths, feature_dim, 1, gen)
         self.dec_pha = _GroupedBandDecoder(self.widths, feature_dim, 2, gen)
+        self.seq_group = None       # a "seq" process group: sequence parallelism in the trunk
+
+    def _trunk_seq_parallel(self, feats: torch.Tensor) -> torch.Tensor:
+        """The BSNets over the seq group: this rank's bands in, every band out."""
+        full = tuple(feats.shape[1:3])                          # (nband, T)
+        x = local_slice(feats, 1, self.seq_group)
+        for blk in self.blocks:
+            x = blk(x, seq_group=self.seq_group, full=full)
+        return all_gather_dim(x, 1, full[0], self.seq_group)
 
     def forward(self, log_spec: torch.Tensor, stream_state=None, return_state: bool = False,
                 carry_idx: int | None = None):
         feats = self.encoder(log_spec)
         streaming = stream_state is not None or return_state
         new_states = []
-        for r, blk in enumerate(self.blocks):
+        if self.seq_group is not None:
             if streaming:
-                st = None if stream_state is None else stream_state[r]
-                feats, ns = blk(feats, state=st, return_state=True, carry_idx=carry_idx)
-                new_states.append(ns)
-            else:
-                feats = blk(feats)
+                raise ValueError("sequence parallelism is for training; a streaming decode "
+                                 "runs on one device")
+            feats = self._trunk_seq_parallel(feats)
+        else:
+            for r, blk in enumerate(self.blocks):
+                if streaming:
+                    st = None if stream_state is None else stream_state[r]
+                    feats, ns = blk(feats, state=st, return_state=True, carry_idx=carry_idx)
+                    new_states.append(ns)
+                else:
+                    feats = blk(feats)
         B, _, T, _ = feats.shape
         resi = torch.cat([g.transpose(1, 2).reshape(B, T, -1) for g in self.dec_mag(feats)],
                          dim=-1)                                # (B, T, F)

@@ -3,8 +3,9 @@ scripts; nothing of the port's computation calls them.
 
 `cudnn_lstm` builds the library yardstick (torch.nn.LSTM, cuDNN on the
 card) holding the port's weights, `no_weight_compaction` fails a timing
-whose cuDNN call would copy its weights at every call, and `launch_delta`
-is the launches a wrapper's counter gained since an earlier reading.
+whose cuDNN call would copy its weights at every call, `launch_delta`
+is the launches a wrapper's counter gained since an earlier reading, and
+`counted_wrappers` names every kernel wrapper that counts its launches.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import warnings
 
 import torch
 
-__all__ = ["cudnn_lstm", "launch_delta", "no_weight_compaction"]
+__all__ = ["counted_wrappers", "cudnn_lstm", "launch_delta", "no_weight_compaction"]
 
 
 def cudnn_lstm(directions, dtype, device="cuda", **kw):
@@ -59,3 +60,18 @@ def no_weight_compaction():
 def launch_delta(now: dict, before: dict) -> dict:
     """The launches per key (shape or kernel) made since `before`."""
     return {k: v - before.get(k, 0) for k, v in now.items() if v != before.get(k, 0)}
+
+
+def counted_wrappers() -> dict:
+    """Every wrapper that launches a kernel of csrc/, by the name its launch
+    counts go under (`<wrapper>.launches`, `.launches_by_shape`,
+    `.launches_by_kernel`)."""
+    from . import lstm as L
+    from .lstm_step import lstm_step_variant
+    from .tcn import tcn_block_tail, tcn_gln_fold_kernel
+
+    return {"lstm_fwd_hc": L.lstm_fwd_hc, "lstm_bwd": L.lstm_bwd, "lstm_bwd_dw": L.lstm_dw_hh,
+            "lstm_scan_fused": L.lstm_scan_fused, "lstm_scan": L.lstm_scan,
+            "lstm_scan_stateful": L.lstm_scan_stateful, "lstm_scan_bidir2": L.lstm_scan_bidir2,
+            "tcn_block_tail": tcn_block_tail, "tcn_gln_stats": tcn_gln_fold_kernel,
+            "lstm_scan_bidir": L.lstm_scan_bidir, "lstm_step_variant": lstm_step_variant}

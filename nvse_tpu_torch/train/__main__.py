@@ -12,9 +12,17 @@ the newest pair there. --joint
 trains the joint denoise+vocoder BSRNN_24k (train/loop_joint.py; default
 config nvse_tpu_torch/configs/bsrnn_joint_denoise_vocoder_config.json),
 a task drawn per batch. Runs on the GPU unless --device cpu is given.
+
+Under torchrun every process is a rank (one a card; NCCL, or gloo with
+--device cpu or where ranks share a card), and the loop trains
+data-parallel, BSRNN with h.sp_devices > 1 also sequence-parallel:
+    torchrun --nproc_per_node 2 -m nvse_tpu_torch.train --device cpu --cfg_filename ...
+    torchrun --nproc_per_node 4 -m nvse_tpu_torch.train --cfg_filename ...
 """
 import argparse
 import os
+
+import torch.distributed as dist
 
 from ..utils import load_config
 from .loop import train
@@ -34,7 +42,11 @@ def main() -> None:
     args = p.parse_args()
     cfg = args.cfg_filename or os.path.join(
         _CONFIGS, "bsrnn_joint_denoise_vocoder_config.json" if args.joint else "bsrnn_config.json")
-    (train_joint if args.joint else train)(load_config(cfg), device=args.device)
+    try:
+        (train_joint if args.joint else train)(load_config(cfg), device=args.device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

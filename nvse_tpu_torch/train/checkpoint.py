@@ -12,6 +12,11 @@ adds its state_dict as "cqtd", as the JAX disc state's params hold it.
 Rotation keeps `max_to_keep` of each and writes the checkpoint_g /
 checkpoint_d manifests. Tensors are saved on the CPU, so a bundle written
 on the card loads anywhere.
+
+A trainer over a mesh (data / sequence parallelism) holds the same state on
+every rank: rank 0 writes the bundles and the other ranks wait at a barrier
+until they are complete; every rank restores from the same files, each onto
+its own device.
 """
 from __future__ import annotations
 
@@ -20,6 +25,9 @@ import os
 import re
 
 import torch
+import torch.distributed as dist
+
+from ..parallel import mesh_barrier
 
 
 def scan_checkpoint(path: str, prefix: str) -> str | None:
@@ -56,7 +64,16 @@ def _save(obj, dst: str) -> None:
 
 
 def save_checkpoint(path: str, step: int, epoch: int, trainer, max_to_keep: int = 5) -> None:
-    """Write g_/do_ bundles of a GANTrainer at `step`, then rotate."""
+    """Write g_/do_ bundles of a GANTrainer at `step`, then rotate; over a
+    mesh rank 0 writes while the others wait."""
+    mesh = getattr(trainer, "mesh", None)
+    if mesh is None or dist.get_rank() == 0:
+        _write(path, step, epoch, trainer, max_to_keep)
+    if mesh is not None:
+        mesh_barrier(mesh, trainer.device)
+
+
+def _write(path: str, step: int, epoch: int, trainer, max_to_keep: int) -> None:
     os.makedirs(path, exist_ok=True)
     _save({"generator": _to_cpu(trainer.generator.state_dict())},
           os.path.join(path, f"g_{step:08d}"))
@@ -78,8 +95,8 @@ def restore_checkpoint(path: str, trainer) -> tuple[int, int]:
     cp_g, cp_do = scan_checkpoint(path, "g_"), scan_checkpoint(path, "do_")
     if cp_g is None or cp_do is None:
         return 0, -1
-    g = torch.load(cp_g, map_location="cpu", weights_only=True)
-    do = torch.load(cp_do, map_location="cpu", weights_only=True)
+    g = torch.load(cp_g, map_location=trainer.device, weights_only=True)
+    do = torch.load(cp_do, map_location=trainer.device, weights_only=True)
     trainer.generator.load_state_dict(g["generator"])
     for k, d in trainer.disc.items():
         d.load_state_dict(do[k])

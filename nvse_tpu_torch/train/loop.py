@@ -15,9 +15,19 @@ utterances at batch 1, zero-padded to a bucket of
 `validation_bucket_frames` (64) frames and masked (eval_full), or fixed
 crops with `validation_full: false`. TensorBoard (tensorboardX) is used
 when installed; only scalars are logged.
+
+Under torchrun (one process a card) the loop trains data-parallel over
+the ranks, and with h.sp_devices > 1 BSRNN sequence-parallel too, by the
+rules of nvse_tpu/train/loop.py:86-121 (`parallel_plan`): h.batch_size is
+the global batch; each node reads its shard of the file list
+(SegmentDataset shard_id / num_shards) in batches of batch_size / nodes,
+and the data ranks of a node take their rows of it. Only rank 0 logs,
+writes TensorBoard and checkpoints, and validates; the other ranks wait.
 """
 from __future__ import annotations
 
+import itertools
+import math
 import os
 import random as _random
 import shutil
@@ -25,9 +35,10 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .. import resolve_device
 from ..data import PrefetchLoader, SegmentDataset, get_dataset_filelist
+from ..parallel import get_mesh, init_distributed, mesh_barrier, node_shape, shard_batch
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .trainer import GANTrainer, fetch_scalars
 
@@ -40,30 +51,89 @@ def _summary_writer(path: str):
     return SummaryWriter(path)
 
 
+def parallel_plan(batch_size: int, nodes: int, local: int, sp: int, log_fn=print):
+    """(data ranks a node, seq ranks) that train on `nodes` nodes of `local`
+    ranks each, by nvse_tpu/train/loop.py:86-121: sp_devices that does not
+    divide the local ranks is dropped with a warning; a node uses as many
+    data ranks as evenly divide its share of the batch (warning when that
+    leaves ranks idle)."""
+    if sp > 1 and local % sp:
+        log_fn(f"WARNING: sp_devices={sp} does not divide the {local} "
+               "local devices; disabling sequence parallelism.")
+        sp = 1
+    if batch_size % nodes:
+        raise ValueError(f"batch_size={batch_size} must be divisible by the {nodes} "
+                         "participating processes")
+    n_data_local = math.gcd(batch_size // nodes, local // sp)
+    n_dev = n_data_local * nodes * sp
+    if n_dev != nodes * local:
+        log_fn(f"WARNING: batch_size={batch_size} is not divisible by the "
+               f"{nodes * (local // sp)} available data-parallel devices; "
+               f"training will use only {n_dev} device(s). Set batch_size to a "
+               f"multiple of {nodes * (local // sp)} to use the full mesh.")
+    return n_data_local, sp
+
+
+def _training_mesh(h, dev, log_fn):
+    """(mesh or None, nodes): the ranks of torchrun's job that train, by
+    `parallel_plan`; a rank outside the mesh has nothing to do."""
+    nodes, local = node_shape()
+    if nodes * local == 1:
+        if int(h.get("sp_devices", 1) or 1) > 1:
+            parallel_plan(int(h.batch_size), 1, 1, int(h.sp_devices), log_fn)
+        return None, 1
+    n_data, n_sp = parallel_plan(int(h.batch_size), nodes, local,
+                                 int(h.get("sp_devices", 1) or 1), log_fn)
+    ranks = [node * local + i for node in range(nodes) for i in range(n_data * n_sp)]
+    return get_mesh(n_seq=n_sp, device=dev, ranks=ranks), nodes
+
+
 def train(h, device: str = "cuda", log_fn=print) -> None:
-    """Run training for config h (the reference's train(h) entry)."""
-    dev = resolve_device(device)
+    """Run training for config h (the reference's train(h) entry); under
+    torchrun, on every rank."""
+    dev = init_distributed(device)
+    main = not dist.is_initialized() or dist.get_rank() == 0
+    log_fn = log_fn if main else (lambda *_: None)
+    mesh, nodes = _training_mesh(h, dev, log_fn)
+    if mesh is not None and mesh.get_coordinate() is None:
+        return                                  # a rank the batch leaves idle
+    node = dist.get_rank() // (dist.get_world_size() // nodes) if mesh is not None else 0
     training_files, validation_files = get_dataset_filelist(
         h.input_training_wav_list, h.input_validation_wav_list, h.raw_wavfile_path)
-    train_ds = SegmentDataset(training_files, h.segment_size, h.sampling_rate, seed=h.seed)
-    loader = PrefetchLoader(train_ds, h.batch_size, num_workers=h.num_workers, seed=h.seed)
+    train_ds = SegmentDataset(training_files, h.segment_size, h.sampling_rate, seed=h.seed,
+                              shard_id=node, num_shards=nodes)
+    loader = PrefetchLoader(train_ds, int(h.batch_size) // nodes, num_workers=h.num_workers,
+                            seed=h.seed)
     steps_per_epoch = max(1, len(loader))
+    if nodes > 1:       # every node steps as often as the smallest shard allows
+        n = torch.tensor([steps_per_epoch], device=dev)
+        for d in range(mesh.ndim):
+            dist.all_reduce(n, op=dist.ReduceOp.MIN, group=mesh.get_group(d))
+        steps_per_epoch = int(n.item())
     val_full = bool(h.get("validation_full", True))
     val_ds = SegmentDataset(validation_files, h.segment_size * 4, h.sampling_rate,
                             split=not val_full, shuffle=False, seed=h.seed)
     val_bucket = int(h.get("validation_bucket_frames", 64)) * h.hop_size
 
-    trainer = GANTrainer(h, device=dev, steps_per_epoch=steps_per_epoch)
-    os.makedirs(h.checkpoint_path, exist_ok=True)
+    trainer = GANTrainer(h, device=dev, steps_per_epoch=steps_per_epoch, mesh=mesh)
     cfg_copy = os.path.join(h.checkpoint_path, "config.json")
-    if h.get("config_path") and os.path.abspath(h.config_path) != os.path.abspath(cfg_copy):
-        shutil.copyfile(h.config_path, cfg_copy)
+    if main:
+        os.makedirs(h.checkpoint_path, exist_ok=True)
+        if h.get("config_path") and os.path.abspath(h.config_path) != os.path.abspath(cfg_copy):
+            shutil.copyfile(h.config_path, cfg_copy)
     steps, last_epoch = restore_checkpoint(h.checkpoint_path, trainer)
     loader.epoch = max(0, last_epoch)   # resume the shuffle/crop streams at that epoch
     log_fn(f"checkpoints directory: {h.checkpoint_path} (resuming at step {steps})")
-    sw = _summary_writer(os.path.join(h.checkpoint_path, "logs"))
+    sw = _summary_writer(os.path.join(h.checkpoint_path, "logs")) if main else None
 
     def validate(step: int) -> None:
+        """On rank 0; the other ranks wait for it."""
+        if main:
+            _validate(step)
+        if mesh is not None:
+            mesh_barrier(mesh, dev)
+
+    def _validate(step: int) -> None:
         cap = int(h.get("validation_cap", 0))
         n_val = len(val_ds) if cap <= 0 else min(len(val_ds), cap)
         rows = []
@@ -86,17 +156,20 @@ def train(h, device: str = "cuda", log_fn=print) -> None:
             log_fn(f"step {step} validation: "
                    + " ".join(f"{k}={v:.4f}" for k, v in sorted(agg.items())))
 
+    ranks = f", {mesh.size()} ranks {dict(zip(mesh.mesh_dim_names, mesh.shape))} " \
+        f"({dist.get_backend()})" if mesh is not None else ""
     log_fn(f"training {h.model_name} ({trainer.domain}-domain) on {len(train_ds)} files, "
-           f"{steps_per_epoch} steps/epoch, device {dev}")
+           f"{steps_per_epoch} steps/epoch, device {dev}{ranks}")
 
     def device_batches():
-        """Host-to-device copy of the next batch while the current one trains."""
+        """Host-to-device copy of this rank's rows of the next batch while the
+        current one trains."""
         def put(b):
-            t = torch.from_numpy(np.asarray(b, np.float32))
+            t = torch.from_numpy(np.asarray(shard_batch(b, mesh, nodes), np.float32))
             return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
 
         nxt = None
-        for b in loader:
+        for b in itertools.islice(loader, steps_per_epoch):
             cur, nxt = nxt, put(b)
             if cur is not None:
                 yield cur

@@ -15,21 +15,29 @@ index) continue there. Validation every `validation_interval` (step 0
 included unless `skip_step0_validation`) scores each task on up to 8
 validation items at batch 1, each with the fixed seed seed * 1_000_003 + i,
 so every pass scores the same noise, SNR and crop draws. TensorBoard
-(tensorboardX) scalars when installed. The JAX loop's mesh and multi-host
-branches are not ported: sp_devices > 1 and infer_dp_devices raise.
+(tensorboardX) scalars when installed.
+
+Under torchrun on one node the loop trains data-parallel, as the JAX loop
+(nvse_tpu/train/loop_joint.py:38-57): as many ranks as evenly divide
+h.batch_size, each taking its rows of every batch (every rank draws the
+same batches from the same seeds); rank 0 logs, checkpoints and validates.
+More than one node raises NotImplementedError, as there: the self-batching
+JointDataset has no per-node slicing.
 """
 from __future__ import annotations
 
+import math
 import os
 import shutil
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .. import resolve_device
 from ..data import JointDataset, PrefetchJointLoader, get_joint_filelist
 from ..ops.spectral import JOINT_TASKS
+from ..parallel import get_mesh, init_distributed, mesh_barrier, node_shape, shard_batch
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .loop import _summary_writer
 from .trainer import GANTrainer, fetch_scalars
@@ -39,10 +47,27 @@ VALIDATION_ITEMS = 8
 
 
 def train_joint(h, device: str = "cuda", log_fn=print) -> None:
-    """Run joint training for config h (the reference's train(h) entry)."""
-    if int(h.get("infer_dp_devices", 1) or 1) != 1:
-        raise NotImplementedError("multi-GPU validation (infer_dp_devices) is not ported yet")
-    dev = resolve_device(device)
+    """Run joint training for config h (the reference's train(h) entry);
+    under torchrun, on every rank of one node."""
+    nodes, local = node_shape()
+    if nodes > 1:
+        raise NotImplementedError(
+            "multi-host joint training needs per-host slicing of the "
+            "self-batching JointDataset; use the single-task trainers "
+            "for multi-host runs")
+    dev = init_distributed(device)
+    main = not dist.is_initialized() or dist.get_rank() == 0
+    log_fn = log_fn if main else (lambda *_: None)
+    mesh = None
+    if local > 1:
+        n_dev = math.gcd(int(h.batch_size), local)
+        if n_dev != local:
+            log_fn(f"WARNING: batch_size={h.batch_size} is not divisible by the {local} "
+                   f"available devices; training will use only {n_dev} device(s). Set "
+                   f"batch_size to a multiple of {local} to use the full mesh.")
+        mesh = get_mesh(n_dev, device=dev)
+        if mesh.get_coordinate() is None:
+            return                              # a rank the batch leaves idle
     train_files, val_files, train_noise, val_noise = get_joint_filelist(
         h.input_training_wav_list, h.input_validation_wav_list,
         h.raw_wavfile_path, h.input_noise_wav_list)
@@ -52,26 +77,32 @@ def train_joint(h, device: str = "cuda", log_fn=print) -> None:
                       h.sampling_rate, h.batch_size, task_dict=h.task_dict, seed=h.seed)
     loader = PrefetchJointLoader(ds, num_workers=h.get("num_workers", 4), seed=h.seed)
     steps_per_epoch = max(1, len(ds))
-    trainer = GANTrainer(h, device=dev, steps_per_epoch=steps_per_epoch, joint=True)
+    trainer = GANTrainer(h, device=dev, steps_per_epoch=steps_per_epoch, joint=True, mesh=mesh)
 
-    os.makedirs(h.checkpoint_path, exist_ok=True)
     cfg_copy = os.path.join(h.checkpoint_path, "config.json")
-    if h.get("config_path") and os.path.abspath(h.config_path) != os.path.abspath(cfg_copy):
-        shutil.copyfile(h.config_path, cfg_copy)
+    if main:
+        os.makedirs(h.checkpoint_path, exist_ok=True)
+        if h.get("config_path") and os.path.abspath(h.config_path) != os.path.abspath(cfg_copy):
+            shutil.copyfile(h.config_path, cfg_copy)
     steps, last_epoch = restore_checkpoint(h.checkpoint_path, trainer)
     # continue the (seed, epoch, index) streams of tasks, crops and noise at
     # the restored epoch instead of replaying epoch 0's
     loader.epoch = max(0, last_epoch)
     log_fn(f"checkpoints directory: {h.checkpoint_path} (resuming at step {steps})")
-    sw = _summary_writer(os.path.join(h.checkpoint_path, "logs"))
+    sw = _summary_writer(os.path.join(h.checkpoint_path, "logs")) if main else None
 
     val_ds = JointDataset(val_files, val_noise, tuple(h.snr_range), h.segment_size,
                           h.sampling_rate, batch_size=1, task_dict=h.task_dict,
                           shuffle=False, seed=h.seed) if val_files else None
 
     def validate(step: int) -> None:
-        if val_ds is None:
-            return
+        """On rank 0; the other ranks wait for it."""
+        if main and val_ds is not None:
+            _validate(step)
+        if mesh is not None:
+            mesh_barrier(mesh, dev)
+
+    def _validate(step: int) -> None:
         for task in JOINT_TASKS:
             val_ds.task_dict = [task]
             rows = []
@@ -88,14 +119,16 @@ def train_joint(h, device: str = "cuda", log_fn=print) -> None:
                 log_fn(f"step {step} val[{task}]: "
                        + " ".join(f"{k}={v:.4f}" for k, v in sorted(agg.items())))
 
+    ranks = f", {mesh.size()} ranks ({dist.get_backend()})" if mesh is not None else ""
     log_fn(f"training {h.model_name} (joint) on {len(train_files)} files, "
-           f"{steps_per_epoch} steps/epoch, device {dev}")
+           f"{steps_per_epoch} steps/epoch, device {dev}{ranks}")
 
     def device_batches():
-        """Host-to-device copy of the next batch while the current one trains."""
+        """Host-to-device copy of this rank's rows of the next batch while the
+        current one trains."""
         def put(noisy, clean, task):
             def to_dev(a):
-                t = torch.from_numpy(np.asarray(a, np.float32))
+                t = torch.from_numpy(np.asarray(shard_batch(a, mesh), np.float32))
                 return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
             return to_dev(clean), to_dev(noisy), task
 

@@ -47,9 +47,20 @@ of the float32 master weights (torch.func.functional_call); features,
 losses and optimizer states stay float32, and the casts pass float32
 gradients back, as the JAX step's `_to_compute` does.
 
-Not ported (raise NotImplementedError): sp_devices > 1 and
-compute_dtype "float16" (the JAX trainer's
-float16 trunks: the LSTM kernels take float32 and bfloat16 only). A
+Over a mesh (GANTrainer(..., mesh=parallel.get_mesh(...)), one process a
+rank; nvse_tpu/train/trainer.py:510-536): the batch a rank's step takes is
+its rows of the global batch (parallel.shard_batch), parameters and
+optimizer states are replicated, each backward's gradients are averaged
+over every rank of the mesh before the update (so the clip norm and the
+skip decision read the same gradient everywhere), and the returned metrics
+are their mean over the mesh: one step over N ranks is one step of one
+process on the whole batch. The "rand" phase is drawn for the global batch
+on every rank, which takes its rows. A mesh with a "seq" axis runs BSRNN's
+trunk sequence-parallel (models/bsrnn.py); the seq ranks of a data rank
+hold the same rows, and other generators compute them on each.
+
+Not ported (raise NotImplementedError): compute_dtype "float16" (the JAX
+trainer's float16 trunks: the LSTM kernels take float32 and bfloat16 only). A
 spectrum-input model (BSRNN_24k) given to the T-F trainer raises too,
 before any CUDA call, naming the joint entry (python -m
 nvse_tpu_torch.train --joint). A causal config trains on both devices: its
@@ -80,7 +91,9 @@ from ..models.discriminators import (MultiPeriodDiscriminator, MultiResolutionDi
 from ..models.cqt_discriminator import MultiScaleSubbandCQTDiscriminator
 from ..models.layers import LSTM
 from ..ops.griffin_lim import random_phase
+from ..models.bsrnn import BSRNNCore
 from ..ops.spectral import JOINT_EPS, JOINT_TASKS, amp_pha_spectrum, joint_input, mel_spectrogram
+from ..parallel import DATA_AXIS, all_reduce_mean_, axis_rank, axis_size, seq_group
 
 
 
@@ -194,8 +207,6 @@ def _check_supported(h, domain: str) -> None:
             "not the T-F trainer")
     if domain == "joint" and not spectrum_input:
         raise ValueError(f"the joint trainer feeds a log spectrum; {h.model_name} takes mels")
-    if int(h.get("sp_devices", 1) or 1) > 1:
-        raise NotImplementedError("sp_devices > 1: multi-GPU training is not ported yet")
     if str(h.get("compute_dtype")) == "float16":
         raise NotImplementedError('compute_dtype "float16": only "bfloat16" trunks are ported '
                                   "(the LSTM kernels take float32 and bfloat16)")
@@ -210,11 +221,14 @@ class GANTrainer:
     generator as build_generator draws it, the discriminators from
     h.seed + 1), made on the CPU and moved to `device`. joint=True trains
     in the joint domain (BSRNN_24k); its steps take the task. The domain
-    is the registry's (models.build_generator).
+    is the registry's (models.build_generator). `mesh` (a DeviceMesh of
+    parallel.get_mesh) trains data-parallel over its ranks, and
+    sequence-parallel where it has a "seq" axis; every rank builds the same
+    weights from the seed.
     """
 
     def __init__(self, h, device: str | torch.device = "cuda", steps_per_epoch: int = 1,
-                 joint: bool = False):
+                 joint: bool = False, mesh=None):
         self.h = h
         generator, domain = build_generator(h)
         _check_supported(h, "joint" if joint else domain)   # before any CUDA call
@@ -251,6 +265,8 @@ class GANTrainer:
         # a fresh initial phase a step for init_phase "rand" (trainer.py:297-312)
         self.rand_phase = str(getattr(generator, "init_phase", "")).lower() == "rand"
         self.phase_seed = int(h.get("seed", 0)) + 0x9A5E
+        self.mesh = mesh
+        self.seq_cores = [m for m in generator.modules() if isinstance(m, BSRNNCore)]
         self.opt_g = make_optimizer(self.generator, h, steps_per_epoch)
         self.opt_d = make_optimizer(self.disc, h, steps_per_epoch)
         self.compute_dtype = {"bfloat16": torch.bfloat16}.get(str(h.get("compute_dtype")))
@@ -316,6 +332,8 @@ class GANTrainer:
         L_D, ok_d = self.discriminator_update(fwd)
         metrics, ok_g = self.generator_update(fwd)
         metrics["D"] = L_D.detach().float()
+        if self.mesh is not None:                  # the global batch's losses
+            all_reduce_mean_(list(metrics.values()), self.mesh)
         if self.skip_nonfinite:
             # skipped updates this step: 0 = none, 1 = D or G, 2 = both
             metrics["skip"] = torch.tensor((1.0 - ok_d) + (1.0 - ok_g), device=self.device)
@@ -337,7 +355,29 @@ class GANTrainer:
         h.seed + 0x9A5E + the generator's updates so far."""
         h = self.h
         gen = torch.Generator().manual_seed(self.phase_seed + _updates_done(self.opt_g))
-        return random_phase((mel.shape[0], h.n_fft // 2 + 1, mel.shape[-1]), gen, self.device)
+        B = mel.shape[0]                           # this rank's rows of the global draw
+        theta = random_phase((B * axis_size(self.mesh, DATA_AXIS), h.n_fft // 2 + 1,
+                              mel.shape[-1]), gen, "cpu")
+        r = axis_rank(self.mesh, DATA_AXIS)
+        return theta[r * B:(r + 1) * B].to(self.device)
+
+    @contextlib.contextmanager
+    def _seq_parallel(self):
+        """BSRNN's trunk runs over the mesh's seq group inside the block."""
+        group = seq_group(self.mesh)
+        for core in self.seq_cores:
+            core.seq_group = group
+        try:
+            yield
+        finally:
+            for core in self.seq_cores:
+                core.seq_group = None
+
+    def _average_grads(self, opt: torch.optim.Optimizer) -> None:
+        """Each gradient of opt's parameters := its mean over the mesh."""
+        if self.mesh is not None:
+            all_reduce_mean_([p.grad for g in opt.param_groups for p in g["params"]
+                              if p.grad is not None], self.mesh)
 
     def generator_forward(self, audio: torch.Tensor, aux_input: torch.Tensor | None = None,
                           task: str | None = None) -> dict:
@@ -345,7 +385,8 @@ class GANTrainer:
         audio = audio.to(self.device, torch.float32)
         feats = self.features(audio, aux_input, task)
         kw = {"theta": self.step_phase(feats[0])} if self.rand_phase else {}
-        outs = self._run(self.generator, *self._gen_args(feats[0], aux_input), **kw)
+        with self._seq_parallel():
+            outs = self._run(self.generator, *self._gen_args(feats[0], aux_input), **kw)
         y_g = outs[-1] if self.tf_like else outs
         y_min = min(y_g.shape[-1], audio.shape[-1])
         return {"feats": feats, "outs": outs, "y_c": audio[..., :y_min],
@@ -372,6 +413,7 @@ class GANTrainer:
             L_D = L_D + self.cqtd_weight * self.d_loss(r_c, g_c)[0]
         self.opt_d.zero_grad(set_to_none=True)
         L_D.backward()
+        self._average_grads(self.opt_d)
         ok = apply_update(self.opt_d, self.h, self.clip, self.skip_nonfinite)
         if not ok:
             for u, old in zip(_spectral_buffers(self.disc), u_old):
@@ -410,6 +452,7 @@ class GANTrainer:
                        + L_G)
             self.opt_g.zero_grad(set_to_none=True)
             L_G.backward()
+        self._average_grads(self.opt_g)
         ok_g = apply_update(self.opt_g, h, self.clip, self.skip_nonfinite)
         metrics = {"Mel": L_Mel, "GAN": L_GAN, "FM": L_FM, "G": L_G}
         if self.tf_like:

@@ -17,7 +17,8 @@ from nvse_tpu.data import get_dataset_filelist as jax_filelist
 from nvse_tpu_torch.data import PrefetchLoader, SegmentDataset, get_dataset_filelist
 from nvse_tpu_torch.infer import InferenceEngine
 from nvse_tpu_torch.models.layers import LSTM
-from nvse_tpu_torch.train import GANTrainer, learning_rate, make_optimizer
+from nvse_tpu_torch.train import GANTrainer, learning_rate, make_optimizer, train_joint
+from nvse_tpu_torch.train.loop import _training_mesh, parallel_plan
 from nvse_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint, scan_checkpoint
 from nvse_tpu_torch.utils import AttrDict, load_config
 
@@ -133,9 +134,33 @@ def test_checkpoint_save_rotate_manifest_and_resume(tmp_path):
     assert restore_checkpoint(str(tmp_path / "none"), fresh) == (0, -1)
 
 
-def test_unported_training_paths_raise():
-    with pytest.raises(NotImplementedError, match="sp_devices"):
-        GANTrainer(_h(sp_devices=2), device="cpu")
+def test_unported_training_paths_raise(monkeypatch):
+    """The multi-GPU rules of nvse_tpu/train/loop.py:86-121 and
+    loop_joint.py:38-57: sp_devices that does not divide the ranks warns and
+    trains without sequence parallelism; a batch that the data ranks do not
+    divide leaves ranks idle, with a warning; the joint loop on more than
+    one node raises, before any process group."""
+    logs = []
+    assert parallel_plan(4, 1, 3, 2, logs.append) == (1, 1)
+    assert "sp_devices=2 does not divide the 3 local devices" in logs[0]
+    assert "training will use only 1 device(s)" in logs[1]
+    logs.clear()
+    assert parallel_plan(8, 1, 4, 2, logs.append) == (2, 2) and not logs
+    assert parallel_plan(8, 2, 4, 1, logs.append) == (4, 1) and not logs
+    with pytest.raises(ValueError, match="divisible by the 3 participating"):
+        parallel_plan(8, 3, 4, 1)
+    # one process: sp_devices 2 warns and the trainer steps without a mesh
+    h = _h(sp_devices=2)
+    assert _training_mesh(h, torch.device("cpu"), logs.append) == (None, 1)
+    assert "disabling sequence parallelism" in logs[0]
+    tr = GANTrainer(h, device="cpu")
+    assert tr.mesh is None and not tr.seq_cores[0].seq_group
+    audio = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 2048)).astype(np.float32) * 0.1)
+    assert all(np.isfinite(v.item()) for v in tr.step(audio).values())
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="multi-host joint training"):
+        train_joint(_h(model_name="BSRNN_24k"), device="cpu")
 
 
 def test_use_cqtd_builds_the_cqt_discriminator():
