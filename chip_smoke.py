@@ -234,7 +234,21 @@ the last line:
      card): every number finite, the seconds of each; then (eval_kernels) a row
      for every shape those paths launched (UTMOS's lstm_scan_bidir2 at T x 1 and 3
      rows, H = 512, on csrc/lstm_scan_wide.cu kScanBidir);
- 20. multi-GPU (nvse_tpu_torch/parallel): dryrun, the port's dry run (python -m
+ 20. serving export (nvse_tpu_torch/infer/export.py; the kernels as registered
+     operators, ops/library.py): export, BSRNN-M exported on the card at B=8 x
+     1024 in float32 and bfloat16, saved, loaded in this process and decoded: 16
+     lstm_scan_fused launches a forward from the artifact, its output against the
+     live engine's (float32 within 1e-5, bfloat16 within 1e-3 of the wave's peak),
+     the export and load seconds, the artifact's MB, its decode RTF beside the live
+     engine's (interleaved live, artifact, artifact, live); at serving's bucket (8 x
+     128 frames, float32) an artifact each of ConvTasNet with fused_tcn 1 (24 tail + 24
+     statistics launches a forward; zero initial phase, as HD-Demucs), GCRN (2 lstm_scan_bidir2, the cluster kernel),
+     HD-Demucs (2 lstm_scan_bidir2 through lstm_scan_fused's projection route) and
+     causal BSRNN-M (8 lstm_scan + 8 lstm_scan_fused), each within 1e-5 of its live
+     engine; the export CLI in this process on HiFiGAN V1 with a symbolic time axis
+     (its round-trip check), the artifact at two lengths against the live engine with
+     no kernel launched; then (export_kernels) rows for the shapes they launched;
+ 21. multi-GPU (nvse_tpu_torch/parallel): dryrun, the port's dry run (python -m
      nvse_tpu_torch.parallel.dryrun --n 4: a DP GAN step of a tiny BSRNN over 4
      ranks, a dp x sp (2 x 2) step within 1e-3 of it, a checkpoint saved by rank 0,
      restored on every rank and continued within 1e-5); dp_train, BSRNN-M's GAN
@@ -252,13 +266,13 @@ the last line:
      RTF. The ranks count their launches in their own processes and write them to
      files that this process merges; every shape they launched (their local batch,
      sp's band and frame slices) gets its kernel-vs-plain row (parallel_kernels);
- 21. the per-step ablation harness (scripts/profile_torch_lstm_step.py) in this
+ 22. the per-step ablation harness (scripts/profile_torch_lstm_step.py) in this
      process at its four shapes in float32 and bfloat16: five variants of one
      direction of csrc/lstm_fused.cu (H = 128) and csrc/lstm_fused_wide.cu
      (H = 256), each against its plain version, `full` against the forward half
      of lstm_scan_fused, and the split of a step into input, products,
      nonlinearities and floor (lstm_step_ablation, lstm_step_split);
- 22. each main path above sets the launch counts to 0 when it starts and
+ 23. each main path above sets the launch counts to 0 when it starts and
      reads them per wrapper and shape when it ends; every other shape that a
      main path launched (serving's 128-frame bucket, the validations, the
      offline decodes beside the streams, the joint CLI's validation and
@@ -267,7 +281,7 @@ the last line:
      serving bucket, the time steps' tails) gets its
      kernel-vs-plain row in the dtype it ran in, and a launch at a shape with
      no row fails the run;
- 23. print the kernels line (one entry per kernel, shape and dtype, each
+ 24. print the kernels line (one entry per kernel, shape and dtype, each
      with its launches summed over the main paths; the redesigned dW_hh
      reduction, wide and narrow fused BiLSTMs, narrow and wide scans (the
      training forwards among them), narrow and wide backward recurrences, the
@@ -1269,10 +1283,13 @@ def phase_train_cli(model="bsrnn"):
     counts = _shape_counts()                       # ... and ends here
     validated = ([f"step 0 val[{t}]:" for t in JOINT_TASKS] if joint
                  else ["step 0 validation:"])
+    # which crops the loader took (PrefetchLoader.native: the C++ batch decoder of
+    # native/, or Python where it does not load); the joint loader has one path
+    crops = [l for l in lines if l.startswith("training crops:")]
     ok = ({"g_00000001", "do_00000001"} <= set(written) and all(files)
           and all(any(l.startswith(v) for l in lines) for v in validated)
-          and any("training finished" in l for l in lines))
-    say(phase=_tag(model, "train_cli"), seconds=secs, written=written,
+          and any("training finished" in l for l in lines) and len(crops) == (not joint))
+    say(phase=_tag(model, "train_cli"), seconds=secs, written=written, crops=crops,
         log=lines[-(6 if joint else 4):], serve=served[-2:], launches_by_shape=_str_keys(counts),
         ok=ok)
     if not ok:
@@ -2770,6 +2787,160 @@ def phase_eval_cli():
     return counts
 
 
+# serving export (nvse_tpu_torch/infer/export.py): BSRNN-M at the decode phase's batch, then
+# one artifact of each kernel family at serving's bucket (8 x 128 frames), each with the
+# kernel launches one forward of the artifact must make (per wrapper, per kernel source).
+# ConvTasNet and HD-Demucs start from zero phase: their Griffin-Lim front (32 stft / istft
+# rounds, held on the live engine by phases 15 and 16) would add ~30 s of tracing
+EXPORT_B, EXPORT_T, EXPORT_SERVE_T, EXPORT_ITERS = 8, 1024, 128, 5
+EXPORT_SERVE = (("convtasnet", dict(fused_tcn=1, init_phase="zero"),
+                 {"tcn_block_tail": {"tcn_tail": 24, "tcn_gln_stats": 24},
+                  "tcn_gln_stats": {"tcn_gln_stats": 24}}),
+                ("gcrn", {}, {"lstm_scan_bidir2": {"lstm_bidir2": 2}}),
+                ("hddemucs", dict(init_phase="zero"), {"lstm_scan_bidir2": {"lstm_scan_wide": 2}}),
+                ("bsrnn", dict(causal=True), {"lstm_scan": {"lstm_scan": 8},
+                                              "lstm_scan_fused": {"lstm_fused": 8}}))
+# artifact vs live engine (the same kernels on the same inputs): float32 at 1e-5, bfloat16
+# at 1e-3 of the wave's peak; the conv family's symbolic time axis (the iSTFT envelope summed
+# in the graph) and the CLI's round trip at the CLI's 1e-4
+EXPORT_F32_TOL, EXPORT_BF16_REL, EXPORT_CLI_TOL = 1e-5, 1e-3, 1e-4
+CARD = ""                          # nvidia-smi's name and power limit, set by main()
+
+
+def _kernel_launches(counters, fn):
+    """fn() (synchronised) and the launches it made per wrapper and kernel source."""
+    n0 = {k: dict(c.launches_by_kernel) for k, c in counters.items()}
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: d for k, c in counters.items()
+                 if (d := launch_delta(c.launches_by_kernel, n0[k]))}
+
+
+def _wall_ms(fn, iters):
+    """ms a call of fn over iters synchronised calls after a warmup, as phase 3."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.time() - t0) / iters * 1e3
+
+
+def _export_case(tmp, name, h, B, T, expect, counters):
+    """Export h's decoder at (B, T) on the card, save, load in this process and
+    decode: one forward's launches must be `expect`, the output the live engine's.
+    -> (engine, decoder, mel, meta, seconds to export, to load, MB, live wave)."""
+    from nvse_tpu_torch.infer import InferenceEngine
+    from nvse_tpu_torch.infer.export import export_decoder, load_decoder
+
+    rng = np.random.default_rng(11)
+    mel = torch.from_numpy(rng.standard_normal((B, h.num_mels, T)).astype(np.float32) - 4.0)
+    mel = mel.to("cuda")
+    eng = InferenceEngine(h, device="cuda")
+    path = os.path.join(tmp, f"{name}.nvsx")
+    t0 = time.time()
+    meta = export_decoder(h, eng.generator.state_dict(), path, batch=B, frames=T)
+    export_s = time.time() - t0
+    t0 = time.time()
+    dec = load_decoder(path)
+    load_s = time.time() - t0
+    live = eng.forward(mel)
+    art, launches = _kernel_launches(counters, lambda: dec(mel))
+    if launches != expect:
+        raise SystemExit(f"export {name}: one forward of the artifact launched {launches}, "
+                         f"expected {expect}")
+    if art.shape != live.shape or not torch.isfinite(art).all():
+        raise SystemExit(f"export {name}: bad output {tuple(art.shape)} against {tuple(live.shape)}")
+    return eng, dec, mel, meta, export_s, load_s, os.path.getsize(path) / 1e6, art, live
+
+
+def phase_export():
+    """Serving export: BSRNN-M (full width) exported on the card at B=8 x 1024 in
+    float32 and bfloat16, saved, loaded in this process and decoded: 16
+    lstm_scan_fused launches a forward from the artifact, its output held to the
+    live engine's, its RTF beside the engine's (measured as phase 3, interleaved
+    live, artifact, artifact, live); then at serving's bucket (8 x 128 frames, float32)
+    ConvTasNet with fused_tcn 1 (24 tail + 24 statistics launches; zero phase, as
+    HD-Demucs), GCRN (2
+    lstm_scan_bidir2, the cluster kernel), HD-Demucs (2 lstm_scan_bidir2 through
+    lstm_scan_fused's projection route, csrc/lstm_scan_wide.cu) and causal BSRNN-M
+    (8 lstm_scan + 8 lstm_scan_fused); then the CLI (python -m
+    nvse_tpu_torch.infer.export, in this process) on HiFiGAN V1 with a symbolic time
+    axis and its round-trip check, the artifact decoding two lengths against the live
+    engine with no kernel launched."""
+    from nvse_tpu_torch.infer import InferenceEngine
+    from nvse_tpu_torch.infer.export import load_decoder
+    from nvse_tpu_torch.infer.export import main as export_cli
+    from nvse_tpu_torch.ops.lstm import _reset_counts
+
+    counters = _all_counters()
+    _reset_counts(*counters.values())              # this main path starts here
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype in ("float32", "bfloat16"):
+            h = _config("bsrnn", compute_dtype=dtype)
+            eng, dec, mel, meta, export_s, load_s, mb, art, live = _export_case(
+                tmp, f"bsrnn_{dtype}", h, EXPORT_B, EXPORT_T,
+                {"lstm_scan_fused": {"lstm_fused": 16}}, counters)
+            err, peak = (art - live).abs().max().item(), live.abs().max().item()
+            limit = EXPORT_F32_TOL if dtype == "float32" else EXPORT_BF16_REL * peak
+            audio_sec = EXPORT_B * (EXPORT_T - 1) * h.hop_size / h.sampling_rate
+            ms = {"live": [], "artifact": []}
+            for who in ("live", "artifact", "artifact", "live"):
+                fn = (lambda: eng.forward(mel)) if who == "live" else (lambda: dec(mel))
+                ms[who].append(_wall_ms(fn, EXPORT_ITERS))
+            say(phase="export", model="bsrnn", dtype=dtype, batch=EXPORT_B, frames=EXPORT_T,
+                card=CARD, export_s=export_s, load_s=load_s, artifact_mb=mb,
+                graph_ops=meta["ops"], launches_per_forward={"lstm_scan_fused": 16},
+                max_abs_err=err, limit=limit, wall_ms=ms,
+                rtf_artifact=[audio_sec / t * 1e3 for t in ms["artifact"]],
+                rtf_live=[audio_sec / t * 1e3 for t in ms["live"]])
+            if not err <= limit:
+                raise SystemExit(f"export bsrnn {dtype}: artifact vs live engine {err} > {limit}")
+            del eng, dec
+        for name, kw, expect in EXPORT_SERVE:
+            h = _config(name, **kw)
+            tag = f"{name}_causal" if kw.get("causal") else name
+            eng, dec, mel, meta, export_s, load_s, mb, art, live = _export_case(
+                tmp, tag, h, EXPORT_B, EXPORT_SERVE_T, expect, counters)
+            err = (art - live).abs().max().item()
+            say(phase="export", model=tag, dtype="float32", batch=EXPORT_B,
+                frames=EXPORT_SERVE_T, card=CARD, export_s=export_s, load_s=load_s,
+                artifact_mb=mb, graph_ops=meta["ops"], launches_per_forward=expect,
+                max_abs_err=err, limit=EXPORT_F32_TOL)
+            if not err <= EXPORT_F32_TOL:
+                raise SystemExit(f"export {tag}: artifact vs live engine {err} > {EXPORT_F32_TOL}")
+            del eng, dec
+        # the CLI: HiFiGAN V1 with a symbolic time axis, its round-trip check in the CLI
+        cfg = os.path.join(REPO, "nvse_tpu_torch", "configs", "hifigan_v1_config.json")
+        path = os.path.join(tmp, "hifigan.nvsx")
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            meta = export_cli(["--cfg_filename", cfg, "--out", path, "--batch", "2",
+                               "--frames", "-1"])
+        cli_s = time.time() - t0
+        lines = buf.getvalue().splitlines()
+        dec = load_decoder(path)
+        eng = InferenceEngine(_config("hifigan"), device="cuda")
+        errs = {}
+        for T in (100, 400):
+            mel = torch.from_numpy(np.random.default_rng(T).standard_normal(
+                (2, 80, T)).astype(np.float32) - 4.0).to("cuda")
+            art, launches = _kernel_launches(counters, lambda: dec(mel))
+            live = eng.forward(mel)
+            if launches or art.shape != live.shape:
+                raise SystemExit(f"export hifigan T={T}: launches {launches}, shape "
+                                 f"{tuple(art.shape)} against {tuple(live.shape)}")
+            errs[T] = (art - live).abs().max().item()
+        say(phase="export", model="hifigan", dtype="float32", cli=lines, cli_s=cli_s,
+            frames=meta["frames"], card=CARD, max_abs_err=errs, limit=EXPORT_CLI_TOL)
+        if not all(e <= EXPORT_CLI_TOL for e in errs.values()):
+            raise SystemExit(f"export hifigan: artifact vs live engine {errs}")
+        del eng, dec
+    return _shape_counts()                         # ... and ends here
+
+
 def _train_shapes(counts, label):
     """(label, rows, steps, H) of each training-forward shape a path launched."""
     return sorted({(label, R, T, H) for T, R, H, _ in counts["lstm_fwd_hc"]})
@@ -3226,6 +3397,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
+    global CARD
+    CARD = smi
     say(phase="env", torch=torch.__version__, cuda=torch.version.cuda,
         device=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
@@ -3309,6 +3482,10 @@ def main():
     phase_crepe()
     e_paths["eval_cli"] = phase_eval_cli()
     rows += phase_rest(rows, e_paths, phase="eval_kernels")
+    # serving export: artifacts of BSRNN-M and of each kernel family decoding on the card
+    # through the registered operators, then rows for the shapes they launched
+    x_paths = {"export": phase_export()}
+    rows += phase_rest(rows, x_paths, phase="export_kernels")
     # multi-GPU: the port's dry run, BSRNN-M's DP and dp x sp steps over ranks, DP
     # serving; then rows for the shapes the ranks launched (their local batch, sp's
     # band and frame slices) and the replicas served
@@ -3319,7 +3496,7 @@ def main():
     ablation_rows, ablation_counts = phase_lstm_step_ablation()
     rows += ablation_rows
     all_paths = {**paths, **{f"bsrnn_l_{p}": c for p, c in l_paths.items()}, **c_paths,
-                 **b_paths, **v_paths, **t_paths, **e_paths, **p_paths,
+                 **b_paths, **v_paths, **t_paths, **e_paths, **x_paths, **p_paths,
                  "lstm_step_ablation": ablation_counts}
     missing = _missing(rows, all_paths)
     if missing:

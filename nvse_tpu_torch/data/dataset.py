@@ -8,9 +8,11 @@ dataset.py:158-258 computes them in DataLoader workers).
 Filelist format matches the reference (LJSpeech-style
 "DUMMY1/<file>.wav|<transcript>" lines resolved against
 raw_wavfile_path, dataset.py:142-155). Crops are seeded per (epoch,
-batch) exactly as in the JAX package, so both draw the same segments.
-The JAX loader's optional C++ batch decoder (`native/`) is not carried
-over: batches are decoded by the reader threads.
+batch) exactly as in the JAX package, so both draw the same segments:
+by default (`use_native="auto"`) with the C++ batch decoder of `native/`
+(data/native.py) when its library loads and the corpus is at the target
+rate, as the JAX loader does, else with the reader threads' Python crop.
+`PrefetchLoader.native` says which.
 """
 from __future__ import annotations
 
@@ -115,12 +117,28 @@ class PrefetchLoader:
     """
 
     def __init__(self, dataset: SegmentDataset, batch_size: int,
-                 num_workers: int = 4, seed: int = 1234):
+                 num_workers: int = 4, seed: int = 1234, use_native: str | bool = "auto"):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.seed = seed
         self.epoch = 0
+        self._native = None
+        if use_native in ("auto", True) and dataset.split:
+            # the native whole-batch decode + crop (nvse_tpu/data/dataset.py:
+            # 132-141): valid only when the corpus is at the target rate, so
+            # probe the first file once and trust the corpus to be homogeneous
+            from . import native as _native_mod
+
+            if _native_mod.available() and len(dataset.files):
+                probe = _native_mod.read_wav_native(dataset.files[0])
+                if probe is not None and probe[1] == dataset.sampling_rate:
+                    self._native = _native_mod
+
+    @property
+    def native(self) -> bool:
+        """True when batches are cropped by the native decoder."""
+        return self._native is not None
 
     def __len__(self) -> int:
         return len(self.dataset) // self.batch_size
@@ -142,6 +160,12 @@ class PrefetchLoader:
             # unique per (epoch, batch): the epoch term must out-stride
             # the largest batch index or streams repeat across epochs
             bseed = (self.seed * 1_000_003 + epoch + 1) * 1_000_003 + b
+            if self._native is not None:
+                paths = [self.dataset.files[int(i)] for i in idxs]
+                batch = self._native.batch_segments_native(
+                    paths, self.dataset.segment_size, seed=bseed)
+                if batch is not None:
+                    return batch
             # per-batch rng (not the dataset's shared one): worker
             # threads interleave nondeterministically, so a shared rng
             # would make crops depend on thread scheduling

@@ -33,7 +33,9 @@ the joint BSRNN_24k's spectrum input is served by infer/joint.py):
     first and cropped (synthesize_mel, synthesize_streaming, warmup). The
     state-carrying stream decodes on the first card alone. On the CPU the
     replicas are N copies on the CPU.
-Orbax checkpoints of the JAX package are not ported and raise here.
+An Orbax bundle of the JAX package raises here, naming
+scripts/convert_jax_checkpoint.py, which converts it into a g_ bundle;
+infer/export.py writes the decode as one torch.export artifact.
 """
 from __future__ import annotations
 
@@ -90,8 +92,9 @@ class InferenceEngine:
             ckpt = h.get("checkpoint_file_load")
             if ckpt and os.path.isdir(ckpt):
                 raise NotImplementedError(
-                    f"{ckpt} is an Orbax bundle of the JAX package; loading those is "
-                    "not ported yet (convert with utils.params_from_jax)")
+                    f"{ckpt} is an Orbax bundle of the JAX package: convert it with "
+                    "python scripts/convert_jax_checkpoint.py --cfg_filename <cfg> "
+                    f"--jax_ckpt {ckpt} --out <g_ bundle> and serve that")
             if ckpt and os.path.isfile(ckpt):
                 params = torch.load(ckpt, map_location="cpu", weights_only=True)
                 if "generator" in params:   # a g_ bundle written by training

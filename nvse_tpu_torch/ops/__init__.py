@@ -25,3 +25,5 @@ from .spectral import (
     stft_ri,
 )
 from .tcn import tcn_block_tail, tcn_block_tail_kernel, tcn_block_tail_plain
+
+from . import library  # noqa: E402  (registers the nvse_torch:: operators the entries call)

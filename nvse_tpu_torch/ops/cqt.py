@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .spectral import _on_device, _read_only
+from .spectral import _on_device, _read_only, device_cache
 
 __all__ = ["cqt", "cqt_bank"]
 
@@ -56,7 +56,7 @@ def cqt_bank(sr: int, n_bins: int, bins_per_octave: int, fmin: float = CQT_FMIN)
     return _cqt_kernels_np(sr, n_bins, bins_per_octave, fmin)[0]
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache(maxsize=None)
 def _device_bank(sr: int, n_bins: int, bins_per_octave: int, fmin: float, device: torch.device,
                  dtype: torch.dtype) -> torch.Tensor:
     """The bank (kernel_len, 2 * n_bins) on device in dtype, made once (outside

@@ -17,12 +17,11 @@ decode only when the JAX draw is passed in as theta.
 """
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
 
-from .spectral import hann_window, istft_ri, stft_ri
+from .spectral import device_cache, hann_window, istft_ri, stft_ri
 
 __all__ = ["default_phase", "griffin_lim", "random_phase"]
 
@@ -36,7 +35,7 @@ def random_phase(shape, generator: torch.Generator | None = None,
     return theta.to(device)
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(maxsize=16)
 def default_phase(shape: tuple, device: torch.device) -> torch.Tensor:
     """The initial phase the mel front ends (ConvTasNet, HD-Demucs) take
     for "rand" and "griffin_lim" when no theta is passed: random_phase's

@@ -66,7 +66,12 @@ W_hh resident, tensor cores in bfloat16, the plans of `scan_wide_plan` and
 cores in bfloat16, CUDA cores in float32, split over the rows by `dw_plan`)
 takes both.
 Every wrapper launches its CUDA kernel on a CUDA tensor or raises, and
-runs its plain PyTorch version only on a CPU tensor. Each counts its
+runs its plain PyTorch version only on a CPU tensor. The inference entries
+of lstm_scan_fused (without `lengths`), lstm_scan and lstm_scan_bidir2 (its
+route and plan not given) call registered operators (ops/library.py:
+`nvse_torch::lstm_scan_fused`, `::lstm_scan`, `::lstm_scan_bidir2`), which
+dispatch on the tensor's device to the routes below or to the plain
+versions, so that a torch.export graph holds each as one node. Each counts its
 launches in `<wrapper>.launches`, per shape in
 `<wrapper>.launches_by_shape` and per kernel source (the `csrc/<name>.cu`
 stem) in `<wrapper>.launches_by_kernel`, so that a run shows which kernel
@@ -602,11 +607,7 @@ def lstm_scan_fused(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b, lengths=None) -
         return _projected_bidir2(*args, lengths=lengths)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         return _BiLSTMSaving.apply(*args)
-    if x.device.type == "cpu":
-        return lstm_scan_fused_plain(*args)
-    if _card_fused_route(x, x.shape[-1], w_hh_f.shape[0]) == "projection+lstm_bidir2":
-        return _projected_bidir2(*args)
-    return _launch_kernel(*args)
+    return torch.ops.nvse_torch.lstm_scan_fused(*args)
 
 
 def _projected_bidir2(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b, lengths=None) -> torch.Tensor:
@@ -1538,9 +1539,7 @@ def lstm_scan(x_proj: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     `lstm_scan.launches_by_kernel`)."""
     if torch.is_grad_enabled() and (x_proj.requires_grad or w_hh.requires_grad):
         return _ScanSaving.apply(x_proj, w_hh)
-    if x_proj.device.type == "cpu":
-        return lstm_scan_plain(x_proj, w_hh)
-    return _launch_scan(lstm_scan, x_proj, w_hh)[0]
+    return torch.ops.nvse_torch.lstm_scan(x_proj, w_hh)
 
 
 def lstm_scan_stateful(x_proj, w_hh, h0, c0):
@@ -1772,8 +1771,18 @@ def lstm_scan_bidir2(xp_a, xp_b, w_a, w_b, route: str | None = None, plan: dict 
     args = (xp_a, xp_b, w_a, w_b)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         return _Bidir2Saving.apply(*args)
+    if route is None and plan is None:
+        return torch.ops.nvse_torch.lstm_scan_bidir2(*args)
     if xp_a.device.type == "cpu":
         return lstm_scan_bidir2_plain(*args)
+    return _launch_bidir2_entry(*args, route, plan)
+
+
+def _launch_bidir2_entry(xp_a, xp_b, w_a, w_b, route: str | None = None,
+                         plan: dict | None = None):
+    """lstm_scan_bidir2 on CUDA tensors: checks, the route and plan (this
+    card's unless given), one launch counted on the route's kernel."""
+    args = (xp_a, xp_b, w_a, w_b)
     T, R, H = _check_seq_args("lstm_scan_bidir2", xp_a, w_a, max_h=_WIDE_MAX_H)
     if (xp_b.shape != xp_a.shape or xp_b.dtype != xp_a.dtype or xp_b.device != xp_a.device
             or _check_seq_args("lstm_scan_bidir2", xp_b, w_b, max_h=_WIDE_MAX_H) != (T, R, H)):

@@ -14,6 +14,7 @@ precision (resolve_device disables TF32 on the card).
 from __future__ import annotations
 
 import functools
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -134,7 +135,33 @@ def _on_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
         return torch.from_numpy(a.copy()).to(device)
 
 
-@functools.lru_cache(maxsize=64)
+def device_cache(maxsize: int | None):
+    """A least-recently-used cache of a device constant (as functools.lru_cache)
+    that a torch.export trace reads but never fills: a tensor made during a
+    trace belongs to it (a fake tensor) and must not be served to a later call.
+    A constant cached before the trace (export_decoder decodes once first) goes
+    into the graph as it is; one made in the trace is the trace's own."""
+    def wrap(fn):
+        cache: OrderedDict = OrderedDict()
+
+        @functools.wraps(fn)
+        def call(*args):
+            if args in cache:
+                cache.move_to_end(args)
+                return cache[args]
+            out = fn(*args)
+            if not torch.compiler.is_exporting():
+                cache[args] = out
+                if maxsize is not None and len(cache) > maxsize:
+                    cache.popitem(last=False)
+            return out
+
+        call.cache_clear = cache.clear
+        return call
+    return wrap
+
+
+@device_cache(maxsize=64)
 def _istft_envelope(win_bytes: bytes, n_fft: int, hop: int, T: int, device: torch.device):
     """The window's OLA envelope over T frames, values <= 1e-11 replaced by
     1, on device."""
@@ -148,7 +175,7 @@ def _istft_envelope(win_bytes: bytes, n_fft: int, hop: int, T: int, device: torc
     return _on_device(env, device)
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache(maxsize=None)
 def _mel_consts(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float, win_size: int,
                 device: torch.device):
     """(Hann window, mel basis (M, F), its pseudo-inverse (F, M)) on device."""
@@ -157,7 +184,7 @@ def _mel_consts(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float, win_
             _on_device(_inv_mel_basis_np(sr, n_fft, n_mels, fmin, fmax), device))
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(maxsize=64)
 def _window_on(win_bytes: bytes, device: torch.device) -> torch.Tensor:
     return _on_device(np.frombuffer(win_bytes, np.float32), device)
 
@@ -290,8 +317,15 @@ def istft_ri(re: torch.Tensor, im: torch.Tensor, n_fft: int, hop_size: int,
     Default output length = hop_size * (T - 1).
     """
     lead, T = re.shape[:-2], re.shape[-1]
-    env = _istft_envelope(_padded_window(window, win_size, n_fft).tobytes(), n_fft,
-                          hop_size, T, re.device)
+    win = _padded_window(window, win_size, n_fft)
+    if torch.compiler.is_exporting() and not isinstance(T, int):
+        # an exported symbolic time axis: the same envelope in the graph, summed
+        # by the overlap-add (a static one is the host's, a constant)
+        w2 = _window_on(win.tobytes(), re.device).square()
+        env = _overlap_add(w2.expand(1, T, n_fft), hop_size)
+        env = torch.where(env > 1e-11, env, torch.ones_like(env))
+    else:
+        env = _istft_envelope(win.tobytes(), n_fft, hop_size, T, re.device)
     frames = istft_frames(re, im, n_fft, win_size, window)
     y = _overlap_add(frames.reshape(-1, T, n_fft), hop_size) / env
 

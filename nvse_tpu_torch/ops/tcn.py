@@ -11,6 +11,9 @@ clamped at 0, as `_tail_fwd_impl`, pallas_tcn.py:168-182), then runs the tail:
     what it does not take;
   * on a CPU tensor the fold is `_fold` (a plain PyTorch reduction) and the
     tail `tcn_block_tail_plain`.
+Outside autograd the entry calls the registered operator
+`nvse_torch::tcn_block_tail` (ops/library.py), which runs the two above by the
+tensor's device: one node of a torch.export graph.
 Under autograd it is `_TailRecompute`, whose backward recomputes the fold
 and the plain tail and differentiates them (the custom VJP of
 pallas_tcn.py:185-205). Tail launches are counted in `tcn_block_tail.launches`,
@@ -301,7 +304,7 @@ def tcn_block_tail(c, x, gln_w, gln_b, w_dw, b_dw, w_rs, b_rs, dilation: int,
     args = (c, x, gln_w, gln_b, w_dw, b_dw, w_rs, b_rs)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _TailRecompute.apply(*args, dilation, eps)
-    return _tail(*args, dilation, eps)
+    return torch.ops.nvse_torch.tcn_block_tail(*args, int(dilation), float(eps))
 
 
 _reset_counts(tcn_block_tail, tcn_gln_fold_kernel)

@@ -14,7 +14,11 @@ the card from pinned memory one batch ahead. Validation runs whole
 utterances at batch 1, zero-padded to a bucket of
 `validation_bucket_frames` (64) frames and masked (eval_full), or fixed
 crops with `validation_full: false`. TensorBoard (tensorboardX) is used
-when installed; only scalars are logged.
+when installed: scalars, and at each validation the first 4 items' generated
+audio, the ground truth once and a mel figure of each of the first
+(nvse_tpu/train/loop.py:205-240), each skipped where tensorboardX's audio
+encoding (soundfile) or matplotlib is missing. The log says whether the
+batches are cropped by the native C++ decoder or in Python (data/dataset.py).
 
 Under torchrun (one process a card) the loop trains data-parallel over
 the ranks, and with h.sp_devices > 1 BSRNN sequence-parallel too, by the
@@ -38,6 +42,7 @@ import torch
 import torch.distributed as dist
 
 from ..data import PrefetchLoader, SegmentDataset, get_dataset_filelist
+from ..ops.spectral import mel_spectrogram
 from ..parallel import get_mesh, init_distributed, mesh_barrier, node_shape, shard_batch
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .trainer import GANTrainer, fetch_scalars
@@ -49,6 +54,50 @@ def _summary_writer(path: str):
     except ImportError:
         return None
     return SummaryWriter(path)
+
+
+def _plot_spectrogram(spec: np.ndarray):
+    """A matplotlib figure of spec for TensorBoard (reference utils.py:23-32)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(10, 2))
+    im = ax.imshow(spec, aspect="auto", origin="lower", interpolation="none")
+    plt.colorbar(im, ax=ax)
+    fig.canvas.draw()
+    return fig
+
+
+def log_validation_sample(sw, h, i: int, step: int, y_g: torch.Tensor, audio: torch.Tensor,
+                          gt_logged: bool) -> bool:
+    """TensorBoard samples of validation item i < 4 (nvse_tpu/train/loop.py:
+    205-240): the generated wave as generated/y_hat_{i} and, unless gt_logged,
+    the ground truth as gt/y_{i}; for item 0 the generated mel as the figure
+    generated/y_hat_spec and, unless gt_logged, gt/y_spec. -> False when an
+    add raised (tensorboardX encodes audio with soundfile, the figures need
+    matplotlib): the ground truth is then tried again at the next validation."""
+    ok = True
+    try:
+        sw.add_audio(f"generated/y_hat_{i}", y_g[0].float().cpu().numpy()[:, None], step,
+                     h.sampling_rate)
+        if not gt_logged:
+            sw.add_audio(f"gt/y_{i}", audio[0].float().cpu().numpy()[:, None], step,
+                         h.sampling_rate)
+    except Exception:
+        ok = False
+    if i == 0:
+        margs = (h.n_fft, h.num_mels, h.sampling_rate, h.hop_size, h.win_size, h.fmin,
+                 h.sampling_rate / 2)
+        try:
+            m = mel_spectrogram(y_g[:1].float(), *margs)[0].cpu().numpy()
+            sw.add_figure("generated/y_hat_spec", _plot_spectrogram(m), step)
+            if not gt_logged:
+                mg = mel_spectrogram(audio[:1].float(), *margs)[0].cpu().numpy()
+                sw.add_figure("gt/y_spec", _plot_spectrogram(mg), step)
+        except Exception:
+            ok = False
+    return ok
 
 
 def parallel_plan(batch_size: int, nodes: int, local: int, sp: int, log_fn=print):
@@ -124,7 +173,11 @@ def train(h, device: str = "cuda", log_fn=print) -> None:
     steps, last_epoch = restore_checkpoint(h.checkpoint_path, trainer)
     loader.epoch = max(0, last_epoch)   # resume the shuffle/crop streams at that epoch
     log_fn(f"checkpoints directory: {h.checkpoint_path} (resuming at step {steps})")
+    log_fn("training crops: " + ("the native C++ batch decoder (native/libnvse_host.so)"
+                                 if loader.native else "Python (the native decoder is not "
+                                 "loaded, or the corpus is not at the target rate)"))
     sw = _summary_writer(os.path.join(h.checkpoint_path, "logs")) if main else None
+    gt_logged = [False]             # the ground-truth samples, logged once
 
     def validate(step: int) -> None:
         """On rank 0; the other ranks wait for it."""
@@ -137,17 +190,22 @@ def train(h, device: str = "cuda", log_fn=print) -> None:
         cap = int(h.get("validation_cap", 0))
         n_val = len(val_ds) if cap <= 0 else min(len(val_ds), cap)
         rows = []
+        gt_added = True
         for i in range(n_val):
             if val_full:
                 wav = val_ds.segment_at(i, _random.Random(0))
                 n = len(wav)
                 tgt = max(val_bucket, -(-n // val_bucket) * val_bucket)
                 audio = torch.from_numpy(np.pad(wav, (0, tgt - n))[None, :])
-                _, metrics = trainer.eval_full(audio, n)
+                y_g, metrics = trainer.eval_full(audio, n)
             else:
                 audio = torch.from_numpy(val_ds.segment_at(i, _random.Random(0x5EED + i))[None, :])
-                _, metrics = trainer.eval_step(audio)
+                y_g, metrics = trainer.eval_step(audio)
             rows.append(metrics)
+            if sw is not None and i < 4:
+                gt_added &= log_validation_sample(sw, h, i, step, y_g, audio, gt_logged[0])
+        if sw is not None and gt_added and rows:
+            gt_logged[0] = True
         if rows:
             agg = {k: sum(fetch_scalars(r)[k] for r in rows) / len(rows) for k in rows[0]}
             if sw is not None:

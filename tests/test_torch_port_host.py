@@ -102,7 +102,8 @@ def test_segment_crops_match_jax_dataset():
     # a segment longer than the file is zero-padded
     long_ours = SegmentDataset(tr, 10 ** 6, 22050, seed=7)[0]
     assert long_ours.shape == (10 ** 6,) and long_ours[-1000:].max() == 0.0
-    lo = PrefetchLoader(ours, 4, num_workers=3, seed=3)
+    # the Python crops on both sides (the default native crops: test_torch_port_loader.py)
+    lo = PrefetchLoader(ours, 4, num_workers=3, seed=3, use_native=False)
     lj = JaxLoader(theirs, 4, num_workers=3, seed=3, use_native=False)
     assert len(lo) == len(lj) == 8
     for a, b in zip(lo, lj):
