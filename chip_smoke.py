@@ -266,13 +266,27 @@ the last line:
      RTF. The ranks count their launches in their own processes and write them to
      files that this process merges; every shape they launched (their local batch,
      sp's band and frame slices) gets its kernel-vs-plain row (parallel_kernels);
- 22. the per-step ablation harness (scripts/profile_torch_lstm_step.py) in this
+ 22. C7, the shapes and the dtype that no resident kernel takes (c7_kernels):
+     every LSTM wrapper against its plain version at H = 1024 (4 rows x 6 steps:
+     the step-wise kernels of csrc/lstm_stepwise.cu, one launch a step, both scans
+     of lstm_scan_bidir2 / lstm_scan_bidir in each step's launch) and at H = 100 and
+     (C, H) = (102, 102) (padded to multiples of 8 and 4 by the wrappers), in
+     float32, bfloat16 and float16 (float16: the step-wise kernels, the dW
+     reduction's tensor cores), and the float16 TCN tail and gLN statistics at
+     ConvTasNet's decode shape (these rows held only); a BSRNN at feature_dim 102
+     (num_repeat 2) decoding through InferenceEngine in float32 and bfloat16 (the
+     fused kernel at the padded 104, 4 launches a forward) against the CPU's plain
+     path, and its GAN step against the CPU's plain step (phase 6's limits and
+     control); float16 GAN steps of BSRNN-M (feature_dim 128, num_repeat 2) and
+     ConvTasNet (full width, the tail kernel under autograd) against the CPU's
+     plain float16 step; then rows for the shapes those paths launched;
+ 23. the per-step ablation harness (scripts/profile_torch_lstm_step.py) in this
      process at its four shapes in float32 and bfloat16: five variants of one
      direction of csrc/lstm_fused.cu (H = 128) and csrc/lstm_fused_wide.cu
      (H = 256), each against its plain version, `full` against the forward half
      of lstm_scan_fused, and the split of a step into input, products,
      nonlinearities and floor (lstm_step_ablation, lstm_step_split);
- 23. each main path above sets the launch counts to 0 when it starts and
+ 24. each main path above sets the launch counts to 0 when it starts and
      reads them per wrapper and shape when it ends; every other shape that a
      main path launched (serving's 128-frame bucket, the validations, the
      offline decodes beside the streams, the joint CLI's validation and
@@ -281,7 +295,7 @@ the last line:
      serving bucket, the time steps' tails) gets its
      kernel-vs-plain row in the dtype it ran in, and a launch at a shape with
      no row fails the run;
- 24. print the kernels line (one entry per kernel, shape and dtype, each
+ 25. print the kernels line (one entry per kernel, shape and dtype, each
      with its launches summed over the main paths; the redesigned dW_hh
      reduction, wide and narrow fused BiLSTMs, narrow and wide scans (the
      training forwards among them), narrow and wide backward recurrences, the
@@ -310,13 +324,14 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 T0 = time.time()                   # every phase line gives its seconds since the start
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.float16: 989e12}
 PEAK_BYTES = 3.35e12
 # kernel vs plain: float32 sums in another order over up to 1024 dependent
 # steps; bfloat16 rounds h to 8 bits each step (ulp 2^-8 below 1), and a
-# one-ulp flip moves later steps by a few ulps
-TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+# one-ulp flip moves later steps by a few ulps; float16 rounds to 11 bits
+# (ulp 2^-11 below 1), the same few ulps
+TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2, torch.float16: 1e-2}
+DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.float16: "float16"}
 # generator output on the card vs the CPU's plain path, float32 (the tests'
 # tolerances for the whole model: rtol 2e-3, atol 2e-4)
 MODEL_RTOL, MODEL_ATOL = 2e-3, 2e-4
@@ -337,6 +352,20 @@ def cuda_ms(fn, iters, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_once(fn):
+    """fn() and the ms of that one call (CUDA events around it, synchronised):
+    the plain versions' time, from the call whose result the kernel is held
+    against (a plain version repeats the kernel's arithmetic op by op and is
+    no yardstick of speed; one call of it is measurement enough)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def phase_build():
@@ -401,15 +430,17 @@ def _source(name, H, R=None, dtype=None):
     if name in L._TRAIN_KERNELS and R is not None:
         stem = _train_route(name, H, dtype, R)[0]
     else:
-        stem = L._kernel_source({"lstm_bwd_dw": "lstm_dw_hh"}.get(name, name), H)
+        stem = L._kernel_source({"lstm_bwd_dw": "lstm_dw_hh"}.get(name, name), H, dtype)
     return f"nvse_tpu_torch/csrc/{stem}.cu"
 
 
 def _train_route(name, H, dtype, R):
     """(kernel stem, its plan) of the training wrapper `name` (lstm_fwd_hc,
-    lstm_bwd) at (R, H, dtype) on this card, as the wrapper picks it."""
+    lstm_bwd) at (R, H, dtype) on this card, as the wrapper picks it (at H
+    padded to a multiple of 8)."""
     from nvse_tpu_torch.ops import lstm as L
 
+    H = L.lstm_padding(H)[0]
     probe = torch.empty(1, R, 4 * H, device="cuda", dtype=dtype)
     return L._card_train_route(name, probe, R, H)
 
@@ -431,18 +462,16 @@ def phase_kernels(cases, phase="kernel_vs_plain"):
         x, wif, wib, bf, bb, whf, whb = args
         with torch.inference_mode(), no_weight_compaction():
             got = lstm_scan_fused(*args)
-            torch.cuda.synchronize()
-            ref = lstm_scan_fused_plain(*args)
+            ref, plain_ms = cuda_once(lambda: lstm_scan_fused_plain(*args))
             err = (got.float() - ref.float()).abs().max().item()
             lib_err = (lib(args[0])[0].float() - ref.float()).abs().max().item()
             ctl = lstm_scan_fused(x, wif, wib, bf, bb, whb, whf)
             control = (ctl.float() - ref.float()).abs().max().item()
             ms = cuda_ms(lambda: lstm_scan_fused(*args), iters=10)
-            plain_ms = cuda_ms(lambda: lstm_scan_fused_plain(*args), iters=2)
             library_ms = cuda_ms(lambda: lib(args[0]), iters=10)
         bound, bound_by, ops = _bound_ms(R, T, C, H, dtype)
         row = dict(name="lstm_scan_fused", shape=label, rows=R, steps=T, C=C, H=H,
-                   dtype=DT_NAME[dtype], source=_source("lstm_scan_fused", H),
+                   dtype=DT_NAME[dtype], source=_source("lstm_scan_fused", H, dtype=dtype),
                    design=_design("lstm_scan_fused", H, dtype, R=R, T=T, C=C),
                    max_abs_err=err, tol=TOL[dtype], control_max_abs_err=control,
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -575,7 +604,7 @@ L_TRAIN_SHAPES = (("time", 544, 65, 256), ("band", 1040, 34, 256))
 # it is held at the float32 limit in both dtypes. Its control, which the
 # limit must refuse: the plain reduction with the last 256 of its
 # (step, row) pairs dropped.
-TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2, torch.float16: 1e-2}
 DW_TOL, DW_CONTROL_ROWS = 1e-4, 256
 # one training step on the card vs the CPU's plain path, float32: losses at
 # a relative error of STEP_RTOL, AdamW first moments at a per-tensor
@@ -592,6 +621,14 @@ STEP_RTOL, MOMENT_REL = 1e-5, 3e-3
 # each limit is the larger of the fixed one and PERTURB_FACTOR times that CPU
 # step's own reading, and the TF32 control must still fail it.
 PERTURB, PERTURB_FACTOR = 1e-7, 3.0
+# float16 steps (C7) against the CPU's plain float16 step: losses at F16_STEP_RTOL, about
+# ten float16 roundings (2^-11 each; the card and the CPU round at other places: cuBLAS's
+# float16 products may reduce in float16, the CPU's in float32), and moments at
+# F16_MOMENT_REL, the CPU test's limit against JAX's float16 step
+# (tests/test_torch_port_c7.py: 0.076 measured there), or PERTURB_FACTOR times the
+# CPU's own step under one float16 rounding of its input (F16_PERTURB), whichever is
+# larger; no TF32 control (TF32 rounds float32 products, which a float16 trunk hardly has)
+F16_STEP_RTOL, F16_MOMENT_REL, F16_PERTURB = 5e-3, 0.1, 2.0 ** -11
 
 
 def _err(got, ref):
@@ -658,6 +695,10 @@ def _design(name, H, dtype, R=None, T=None, C=None):
     as this card takes them; None elsewhere."""
     from nvse_tpu_torch.ops import lstm as L
 
+    if name != "lstm_bwd_dw" and L._stepwise(H, dtype):
+        p = L.stepwise_plan(R or 1, L.lstm_padding(H)[0], 2 if name == "lstm_scan_bidir" else 1)
+        return _stepwise_design(p)
+    H, C = L.lstm_padding(H, C)               # the shape the wrapper launches at
     wide = H > L._MAX_H
     if name in L._TRAIN_KERNELS:              # the kernel that train_route picks
         stem, p = _train_route(name, H, dtype, R)
@@ -700,7 +741,8 @@ def _design(name, H, dtype, R=None, T=None, C=None):
                 f"{p['stages']} steps, h by st.async on mbarriers (no barrier a step)")
     if name == "lstm_bwd_dw":
         p = L._dw_card_plan(0, T, R, H, dtype)
-        return (f"{'mma.sync m16n8k16 bf16' if dtype == torch.bfloat16 else 'f32 FMA 8x8/thread'}, "
+        mma = f"mma.sync m16n8k16 {'bf16' if dtype == torch.bfloat16 else 'f16'}"
+        return (f"{'f32 FMA 8x8/thread' if dtype == torch.float32 else mma}, "
                 f"128x128 tiles, cp.async ring of {p['stages']} x {p['tile_k']} rows, "
                 f"{p['nsplit']} splits of {p['rows_per_split']} rows")
     if name in ("lstm_scan", "lstm_scan_stateful", "lstm_scan_bidir") and H <= L._MAX_H:
@@ -726,6 +768,13 @@ def _design(name, H, dtype, R=None, T=None, C=None):
     return None
 
 
+def _stepwise_design(p):
+    """csrc/lstm_stepwise.cu's plan (ops/lstm.py `stepwise_plan`) in words."""
+    return (f"f32 FMA, one launch a step, blocks of {p['tile_rows']} rows x {p['units']} units "
+            f"({p['blocks']} blocks, {p['scans']} scan(s) a launch), W_hh staged from L2 "
+            f"each step, h in float32 buffers by step parity, exact cell")
+
+
 def phase_train_kernels(shapes=TRAIN_SHAPES, phase="kernel_vs_plain", dtypes=DTYPES):
     """lstm_fwd_hc, the lstm_bwd recurrence and the dW_hh reduction at the
     BSRNN-M and GCRN training shapes (or BSRNN-L's, or the ranks'), against
@@ -748,10 +797,9 @@ def phase_train_kernels(shapes=TRAIN_SHAPES, phase="kernel_vs_plain", dtypes=DTY
                 hs, cs = L.lstm_fwd_hc(xp, whh)
                 dx = L.lstm_bwd_recurrence(xp, hs, cs, dhs, whh)
                 dw = L.lstm_dw_hh(hs, dx)
-                torch.cuda.synchronize()
-                hs_ref, cs_ref = L.lstm_fwd_hc_plain(xp, whh)
-                dx_ref, _ = L.lstm_bwd_plain(xp, hs, cs, dhs, whh)
-                dw_ref = L.lstm_dw_hh_plain(hs, dx)
+                (hs_ref, cs_ref), fwd_plain_ms = cuda_once(lambda: L.lstm_fwd_hc_plain(xp, whh))
+                (dx_ref, _), bwd_plain_ms = cuda_once(lambda: L.lstm_bwd_plain(xp, hs, cs, dhs, whh))
+                dw_ref, dw_plain_ms = cuda_once(lambda: L.lstm_dw_hh_plain(hs, dx))
                 errs = {"lstm_fwd_hc": max(_err(hs, hs_ref), _err(cs, cs_ref), key=lambda e: e[1]),
                         "lstm_bwd": _err(dx, dx_ref), "lstm_bwd_dw": _err(dw, dw_ref)}
                 # the forward's and the recurrence's control: W_hh's rows reversed
@@ -766,12 +814,10 @@ def phase_train_kernels(shapes=TRAIN_SHAPES, phase="kernel_vs_plain", dtypes=DTY
                 dw_library_err = _err(dw_library(), dw_ref)[1]
                 dw_library_ms = cuda_ms(dw_library, iters=10)
                 times = {
-                    "lstm_fwd_hc": (cuda_ms(lambda: L.lstm_fwd_hc(xp, whh), iters=10),
-                                    cuda_ms(lambda: L.lstm_fwd_hc_plain(xp, whh), iters=2)),
+                    "lstm_fwd_hc": (cuda_ms(lambda: L.lstm_fwd_hc(xp, whh), iters=10), fwd_plain_ms),
                     "lstm_bwd": (cuda_ms(lambda: L.lstm_bwd_recurrence(xp, hs, cs, dhs, whh), iters=10),
-                                 cuda_ms(lambda: L.lstm_bwd_plain(xp, hs, cs, dhs, whh), iters=2)),
-                    "lstm_bwd_dw": (cuda_ms(lambda: L.lstm_dw_hh(hs, dx), iters=10),
-                                    cuda_ms(lambda: L.lstm_dw_hh_plain(hs, dx), iters=2)),
+                                 bwd_plain_ms),
+                    "lstm_bwd_dw": (cuda_ms(lambda: L.lstm_dw_hh(hs, dx), iters=10), dw_plain_ms),
                 }
             bounds = {
                 "lstm_fwd_hc": _bound((R * T * G + H * G + 2 * R * T * H) * item, ops, dtype),
@@ -880,7 +926,7 @@ def phase_scan_kernels(cases, phase="kernel_vs_plain"):
             w_control = max((a.float() - r.float()).abs().max().item() for a, r in zip(ctl, ref))
         bound, bound_by = _bound(nbytes, ops, dtype)
         row = dict(name=name, shape=label, rows=R, steps=T, H=H, dtype=DT_NAME[dtype],
-                   source=_source(name, H), design=_design(name, H, dtype, R=R),
+                   source=_source(name, H, dtype=dtype), design=_design(name, H, dtype, R=R),
                    max_abs_err=err, tol=TOL[dtype], ms=ms, plain_ms=plain_ms,
                    control_whh_max_abs_err=w_control,
                    library_ms=library_ms, library="cuDNN LSTM forward, projection included",
@@ -1162,23 +1208,39 @@ def phase_train_vs_cpu_plain(model="bsrnn", cqtd=False):
         _train_vs_cpu_plain(model, task, cqtd)
 
 
-def _train_vs_cpu_plain(model, task, cqtd=False):
+def _train_vs_cpu_plain(model, task, cqtd=False, phase=None, perturbed=None, **over):
+    """One step of SMALL_STEP[model] (with `over` on top) on the card against the
+    CPU's plain step; float32 with the TF32 control, or with over's
+    compute_dtype "float16" at the float16 limits; with `perturbed` (default:
+    the time models and float16) each limit at least PERTURB_FACTOR times the
+    CPU's own step under one rounding of its input. -> the card step's
+    launches per wrapper and shape (the counts set to 0 before it)."""
+    from nvse_tpu_torch.ops.lstm import _reset_counts
     from nvse_tpu_torch.train import GANTrainer, fetch_scalars
 
-    h = _config(model, segment_size=4096, batch_size=2, **SMALL_STEP[model],
+    h = _config(model, segment_size=4096, batch_size=2, **{**SMALL_STEP[model], **over},
                 **({"use_cqtd": True} if cqtd else {}))
+    f16 = str(h.get("compute_dtype")) == "float16"
     audio = _audio_batch(2, 4096, h.sampling_rate, seed=1)
     out = {}
-    runs = ("cuda", "cuda_tf32", "cpu") + (("cpu_perturbed",) if model in TIME_TRAIN else ())
+    perturbed = (model in TIME_TRAIN or f16) if perturbed is None else perturbed
+    runs = ("cuda", "cpu") if f16 else ("cuda", "cuda_tf32", "cpu")
+    runs += ("cpu_perturbed",) if perturbed else ()
+    perturb = F16_PERTURB if f16 else PERTURB
+    counts = {}
     for run in runs:
         tr = GANTrainer(h, device="cpu" if run.startswith("cpu") else "cuda", steps_per_epoch=2,
                         joint=task is not None)
-        batch = audio * (1.0 + PERTURB) if run == "cpu_perturbed" else audio
+        batch = audio * (1.0 + perturb) if run == "cpu_perturbed" else audio
+        if run == "cuda":
+            _reset_counts(*_all_counters().values())       # the card's step starts here
         _set_tf32(run == "cuda_tf32")
         try:
             losses = fetch_scalars(tr.step(*_step_args(batch, task, seed=1)))
         finally:
             _set_tf32(False)
+        if run == "cuda":
+            counts = _shape_counts()                       # ... and ends here
         # a parameter that no loss reaches (ConvTasNet's last residual 1x1 when skip
         # connections sum) has no AdamW state, on either side
         moments = {n: opt.state[p]["exp_avg"].detach().cpu()
@@ -1196,28 +1258,35 @@ def _train_vs_cpu_plain(model, task, cqtd=False):
         return loss_rel, mom[worst], worst
 
     loss_rel, mom_rel, worst = readings("cuda")
-    ctl_loss_rel, ctl_mom_rel, _ = readings("cuda_tf32")
-    loss_tol, mom_tol, perturbed = STEP_RTOL, MOMENT_REL, {}
+    loss_tol, mom_tol = (F16_STEP_RTOL, F16_MOMENT_REL) if f16 else (STEP_RTOL, MOMENT_REL)
+    perturbed, control = {}, {}
     if "cpu_perturbed" in out:
         p_loss, p_mom, p_worst = readings("cpu_perturbed")
-        loss_tol = max(STEP_RTOL, PERTURB_FACTOR * p_loss)
-        mom_tol = max(MOMENT_REL, PERTURB_FACTOR * p_mom)
+        loss_tol = max(loss_tol, PERTURB_FACTOR * p_loss)
+        mom_tol = max(mom_tol, PERTURB_FACTOR * p_mom)
         perturbed = dict(cpu_perturbed_loss_rel=p_loss, cpu_perturbed_moment_rel=p_mom,
-                         cpu_perturbed_worst_moment=p_worst)
-    ok = loss_rel <= loss_tol and mom_rel <= mom_tol
-    refused = ctl_loss_rel > loss_tol and ctl_mom_rel > mom_tol
-    say(phase="cqtd_vs_cpu" if cqtd else _tag(model, "train_vs_cpu_plain"), task=task,
-        model=model, **SMALL_STEP[model], segment=4096, batch=2,
+                         cpu_perturbed_worst_moment=p_worst, perturbation=perturb)
+    refused = True
+    if "cuda_tf32" in out:
+        ctl_loss_rel, ctl_mom_rel, _ = readings("cuda_tf32")
+        refused = ctl_loss_rel > loss_tol and ctl_mom_rel > mom_tol
+        control = dict(tf32_control_loss_rel=ctl_loss_rel, tf32_control_moment_rel=ctl_mom_rel,
+                       control_refused=refused)
+    finite = all(math.isfinite(v) for v in out["cuda"][0].values()) and all(
+        bool(torch.isfinite(m).all()) for m in out["cuda"][1].values())
+    ok = finite and loss_rel <= loss_tol and mom_rel <= mom_tol
+    say(phase=phase or ("cqtd_vs_cpu" if cqtd else _tag(model, "train_vs_cpu_plain")), task=task,
+        model=model, **{**SMALL_STEP[model], **over}, segment=4096, batch=2, finite=finite,
         worst_loss_rel=loss_rel, loss_rtol=loss_tol, worst_moment_rel=mom_rel,
-        worst_moment=worst, moment_rel_tol=mom_tol, **perturbed,
-        tf32_control_loss_rel=ctl_loss_rel, tf32_control_moment_rel=ctl_mom_rel, ok=ok,
-        control_refused=refused)
+        worst_moment=worst, moment_rel_tol=mom_tol, **perturbed, **control, ok=ok,
+        losses=out["cuda"][0])
     if not ok:
-        raise SystemExit(f"one {model} training step (task {task}) on the card disagrees with "
-                         "the CPU plain path")
+        raise SystemExit(f"one {model} training step (task {task}, {over}) on the card "
+                         "disagrees with the CPU plain path")
     if not refused:
         raise SystemExit(f"the {model} TF32 control step (task {task}) passes a limit of the "
                          "card-vs-CPU comparison")
+    return counts
 
 
 def _joint_lists(tmp):
@@ -1463,6 +1532,8 @@ BIDIR2_SHAPES = (("decode", 1024, 8, 448), ("serve", 128, 8, 448), ("small", 65,
 
 def _bidir2_design(route, p, dtype):
     """The route's plan of lstm_scan_bidir2 (ops/lstm.py `bidir2_plan`) in words."""
+    if route == "lstm_stepwise":
+        return _stepwise_design(p)
     if route == "lstm_bidir2":
         prod = ("mma.sync m16n8k16 bf16, W_hh slice in registers" if dtype == torch.bfloat16
                 else "f32 FMA, W_hh slice in registers + shared memory")
@@ -1517,7 +1588,7 @@ def phase_bidir2_kernels(cases, phase="kernel_vs_plain"):
             plain_ms = cuda_ms(plain, iters=2)
             library_ms = cuda_ms(library, iters=10)
         bound, bound_by = _bound(nbytes, ops, dtype)
-        plan = L._bidir2_card_plan(0, R, H, dtype)
+        plan = L._bidir2_card_plan(0, R, L.lstm_padding(H)[0], dtype)
         route = plan["route"]
         row = dict(name="lstm_scan_bidir2", shape=label, rows=R, steps=T, H=H,
                    dtype=DT_NAME[dtype], source=f"nvse_tpu_torch/csrc/{route}.cu",
@@ -1752,8 +1823,7 @@ def phase_tcn_kernels(cases, phase="tcn_kernels"):
             a, b2 = _fold(c, gw, gb, 1e-5)
             args = (c, x, a, b2, wdw, bdw, wrs, brs, d)
             got = tcn_block_tail_kernel(*args)
-            torch.cuda.synchronize()
-            ref = tcn_block_tail_plain(*args)
+            ref, plain_ms = cuda_once(lambda: tcn_block_tail_plain(*args))
             err = max((_err(g, r) for g, r in zip(got, ref)), key=lambda e: e[1])
             swapped = torch.cat([wrs[:, Bc:], wrs[:, :Bc]], dim=1)
             ctl = tcn_block_tail_kernel(c, x, a, b2, wdw, bdw, swapped, brs, d)
@@ -1769,12 +1839,12 @@ def phase_tcn_kernels(cases, phase="tcn_kernels"):
             ms = cuda_ms(lambda: tcn_block_tail_kernel(*args), iters=10)
             wrapper_ms = cuda_ms(lambda: tcn_block_tail(c, x, gw, gb, wdw, bdw, wrs, brs, d),
                                  iters=10)
-            plain_ms = cuda_ms(lambda: tcn_block_tail_plain(*args), iters=3)
             library_ms = cuda_ms(lambda: _tail_library(c, x, gw, gb, wdw, bdw, wrs, brs, d),
                                  iters=10)
         bound, bound_by, ops = _tail_bound(B, T, H, Bc, dtype)
         p = _card_tail_plan(0, B, T, H, Bc, d, dtype)
-        design = (f"{'wgmma m64n256k16 bf16, A (q) from registers' if p['tensor_cores'] else 'f32 FMA, 8 x 16 a thread'}"
+        wgmma = f"wgmma m64n256k16 {'bf16' if dtype == torch.bfloat16 else 'f16'}, A (q) from registers"
+        design = (f"{wgmma if p['tensor_cores'] else 'f32 FMA, 8 x 16 a thread'}"
                   f", 128 x 256 tiles on {p['blocks']} persistent blocks, chunks of {p['kc']} "
                   f"channels in {p['stages']} cp.async stages")
         row = dict(name="tcn_block_tail", shape=label, rows=B, steps=T, H=H, Bc=Bc, dilation=d,
@@ -1997,8 +2067,14 @@ BIDIR_SHAPES = tuple((label, T, B, H) for H in (128, 256)
                      for label, T, B in (("time", 1024, 544), ("band", 68, 8192),
                                          ("ragged", 64, 20)))
 # rows held against their plain version on no main path: not in the kernels line
-HELD_ONLY = {"lstm_scan_bidir2": ("small",), "lstm_scan_bidir": ("ragged",),
-             "lstm_scan_fused": ("ragged",)}
+C7_HELD_LABELS = ("c7_h1024", "c7_h100")
+HELD_ONLY = {"lstm_scan_bidir2": ("small", *C7_HELD_LABELS),
+             "lstm_scan_bidir": ("ragged", *C7_HELD_LABELS),
+             "lstm_scan_fused": ("ragged", *C7_HELD_LABELS, "c7_c102"),
+             **{n: C7_HELD_LABELS for n in ("lstm_scan", "lstm_scan_stateful", "lstm_fwd_hc",
+                                            "lstm_bwd", "lstm_bwd_dw")},
+             "tcn_block_tail": tuple(f"c7_decode_d{2 ** i}" for i in range(8)),
+             "tcn_gln_stats": ("c7_decode",)}
 
 
 def _script(name):
@@ -2052,7 +2128,7 @@ def phase_bidir_kernels(cases, phase="lstm_scan_bidir_kernels"):
             library_ms = cuda_ms(library, iters=10)
         bound, bound_by = _bound(nbytes, ops, dtype)
         row = dict(name="lstm_scan_bidir", shape=label, rows=2 * B, steps=T, H=H,
-                   dtype=DT_NAME[dtype], source=_source("lstm_scan_bidir", H),
+                   dtype=DT_NAME[dtype], source=_source("lstm_scan_bidir", H, dtype=dtype),
                    design=_design("lstm_scan_bidir", H, dtype, R=B),
                    max_abs_err=err, tol=TOL[dtype], ms=ms, us_per_step=ms * 1e3 / T,
                    plain_ms=plain_ms, library_ms=library_ms,
@@ -2993,10 +3069,7 @@ def phase_lstm_step_ablation():
         fused_err = library_ms = lib_err = None
         with torch.inference_mode(), no_weight_compaction():
             got = LS.lstm_step_variant(x, w_ih, w_hh, b, mode)
-            torch.cuda.synchronize()
-            ref = LS.lstm_step_variant_plain(x, w_ih, w_hh, b, mode)
-            plain_ms = cuda_ms(lambda: LS.lstm_step_variant_plain(x, w_ih, w_hh, b, mode),
-                               iters=1, warmup=0)
+            ref, plain_ms = cuda_once(lambda: LS.lstm_step_variant_plain(x, w_ih, w_hh, b, mode))
             ctl = (full_out[r["shape"], r["dtype"]] if ctl_args is None
                    else LS.lstm_step_variant(*ctl_args, mode))
             if mode == "full":
@@ -3317,6 +3390,117 @@ def phase_dp_serve():
     return counts
 
 
+# C7: the shapes and the dtype no resident kernel takes. Rows held against their plain
+# versions at H = 1024 (the step-wise kernels) and at H = 100 and (C, H) = (102, 102)
+# (padded by the wrappers), as (label, rows, steps, C, H) at a few rows and steps
+C7_HELD = (("c7_h1024", 4, 6, 1024, 1024), ("c7_h100", 37, 9, 102, 100),
+           ("c7_c102", 16, 9, 102, 102))
+C7_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# BSRNN at an odd width: its BiLSTMs at C = H = 102, padded to 104 on the card
+C7_FEATURE_DIM = 102
+C7_TCN = [(f"c7_decode_d{d}", TCN_B, TCN_T, TCN_H, TCN_BC, d, torch.float16)
+          for d in TCN_DILATIONS]
+
+
+def phase_c7_kernels():
+    """Every LSTM wrapper against its plain version at C7_HELD's shapes in
+    C7_DTYPES (the fused BiLSTM at its (C, H); the scans, the training kernels
+    and the two-scan LSTMs at H), and the float16 TCN tail and gLN statistics
+    at ConvTasNet's decode shape: rows held against their plain versions only
+    (HELD_ONLY: no main path launches these shapes)."""
+    rows = []
+    for label, R, T, C, H in C7_HELD:
+        for dt in C7_DTYPES:
+            rows += phase_kernels([(label, R, T, C, H, dt)], phase="c7_kernels")
+            if label == "c7_c102":            # the fused BiLSTM's (C, H) only
+                continue
+            rows += phase_scan_kernels([(n, label, R, T, H, dt)
+                                        for n in ("lstm_scan", "lstm_scan_stateful")],
+                                       phase="c7_kernels")
+            rows += phase_train_kernels([(label, R, T, H)], phase="c7_kernels", dtypes=(dt,))
+            rows += phase_bidir2_kernels([(label, T, R, H, dt)], phase="c7_kernels")
+            rows += phase_bidir_kernels([(label, T, R, H, dt)], phase="c7_kernels")
+    rows += phase_tcn_kernels(C7_TCN, phase="c7_kernels")
+    rows += phase_gln_stats([("c7_decode", TCN_B, TCN_T, TCN_H, torch.float16)],
+                            phase="c7_kernels")
+    return rows
+
+
+def phase_c7_decode():
+    """BSRNN at feature_dim C7_FEATURE_DIM, num_repeat 2, decoding 4 x 256 mel
+    frames through InferenceEngine in float32 and bfloat16: the fused kernel
+    at the padded (C, H), 4 launches a forward, a finite wave of the expected
+    shape; the card's float32 decode against the CPU's plain path on 2 x 64
+    frames at the model limits."""
+    from nvse_tpu_torch.infer import InferenceEngine
+    from nvse_tpu_torch.ops.lstm import _kernel_source, _reset_counts, lstm_scan_fused
+
+    h = _config("bsrnn", feature_dim=C7_FEATURE_DIM, num_repeat=2)
+    kernel = _kernel_source("lstm_scan_fused", C7_FEATURE_DIM)
+    B, T = 4, 256
+    mel = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (B, h.num_mels, T)).astype(np.float32) - 4.0)
+    _reset_counts(*_all_counters().values())       # main path starts here
+    for dtype in ("float32", "bfloat16"):
+        eng = InferenceEngine(_config("bsrnn", feature_dim=C7_FEATURE_DIM, num_repeat=2,
+                                      compute_dtype=dtype), device="cuda")
+        n0 = dict(lstm_scan_fused.launches_by_kernel)
+        wav = eng.forward(mel.to("cuda"))
+        torch.cuda.synchronize()
+        launches = launch_delta(lstm_scan_fused.launches_by_kernel, n0)
+        ok = (launches == {kernel: 4} and wav.shape == (B, (T - 1) * h.hop_size)
+              and bool(torch.isfinite(wav).all()))
+        say(phase="c7_decode", feature_dim=C7_FEATURE_DIM, num_repeat=2, dtype=dtype, batch=B,
+            frames=T, launches=launches, shape=list(wav.shape), ok=ok)
+        if not ok:
+            raise SystemExit(f"feature_dim {C7_FEATURE_DIM} {dtype} decode: launches {launches}, "
+                             f"shape {tuple(wav.shape)}, finite {bool(torch.isfinite(wav).all())}")
+        del eng
+    counts = _shape_counts()                       # main path ends here
+    small = mel[:2, :, :64]
+    cpu = InferenceEngine(h, device="cpu").forward(small)
+    gpu = InferenceEngine(h, device="cuda").forward(small).cpu()
+    err = (gpu - cpu).abs()
+    ok = bool((err <= MODEL_ATOL + MODEL_RTOL * cpu.abs()).all())
+    say(phase="c7_decode_vs_cpu_plain", feature_dim=C7_FEATURE_DIM, batch=2, frames=64,
+        max_abs_err=err.max().item(), rtol=MODEL_RTOL, atol=MODEL_ATOL, ok=ok)
+    if not ok:
+        raise SystemExit(f"feature_dim {C7_FEATURE_DIM} decode on the card disagrees with the "
+                         "CPU plain path")
+    return counts
+
+
+def phase_c7_train():
+    """The GAN steps of C7, each on the card against the CPU's plain step, each
+    counted as a main path: the feature_dim C7_FEATURE_DIM BSRNN in float32
+    (phase 6's limits, or 3 x the CPU's own spread, and the TF32 control);
+    BSRNN-M at its width (feature_dim 128, two BSNets) in float16 (the
+    step-wise training kernels, the float16 dW reduction); ConvTasNet at full
+    width in float16 with the tail kernel under autograd (fused_tcn 1), at
+    learning rate 0 as phase 6's."""
+    return {
+        # its encoder's LayerNorm over a band above fmax has a float-noise moment: the
+        # CPU's own step moves it by 3.2e-3 under a 1e-7 change of the batch
+        "c7_train": _train_vs_cpu_plain("bsrnn", None, phase="c7_train_vs_cpu_plain",
+                                        perturbed=True, feature_dim=C7_FEATURE_DIM),
+        "c7_f16_train": _train_vs_cpu_plain("bsrnn", None, phase="c7_f16_train_vs_cpu_plain",
+                                            feature_dim=128, compute_dtype="float16"),
+        "c7_f16_convtasnet_train": _train_vs_cpu_plain(
+            "convtasnet", None, phase="c7_f16_train_vs_cpu_plain", fused_tcn=1,
+            compute_dtype="float16")}
+
+
+def phase_c7_train_rows(paths):
+    """lstm_fwd_hc, lstm_bwd and the dW reduction against their plain versions
+    at every shape and dtype the C7 steps launched."""
+    rows = []
+    for counts in paths.values():
+        for T, R, H, dt in sorted(counts.get("lstm_fwd_hc", {})):
+            rows += phase_train_kernels([("c7_train", R, T, H)], phase="c7_kernels",
+                                        dtypes=(getattr(torch, dt),))
+    return rows
+
+
 def phase_parallel_rows(rows, paths, phase="parallel_kernels"):
     """Kernel-vs-plain rows for the training kernels' shapes that the ranks
     launched (their local batch and sp's band and frame slices), in the dtypes
@@ -3486,6 +3670,13 @@ def main():
     # through the registered operators, then rows for the shapes they launched
     x_paths = {"export": phase_export()}
     rows += phase_rest(rows, x_paths, phase="export_kernels")
+    # C7: every LSTM wrapper at H = 1024, at a padded shape and in float16, the float16
+    # tail at the decode shape (held only); BSRNN at feature_dim 102 decoding and
+    # training, float16 steps of BSRNN-M and ConvTasNet; then rows for their launches
+    rows += phase_c7_kernels()
+    c7_paths = {"c7_decode": phase_c7_decode(), **phase_c7_train()}
+    rows += phase_c7_train_rows(c7_paths)
+    rows += phase_rest(rows, c7_paths, phase="c7_kernels")
     # multi-GPU: the port's dry run, BSRNN-M's DP and dp x sp steps over ranks, DP
     # serving; then rows for the shapes the ranks launched (their local batch, sp's
     # band and frame slices) and the replicas served
@@ -3496,7 +3687,7 @@ def main():
     ablation_rows, ablation_counts = phase_lstm_step_ablation()
     rows += ablation_rows
     all_paths = {**paths, **{f"bsrnn_l_{p}": c for p, c in l_paths.items()}, **c_paths,
-                 **b_paths, **v_paths, **t_paths, **e_paths, **x_paths, **p_paths,
+                 **b_paths, **v_paths, **t_paths, **e_paths, **x_paths, **c7_paths, **p_paths,
                  "lstm_step_ablation": ablation_counts}
     missing = _missing(rows, all_paths)
     if missing:

@@ -5,9 +5,9 @@
 // (`_bwd_kernel` / `_bwd_kernel_unrolled`, launched at pallas_lstm_bwd.py:339):
 //   lstm_bwd_cluster_kernel  the reverse-time recurrence, H <= 128
 //                            (csrc/lstm_bwd_wide.cu takes 128 < H <= 768)
-//   lstm_dw_mma_kernel / lstm_dw_fma_kernel (bfloat16 / float32)
+//   lstm_dw_mma_kernel / lstm_dw_fma_kernel (bfloat16 and float16 / float32)
 //                            the dW_hh sum, which the TPU kernel adds up inside
-//                            its body, for every H <= 768
+//                            its body, for every H (the tiles cover any H % 8 == 0)
 // The unrolled TPU variants are the same functions at other unroll factors.
 // The residual-saving forward (`lstm_fwd_hc`, pallas_lstm_bwd.py:181) is a mode
 // of the scans: csrc/lstm_scan.cu (H <= 128), csrc/lstm_scan_wide.cu (wider).
@@ -82,14 +82,15 @@
 //
 // The dW kernels: dW_hh is (H, 4H) = 256 KiB in float32 at H = 128, which fits
 // neither a block's shared memory nor its registers, so it is a second kernel
-// (also that of the wide recurrence of csrc/lstm_bwd_wide.cu, up to H = 768): a
+// (also that of the wide recurrence of csrc/lstm_bwd_wide.cu, up to H = 768, and of
+// the step-wise one of csrc/lstm_stepwise.cu past it and in float16): a
 // GEMM over the T*R rows of [h_{t-1} | dx_proj], 128 x 128 output tiles, split
 // over the rows so that the grid fills the card; the splits add their sums into
 // the float32 (H, 4H) with atomics (in an order that varies from run to run; a
 // single split stores). At BSRNN-L's training shapes it is 18.5 GFLOP on 90 MB
 // (bf16): bound by operations in float32 (0.28 ms), by bytes in bfloat16 (0.027
-// ms). bfloat16 runs on the tensor cores (mma.sync m16n8k16, float32 sums, each
-// product exact), float32 on CUDA cores with 8 x 8 outputs a thread; both stage
+// ms). bfloat16 and float16 run on the tensor cores (mma.sync m16n8k16, float32
+// sums, each product exact), float32 on CUDA cores with 8 x 8 outputs a thread; both stage
 // the rows with cp.async into a ring, the next chunks' copies in flight while
 // the current one is multiplied.
 //
@@ -636,21 +637,21 @@ __device__ __forceinline__ void add_out(float* dst, float v) {
   if (gridDim.z == 1) *dst = v;
   else atomicAdd(dst, v);
 }
-template <typename T> constexpr int smem_bytes();
-template <> constexpr int smem_bytes<__nv_bfloat16>() {
-  return MMA_STAGES * MMA_BK * 2 * MMA_PITCH * 2;
+template <typename T> constexpr int smem_bytes() {
+  if constexpr (sizeof(T) == 2) return MMA_STAGES * MMA_BK * 2 * MMA_PITCH * 2;
+  else return FMA_STAGES * FMA_BK * (BM + BN) * 4;
 }
-template <> constexpr int smem_bytes<float>() { return FMA_STAGES * FMA_BK * (BM + BN) * 4; }
 }  // namespace dw
 
-// bfloat16: a block owns a 128 x 128 tile of (m, j) and the split's rows;
+// bfloat16 and float16 (T): a block owns a 128 x 128 tile of (m, j) and the split's rows;
 // 8 warps as 2 (m) x 4 (j), 64 x 32 outputs each, as 4 x 4 mma.sync
 // m16n8k16 tiles with float32 sums in registers. Both operands come through
 // ldmatrix.trans (A's rows n are contiguous along m, B's along j). The
 // stages are filled by cp.async, three chunks of 32 rows in flight ahead of
 // the one being multiplied.
+template <typename T>
 __global__ void __launch_bounds__(dw::THREADS)
-lstm_dw_mma_kernel(const __nv_bfloat16* __restrict__ hs, const __nv_bfloat16* __restrict__ dx,
+lstm_dw_mma_kernel(const T* __restrict__ hs, const T* __restrict__ dx,
                    float* __restrict__ dw, int R, int N, int H, int rows_per_split) {
   using namespace dw;
   constexpr int STAGE = 2 * MMA_BK * MMA_PITCH;       // A then B, bf16 elements
@@ -663,12 +664,12 @@ lstm_dw_mma_kernel(const __nv_bfloat16* __restrict__ hs, const __nv_bfloat16* __
   const int wm = warp >> 2, wn = warp & 3;
 
   extern __shared__ float4 smem_f4[];
-  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem_f4);
+  T* sm = reinterpret_cast<T*>(smem_f4);
 
   auto fetch = [&](int c) {                           // chunk c into its stage, one group
     if (c < nk) {
-      __nv_bfloat16* a_s = sm + (c % MMA_STAGES) * STAGE;
-      __nv_bfloat16* b_s = a_s + MMA_BK * MMA_PITCH;
+      T* a_s = sm + (c % MMA_STAGES) * STAGE;
+      T* b_s = a_s + MMA_BK * MMA_PITCH;
       const int n0 = n_begin + c * MMA_BK;
       for (int i = tid; i < MMA_BK * (BM / 8); i += THREADS) {
         const int nn = i / (BM / 8), q = (i % (BM / 8)) * 8, n = n0 + nn;
@@ -690,8 +691,8 @@ lstm_dw_mma_kernel(const __nv_bfloat16* __restrict__ hs, const __nv_bfloat16* __
     cp_async_wait<MMA_STAGES - 2>();                  // chunk c has landed (this thread's part)
     __syncthreads();                                  // ... every thread's; stage c - 1 is free
     fetch(c + MMA_STAGES - 1);
-    const __nv_bfloat16* a_s = sm + (c % MMA_STAGES) * STAGE;
-    const __nv_bfloat16* b_s = a_s + MMA_BK * MMA_PITCH;
+    const T* a_s = sm + (c % MMA_STAGES) * STAGE;
+    const T* b_s = a_s + MMA_BK * MMA_PITCH;
 #pragma unroll
     for (int ks = 0; ks < MMA_BK; ks += 16) {
       unsigned af[4][4], bf[4][2];
@@ -712,7 +713,10 @@ lstm_dw_mma_kernel(const __nv_bfloat16* __restrict__ hs, const __nv_bfloat16* __
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
+        for (int nt = 0; nt < 4; ++nt) {
+          if constexpr (std::is_same_v<T, __half>) mma_f16(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
+          else mma_bf16(acc[mt][nt], af[mt], bf[nt][0], bf[nt][1]);
+        }
     }
   }
   const int g = lane >> 2, q2 = (lane & 3) * 2;
@@ -811,7 +815,7 @@ cudaError_t dw_set_smem() {
     return cudaFuncSetAttribute(lstm_dw_fma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 dw::smem_bytes<T>());
   else
-    return cudaFuncSetAttribute(lstm_dw_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    return cudaFuncSetAttribute(lstm_dw_mma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 dw::smem_bytes<T>());
 }
 
@@ -833,9 +837,8 @@ int launch_dw(const void* hs, const void* dx, float* dw, int R, int Tn, int H, i
         static_cast<const float*>(hs), static_cast<const float*>(dx), dw, R, (int)N, H,
         rows_per_split);
   else
-    lstm_dw_mma_kernel<<<grid, dw::THREADS, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(hs), static_cast<const __nv_bfloat16*>(dx), dw,
-        R, (int)N, H, rows_per_split);
+    lstm_dw_mma_kernel<T><<<grid, dw::THREADS, smem, stream>>>(
+        static_cast<const T*>(hs), static_cast<const T*>(dx), dw, R, (int)N, H, rows_per_split);
   return cudaGetLastError();
 }
 
@@ -847,13 +850,14 @@ int dw_blocks_per_sm(int* blocks) {
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, lstm_dw_fma_kernel, dw::THREADS,
                                                          dw::smem_bytes<T>());
   else
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, lstm_dw_mma_kernel, dw::THREADS,
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, lstm_dw_mma_kernel<T>, dw::THREADS,
                                                          dw::smem_bytes<T>());
 }
 
 
 // the recurrence runs H <= 128 (a cluster of at most KMAX blocks); the dW
-// reduction is tiled and takes the wide kernels' H <= 768 (csrc/lstm_bwd_wide.cu)
+// reduction is tiled and takes every H (kDwMaxH: the grid's y, one 128-row tile a block)
+constexpr int kDwMaxH = 65535 * dw::BM;
 bool bad_shape(int R, int Tn, int H, int max_h = rec::HP) {
   return R <= 0 || Tn <= 0 || H <= 0 || H > max_h || H % 8;
 }
@@ -887,6 +891,7 @@ extern "C" int lstm_bwd_max_clusters(int dtype, int tile_rows, int H, int smem, 
   });
 }
 
+// dtype: 0 float32, 1 bfloat16, 2 float16.
 // hs (T, R, H), dx_proj (T, R, 4H) -> dw float32 (H, 4H): split s sums rows
 // [s * rows_per_split, (s + 1) * rows_per_split) of the T*R rows and adds them
 // into dw, which the caller zeroes when nsplit > 1 (one split stores); smem is
@@ -895,12 +900,14 @@ extern "C" int lstm_bwd_max_clusters(int dtype, int tile_rows, int H, int smem, 
 extern "C" int lstm_dw_launch(int dtype, const void* hs, const void* dx, void* dw, int R,
                               int Tn, int H, int nsplit, int rows_per_split, int smem,
                               void* stream) {
-  if (bad_shape(R, Tn, H, 768) || nsplit <= 0) return cudaErrorInvalidValue;
+  if (bad_shape(R, Tn, H, kDwMaxH) || nsplit <= 0 || (long)R * Tn > 0x7fffffff)
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(dw);
   if (dtype == 0) return launch_dw<float>(hs, dx, out, R, Tn, H, nsplit, rows_per_split, smem, s);
   if (dtype == 1)
     return launch_dw<__nv_bfloat16>(hs, dx, out, R, Tn, H, nsplit, rows_per_split, smem, s);
+  if (dtype == 2) return launch_dw<__half>(hs, dx, out, R, Tn, H, nsplit, rows_per_split, smem, s);
   return cudaErrorInvalidValue;
 }
 
@@ -909,5 +916,6 @@ extern "C" int lstm_dw_launch(int dtype, const void* hs, const void* dx, void* d
 extern "C" int lstm_dw_blocks_per_sm(int dtype, int* blocks) {
   if (dtype == 0) return dw_blocks_per_sm<float>(blocks);
   if (dtype == 1) return dw_blocks_per_sm<__nv_bfloat16>(blocks);
+  if (dtype == 2) return dw_blocks_per_sm<__half>(blocks);
   return cudaErrorInvalidValue;
 }

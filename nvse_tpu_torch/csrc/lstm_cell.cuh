@@ -1,10 +1,11 @@
-// Pieces shared by the LSTM kernels of csrc/: conversions, vector and
+// Pieces shared by the LSTM kernels of csrc/: conversions (float32, bfloat16, float16), vector and
 // asynchronous copies, ldmatrix and mma.sync, a warp's reduce-scatter, the sigmoid, the per-step
 // ablation variants and the card's shared-memory limit.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 namespace lstm {
 
@@ -13,11 +14,15 @@ template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+template <> __device__ __forceinline__ float to_f<__half>(__half v) { return __half2float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half_rn(v);   // round to nearest even, as torch's .to(float16)
 }
 
 // 16 bytes (4 float32 or 8 bfloat16 values) from global memory through L2,
@@ -85,6 +90,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
                                          unsigned b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The same with float16 products (csrc/lstm_bwd.cu's dW reduction in float16).
+__device__ __forceinline__ void mma_f16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                        unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

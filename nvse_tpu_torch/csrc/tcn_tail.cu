@@ -17,7 +17,7 @@
 //   e[t, j]   = x[t, j] + out[t, j]                for j < Bc
 //   skip[t, j - Bc] = out[t, j]                    for Bc <= j < 2 Bc
 // round() is the rounding to w_rs's type (a no-op in float32). c, x, w_dw,
-// b_dw, w_rs, b_rs, e and skip are all float32 or all bfloat16; a and b2 are
+// b_dw, w_rs, b_rs, e and skip are all float32, all bfloat16 or all float16; a and b2 are
 // float32. Shapes: c (B, T, H), x (B, T, Bc), w_dw (3, H), b_dw (H),
 // w_rs (H, 2 Bc), b_rs (2 Bc), a and b2 (B, H), e and skip (B, T, Bc). Any
 // B, T, H, Bc and dilation d >= 1.
@@ -58,9 +58,13 @@
 //   - float32: true float32 FMAs on the CUDA cores (no TF32): q is built into a
 //     [k][row] tile in shared memory, and each of 256 threads accumulates an
 //     8 x 16 register tile of the 128 x 256 output; 2 stages.
+//   - float16 takes the bfloat16 kernel (tcn_tail_wgmma_kernel<T>) with the
+//     wgmma's f16 operand type: its staging, swizzle, fragments and epilogue
+//     are those of any 16-bit type, and the tensor cores take f16 at bf16's
+//     rate, where the float32 FMA kernel would first widen every operand.
 // The epilogue adds b_rs and the residual (x prefetched into L2 at the tile's
 // first chunk, then loaded into registers all at once before any store) and
-// writes both outputs, 16 bytes a lane (bfloat16: the C fragments turned around
+// writes both outputs, 16 bytes a lane (16-bit types: the C fragments turned around
 // within each quad of lanes). Ragged ends in T, H and 2 Bc are
 // masked; 16-byte copies where the rows are 16-byte aligned, element copies
 // elsewhere.
@@ -75,6 +79,7 @@
 // plain C entries (tcn_tail_launch, tcn_gln_stats_launch), loaded through ctypes;
 // ops/tcn.py `tail_plan` picks the chunk, the stages and the blocks.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -90,10 +95,30 @@ template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+template <> __device__ __forceinline__ float to_f<__half>(__half v) { return __half2float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half_rn(v); }
+
+// Two 16-bit values (bfloat16 or float16) of one 32-bit word: unpacked to
+// float32, and packed from float32 rounded to nearest even.
+template <typename T> __device__ __forceinline__ float2 unpack2(const void* p) {
+  if constexpr (std::is_same<T, __half>::value)
+    return __half22float2(*reinterpret_cast<const __half2*>(p));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+template <typename T> __device__ __forceinline__ unsigned pack2(float a, float b) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 v = __floats2half2_rn(a, b);
+    return *reinterpret_cast<const unsigned*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const unsigned*>(&v);
+  }
 }
 
 __host__ __device__ constexpr long round128(long v) { return (v + 127) / 128 * 128; }
@@ -272,14 +297,14 @@ __device__ __forceinline__ void store_pair(const Args& A, size_t row, int col, f
   const T* x = static_cast<const T*>(A.x);
   T* e = static_cast<T*>(A.e);
   T* s = static_cast<T*>(A.s);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (sizeof(T) == 2) {
     if (A.vec && two && !(Bc & 1)) {
       if (col < Bc) {
         const size_t o = row * Bc + col;
-        const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + o));
-        *reinterpret_cast<__nv_bfloat162*>(e + o) = __floats2bfloat162_rn(xv.x + v0, xv.y + v1);
+        const float2 xv = unpack2<T>(x + o);
+        *reinterpret_cast<unsigned*>(e + o) = pack2<T>(xv.x + v0, xv.y + v1);
       } else {
-        *reinterpret_cast<__nv_bfloat162*>(s + row * Bc + col - Bc) = __floats2bfloat162_rn(v0, v1);
+        *reinterpret_cast<unsigned*>(s + row * Bc + col - Bc) = pack2<T>(v0, v1);
       }
       return;
     }
@@ -293,35 +318,47 @@ __device__ __forceinline__ void store_pair(const Args& A, size_t row, int col, f
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: wgmma with A (q) from registers
+// bfloat16 and float16: wgmma with A (q) from registers
 // ---------------------------------------------------------------------------
 
-// d (+)= a (64 x 16 bf16, registers) * b (16 x 256 bf16, shared memory, read
-// transposed: MN-major), float32 sums; scale_d 0 starts the sums afresh
+// the operands of wgmma_rs: 128 float32 sums, the A fragments, B's descriptor, scale_d
+#define WGMMA_RS_OPERANDS \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, " \
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d)
+
+// d (+)= a (64 x 16, registers) * b (16 x 256, shared memory, read transposed:
+// MN-major), both bfloat16 or both float16 (T), float32 sums; scale_d 0 starts
+// the sums afresh
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[128], const unsigned (&a)[4],
                                          unsigned long long desc, int scale_d) {
-  asm volatile(
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 "
+      WGMMA_RS_OPERANDS);
+  else
+    asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+      WGMMA_RS_OPERANDS);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -373,9 +410,8 @@ __device__ __forceinline__ uint4 quad_transpose(unsigned w0, unsigned w1, unsign
   return make_uint4(o0, o1, o2, o3);
 }
 
-template <int KC>
-__global__ void __launch_bounds__(THREADS, 1) tcn_tail_bf16_kernel(const Args A) {
-  using T = __nv_bfloat16;
+template <typename T, int KC>
+__global__ void __launch_bounds__(THREADS, 1) tcn_tail_wgmma_kernel(const Args A) {
   using SG = Stage<T, KC>;
   constexpr int KS = KC / 16;                      // k16 steps of a chunk
   extern __shared__ __align__(128) char smem_raw[];
@@ -433,8 +469,8 @@ __global__ void __launch_bounds__(THREADS, 1) tcn_tail_bf16_kernel(const Args A)
         float2 wv[3];
 #pragma unroll
         for (int tap = 0; tap < 3; ++tap)
-          wv[tap] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kw + tap * KC + kl));
-        const float2 bd = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kw + 3 * KC + kl));
+          wv[tap] = unpack2<T>(kw + tap * KC + kl);
+        const float2 bd = unpack2<T>(kw + 3 * KC + kl);
 #pragma unroll
         for (int ri = 0; ri < 2; ++ri) {
           const int r = rb + g + 8 * ri;
@@ -442,14 +478,12 @@ __global__ void __launch_bounds__(THREADS, 1) tcn_tail_bf16_kernel(const Args A)
 #pragma unroll
           for (int tap = 0; tap < 3; ++tap) {
             if (valid >> (3 * ri + tap) & 1u) {
-              const float2 cv = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(cs + (r + tap * S) * SG::CP + kl));
+              const float2 cv = unpack2<T>(cs + (r + tap * S) * SG::CP + kl);
               sx = fmaf(fmaf(cv.x, av.x, bv.x), wv[tap].x, sx);
               sy = fmaf(fmaf(cv.y, av.y, bv.y), wv[tap].y, sy);
             }
           }
-          const __nv_bfloat162 q = __floats2bfloat162_rn(sx + bd.x, sy + bd.y);
-          af[s][ri + 2 * h] = *reinterpret_cast<const unsigned*>(&q);
+          af[s][ri + 2 * h] = pack2<T>(sx + bd.x, sy + bd.y);
         }
       }
     keep_live(af);                                 // every fragment built before the first wgmma
@@ -458,7 +492,7 @@ __global__ void __launch_bounds__(THREADS, 1) tcn_tail_bf16_kernel(const Args A)
     // k16 step s: the k-atoms 2 s and 2 s + 1; B read transposed (MN-major)
 #pragma unroll
     for (int s = 0; s < KS; ++s)
-      wgmma_rs(acc, af[s], make_desc(wbase + s * 2048, KC / 8 * 1024, 1024),
+      wgmma_rs<T>(acc, af[s], make_desc(wbase + s * 2048, KC / 8 * 1024, 1024),
                   (k0 > 0 || s > 0) ? 1 : 0);
     wgmma_commit();
     // the chunk's products done before the next chunk's fragments are built: a
@@ -499,8 +533,7 @@ __global__ void __launch_bounds__(THREADS, 1) tcn_tail_bf16_kernel(const Args A)
             float v0[4], v1[4];
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
-              const float2 bb = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(brs + gcol + 8 * j + 2 * tq));
+              const float2 bb = unpack2<T>(brs + gcol + 8 * j + 2 * tq);
               v0[j] = acc[4 * (4 * k + j) + 2 * ri] + bb.x;
               v1[j] = acc[4 * (4 * k + j) + 2 * ri + 1] + bb.y;
             }
@@ -515,10 +548,8 @@ __global__ void __launch_bounds__(THREADS, 1) tcn_tail_bf16_kernel(const Args A)
               unsigned o[4];
 #pragma unroll
               for (int q = 0; q < 4; ++q) {
-                const float2 xf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xv[q]));
-                const __nv_bfloat162 r2 = __floats2bfloat162_rn(xf.x + __uint_as_float(av[q]),
-                                                                xf.y + __uint_as_float(cv[q]));
-                o[q] = *reinterpret_cast<const unsigned*>(&r2);
+                const float2 xf = unpack2<T>(&xv[q]);
+                o[q] = pack2<T>(xf.x + __uint_as_float(av[q]), xf.y + __uint_as_float(cv[q]));
               }
               if (t < Tn)
                 *reinterpret_cast<uint4*>(e + row * Bc + col) = make_uint4(o[0], o[1], o[2], o[3]);
@@ -526,8 +557,7 @@ __global__ void __launch_bounds__(THREADS, 1) tcn_tail_bf16_kernel(const Args A)
               unsigned w[4];
 #pragma unroll
               for (int j = 0; j < 4; ++j) {
-                const __nv_bfloat162 r2 = __floats2bfloat162_rn(v0[j], v1[j]);
-                w[j] = *reinterpret_cast<const unsigned*>(&r2);
+                w[j] = pack2<T>(v0[j], v1[j]);
               }
               const uint4 o = quad_transpose(w[0], w[1], w[2], w[3], tq, lane);
               if (t < Tn) *reinterpret_cast<uint4*>(so + row * Bc + col - Bc) = o;
@@ -792,15 +822,21 @@ __global__ void __launch_bounds__(STATS_THREADS) tcn_gln_fold_kernel(const float
   }
 }
 
+template <typename T, typename F>
+int with_tail16(int kc, F&& f) {
+  using std::integral_constant;
+  if (kc == 64) return f((T*)nullptr, integral_constant<int, 64>{});
+  if (kc == 32) return f((T*)nullptr, integral_constant<int, 32>{});
+  if (kc == 16) return f((T*)nullptr, integral_constant<int, 16>{});
+  return cudaErrorInvalidValue;
+}
+
 template <typename F>
 int with_tail(int dtype, int kc, F&& f) {
-  using bf = __nv_bfloat16;
   using std::integral_constant;
-  if (dtype == 1) {
-    if (kc == 64) return f((bf*)nullptr, integral_constant<int, 64>{});
-    if (kc == 32) return f((bf*)nullptr, integral_constant<int, 32>{});
-    if (kc == 16) return f((bf*)nullptr, integral_constant<int, 16>{});
-  } else if (dtype == 0) {
+  if (dtype == 1) return with_tail16<__nv_bfloat16>(kc, f);
+  if (dtype == 2) return with_tail16<__half>(kc, f);
+  if (dtype == 0) {
     if (kc == 32) return f((float*)nullptr, integral_constant<int, 32>{});
     if (kc == 16) return f((float*)nullptr, integral_constant<int, 16>{});
     if (kc == 8) return f((float*)nullptr, integral_constant<int, 8>{});
@@ -810,8 +846,8 @@ int with_tail(int dtype, int kc, F&& f) {
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. The plan (kc: channels a chunk; stages: the ring,
-// 3 in bfloat16, 2 in float32; blocks: persistent blocks; smem: bytes of
+// dtype: 0 float32, 1 bfloat16, 2 float16. The plan (kc: channels a chunk; stages:
+// the ring, 3 in bfloat16 and float16, 2 in float32; blocks: persistent blocks; smem: bytes of
 // dynamic shared memory) is ops/tcn.py `tail_plan`'s. vec: every row of c, x, w_rs, w_dw and
 // a / b2, and every pointer, 16-byte aligned (16-byte copies). Returns the CUDA
 // error of the launch (0 on success).
@@ -835,12 +871,12 @@ extern "C" int tcn_tail_launch(int dtype, const void* c, const void* x, const fl
   return with_tail(dtype, kc, [&](auto* ty, auto kk) {
     using T = std::remove_pointer_t<decltype(ty)>;
     constexpr int KC = decltype(kk)::value;
-    constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
+    constexpr bool BF = sizeof(T) == 2;        // bfloat16 or float16: wgmma
     if ((BF && stages != 3) || (!BF && stages != 2) ||
         smem != smem_bytes<T, KC>(d, stages))
       return (int)cudaErrorInvalidValue;
     void (*kernel)(const Args);
-    if constexpr (BF) kernel = tcn_tail_bf16_kernel<KC>;
+    if constexpr (BF) kernel = tcn_tail_wgmma_kernel<T, KC>;
     else kernel = tcn_tail_f32_kernel<KC>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
@@ -850,7 +886,7 @@ extern "C" int tcn_tail_launch(int dtype, const void* c, const void* x, const fl
   });
 }
 
-// The gLN fold of c (B, T, H) in dtype (0 float32, 1 bfloat16) with gln_w /
+// The gLN fold of c (B, T, H) in dtype (0 float32, 1 bfloat16, 2 float16) with gln_w /
 // gln_b (H) in wdtype: part, a float32 (B, P, 2) scratch; a and b2 float32 (B, H).
 // vec: c 16-byte aligned with T H a multiple of 16 bytes' elements.
 extern "C" int tcn_gln_stats_launch(int dtype, int wdtype, const void* c, const void* gw,
@@ -863,6 +899,8 @@ extern "C" int tcn_gln_stats_launch(int dtype, int wdtype, const void* c, const 
       static_cast<const float*>(c), part, L, P, vec);
   else if (dtype == 1) tcn_gln_partial_kernel<__nv_bfloat16><<<grid, STATS_THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(c), part, L, P, vec);
+  else if (dtype == 2) tcn_gln_partial_kernel<__half><<<grid, STATS_THREADS, 0, stream>>>(
+      static_cast<const __half*>(c), part, L, P, vec);
   else return cudaErrorInvalidValue;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -871,6 +909,8 @@ extern "C" int tcn_gln_stats_launch(int dtype, int wdtype, const void* c, const 
   else if (wdtype == 1) tcn_gln_fold_kernel<__nv_bfloat16><<<B, STATS_THREADS, 0, stream>>>(
       part, static_cast<const __nv_bfloat16*>(gw), static_cast<const __nv_bfloat16*>(gb), a, b2, P,
       L, H, eps);
+  else if (wdtype == 2) tcn_gln_fold_kernel<__half><<<B, STATS_THREADS, 0, stream>>>(
+      part, static_cast<const __half*>(gw), static_cast<const __half*>(gb), a, b2, P, L, H, eps);
   else return cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -25,9 +25,11 @@ differentiable (parallel/collectives.py), so averaging every gradient over
 the whole mesh gives the one-process gradient. Without a group the trunk
 runs as above.
 
-Under a bfloat16 trunk the dtypes follow the JAX package's promotion: the
-DSP front and back ends and the encoder stay float32, LayerNorm and
-Linear outputs follow the params, and residual sums promote.
+Under a bfloat16 (or float16) trunk the dtypes follow the JAX package's
+promotion: the DSP front and back ends and the encoder stay float32,
+LayerNorm and Linear outputs follow the params, and residual sums promote.
+A float16 trunk takes the phase's atan2 in float32 (its backward underflows
+float16).
 """
 from __future__ import annotations
 
@@ -255,6 +257,10 @@ class BSRNNCore(nn.Module):
                          dim=-1)                                # (B, T, F)
         pha_parts = []
         for g, (w, _n, _o) in zip(self.dec_pha(feats), _band_groups(self.widths)):
+            if g.dtype == torch.float16:
+                # atan2's backward divides by re^2 + im^2, which float16 flushes to 0
+                # where |re|, |im| < 2^-12 (0 / 0): the phase is taken in float32
+                g = g.float()
             pha = torch.atan2(g[..., w:], g[..., :w])           # (B, n, T, w)
             pha_parts.append(pha.transpose(1, 2).reshape(B, T, -1))
         phase = torch.cat(pha_parts, dim=-1).transpose(-1, -2)

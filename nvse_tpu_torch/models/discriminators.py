@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.spectral import stft_ri
-from .layers import Conv2d, SNConv1d, WNConv1d, get_padding, leaky_relu
+from .layers import Conv2d, SNConv1d, WNConv1d, conv1d, get_padding, leaky_relu
 
 
 class DiscriminatorP(nn.Module):
@@ -66,7 +66,10 @@ class DiscriminatorP(nn.Module):
 class DiscriminatorR(nn.Module):
     """Resolution discriminator on the rectangular-window |STFT| as a
     1-channel (freq, time) image: five weight-norm convs and a post conv.
-    The magnitude is sqrt(re^2 + im^2 + 1e-12), as in the reference."""
+    The magnitude is sqrt(re^2 + im^2 + 1e-12), as in the reference, taken in
+    float32 from the transform's values and rounded once to the trunk's dtype
+    (float16's squares overflow past |re| = 256, which a rectangular window of
+    2,048 samples passes at an amplitude of 0.125)."""
 
     def __init__(self, resolution: Sequence[int], gen: torch.Generator | None = None):
         super().__init__()
@@ -83,7 +86,8 @@ class DiscriminatorR(nn.Module):
     def forward(self, x: torch.Tensor):
         n_fft, hop, win = self.resolution
         re, im = stft_ri(x, n_fft, hop, win, window=None)
-        z = torch.sqrt(re * re + im * im + 1e-12)[:, None]      # (B, 1, F, T)
+        re, im = re.float(), im.float()
+        z = torch.sqrt(re * re + im * im + 1e-12).to(x.dtype)[:, None]      # (B, 1, F, T)
         fmap = []
         for conv in self.convs[:-1]:
             z = leaky_relu(conv(z))
@@ -173,7 +177,7 @@ class DiscriminatorS(nn.Module):
         x = x[:, None]                                           # (B, 1, L)
         for i, conv in enumerate(self.convs):
             w = conv.weight(update_stats) if self.use_spectral_norm else conv.weight()
-            x = F.conv1d(x.to(w.dtype), w, conv.bias, conv.stride, conv.padding, 1, conv.groups)
+            x = conv1d(x, w, conv.bias, conv.stride, conv.padding, 1, conv.groups)
             if i < len(self.convs) - 1:
                 x = leaky_relu(x)
             fmap.append(x)

@@ -192,14 +192,34 @@ class Conv2d(nn.Module):
 def _conv(fn, x, w, bias, stride, padding, **kw):
     """fn = F.conv2d or F.conv_transpose2d on NCHW, the input cast to the
     weight dtype as the JAX layers follow their params."""
-    if w.dtype == torch.bfloat16 and w.device.type == "cpu":
+    if w.dtype in (torch.bfloat16, torch.float16) and w.device.type == "cpu":
         # torch's oneDNN bf16 conv2d on the CPU returned NaN for finite
         # inputs (MRD layer 4, (4, 64, 65, 2) * (64, 64, 3, 3), stride 2);
-        # float32 of the bf16 values, rounded once, is a bf16 conv with
-        # float32 sums
+        # float32 of the bf16 (or f16) values, rounded once, is a conv in
+        # that type with float32 sums, as on the card
         return fn(x.to(w.dtype).float(), w.float(), bias.float(), stride, padding,
                   **kw).to(w.dtype)
     return fn(x.to(w.dtype), w, bias, stride, padding, **kw)
+
+
+def conv1d(x, w, bias, stride=1, padding=0, dilation=1, groups=1) -> torch.Tensor:
+    """F.conv1d on (B, C, T), the input cast to the weight dtype. On the CPU
+    with float16 weights it runs in float32 on the float16 values and rounds
+    once: oneDNN's float16 convolution backward runs far slower than
+    float32's (it took most of a small ConvTasNet step)."""
+    if w.dtype == torch.float16 and w.device.type == "cpu":
+        return F.conv1d(x.to(w.dtype).float(), w.float(), None if bias is None else bias.float(),
+                        stride, padding, dilation, groups).to(w.dtype)
+    return F.conv1d(x.to(w.dtype), w, bias, stride, padding, dilation, groups)
+
+
+def conv_transpose1d(x, w, bias, stride=1, padding=0, dilation=1) -> torch.Tensor:
+    """F.conv_transpose1d on (B, C, T), as `conv1d` (float32 on the CPU's float16)."""
+    if w.dtype == torch.float16 and w.device.type == "cpu":
+        return F.conv_transpose1d(x.to(w.dtype).float(), w.float(),
+                                  None if bias is None else bias.float(), stride, padding, 0, 1,
+                                  dilation).to(w.dtype)
+    return F.conv_transpose1d(x.to(w.dtype), w, bias, stride, padding, 0, 1, dilation)
 
 
 def conv2d(x, w, bias, stride=(1, 1), padding=(0, 0), dilation=(1, 1)) -> torch.Tensor:
@@ -274,8 +294,8 @@ class Conv1d(nn.Module):
         x = x.to(self.kernel.dtype)
         if self.kernel.shape[-1] == 1 and self.stride == 1 and self.padding == 0 and self.groups == 1:
             return x @ self.kernel[:, :, 0].T + self.bias
-        y = F.conv1d(x.transpose(1, 2), self.kernel, self.bias, self.stride, self.padding,
-                     self.dilation, self.groups)
+        y = conv1d(x.transpose(1, 2), self.kernel, self.bias, self.stride, self.padding,
+                   self.dilation, self.groups)
         return y.transpose(1, 2)
 
 
@@ -298,8 +318,8 @@ class ConvTranspose1d(nn.Module):
         self.bias = uniform_((out_channels,), bound, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose1d(x.to(self.kernel.dtype).transpose(1, 2), self.kernel, self.bias,
-                               self.stride, self.padding, 0, 1, self.dilation)
+        y = conv_transpose1d(x.transpose(1, 2), self.kernel, self.bias, self.stride,
+                             self.padding, self.dilation)
         return y.transpose(1, 2)
 
 
@@ -335,8 +355,8 @@ class WNConv1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight()
-        y = F.conv1d(x.to(w.dtype).transpose(1, 2), w, self.bias, self.stride, self.padding,
-                     self.dilation, self.groups)
+        y = conv1d(x.transpose(1, 2), w, self.bias, self.stride, self.padding, self.dilation,
+                   self.groups)
         return y.transpose(1, 2)
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
@@ -377,8 +397,7 @@ class WNConvTranspose1d(WNConv1d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight()
-        y = F.conv_transpose1d(x.to(w.dtype).transpose(1, 2), w, self.bias, self.stride,
-                               self.padding)
+        y = conv_transpose1d(x.transpose(1, 2), w, self.bias, self.stride, self.padding)
         return y.transpose(1, 2)
 
 
@@ -423,8 +442,7 @@ class SNConv1d(nn.Module):
 
     def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
         w = self.weight(update_stats)
-        y = F.conv1d(x.to(w.dtype).transpose(1, 2), w, self.bias, self.stride, self.padding,
-                     1, self.groups)
+        y = conv1d(x.transpose(1, 2), w, self.bias, self.stride, self.padding, 1, self.groups)
         return y.transpose(1, 2)
 
 

@@ -10,8 +10,8 @@ dtypes, so that export traces through it without running a kernel:
 
   * `nvse_torch::lstm_scan_fused` (x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b)
     -> (B, T, 2H): the bidirectional LSTM of `lstm_scan_fused` without
-    `lengths` (csrc/lstm_fused.cu, csrc/lstm_fused_wide.cu, or past them the
-    projection and `nvse_torch::lstm_scan_bidir2`);
+    `lengths` (csrc/lstm_fused.cu, csrc/lstm_fused_wide.cu, or past them and in
+    float16 the projection and `nvse_torch::lstm_scan_bidir2`);
   * `nvse_torch::lstm_scan` (x_proj, w_hh) -> hs (T, R, H): the scan from zero
     state (csrc/lstm_scan.cu, csrc/lstm_scan_wide.cu);
   * `nvse_torch::lstm_scan_bidir2` (xp_a, xp_b, w_a, w_b) -> (hs_a, hs_b): two
@@ -45,7 +45,7 @@ def lstm_scan_fused(x: Tensor, w_ih_f: Tensor, w_ih_b: Tensor, b_f: Tensor, b_b:
     args = (x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b)
     if x.device.type == "cpu":
         return _lstm.lstm_scan_fused_plain(*args)
-    if _lstm._card_fused_route(x, x.shape[-1], w_hh_f.shape[0]) == "projection+lstm_bidir2":
+    if _lstm._card_fused_route(x, x.shape[-1], w_hh_f.shape[0]).startswith("projection+"):
         return _lstm._projected_bidir2(*args)
     return _lstm._launch_kernel(*args)
 

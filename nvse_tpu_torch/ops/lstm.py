@@ -65,6 +65,19 @@ W_hh resident, tensor cores in bfloat16, the plans of `scan_wide_plan` and
 `bwd_wide_plan`); the dW_hh reduction of csrc/lstm_bwd.cu (a GEMM: tensor
 cores in bfloat16, CUDA cores in float32, split over the rows by `dw_plan`)
 takes both.
+Past the resident kernels' H = 768, and in float16 at any H (no resident
+kernel is built for it), every route takes the step-wise kernels of
+csrc/lstm_stepwise.cu: one launch a time step with W_hh read from L2, the
+forward (both scans of lstm_scan_bidir2 / lstm_scan_bidir in each step's launch;
+h rounded to the weights' type for the inference scans, not for lstm_fwd_hc)
+and the reverse-time backward (`_stepwise`, `stepwise_plan`); dW_hh stays
+csrc/lstm_bwd.cu's reduction (tensor cores in bfloat16 and float16).
+The kernels take H % 8 == 0 (and the fused ones C % 4 == 0): on a CUDA tensor
+each wrapper zero-pads H to a multiple of 8 and C to one of 4 once at its
+entry (`pad_lstm_args`) and slices its results back (`slice_lstm_results`);
+a padded unit's W_hh row and W_ih column are zero, so its h and c stay 0 and
+its gradients are 0, and the routes pick on the padded shape. Launches are
+counted at the caller's shape.
 Every wrapper launches its CUDA kernel on a CUDA tensor or raises, and
 runs its plain PyTorch version only on a CPU tensor. The inference entries
 of lstm_scan_fused (without `lengths`), lstm_scan and lstm_scan_bidir2 (its
@@ -77,7 +90,7 @@ launches in `<wrapper>.launches`, per shape in
 stem) in `<wrapper>.launches_by_kernel`, so that a run shows which kernel
 ran.
 
-Layouts follow the JAX package: x (B, T, C) batch-first, w_ih (C, 4H),
+Layouts follow the JAX package, in float32, bfloat16 or float16: x (B, T, C) batch-first, w_ih (C, 4H),
 w_hh (H, 4H), b (4H,) = b_ih + b_hh, gate order (i, f, g, o); the
 output is (B, T, 2H) with the forward direction in [:H] and the
 backward direction, at its original time index, in [H:]. The scans and
@@ -91,12 +104,13 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 __all__ = ["lstm_bwd", "lstm_bwd_plain", "lstm_dw_hh", "lstm_dw_hh_plain", "lstm_fwd_hc",
            "lstm_fwd_hc_plain", "lstm_scan", "lstm_scan_fused", "lstm_scan_fused_plain",
            "lstm_scan_bidir", "lstm_scan_bidir_plain", "lstm_scan_bidir2", "bidir2_plan",
            "lstm_scan_bidir2_plain", "lstm_scan_plain", "lstm_scan_stateful",
-           "lstm_scan_stateful_plain", "prefix_reversal"]
+           "lstm_scan_stateful_plain", "pad_lstm_args", "prefix_reversal", "slice_lstm_results"]
 
 _MAX_H = 128                    # lstm_fused.cu, lstm_scan.cu, lstm_bwd.cu: a cluster's
                                 # blocks hold the weights
@@ -105,8 +119,13 @@ _WIDE_MAX_H = 768               # lstm_bwd_wide.cu, lstm_scan_wide.cu: hidden un
 # lstm_fused_wide.cu: both directions' H / 8 blocks co-resident on 128 SMs, and the
 # float32 (C + H, 32) weight slice of 8 units beside its staging ring in 227 KB
 _FUSED_WIDE_MAX_H, _FUSED_WIDE_MAX_K = 512, 1280
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ITEM = {torch.float32: 4, torch.bfloat16: 2}      # bytes an element
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_ITEM = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}      # bytes an element
+# the kernels take H a multiple of 8 and (the fused ones) C of 4: the wrappers pad to them
+_H_ALIGN, _C_ALIGN = 8, 4
+# csrc/lstm_stepwise.cu: one launch a step, W_hh read from L2; every wrapper's route
+# past _WIDE_MAX_H and in float16 (`_stepwise`)
+_STEPWISE = "lstm_stepwise"
 # the csrc/<stem>.cu whose kernel each wrapper launches: (H <= _MAX_H, H > _MAX_H)
 # (lstm_scan_bidir2's is the route `bidir2_plan` picks)
 _SOURCES = {"lstm_scan_fused": ("lstm_fused", "lstm_fused_wide"),
@@ -118,9 +137,99 @@ _SOURCES = {"lstm_scan_fused": ("lstm_fused", "lstm_fused_wide"),
             "lstm_scan_bidir": ("lstm_scan", "lstm_scan_wide")}
 
 
-def _kernel_source(name: str, H: int) -> str:
-    """The csrc/<stem>.cu stem of the kernel that the wrapper `name` launches at H."""
-    return _SOURCES[name][H > _MAX_H]
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _stepwise(H: int, dtype: torch.dtype | None) -> bool:
+    """Whether a recurrence at H (padded to a multiple of 8) in dtype takes the
+    step-wise kernel of csrc/lstm_stepwise.cu: past the resident kernels'
+    H = 768, and in float16, which no resident kernel is built for."""
+    return dtype == torch.float16 or _round_up(H, _H_ALIGN) > _WIDE_MAX_H
+
+
+def _kernel_source(name: str, H: int, dtype: torch.dtype | None = None) -> str:
+    """The csrc/<stem>.cu stem of the kernel that the wrapper `name` launches at H
+    (padded to a multiple of 8) in dtype."""
+    if name != "lstm_dw_hh" and _stepwise(H, dtype):
+        return _STEPWISE
+    return _SOURCES[name][_round_up(H, _H_ALIGN) > _MAX_H]
+
+
+# ---------------------------------------------------------------------------
+# padding: the kernels take H % 8 == 0 and C % 4 == 0; on CUDA tensors each
+# wrapper zero-pads its arguments to them once at its entry and slices its results
+# back. Exact: a padded unit's W_hh row and W_ih column are zero, so from a zero
+# state its gates are 0 (i = f = o = 1/2, g = 0) and its h and c stay 0, it feeds
+# nothing into the real units, and its gradients are 0.
+# ---------------------------------------------------------------------------
+
+def _pad_last(t: torch.Tensor, n: int) -> torch.Tensor:
+    return F.pad(t, (0, n - t.shape[-1])) if n != t.shape[-1] else t
+
+
+def _pad_gates(t: torch.Tensor, H: int, Hp: int) -> torch.Tensor:
+    """(..., 4H) in gate blocks i, f, g, o -> (..., 4Hp), each block zero-padded."""
+    lead = t.shape[:-1]
+    return F.pad(t.reshape(*lead, 4, H), (0, Hp - H)).reshape(*lead, 4 * Hp)
+
+
+def _pad_rows(t: torch.Tensor, n: int) -> torch.Tensor:
+    return F.pad(t, (0, 0, 0, n - t.shape[0]))
+
+
+_PAD = {
+    "x": lambda t, H, Hp, C, Cp: _pad_last(t, Cp),                        # (..., C)
+    "w_ih": lambda t, H, Hp, C, Cp: _pad_rows(_pad_gates(t, H, Hp), Cp),  # (C, 4H)
+    "gates": lambda t, H, Hp, C, Cp: _pad_gates(t, H, Hp),                # (..., 4H): x_proj, b
+    "w_hh": lambda t, H, Hp, C, Cp: _pad_rows(_pad_gates(t, H, Hp), Hp),  # (H, 4H)
+    "w_stack": lambda t, H, Hp, C, Cp: torch.cat([_PAD["w_hh"](w, H, Hp, C, Cp)
+                                                  for w in (t[:H], t[H:])]),   # (2H, 4H)
+    "hidden": lambda t, H, Hp, C, Cp: _pad_last(t, Hp),                   # (..., H): hs, h0
+}
+
+
+def lstm_padding(H: int, C: int | None = None) -> tuple:
+    """(Hp, Cp): H rounded up to a multiple of 8, C (None: no input) to one of 4."""
+    return _round_up(H, _H_ALIGN), None if C is None else _round_up(C, _C_ALIGN)
+
+
+def pad_lstm_args(args, roles, H: int, C: int | None = None) -> tuple:
+    """The arguments of an LSTM kernel zero-padded to Hp, Cp = `lstm_padding`(H, C),
+    each by its role: "x" (..., C) along C; "w_ih" (C, 4H) along its rows and each
+    gate block; "gates" (..., 4H: x_proj, a bias, dx_proj) each gate block; "w_hh"
+    (H, 4H) its rows and each gate block; "w_stack" (2H, 4H) each half as w_hh;
+    "hidden" (..., H: hs, cs, dhs, h0, c0) along H. A pure function: the CPU tests
+    run it around the plain versions."""
+    Hp, Cp = lstm_padding(H, C)
+    return tuple(_PAD[role](a, H, Hp, C, Cp) for a, role in zip(args, roles))
+
+
+_SLICE = {
+    "gates": lambda t, H, Hp: t.reshape(*t.shape[:-1], 4, Hp)[..., :H].reshape(
+        *t.shape[:-1], 4 * H),
+    "w_hh": lambda t, H, Hp: _SLICE["gates"](t[:H], H, Hp),
+    "hidden": lambda t, H, Hp: t[..., :H].contiguous(),
+    "bidir_out": lambda t, H, Hp: t.reshape(*t.shape[:-1], 2, Hp)[..., :H].reshape(
+        *t.shape[:-1], 2 * H),                                           # (..., 2H)
+}
+
+
+def slice_lstm_results(outs, roles, H: int) -> tuple:
+    """The results of a kernel run on `pad_lstm_args`' arguments sliced back to H,
+    each by its role: "gates" (..., 4Hp) and "w_hh" (Hp, 4Hp: dW_hh) to the real
+    gate columns (and rows), "hidden" (..., Hp) to the real units, "bidir_out"
+    (..., 2Hp: the fused BiLSTM's output) to each direction's real units."""
+    Hp = _round_up(H, _H_ALIGN)
+    return tuple(_SLICE[role](t, H, Hp) for t, role in zip(outs, roles))
+
+
+def _needs_padding(H: int, C: int | None = None) -> bool:
+    return lstm_padding(H, C) != (H, C)
+
+
+def _dtype_key(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
 
 
 def _cell(gates: torch.Tensor, c: torch.Tensor):
@@ -191,9 +300,11 @@ def lstm_scan_fused_plain(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b,
     return torch.cat(outs, dim=-1).to(x.dtype)
 
 
-def _fused_route(C: int, H: int, narrow_fits: bool = True) -> str:
-    """The inference route of lstm_scan_fused on the card at (C, H):
-    "lstm_fused" (csrc/lstm_fused.cu) for H <= 128 where a cluster of its
+def _fused_route(C: int, H: int, narrow_fits: bool = True,
+                 dtype: torch.dtype | None = None) -> str:
+    """The inference route of lstm_scan_fused on the card at (C, H) (each padded
+    to the kernels' multiple, `lstm_padding`) in dtype: "lstm_fused"
+    (csrc/lstm_fused.cu) for H <= 128 where a cluster of its
     weight slices fits the card (`narrow_fits`: `fused_narrow_plan`'s
     co_resident, which is False past C + H of about 590 on an H100),
     "lstm_fused_wide" (csrc/lstm_fused_wide.cu) for 128 < H <= 512 with
@@ -202,44 +313,49 @@ def _fused_route(C: int, H: int, narrow_fits: bool = True) -> str:
     `bidir2_plan` picks), as the JAX function does past its fused kernel's VMEM
     budget (pallas_lstm.py:864-880; it takes B5 in bfloat16 and two B4 scans in
     float32 by another VMEM rule: both are the same two independent scans, and
-    the port takes B5 in both). A route by
-    shape, picked before any launch: a failed build or launch of a kernel
-    still raises. Raises past H = 768."""
+    the port takes B5 in both); past H = 768 and in float16
+    "projection+lstm_stepwise", the same composition on whose lstm_scan_bidir2 the
+    step-wise kernel of csrc/lstm_stepwise.cu runs. A route by
+    shape and dtype, picked before any launch: a failed build or launch of a
+    kernel still raises."""
+    if _stepwise(H, dtype):
+        return f"projection+{_STEPWISE}"
+    H, C = lstm_padding(H, C)
     if H <= _MAX_H and narrow_fits:
         return "lstm_fused"
     if _MAX_H < H <= _FUSED_WIDE_MAX_H and C + H <= _FUSED_WIDE_MAX_K:
         return "lstm_fused_wide"
-    if H <= _WIDE_MAX_H:
-        return "projection+lstm_bidir2"
-    raise NotImplementedError(
-        f"lstm_scan_fused on the card handles H <= {_WIDE_MAX_H}: fused kernels for H <= "
-        f"{_FUSED_WIDE_MAX_H} with C + H <= {_FUSED_WIDE_MAX_K}, past them the projection "
-        f"and lstm_scan_bidir2 (H <= {_WIDE_MAX_H}); got C={C}, H={H}")
+    return "projection+lstm_bidir2"
 
 
 def fused_route(C: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: int) -> str:
     """`_fused_route` at (C, H, dtype) on a card with n_sm SMs and smem_limit
     bytes of shared memory a block (a pure function of them)."""
-    fits = H > _MAX_H or fused_narrow_plan(1, C, H, dtype, n_sm, smem_limit)["co_resident"]
-    return _fused_route(C, H, fits)
+    if _stepwise(H, dtype):
+        return _fused_route(C, H, dtype=dtype)
+    Hp, Cp = lstm_padding(H, C)
+    fits = Hp > _MAX_H or fused_narrow_plan(1, Cp, Hp, dtype, n_sm, smem_limit)["co_resident"]
+    return _fused_route(C, H, fits, dtype)
 
 
 def _card_fused_route(x: torch.Tensor, C: int, H: int) -> str:
     """`_fused_route` for x (B, T, C) on x's card: at H <= 128 from the narrow
-    kernel's plan as the card reports it (`_fused_narrow_card_plan`)."""
+    kernel's plan at the padded (C, H) as the card reports it
+    (`_fused_narrow_card_plan`)."""
     fits = True
-    if H <= _MAX_H and x.dtype in _NARROW and x.dim() == 3:
-        fits = _fused_narrow_card_plan(_device_index(x.device), max(1, x.shape[0]), C, H,
+    Hp, Cp = lstm_padding(H, C)
+    if Hp <= _MAX_H and x.dtype in _NARROW and x.dim() == 3:
+        fits = _fused_narrow_card_plan(_device_index(x.device), max(1, x.shape[0]), Cp, Hp,
                                        x.dtype, 0)["co_resident"]
-    return _fused_route(C, H, fits)
+    return _fused_route(C, H, fits, x.dtype)
 
 
 def _fused_shapes(name, x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b):
-    """One float32 or bfloat16 dtype, x (B, T, C) and weights of one (C, H):
-    -> (B, T, C, H)."""
+    """One float32, bfloat16 or float16 dtype, x (B, T, C) and weights of one
+    (C, H): -> (B, T, C, H)."""
     args = (x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b)
     if x.dtype not in _DTYPE_CODE or any(a.dtype != x.dtype for a in args):
-        raise TypeError(f"{name} takes float32 or bfloat16, one dtype for x and all "
+        raise TypeError(f"{name} takes float32, bfloat16 or float16, one dtype for x and all "
                         f"weights; got {sorted({str(a.dtype) for a in args})}")
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, C), got {tuple(x.shape)}")
@@ -252,19 +368,16 @@ def _fused_shapes(name, x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b):
 
 
 def _check_kernel_args(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b):
-    """Validate what csrc/lstm_fused.cu takes; raises, never falls back."""
+    """Validate the tensors of a fused kernel's launch (contiguous, one dtype and
+    (C, H), one CUDA device, aligned); raises, never falls back. Any (C, H): the
+    wrapper pads to the kernels' multiples and `_fused_route` picks a kernel
+    that takes the shape."""
     args = (x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b)
     for a in args:
         if not a.is_contiguous():
             raise ValueError("lstm_scan_fused kernel needs contiguous tensors "
                              "(call .contiguous() on the input first)")
     B, T, C, H = _fused_shapes("lstm_scan_fused kernel", *args)
-    if (H % 8 or C % 4 or H > _FUSED_WIDE_MAX_H
-            or (H > _MAX_H and C + H > _FUSED_WIDE_MAX_K)):
-        raise NotImplementedError(
-            f"lstm_scan_fused kernels handle H <= {_MAX_H} (csrc/lstm_fused.cu) and "
-            f"{_MAX_H} < H <= {_FUSED_WIDE_MAX_H} with C + H <= {_FUSED_WIDE_MAX_K} "
-            f"(csrc/lstm_fused_wide.cu), H % 8 == 0 and C % 4 == 0; got C={C}, H={H}")
     if any(a.device != x.device for a in args) or x.device.type != "cuda":
         raise ValueError("lstm_scan_fused kernel needs all tensors on one CUDA device")
     _check_aligned("lstm_scan_fused", *args)
@@ -543,8 +656,18 @@ def _fused_wide_launch_plan(x: torch.Tensor, C: int, H: int, step: int = 0) -> d
     return plan
 
 
-def _launch_kernel(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.Tensor:
+_FUSED_ROLES = ("x", "w_ih", "w_ih", "gates", "gates", "w_hh", "w_hh")
+
+
+def _launch_kernel(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b, key=None) -> torch.Tensor:
+    """The fused kernel (csrc/lstm_fused.cu at H <= 128, else csrc/lstm_fused_wide.cu)
+    on CUDA tensors, padded to (C, H) multiples of (4, 8) and the output sliced
+    back; the launch counted at the caller's (B, T, C, H, dtype) (`key`)."""
     B, T, C, H = _check_kernel_args(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b)
+    key = key or (B, T, C, H, _dtype_key(x.dtype))
+    if _needs_padding(H, C):
+        args = pad_lstm_args((x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b), _FUSED_ROLES, H, C)
+        return slice_lstm_results((_launch_kernel(*args, key=key),), ("bidir_out",), H)[0]
     out = torch.empty(B, T, 2 * H, device=x.device, dtype=x.dtype)
     if B == 0 or T == 0:
         return out
@@ -565,8 +688,9 @@ def _launch_kernel(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b) -> torch.Tensor:
             err = _kernel_lib().lstm_fused_launch(
                 _DTYPE_CODE[x.dtype], *ptrs, B, T, C, H, plan["units"], plan["inst"],
                 plan["ntiles"], plan["clusters"], plan["stages"], plan["smem_bytes"], stream)
-    _raise_on(err, _kernel_source("lstm_scan_fused", H))
-    _count(lstm_scan_fused, (B, T, C, H, str(x.dtype).replace("torch.", "")))
+    stem = _kernel_source("lstm_scan_fused", H, x.dtype)
+    _raise_on(err, stem)
+    _count(lstm_scan_fused, key, stem)
     return out
 
 
@@ -576,13 +700,14 @@ def lstm_scan_fused(x, w_ih_f, w_ih_b, b_f, b_b, w_hh_f, w_hh_b, lengths=None) -
     When autograd will differentiate the call (grad enabled and any
     input requires grad) it takes the residual-saving training route,
     `_BiLSTMSaving`. Otherwise CUDA tensors take the route `_fused_route`
-    picks: a hand-written inference kernel that replaces
+    picks at (C, H) padded to multiples of (4, 8): a hand-written inference
+    kernel that replaces
     nvse_tpu/ops/pallas_lstm.py:lstm_scan_fused, that of csrc/lstm_fused.cu
     for H <= 128 where a cluster of its weight slices fits the card, that of
     csrc/lstm_fused_wide.cu for 128 < H <= 512 (C + H <= 1280), and past them
-    (H <= 768, and at H <= 128 where no cluster fits: C + H past about 590 on
-    an H100) the projection as torch matmuls and lstm_scan_bidir2's kernel;
-    CPU tensors go to
+    (and at H <= 128 where no cluster fits: C + H past about 590 on an H100;
+    past H = 768 and in float16 the step-wise kernel) the projection as torch
+    matmuls and lstm_scan_bidir2's kernel; CPU tensors go to
     lstm_scan_fused_plain. Counts fused-kernel launches in
     `lstm_scan_fused.launches` (per (B, T, C, H, dtype) in
     `lstm_scan_fused.launches_by_shape`, per kernel in
@@ -710,9 +835,11 @@ def lstm_bwd_plain(x_proj, hs, cs, dhs, w_hh):
 
 
 def _check_seq_args(name: str, x_proj: torch.Tensor, w_hh: torch.Tensor | None, *states,
-                    initial=(), max_h: int = _MAX_H):
-    """Validate what the scan and training kernels take (H <= max_h, H % 8
-    == 0); raises, never falls back. x_proj (T, R, 4H),
+                    initial=()):
+    """Validate the tensors of a scan or training kernel's launch (contiguous,
+    one dtype, matching shapes, one CUDA device); raises, never falls back. Any
+    H: the wrapper pads it to a multiple of 8 and routes past the resident
+    kernels' H = 768, and float16, to csrc/lstm_stepwise.cu. x_proj (T, R, 4H),
     w_hh (H, 4H) or None, states (T, R, H) each, initial states (R, H)
     each. Returns (T, R, H)."""
     args = (x_proj, *states, *initial) if w_hh is None else (x_proj, w_hh, *states, *initial)
@@ -720,7 +847,7 @@ def _check_seq_args(name: str, x_proj: torch.Tensor, w_hh: torch.Tensor | None, 
         if not a.is_contiguous():
             raise ValueError(f"{name} kernel needs contiguous tensors")
     if x_proj.dtype not in _DTYPE_CODE or any(a.dtype != x_proj.dtype for a in args):
-        raise TypeError(f"{name} kernel takes float32 or bfloat16, one dtype for all "
+        raise TypeError(f"{name} kernel takes float32, bfloat16 or float16, one dtype for all "
                         f"inputs; got {sorted({str(a.dtype) for a in args})}")
     if x_proj.dim() != 3 or (w_hh is not None and w_hh.dim() != 2):
         raise ValueError(f"{name}: x_proj must be (T, R, 4H) and w_hh (H, 4H), got "
@@ -732,9 +859,6 @@ def _check_seq_args(name: str, x_proj: torch.Tensor, w_hh: torch.Tensor | None, 
             or any(s.shape != (R, H) for s in initial)):
         raise ValueError(f"{name}: shapes {[tuple(a.shape) for a in args]} do not match "
                          f"x_proj (T, R, 4H) = {tuple(x_proj.shape)}")
-    if H > max_h or H % 8:
-        raise NotImplementedError(f"{name} kernel handles H <= {max_h} with H % 8 == 0; "
-                                  f"got H={H}")
     if any(a.device != x_proj.device for a in args) or x_proj.device.type != "cuda":
         raise ValueError(f"{name} kernel needs all tensors on one CUDA device")
     return T, R, H
@@ -956,22 +1080,35 @@ _TRAIN_KERNELS = {"lstm_fwd_hc": ("lstm_scan", "lstm_scan_wide"),
                   "lstm_bwd": ("lstm_bwd", "lstm_bwd_wide")}
 
 
-def train_route(name: str, H: int, narrow_plan: dict) -> str:
+def train_route(name: str, H: int, narrow_plan: dict, dtype: torch.dtype | None = None) -> str:
     """The kernel (csrc/<stem>.cu) that the training wrapper `name`
-    (lstm_fwd_hc, lstm_bwd) launches at H, given its narrow kernel's plan
-    (`scan_narrow_plan` with mode lstm_fwd_hc, `bwd_narrow_plan`): for H <= 128
+    (lstm_fwd_hc, lstm_bwd) launches at H (padded to a multiple of 8) in dtype,
+    given its narrow kernel's plan (`scan_narrow_plan` with mode lstm_fwd_hc,
+    `bwd_narrow_plan`): for H <= 128
     the narrow kernel (csrc/lstm_scan.cu mode kFwdHc, csrc/lstm_bwd.cu) where
     its plan runs, else the wide one (csrc/lstm_scan_wide.cu mode kFwdHc,
-    csrc/lstm_bwd_wide.cu), which takes every H % 8 == 0; the wide one past 128.
-    A route by shape and card, picked before any launch: a failed build or
-    launch still raises."""
+    csrc/lstm_bwd_wide.cu), which takes every H % 8 == 0 up to 768; the wide one
+    past 128; past 768 and in float16 the step-wise kernels of
+    csrc/lstm_stepwise.cu. A route by shape, dtype and card, picked before any
+    launch: a failed build or launch still raises."""
+    if _stepwise(H, dtype):
+        return _STEPWISE
     narrow, wide = _TRAIN_KERNELS[name]
     return narrow if H <= _MAX_H and narrow_plan["co_resident"] else wide
+
+
+def stepwise_plan(R: int, H: int, scans: int = 1) -> dict:
+    """Launch plan of csrc/lstm_stepwise.cu at R rows, H units and `scans` scans
+    a launch: one launch a step, blocks of 16 rows x 16 units (its BR, BU)."""
+    return dict(tile_rows=16, units=16, blocks=math.ceil(R / 16) * math.ceil(H / 16) * scans,
+                launches_per_step=1, scans=scans, co_resident=True)
 
 
 def _card_train_route(name: str, x_proj: torch.Tensor, R: int, H: int) -> tuple:
     """train_route on x_proj's card -> (kernel stem, the plan it launches with)."""
     index, dtype = _device_index(x_proj.device), x_proj.dtype
+    if _stepwise(H, dtype):
+        return _STEPWISE, stepwise_plan(R, H)
     narrow = dict(co_resident=False)
     if H <= _MAX_H:
         narrow = (_scan_card_plan(index, R, H, dtype, 1, name) if name == "lstm_fwd_hc"
@@ -988,20 +1125,12 @@ def _card_train_route(name: str, x_proj: torch.Tensor, R: int, H: int) -> tuple:
     return stem, plan
 
 
-def _check_train_args(name: str, x_proj, w_hh, *states):
-    """_check_seq_args for the training kernels, which take H <= 768 (the narrow
-    kernels H <= 128, the wide ones every H; `train_route` picks): -> (T, R, H)."""
-    return _check_seq_args(name, x_proj, w_hh, *states, max_h=_WIDE_MAX_H)
-
-
 def _n_sm(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _count(fn, key, kernel: str | None = None) -> None:
-    """One launch of fn's kernel (by default the one `_SOURCES` names for the
-    H of key = (..., H, dtype)) at key."""
-    kernel = kernel or _kernel_source(fn.__name__, key[-2])
+def _count(fn, key, kernel: str) -> None:
+    """One launch of fn's kernel (the csrc/<kernel>.cu stem) at key."""
     fn.launches += 1
     fn.launches_by_shape[key] = fn.launches_by_shape.get(key, 0) + 1
     fn.launches_by_kernel[kernel] = fn.launches_by_kernel.get(kernel, 0) + 1
@@ -1012,20 +1141,65 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def lstm_fwd_hc(x_proj: torch.Tensor, w_hh: torch.Tensor):
+@functools.cache
+def _stepwise_lib() -> ctypes.CDLL:
+    from ._build import load_library
+
+    lib = load_library(_STEPWISE)
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    lib.lstm_stepwise_fwd_launch.argtypes = [i, i, i, *[ptr] * 10, i, i, i, ptr]
+    lib.lstm_stepwise_bwd_launch.argtypes = [i, *[ptr] * 8, i, i, i, ptr]
+    for fn in (lib.lstm_stepwise_fwd_launch, lib.lstm_stepwise_bwd_launch):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _stepwise_fwd(xps, ws, hss, css=None, initial=None, round_h: bool = True) -> int:
+    """The forward of csrc/lstm_stepwise.cu on one or two scans: x_proj xps[s]
+    (T, R, 4H) with ws[s] (H, 4H) into hss[s] and, where css is given, css[s]
+    (T, R, H), both scans advancing in the same launch each step, from zero or
+    from initial = (h0, c0) (one scan, (R, H) each); h rounded to the weights'
+    type before the product where round_h (the inference scans), not in the
+    residual-saving forward. -> the CUDA error of the launches."""
+    T, R, G = xps[0].shape
+    H, n = G // 4, len(xps)
+    dev = xps[0].device
+    # kernel scratch: the float32 h of each (scan, row, unit), two buffers by step
+    # parity; the float32 c of each (scan, row, unit)
+    hstate = torch.zeros(2, n, R, H, device=dev, dtype=torch.float32)
+    cstate = torch.zeros(n, R, H, device=dev, dtype=torch.float32)
+    if initial is not None:
+        hstate[0, 0].copy_(initial[0])
+        cstate[0].copy_(initial[1])
+    ptr = lambda seq, s: seq[s].data_ptr() if seq is not None and s < len(seq) else None  # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        return _stepwise_lib().lstm_stepwise_fwd_launch(
+            _DTYPE_CODE[xps[0].dtype], n, int(round_h), ptr(xps, 0), ptr(xps, 1), ptr(ws, 0),
+            ptr(ws, 1), ptr(hss, 0), ptr(hss, 1), ptr(css, 0), ptr(css, 1), hstate.data_ptr(),
+            cstate.data_ptr(), R, T, H, stream)
+
+
+def lstm_fwd_hc(x_proj: torch.Tensor, w_hh: torch.Tensor, key=None):
     """(T, R, 4H), (H, 4H) -> (hs, cs), each (T, R, H): the residual-saving
     forward scan from zero state. CUDA tensors launch a hand-written
     kernel that replaces nvse_tpu/ops/pallas_lstm_bwd.py:lstm_fwd_hc, the one
     `train_route` picks: mode kFwdHc of csrc/lstm_scan.cu (H <= 128, the plan
     of `scan_narrow_plan`) or of csrc/lstm_scan_wide.cu (the plan of
     `scan_wide_plan`; 128 < H <= 768, and at H <= 128 where no cluster of the
-    narrow kernel is held); CPU tensors run lstm_fwd_hc_plain. Counts launches
-    in `lstm_fwd_hc.launches` (per (T, R, H, dtype) in
+    narrow kernel is held), or past 768 and in float16 the step-wise forward of
+    csrc/lstm_stepwise.cu; H is zero-padded to a multiple of 8 and the results
+    sliced back (`pad_lstm_args`). CPU tensors run lstm_fwd_hc_plain. Counts
+    launches in `lstm_fwd_hc.launches` (per the caller's (T, R, H, dtype) in
     `lstm_fwd_hc.launches_by_shape`, per kernel in
     `lstm_fwd_hc.launches_by_kernel`)."""
     if x_proj.device.type == "cpu":
         return lstm_fwd_hc_plain(x_proj, w_hh)
-    T, R, H = _check_train_args("lstm_fwd_hc", x_proj, w_hh)
+    T, R, H = _check_seq_args("lstm_fwd_hc", x_proj, w_hh)
+    key = key or (T, R, H, _dtype_key(x_proj.dtype))
+    if _needs_padding(H):
+        outs = lstm_fwd_hc(*pad_lstm_args((x_proj, w_hh), ("gates", "w_hh"), H), key=key)
+        return slice_lstm_results(outs, ("hidden", "hidden"), H)
     _check_aligned("lstm_fwd_hc", x_proj, w_hh)
     hs = torch.empty(T, R, H, device=x_proj.device, dtype=x_proj.dtype)
     cs = torch.empty_like(hs)
@@ -1036,7 +1210,9 @@ def lstm_fwd_hc(x_proj: torch.Tensor, w_hh: torch.Tensor):
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream(x_proj.device).cuda_stream
         stem, plan = _card_train_route("lstm_fwd_hc", x_proj, R, H)
-        if stem == "lstm_scan":
+        if stem == _STEPWISE:
+            err = _stepwise_fwd((x_proj,), (w_hh,), (hs,), (cs,), round_h=False)
+        elif stem == "lstm_scan":
             err = _scan_lib().lstm_fwd_hc_launch(*args, R, T, H, plan["inst"], plan["ntiles"],
                                                  plan["clusters"], plan["stages"],
                                                  plan["smem_bytes"], stream)
@@ -1050,7 +1226,7 @@ def lstm_fwd_hc(x_proj: torch.Tensor, w_hh: torch.Tensor):
                 *args, None if lo is None else lo.data_ptr(), c_state.data_ptr(), R, T, H,
                 *_scan_wide_plan_args(plan), stream)
     _raise_on(err, f"lstm_fwd_hc ({stem})")
-    _count(lstm_fwd_hc, (T, R, H, str(x_proj.dtype).replace("torch.", "")), stem)
+    _count(lstm_fwd_hc, key, stem)
     return hs, cs
 
 
@@ -1059,6 +1235,7 @@ def lstm_fwd_hc(x_proj: torch.Tensor, w_hh: torch.Tensor):
 # a ring of `stages`, each stage's rows padded to `pitch` elements (A and B alike)
 _DW_TILE = {torch.bfloat16: dict(tile_m=128, tile_n=128, tile_k=32, stages=4, pitch=136),
             torch.float32: dict(tile_m=128, tile_n=128, tile_k=8, stages=3, pitch=128)}
+_DW_TILE[torch.float16] = _DW_TILE[torch.bfloat16]      # the same tensor-core kernel
 _DW_MIN_SPLIT_ROWS = 256        # below this a split's ring barely fills
 
 
@@ -1108,17 +1285,22 @@ def _dw_card_plan(index: int, T: int, R: int, H: int, dtype: torch.dtype) -> dic
     return plan
 
 
-def lstm_dw_hh(hs: torch.Tensor, dx_proj: torch.Tensor) -> torch.Tensor:
+def lstm_dw_hh(hs: torch.Tensor, dx_proj: torch.Tensor, key=None) -> torch.Tensor:
     """dW_hh = sum_{t, r} h_{t-1}^T dx_proj[t] -> float32 (H, 4H). CUDA
     tensors launch the hand-written reduction of csrc/lstm_bwd.cu (the dW
-    sum of nvse_tpu/ops/pallas_lstm_bwd.py:lstm_bwd; H <= 768; tensor cores
-    in bfloat16, CUDA cores in float32) with the split of `dw_plan`: the
+    sum of nvse_tpu/ops/pallas_lstm_bwd.py:lstm_bwd; any H, zero-padded to a
+    multiple of 8 and the result sliced back; tensor cores in bfloat16 and
+    float16, CUDA cores in float32) with the split of `dw_plan`: the
     splits add their float32 sums into the zeroed output with atomics, in an
     order that varies from run to run (one split stores). CPU tensors run
     lstm_dw_hh_plain. Counts launches in `lstm_dw_hh.launches`."""
     if hs.device.type == "cpu":
         return lstm_dw_hh_plain(hs, dx_proj)
-    T, R, H = _check_seq_args("lstm_dw_hh", dx_proj, None, hs, max_h=_WIDE_MAX_H)
+    T, R, H = _check_seq_args("lstm_dw_hh", dx_proj, None, hs)
+    key = key or (T, R, H, _dtype_key(hs.dtype))
+    if _needs_padding(H):
+        dw = lstm_dw_hh(*pad_lstm_args((hs, dx_proj), ("hidden", "gates"), H), key=key)
+        return slice_lstm_results((dw,), ("w_hh",), H)[0]
     _check_aligned("lstm_dw_hh", hs, dx_proj)
     dev = hs.device
     plan = _dw_card_plan(_device_index(dev), T, R, H, hs.dtype)
@@ -1131,31 +1313,49 @@ def lstm_dw_hh(hs: torch.Tensor, dx_proj: torch.Tensor) -> torch.Tensor:
                                         plan["nsplit"], plan["rows_per_split"],
                                         plan["smem_bytes"], stream)
     _raise_on(err, "lstm_dw_hh")
-    _count(lstm_dw_hh, (T, R, H, str(hs.dtype).replace("torch.", "")))
+    _count(lstm_dw_hh, key, "lstm_bwd")
     return dw
+
+
+_BWD_ROLES = ("gates", "hidden", "hidden", "hidden", "w_hh")
 
 
 def lstm_bwd(x_proj, hs, cs, dhs, w_hh):
     """Reverse-time LSTM backward: (x_proj, hs, cs, dhs, w_hh) ->
     (dx_proj (T, R, 4H), dw_hh (H, 4H)), gates recomputed from the saved
-    h_{t-1}. CUDA tensors launch the hand-written recurrence
+    h_{t-1}. CUDA tensors, H zero-padded to a multiple of 8 once here and the
+    results sliced back, launch the hand-written recurrence
     (lstm_bwd_recurrence), which replaces nvse_tpu/ops/pallas_lstm_bwd.py:
     lstm_bwd, then the dW_hh reduction (lstm_dw_hh); CPU tensors run
     lstm_bwd_plain. Counts recurrence launches in `lstm_bwd.launches`."""
     if x_proj.device.type == "cpu":
         return lstm_bwd_plain(x_proj, hs, cs, dhs, w_hh)
-    dx = lstm_bwd_recurrence(x_proj, hs, cs, dhs, w_hh)
-    return dx, lstm_dw_hh(hs, dx).to(w_hh.dtype)
+    T, R, H = _check_seq_args("lstm_bwd", x_proj, w_hh, hs, cs, dhs)
+    key = (T, R, H, _dtype_key(x_proj.dtype))
+    args = (x_proj, hs, cs, dhs, w_hh)
+    if _needs_padding(H):
+        args = pad_lstm_args(args, _BWD_ROLES, H)
+    dx = lstm_bwd_recurrence(*args, key=key)
+    dw = lstm_dw_hh(args[1], dx, key=key).to(w_hh.dtype)
+    if _needs_padding(H):
+        return slice_lstm_results((dx, dw), ("gates", "w_hh"), H)
+    return dx, dw
 
 
-def lstm_bwd_recurrence(x_proj, hs, cs, dhs, w_hh) -> torch.Tensor:
+def lstm_bwd_recurrence(x_proj, hs, cs, dhs, w_hh, key=None) -> torch.Tensor:
     """The reverse-time kernel of lstm_bwd alone (CUDA tensors only):
     -> dx_proj (T, R, 4H); the one `train_route` picks: that of csrc/lstm_bwd.cu
     (H <= 128, the plan of `bwd_narrow_plan`) or that of csrc/lstm_bwd_wide.cu
     (the plan of `bwd_wide_plan`; 128 < H <= 768, and at H <= 128 where no
-    cluster of the narrow kernel is held). Counts in `lstm_bwd.launches` (per
-    kernel in `lstm_bwd.launches_by_kernel`)."""
-    T, R, H = _check_train_args("lstm_bwd", x_proj, w_hh, hs, cs, dhs)
+    cluster of the narrow kernel is held), or past 768 and in float16 the
+    step-wise backward of csrc/lstm_stepwise.cu; H zero-padded to a multiple of
+    8. Counts in `lstm_bwd.launches` (per kernel in
+    `lstm_bwd.launches_by_kernel`)."""
+    T, R, H = _check_seq_args("lstm_bwd", x_proj, w_hh, hs, cs, dhs)
+    key = key or (T, R, H, _dtype_key(x_proj.dtype))
+    if _needs_padding(H):
+        args = pad_lstm_args((x_proj, hs, cs, dhs, w_hh), _BWD_ROLES, H)
+        return slice_lstm_results((lstm_bwd_recurrence(*args, key=key),), ("gates",), H)[0]
     _check_aligned("lstm_bwd", x_proj, hs, cs, dhs, w_hh)
     dx = torch.empty_like(x_proj)
     if T == 0 or R == 0:
@@ -1165,7 +1365,14 @@ def lstm_bwd_recurrence(x_proj, hs, cs, dhs, w_hh) -> torch.Tensor:
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream(x_proj.device).cuda_stream
         stem, plan = _card_train_route("lstm_bwd", x_proj, R, H)
-        if stem == "lstm_bwd":
+        if stem == _STEPWISE:
+            # kernel scratch: the float32 dgates of a step, two buffers by step
+            # parity (the next step's carry reads them); the float32 dc carry
+            dg = torch.empty(2, R, 4 * H, device=x_proj.device, dtype=torch.float32)
+            dc = torch.empty(R, H, device=x_proj.device, dtype=torch.float32)
+            err = _stepwise_lib().lstm_stepwise_bwd_launch(*args, dg.data_ptr(), dc.data_ptr(),
+                                                           R, T, H, stream)
+        elif stem == "lstm_bwd":
             err = _bwd_lib().lstm_bwd_launch(*args, R, T, H, plan["tile_rows"], plan["ntiles"],
                                              plan["clusters"], plan["stages"], plan["smem_bytes"],
                                              stream)
@@ -1180,7 +1387,7 @@ def lstm_bwd_recurrence(x_proj, hs, cs, dhs, w_hh) -> torch.Tensor:
                 *args, share.data_ptr(), dc.data_ptr(), R, T, H, U, plan["tile_rows"],
                 plan["groups"], plan["smem_bytes"], stream)
     _raise_on(err, f"lstm_bwd ({stem})")
-    _count(lstm_bwd, (T, R, H, str(x_proj.dtype).replace("torch.", "")), stem)
+    _count(lstm_bwd, key, stem)
     return dx
 
 
@@ -1489,13 +1696,20 @@ def _scan_wide_plan_args(plan: dict) -> tuple:
     return plan["units"], plan["tile_rows"], plan["groups"], plan["smem_bytes"]
 
 
-def _launch_scan(fn, x_proj, w_hh, initial=()):
-    """Launches, for the wrapper fn, the scan kernel that H picks:
+def _launch_scan(fn, x_proj, w_hh, initial=(), key=None):
+    """Launches, for the wrapper fn, the scan kernel that H and the dtype pick:
     csrc/lstm_scan.cu for H <= 128, csrc/lstm_scan_wide.cu for
-    128 < H <= 768. -> (hs,), or (hs, cs) when `initial` is (h0, c0)."""
+    128 < H <= 768, csrc/lstm_stepwise.cu past 768 and in float16; H zero-padded
+    to a multiple of 8 and the results sliced back. -> (hs,), or (hs, cs) when
+    `initial` is (h0, c0)."""
     name = fn.__name__
-    T, R, H = _check_seq_args(name, x_proj, w_hh, initial=initial, max_h=_WIDE_MAX_H)
-    wide = H > _MAX_H
+    T, R, H = _check_seq_args(name, x_proj, w_hh, initial=initial)
+    key = key or (T, R, H, _dtype_key(x_proj.dtype))
+    if _needs_padding(H):
+        args = pad_lstm_args((x_proj, w_hh, *initial), ("gates", "w_hh", "hidden", "hidden"), H)
+        outs = _launch_scan(fn, args[0], args[1], tuple(args[2:]), key=key)
+        return slice_lstm_results(outs, ("hidden",) * len(outs), H)
+    stem = _kernel_source(name, H, x_proj.dtype)
     _check_aligned(name, x_proj, w_hh, *initial)
     hs = torch.empty(T, R, H, device=x_proj.device, dtype=x_proj.dtype)
     outs = (hs, torch.empty_like(hs)) if initial else (hs,)
@@ -1505,7 +1719,10 @@ def _launch_scan(fn, x_proj, w_hh, initial=()):
     dtype = _DTYPE_CODE[x_proj.dtype]
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream(x_proj.device).cuda_stream
-        if wide:
+        if stem == _STEPWISE:
+            err = _stepwise_fwd((x_proj,), (w_hh,), (hs,), outs[1:] or None,
+                                initial=initial or None)
+        elif stem == "lstm_scan_wide":
             plan = _scan_wide_launch_plan(name, x_proj, R, H)
             # kernel scratch: the float32 c of each (row, unit)
             c_state = torch.empty(R, H, device=x_proj.device, dtype=torch.float32)
@@ -1519,8 +1736,8 @@ def _launch_scan(fn, x_proj, w_hh, initial=()):
                       else _scan_lib().lstm_scan_launch)
             err = launch(dtype, *ptrs, R, T, H, plan["inst"], plan["ntiles"], plan["clusters"],
                          plan["stages"], plan["smem_bytes"], stream)
-    _raise_on(err, name)
-    _count(fn, (T, R, H, str(x_proj.dtype).replace("torch.", "")))
+    _raise_on(err, f"{name} ({stem})")
+    _count(fn, key, stem)
     return outs
 
 
@@ -1533,7 +1750,8 @@ def lstm_scan(x_proj: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     hand-written kernel that replaces
     nvse_tpu/ops/pallas_lstm.py:_pallas_lstm_scan, that of
     csrc/lstm_scan.cu for H <= 128, that of csrc/lstm_scan_wide.cu for
-    128 < H <= 768, and CPU tensors run lstm_scan_plain. Counts
+    128 < H <= 768, that of csrc/lstm_stepwise.cu past 768 and in float16 (H
+    padded to a multiple of 8), and CPU tensors run lstm_scan_plain. Counts
     inference-kernel launches in `lstm_scan.launches` (per (T, R, H,
     dtype) in `lstm_scan.launches_by_shape`, per kernel in
     `lstm_scan.launches_by_kernel`)."""
@@ -1550,7 +1768,8 @@ def lstm_scan_stateful(x_proj, w_hh, h0, c0):
     CUDA tensors launch a hand-written kernel that replaces
     nvse_tpu/ops/pallas_lstm.py:_pallas_lstm_scan_stateful, that of
     csrc/lstm_scan.cu for H <= 128, that of csrc/lstm_scan_wide.cu for
-    128 < H <= 768; CPU tensors run lstm_scan_stateful_plain. Inference
+    128 < H <= 768, that of csrc/lstm_stepwise.cu past 768 and in float16 (H
+    padded to a multiple of 8); CPU tensors run lstm_scan_stateful_plain. Inference
     only, as in the JAX package: the kernels have no backward, so on CUDA
     a call that autograd would differentiate raises. Counts launches in
     `lstm_scan_stateful.launches` (per (T, R, H, dtype) in
@@ -1668,9 +1887,15 @@ def bidir2_plan(T: int, R: int, H: int, dtype: torch.dtype, n_sm: int, smem_limi
       * else "lstm_scan_wide", mode kScanBidir of csrc/lstm_scan_wide.cu
         (`scan_wide_plan`, two directions, the instances of `_bidir2_wide_instances`),
         to H = 768 (HD-Demucs's); where that
-        does not fit the card either, the cluster kernel in waves.
+        does not fit the card either, the cluster kernel in waves;
+      * past H = 768 and in float16: "lstm_stepwise", csrc/lstm_stepwise.cu
+        (`stepwise_plan`, both scans in each step's launch).
+    H is taken padded to a multiple of 8, as the wrapper pads it.
     -> {"route": the csrc stem, "plan": that kernel's plan}; the plan's
     `co_resident` False when the route cannot run on this card."""
+    if _stepwise(H, dtype):
+        return dict(route=_STEPWISE, plan=stepwise_plan(R, H, 2))
+    H = _round_up(H, _H_ALIGN)
     if H <= _MAX_H:
         return dict(route="lstm_scan", plan=scan_narrow_plan(R, H, dtype, n_sm, smem_limit,
                                                              directions=2))
@@ -1699,6 +1924,8 @@ def _bidir2_card_plan(index: int, R: int, H: int, dtype: torch.dtype) -> dict:
     as the wrapper's host time counts."""
     dev = torch.device("cuda", index)
     n_sm, limit = _n_sm(dev), _smem_limit(dev)
+    if _stepwise(H, dtype):
+        return dict(route=_STEPWISE, plan=stepwise_plan(R, H, 2))
     if H <= _MAX_H:
         return dict(route="lstm_scan", plan=_scan_card_plan(index, R, H, dtype, 2))
     cluster = bidir2_cluster_plan(R, H, dtype, n_sm, limit)
@@ -1732,6 +1959,8 @@ def _launch_bidir2(route: str, plan: dict, xp_a, xp_b, w_a, w_b, hs_a, hs_b) -> 
     """Launches lstm_scan_bidir2's two scans on the route and plan given; -> the
     CUDA error of the launch."""
     T, R, H = hs_a.shape
+    if route == _STEPWISE:
+        return _stepwise_fwd((xp_a, xp_b), (w_a, w_b), (hs_a, hs_b))
     ptrs = [t.data_ptr() for t in (xp_a, xp_b, w_a, w_b, hs_a, hs_b)]
     dtype = _DTYPE_CODE[xp_a.dtype]
     with torch.cuda.device(xp_a.device):
@@ -1761,10 +1990,12 @@ def lstm_scan_bidir2(xp_a, xp_b, w_a, w_b, route: str | None = None, plan: dict 
     residual-saving route, `_Bidir2Saving`. Otherwise CUDA tensors launch
     the hand-written kernel that `bidir2_plan` picks on this card (or the
     route and plan given: the plan bench), each replacing
-    nvse_tpu/ops/pallas_lstm.py:_pallas_lstm_scan_bidir2 (H <= 768): the
+    nvse_tpu/ops/pallas_lstm.py:_pallas_lstm_scan_bidir2: the
     cluster kernel of csrc/lstm_bidir2.cu, mode kScanBidir of
-    csrc/lstm_scan_wide.cu or the cluster scan of csrc/lstm_scan.cu, each with
-    a pointer for each scan; CPU tensors run lstm_scan_bidir2_plain. Counts
+    csrc/lstm_scan_wide.cu or the cluster scan of csrc/lstm_scan.cu (H <= 768),
+    each with a pointer for each scan, or past 768 and in float16 the step-wise
+    kernel of csrc/lstm_stepwise.cu (H padded to a multiple of 8); CPU tensors
+    run lstm_scan_bidir2_plain. Counts
     launches in `lstm_scan_bidir2.launches` (per (T, R, H, dtype) in
     `lstm_scan_bidir2.launches_by_shape`, per route's kernel in
     `lstm_scan_bidir2.launches_by_kernel`)."""
@@ -1779,15 +2010,21 @@ def lstm_scan_bidir2(xp_a, xp_b, w_a, w_b, route: str | None = None, plan: dict 
 
 
 def _launch_bidir2_entry(xp_a, xp_b, w_a, w_b, route: str | None = None,
-                         plan: dict | None = None):
-    """lstm_scan_bidir2 on CUDA tensors: checks, the route and plan (this
-    card's unless given), one launch counted on the route's kernel."""
+                         plan: dict | None = None, key=None):
+    """lstm_scan_bidir2 on CUDA tensors: checks, H zero-padded to a multiple of 8
+    (the results sliced back), the route and plan (this card's unless given),
+    one launch counted on the route's kernel at the caller's shape."""
     args = (xp_a, xp_b, w_a, w_b)
-    T, R, H = _check_seq_args("lstm_scan_bidir2", xp_a, w_a, max_h=_WIDE_MAX_H)
+    T, R, H = _check_seq_args("lstm_scan_bidir2", xp_a, w_a)
     if (xp_b.shape != xp_a.shape or xp_b.dtype != xp_a.dtype or xp_b.device != xp_a.device
-            or _check_seq_args("lstm_scan_bidir2", xp_b, w_b, max_h=_WIDE_MAX_H) != (T, R, H)):
+            or _check_seq_args("lstm_scan_bidir2", xp_b, w_b) != (T, R, H)):
         raise ValueError("lstm_scan_bidir2: the two scans must agree in shape, dtype and "
                          f"device; got {[(tuple(a.shape), a.dtype, a.device) for a in args]}")
+    key = key or (T, R, H, _dtype_key(xp_a.dtype))
+    if _needs_padding(H):
+        padded = pad_lstm_args(args, ("gates", "gates", "w_hh", "w_hh"), H)
+        outs = _launch_bidir2_entry(*padded, route, plan, key=key)
+        return slice_lstm_results(outs, ("hidden", "hidden"), H)
     _check_aligned("lstm_scan_bidir2", *args)
     hs_a = torch.empty(T, R, H, device=xp_a.device, dtype=xp_a.dtype)
     hs_b = torch.empty_like(hs_a)
@@ -1797,7 +2034,7 @@ def _launch_bidir2_entry(xp_a, xp_b, w_a, w_b, route: str | None = None,
         route, plan = _bidir2_launch_plan(xp_a, R, H)
     err = _launch_bidir2(route, plan, xp_a, xp_b, w_a, w_b, hs_a, hs_b)
     _raise_on(err, f"lstm_scan_bidir2 ({route})")
-    _count(lstm_scan_bidir2, (T, R, H, str(xp_a.dtype).replace("torch.", "")), route)
+    _count(lstm_scan_bidir2, key, route)
     return hs_a, hs_b
 
 
@@ -1818,22 +2055,28 @@ def lstm_scan_bidir_plain(xp_cat: torch.Tensor, w_stack: torch.Tensor) -> torch.
                       lstm_scan_plain(xp_cat[:, B:], w_stack[H:])], dim=1)
 
 
-def _launch_scan_bidir(xp_cat: torch.Tensor, w_stack: torch.Tensor) -> torch.Tensor:
+def _launch_scan_bidir(xp_cat: torch.Tensor, w_stack: torch.Tensor, key=None) -> torch.Tensor:
     """The kernel of lstm_scan_bidir on CUDA tensors: csrc/lstm_scan.cu for
     H <= 128 (each direction's clusters on its own tiles, with its own W_hh),
-    csrc/lstm_scan_wide.cu for 128 < H <= 768."""
+    csrc/lstm_scan_wide.cu for 128 < H <= 768, csrc/lstm_stepwise.cu (each
+    direction's rows as one of its two scans) past 768 and in float16; H
+    zero-padded to a multiple of 8 and the result sliced back."""
     name = "lstm_scan_bidir"
     if w_stack.dtype != xp_cat.dtype:
         raise TypeError(f"{name} kernel takes one dtype for xp_cat and w_stack; got "
                         f"{xp_cat.dtype} and {w_stack.dtype}")
-    T, R2, H = _check_seq_args(name, xp_cat, None, max_h=_WIDE_MAX_H)
+    T, R2, H = _check_seq_args(name, xp_cat, None)
     if (R2 % 2 or tuple(w_stack.shape) != (2 * H, 4 * H) or not w_stack.is_contiguous()
             or w_stack.device != xp_cat.device):
         raise ValueError(f"{name}: xp_cat (T, 2B, 4H) = {tuple(xp_cat.shape)} needs an even "
                          f"row count and a contiguous w_stack (2H, 4H) on its device; got "
                          f"{tuple(w_stack.shape)} on {w_stack.device}")
     B = R2 // 2
-    wide = H > _MAX_H
+    key = key or (T, R2, H, _dtype_key(xp_cat.dtype))
+    if _needs_padding(H):
+        padded = pad_lstm_args((xp_cat, w_stack), ("gates", "w_stack"), H)
+        return slice_lstm_results((_launch_scan_bidir(*padded, key=key),), ("hidden",), H)[0]
+    stem = _kernel_source(name, H, xp_cat.dtype)
     _check_aligned(name, xp_cat, w_stack)
     hs = torch.empty(T, R2, H, device=xp_cat.device, dtype=xp_cat.dtype)
     if T == 0 or B == 0:
@@ -1841,7 +2084,14 @@ def _launch_scan_bidir(xp_cat: torch.Tensor, w_stack: torch.Tensor) -> torch.Ten
     dtype = _DTYPE_CODE[xp_cat.dtype]
     with torch.cuda.device(xp_cat.device):
         stream = torch.cuda.current_stream(xp_cat.device).cuda_stream
-        if wide:
+        if stem == _STEPWISE:
+            # the step-wise kernel takes each scan's rows contiguous a step
+            halves = (xp_cat[:, :B].contiguous(), xp_cat[:, B:].contiguous())
+            outs = (torch.empty(T, B, H, device=hs.device, dtype=hs.dtype),
+                    torch.empty(T, B, H, device=hs.device, dtype=hs.dtype))
+            err = _stepwise_fwd(halves, (w_stack[:H], w_stack[H:]), outs)
+            torch.cat(outs, dim=1, out=hs)
+        elif stem == "lstm_scan_wide":
             plan = _scan_wide_launch_plan(name, xp_cat, B, H, directions=2)
             # kernel scratch: the float32 c of each (direction, row, unit)
             c_state = torch.empty(2, B, H, device=xp_cat.device, dtype=torch.float32)
@@ -1856,8 +2106,8 @@ def _launch_scan_bidir(xp_cat: torch.Tensor, w_stack: torch.Tensor) -> torch.Ten
                 dtype, xp_cat.data_ptr(), w_stack.data_ptr(), hs.data_ptr(), B, T, H,
                 plan["inst"], plan["ntiles"], plan["clusters"], plan["stages"],
                 plan["smem_bytes"], stream)
-    _raise_on(err, name)
-    _count(lstm_scan_bidir, (T, R2, H, str(xp_cat.dtype).replace("torch.", "")))
+    _raise_on(err, f"{name} ({stem})")
+    _count(lstm_scan_bidir, key, stem)
     return hs
 
 
@@ -1897,7 +2147,8 @@ def lstm_scan_bidir(xp_cat: torch.Tensor, w_stack: torch.Tensor) -> torch.Tensor
 
     CUDA tensors launch the hand-written kernel that replaces
     nvse_tpu/ops/pallas_lstm.py:_pallas_lstm_scan_bidir (csrc/lstm_scan.cu
-    for H <= 128, csrc/lstm_scan_wide.cu for 128 < H <= 768), CPU tensors run
+    for H <= 128, csrc/lstm_scan_wide.cu for 128 < H <= 768,
+    csrc/lstm_stepwise.cu past 768 and in float16), CPU tensors run
     lstm_scan_bidir_plain, and a call that autograd will differentiate goes
     through `_BidirRecompute`. Counts launches in `lstm_scan_bidir.launches`
     (per (T, 2B, H, dtype) in `lstm_scan_bidir.launches_by_shape`, per kernel

@@ -35,9 +35,9 @@ from __future__ import annotations
 
 import torch
 
-from .lstm import (_DTYPE_CODE, _MAX_H, _check_kernel_args, _count, _fused_narrow_launch_plan,
-                   _fused_wide_launch_plan, _fused_wide_lib, _kernel_lib, _raise_on,
-                   _reset_counts)
+from .lstm import (_DTYPE_CODE, _FUSED_WIDE_MAX_H, _FUSED_WIDE_MAX_K, _MAX_H, _check_kernel_args,
+                   _count, _fused_narrow_launch_plan, _fused_wide_launch_plan, _fused_wide_lib,
+                   _kernel_lib, _raise_on, _reset_counts)
 
 __all__ = ["MODES", "lstm_step_variant", "lstm_step_variant_plain"]
 
@@ -88,6 +88,20 @@ def _check_mode(mode: str, C: int, H: int) -> None:
         raise ValueError(f"no_dot tiles x over the 4 gates: it needs C == H, got C={C}, H={H}")
 
 
+def _check_fused_shape(C: int, H: int, dtype: torch.dtype) -> None:
+    """The variants are compile-time steps of the fused kernels and take what
+    those take, unpadded: H <= 128 (csrc/lstm_fused.cu) or 128 < H <= 512 with
+    C + H <= 1280 (csrc/lstm_fused_wide.cu), H % 8 == 0, C % 4 == 0, float32 or
+    bfloat16."""
+    if (H % 8 or C % 4 or H > _FUSED_WIDE_MAX_H or (H > _MAX_H and C + H > _FUSED_WIDE_MAX_K)
+            or dtype not in (torch.float32, torch.bfloat16)):
+        raise NotImplementedError(
+            f"lstm_step_variant kernels handle H <= {_MAX_H} (csrc/lstm_fused.cu) and "
+            f"{_MAX_H} < H <= {_FUSED_WIDE_MAX_H} with C + H <= {_FUSED_WIDE_MAX_K} "
+            f"(csrc/lstm_fused_wide.cu), H % 8 == 0 and C % 4 == 0, in float32 or bfloat16; "
+            f"got C={C}, H={H}, {dtype}")
+
+
 def _kernel_source(H: int) -> str:
     return "lstm_fused" if H <= _MAX_H else "lstm_fused_wide"
 
@@ -97,7 +111,7 @@ def lstm_step_variant(x, w_ih, w_hh, b, mode: str) -> torch.Tensor:
     direction. CPU tensors run lstm_step_variant_plain. CUDA tensors launch
     the variant kernel and get a view of its (R, T, 2H) output, of which the
     forward direction's columns are written; what the fused kernels do not
-    take raises (ops/lstm.py `_check_kernel_args`). Inference only: the
+    take raises (`_check_fused_shape`). Inference only: the
     variants have no gradient."""
     if x.device.type == "cpu":
         return lstm_step_variant_plain(x, w_ih, w_hh, b, mode)
@@ -107,6 +121,7 @@ def lstm_step_variant(x, w_ih, w_hh, b, mode: str) -> torch.Tensor:
 def _launch_variant(x, w_ih, w_hh, b, mode: str) -> torch.Tensor:
     """Validate, then launch the variant kernel; raises, never falls back."""
     _check_mode(mode, x.shape[-1], w_hh.shape[0])
+    _check_fused_shape(x.shape[-1], w_hh.shape[0], x.dtype)
     R, T, C, H = _check_kernel_args(x, w_ih, w_ih, b, b, w_hh, w_hh)
     source = _kernel_source(H)
     out = torch.empty(R, T, 2 * H, device=x.device, dtype=x.dtype)

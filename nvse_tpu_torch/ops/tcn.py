@@ -6,9 +6,9 @@ global layer norm into per-batch scale and shift (a, b2) (one pass, m2 - m1^2
 clamped at 0, as `_tail_fwd_impl`, pallas_tcn.py:168-182), then runs the tail:
   * on a CUDA tensor the fold is the statistics kernel of csrc/tcn_tail.cu
     (`tcn_gln_fold_kernel`: one read of c, two stages in a fixed order) and the
-    tail its hand-written kernel (`tcn_block_tail_kernel`: wgmma in bfloat16,
-    register-blocked float32 FMAs, the plan of `tail_plan`); each raises on
-    what it does not take;
+    tail its hand-written kernel (`tcn_block_tail_kernel`: wgmma in bfloat16 and
+    float16, register-blocked float32 FMAs, the plan of `tail_plan`); each
+    raises on what it does not take;
   * on a CPU tensor the fold is `_fold` (a plain PyTorch reduction) and the
     tail `tcn_block_tail_plain`.
 Outside autograd the entry calls the registered operator
@@ -49,6 +49,7 @@ _MAX_ROWS = 2 ** 31 - 1            # B x T a tile index can hold
 # prefers them (its `with_tail`)
 _BM, _BN = 128, 256
 _TAIL = {torch.bfloat16: ((64, 3), (32, 3), (16, 3)),
+         torch.float16: ((64, 3), (32, 3), (16, 3)),      # the bfloat16 kernel's instances
          torch.float32: ((32, 2), (16, 2), (8, 2))}
 
 
@@ -79,7 +80,8 @@ def tail_plan(B: int, T: int, H: int, Bc: int, d: int, dtype: torch.dtype, n_sm:
     channels in 3 stages where d leaves room (d <= 64 on an H100), else of 32;
     float32 chunks of 32 in 2 stages. Larger chunks beat deeper rings (a fourth
     stage of 64 was 3-5 % slower than three, chunks of 32 17-19 % slower than 64
-    at d = 32 and 64: scripts/bench_torch_scan_plan.py --kernel tail). -> kc,
+    at d = 32 and 64: scripts/bench_torch_scan_plan.py --kernel tail); float16
+    as bfloat16 (the same wgmma kernel). -> kc,
     stages, smem_bytes, tiles, blocks, tensor_cores, fits (False: nothing fits;
     the kernel cannot run)."""
     tiles = B * math.ceil(T / _BM) * math.ceil(2 * Bc / _BN)
@@ -87,7 +89,7 @@ def tail_plan(B: int, T: int, H: int, Bc: int, d: int, dtype: torch.dtype, n_sm:
         smem = _tail_smem(kc, stages, d, dtype)
         if smem <= smem_limit:
             return dict(kc=kc, stages=stages, smem_bytes=smem, tiles=tiles,
-                        blocks=max(1, min(tiles, n_sm)), tensor_cores=dtype == torch.bfloat16,
+                        blocks=max(1, min(tiles, n_sm)), tensor_cores=dtype != torch.float32,
                         fits=True)
     return dict(fits=False, tiles=tiles)
 
@@ -107,7 +109,7 @@ def tcn_block_tail_plain(c, x, a, b2, w_dw, b_dw, w_rs, b_rs, dilation: int):
     n = c * a + b2 in float32; taps outside [0, T) read 0 after the norm;
     the three taps and b_dw in float32; q rounded once to w_rs's dtype, the
     product summed in float32, plus b_rs; e = x + out[..., :Bc]. (In
-    bfloat16 the XLA tail `_xla_tail` also rounds n before the depthwise
+    bfloat16 and float16 the XLA tail `_xla_tail` also rounds n before the depthwise
     conv; this follows the kernel.)
     """
     T, H = c.shape[1:]
@@ -151,8 +153,8 @@ def _check_kernel_args(c, x, a, b2, w_dw, b_dw, w_rs, b_rs, dilation):
         raise ValueError(f"tcn_block_tail: dilation must be an int >= 1, got {dilation!r}")
     args = (c, x, w_dw, b_dw, w_rs, b_rs)
     if c.dtype not in _DTYPE_CODE or any(t.dtype != c.dtype for t in args):
-        raise TypeError("tcn_tail kernel takes float32 or bfloat16, one dtype for c, x and the "
-                        f"weights; got {sorted({str(t.dtype) for t in args})}")
+        raise TypeError("tcn_tail kernel takes float32, bfloat16 or float16, one dtype for c, x "
+                        f"and the weights; got {sorted({str(t.dtype) for t in args})}")
     if a.dtype != torch.float32 or b2.dtype != torch.float32:
         raise TypeError("tcn_tail kernel takes the folded gLN a, b2 in float32")
     if not (c.is_contiguous() and x.is_contiguous()):
@@ -234,8 +236,8 @@ def tcn_gln_fold_kernel(c, gln_w, gln_b, eps: float):
         raise ValueError(f"tcn_gln_stats: gln_w / gln_b of {gln_w.numel()} / {gln_b.numel()} "
                          f"values for H = {H}")
     if c.dtype not in _DTYPE_CODE or gln_w.dtype not in _DTYPE_CODE or gln_b.dtype != gln_w.dtype:
-        raise TypeError("tcn_gln_stats kernel takes float32 or bfloat16 c and one of them for "
-                        f"gln_w and gln_b; got {c.dtype}, {gln_w.dtype}, {gln_b.dtype}")
+        raise TypeError("tcn_gln_stats kernel takes float32, bfloat16 or float16 c and one of "
+                        f"them for gln_w and gln_b; got {c.dtype}, {gln_w.dtype}, {gln_b.dtype}")
     if any(t.device != c.device for t in (gln_w, gln_b)) or c.device.type != "cuda":
         raise ValueError("tcn_gln_stats kernel needs all tensors on one CUDA device")
     if B > _MAX_B:

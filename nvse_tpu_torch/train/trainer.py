@@ -42,10 +42,14 @@ argument of step / eval_step, so one trainer (one generator, one pair of
 discriminators and optimizers) serves both tasks, as the JAX joint loop
 shares its states between its two compiled steps.
 
-compute_dtype "bfloat16" runs the G and D trunks in bf16 from cast copies
-of the float32 master weights (torch.func.functional_call); features,
-losses and optimizer states stay float32, and the casts pass float32
-gradients back, as the JAX step's `_to_compute` does.
+compute_dtype "bfloat16" or "float16" runs the G and D trunks in that type
+from cast copies of the float32 master weights (torch.func.functional_call);
+features, losses and optimizer states stay float32, and the casts pass
+float32 gradients back, as the JAX step's `_to_compute` does
+(nvse_tpu/train/trainer.py:220-236). As there, float16 takes no loss scaling.
+On the card every LSTM of a float16 trunk runs the step-wise kernels of
+csrc/lstm_stepwise.cu and ConvTasNet's tail the float16 instance of
+csrc/tcn_tail.cu.
 
 Over a mesh (GANTrainer(..., mesh=parallel.get_mesh(...)), one process a
 rank; nvse_tpu/train/trainer.py:510-536): the batch a rank's step takes is
@@ -59,10 +63,8 @@ on every rank, which takes its rows. A mesh with a "seq" axis runs BSRNN's
 trunk sequence-parallel (models/bsrnn.py); the seq ranks of a data rank
 hold the same rows, and other generators compute them on each.
 
-Not ported (raise NotImplementedError): compute_dtype "float16" (the JAX
-trainer's float16 trunks: the LSTM kernels take float32 and bfloat16 only). A
-spectrum-input model (BSRNN_24k) given to the T-F trainer raises too,
-before any CUDA call, naming the joint entry (python -m
+A spectrum-input model (BSRNN_24k) given to the T-F trainer raises
+NotImplementedError before any CUDA call, naming the joint entry (python -m
 nvse_tpu_torch.train --joint). A causal config trains on both devices: its
 time LSTM takes lstm_scan's residual-saving route.
 """
@@ -207,9 +209,6 @@ def _check_supported(h, domain: str) -> None:
             "not the T-F trainer")
     if domain == "joint" and not spectrum_input:
         raise ValueError(f"the joint trainer feeds a log spectrum; {h.model_name} takes mels")
-    if str(h.get("compute_dtype")) == "float16":
-        raise NotImplementedError('compute_dtype "float16": only "bfloat16" trunks are ported '
-                                  "(the LSTM kernels take float32 and bfloat16)")
 
 
 class GANTrainer:
@@ -269,7 +268,8 @@ class GANTrainer:
         self.seq_cores = [m for m in generator.modules() if isinstance(m, BSRNNCore)]
         self.opt_g = make_optimizer(self.generator, h, steps_per_epoch)
         self.opt_d = make_optimizer(self.disc, h, steps_per_epoch)
-        self.compute_dtype = {"bfloat16": torch.bfloat16}.get(str(h.get("compute_dtype")))
+        self.compute_dtype = {"bfloat16": torch.bfloat16,
+                              "float16": torch.float16}.get(str(h.get("compute_dtype")))
         self.clip = float(h.get("grad_clip_norm", 0.0) or 0.0)
         self.skip_nonfinite = bool(h.get("skip_nonfinite_updates"))
         sr = h.sampling_rate

@@ -145,12 +145,17 @@ def test_bidir_kernel_arguments_are_checked_before_touching_gpu():
         launch(xp.transpose(0, 1), ws)
     with pytest.raises(TypeError):
         launch(xp, ws.bfloat16())
-    H = port_lstm._WIDE_MAX_H + 8
-    with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._WIDE_MAX_H}"):
-        launch(torch.zeros(1, 2, 4 * H), torch.zeros(2 * H, 4 * H))
-    # which kernel H picks
+    # past the wide kernel's H and at H % 8 != 0 the launch pads and routes: it
+    # stops only at the device
+    for H in (port_lstm._WIDE_MAX_H + 8, 100):
+        with pytest.raises(ValueError, match="CUDA"):
+            launch(torch.zeros(1, 2, 4 * H), torch.zeros(2 * H, 4 * H))
+    # which kernel H (padded to a multiple of 8) and the dtype pick
     assert port_lstm._kernel_source("lstm_scan_bidir", 128) == "lstm_scan"
+    assert port_lstm._kernel_source("lstm_scan_bidir", 124) == "lstm_scan"
     assert port_lstm._kernel_source("lstm_scan_bidir", 256) == "lstm_scan_wide"
+    assert port_lstm._kernel_source("lstm_scan_bidir", 776) == "lstm_stepwise"
+    assert port_lstm._kernel_source("lstm_scan_bidir", 128, torch.float16) == "lstm_stepwise"
 
 
 # ---------------------------------------------------------------------------
@@ -163,14 +168,15 @@ def test_bidir_kernel_arguments_are_checked_before_touching_gpu():
     (512, 512, "lstm_fused_wide"),                # the wide kernel's last H
     (768, 768, "projection+lstm_bidir2"),         # HD-Demucs bottleneck, layer 1
     (1536, 768, "projection+lstm_bidir2"),        # layer 2
-    (1536, 1024, None),                           # past lstm_bidir2.cu's H <= 768
+    (1536, 1024, "projection+lstm_stepwise"),     # past the resident kernels' H <= 768
+    (102, 102, "lstm_fused"),                     # padded to C = H = 104
+    (763, 508, "lstm_fused_wide"),                # padded to 764 + 512 = 1276 <= 1280
+    (770, 508, "projection+lstm_bidir2"),         # padded to 772 + 512 = 1284 > 1280
 ])
 def test_fused_route(C, H, route):
-    if route is None:
-        with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._WIDE_MAX_H}"):
-            port_lstm._fused_route(C, H)
-    else:
-        assert port_lstm._fused_route(C, H) == route
+    assert port_lstm._fused_route(C, H) == route
+    # float16 takes the step-wise kernel at every shape
+    assert port_lstm._fused_route(C, H, dtype=torch.float16) == "projection+lstm_stepwise"
 
 
 def _fused_args(B, T, C, H, seed=0):

@@ -95,17 +95,19 @@ def test_bidir2_kernel_arguments_are_checked_before_touching_gpu():
     xa, xb, wa, wb = _t(*_data(5, 3, 8))
     check = port_lstm._check_seq_args
     with pytest.raises(ValueError, match="CUDA"):
-        check("lstm_scan_bidir2", xa, wa, max_h=port_lstm._WIDE_MAX_H)
+        check("lstm_scan_bidir2", xa, wa)
     with pytest.raises(ValueError, match="contiguous"):
-        check("lstm_scan_bidir2", xa.transpose(0, 1), wa, max_h=port_lstm._WIDE_MAX_H)
+        check("lstm_scan_bidir2", xa.transpose(0, 1), wa)
     with pytest.raises(TypeError):
-        check("lstm_scan_bidir2", xa, wa.bfloat16(), max_h=port_lstm._WIDE_MAX_H)
-    # the wide kernel's own limit, beyond the one-thread-per-gate-column kernels'
+        check("lstm_scan_bidir2", xa, wa.bfloat16())
+    # past the wide kernel's own limit the step-wise kernel takes the scans: the
+    # check stops only at the device
     assert port_lstm._WIDE_MAX_H >= 448 > port_lstm._MAX_H
     big = torch.zeros(1, 1, 4 * (port_lstm._WIDE_MAX_H + 8))
-    with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._WIDE_MAX_H}"):
-        check("lstm_scan_bidir2", big, torch.zeros(port_lstm._WIDE_MAX_H + 8, big.shape[-1]),
-              max_h=port_lstm._WIDE_MAX_H)
+    with pytest.raises(ValueError, match="CUDA"):
+        check("lstm_scan_bidir2", big, torch.zeros(port_lstm._WIDE_MAX_H + 8, big.shape[-1]))
+    assert port_lstm.bidir2_plan(5, 1, port_lstm._WIDE_MAX_H + 8, torch.float32, 132,
+                                 232448)["route"] == "lstm_stepwise"
 
 
 # ---------------------------------------------------------------------------

@@ -134,9 +134,10 @@ def test_scan_plains_at_wide_h_match_xla():
 
 def test_kernel_limits_take_bsrnn_l_and_refuse_past_the_wide_kernels():
     """What the wrappers check before touching a GPU: C = H = 256 passes every
-    limit (and stops only at the device); the fused kernel refuses H > 512 and
-    C + H > 1280 (HD-Demucs's H = 768), the scans H > 768, the wide kernels a
-    misaligned view."""
+    check (and stops only at the device); past the fused kernels' H > 512 and
+    C + H > 1280 (HD-Demucs's H = 768) the route takes the projection, past the
+    scans' H > 768 the step-wise kernel, so those shapes stop only at the device
+    too; the wide kernels refuse a misaligned view."""
     t = lambda *s: torch.zeros(*s)
     H = 256
     fused = [torch.from_numpy(a) for a in _fused_args(2, 2, H, H)]
@@ -147,9 +148,11 @@ def test_kernel_limits_take_bsrnn_l_and_refuse_past_the_wide_kernels():
         with pytest.raises(ValueError, match="CUDA"):
             check()
     for C, H in ((8, 520), (768, 768), (1536, 768)):
-        with pytest.raises(NotImplementedError, match="C \\+ H <= 1280"):
+        assert port_lstm._fused_route(C, H) == "projection+lstm_bidir2"
+        with pytest.raises(ValueError, match="CUDA"):
             port_lstm._check_kernel_args(*map(torch.from_numpy, _fused_args(1, 1, C, H)))
-    with pytest.raises(NotImplementedError, match="H <= 768"):
+    assert port_lstm._kernel_source("lstm_scan", 776) == "lstm_stepwise"
+    with pytest.raises(ValueError, match="CUDA"):
         port_lstm._launch_scan(port_lstm.lstm_scan, t(2, 3, 4 * 776), t(776, 4 * 776))
     assert port_lstm._MAX_H == 128 < 256 <= port_lstm._FUSED_WIDE_MAX_H <= port_lstm._WIDE_MAX_H
     with pytest.raises(ValueError, match="16-byte aligned"):
@@ -157,7 +160,7 @@ def test_kernel_limits_take_bsrnn_l_and_refuse_past_the_wide_kernels():
 
 
 # ---------------------------------------------------------------------------
-# streaming, validation and the trainer's dtype
+# streaming and validation (the trainer's float16: tests/test_torch_port_c7.py)
 # ---------------------------------------------------------------------------
 
 def test_causal_stream_at_wide_h_equals_offline_decode():
@@ -233,16 +236,3 @@ def test_eval_step_at_wide_h_matches_jax():
     assert set(got) == set(ref)
     for k in got:
         np.testing.assert_allclose(float(got[k]), float(ref[k]), rtol=1e-3, err_msg=k)
-
-
-@pytest.mark.parametrize("device", ["cpu", "cuda"])
-def test_float16_compute_dtype_raises_before_any_cuda_call(device):
-    """The JAX trainer runs float16 trunks; the port's LSTM kernels take
-    float32 and bfloat16 only, so the trainer refuses float16 rather than
-    train in float32 silently, and does so before touching a device: on a
-    machine without a GPU, device="cuda" raises this error, not the missing
-    card's."""
-    with pytest.raises(NotImplementedError, match='compute_dtype "float16"'):
-        GANTrainer(_h(feature_dim=8, compute_dtype="float16"), device=device)
-    assert GANTrainer(_h(feature_dim=8, compute_dtype="bfloat16"),
-                      device="cpu").compute_dtype == torch.bfloat16

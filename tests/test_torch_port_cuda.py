@@ -93,11 +93,21 @@ def test_kernel_matches_plain(cuda, B, T, C, H, dtype, tol):
 
 def test_kernel_raises_on_unsupported_hidden_size(cuda):
     # past the fused kernels (H > 512, or C + H > 1280) the route is the projection and
-    # lstm_scan_bidir2, which takes H <= 768: past that the wrapper raises
-    H = port_lstm._WIDE_MAX_H + 8
-    for C in (8, 1536):
-        with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._WIDE_MAX_H}"):
-            port_lstm.lstm_scan_fused(*_args(2, 3, C, H, torch.float32))
+    # lstm_scan_bidir2, whose resident kernels take H <= 768: past that, and at an
+    # odd (C, H) the wrapper pads, the step-wise kernel (csrc/lstm_stepwise.cu) runs
+    for C, H, stem in ((8, port_lstm._WIDE_MAX_H + 8, "lstm_stepwise"),
+                       (1536, 1024, "lstm_stepwise"), (102, 100, "lstm_fused")):
+        args = _args(2, 3, C, H, torch.float32)
+        n0 = dict(port_lstm.lstm_scan_bidir2.launches_by_kernel)
+        f0 = dict(port_lstm.lstm_scan_fused.launches_by_kernel)
+        with torch.inference_mode():
+            got = port_lstm.lstm_scan_fused(*args)
+        ref = port_lstm.lstm_scan_fused_plain(*args)
+        assert got.shape == (2, 3, 2 * H)
+        assert (got - ref).abs().max().item() <= 1e-4
+        delta = (_kernel_delta(port_lstm.lstm_scan_bidir2, n0) if stem == "lstm_stepwise"
+                 else _kernel_delta(port_lstm.lstm_scan_fused, f0))
+        assert delta == {stem: 1}
 
 
 def test_bsrnn_forward_launches_16_kernels(cuda):
@@ -191,14 +201,25 @@ def test_training_kernels_take_the_wide_route_where_the_plan_says(cuda, monkeypa
 
 
 def test_training_kernels_raise_on_unsupported(cuda):
-    for H in (port_lstm._WIDE_MAX_H + 8, 452):           # too wide; H % 8 != 0
+    # past the resident kernels (H = 776: csrc/lstm_stepwise.cu) and at H % 8 != 0
+    # (H = 452, padded to 456: csrc/lstm_scan_wide.cu, csrc/lstm_bwd_wide.cu) the
+    # wrappers compute what their plain versions do
+    for H, fwd_stem, bwd_stem in ((port_lstm._WIDE_MAX_H + 8, "lstm_stepwise", "lstm_stepwise"),
+                                  (452, "lstm_scan_wide", "lstm_bwd_wide")):
         xp, whh, dhs = _seq_args(3, 2, H, torch.float32)
-        with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._WIDE_MAX_H}"):
-            port_lstm.lstm_fwd_hc(xp, whh)
-        with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._WIDE_MAX_H}"):
-            port_lstm.lstm_bwd(xp, dhs, dhs, dhs, whh)
-        with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._WIDE_MAX_H}"):
-            port_lstm.lstm_dw_hh(dhs, xp)
+        k0 = (dict(port_lstm.lstm_fwd_hc.launches_by_kernel),
+              dict(port_lstm.lstm_bwd.launches_by_kernel))
+        hs, cs = port_lstm.lstm_fwd_hc(xp, whh)
+        dx, dw = port_lstm.lstm_bwd(xp, hs, cs, dhs, whh)
+        torch.cuda.synchronize()
+        assert _kernel_delta(port_lstm.lstm_fwd_hc, k0[0]) == {fwd_stem: 1}
+        assert _kernel_delta(port_lstm.lstm_bwd, k0[1]) == {bwd_stem: 1}
+        hs_ref, cs_ref = port_lstm.lstm_fwd_hc_plain(xp, whh)
+        dx_ref, dw_ref = port_lstm.lstm_bwd_plain(xp, hs, cs, dhs, whh)
+        for got, ref in ((hs, hs_ref), (cs, cs_ref), (dx, dx_ref), (dw, dw_ref)):
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(port_lstm.lstm_dw_hh(hs, dx), port_lstm.lstm_dw_hh_plain(hs, dx),
+                                   atol=1e-4, rtol=1e-4)
     xp, whh, dhs = _seq_args(3, 2, 8, torch.float32)
     with pytest.raises(TypeError):
         port_lstm.lstm_fwd_hc(xp, whh.to(torch.bfloat16))
@@ -303,13 +324,16 @@ def test_scan_kernels_match_plain(cuda, T, R, H, dtype):
 
 
 def test_scan_kernels_raise_on_unsupported(cuda):
+    # past the resident scans' H <= 768 the step-wise kernel computes the scans
     H = port_lstm._WIDE_MAX_H + 8
     xp, whh, _ = _seq_args(3, 2, H, torch.float32)
     h0, c0 = _state_args(2, H, torch.float32)
-    with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._WIDE_MAX_H}"):
-        port_lstm.lstm_scan(xp, whh)
-    with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._WIDE_MAX_H}"):
-        port_lstm.lstm_scan_stateful(xp, whh, h0, c0)
+    with torch.inference_mode():
+        torch.testing.assert_close(port_lstm.lstm_scan(xp, whh),
+                                   port_lstm.lstm_scan_plain(xp, whh), atol=1e-4, rtol=1e-4)
+        for got, ref in zip(port_lstm.lstm_scan_stateful(xp, whh, h0, c0),
+                            port_lstm.lstm_scan_stateful_plain(xp, whh, h0, c0)):
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
     xp, whh, _ = _seq_args(3, 2, 8, torch.float32)
     h0, c0 = _state_args(2, 8, torch.float32)
     with pytest.raises(ValueError, match="contiguous"):
@@ -418,8 +442,10 @@ def test_bidir2_kernel_at_its_widest_hidden_size(cuda):
 def test_bidir2_kernel_raises_on_unsupported(cuda):
     H = port_lstm._WIDE_MAX_H + 8
     with torch.inference_mode():
-        with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._WIDE_MAX_H}"):
-            port_lstm.lstm_scan_bidir2(*_bidir2_args(2, 2, H, torch.float32))
+        args = _bidir2_args(2, 2, H, torch.float32)     # the step-wise kernel's two scans
+        for got, ref in zip(port_lstm.lstm_scan_bidir2(*args),
+                            port_lstm.lstm_scan_bidir2_plain(*args)):
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
         xa, xb, wa, wb = _bidir2_args(4, 3, 64, torch.float32)
         with pytest.raises(ValueError, match="contiguous"):
             port_lstm.lstm_scan_bidir2(xa, xb.transpose(0, 1).contiguous().transpose(0, 1), wa, wb)
@@ -826,9 +852,9 @@ def test_tcn_tail_kernel_raises_on_what_it_does_not_take(cuda):
     c, x, gw, gb, wdw, bdw, wrs, brs = _tail_args(2, 9, 16, 8, torch.float32)
     with pytest.raises(NotImplementedError, match="3 taps"):
         tcn_block_tail(c, x, gw, gb, torch.zeros(5, 16, device="cuda"), bdw, wrs, brs, 1)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        tcn_block_tail(c.half(), x.half(), gw.half(), gb.half(), wdw.half(), bdw.half(),
-                       wrs.half(), brs.half(), 1)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):     # float64
+        tcn_block_tail(c.double(), x.double(), gw.double(), gb.double(), wdw.double(),
+                       bdw.double(), wrs.double(), brs.double(), 1)
     with pytest.raises(ValueError, match="contiguous"):
         tcn_block_tail(c.transpose(0, 1).contiguous().transpose(0, 1), x, gw, gb, wdw, bdw,
                        wrs, brs, 1)
@@ -910,9 +936,11 @@ def test_bidir_scan_kernel_matches_plain(cuda, T, B, H, dtype):
 def test_bidir_scan_kernel_raises_on_what_it_does_not_take(cuda):
     H = port_lstm._WIDE_MAX_H + 8
     with torch.inference_mode():
-        with pytest.raises(NotImplementedError, match=f"H <= {port_lstm._WIDE_MAX_H}"):
-            port_lstm.lstm_scan_bidir(torch.zeros(2, 4, 4 * H, device="cuda"),
-                                      torch.zeros(2 * H, 4 * H, device="cuda"))
+        g = torch.Generator().manual_seed(3)       # the step-wise kernel's two scans
+        xp = torch.randn(2, 4, 4 * H, generator=g).cuda()
+        ws = (torch.randn(2 * H, 4 * H, generator=g) / math.sqrt(H)).cuda()
+        torch.testing.assert_close(port_lstm.lstm_scan_bidir(xp, ws),
+                                   port_lstm.lstm_scan_bidir_plain(xp, ws), atol=1e-4, rtol=1e-4)
         xp, ws = torch.zeros(3, 5, 64, device="cuda"), torch.zeros(32, 64, device="cuda")
         with pytest.raises(ValueError, match="even"):
             port_lstm.lstm_scan_bidir(xp, ws)
@@ -1314,3 +1342,93 @@ def test_wide_backward_plan_on_the_card(cuda):
             plan = port_lstm._bwd_wide_card_plan(0, R, 256, dtype)
             assert plan["co_resident"] and plan["blocks"] > 100
             assert plan["tensor_cores"] == (dtype == torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# csrc/lstm_stepwise.cu: past the resident kernels' H = 768 and in float16, every
+# wrapper at odd and wide H; float16 with its limit (h rounded to 11 bits each step)
+# ---------------------------------------------------------------------------
+
+STEP_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2, torch.float16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("T,R,H", [(1, 1, 1024), (6, 5, 1024), (9, 37, 100), (4, 19, 776)])
+def test_stepwise_kernels_match_plain(cuda, T, R, H, dtype):
+    """The step-wise forward (inference and residual-saving), backward and the
+    float16 dW reduction against the plain versions, with W_hh's rows reversed
+    as the control."""
+    tol = STEP_TOL[dtype]
+    xp, whh, dhs = _seq_args(T, R, H, dtype)
+    stepwise = dtype == torch.float16 or H > port_lstm._WIDE_MAX_H
+    k0 = (dict(port_lstm.lstm_scan.launches_by_kernel),
+          dict(port_lstm.lstm_fwd_hc.launches_by_kernel),
+          dict(port_lstm.lstm_bwd.launches_by_kernel))
+    with torch.inference_mode():
+        hs = port_lstm.lstm_scan(xp, whh)
+        ctl = port_lstm.lstm_scan(xp, whh.flip(0).contiguous())
+    hs_t, cs_t = port_lstm.lstm_fwd_hc(xp, whh)
+    dx, dw = port_lstm.lstm_bwd(xp, hs_t, cs_t, dhs, whh)
+    torch.cuda.synchronize()
+    if stepwise:
+        assert _kernel_delta(port_lstm.lstm_scan, k0[0]) == {"lstm_stepwise": 2}
+        assert _kernel_delta(port_lstm.lstm_fwd_hc, k0[1]) == {"lstm_stepwise": 1}
+        assert _kernel_delta(port_lstm.lstm_bwd, k0[2]) == {"lstm_stepwise": 1}
+    ref = port_lstm.lstm_scan_plain(xp, whh)
+    torch.testing.assert_close(hs.float(), ref.float(), atol=tol, rtol=tol)
+    if T > 1:
+        assert (ctl.float() - ref.float()).abs().max().item() > tol
+    for got, want in zip((hs_t, cs_t), port_lstm.lstm_fwd_hc_plain(xp, whh)):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    dx_ref, dw_ref = port_lstm.lstm_bwd_plain(xp, hs_t, cs_t, dhs, whh)
+    torch.testing.assert_close(dx.float(), dx_ref.float(), atol=tol, rtol=tol)
+    scale = dw_ref.float().abs().max().item()
+    assert (dw.float() - dw_ref.float()).abs().max().item() <= tol * max(1.0, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_stepwise_two_scans_and_fused_route_in_one_launch_a_step(cuda, dtype):
+    """lstm_scan_bidir2, lstm_scan_bidir and lstm_scan_fused past H = 768 and in
+    float16: both scans in one step-wise launch, against the plain versions."""
+    tol = STEP_TOL[dtype]
+    H = 1024 if dtype == torch.bfloat16 else 100
+    args = _bidir2_args(5, 6, H, dtype)
+    n0 = dict(port_lstm.lstm_scan_bidir2.launches_by_kernel)
+    with torch.inference_mode():
+        got = port_lstm.lstm_scan_bidir2(*args)
+        fused = port_lstm.lstm_scan_fused(*_args(3, 5, 102, H, dtype))
+    assert _kernel_delta(port_lstm.lstm_scan_bidir2, n0) == {"lstm_stepwise": 2}
+    for g, r in zip(got, port_lstm.lstm_scan_bidir2_plain(*args)):
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol)
+    ref = port_lstm.lstm_scan_fused_plain(*_args(3, 5, 102, H, dtype))
+    torch.testing.assert_close(fused.float(), ref.float(), atol=tol, rtol=tol)
+    xp = torch.cat(args[:2], dim=1)
+    ws = torch.cat(args[2:])
+    with torch.inference_mode():
+        torch.testing.assert_close(port_lstm.lstm_scan_bidir(xp, ws).float(),
+                                   port_lstm.lstm_scan_bidir_plain(xp, ws).float(), atol=tol, rtol=tol)
+
+
+def test_float16_tcn_tail_and_stats_match_plain(cuda):
+    """csrc/tcn_tail.cu's wgmma tail and its statistics in float16 at a small
+    ConvTasNet block (2 Bc over two column tiles, a ragged T)."""
+    from nvse_tpu_torch.ops import tcn as port_tcn
+
+    g = torch.Generator().manual_seed(5)
+    B, T, H, Bc, d = 2, 301, 96, 160, 4
+    c = torch.randn(B, T, H, generator=g).cuda().half()
+    x = torch.randn(B, T, Bc, generator=g).cuda().half()
+    gw, gb = (1 + 0.1 * torch.randn(1, H, generator=g)).cuda().half(), torch.zeros(1, H).cuda().half()
+    wdw = (0.3 * torch.randn(3, H, generator=g)).cuda().half()
+    bdw = (0.1 * torch.randn(1, H, generator=g)).cuda().half()
+    wrs = (torch.randn(H, 2 * Bc, generator=g) / math.sqrt(H)).cuda().half()
+    brs = (0.1 * torch.randn(1, 2 * Bc, generator=g)).cuda().half()
+    a, b2 = port_tcn.tcn_gln_fold_kernel(c, gw, gb, 1e-5)
+    a_ref, b2_ref = port_tcn._fold(c, gw, gb, 1e-5)
+    torch.testing.assert_close(a, a_ref.expand_as(a), atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(b2, b2_ref.expand_as(b2), atol=1e-4, rtol=1e-4)
+    e, s = port_tcn.tcn_block_tail_kernel(c, x, a, b2, wdw, bdw, wrs, brs, d)
+    e_ref, s_ref = port_tcn.tcn_block_tail_plain(c, x, a, b2, wdw, bdw, wrs, brs, d)
+    for got, ref in ((e, e_ref), (s, s_ref)):
+        assert got.dtype == torch.float16
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-2, rtol=1e-2)

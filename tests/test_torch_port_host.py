@@ -243,15 +243,17 @@ def test_wav_cache_is_consistent_under_concurrent_readers():
 
 def test_causal_configs_raise_on_cuda_before_touching_it():
     """What is left of the causal guard: the trainer takes a causal config on
-    any device, and only a hidden size the kernels do not handle raises,
-    from the argument check that runs before any CUDA call."""
+    any device, and every hidden size passes the argument check that runs
+    before any CUDA call (H = 160 on the wide scan, H = 776 and H = 100 padded
+    on the step-wise and narrow kernels), which stops only at the device."""
     from nvse_tpu_torch.ops import lstm as port_lstm
     from nvse_tpu_torch.train.trainer import _check_supported
 
     _check_supported(_h(causal=True), "tf")
-    xp, whh = torch.zeros(3, 2, 4 * 160), torch.zeros(160, 4 * 160)
-    with pytest.raises(NotImplementedError, match="H <= 128"):      # the inference scan
-        port_lstm._check_seq_args("lstm_scan", xp, whh)
-    xp, whh = torch.zeros(3, 2, 4 * 776), torch.zeros(776, 4 * 776)
-    with pytest.raises(NotImplementedError, match="H <= 768"):      # the training route
-        port_lstm._check_train_args("lstm_fwd_hc", xp, whh)
+    for H, stem in ((160, "lstm_scan_wide"), (776, "lstm_stepwise"), (100, "lstm_scan")):
+        xp, whh = torch.zeros(3, 2, 4 * H), torch.zeros(H, 4 * H)
+        assert port_lstm._kernel_source("lstm_scan", H) == stem
+        with pytest.raises(ValueError, match="CUDA"):                 # the inference scan
+            port_lstm._check_seq_args("lstm_scan", xp, whh)
+        with pytest.raises(ValueError, match="CUDA"):                 # the training route
+            port_lstm.lstm_fwd_hc(xp.to("meta"), whh.to("meta"))

@@ -92,11 +92,16 @@ def test_kernel_wrapper_rejects_non_contiguous_before_touching_gpu():
 
 
 def test_kernel_wrapper_rejects_unsupported_shapes():
-    # past the wide kernel's H, and past its C + H at an H it takes
+    # past the wide kernel's H, past its C + H at an H it takes, and at odd (C, H):
+    # the route steers the first two to the projection and pads the third, so the
+    # checks stop only at the device
     wide_h, wide_k = port_lstm._FUSED_WIDE_MAX_H, port_lstm._FUSED_WIDE_MAX_K
-    for H, C in ((wide_h + 8, 12), (256, wide_k - 256 + 4)):
+    for H, C, route in ((wide_h + 8, 12, "projection+lstm_bidir2"),
+                        (256, wide_k - 256 + 4, "projection+lstm_bidir2"),
+                        (100, 102, "lstm_fused")):
+        assert port_lstm._fused_route(C, H) == route
         args = [torch.from_numpy(a) for a in _args(B=2, T=2, H=H, C=C)]
-        with pytest.raises(NotImplementedError, match=f"H <= {wide_h} with C \\+ H <= {wide_k}"):
+        with pytest.raises(ValueError, match="CUDA"):
             port_lstm._check_kernel_args(*args)
     # H = 160 (csrc/lstm_fused_wide.cu) and H = 16 (csrc/lstm_fused.cu) pass the
     # limits and stop at the device

@@ -126,8 +126,11 @@ def test_training_wrappers_reject_before_touching_gpu():
         port_lstm._check_seq_args("lstm_bwd", xp.transpose(0, 1), whh)
     with pytest.raises(TypeError):
         port_lstm._check_seq_args("lstm_fwd_hc", xp, whh.to(torch.bfloat16))
-    # the training kernels take H <= 768 (csrc/lstm_scan_wide.cu, csrc/lstm_bwd_wide.cu above 128)
+    # past the resident training kernels' H <= 768 (csrc/lstm_scan_wide.cu,
+    # csrc/lstm_bwd_wide.cu above 128) the step-wise kernels take it: the check
+    # stops only at the device
     big = torch.zeros(3, 2, 4 * 776)
-    with pytest.raises(NotImplementedError, match="H <= 768"):
-        port_lstm._check_train_args("lstm_fwd_hc", big, torch.zeros(776, 4 * 776))
+    with pytest.raises(ValueError, match="CUDA"):
+        port_lstm._check_seq_args("lstm_fwd_hc", big, torch.zeros(776, 4 * 776))
+    assert port_lstm.train_route("lstm_fwd_hc", 776, dict(co_resident=False)) == "lstm_stepwise"
 

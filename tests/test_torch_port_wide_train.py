@@ -103,30 +103,28 @@ def test_training_plain_versions_bf16_match_pallas_interpret():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["lstm_fwd_hc", "lstm_bwd", "lstm_dw_hh"])
-@pytest.mark.parametrize("h,accepted", [(448, True), (768, True), (776, False), (452, False)])
-def test_training_kernels_take_h_up_to_768_before_touching_gpu(name, h, accepted):
-    """H <= 768 with H % 8 == 0 passes the shape check (which then stops at
-    the device: these tensors are on the CPU); anything else raises
-    NotImplementedError first."""
+@pytest.mark.parametrize("h,resident", [(448, True), (768, True), (776, False), (452, True)])
+def test_training_kernels_take_h_up_to_768_before_touching_gpu(name, h, resident):
+    """Every H passes the shape check (which then stops at the device: these
+    tensors are on the CPU): H % 8 != 0 is padded, and past the resident
+    kernels' H <= 768 the step-wise kernels of csrc/lstm_stepwise.cu take it."""
     xp, whh, st = torch.zeros(2, 3, 4 * h), torch.zeros(h, 4 * h), torch.zeros(2, 3, h)
     if name == "lstm_dw_hh":
-        check = lambda: port_lstm._check_seq_args(name, xp, None, st, max_h=port_lstm._WIDE_MAX_H)
+        check = lambda: port_lstm._check_seq_args(name, xp, None, st)
     else:
         states = (st,) * (3 if name == "lstm_bwd" else 0)
-        check = lambda: port_lstm._check_train_args(name, xp, whh, *states)
-    if accepted:
-        with pytest.raises(ValueError, match="CUDA"):
-            check()
-    else:
-        with pytest.raises(NotImplementedError, match="H <= 768 with H % 8 == 0"):
-            check()
+        check = lambda: port_lstm._check_seq_args(name, xp, whh, *states)
+        wide = "lstm_scan_wide" if name == "lstm_fwd_hc" else "lstm_bwd_wide"
+        assert port_lstm.train_route(name, port_lstm.lstm_padding(h)[0],
+                                     dict(co_resident=False)) == (wide if resident
+                                                                  else "lstm_stepwise")
+    with pytest.raises(ValueError, match="CUDA"):
+        check()
 
 
 @pytest.mark.parametrize("h,wide", [(8, False), (128, False), (136, True), (448, True),
                                     (768, True)])
-def test_training_kernels_pick_the_wide_kernels_above_h_128(monkeypatch, h, wide):
-    monkeypatch.setattr(port_lstm, "_check_seq_args", lambda *a, **kw: (5, 3, h))
-    assert port_lstm._check_train_args("lstm_fwd_hc", None, None) == (5, 3, h)
+def test_training_kernels_pick_the_wide_kernels_above_h_128(h, wide):
     # the narrow kernels' plans run up to H = 128 (on an H100's figures), and the route
     # takes them there; past it the wide kernels
     for dtype in (torch.float32, torch.bfloat16):
