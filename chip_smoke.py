@@ -57,7 +57,15 @@ the last line:
      control that the limits must refuse;
   7. the training CLI (its main(), in this process) for 2 steps with a
      validation pass on the synthetic data, then run_inference decoding
-     from the g_ bundle it wrote; then the joint denoise+vocoder BSRNN_24k
+     from the g_ bundle it wrote; train_knobs, the loop's knobs (train/loop.py,
+     train/checkpoint.py): the CLI again for 2 steps with a save at each, a
+     torch.profiler trace of step 1 (profile_dir, profile_steps 1) that must name
+     the step's training kernels as often as they launched, the default async
+     saves; then a trainer restored from its bundles: a sync and an async save
+     timed as the loop is blocked, a step run during the async write, each async
+     bundle equal bit for bit to the sync one; a step under debug_nans (finite
+     losses) and one with a NaN planted in _BiLSTMSaving's backward, which must
+     raise naming it; then the joint denoise+vocoder BSRNN_24k
      (configs/bsrnn_joint_denoise_vocoder_config.json: 34 bands at 24 kHz,
      BSRNN-M's shapes): joint_train, GANTrainer(joint=True) steps at full
      width, batch 16 x 16384, each task in float32 and bfloat16 (the checks
@@ -68,6 +76,12 @@ the last line:
      DatasetsScp/synth24 (the noise list with this checkout's paths), with
      the validation of both tasks, then the joint inference entry
      (run_joint_inference) in each mode from the g_ bundle it wrote;
+     joint_eval, from that g_ bundle: python -m nvse_tpu_torch.metrics.enhance's
+     main() on 2 synth24 files with its noise at 5 dB (every key of the record,
+     each score finite, delta = enhanced - noisy), metrics/joint_curve.py's
+     batched decode of both modes against the CPU's plain path at the decode
+     limits, and joint_curve's main() without the DNSMOS .onnx files raising the
+     JAX script's FileNotFoundError (said on the line);
   8. stream, at full BSRNN-M width in float32 and bfloat16: 8 streams x 512
      frames through synthesize_streaming_stateful (chunk 64, lookahead
      16) on the causal config (8 lstm_scan_stateful + 8 fused launches
@@ -205,7 +219,8 @@ the last line:
      weight-norm v / g, ConvTasNet's tail weights, HD-Demucs's 12 LSTM tensors and
      the 8 SNConv1d kernels); <name>_train_vs_cpu_plain, one step at 2 x 4096 against
      the CPU at the limits of phase 6, TF32 as the control (ConvTasNet and HD-Demucs
-     with zero initial phase); hifigan_train_cli, the training CLI with the HiFiGAN
+     with zero initial phase; at full width and cut in depth: the MRF vocoders one
+     resblock a stage, ConvTasNet one repeat of its 8 blocks); hifigan_train_cli, the training CLI with the HiFiGAN
      config for 2 steps with validation, then serving its g_ bundle; time_kernels, the
      training kernels at HD-Demucs's step shape (16 rows, H = 768, cuDNN's BiLSTM
      forward + backward beside them) and the tail and its statistics at ConvTasNet's
@@ -278,8 +293,8 @@ the last line:
      fused kernel at the padded 104, 4 launches a forward) against the CPU's plain
      path, and its GAN step against the CPU's plain step (phase 6's limits and
      control); float16 GAN steps of BSRNN-M (feature_dim 128, num_repeat 2) and
-     ConvTasNet (full width, the tail kernel under autograd) against the CPU's
-     plain float16 step; then rows for the shapes those paths launched;
+     ConvTasNet (full width, one repeat of its 8 blocks: every tail shape of the
+     model; the tail kernel under autograd) against the CPU's plain float16 step; then rows for the shapes those paths launched;
  23. the per-step ablation harness (scripts/profile_torch_lstm_step.py) in this
      process at its four shapes in float32 and bfloat16: five variants of one
      direction of csrc/lstm_fused.cu (H = 128) and csrc/lstm_fused_wide.cu
@@ -310,6 +325,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1178,7 +1194,11 @@ def _set_tf32(on):
 # full width (H = 256: the wide training kernels at 34 x 17 and 34 x 34), two
 # BSNets; GCRN has no width knobs and runs at its full width (the wide training
 # kernels at 17 steps x 2 rows x H = 448), as do the conv T-F vocoders (APNet2's
-# and FreeV's widths are fixed); all at batch 2 x 4096 samples
+# and FreeV's widths are fixed); all at batch 2 x 4096 samples. The time domain is
+# cut in depth, which its two CPU steps (plain and perturbed) pay for most: the MRF
+# vocoders keep one resblock a stage (kernel 3, dilations 1, 3, 5), ConvTasNet one
+# repeat (R 1) of its 8 blocks, dilations 1 ... 128
+MRF_DEPTH = dict(resblock_kernel_sizes=[3], resblock_dilation_sizes=[[1, 3, 5]])
 SMALL_STEP = {"bsrnn": dict(feature_dim=16, num_repeat=2), "gcrn": {},
               "bsrnn_l": dict(num_repeat=2), "joint": dict(feature_dim=16, num_repeat=2),
               "apnet": {}, "apnet2": {}, "freeV": {}, "vocos": {},
@@ -1193,8 +1213,8 @@ SMALL_STEP = {"bsrnn": dict(feature_dim=16, num_repeat=2), "gcrn": {},
               # aside). ConvTasNet's step runs its plain trunk (fused_tcn 0): at this init its
               # gradients amplify the tail kernel's float32 forward differences (PERF.md §6),
               # and the kernel is held at the training shapes by time_kernels.
-              "hifigan": {}, "istftnet": {},
-              "convtasnet": dict(fused_tcn=0, init_phase="zero", learning_rate=0.0),
+              "hifigan": dict(MRF_DEPTH), "istftnet": dict(MRF_DEPTH),
+              "convtasnet": dict(fused_tcn=0, init_phase="zero", learning_rate=0.0, R=1),
               "hddemucs": dict(init_phase="zero", learning_rate=0.0)}
 
 
@@ -1305,14 +1325,15 @@ def _joint_lists(tmp):
                 raw_wavfile_path=os.path.join(src, "wavs"), input_noise_wav_list=nz)
 
 
-def phase_train_cli(model="bsrnn"):
+def phase_train_cli(model="bsrnn", keep_g=None):
     """The training CLI (python -m nvse_tpu_torch.train --cfg_filename, its
     main() run in this process) on a copy of the model's config for 2
     full-width steps with a validation pass on the synthetic data, then
     run_inference decoding from the g_ bundle it wrote. The joint model:
     main() with --joint on lists of DatasetsScp/synth24, validation of both
     tasks, then the joint inference entry (run_joint_inference) in each
-    mode from the g_ bundle."""
+    mode from the g_ bundle. keep_g: a path that receives a copy of the g_
+    bundle."""
     from nvse_tpu_torch.infer import run_inference, run_joint_inference
     from nvse_tpu_torch.ops.lstm import _reset_counts
     from nvse_tpu_torch.train.__main__ import main as train_cli
@@ -1339,6 +1360,8 @@ def phase_train_cli(model="bsrnn"):
         lines = log.getvalue().splitlines()
         written = sorted(os.listdir(h.checkpoint_path))
         h.checkpoint_file_load = os.path.join(h.checkpoint_path, "g_00000001")
+        if keep_g:
+            shutil.copyfile(h.checkpoint_file_load, keep_g)
         served, files = [], []
         if joint:
             for mode in JOINT_TASKS:
@@ -1363,6 +1386,256 @@ def phase_train_cli(model="bsrnn"):
         ok=ok)
     if not ok:
         raise SystemExit(f"the {model} training CLI path did not checkpoint, validate and serve")
+    return counts
+
+
+def _trees_equal(a, b):
+    """Two loaded bundles equal tensor for tensor (dtype, shape, bits) and in
+    every other value."""
+    if isinstance(a, torch.Tensor):
+        bits = lambda t: t.contiguous().reshape(-1).view(torch.uint8)   # noqa: E731
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and bool(torch.equal(bits(a), bits(b))))
+    if isinstance(a, dict):
+        return isinstance(b, dict) and list(a) == list(b) and all(_trees_equal(a[k], b[k])
+                                                                  for k in a)
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_trees_equal(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+# the CUDA kernels of the training route's three wrappers, by name in a trace:
+# lstm_fwd_hc (csrc/lstm_scan.cu / lstm_scan_wide.cu / lstm_stepwise.cu), lstm_bwd's
+# recurrence (csrc/lstm_bwd.cu / lstm_bwd_wide.cu / lstm_stepwise.cu), the dW reduction
+# (csrc/lstm_bwd.cu lstm_dw_mma_kernel / lstm_dw_fma_kernel)
+TRACE_KERNELS = {"lstm_fwd_hc": ("lstm_scan_kernel", "lstm_scan_wide_kernel",
+                                 "lstm_stepwise"),
+                 "lstm_bwd": ("lstm_bwd_cluster_kernel", "lstm_bwd_wide_kernel",
+                              "lstm_stepwise"),
+                 "lstm_bwd_dw": ("lstm_dw_mma_kernel", "lstm_dw_fma_kernel")}
+
+
+def phase_train_knobs(device="cuda"):
+    """The training loop's knobs (train/loop.py, train/checkpoint.py) at full
+    BSRNN-M width, batch 16 x 16384: the training CLI (phase_train_cli's setup)
+    for 2 steps with checkpoint_interval 1, profile_dir set, profile_steps 1
+    and the default async saves; its trace must exist and name the step's
+    hand-written training kernels (TRACE_KERNELS, as many of each as the step
+    launched). Then a trainer restored from the CLI's bundles: a synchronous
+    save and an asynchronous one of its state, timed as the caller is blocked,
+    a step run while the write is in flight, and after the wait each async
+    bundle equal bit for bit to the synchronous one; one step under debug_nans
+    (loop._setup_debug: anomaly mode) with finite losses, and one with a NaN
+    planted in the gradients that the training route's autograd.Function
+    (_BiLSTMSaving: lstm_fwd_hc forward, lstm_bwd backward) returns, which
+    must raise naming it."""
+    from nvse_tpu_torch.ops import lstm as L
+    from nvse_tpu_torch.ops.lstm import _reset_counts
+    from nvse_tpu_torch.train import (GANTrainer, fetch_scalars, restore_checkpoint,
+                                      save_checkpoint, wait_for_checkpoints)
+    from nvse_tpu_torch.train.__main__ import main as train_cli
+    from nvse_tpu_torch.train.loop import _setup_debug
+    from nvse_tpu_torch.utils import AttrDict
+
+    fails = []
+    _reset_counts(*_all_counters().values())       # this main path starts here
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = os.path.join(tmp, "prof")
+        h = _config("bsrnn", checkpoint_path=os.path.join(tmp, "ckpt"), training_steps=1,
+                    stdout_interval=1, checkpoint_interval=1, validation_interval=10 ** 6,
+                    skip_step0_validation=True, profile_dir=prof, profile_steps=1,
+                    test_output_dir=os.path.join(tmp, "out"))
+        cfg = os.path.join(tmp, "config.json")
+        with open(cfg, "w") as f:
+            json.dump(h, f)
+        argv, sys.argv = sys.argv, ["nvse_tpu_torch.train", "--cfg_filename", cfg,
+                                    "--device", device]
+        counters = _training_counters()
+        n0 = {k: c.launches for k, c in counters.items()}
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as log:
+                train_cli()
+        finally:
+            sys.argv = argv
+        cli_s = time.time() - t0
+        per_step = {k: (c.launches - n0[k]) // 2 for k, c in counters.items()
+                    if k in TRACE_KERNELS}
+        lines = log.getvalue().splitlines()
+        traces = [n for n in os.listdir(prof) if n.endswith(".pt.trace.json")] \
+            if os.path.isdir(prof) else []
+        in_trace = {}
+        if len(traces) == 1:
+            with open(os.path.join(prof, traces[0])) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+            in_trace = {k: sum(any(p in n for p in pats) for n in kernels)
+                        for k, pats in TRACE_KERNELS.items()}
+            names = sorted({n for n in kernels if any(p in n for pats in TRACE_KERNELS.values()
+                                                       for p in pats)})
+        else:
+            fails.append(f"{len(traces)} traces under profile_dir: {traces}")
+            names = []
+        if device == "cuda" and not (all(in_trace.values()) and all(per_step.values())):
+            fails.append(f"training kernels in the trace {in_trace}, launched a step {per_step}")
+        if sum(l == "profiler trace stopped" for l in lines) != 1 or \
+                "training finished (step budget reached)" not in lines:
+            fails.append(f"the CLI's log: {lines[-4:]}")
+
+        # async against sync on a trainer holding the CLI's state
+        tr = GANTrainer(h, device=device, steps_per_epoch=2)
+        restore_checkpoint(h.checkpoint_path, tr)
+        audio = _audio_batch(int(h.batch_size), int(h.segment_size), h.sampling_rate,
+                             seed=3).to(device)
+        sync_dir, async_dir = os.path.join(tmp, "sync"), os.path.join(tmp, "async")
+        t0 = time.time()
+        save_checkpoint(sync_dir, 2, 0, tr)
+        sync_s = time.time() - t0
+        t0 = time.time()
+        save_checkpoint(async_dir, 2, 0, tr, async_save=True)
+        async_s = time.time() - t0
+        tr.step(audio)                             # in place, while the write runs
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.time()
+        wait_for_checkpoints()
+        wait_s = time.time() - t0
+        unequal = [n for n in ("g_00000002", "do_00000002") if not _trees_equal(
+            torch.load(os.path.join(async_dir, n), weights_only=True),
+            torch.load(os.path.join(sync_dir, n), weights_only=True))]
+        if unequal or sorted(os.listdir(async_dir)) != sorted(os.listdir(sync_dir)):
+            fails.append(f"async bundles unlike the sync ones: {unequal}")
+        mb = sum(os.path.getsize(os.path.join(sync_dir, n))
+                 for n in ("g_00000002", "do_00000002")) / 2 ** 20
+
+        # debug_nans: finite losses; then a NaN in the LSTM kernel's backward
+        prev = _setup_debug(AttrDict(debug_nans=True), lambda s: None)
+        try:
+            t0 = time.time()
+            losses = fetch_scalars(tr.step(audio))
+            debug_ms = (time.time() - t0) * 1e3
+            real = L._BiLSTMSaving.backward
+            L._BiLSTMSaving.backward = staticmethod(
+                lambda ctx, g: tuple(d * float("nan") for d in real(ctx, g)))
+            try:
+                tr.step(audio)
+                raised = None
+            except RuntimeError as e:
+                raised = str(e)
+            finally:
+                L._BiLSTMSaving.backward = staticmethod(real)
+        finally:
+            torch.autograd.set_detect_anomaly(*prev)
+        if not all(math.isfinite(v) for v in losses.values()):
+            fails.append(f"non-finite losses under debug_nans: {losses}")
+        if not raised or "Function '_BiLSTMSavingBackward' returned nan" not in raised:
+            fails.append(f"the planted NaN raised {raised!r}")
+        if torch.is_anomaly_enabled():
+            fails.append("anomaly mode left on")
+        del tr
+    counts = _shape_counts()                       # ... and ends here
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    say(phase="train_knobs", cli_seconds=cli_s, trace_kernels=names,
+        trace_launches=in_trace, launches_per_step=per_step,
+        trace_matches_launches=in_trace == per_step, bundles_mb=mb,
+        sync_save_blocking_s=sync_s, async_save_blocking_s=async_s, async_wait_s=wait_s,
+        async_equals_sync=not unequal, debug_nans_losses=losses, debug_nans_step_ms=debug_ms,
+        planted_nan_raised=(raised or "")[:120], launches_by_shape=_str_keys(counts),
+        ok=not fails)
+    if fails:
+        raise SystemExit("train_knobs: " + "; ".join(fails))
+    return counts
+
+
+def phase_joint_eval(g_bundle, device="cuda"):
+    """The joint model's enhancement evaluation from the g_00000001 that
+    phase_train_cli("joint") wrote (full-width BSRNN_24k): metrics.enhance's
+    main() on 2 files of DatasetsScp/synth24 with its noise at 5 dB on the card
+    (every key of the record, each score finite, delta = enhanced - noisy);
+    joint_curve's batched decode of both modes on the card against the same
+    decode on the CPU's plain path (the decode phases' limits); and
+    joint_curve's main() without the DNSMOS .onnx files under its --model_dir,
+    which must raise the JAX script's FileNotFoundError (with them it runs and
+    its DNSMOS scores must be finite)."""
+    from nvse_tpu_torch.infer import InferenceEngine
+    from nvse_tpu_torch.metrics import enhance, joint_curve
+    from nvse_tpu_torch.infer.engine import resolve_filelist
+    from nvse_tpu_torch.ops.lstm import _reset_counts
+
+    fails = []
+    _reset_counts(*_all_counters().values())       # this main path starts here
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        os.makedirs(ckpt)
+        shutil.copyfile(g_bundle, os.path.join(ckpt, "g_00000001"))
+        h = _config("joint", checkpoint_path=ckpt,
+                    checkpoint_file_load=os.path.join(ckpt, "g_00000001"),
+                    test_output_dir=os.path.join(tmp, "out"), **_joint_lists(tmp))
+        cfg = os.path.join(tmp, "config.json")
+        with open(cfg, "w") as f:
+            json.dump(h, f)
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rec = enhance.main(["--cfg_filename", cfg, "--limit", "2", "--snr", "5",
+                                "--device", device])
+        enhance_s = time.time() - t0
+        want = {"label", "task", "mix_snr_db", "files", "rtf", "timestamp",
+                *(f"{t}_{m}" for t in ("noisy", "enhanced", "delta") for m in enhance.METRICS)}
+        if set(rec) != want or rec["files"] != 2:
+            fails.append(f"enhance record keys {sorted(set(rec) ^ want)}, files {rec['files']}")
+        scores = {k: v for k, v in rec.items() if k.split("_")[0] in ("noisy", "enhanced",
+                                                                      "delta")}
+        if not all(isinstance(v, float) and math.isfinite(v) for v in scores.values()):
+            fails.append(f"enhance scores not finite: {scores}")
+        elif any(abs(rec[f"delta_{m}"] - round(rec[f"enhanced_{m}"] - rec[f"noisy_{m}"], 4))
+                 > 1e-9 for m in enhance.METRICS):
+            fails.append("delta_* is not enhanced_* - noisy_*")
+
+        files = resolve_filelist(h)[:2]
+        _, _, cleans, noisys = joint_curve.write_mixes(h, files, 5.0, os.path.join(tmp, "mix"))
+        eng = InferenceEngine(h, device=device)
+        t0 = time.time()
+        decoded = joint_curve.batched_decode(eng, h, cleans, noisys)
+        decode_s = time.time() - t0
+        counts = _shape_counts()                   # ... and ends here
+        ref = joint_curve.batched_decode(InferenceEngine(h, device="cpu"), h, cleans, noisys)
+        errs, ok_modes = {}, []
+        for mode, got, cpu in zip(JOINT_TASKS, decoded, ref):
+            got, cpu = torch.from_numpy(got), torch.from_numpy(cpu)
+            err = (got - cpu).abs()
+            errs[mode] = {"max_abs_err": err.max().item(),
+                          "max_abs_ref": cpu.abs().max().item()}
+            ok_modes.append(got.shape == cpu.shape == (2, max(len(c) for c in cleans.values()))
+                            and bool(torch.isfinite(got).all())
+                            and bool((err <= MODEL_ATOL + MODEL_RTOL * cpu.abs()).all()))
+        if not all(ok_modes):
+            fails.append(f"the batched decode on the card disagrees with the CPU: {errs}")
+
+        model_dir = os.environ.get("NVSE_DNSMOS_DIR", os.path.join(REPO, "Metrics", "DNSMOS"))
+        have = any(os.path.exists(os.path.join(model_dir, n))
+                   for n in ("sig_bak_ovr.onnx", "model_v8.onnx"))
+        argv = ["--cfg_filename", cfg, "--steps", "1", "--limit", "2", "--jb", "2",
+                "--model_dir", model_dir, "--work_dir", os.path.join(tmp, "curve"),
+                "--out", os.path.join(tmp, "curve.json"), "--device", device]
+        dnsmos = None
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                records = joint_curve.main(argv)
+            dnsmos = {r["signal"]: r.get("dnsmos_ovr") for r in records}
+            if not have or not all(isinstance(v, float) and math.isfinite(v)
+                                    for v in dnsmos.values()):
+                fails.append(f"joint_curve's DNSMOS: {dnsmos}")
+        except FileNotFoundError as e:
+            dnsmos = f"not run: {e}"
+            if have or "no DNSMOS onnx models under" not in str(e):
+                fails.append(f"joint_curve raised {e}")
+    say(phase="joint_eval", enhance_seconds=enhance_s, record={k: rec[k] for k in sorted(rec)},
+        batched_decode_s=decode_s, batch=2, decode_vs_cpu_plain=errs, rtol=MODEL_RTOL,
+        atol=MODEL_ATOL, dnsmos=dnsmos, launches_by_shape=_str_keys(counts), ok=not fails)
+    if fails:
+        raise SystemExit("joint_eval: " + "; ".join(fails))
     return counts
 
 
@@ -3131,7 +3404,7 @@ def phase_lstm_step_ablation():
 # D at 1e-3 relative (__graft_entry__.py:181-182).
 PAR_LIMITS = {"float32": (STEP_RTOL, MOMENT_REL), "bfloat16": (1e-4, 2e-2)}
 SP_RTOL = 1e-3
-PAR_ITERS = 3
+PAR_ITERS = 2
 
 
 def _rank_layout():
@@ -3476,8 +3749,9 @@ def phase_c7_train():
     (phase 6's limits, or 3 x the CPU's own spread, and the TF32 control);
     BSRNN-M at its width (feature_dim 128, two BSNets) in float16 (the
     step-wise training kernels, the float16 dW reduction); ConvTasNet at full
-    width in float16 with the tail kernel under autograd (fused_tcn 1), at
-    learning rate 0 as phase 6's."""
+    width, one repeat of its 8 blocks (every tail shape of the model), in float16
+    with the tail kernel under autograd (fused_tcn 1), at learning rate 0 as
+    phase 6's."""
     return {
         # its encoder's LayerNorm over a band above fmax has a float-noise moment: the
         # CPU's own step moves it by 3.2e-3 under a 1e-7 change of the batch
@@ -3487,7 +3761,7 @@ def phase_c7_train():
                                             feature_dim=128, compute_dtype="float16"),
         "c7_f16_convtasnet_train": _train_vs_cpu_plain(
             "convtasnet", None, phase="c7_f16_train_vs_cpu_plain", fused_tcn=1,
-            compute_dtype="float16")}
+            compute_dtype="float16", R=1)}
 
 
 def phase_c7_train_rows(paths):
@@ -3595,10 +3869,16 @@ def main():
     paths = {"decode": phase_decode(), "serve": phase_serve(), "train": phase_train()}
     phase_train_vs_cpu_plain()
     paths["train_cli"] = phase_train_cli()
-    # the joint denoise+vocoder BSRNN_24k (BSRNN-M's shapes at 24 kHz): both tasks
+    # the loop's knobs: a trace of the first step, async saves, debug_nans
+    paths["train_knobs"] = phase_train_knobs()
+    # the joint denoise+vocoder BSRNN_24k (BSRNN-M's shapes at 24 kHz): both tasks; then
+    # its enhancement evaluation from the g_ bundle its training CLI wrote
     paths["joint_train"] = phase_train("joint")
     phase_train_vs_cpu_plain("joint")
-    paths["joint_train_cli"] = phase_train_cli("joint")
+    with tempfile.TemporaryDirectory() as keep:
+        g_joint = os.path.join(keep, "g_00000001")
+        paths["joint_train_cli"] = phase_train_cli("joint", keep_g=g_joint)
+        paths["joint_eval"] = phase_joint_eval(g_joint)
     paths["stream"] = phase_stream()
     paths["train_causal"] = phase_train(causal=True)
     rows += phase_bidir2_kernels([(label, T, R, H, dt) for label, T, R, H in BIDIR2_SHAPES

@@ -2,7 +2,9 @@
 MCD, F0, periodicity, PESQ-WB, ViSQOL, DNSMOS) as host numpy, the port's
 copies of nvse_tpu/metrics/*; CREPE (metrics/crepe.py) and UTMOS
 (metrics/utmos.py) run on the card. The CLI: python -m nvse_tpu_torch.metrics
-<name> (metrics/cli.py); decode-and-score: python -m nvse_tpu_torch.metrics.quality.
+<name> (metrics/cli.py); decode-and-score: python -m nvse_tpu_torch.metrics.quality;
+the joint model's enhancement evaluation: python -m nvse_tpu_torch.metrics.enhance
+and .joint_curve.
 """
 from .dsp import (estoi, evaluate_f0_metrics, extract_f0, f0_metrics,
     f0_rmse, lsd, mcd, mcd_dtw, periodicity_metrics, si_snr, snr, stoi,

@@ -162,13 +162,17 @@ def shard_batch(batch, mesh: DeviceMesh | None, nodes: int = 1):
     return batch[r * b:(r + 1) * b]
 
 
-def spawn(fn: Callable, nprocs: int, args: tuple = (), device: str = "cpu",
+def spawn(fn: Callable, nprocs: int, args: tuple = (), device: str = "cuda",
           timeout: datetime.timedelta = DEFAULT_TIMEOUT) -> None:
     """Run fn(rank_device, *args) in nprocs fresh processes that form one
     job (a file:// rendezvous in a temporary directory, one node), and
-    return when every rank has; a rank that raises fails the call. On the
-    CPU each rank runs one intra-op thread."""
+    return when every rank has; a rank that raises fails the call. The
+    ranks run on the card unless the caller passes device="cpu"; without a
+    visible card the call raises before any process starts. On the CPU
+    each rank runs one intra-op thread."""
     import torch.multiprocessing as mp
+
+    resolve_device(device)
 
     with tempfile.TemporaryDirectory(prefix="nvse_dist_") as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")

@@ -27,6 +27,15 @@ the global batch; each node reads its shard of the file list
 (SegmentDataset shard_id / num_shards) in batches of batch_size / nodes,
 and the data ranks of a node take their rows of it. Only rank 0 logs,
 writes TensorBoard and checkpoints, and validates; the other ranks wait.
+
+Three knobs of nvse_tpu/train/loop.py:48-80, 287, 305-330:
+  * `async_checkpoint` (default true): the interval saves write on a
+    background thread from host copies taken at the save
+    (train/checkpoint.py); the final save is synchronous, after a wait for
+    the one in flight, and `train` waits for it when it returns or raises;
+  * `debug_nans`: autograd's anomaly mode for the run (`_setup_debug`);
+  * `profile_dir` / `profile_steps` (default 5): a torch.profiler trace of
+    the first steps on rank 0 (`_StepProfiler`).
 """
 from __future__ import annotations
 
@@ -44,7 +53,7 @@ import torch.distributed as dist
 from ..data import PrefetchLoader, SegmentDataset, get_dataset_filelist
 from ..ops.spectral import mel_spectrogram
 from ..parallel import get_mesh, init_distributed, mesh_barrier, node_shape, shard_batch
-from .checkpoint import restore_checkpoint, save_checkpoint
+from .checkpoint import restore_checkpoint, save_checkpoint, wait_for_checkpoints
 from .trainer import GANTrainer, fetch_scalars
 
 
@@ -137,12 +146,94 @@ def _training_mesh(h, dev, log_fn):
     return get_mesh(n_seq=n_sp, device=dev, ranks=ranks), nodes
 
 
+def _setup_debug(h, log_fn) -> tuple[bool, bool] | None:
+    """h.debug_nans: autograd's anomaly mode for the run, the stand-in for
+    the reference's torch.autograd.set_detect_anomaly(True)
+    (train_tf_wi_inv.py:4) as jax_debug_nans is the JAX loop's. -> the
+    previous (mode, check_nan) to put back, or None when the knob is off.
+
+    Where it differs from jax_debug_nans: torch checks what each backward
+    function returns, and a NaN there raises a RuntimeError naming that
+    function (the hand-written kernels' autograd.Functions of ops/lstm.py
+    and ops/tcn.py by their class names), with the traceback of the
+    forward call that made it, which anomaly mode records for every
+    operation; a NaN made in a forward is not stopped where it is made,
+    only where a backward returns one."""
+    if not h.get("debug_nans"):
+        return None
+    prev = (torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled())
+    torch.autograd.set_detect_anomaly(True)
+    log_fn("autograd anomaly detection (torch.autograd.set_detect_anomaly) enabled")
+    return prev
+
+
+class _StepProfiler:
+    """h.profile_dir: a torch.profiler trace of the first h.profile_steps
+    (default 5) training steps, CPU activity and the card's kernels when the
+    device is the card, written under profile_dir by
+    torch.profiler.tensorboard_trace_handler (a *.pt.trace.json that
+    TensorBoard's profiler plugin and Perfetto open). `step` is called as a
+    step starts, as nvse_tpu/train/loop.py:61-80: it starts the trace at the
+    first step and stops it as step profile_steps + 1 starts. `stop` also
+    ends and writes a trace that is still running when the run ends (a run
+    shorter than profile_steps), a repair: the JAX loop never stops it then
+    and loses that trace. Rank 0 only."""
+
+    def __init__(self, profile_dir: str | None, profile_steps: int, dev: torch.device, log_fn):
+        self.dir = profile_dir
+        self.remaining = int(profile_steps) if profile_dir else 0
+        self.dev = dev
+        self.log_fn = log_fn
+        self.prof = None
+
+    def step(self) -> None:
+        if not self.dir:
+            return
+        if self.remaining > 0 and self.prof is None:
+            from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+            activities = [ProfilerActivity.CPU]
+            if self.dev.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self.prof = profile(activities=activities,
+                                on_trace_ready=tensorboard_trace_handler(self.dir))
+            self.prof.start()
+            self.log_fn(f"profiler trace started -> {self.dir}")
+        elif self.remaining <= 0 and self.prof is not None:
+            self.stop()
+        self.remaining -= 1
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        prof, self.prof = self.prof, None
+        prof.stop()                      # writes the trace (on_trace_ready)
+        self.log_fn("profiler trace stopped")
+
+
 def train(h, device: str = "cuda", log_fn=print) -> None:
     """Run training for config h (the reference's train(h) entry); under
     torchrun, on every rank."""
     dev = init_distributed(device)
     main = not dist.is_initialized() or dist.get_rank() == 0
     log_fn = log_fn if main else (lambda *_: None)
+    anomaly = _setup_debug(h, log_fn)
+    profiler = _StepProfiler(h.get("profile_dir") if main else None,
+                             h.get("profile_steps", 5), dev, log_fn)
+    finished = False
+    try:
+        _train(h, dev, main, log_fn, profiler)
+        finished = True
+    finally:
+        profiler.stop()
+        if anomaly is not None:
+            torch.autograd.set_detect_anomaly(*anomaly)
+        wait_for_checkpoints(barrier=finished)
+
+
+def _train(h, dev: torch.device, main: bool, log_fn, profiler: _StepProfiler) -> None:
     mesh, nodes = _training_mesh(h, dev, log_fn)
     if mesh is not None and mesh.get_coordinate() is None:
         return                                  # a rank the batch leaves idle
@@ -238,6 +329,7 @@ def train(h, device: str = "cuda", log_fn=print) -> None:
         t0 = time.time()
         for audio in device_batches():
             t_step = time.time()
+            profiler.step()
             metrics = trainer.step(audio)
             want_stdout = steps % h.stdout_interval == 0
             want_summary = sw is not None and steps % h.summary_interval == 0
@@ -248,7 +340,8 @@ def train(h, device: str = "cuda", log_fn=print) -> None:
                        + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items()))
                        + f" ({time.time() - t_step:.3f}s/b)")
             if steps % h.checkpoint_interval == 0 and steps != 0:
-                save_checkpoint(h.checkpoint_path, steps, epoch, trainer, max_to_keep=h.max_to_keep)
+                save_checkpoint(h.checkpoint_path, steps, epoch, trainer, max_to_keep=h.max_to_keep,
+                                async_save=bool(h.get("async_checkpoint", True)))
                 log_fn(f"saved checkpoint at step {steps}")
             if want_summary:
                 for k, v in m.items():
@@ -258,6 +351,7 @@ def train(h, device: str = "cuda", log_fn=print) -> None:
                 validate(steps)
             steps += 1
             if steps > h.training_steps:
+                # synchronous, after the save in flight (save_checkpoint waits first)
                 save_checkpoint(h.checkpoint_path, steps - 1, epoch, trainer,
                                 max_to_keep=h.max_to_keep)
                 log_fn("training finished (step budget reached)")

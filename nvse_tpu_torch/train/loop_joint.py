@@ -23,6 +23,12 @@ h.batch_size, each taking its rows of every batch (every rank draws the
 same batches from the same seeds); rank 0 logs, checkpoints and validates.
 More than one node raises NotImplementedError, as there: the self-batching
 JointDataset has no per-node slicing.
+
+Of the T-F loop's three knobs this loop honours `async_checkpoint` alone, as
+nvse_tpu/train/loop_joint.py:176-196: the interval saves write in the
+background (train/checkpoint.py), the final save is synchronous, and
+`train_joint` waits for the save in flight when it returns or raises.
+`debug_nans` and `profile_dir` are read by train/loop.py only.
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ import torch.distributed as dist
 from ..data import JointDataset, PrefetchJointLoader, get_joint_filelist
 from ..ops.spectral import JOINT_TASKS
 from ..parallel import get_mesh, init_distributed, mesh_barrier, node_shape, shard_batch
-from .checkpoint import restore_checkpoint, save_checkpoint
+from .checkpoint import restore_checkpoint, save_checkpoint, wait_for_checkpoints
 from .loop import _summary_writer
 from .trainer import GANTrainer, fetch_scalars
 
@@ -58,6 +64,15 @@ def train_joint(h, device: str = "cuda", log_fn=print) -> None:
     dev = init_distributed(device)
     main = not dist.is_initialized() or dist.get_rank() == 0
     log_fn = log_fn if main else (lambda *_: None)
+    finished = False
+    try:
+        _train_joint(h, dev, main, local, log_fn)
+        finished = True
+    finally:
+        wait_for_checkpoints(barrier=finished)
+
+
+def _train_joint(h, dev: torch.device, main: bool, local: int, log_fn) -> None:
     mesh = None
     if local > 1:
         n_dev = math.gcd(int(h.batch_size), local)
@@ -154,7 +169,8 @@ def train_joint(h, device: str = "cuda", log_fn=print) -> None:
                        + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items()))
                        + f" ({time.time() - t_step:.3f}s/b)")
             if steps % h.checkpoint_interval == 0 and steps != 0:
-                save_checkpoint(h.checkpoint_path, steps, epoch, trainer, max_to_keep=h.max_to_keep)
+                save_checkpoint(h.checkpoint_path, steps, epoch, trainer, max_to_keep=h.max_to_keep,
+                                async_save=bool(h.get("async_checkpoint", True)))
                 log_fn(f"saved checkpoint at step {steps}")
             if want_summary:
                 for k, v in m.items():
@@ -164,6 +180,7 @@ def train_joint(h, device: str = "cuda", log_fn=print) -> None:
                 validate(steps)
             steps += 1
             if steps > h.training_steps:
+                # synchronous, after the save in flight (save_checkpoint waits first)
                 save_checkpoint(h.checkpoint_path, steps - 1, epoch, trainer,
                                 max_to_keep=h.max_to_keep)
                 log_fn("training finished (step budget reached)")

@@ -62,10 +62,12 @@ _DEFAULTS: dict[str, Any] = {
     "param_dtype": "float32",     # parameter dtype
     "compute_dtype": "float32",   # activation dtype for generator trunks
     "data_axis": "data",          # mesh axis name for data parallelism
-    "async_checkpoint": True,     # overlap checkpoint serialization with
-                                  # training (orbax AsyncCheckpointer);
-                                  # the final save is always synchronous
-    "debug_nans": False,          # jax.debug_nans equivalent of
+    "async_checkpoint": True,     # write checkpoints on a background
+                                  # thread from host copies (train/
+                                  # checkpoint.py); the final save is
+                                  # always synchronous
+    "debug_nans": False,          # autograd anomaly mode for the T-F /
+                                  # time loop, the reference's
                                   # torch.autograd.set_detect_anomaly
                                   # (reference train_tf_wi_inv.py:4)
 }

@@ -5,6 +5,7 @@
     python3 scripts/smoke_torch_phases.py --phases build,export
     python3 scripts/smoke_torch_phases.py --phases build,rank_shapes
     python3 scripts/smoke_torch_phases.py --phases build,dryrun,parallel_train,dp_serve
+    python3 scripts/smoke_torch_phases.py --phases build,train_knobs,joint_eval
 
 Each name runs chip_smoke.py's phase_<name>() of the checkout at --repo (default:
 this one), which prints its JSON lines; `build` first, as every phase needs the
@@ -12,7 +13,8 @@ kernels. The last line is the launches per wrapper and shape that each phase's
 main paths made. The multi-GPU phases (dryrun, parallel_train, dp_serve) use every
 card of the machine: 4 NCCL ranks on 4 cards, 2 gloo ranks sharing one card
 otherwise; on a machine of four cards they are the phases to run, since the
-single-card ones would teach nothing new there. `rank_shapes` is this script's:
+single-card ones would teach nothing new there. `joint_eval` runs the joint
+training CLI first, for the g_ bundle it evaluates. `rank_shapes` is this script's:
 the kernels against their plain versions
 (chip_smoke.py's kernel phases: ms, plain ms, bound, library ms, error) at the
 shapes a rank launches on four cards, which a one-card smoke never launches:
@@ -28,6 +30,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -63,7 +66,12 @@ def main() -> None:
     cs.say(phase="repo", repo=repo)
     launches = {}
     for name in args.phases.split(","):
-        if name == "rank_shapes":
+        if name == "joint_eval":         # from the g_ bundle of the joint training CLI
+            with tempfile.TemporaryDirectory() as keep:
+                g = os.path.join(keep, "g_00000001")
+                cs.phase_train_cli("joint", keep_g=g)
+                launches[name] = _str_keys(cs.phase_joint_eval(g))
+        elif name == "rank_shapes":
             cs.phase_train_kernels(RANK_TRAIN, phase="rank_shapes")
             cs.phase_kernels([(*s, dt) for s in RANK_FUSED for dt in cs.DTYPES],
                              phase="rank_shapes")

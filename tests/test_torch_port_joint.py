@@ -385,7 +385,9 @@ def test_config_is_a_copy_of_the_jax_packages():
 NEW_MODULES = ["data/loudness.py", "data/joint_dataset.py", "train/loop_joint.py",
                "train/trainer.py", "train/__main__.py", "infer/joint.py", "infer/__main__.py",
                "ops/spectral.py", "ops/resample.py", "ops/griffin_lim.py",
-               "models/hddemucas.py", "models/layers.py", "utils/jax_params.py"]
+               "models/hddemucas.py", "models/layers.py", "utils/jax_params.py",
+               "train/loop.py", "train/checkpoint.py", "train/__init__.py", "parallel/mesh.py",
+               "utils/config.py"]
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|flax|nvse_tpu)(\.|\s|$)", re.M)
 
 

@@ -311,3 +311,19 @@ def test_dryrun_cli_on_four_cpu_ranks():
     assert any("one DP GAN step ok" in l for l in lines)
     assert any("dp x sp (=2x2) GAN step ok" in l and "(matches DP)" in l for l in lines)
     assert any("checkpoint save/restore ok" in l for l in lines)
+
+
+def test_spawn_runs_on_the_card_unless_asked_and_starts_nothing_without_one(monkeypatch):
+    """spawn's ranks run on the card by default: where no card is visible a call
+    without `device` raises the port's no-card message before any process
+    starts (no CPU job in its place)."""
+    import torch.multiprocessing as mp
+
+    started = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(mp, "start_processes", lambda *a, **kw: started.append(a))
+    with pytest.raises(RuntimeError, match="no CUDA GPU is visible"):
+        spawn(run_jobs, 2, args=([],))
+    assert not started
+    spawn(run_jobs, 2, args=([],), device="cpu")          # asked for: the CPU job starts
+    assert len(started) == 1

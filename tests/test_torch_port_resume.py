@@ -3,10 +3,12 @@
 scripts/convert_jax_checkpoint.py's run mode converts a JAX g_/do_ pair (Orbax)
 into the port's g_/do_ bundles; the port's restore_checkpoint loads them, and
 the port's next step is held against JAX's next step from the same state on
-the same batch, for a tiny BSRNN (T-F trainer, MPD + MRD, LSTM summed biases)
-and a narrowed HiFiGAN (time trainer, MPD + MSD with its spectral-norm u). The
-configs and limits are those of tests/test_torch_port_train.py and
-tests/test_torch_port_time_train.py:
+the same batch, for a tiny BSRNN (T-F trainer, MPD + MRD, LSTM summed biases),
+a narrowed HiFiGAN (time trainer, MPD + MSD with its spectral-norm u) and a
+tiny joint BSRNN_24k (the T-F trainer's joint domain, both steps on the
+denoise task: one JAX compile). The configs and limits are those of
+tests/test_torch_port_train.py, tests/test_torch_port_time_train.py and
+tests/test_torch_port_joint_step.py:
   * the restored state equals JAX's after its first step: weights, the MSD's u,
     AdamW's moments (the summed bias's is the JAX b_ih's) and its step count;
   * after the second step every metric at rtol 1e-3, the first moments per
@@ -39,6 +41,8 @@ from nvse_tpu_torch.utils import disc_params_from_jax, load_config, params_from_
 
 from test_torch_port_bsrnn import jax_params
 from test_torch_port_disc import disc_params
+from test_torch_port_joint import _h as joint_h
+from test_torch_port_joint import _waves as joint_waves
 from test_torch_port_joint import torch_threads
 from test_torch_port_time_train import TIME_METRIC_KEYS, mrf_params, msd_params
 from test_torch_port_time_train import _audio as time_audio
@@ -75,14 +79,21 @@ def bundles(tmp_path):
 
 
 def _jax_run(model):
-    """(h, domain, jax generator, gen_state, disc_state, audio of two steps)."""
-    if model == "BSRNN":
+    """(h, domain, jax generator, gen_state, disc_state, the (clean, input)
+    batch of each of two steps; input None outside the joint domain)."""
+    if model == "BSRNN_24k":
+        h = joint_h()
+        jm, domain = jax_build(h)
+        gp = jax_params(jm, np.zeros((1, 513, 9), np.float32), seed=0)
+        dp, spec = disc_params(segment=h.segment_size, periods=h.mpd_reshapes), None
+        audio = [joint_waves(b=h.batch_size, n=h.segment_size, seed=s) for s in (0, 1)]
+    elif model == "BSRNN":
         h = tf_h()
         jm, domain = jax_build(h)
         gp = jax_params(jm, np.zeros((1, h.num_mels, h.segment_size // h.hop_size + 1),
                                      np.float32), seed=0)
         dp, spec = disc_params(segment=h.segment_size, periods=h.mpd_reshapes), None
-        audio = [tf_audio(2, h.segment_size, seed=s) for s in (0, 1)]
+        audio = [(tf_audio(2, h.segment_size, seed=s), None) for s in (0, 1)]
     else:
         h = time_h("HiFiGAN")
         jm, domain = jax_build(h)
@@ -90,7 +101,7 @@ def _jax_run(model):
         sp, spec = msd_params()
         dp = {"mpd": disc_params(segment=h.segment_size, periods=h.mpd_reshapes)["mpd"],
               "scale": sp}
-        audio = [time_audio(seed=s) for s in (0, 1)]
+        audio = [(time_audio(seed=s), None) for s in (0, 1)]
     gen_state = GenState.create(apply_fn=jm.apply, params=jax.tree.map(jnp.asarray, gp),
                                 tx=jax_make_optimizer(h, SPE))
     disc_state = DiscState.create(
@@ -101,15 +112,21 @@ def _jax_run(model):
     return h, domain, jm, gen_state, disc_state, audio
 
 
-@pytest.fixture(scope="module", params=["BSRNN", "HiFiGAN"])
+def _jnp(x):
+    return None if x is None else jnp.asarray(x)
+
+
+@pytest.fixture(scope="module", params=["BSRNN", "HiFiGAN", "BSRNN_24k"])
 def resumed(request, tmp_path_factory):
     """One JAX step, its g_/do_ pair saved and converted, the port restored from
     the conversion; then the second step on both sides."""
     model = request.param
     tmp = tmp_path_factory.mktemp(f"resume_{model}")
     h, domain, jm, gen_state, disc_state, audio = _jax_run(model)
-    fns = make_train_step(h, jm, domain)
-    gen_state, disc_state, _ = fns.train_step(gen_state, disc_state, jnp.asarray(audio[0]), None)
+    joint = model == "BSRNN_24k"
+    fns = (make_train_step(h, jm, "joint", joint_task="denoise") if joint
+           else make_train_step(h, jm, domain))
+    gen_state, disc_state, _ = fns.train_step(gen_state, disc_state, *map(_jnp, audio[0]))
     jax_dir, port_dir = str(tmp / "jax"), str(tmp / "port")
     jax_save_checkpoint(jax_dir, 1, 0, gen_state, disc_state)
     after_one = dict(g=_np(gen_state.params), d=_np(disc_state.params),
@@ -120,7 +137,7 @@ def resumed(request, tmp_path_factory):
         json.dump(dict(h), f)
     assert _converter().convert_run(cfg, jax_dir, port_dir) == 1
 
-    tr = GANTrainer(load_config(cfg), device="cpu", steps_per_epoch=SPE)
+    tr = GANTrainer(load_config(cfg), device="cpu", steps_per_epoch=SPE, joint=joint)
     assert restore_checkpoint(port_dir, tr) == (2, 0)
     shutil.rmtree(tmp, ignore_errors=True)      # the bundles: some 0.9 GB with the discriminators
     # copies: the step below updates the weights and the moments in place
@@ -131,10 +148,12 @@ def resumed(request, tmp_path_factory):
                     steps={int(s["step"]) for opt in (tr.opt_g, tr.opt_d)
                            for s in opt.state.values()})
 
-    gen_state, disc_state, jm2 = fns.train_step(gen_state, disc_state, jnp.asarray(audio[1]), None)
-    pm = tr.step(torch.from_numpy(audio[1]))
-    keys = KEYS if model == "BSRNN" else TIME_METRIC_KEYS
-    scale = "mrd" if model == "BSRNN" else "msd"
+    gen_state, disc_state, jm2 = fns.train_step(gen_state, disc_state, *map(_jnp, audio[1]))
+    clean, inp = audio[1]
+    pm = (tr.step(torch.from_numpy(clean), torch.from_numpy(inp), "denoise") if joint
+          else tr.step(torch.from_numpy(clean)))
+    keys = TIME_METRIC_KEYS if model == "HiFiGAN" else KEYS
+    scale = "msd" if model == "HiFiGAN" else "mrd"
     spectral = None if disc_state.spectral is None else _np(disc_state.spectral)
     d_mu = disc_params_from_jax(_np(_adam_mu(disc_state.opt_state)), spectral)
     d_new = disc_params_from_jax(_np(disc_state.params), spectral)
