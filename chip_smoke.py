@@ -286,9 +286,14 @@ the last line:
      the step-wise kernels of csrc/lstm_stepwise.cu, one launch a step, both scans
      of lstm_scan_bidir2 / lstm_scan_bidir in each step's launch) and at H = 100 and
      (C, H) = (102, 102) (padded to multiples of 8 and 4 by the wrappers), in
-     float32, bfloat16 and float16 (float16: the step-wise kernels, the dW
-     reduction's tensor cores), and the float16 TCN tail and gLN statistics at
-     ConvTasNet's decode shape (these rows held only); a BSRNN at feature_dim 102
+     float32, bfloat16 and float16 (float16: the step-wise kernels for the
+     inference scans, the resident training kernels below H = 768, the dW
+     reduction's tensor cores), the float16 TCN tail and gLN statistics at
+     ConvTasNet's decode shape, and the float16 instances of the resident training
+     kernels beside bfloat16's at BSRNN-M's, GCRN's and HD-Demucs's training shapes
+     (544 x 65, 1040 x 34, 16 x 65, 63 x 16; a cuDNN LSTM layer's forward +
+     backward in the same dtype as their library time; c7_f16_vs_bf16 gives the
+     time ratio) (these rows held only); a BSRNN at feature_dim 102
      (num_repeat 2) decoding through InferenceEngine in float32 and bfloat16 (the
      fused kernel at the padded 104, 4 launches a forward) against the CPU's plain
      path, and its GAN step against the CPU's plain step (phase 6's limits and
@@ -368,6 +373,29 @@ def cuda_ms(fn, iters, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters):
+    """The device time of fn's kernels a call, from torch.profiler (CUPTI): the sum of
+    the kernels' own time over `iters` calls, over iters; None when the trace shows
+    no device time (then the wall time of cuda_ms is all there is). Whole only in a
+    process's first profiler sessions: after the training loop's scheduled trace
+    (phase_train_knobs) it reads less than the kernels took, so the smoke itself
+    never calls it (scripts/smoke_torch_phases.py --phases gln_shapes does)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            total += getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    return total / 1e3 / iters if total > 0 else None
 
 
 def cuda_once(fn):
@@ -711,16 +739,19 @@ def _design(name, H, dtype, R=None, T=None, C=None):
     as this card takes them; None elsewhere."""
     from nvse_tpu_torch.ops import lstm as L
 
-    if name != "lstm_bwd_dw" and L._stepwise(H, dtype):
+    if name != "lstm_bwd_dw" and L._stepwise(H, dtype, name):
         p = L.stepwise_plan(R or 1, L.lstm_padding(H)[0], 2 if name == "lstm_scan_bidir" else 1)
         return _stepwise_design(p)
     H, C = L.lstm_padding(H, C)               # the shape the wrapper launches at
     wide = H > L._MAX_H
+    f16 = dtype == torch.float16
+    mt = "f16" if f16 else "bf16"             # the tensor cores' operand type
+    split = "carry dgates split hi + lo" + (" at a power-of-two row scale" if f16 else "")
     if name in L._TRAIN_KERNELS:              # the kernel that train_route picks
         stem, p = _train_route(name, H, dtype, R)
         wide = stem != L._TRAIN_KERNELS[name][0]
         if name == "lstm_fwd_hc" and not wide:
-            mma = "mma.sync m16n8k16 bf16, f32 h split hi + lo"
+            mma = f"mma.sync m16n8k16 {mt}, f32 h split hi + lo"
             f32 = "f32 FMA, 8 k-slices a unit" + (", passes of 16 rows" if p["inst"] > 16 else "")
             return (f"{mma if p['tensor_cores'] else f32}, clusters of {p['cluster']} x "
                     f"{p['units']} units, W_hh in registers, {p['ntiles']} tiles of <= {p['rows']} "
@@ -728,8 +759,7 @@ def _design(name, H, dtype, R=None, T=None, C=None):
                     f"{p['rounds']} a cluster, x ring of {p['stages']} steps, h (and lo) by "
                     f"st.async on mbarriers, exact cell")
         if name == "lstm_bwd" and not wide:
-            mma = ("mma.sync m16n8k16 bf16, W_hh column slice in shared memory, carry dgates "
-                   "split hi + lo")
+            mma = f"mma.sync m16n8k16 {mt}, W_hh column slice in shared memory, {split}"
             f32 = "f32 FMA, W_hh in registers (8 k-slices / column slices), reduce-scatter"
             return (f"{mma if p['tensor_cores'] else f32}, clusters of {p['cluster']} x "
                     f"{p['units']} units, {p['ntiles']} tiles of <= {p['rows']} rows "
@@ -740,7 +770,7 @@ def _design(name, H, dtype, R=None, T=None, C=None):
     if name in L._SCAN_WIDE_MODE and wide:
         dirs = 2 if name == "lstm_scan_bidir" else 1
         p = L._scan_wide_card_plan(0, R, H, dtype, dirs, name)
-        mma = ("mma.sync m16n8k16 bf16, "
+        mma = (f"mma.sync m16n8k16 {mt}, "
                + ("f32 h split hi + lo" if name == "lstm_fwd_hc" else "h as stored"))
         return (f"{mma if p['tensor_cores'] else 'f32 FMA'}, {p['groups']} row groups x "
                 f"{H // p['units']} slices of {p['units']} units a direction ({p['blocks']} "
@@ -771,7 +801,7 @@ def _design(name, H, dtype, R=None, T=None, C=None):
                 f"{p['stages']} steps, h by st.async on mbarriers, exact cell")
     if name == "lstm_bwd" and wide:
         p = L._bwd_wide_card_plan(0, R, H, dtype)
-        mma = "mma.sync m16n8k16 bf16, carry dgates split hi + lo"
+        mma = f"mma.sync m16n8k16 {mt}, {split}"
         return (f"{mma if p['tensor_cores'] else 'f32 FMA'}, {p['groups']} row groups x "
                 f"{H // p['units']} slices of {p['units']} units ({p['blocks']} blocks), {p['tiles_per_group']} tiles of <= {p['tile_rows']} rows "
                 f"a group, W_hh column slice resident, carry shares of R_g x H a block, one grid "
@@ -791,17 +821,22 @@ def _stepwise_design(p):
             f"each step, h in float32 buffers by step parity, exact cell")
 
 
-def phase_train_kernels(shapes=TRAIN_SHAPES, phase="kernel_vs_plain", dtypes=DTYPES):
+def phase_train_kernels(shapes=TRAIN_SHAPES, phase="kernel_vs_plain", dtypes=DTYPES,
+                        layer_library=False):
     """lstm_fwd_hc, the lstm_bwd recurrence and the dW_hh reduction at the
     BSRNN-M and GCRN training shapes (or BSRNN-L's, or the ranks'), against
     their plain versions, in `dtypes`; at the BSRNN shapes, cuDNN's BiLSTM
-    forward + backward beside the port's."""
+    forward + backward beside the port's. layer_library: at every shape, one
+    cuDNN LSTM layer's forward + backward in the row's dtype is the library
+    time of the forward's and the recurrence's rows (a layer does both
+    directions and the projection: a yardstick, not the same function)."""
     from nvse_tpu_torch.ops import lstm as L
 
     rows = []
     for label, R, T, H in shapes:
         G = 4 * H
         for dtype in dtypes:
+            layer = _bilstm_fwd_bwd_ms(R, T, H, dtype) if layer_library else None
             g = torch.Generator().manual_seed(R + T)
             b = 1.0 / math.sqrt(H)
             xp = (0.5 * torch.randn(T, R, G, generator=g)).to("cuda", dtype)
@@ -858,6 +893,10 @@ def phase_train_kernels(shapes=TRAIN_SHAPES, phase="kernel_vs_plain", dtypes=DTY
                     row.update(control_rel_err=bwd_control, design=_design(name, H, dtype, R=R))
                 if name == "lstm_fwd_hc":
                     row.update(control_rel_err=fwd_control, design=_design(name, H, dtype, R=R))
+                if layer is not None and name != "lstm_bwd_dw":
+                    row.update(library_ms=layer["cudnn_ms"], port_layer_ms=layer["port_ms"],
+                               library="cuDNN LSTM layer forward + backward (both directions, "
+                                       "projection included; C = H)")
                 say(phase=phase, **row)
                 if not (rel <= tols[name]):
                     raise SystemExit(f"{name} {label} {DT_NAME[dtype]}: error {err} "
@@ -2020,6 +2059,7 @@ def phase_bidir2_grad():
 TCN_B, TCN_T, TCN_H, TCN_BC = 8, (256 * 1023 - 16) // 8 + 1, 512, 128
 TCN_DILATIONS = tuple(2 ** i for i in range(8))
 TCN_CONTROL_DILATION = 128
+GLN_DECODE_BOUND = 2.0     # the gLN statistics at the decode shape: at most 2 x the bound
 # ConvTasNet at full width: N = 512, H = 512, 24 blocks (the JAX init's count)
 CONVTASNET_PARAMS = 4_960_409
 # the card's decode against the CPU's plain path, float32, as max |card - cpu| over
@@ -2140,27 +2180,41 @@ def phase_tcn_kernels(cases, phase="tcn_kernels"):
     return rows
 
 
-def phase_gln_stats(cases, phase="tcn_kernels"):
+def phase_gln_stats(cases, phase="tcn_kernels", bound_limit=None, device_time=False):
     """The gLN statistics kernel of csrc/tcn_tail.cu (tcn_gln_fold_kernel: a, b2
     from one read of c) against `_fold`, its plain version, at each (label, B,
     T, H, dtype) of cases, with torch.var_mean over (T, H) as the library
     yardstick; the control, which the limit must refuse, is the kernel fed
-    gln_w and gln_b swapped."""
+    gln_w and gln_b swapped. ms and library_ms are back-to-back calls between CUDA
+    events, the host path included, two readings of each in turns; two runs must
+    give the same bits. Fails, once every row is printed, where the kernel is
+    slower than var_mean in both readings past var_mean's slower one, or (with
+    bound_limit) takes more than bound_limit x its bound. device_time: kernel_ms and
+    library_kernel_ms, the device time alone from torch.profiler, which only the
+    first profiler session of a process reads whole (`device_ms`)."""
     from nvse_tpu_torch.ops.tcn import _fold, gln_stats_partials, tcn_gln_fold_kernel
 
-    rows = []
+    rows, slow = [], []
     for label, B, T, H, dtype in cases:
         c, _, gw, gb, *_ = _tail_inputs(B, T, H, 8, dtype, seed=T + H)
         with torch.inference_mode():
             got = tcn_gln_fold_kernel(c, gw, gb, 1e-5)
+            again = tcn_gln_fold_kernel(c, gw, gb, 1e-5)
             torch.cuda.synchronize()
+            same_bits = all(torch.equal(g, a) for g, a in zip(got, again))
             ref = _fold(c, gw, gb, 1e-5)
             err = max((_err(g, r) for g, r in zip(got, ref)), key=lambda e: e[1])
             ctl = tcn_gln_fold_kernel(c, gb, gw, 1e-5)
             control = max(_err(g, r)[1] for g, r in zip(ctl, ref))
-            ms = cuda_ms(lambda: tcn_gln_fold_kernel(c, gw, gb, 1e-5), iters=20)
+            run = lambda: tcn_gln_fold_kernel(c, gw, gb, 1e-5)
+            lib = lambda: torch.var_mean(c, dim=(1, 2), correction=0)
+            # back to back, the host path included: 100 calls a reading, in turns
+            ms = cuda_ms(run, iters=100)
+            library_ms = cuda_ms(lib, iters=100)
+            device = dict(kernel_ms=device_ms(run, 20), library_kernel_ms=device_ms(lib, 20)) \
+                if device_time else {}
+            library_ms2, ms2 = cuda_ms(lib, iters=100), cuda_ms(run, iters=100)
             plain_ms = cuda_ms(lambda: _fold(c, gw, gb, 1e-5), iters=10)
-            library_ms = cuda_ms(lambda: torch.var_mean(c, dim=(1, 2), correction=0), iters=20)
         item = c.element_size()
         # c read once, gln_w and gln_b, a and b2 written; a sum and a fma an element
         bound, bound_by = _bound(B * T * H * item + 2 * H * item + 2 * B * H * 4, 2 * B * T * H,
@@ -2168,12 +2222,23 @@ def phase_gln_stats(cases, phase="tcn_kernels"):
         P = gln_stats_partials(B, T, H, torch.cuda.get_device_properties(0).multi_processor_count)
         row = dict(name="tcn_gln_stats", shape=label, rows=B, steps=T, H=H, dtype=DT_NAME[dtype],
                    source="nvse_tpu_torch/csrc/tcn_tail.cu",
-                   design=f"{P} runs a batch element, float32 sums, two stages of fixed order",
+                   design=f"one launch: {P} runs a batch element ({B * P} blocks), 4 x 16-byte "
+                          "loads in flight a thread, float32 sums, the last block of a batch "
+                          "element (integer ticket) folds the partials in a fixed order",
                    max_abs_err=err[0], rel_err=err[1], tol=TOL[dtype], control_rel_err=control,
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   same_bits=same_bits, ms=ms, ms_again=ms2, **device,
+                   plain_ms=plain_ms, library_ms=library_ms, library_ms_again=library_ms2,
                    library="torch.var_mean over (T, H)", bound_ms=bound, bound_by=bound_by,
-                   gb_per_s=B * T * H * item / (ms * 1e-3) / 1e9)
+                   bound_limit=bound_limit, gb_per_s=B * T * H * item / (ms * 1e-3) / 1e9)
         say(phase=phase, **row)
+        if min(ms, ms2) > max(library_ms, library_ms2):
+            slow.append(f"{label} {DT_NAME[dtype]}: {ms:.4f} / {ms2:.4f} ms against "
+                        f"torch.var_mean's {library_ms:.4f} / {library_ms2:.4f}")
+        if bound_limit is not None and min(ms, ms2) > bound_limit * bound:
+            slow.append(f"{label} {DT_NAME[dtype]}: {min(ms, ms2):.4f} ms over {bound_limit} x "
+                        f"its bound {bound:.4f}")
+        if not same_bits:
+            raise SystemExit(f"tcn_gln_stats {label} {DT_NAME[dtype]}: two runs differ")
         if not (err[1] <= TOL[dtype]):
             raise SystemExit(f"tcn_gln_stats {label} {DT_NAME[dtype]}: error {err} over "
                              f"tolerance {TOL[dtype]}")
@@ -2181,6 +2246,8 @@ def phase_gln_stats(cases, phase="tcn_kernels"):
             raise SystemExit(f"tcn_gln_stats {label} {DT_NAME[dtype]}: the control with gln_w "
                              f"and gln_b swapped ({control}) passes the tolerance")
         rows.append(row)
+    if slow:
+        raise SystemExit("tcn_gln_stats slower than its limits: " + "; ".join(slow))
     return rows
 
 
@@ -2341,11 +2408,18 @@ BIDIR_SHAPES = tuple((label, T, B, H) for H in (128, 256)
                                          ("ragged", 64, 20)))
 # rows held against their plain version on no main path: not in the kernels line
 C7_HELD_LABELS = ("c7_h1024", "c7_h100")
+# the float16 instances of the resident training kernels, beside bfloat16, at the shapes of
+# the training paths (BSRNN-M's time and band BiLSTMs, GCRN's, HD-Demucs's): held against
+# their plain versions (no main path trains in float16 at these shapes)
+C7_F16_TRAIN = (("c7_f16_time", 544, 65, 128), ("c7_f16_band", 1040, 34, 128),
+                ("c7_f16_gcrn", 16, 65, 448), ("c7_f16_hddemucs", 63, 16, 768))
+C7_F16_LABELS = tuple(label for label, *_ in C7_F16_TRAIN)
 HELD_ONLY = {"lstm_scan_bidir2": ("small", *C7_HELD_LABELS),
              "lstm_scan_bidir": ("ragged", *C7_HELD_LABELS),
              "lstm_scan_fused": ("ragged", *C7_HELD_LABELS, "c7_c102"),
-             **{n: C7_HELD_LABELS for n in ("lstm_scan", "lstm_scan_stateful", "lstm_fwd_hc",
-                                            "lstm_bwd", "lstm_bwd_dw")},
+             **{n: C7_HELD_LABELS for n in ("lstm_scan", "lstm_scan_stateful")},
+             **{n: (*C7_HELD_LABELS, *C7_F16_LABELS) for n in ("lstm_fwd_hc", "lstm_bwd",
+                                                              "lstm_bwd_dw")},
              "tcn_block_tail": tuple(f"c7_decode_d{2 ** i}" for i in range(8)),
              "tcn_gln_stats": ("c7_decode",)}
 
@@ -3671,6 +3745,7 @@ C7_HELD = (("c7_h1024", 4, 6, 1024, 1024), ("c7_h100", 37, 9, 102, 100),
 C7_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # BSRNN at an odd width: its BiLSTMs at C = H = 102, padded to 104 on the card
 C7_FEATURE_DIM = 102
+F16_VS_BF16 = 1.25     # the float16 training kernels' time over bfloat16's, at most
 C7_TCN = [(f"c7_decode_d{d}", TCN_B, TCN_T, TCN_H, TCN_BC, d, torch.float16)
           for d in TCN_DILATIONS]
 
@@ -3695,8 +3770,66 @@ def phase_c7_kernels():
             rows += phase_bidir_kernels([(label, T, R, H, dt)], phase="c7_kernels")
     rows += phase_tcn_kernels(C7_TCN, phase="c7_kernels")
     rows += phase_gln_stats([("c7_decode", TCN_B, TCN_T, TCN_H, torch.float16)],
-                            phase="c7_kernels")
-    return rows
+                            phase="c7_kernels", bound_limit=GLN_DECODE_BOUND)
+    return rows + phase_f16_vs_bf16()
+
+
+def phase_f16_vs_bf16():
+    """The training kernels in float16 and bfloat16 at C7_F16_TRAIN's shapes (the
+    paths' float16 training shapes): rows held against their plain versions, with
+    a cuDNN float16 layer as library time, then the time ratios, read in turns
+    (`_f16_vs_bf16_ms`). Fails where float16 takes the step-wise kernel, or where
+    lstm_fwd_hc or lstm_bwd in float16 is slower than F16_VS_BF16 x bfloat16 in
+    both readings past bfloat16's slower one."""
+    f16 = phase_train_kernels(C7_F16_TRAIN, phase="c7_kernels",
+                              dtypes=(torch.bfloat16, torch.float16), layer_library=True)
+    by = {(r["name"], r["shape"], r["dtype"]): r for r in f16}
+    turns = {label: _f16_vs_bf16_ms(R, T, H) for label, R, T, H in C7_F16_TRAIN}
+    slow = []
+    for name in ("lstm_fwd_hc", "lstm_bwd", "lstm_bwd_dw"):
+        for label in C7_F16_LABELS:
+            a, b = by[name, label, "float16"], by[name, label, "bfloat16"]
+            f16_ms, bf16_ms = turns[label][name]
+            held = name != "lstm_bwd_dw"           # the kernels float16 was instantiated for
+            say(phase="c7_f16_vs_bf16", name=name, shape=label, f16_ms=a["ms"], bf16_ms=b["ms"],
+                ratio=a["ms"] / b["ms"], f16_ms_in_turns=f16_ms, bf16_ms_in_turns=bf16_ms,
+                ratio_in_turns=min(f16_ms) / min(bf16_ms), limit=F16_VS_BF16 if held else None,
+                f16_source=a["source"], bf16_source=b["source"])
+            if "lstm_stepwise" in a["source"]:
+                raise SystemExit(f"{name} {label} float16 took the step-wise kernel")
+            if held and min(f16_ms) > F16_VS_BF16 * max(bf16_ms):
+                slow.append(f"{name} {label}: float16 {f16_ms} ms against bfloat16 {bf16_ms}")
+    if slow:
+        raise SystemExit(f"float16 over {F16_VS_BF16} x bfloat16's time: " + "; ".join(slow))
+    return f16
+
+
+def _f16_vs_bf16_ms(R, T, H):
+    """{kernel: ([float16 ms] * 2, [bfloat16 ms] * 2)}: lstm_fwd_hc, the lstm_bwd
+    recurrence and the dW_hh reduction at (R, T, H) on the same values in both
+    dtypes, timed in turns (float16, bfloat16, bfloat16, float16; 20 calls a
+    reading), so that the card's drift falls on both."""
+    from nvse_tpu_torch.ops import lstm as L
+
+    g = torch.Generator().manual_seed(R + T)
+    b = 1.0 / math.sqrt(H)
+    host = (0.5 * torch.randn(T, R, 4 * H, generator=g),
+            torch.empty(H, 4 * H).uniform_(-b, b, generator=g), torch.randn(T, R, H, generator=g))
+    runs = {}
+    with torch.inference_mode():
+        for dtype in (torch.float16, torch.bfloat16):
+            xp, whh, dhs = (t.to("cuda", dtype) for t in host)
+            hs, cs = L.lstm_fwd_hc(xp, whh)
+            dx = L.lstm_bwd_recurrence(xp, hs, cs, dhs, whh)
+            runs[dtype] = {
+                "lstm_fwd_hc": lambda xp=xp, whh=whh: L.lstm_fwd_hc(xp, whh),
+                "lstm_bwd": lambda a=(xp, hs, cs, dhs, whh): L.lstm_bwd_recurrence(*a),
+                "lstm_bwd_dw": lambda hs=hs, dx=dx: L.lstm_dw_hh(hs, dx)}
+        ms = {name: ([], []) for name in runs[torch.float16]}
+        for dtype in (torch.float16, torch.bfloat16, torch.bfloat16, torch.float16):
+            for name, fn in runs[dtype].items():
+                ms[name][dtype == torch.bfloat16].append(cuda_ms(fn, iters=20))
+    return ms
 
 
 def phase_c7_decode():
@@ -3748,7 +3881,8 @@ def phase_c7_train():
     counted as a main path: the feature_dim C7_FEATURE_DIM BSRNN in float32
     (phase 6's limits, or 3 x the CPU's own spread, and the TF32 control);
     BSRNN-M at its width (feature_dim 128, two BSNets) in float16 (the
-    step-wise training kernels, the float16 dW reduction); ConvTasNet at full
+    float16 instances of the resident training kernels, no step-wise launch, the
+    float16 dW reduction); ConvTasNet at full
     width, one repeat of its 8 blocks (every tail shape of the model), in float16
     with the tail kernel under autograd (fused_tcn 1), at learning rate 0 as
     phase 6's."""
@@ -3757,11 +3891,28 @@ def phase_c7_train():
         # CPU's own step moves it by 3.2e-3 under a 1e-7 change of the batch
         "c7_train": _train_vs_cpu_plain("bsrnn", None, phase="c7_train_vs_cpu_plain",
                                         perturbed=True, feature_dim=C7_FEATURE_DIM),
-        "c7_f16_train": _train_vs_cpu_plain("bsrnn", None, phase="c7_f16_train_vs_cpu_plain",
-                                            feature_dim=128, compute_dtype="float16"),
+        "c7_f16_train": _f16_train_off_the_stepwise_kernel(),
         "c7_f16_convtasnet_train": _train_vs_cpu_plain(
             "convtasnet", None, phase="c7_f16_train_vs_cpu_plain", fused_tcn=1,
             compute_dtype="float16", R=1)}
+
+
+def _f16_train_off_the_stepwise_kernel():
+    """The float16 BSRNN-M step against the CPU's (the limits of phase 6's float16
+    check), its recurrences on the resident training kernels: 0 launches of
+    csrc/lstm_stepwise.cu."""
+    from nvse_tpu_torch.ops import lstm as L
+
+    counts = _train_vs_cpu_plain("bsrnn", None, phase="c7_f16_train_vs_cpu_plain",
+                                 feature_dim=128, compute_dtype="float16")
+    # the counts were set to 0 before the card's step, and the CPU's steps count nothing
+    by_kernel = {f.__name__: dict(f.launches_by_kernel) for f in (L.lstm_fwd_hc, L.lstm_bwd)}
+    stepwise = sum(d.get("lstm_stepwise", 0) for d in by_kernel.values())
+    say(phase="c7_f16_train_kernels", launches_by_kernel=by_kernel, stepwise_launches=stepwise)
+    if stepwise or not all(by_kernel.values()):
+        raise SystemExit(f"float16 BSRNN-M step: launches by kernel {by_kernel}; expected the "
+                         "resident training kernels and no step-wise launch")
+    return counts
 
 
 def phase_c7_train_rows(paths):
@@ -3904,7 +4055,8 @@ def main():
     # dilation, the decode and serving main path, then the shapes serving launched
     rows += phase_tcn_kernels([(f"decode_d{d}", TCN_B, TCN_T, TCN_H, TCN_BC, d, dt)
                                for d in TCN_DILATIONS for dt in DTYPES])
-    rows += phase_gln_stats([("decode", TCN_B, TCN_T, TCN_H, dt) for dt in DTYPES])
+    rows += phase_gln_stats([("decode", TCN_B, TCN_T, TCN_H, dt) for dt in DTYPES],
+                            bound_limit=GLN_DECODE_BOUND)
     c_paths = {"convtasnet": phase_convtasnet()}
     rows += phase_rest(rows, c_paths, phase="tcn_kernels")
     # the two-direction scan (B7), its bench, lstm_scan_fused at HD-Demucs's bottleneck,

@@ -20,7 +20,7 @@
 //             dx_proj[t] = dgates;  dh_carry = dgates @ W_hh^T;  dc_carry = dc * f
 //             dW_hh = sum_{t, r} h_{t-1}^T dgates                    (the dW kernels)
 // with h_{-1} = c_{-1} = 0 read as zeros at t = 0 (no shifted copies in memory).
-// x_proj, W_hh, hs, cs, dhs and dx_proj are all float32 or all bfloat16. The
+// x_proj, W_hh, hs, cs, dhs and dx_proj are all float32, all bfloat16 or all float16. The
 // backward reads h_{t-1}, c_t and c_{t-1} as stored, sums both products in
 // float32, keeps the carries and the carry's dgates in float32
 // (pallas_lstm_bwd.py:243) and stores dx_proj in the x_proj type; the cell is
@@ -65,6 +65,14 @@
 //   split in two, dgates = hi + lo with hi = bf16(dgates) and lo = bf16(dgates
 //   - hi), each multiplied by the same slice (exact products, float32 sums):
 //   what is lost is about 2^-17 of dgates (as csrc/lstm_bwd_wide.cu).
+//   float16 takes the bfloat16 layout with float16 products. Its exponent range
+//   is not float32's (a GAN step's dgates of 1e-7 are float16 subnormals, and
+//   large ones pass 65,504), so its split scales each row of a block's dgates by
+//   a power of two first (lstm_cell.cuh row_scale: the row's largest |dgates|
+//   lands in [2^13, 2^14)) and the carry's sums by its inverse. Its cell gives each
+//   warp whole rows (bfloat16's: each row to two warps), so that one warp reduction
+//   meets a row's largest |dgates| and the warp splits its dgates at once: no
+//   shared-memory max, block barrier or pass over the dgates beyond bfloat16's.
 //   float32 (true float32: no TF32): CUDA-core FMAs with the slice in
 //   registers, as csrc/lstm_scan.cu's float32 product: lane (k-slice ks, unit)
 //   of 8 x 4 a warp holds W_hh[k][4 gates] for its 16 k, runs 8 rows at a time
@@ -119,6 +127,7 @@ template <> struct Cfg<__nv_bfloat16> {
   static constexpr int WP = KP;
   static constexpr int DP = 4 * U + 8;  // pitch of a dgates hi / lo row (bf16)
 };
+template <> struct Cfg<__half> : Cfg<__nv_bfloat16> {};   // the bfloat16 layout
 template <> struct Cfg<float> {
   static constexpr int U = 32, KMAX = 4;
   static constexpr int KP = HP + 4;     // pitch of an h row
@@ -166,11 +175,14 @@ struct RecArgs {
 template <typename T, int BM>
 __global__ void __launch_bounds__(rec::THREADS, 1) lstm_bwd_cluster_kernel(const RecArgs a) {
   using C = rec::Cfg<T>;
-  constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
+  constexpr bool BF = sizeof(T) == 2;             // bfloat16 or float16: the tensor cores
+  constexpr bool F16 = std::is_same<T, __half>::value;   // the carry's split takes a row scale
+  using T16 = std::conditional_t<BF, T, __nv_bfloat16>;  // the dgates planes
   constexpr int THREADS = rec::THREADS, U = C::U, NC = 4 * U, KP = C::KP, WP = C::WP;
   constexpr int GP = rec::GP<T>, UP = rec::UP<T>, DP = C::DP, KM = C::KMAX;
   constexpr int E = 16 / sizeof(T);                // elements of a 16-byte copy
   constexpr int PP = BM * U / THREADS;             // (row, unit) pairs of a thread
+  static_assert(!F16 || PP % (U / 32) == 0, "float16: a warp's rows whole");
   constexpr long STAGE = rec::stage_elems<T>(BM);
   static_assert(PP * THREADS == BM * U, "whole pairs a thread");
   const int H = a.H, G = 4 * H, Tn = a.Tn, R = a.R, S = a.stages;
@@ -201,8 +213,8 @@ __global__ void __launch_bounds__(rec::THREADS, 1) lstm_bwd_cluster_kernel(const
   base += rec::up16(S * STAGE * sizeof(T));
   float* g_s = reinterpret_cast<float*>(base);     // [BM][GP] gate sums (float32: then dgates)
   base += rec::up16((long)BM * GP * 4);
-  __nv_bfloat16* dg_hi = reinterpret_cast<__nv_bfloat16*>(base);   // bfloat16: [BM][DP] each
-  __nv_bfloat16* dg_lo = dg_hi + BM * DP;
+  T16* dg_hi = reinterpret_cast<T16*>(base);      // 16 bits: [BM][DP] each
+  T16* dg_lo = dg_hi + BM * DP;
   base += rec::up16(2L * BM * DP * 2);
   float* share = reinterpret_cast<float*>(base);   // [2][KM][BM][UP]
 
@@ -218,6 +230,16 @@ __global__ void __launch_bounds__(rec::THREADS, 1) lstm_bwd_cluster_kernel(const
     mbar_init(&bar[1]);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // float16: the float32 bits of the largest |dgates| of row r by item parity, in
+  // the pad of r's gate-sum row (zeroed above; the sums fill columns [0, 4U))
+  auto rmax = [&](int parity, int r) { return reinterpret_cast<int*>(g_s + r * GP + NC) + parity; };
+  // a thread's (row, unit) pairs i = 0 ... PP - 1: p = tid + i THREADS, row p / U and
+  // unit p % U; float16 gives a warp whole rows (unit lane + 32 (i % (U / 32)) of row
+  // warp + 8 (i / (U / 32))), so that a warp reduction meets a row's largest |dgates|
+  auto pair_row = [&](int i) {
+    return F16 ? i / (U / 32) * (THREADS / 32) + warp : (tid + i * THREADS) / U;
+  };
+  auto pair_unit = [&](int i) { return F16 ? i % (U / 32) * 32 + lane : (tid + i * THREADS) % U; };
   __syncthreads();                                 // (also orders the zeros before the ring's copies)
   // bfloat16: the slice in shared memory, [column = 4 unit + gate][k], zeros past H.
   // float32: in registers, as csrc/lstm_scan.cu's: lane (ks, unit fu) of 8 k-slices x
@@ -332,8 +354,8 @@ __global__ void __launch_bounds__(rec::THREADS, 1) lstm_bwd_cluster_kernel(const
                 unsigned tq[4];
                 ldsm_x4(tq, w_s + ((wn * NT + p2 * 2) * 8 + (mat >> 1) * 8 + r8) * WP + k +
                                 (mat & 1) * 8);
-                mma_bf16(acc[2 * p2], af, tq[0], tq[1]);
-                mma_bf16(acc[2 * p2 + 1], af, tq[2], tq[3]);
+                mma16<T>(acc[2 * p2], af, tq[0], tq[1]);
+                mma16<T>(acc[2 * p2 + 1], af, tq[2], tq[3]);
               }
             }
             const int rr = wm * 16 + (lane >> 2);
@@ -380,11 +402,11 @@ __global__ void __launch_bounds__(rec::THREADS, 1) lstm_bwd_cluster_kernel(const
       __syncthreads();
 
       // 2. everything of the cell backward that reads no carry, for this thread's
-      // pairs (row p / U, unit p % U), p = tid + i THREADS
+      // pairs (`pair`)
       float fa[PP], fb[PP], fc[PP], fd[PP], fe[PP], ff[PP], dhv[PP];
 #pragma unroll
       for (int i = 0; i < PP; ++i) {
-        const int p = tid + i * THREADS, r = p / U, ul = p % U;
+        const int r = pair_row(i), ul = pair_unit(i);
         fa[i] = fb[i] = fc[i] = fd[i] = fe[i] = ff[i] = dhv[i] = 0.0f;
         if (n == 0) dcc[i] = 0.0f;
         if (r < np && ul < own) {
@@ -413,36 +435,79 @@ __global__ void __launch_bounds__(rec::THREADS, 1) lstm_bwd_cluster_kernel(const
       }
       // 4. the cell backward: dx_proj, and dgates for the carry's product
       const float* sh = share + (size_t)(t & 1) * KM * BM * UP;
+      // pair i's dgates d from its carry: dc carried, dx_proj stored
+      auto cell = [&](int i, int r, int ul, float (&d)[4]) {
+        float dh = dhv[i];
+        if (t + 1 < Tn) {
+          float carry = 0.0f;
+          for (unsigned s = 0; s < K; ++s) carry += sh[(s * BM + r) * UP + ul];
+          dh += carry;
+        }
+        const float dc = dcc[i] + dh * fa[i];
+        d[0] = dc * fb[i], d[1] = dc * fc[i], d[2] = dc * fd[i], d[3] = dh * fe[i];
+        dcc[i] = dc * ff[i];
+        T* dxr = dx + ((size_t)t * R + row0 + r) * G + u0 + ul;
 #pragma unroll
-      for (int i = 0; i < PP; ++i) {
-        const int p = tid + i * THREADS, r = p / U, ul = p % U;
-        if (r < np && ul < own) {
-          float dh = dhv[i];
-          if (t + 1 < Tn) {
-            float carry = 0.0f;
-            for (unsigned s = 0; s < K; ++s) carry += sh[(s * BM + r) * UP + ul];
-            dh += carry;
-          }
-          const float dc = dcc[i] + dh * fa[i];
-          const float d[4] = {dc * fb[i], dc * fc[i], dc * fd[i], dh * fe[i]};
-          dcc[i] = dc * ff[i];
-          T* dxr = dx + ((size_t)t * R + row0 + r) * G + u0 + ul;
+        for (int q = 0; q < 4; ++q) dxr[q * H] = from_f<T>(d[q]);
+      };
+      if constexpr (F16) {
+        // a warp's row: its U / 32 pairs a lane, the row's largest |dgates| by a
+        // warp reduction, then the float32 dgates as hi + lo at the row's power-of-two scale
+        // (lstm_cell.cuh row_scale: every |d sc| < 2^14, nothing below float16's
+        // range lost beyond 2^-38 of the row's largest); the carry's sums are scaled
+        // back below
 #pragma unroll
-          for (int q = 0; q < 4; ++q) dxr[q * H] = from_f<T>(d[q]);
-          if constexpr (BF) {                      // the float32 dgates as hi + lo
-            unsigned hi[2], lo[2];
+        for (int i0 = 0; i0 < PP; i0 += U / 32) {
+          const int r = pair_row(i0);
+          float d[U / 32][4], dmax = 0.0f;
 #pragma unroll
-            for (int q = 0; q < 2; ++q) {
-              const __nv_bfloat162 h2 = __floats2bfloat162_rn(d[2 * q], d[2 * q + 1]);
-              const float2 back = __bfloat1622float2(h2);
-              const __nv_bfloat162 l2 = __floats2bfloat162_rn(d[2 * q] - back.x, d[2 * q + 1] - back.y);
-              hi[q] = *reinterpret_cast<const unsigned*>(&h2);
-              lo[q] = *reinterpret_cast<const unsigned*>(&l2);
+          for (int j = 0; j < U / 32; ++j) {
+            d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.0f;
+            if (r < np && pair_unit(i0 + j) < own) {
+              cell(i0 + j, r, pair_unit(i0 + j), d[j]);
+              dmax = fmaxf(dmax, fmaxf(fmaxf(fabsf(d[j][0]), fabsf(d[j][1])),
+                                       fmaxf(fabsf(d[j][2]), fabsf(d[j][3]))));
             }
-            *reinterpret_cast<uint2*>(dg_hi + r * DP + 4 * ul) = make_uint2(hi[0], hi[1]);
-            *reinterpret_cast<uint2*>(dg_lo + r * DP + 4 * ul) = make_uint2(lo[0], lo[1]);
-          } else {                                 // dgates over the gate sums, in place
-            *reinterpret_cast<float4*>(g_s + r * GP + 4 * ul) = make_float4(d[0], d[1], d[2], d[3]);
+          }
+          // |dgates| >= 0: its bits order as the values do
+          const int mx = (int)__reduce_max_sync(0xffffffffu, (unsigned)__float_as_int(dmax));
+          if (r < np) {                            // warp-uniform
+            const float sc = row_scale(mx).x;
+            if (lane == 0) *rmax(m & 1, r) = mx;
+#pragma unroll
+            for (int j = 0; j < U / 32; ++j) {
+              const int ul = pair_unit(i0 + j);
+              if (ul >= own) continue;
+              __half hi[4], lo[4];
+#pragma unroll
+              for (int q = 0; q < 4; ++q) split_f16(d[j][q], sc, hi[q], lo[q]);
+              *reinterpret_cast<uint2*>(dg_hi + r * DP + 4 * ul) = *reinterpret_cast<const uint2*>(hi);
+              *reinterpret_cast<uint2*>(dg_lo + r * DP + 4 * ul) = *reinterpret_cast<const uint2*>(lo);
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < PP; ++i) {
+          const int r = pair_row(i), ul = pair_unit(i);
+          if (r < np && ul < own) {
+            float d[4];
+            cell(i, r, ul, d);
+            if constexpr (BF) {                      // the float32 dgates as hi + lo
+              unsigned hi[2], lo[2];
+#pragma unroll
+              for (int q = 0; q < 2; ++q) {
+                const __nv_bfloat162 h2 = __floats2bfloat162_rn(d[2 * q], d[2 * q + 1]);
+                const float2 back = __bfloat1622float2(h2);
+                const __nv_bfloat162 l2 = __floats2bfloat162_rn(d[2 * q] - back.x, d[2 * q + 1] - back.y);
+                hi[q] = *reinterpret_cast<const unsigned*>(&h2);
+                lo[q] = *reinterpret_cast<const unsigned*>(&l2);
+              }
+              *reinterpret_cast<uint2*>(dg_hi + r * DP + 4 * ul) = make_uint2(hi[0], hi[1]);
+              *reinterpret_cast<uint2*>(dg_lo + r * DP + 4 * ul) = make_uint2(lo[0], lo[1]);
+            } else {                                 // dgates over the gate sums, in place
+              *reinterpret_cast<float4*>(g_s + r * GP + 4 * ul) = make_float4(d[0], d[1], d[2], d[3]);
+            }
           }
         }
       }
@@ -484,13 +549,21 @@ __global__ void __launch_bounds__(rec::THREADS, 1) lstm_bwd_cluster_kernel(const
               ldsm_x4(al, dg_lo + off);
 #pragma unroll
               for (int jj = 0; jj < 2; ++jj) {
-                mma_bf16(acc[mt][jj], ah, b[2 * jj], b[2 * jj + 1]);
-                mma_bf16(acc[mt][jj], al, b[2 * jj], b[2 * jj + 1]);
+                mma16<T>(acc[mt][jj], ah, b[2 * jj], b[2 * jj + 1]);
+                mma16<T>(acc[mt][jj], al, b[2 * jj], b[2 * jj + 1]);
               }
             }
           }
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
+          for (int mt = 0; mt < MT; ++mt) {
+            float inv[2] = {1.0f, 1.0f};           // float16: the rows' scales undone
+            if constexpr (F16) {
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh) {
+                const int r = mt * 16 + (lane >> 2) + 8 * hh;
+                if (r < np) inv[hh] = row_scale(*rmax(m & 1, r)).y;
+              }
+            }
 #pragma unroll
             for (int jj = 0; jj < 2; ++jj) {
               const int k = (n0 + jj) * 8 + 2 * (lane & 3);
@@ -501,11 +574,13 @@ __global__ void __launch_bounds__(rec::THREADS, 1) lstm_bwd_cluster_kernel(const
                 const int r = mt * 16 + (lane >> 2) + 8 * hh;
                 if (r >= np) continue;
                 float* dst = dst0 + r * UP + k - pb * U;
-                const float2 v = make_float2(acc[mt][jj][2 * hh], acc[mt][jj][2 * hh + 1]);
+                const float2 v = make_float2(acc[mt][jj][2 * hh] * inv[hh],
+                                             acc[mt][jj][2 * hh + 1] * inv[hh]);
                 if (pb == (int)rank) *reinterpret_cast<float2*>(dst) = v;
                 else st_async2(cluster_map(smem_u32(dst), pb), v, cluster_map(bar_at, pb));
               }
             }
+          }
         }
       } else {
         // rows in chunks of 8: lane (column slice ks, output quad fu) sums its columns
@@ -611,6 +686,7 @@ template <typename F>
 int rec_with_instance(int dtype, int tile_rows, F&& f) {
   using std::integral_constant;
   if (dtype == 1 && tile_rows == 16) return f((__nv_bfloat16*)nullptr, integral_constant<int, 16>{});
+  if (dtype == 2 && tile_rows == 16) return f((__half*)nullptr, integral_constant<int, 16>{});
   if (dtype == 0 && tile_rows == 16) return f((float*)nullptr, integral_constant<int, 16>{});
   if (dtype == 0 && tile_rows == 32) return f((float*)nullptr, integral_constant<int, 32>{});
   if (dtype == 0 && tile_rows == 48) return f((float*)nullptr, integral_constant<int, 48>{});
@@ -864,7 +940,7 @@ bool bad_shape(int R, int Tn, int H, int max_h = rec::HP) {
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. x_proj (T, R, 4H), hs/cs/dhs (T, R, H), w_hh
+// dtype: 0 float32, 1 bfloat16, 2 float16. x_proj (T, R, 4H), hs/cs/dhs (T, R, H), w_hh
 // (H, 4H) -> dx_proj (T, R, 4H); all contiguous and 16-byte aligned on the
 // current device, H <= 128, H % 8 == 0. The plan (tile rows, row tiles,
 // clusters, ring stages, smem bytes) is ops/lstm.py `bwd_narrow_plan`'s. Each

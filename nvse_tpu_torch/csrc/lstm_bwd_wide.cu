@@ -14,15 +14,19 @@
 //   dgates = [dc*g*i*(1-i), dc*c_{t-1}*f*(1-f), dc*i*(1-g^2), dh*tanh(c_t)*o*(1-o)]
 //   dx_proj[t] = dgates;  dh_carry = dgates @ W_hh^T;  dc_carry = dc * f
 // with h_{-1} = c_{-1} = 0 and the carries zero at t = T-1. x_proj, W_hh, hs,
-// cs, dhs and dx_proj are all float32 or all bfloat16; h_{t-1}, c_t and c_{t-1}
+// cs, dhs and dx_proj are all float32, all bfloat16 or all float16; h_{t-1}, c_t and c_{t-1}
 // are read as stored, both products and the carries are float32 sums, and
 // dx_proj is stored in the x_proj type. The carry's dgates are float32, as
 // the JAX kernel's (pallas_lstm_bwd.py:239). In bfloat16 they reach the
 // tensor cores split in two, dgates = hi + lo with hi = bf16(dgates) and lo =
 // bf16(dgates - hi), each multiplied by the same W_hh (exact products, float32
 // sums): what is lost is dgates - hi - lo, about 2^-17 of dgates, so the carry
-// stays within float32 rounding of the exact one. The nonlinearities are
-// exact (expf, tanhf).
+// stays within float32 rounding of the exact one. float16 takes the bfloat16
+// layout with float16 products; its split first scales each row of a tile's
+// dgates by a power of two (lstm_cell.cuh row_scale: the row's largest |dgates|
+// lands in [2^13, 2^14), where GAN-step dgates of 1e-7 are float16 subnormals
+// and large ones would pass 65,504) and the carry's sums by its inverse. The
+// nonlinearities are exact (expf, tanhf).
 //
 // What bounds it. BSRNN-L training (H = 256) runs it at 544 rows x 65 steps
 // (the time BiLSTM) and 1040 x 34 (the band BiLSTM), 16 launches a step each:
@@ -86,6 +90,11 @@ template <> struct Lay<__nv_bfloat16> {
   __host__ __device__ static long g(int TM, int U) { return (long)TM * 4 * U * 4; }
   __host__ __device__ static long dg(int TM, int U) { return 2L * TM * (4 * U + 8) * 2; }
 };
+// float16: the bfloat16 layout, and after the gate sums the float32 bits of the
+// largest |dgates| of each row of a tile, by tile parity [2][TM]
+template <> struct Lay<__half> : Lay<__nv_bfloat16> {
+  __host__ __device__ static long g(int TM, int U) { return (long)TM * 4 * U * 4 + 2L * TM * 4; }
+};
 template <> struct Lay<float> {
   __host__ __device__ static long w(int U, int H) { return (long)H * (4 * U + 1) * 4; }
   __host__ __device__ static long h(int TM, int H) { return (long)TM * (H + 4) * 4; }
@@ -116,7 +125,9 @@ struct Args {
 
 template <typename T, int U, int TM>
 __global__ void __launch_bounds__(THREADS, 1) lstm_bwd_wide_kernel(const Args a) {
-  constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
+  constexpr bool BF = sizeof(T) == 2;             // bfloat16 or float16: the tensor cores
+  constexpr bool F16 = std::is_same<T, __half>::value;   // the carry's split takes a row scale
+  using T16 = std::conditional_t<BF, T, __nv_bfloat16>;  // the dgates planes
   constexpr int NC = 4 * U;                        // the block's gate columns
   constexpr int E = 16 / sizeof(T);
   using L = Lay<T>;
@@ -144,8 +155,13 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_bwd_wide_kernel(const Args a)
   base += round_up((int)L::h(TM, H), 16);
   float* g_s = reinterpret_cast<float*>(base);
   base += round_up((int)L::g(TM, U), 16);
-  __nv_bfloat16* dg_hi = reinterpret_cast<__nv_bfloat16*>(base);
-  __nv_bfloat16* dg_lo = dg_hi + TM * (NC + 8);
+  T16* dg_hi = reinterpret_cast<T16*>(base);
+  T16* dg_lo = dg_hi + TM * (NC + 8);
+  // float16: the float32 bits of the largest |dgates| of each row of a tile, by
+  // tile parity (it counts the tiles of the launch), after the gate sums
+  int* rmax = reinterpret_cast<int*>(g_s + TM * NC);
+  if (F16 && tid < 2 * TM) rmax[tid] = 0;
+  int it = 0;
 
   // the slice: bfloat16 [column = 4 unit + gate][k] (zeros past H in k), float32
   // [k][column]; the h tile's pad of k zeroed (cp.async writes [0, H) only)
@@ -165,7 +181,7 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_bwd_wide_kernel(const Args a)
   for (int t = Tn - 1; t >= 0; --t) {
     const float* carry = a.share + (size_t)((t + 1) & 1) * nbg * R * H;   // written at step t + 1
     float* share = a.share + (size_t)(t & 1) * nbg * R * H;
-    for (int tile = 0; tile < ntile; ++tile) {
+    for (int tile = 0; tile < ntile; ++tile, ++it) {
       const int r0 = (int)((long long)grows * tile / ntile);
       const int np = (int)((long long)grows * (tile + 1) / ntile) - r0;
       const int row0 = grow0 + r0;                 // the tile's first row
@@ -202,8 +218,8 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_bwd_wide_kernel(const Args a)
                 unsigned tq[4];
                 ldsm_x4(tq, w_s + (size_t)((wn * NT + np2 * 2) * 8 + (mat >> 1) * 8 + r8) * WP +
                                 k + (mat & 1) * 8);
-                mma_bf16(acc[2 * np2], af, tq[0], tq[1]);
-                mma_bf16(acc[2 * np2 + 1], af, tq[2], tq[3]);
+                mma16<T>(acc[2 * np2], af, tq[0], tq[1]);
+                mma16<T>(acc[2 * np2 + 1], af, tq[2], tq[3]);
               }
             }
             const int rr = wm * 16 + (lane >> 2);
@@ -265,6 +281,7 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_bwd_wide_kernel(const Args a)
       while (P < 8 && cells * P * 2 <= THREADS) P *= 2;
       const int part = tid % P;
       const size_t RH = (size_t)R * H;
+      if (F16 && tid < TM) rmax[((it + 1) & 1) * TM + tid] = 0;   // read last at the tile before
       for (int p0 = 0; p0 < cells; p0 += THREADS / P) {
         const int p = p0 + tid / P;
         const bool on = p < cells;
@@ -286,41 +303,66 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_bwd_wide_kernel(const Args a)
         }
         for (int msk = P / 2; msk > 0; msk >>= 1)
           carry_dh += __shfl_xor_sync(0xffffffffu, carry_dh, msk);
-        if (!on || part) continue;
-        const size_t o = ((size_t)t * R + row) * H + unit;
-        const T* x = xp + ((size_t)t * R + row) * G + unit;
-        float z[4];
+        float dmax = 0.0f;                         // float16: the pair's largest |dgates|
+        if (on && !part) {
+          const size_t o = ((size_t)t * R + row) * H + unit;
+          const T* x = xp + ((size_t)t * R + row) * G + unit;
+          float z[4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) z[q] = to_f<T>(x[q * H]) + (t > 0 ? g_s[r * GP + 4 * ul + q] : 0.0f);
-        const float c = to_f<T>(cs[o]);
-        const float c_prev = t > 0 ? to_f<T>(cs[o - RH]) : 0.0f;
-        const float dh = to_f<T>(dhs[o]) + carry_dh;
-        float* dcp = a.dc + (size_t)row * H + unit;
-        const float dcc = t + 1 < Tn ? __ldcg(dcp) : 0.0f;
-        const float gi_ = sigmoid(z[0]), gf = sigmoid(z[1]), gg = tanhf(z[2]), go = sigmoid(z[3]);
-        const float tc = tanhf(c);
-        const float dc = dcc + dh * go * (1.0f - tc * tc);
-        float d[4];
-        d[0] = dc * gg * gi_ * (1.0f - gi_);
-        d[1] = dc * c_prev * gf * (1.0f - gf);
-        d[2] = dc * gi_ * (1.0f - gg * gg);
-        d[3] = dh * tc * go * (1.0f - go);
-        __stcg(dcp, dc * gf);
-        T* dxr = dx + ((size_t)t * R + row) * G + unit;
+          for (int q = 0; q < 4; ++q) z[q] = to_f<T>(x[q * H]) + (t > 0 ? g_s[r * GP + 4 * ul + q] : 0.0f);
+          const float c = to_f<T>(cs[o]);
+          const float c_prev = t > 0 ? to_f<T>(cs[o - RH]) : 0.0f;
+          const float dh = to_f<T>(dhs[o]) + carry_dh;
+          float* dcp = a.dc + (size_t)row * H + unit;
+          const float dcc = t + 1 < Tn ? __ldcg(dcp) : 0.0f;
+          const float gi_ = sigmoid(z[0]), gf = sigmoid(z[1]), gg = tanhf(z[2]), go = sigmoid(z[3]);
+          const float tc = tanhf(c);
+          const float dc = dcc + dh * go * (1.0f - tc * tc);
+          float d[4];
+          d[0] = dc * gg * gi_ * (1.0f - gi_);
+          d[1] = dc * c_prev * gf * (1.0f - gf);
+          d[2] = dc * gi_ * (1.0f - gg * gg);
+          d[3] = dh * tc * go * (1.0f - go);
+          __stcg(dcp, dc * gf);
+          T* dxr = dx + ((size_t)t * R + row) * G + unit;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          dxr[q * H] = from_f<T>(d[q]);
-          if constexpr (BF) {
-            const __nv_bfloat16 hi = __float2bfloat16(d[q]);
-            dg_hi[r * (NC + 8) + 4 * ul + q] = hi;
-            dg_lo[r * (NC + 8) + 4 * ul + q] = __float2bfloat16(d[q] - __bfloat162float(hi));
-          } else {
-            g_s[r * GP + 4 * ul + q] = d[q];       // dgates over the gates, in place
+          for (int q = 0; q < 4; ++q) {
+            dxr[q * H] = from_f<T>(d[q]);
+            if constexpr (BF && !F16) {
+              const __nv_bfloat16 hi = __float2bfloat16(d[q]);
+              dg_hi[r * (NC + 8) + 4 * ul + q] = hi;
+              dg_lo[r * (NC + 8) + 4 * ul + q] = __float2bfloat16(d[q] - __bfloat162float(hi));
+            } else {
+              g_s[r * GP + 4 * ul + q] = d[q];     // dgates over the gates, in place
+              dmax = fmaxf(dmax, fabsf(d[q]));
+            }
           }
+        }
+        if constexpr (F16) {                       // the lanes of one row meet, then an atomic
+          const unsigned grp = __match_any_sync(0xffffffffu, on ? r : -1);
+          const int mx = (int)__reduce_max_sync(grp, (unsigned)__float_as_int(dmax));
+          if (on && lane == __ffs(grp) - 1 && mx > 0) atomicMax(&rmax[(it & 1) * TM + r], mx);
         }
       }
       if (t == 0) continue;                        // dh_{-1} is not needed
       __syncthreads();
+      if constexpr (F16) {
+        // the float32 dgates as hi + lo at the row's power-of-two scale (lstm_cell.cuh
+        // row_scale); the carry's sums are scaled back below
+        for (int p = tid; p < np * U; p += THREADS) {
+          const int r = p / U, ul = p - r * U;
+          const float4 dv = *reinterpret_cast<const float4*>(g_s + r * GP + 4 * ul);
+          const float sc = row_scale(rmax[(it & 1) * TM + r]).x;
+          __half hi[4], lo[4];
+          split_f16(dv.x, sc, hi[0], lo[0]);
+          split_f16(dv.y, sc, hi[1], lo[1]);
+          split_f16(dv.z, sc, hi[2], lo[2]);
+          split_f16(dv.w, sc, hi[3], lo[3]);
+          *reinterpret_cast<uint2*>(dg_hi + r * (NC + 8) + 4 * ul) = *reinterpret_cast<const uint2*>(hi);
+          *reinterpret_cast<uint2*>(dg_lo + r * (NC + 8) + 4 * ul) = *reinterpret_cast<const uint2*>(lo);
+        }
+        __syncthreads();
+      }
       // 4. this block's share of dh_{t-1} for the tile's rows: dgates[:, its
       // columns] @ W_hh[:, its columns]^T, all H outputs
       if constexpr (BF) {
@@ -351,8 +393,8 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_bwd_wide_kernel(const Args a)
               ldsm_x4(al, dg_lo + off);
 #pragma unroll
               for (int j = 0; j < 2; ++j) {
-                mma_bf16(acc[mt][j], ah, b[2 * j], b[2 * j + 1]);
-                mma_bf16(acc[mt][j], al, b[2 * j], b[2 * j + 1]);
+                mma16<T>(acc[mt][j], ah, b[2 * j], b[2 * j + 1]);
+                mma16<T>(acc[mt][j], al, b[2 * j], b[2 * j + 1]);
               }
             }
           }
@@ -365,9 +407,10 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_bwd_wide_kernel(const Args a)
 #pragma unroll
               for (int hh = 0; hh < 2; ++hh) {
                 const int r = mt * 16 + (lane >> 2) + 8 * hh;
+                const float inv = F16 && r < np ? row_scale(rmax[(it & 1) * TM + r]).y : 1.0f;
                 if (r < np)
                   *reinterpret_cast<float2*>(share + ((size_t)si * R + row0 + r) * H + kout) =
-                      make_float2(acc[mt][j][2 * hh], acc[mt][j][2 * hh + 1]);
+                      make_float2(acc[mt][j][2 * hh] * inv, acc[mt][j][2 * hh + 1] * inv);
               }
             }
         }
@@ -439,6 +482,9 @@ int with_instance(int dtype, int U, int TM, F&& f) {
   if (dtype == 1) {
     BWD_INST(bf, 32, 64) BWD_INST(bf, 32, 32) BWD_INST(bf, 16, 64) BWD_INST(bf, 16, 32)
     BWD_INST(bf, 8, 64)
+  } else if (dtype == 2) {                         // float16: the bfloat16 instances
+    BWD_INST(__half, 32, 64) BWD_INST(__half, 32, 32) BWD_INST(__half, 16, 64)
+    BWD_INST(__half, 16, 32) BWD_INST(__half, 8, 64)
   } else if (dtype == 0) {
     BWD_INST(float, 16, 64) BWD_INST(float, 16, 32) BWD_INST(float, 8, 64) BWD_INST(float, 8, 32)
   }
@@ -448,7 +494,7 @@ int with_instance(int dtype, int U, int TM, F&& f) {
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. x_proj (T, R, 4H), hs/cs/dhs (T, R, H), w_hh
+// dtype: 0 float32, 1 bfloat16, 2 float16. x_proj (T, R, 4H), hs/cs/dhs (T, R, H), w_hh
 // (H, 4H) -> dx_proj (T, R, 4H); share float32 (2, H / units, R, H) and dc float32
 // (R, H) scratch;
 // all contiguous and 16-byte aligned on the current device, H % 8 == 0,

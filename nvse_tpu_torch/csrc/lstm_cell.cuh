@@ -7,6 +7,8 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 
+#include <type_traits>
+
 namespace lstm {
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
@@ -103,6 +105,34 @@ __device__ __forceinline__ void mma_f16(float (&d)[4], const unsigned (&a)[4], u
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// mma_bf16 or mma_f16 by the 16-bit operand type T
+template <typename T>
+__device__ __forceinline__ void mma16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                      unsigned b1) {
+  if constexpr (std::is_same<T, __half>::value) mma_f16(d, a, b0, b1);
+  else mma_bf16(d, a, b0, b1);
+}
+
+// A float32 value v split for the float16 tensor cores at a power-of-two scale:
+// v sc = hi + lo + (what is lost), hi = f16(v sc), lo = f16(v sc - hi). bfloat16
+// keeps float32's exponent range, so its split (hi = bf16(v), lo = bf16(v - hi))
+// needs no scale; float16's normal range is 2^-14 ... 65,504, where a gradient of
+// 1e-7 is subnormal and hi + lo loses its bits. row_scale() picks sc for a row of
+// values whose largest magnitude has the float32 bits m (0: all zero): sc = 2^k,
+// k = 13 - exponent(m) (the largest v sc in [2^13, 2^14)), clamped to [-126, 126]
+// so that sc and 1 / sc are normal float32; every |v sc| is below 2^14, and what is
+// lost is at most 2^-25 absolute (half float16's least subnormal) after the scale,
+// 2^-38 of the row's largest value. Returns (sc, 1 / sc).
+__device__ __forceinline__ float2 row_scale(int m) {
+  if (m == 0) return make_float2(1.0f, 1.0f);
+  const int k = max(-126, min(126, 13 - (((m >> 23) & 0xff) - 127)));
+  return make_float2(__int_as_float((k + 127) << 23), __int_as_float((127 - k) << 23));
+}
+__device__ __forceinline__ void split_f16(float v, float sc, __half& hi, __half& lo) {
+  hi = __float2half_rn(v * sc);
+  lo = __float2half_rn(v * sc - __half2float(hi));
 }
 
 // The float32 k-slices' partial sums v (N = 4 x rows values, row-major (row,

@@ -6,6 +6,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 namespace lstm {
 
@@ -79,5 +80,6 @@ __device__ __forceinline__ void st_async4(unsigned addr, float4 v, unsigned bar)
 }
 __device__ __forceinline__ unsigned bits(float v) { return __float_as_uint(v); }
 __device__ __forceinline__ unsigned bits(__nv_bfloat16 v) { return __bfloat16_as_ushort(v); }
+__device__ __forceinline__ unsigned bits(__half v) { return __half_as_ushort(v); }
 
 }  // namespace lstm

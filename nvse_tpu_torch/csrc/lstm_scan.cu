@@ -28,7 +28,8 @@
 //   lstm_scan_bidir2:   the same with each direction's x_proj (T, R, 4H), W_hh and
 //                       hs (T, R, H) in its own tensors
 //   lstm_fwd_hc:        zero state -> hs, cs (T, R, H)
-// Types: x_proj, W_hh, h0, c0, hs and cs are all float32 or all bfloat16; the
+// Types: x_proj, W_hh, h0, c0, hs and cs are all float32 or all bfloat16 (and in
+// lstm_fwd_hc also all float16, on the bfloat16 layout with float16 products); the
 // state and every sum are float32. The inference modes round h to the weight
 // type before the recurrent product (the `_hdot` rule, pallas_lstm.py:36-43), so
 // in bfloat16 the product sees exactly the h that was stored; kFwdHc multiplies
@@ -36,7 +37,8 @@
 // same kernel, in bfloat16 h reaches the product as two planes, hi = bf16(h)
 // (what is stored) and lo = bf16(h - hi), both exchanged and multiplied by the
 // same W_hh fragment (two mma), which makes h to about 2^-17 of it (the split
-// of csrc/lstm_scan_wide.cu). c is stored rounded but carried in float32. The
+// of csrc/lstm_scan_wide.cu); float16 the same with f16 planes (h in (-1, 1):
+// about 2^-22 of it, and at most 2^-25 absolute below float16's normal range). c is stored rounded but carried in float32. The
 // cell is exact: expf and tanhf, as the plain version.
 // H % 8 == 0; every pointer 16-byte aligned.
 //
@@ -111,9 +113,10 @@ constexpr int HP = 128;                 // k of the recurrent product: H padded 
 
 enum Mode : int { kScan = 0, kStateful = 1, kFwdHc = 2 };
 
-// h reaches the product as two bfloat16 planes, hi + lo
+// h reaches the product as two 16-bit planes, hi + lo (h is in (-1, 1): float16
+// needs no scale, what is lost is at most half its least subnormal, 2^-25)
 template <typename T, int MODE>
-constexpr bool kSplit = std::is_same<T, __nv_bfloat16>::value && MODE == kFwdHc;
+constexpr bool kSplit = sizeof(T) == 2 && MODE == kFwdHc;
 
 // the tile constants; ops/lstm.py `_SCAN` mirrors them. A tile of instance
 // INST has ROWS * INST rows: bfloat16, INST m16 tiles a warp; float32, INST
@@ -127,6 +130,7 @@ template <> struct Scan<__nv_bfloat16> {
   static constexpr int GWP = 24;        // pitch of a gate-scratch row (16 columns + 8)
   static constexpr int GW = 16 * 16 * GWP * 4;   // bytes of the warps' [16][GWP] gate scratch
 };
+template <> struct Scan<__half> : Scan<__nv_bfloat16> {};   // kFwdHc in float16
 template <> struct Scan<float> {
   static constexpr int THREADS = 256;   // 32 units x 8 k-slices
   static constexpr int U = 32;
@@ -173,7 +177,7 @@ struct Args {
 template <typename T, int INST, int MODE>
 __global__ void __launch_bounds__(Scan<T>::THREADS, 1) lstm_scan_kernel(const Args a) {
   using SC = Scan<T>;
-  constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
+  constexpr bool BF = sizeof(T) == 2;             // bfloat16 or float16: the tensor cores
   constexpr bool STATEFUL = MODE == kStateful, SPLIT = kSplit<T, MODE>;
   constexpr bool WRITE_C = MODE != kScan;
   constexpr int THREADS = SC::THREADS, GWP = SC::GWP;
@@ -316,9 +320,9 @@ __global__ void __launch_bounds__(Scan<T>::THREADS, 1) lstm_scan_kernel(const Ar
           for (int j = 0; j < 4; ++j)
 #pragma unroll
             for (int nt = 0; nt < NT; ++nt) {
-              mma_bf16(acc[mt][nt], af[j], wr[k0 + j][nt][0], wr[k0 + j][nt][1]);
+              mma16<T>(acc[mt][nt], af[j], wr[k0 + j][nt][0], wr[k0 + j][nt][1]);
               if constexpr (SPLIT)
-                mma_bf16(acc[mt][nt], al[SPLIT ? j : 0], wr[k0 + j][nt][0], wr[k0 + j][nt][1]);
+                mma16<T>(acc[mt][nt], al[SPLIT ? j : 0], wr[k0 + j][nt][0], wr[k0 + j][nt][1]);
             }
         }
       }
@@ -555,12 +559,23 @@ int launch(const Args& a, int smem, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the instances: INST 1, 2 or 4 m16 tiles of a warp in bfloat16; 1, 2, 4, 8 or
-// 16 rows of a thread in float32 in each mode, and 32 or 48 (passes of 16) in kFwdHc
+// the instances: INST 1, 2 or 4 m16 tiles of a warp in bfloat16 (and in float16,
+// kFwdHc only: the training forward); 1, 2, 4, 8 or 16 rows of a thread in float32
+// in each mode, and 32 or 48 (passes of 16) in kFwdHc
 template <int MODE, typename F>
 int with_instance(int dtype, int inst, F&& f) {
   using bf = __nv_bfloat16;
   using std::integral_constant;
+  if constexpr (MODE == kFwdHc) {
+    if (dtype == 2) {
+      switch (inst) {
+        case 1: return f((__half*)nullptr, integral_constant<int, 1>{});
+        case 2: return f((__half*)nullptr, integral_constant<int, 2>{});
+        case 4: return f((__half*)nullptr, integral_constant<int, 4>{});
+        default: return cudaErrorInvalidValue;
+      }
+    }
+  }
   if (dtype == 1) {
     switch (inst) {
       case 1: return f((bf*)nullptr, integral_constant<int, 1>{});
@@ -618,7 +633,7 @@ Args make_args(const void* xp, const void* w, const void* h0, const void* c0, vo
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. x_proj (T, R, 4H), w_hh (H, 4H), h0/c0 (R, H),
+// dtype: 0 float32, 1 bfloat16, 2 float16 (lstm_fwd_hc_launch only). x_proj (T, R, 4H), w_hh (H, 4H), h0/c0 (R, H),
 // hs/cs (T, R, H), all contiguous and 16-byte aligned on the current device;
 // H <= 128, H % 8 == 0. The plan (instance, row tiles, clusters, x stages, smem
 // bytes) is ops/lstm.py `scan_narrow_plan`'s. Each entry returns the

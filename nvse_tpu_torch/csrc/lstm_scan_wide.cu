@@ -58,7 +58,8 @@
 //   h); in bfloat16 hs[t - 1] is hi = bf16(h) and a second plane lo = bf16(h -
 //   hi), written beside it into a scratch by step parity, makes h = hi + lo to
 //   about 2^-17 of h: two mma on the same W_hh fragment, the split of the
-//   backward's carry (csrc/lstm_bwd_wide.cu);
+//   backward's carry (csrc/lstm_bwd_wide.cu); float16 (this mode only) the same
+//   with f16 planes and products: h is in (-1, 1), so no scale is needed;
 // - the tile's columns of x_proj for the next tile (or the next step's first)
 //   prefetched by cp.async while this one runs: they are off the dependent
 //   chain;
@@ -95,9 +96,10 @@ enum Mode : int { kScan = 1, kStateful = 2, kScanBidir = 3, kFwdHc = 4 };
 
 __host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
-// h reaches the product as two bfloat16 planes, hi + lo
+// h reaches the product as two 16-bit planes, hi + lo (h is in (-1, 1): float16
+// needs no scale)
 template <typename T, int MODE>
-constexpr bool kSplit = std::is_same<T, __nv_bfloat16>::value && MODE == kFwdHc;
+constexpr bool kSplit = sizeof(T) == 2 && MODE == kFwdHc;
 
 // The layout of one instance (T, MODE, U units, TM rows a tile); ops/lstm.py
 // `_scan_wide_smem` mirrors it. bfloat16: w [4U][KP] (k padded to 16, rows 16
@@ -111,6 +113,7 @@ template <> struct Lay<__nv_bfloat16> {
   __host__ __device__ static long h(int TM, int H, int planes) { return (long)planes * TM * kp(H) * 2; }
   __host__ __device__ static int gp(int U) { return 4 * U + 8; }
 };
+template <> struct Lay<__half> : Lay<__nv_bfloat16> {};   // kFwdHc in float16
 template <> struct Lay<float> {
   __host__ __device__ static int kp(int H) { return H + 4; }
   __host__ __device__ static long w(int U, int H) { return (long)H * (4 * U + 1) * 4; }
@@ -136,7 +139,7 @@ struct Args {
   void* hs;               // (Tn, Rt, H)
   void* hs2;              // kScanBidir with two pointers: direction 1's hs (Tn, R, H)
   void* cs;               // kFwdHc, kStateful: (Tn, Rt, H)
-  __nv_bfloat16* lo;      // kFwdHc in bfloat16: (2, Rt, H) scratch, h - bf16(h) by step parity
+  void* lo;               // kFwdHc in 16 bits: (2, Rt, H) scratch, h - hi by step parity
   float* c_state;         // float32 (Rt, H) scratch: the c of each (row, unit)
   int R;                  // rows of one direction
   int Rt;                 // rows of x_proj and hs: R, or 2R for kScanBidir
@@ -196,7 +199,7 @@ __device__ __forceinline__ void fma_rows_upto(int nr, const float* h, int kp, co
 
 template <typename T, int MODE, int U, int TM>
 __global__ void __launch_bounds__(THREADS, 1) lstm_scan_wide_kernel(const Args a) {
-  constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
+  constexpr bool BF = sizeof(T) == 2;             // bfloat16 or float16: the tensor cores
   constexpr bool SPLIT = kSplit<T, MODE>;
   constexpr bool STATEFUL = MODE == kStateful;
   constexpr bool WRITE_C = MODE == kStateful || MODE == kFwdHc;
@@ -274,7 +277,8 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_scan_wide_kernel(const Args a
       if (product) {
         const T* src = t == 0 ? static_cast<const T*>(a.h0) + (size_t)row0 * H
                               : hs + ((size_t)(t - 1) * Rt + row0) * H;
-        const __nv_bfloat16* lsrc = SPLIT ? a.lo + ((size_t)((t - 1) & 1) * Rt + row0) * H : nullptr;
+        const T* lsrc =
+            SPLIT ? static_cast<const T*>(a.lo) + ((size_t)((t - 1) & 1) * Rt + row0) * H : nullptr;
         for (int i = tid; i < np * (H / E); i += THREADS) {
           const int r = i / (H / E), k = (i - r * (H / E)) * E;
           cp_async16(h_s + r * KP + k, src + (size_t)r * H + k, 16);
@@ -312,11 +316,11 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_scan_wide_kernel(const Args a
                 unsigned tq[4];
                 ldsm_x4(tq, w_s + (size_t)((wn * PPW + pp) * 16 + (mat >> 1) * 8 + r8) * WP +
                                 k + (mat & 1) * 8);
-                mma_bf16(acc[2 * pp], af, tq[0], tq[1]);
-                mma_bf16(acc[2 * pp + 1], af, tq[2], tq[3]);
+                mma16<T>(acc[2 * pp], af, tq[0], tq[1]);
+                mma16<T>(acc[2 * pp + 1], af, tq[2], tq[3]);
                 if constexpr (SPLIT) {
-                  mma_bf16(acc[2 * pp], al, tq[0], tq[1]);
-                  mma_bf16(acc[2 * pp + 1], al, tq[2], tq[3]);
+                  mma16<T>(acc[2 * pp], al, tq[0], tq[1]);
+                  mma16<T>(acc[2 * pp + 1], al, tq[2], tq[3]);
                 }
               }
             }
@@ -412,8 +416,8 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_scan_wide_kernel(const Args a
         hs[o] = hv;
         if (WRITE_C) cs[o] = from_f<T>(cn);
         if constexpr (SPLIT)
-          a.lo[(size_t)(t & 1) * Rt * H + (size_t)row * H + unit] =
-              __float2bfloat16(h - __bfloat162float(hv));
+          static_cast<T*>(a.lo)[(size_t)(t & 1) * Rt * H + (size_t)row * H + unit] =
+              from_f<T>(h - to_f<T>(hv));
         if (t + 1 < Tn) __stcg(cp, cn);
       }
       slot ^= 1;
@@ -430,13 +434,20 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_scan_wide_kernel(const Args a
 // (16, 8), with its own product over k-slices, only lstm_scan_bidir2 takes, at
 // H >= 512: at H = 768 its 48-block groups put both directions' blocks on the card
 // in one launch, with 8 rows a group)
-template <typename F>
+template <int MODE, typename F>
 int with_instance(int dtype, int U, int TM, F&& f) {
   using bf = __nv_bfloat16;
   using std::integral_constant;
 #define SCAN_INST(TY, UU, MM)                                                      \
   if (U == UU && TM == MM)                                                         \
     return f((TY*)nullptr, integral_constant<int, UU>{}, integral_constant<int, MM>{});
+  if constexpr (MODE == kFwdHc) {                  // float16: the training forward only
+    if (dtype == 2) {
+      SCAN_INST(__half, 32, 64) SCAN_INST(__half, 32, 32) SCAN_INST(__half, 16, 64)
+      SCAN_INST(__half, 16, 32) SCAN_INST(__half, 8, 64) SCAN_INST(__half, 8, 32)
+      return cudaErrorInvalidValue;
+    }
+  }
   if (dtype == 1) {
     SCAN_INST(bf, 32, 64) SCAN_INST(bf, 32, 32) SCAN_INST(bf, 16, 64) SCAN_INST(bf, 16, 32)
     SCAN_INST(bf, 8, 64) SCAN_INST(bf, 8, 32)
@@ -453,7 +464,7 @@ int launch(int dtype, Args a, int units, int tile_rows, int ndir, int smem, void
   if (a.R <= 0 || a.Tn <= 0 || a.H <= 0 || a.H % 8 || a.H > 768 || units <= 0 || a.H % units ||
       a.groups < 1 || a.groups > a.R)
     return cudaErrorInvalidValue;
-  return with_instance(dtype, units, tile_rows, [&](auto* ty, auto uu, auto mm) {
+  return with_instance<MODE>(dtype, units, tile_rows, [&](auto* ty, auto uu, auto mm) {
     using T = std::remove_pointer_t<decltype(ty)>;
     constexpr int U = decltype(uu)::value, TM = decltype(mm)::value;
     if (smem != smem_bytes<T, MODE>(U, TM, a.H)) return (int)cudaErrorInvalidValue;
@@ -472,7 +483,7 @@ int launch(int dtype, Args a, int units, int tile_rows, int ndir, int smem, void
 
 template <int MODE>
 int blocks_per_sm(int dtype, int units, int tile_rows, int smem, int* blocks) {
-  return with_instance(dtype, units, tile_rows, [&](auto* ty, auto uu, auto mm) {
+  return with_instance<MODE>(dtype, units, tile_rows, [&](auto* ty, auto uu, auto mm) {
     using T = std::remove_pointer_t<decltype(ty)>;
     auto kernel = lstm_scan_wide_kernel<T, MODE, decltype(uu)::value, decltype(mm)::value>;
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -506,16 +517,16 @@ Args make_args(const void* xp, const void* w0, const void* w1, void* hs, void* c
 // cudaError_t of its launch (0 on success; cudaErrorCooperativeLaunchTooLarge
 // when the grid is not co-resident).
 
-// x_proj (T, R, 4H), w_hh (H, 4H) -> hs, cs (T, R, H); lo a bfloat16 (2, R, H)
-// scratch in bfloat16 (unused in float32).
+// x_proj (T, R, 4H), w_hh (H, 4H) -> hs, cs (T, R, H); lo a (2, R, H) scratch in
+// the 16-bit types (unused in float32). dtype 2 (float16) takes this entry only.
 extern "C" int lstm_fwd_hc_wide_launch(int dtype, const void* xp, const void* w_hh, void* hs,
                                        void* cs, void* lo, void* c_state, int R, int Tn, int H,
                                        int units, int tile_rows, int groups, int smem,
                                        void* stream) {
   Args a = make_args(xp, w_hh, w_hh, hs, c_state, R, R, Tn, H, groups);
   a.cs = cs;
-  a.lo = static_cast<__nv_bfloat16*>(lo);
-  if (dtype == 1 && !lo) return cudaErrorInvalidValue;
+  a.lo = lo;
+  if ((dtype == 1 || dtype == 2) && !lo) return cudaErrorInvalidValue;
   return launch<kFwdHc>(dtype, a, units, tile_rows, 1, smem, stream);
 }
 

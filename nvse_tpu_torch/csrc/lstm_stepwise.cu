@@ -1,5 +1,6 @@
 // Step-wise LSTM recurrences for the shapes that no resident-weight kernel of
-// csrc/ takes: H > 768, and float16 at any H. For Hopper (sm_90a).
+// csrc/ takes: H > 768, and the float16 inference scans at any H (float16
+// training takes the resident training kernels up to H = 768). For Hopper (sm_90a).
 //
 // Replaces, past the resident kernels, the TPU kernels of
 // nvse_tpu/ops/pallas_lstm.py (`_pallas_lstm_scan` :212, `_pallas_lstm_scan_stateful`

@@ -69,11 +69,13 @@
 // masked; 16-byte copies where the rows are 16-byte aligned, element copies
 // elsewhere.
 //
-// Design of the statistics (tcn_gln_stats_launch): two kernels in a fixed
-// order and no float atomics, so that two runs give the same bits. The first
-// has P blocks a batch element, each summing a contiguous run of c[b] (16-byte
-// loads) into a float32 sum and sum of squares; the second, one block a batch
-// element, adds the P partials in order and writes a and b2.
+// Design of the statistics (tcn_gln_stats_launch, tcn_gln_stats_kernel): one
+// launch, no float atomics, so that two runs give the same bits. It is bound by
+// the bytes of c. P blocks a batch element (about four an SM over the batch:
+// ops/tcn.py gln_stats_partials) each sum a contiguous run of c[b] into a float32
+// sum and sum of squares, each thread with four 16-byte loads in flight and an
+// accumulator pair a load; the last block of b to finish, found by an integer
+// ticket, adds the P partials in a fixed order with one warp and writes a and b2.
 //
 // Built with nvcc by nvse_tpu_torch/ops/_build.py into a shared library with
 // plain C entries (tcn_tail_launch, tcn_gln_stats_launch), loaded through ctypes;
@@ -734,92 +736,165 @@ __global__ void __launch_bounds__(THREADS, 1) tcn_tail_f32_kernel(const Args A) 
 // ---------------------------------------------------------------------------
 
 constexpr int STATS_THREADS = 256;
+constexpr int STATS_UNROLL = 4;     // 16-byte loads in flight a thread
 
-// block (p, b): the float32 sum and sum of squares of c[b][lo, hi), the p-th of
-// P runs, into part[b][p][0, 1]
+// s, ss += the sum and the sum of squares of the 16 / sizeof(T) values of raw, as
+// two chains each (even and odd elements) so that the adds overlap
 template <typename T>
-__global__ void __launch_bounds__(STATS_THREADS) tcn_gln_partial_kernel(const T* __restrict__ c,
-                                                                    float* __restrict__ part,
-                                                                    long long L, int P, int vec) {
+__device__ __forceinline__ void stats_add16(const uint4 raw, float& s, float& ss) {
   constexpr int E = 16 / sizeof(T);
-  const int p = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const T* cb = c + (size_t)b * L;
-  const long long lo = L * p / P, hi = L * (p + 1) / P;
-  float s = 0.0f, ss = 0.0f;
-  long long rest = lo;                             // the elements left for scalar loads
-  if (vec) {                                       // 16-byte loads over the aligned middle
-    const long long vlo = min(hi, (lo + E - 1) / E * E), vhi = max(vlo, hi / E * E);
-    for (long long i = lo + tid; i < vlo; i += STATS_THREADS) {
-      const float v = to_f<T>(cb[i]);
-      s += v;
-      ss = fmaf(v, v, ss);
-    }
-    for (long long u = vlo / E + tid; u < vhi / E; u += STATS_THREADS) {
-      const uint4 raw = __ldcs(reinterpret_cast<const uint4*>(cb) + u);
-      const T* v = reinterpret_cast<const T*>(&raw);
+  const T* v = reinterpret_cast<const T*>(&raw);
+  float s0 = 0.0f, s1 = 0.0f, q0 = 0.0f, q1 = 0.0f;
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const float f = to_f<T>(v[e]);
-        s += f;
-        ss = fmaf(f, f, ss);
-      }
-    }
-    rest = vhi;
+  for (int e = 0; e < E; e += 2) {
+    const float f0 = to_f<T>(v[e]), f1 = to_f<T>(v[e + 1]);
+    s0 += f0;
+    s1 += f1;
+    q0 = fmaf(f0, f0, q0);
+    q1 = fmaf(f1, f1, q1);
   }
-  for (long long i = rest + tid; i < hi; i += STATS_THREADS) {
-    const float v = to_f<T>(cb[i]);
-    s += v;
-    ss = fmaf(v, v, ss);
-  }
-#pragma unroll
-  for (int m = 16; m >= 1; m >>= 1) {
-    s += __shfl_xor_sync(0xffffffffu, s, m);
-    ss += __shfl_xor_sync(0xffffffffu, ss, m);
-  }
-  __shared__ float red[2][STATS_THREADS / 32];
-  if ((tid & 31) == 0) {
-    red[0][tid >> 5] = s;
-    red[1][tid >> 5] = ss;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float ts = 0.0f, tss = 0.0f;
-    for (int w = 0; w < STATS_THREADS / 32; ++w) {
-      ts += red[0][w];
-      tss += red[1][w];
-    }
-    part[((size_t)b * P + p) * 2] = ts;
-    part[((size_t)b * P + p) * 2 + 1] = tss;
-  }
+  s += s0 + s1;
+  ss += q0 + q1;
 }
 
-// block b: the P partials in order, then a[b] and b2[b] (gln_w, gln_b of type W)
-template <typename W>
-__global__ void __launch_bounds__(STATS_THREADS) tcn_gln_fold_kernel(const float* __restrict__ part,
-                                                                 const W* __restrict__ gw,
-                                                                 const W* __restrict__ gb,
-                                                                 float* __restrict__ a,
-                                                                 float* __restrict__ b2, int P,
-                                                                 long long L, int H, float eps) {
-  const int b = blockIdx.x;
-  __shared__ float m1_s, rstd_s;
-  if (threadIdx.x == 0) {
-    float s = 0.0f, ss = 0.0f;
-    for (int p = 0; p < P; ++p) {
-      s += part[((size_t)b * P + p) * 2];
-      ss += part[((size_t)b * P + p) * 2 + 1];
+// v summed over the block's threads in a fixed order (lanes by butterfly, then the
+// warps in order by warp 0); the total lands in lane 0 of warp 0
+__device__ __forceinline__ float2 stats_block_sum(float2 v, float2* red) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1) {
+    v.x += __shfl_xor_sync(0xffffffffu, v.x, m);
+    v.y += __shfl_xor_sync(0xffffffffu, v.y, m);
+  }
+  if ((tid & 31) == 0) red[tid >> 5] = v;
+  __syncthreads();
+  v = make_float2(0.0f, 0.0f);
+  if (tid < 32) {
+    v = tid < STATS_THREADS / 32 ? red[tid] : v;
+#pragma unroll
+    for (int m = 16; m >= 1; m >>= 1) {
+      v.x += __shfl_xor_sync(0xffffffffu, v.x, m);
+      v.y += __shfl_xor_sync(0xffffffffu, v.y, m);
     }
-    const float m1 = s / (float)L, m2 = ss / (float)L;
-    m1_s = m1;
-    rstd_s = rsqrtf(fmaxf(m2 - m1 * m1, 0.0f) + eps);
+  }
+  return v;
+}
+
+// One launch. Block (p, b) sums the p-th of P runs of c[b] (T H values) into a
+// float32 sum and sum of squares, part[b][p][0, 1]; the last block of batch
+// element b to finish (an integer ticket, ticket[b], which it puts back to 0)
+// adds the P partials in a fixed order (a warp, lane l taking p = l, l + 32, ...,
+// then a butterfly) and writes a[b] and b2[b] from gln_w, gln_b of type W. Which
+// block is last changes from run to run; the order of the sums does not.
+template <typename T, typename W>
+__global__ void __launch_bounds__(STATS_THREADS) tcn_gln_stats_kernel(
+    const T* __restrict__ c, const W* __restrict__ gw, const W* __restrict__ gb,
+    float* __restrict__ part, unsigned int* __restrict__ ticket, float* __restrict__ a,
+    float* __restrict__ b2, long long L, int H, int P, float eps, int vec) {
+  constexpr int E = 16 / sizeof(T);
+  constexpr int U = STATS_UNROLL;
+  const int p = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const T* cb = c + (size_t)b * L;
+  float s[U], ss[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) s[u] = ss[u] = 0.0f;
+  if (vec) {                                   // runs of whole 16-byte vectors
+    const uint4* cv = reinterpret_cast<const uint4*>(cb);
+    const long long nv = L / E, lo = nv * p / P, hi = nv * (p + 1) / P;
+    long long i = lo + tid;
+    for (; i + (U - 1) * STATS_THREADS < hi; i += U * STATS_THREADS) {
+      uint4 r[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) r[u] = __ldg(cv + i + u * STATS_THREADS);
+#pragma unroll
+      for (int u = 0; u < U; ++u) stats_add16<T>(r[u], s[u], ss[u]);
+    }
+    for (; i < hi; i += STATS_THREADS) stats_add16<T>(__ldg(cv + i), s[0], ss[0]);
+  } else {                                     // element by element
+    const long long lo = L * p / P, hi = L * (p + 1) / P;
+    long long i = lo + tid;
+    for (; i + (U - 1) * STATS_THREADS < hi; i += U * STATS_THREADS) {
+      float f[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) f[u] = to_f<T>(cb[i + u * STATS_THREADS]);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        s[u] += f[u];
+        ss[u] = fmaf(f[u], f[u], ss[u]);
+      }
+    }
+    for (; i < hi; i += STATS_THREADS) {
+      const float f = to_f<T>(cb[i]);
+      s[0] += f;
+      ss[0] = fmaf(f, f, ss[0]);
+    }
+  }
+#pragma unroll
+  for (int u = 1; u < U; ++u) {
+    s[0] += s[u];
+    ss[0] += ss[u];
+  }
+  __shared__ float2 red[STATS_THREADS / 32];
+  __shared__ int last;
+  const float2 tot = stats_block_sum(make_float2(s[0], ss[0]), red);
+  if (tid == 0) {
+    reinterpret_cast<float2*>(part)[(size_t)b * P + p] = tot;
+    __threadfence();                           // the partial before the ticket
+    last = atomicAdd(ticket + b, 1u) == (unsigned)(P - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __shared__ float m1_s, rstd_s;
+  if (tid < 32) {
+    __threadfence();
+    const float2* pb = reinterpret_cast<const float2*>(part) + (size_t)b * P;
+    float2 v = make_float2(0.0f, 0.0f);
+    for (int q = tid; q < P; q += 32) {        // from L2: other blocks wrote them
+      const float2 w = __ldcg(pb + q);
+      v.x += w.x;
+      v.y += w.y;
+    }
+#pragma unroll
+    for (int m = 16; m >= 1; m >>= 1) {
+      v.x += __shfl_xor_sync(0xffffffffu, v.x, m);
+      v.y += __shfl_xor_sync(0xffffffffu, v.y, m);
+    }
+    if (tid == 0) {
+      const float m1 = v.x / (float)L, m2 = v.y / (float)L;
+      m1_s = m1;
+      rstd_s = rsqrtf(fmaxf(m2 - m1 * m1, 0.0f) + eps);
+      ticket[b] = 0u;                          // every block of b has taken its ticket
+    }
   }
   __syncthreads();
   const float m1 = m1_s, rstd = rstd_s;
-  for (int k = threadIdx.x; k < H; k += STATS_THREADS) {
+  for (int k = tid; k < H; k += STATS_THREADS) {
     const float av = to_f<W>(gw[k]) * rstd;
     a[(size_t)b * H + k] = av;
     b2[(size_t)b * H + k] = to_f<W>(gb[k]) - m1 * av;
   }
+}
+
+template <typename T>
+int launch_gln_stats(int wdtype, const T* c, const void* gw, const void* gb, float* part,
+                     unsigned int* ticket, float* a, float* b2, int B, long long L, int H, int P,
+                     float eps, int vec, cudaStream_t stream) {
+  const dim3 grid(P, B);
+  if (wdtype == 0)
+    tcn_gln_stats_kernel<T, float><<<grid, STATS_THREADS, 0, stream>>>(
+        c, static_cast<const float*>(gw), static_cast<const float*>(gb), part, ticket, a, b2, L,
+        H, P, eps, vec);
+  else if (wdtype == 1)
+    tcn_gln_stats_kernel<T, __nv_bfloat16><<<grid, STATS_THREADS, 0, stream>>>(
+        c, static_cast<const __nv_bfloat16*>(gw), static_cast<const __nv_bfloat16*>(gb), part,
+        ticket, a, b2, L, H, P, eps, vec);
+  else if (wdtype == 2)
+    tcn_gln_stats_kernel<T, __half><<<grid, STATS_THREADS, 0, stream>>>(
+        c, static_cast<const __half*>(gw), static_cast<const __half*>(gb), part, ticket, a, b2,
+        L, H, P, eps, vec);
+  else
+    return cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 template <typename T, typename F>
@@ -887,30 +962,24 @@ extern "C" int tcn_tail_launch(int dtype, const void* c, const void* x, const fl
 }
 
 // The gLN fold of c (B, T, H) in dtype (0 float32, 1 bfloat16, 2 float16) with gln_w /
-// gln_b (H) in wdtype: part, a float32 (B, P, 2) scratch; a and b2 float32 (B, H).
-// vec: c 16-byte aligned with T H a multiple of 16 bytes' elements.
+// gln_b (H) in wdtype, in one launch of (P, B) blocks: part, a float32 (B, P, 2) scratch;
+// ticket, B unsigned ints that are 0 before the launch and are 0 again after it; a and b2
+// float32 (B, H). vec: c 16-byte aligned with T H a multiple of 16 bytes' elements.
 extern "C" int tcn_gln_stats_launch(int dtype, int wdtype, const void* c, const void* gw,
-                                    const void* gb, float* part, float* a, float* b2, int B,
-                                    int Tn, int H, int P, float eps, int vec, cudaStream_t stream) {
-  if (B < 1 || Tn < 1 || H < 1 || P < 1 || B > 65535) return cudaErrorInvalidValue;
+                                    const void* gb, float* part, unsigned int* ticket, float* a,
+                                    float* b2, int B, int Tn, int H, int P, float eps, int vec,
+                                    cudaStream_t stream) {
+  if (B < 1 || Tn < 1 || H < 1 || P < 1 || B > 65535 || P > 0x7fffffff / STATS_THREADS)
+    return cudaErrorInvalidValue;
   const long long L = (long long)Tn * H;
-  const dim3 grid(P, B);
-  if (dtype == 0) tcn_gln_partial_kernel<float><<<grid, STATS_THREADS, 0, stream>>>(
-      static_cast<const float*>(c), part, L, P, vec);
-  else if (dtype == 1) tcn_gln_partial_kernel<__nv_bfloat16><<<grid, STATS_THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(c), part, L, P, vec);
-  else if (dtype == 2) tcn_gln_partial_kernel<__half><<<grid, STATS_THREADS, 0, stream>>>(
-      static_cast<const __half*>(c), part, L, P, vec);
-  else return cudaErrorInvalidValue;
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (wdtype == 0) tcn_gln_fold_kernel<float><<<B, STATS_THREADS, 0, stream>>>(
-      part, static_cast<const float*>(gw), static_cast<const float*>(gb), a, b2, P, L, H, eps);
-  else if (wdtype == 1) tcn_gln_fold_kernel<__nv_bfloat16><<<B, STATS_THREADS, 0, stream>>>(
-      part, static_cast<const __nv_bfloat16*>(gw), static_cast<const __nv_bfloat16*>(gb), a, b2, P,
-      L, H, eps);
-  else if (wdtype == 2) tcn_gln_fold_kernel<__half><<<B, STATS_THREADS, 0, stream>>>(
-      part, static_cast<const __half*>(gw), static_cast<const __half*>(gb), a, b2, P, L, H, eps);
-  else return cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return launch_gln_stats(wdtype, static_cast<const float*>(c), gw, gb, part, ticket, a, b2,
+                            B, L, H, P, eps, vec, stream);
+  if (dtype == 1)
+    return launch_gln_stats(wdtype, static_cast<const __nv_bfloat16*>(c), gw, gb, part, ticket,
+                            a, b2, B, L, H, P, eps, vec, stream);
+  if (dtype == 2)
+    return launch_gln_stats(wdtype, static_cast<const __half*>(c), gw, gb, part, ticket, a, b2,
+                            B, L, H, P, eps, vec, stream);
+  return cudaErrorInvalidValue;
 }

@@ -30,7 +30,9 @@ the joint BSRNN_24k's spectrum input is served by infer/joint.py):
     the generator per card, cuda:0 ... cuda:N-1 (no more than there are),
     in this process; a batch is padded with log(1e-5) rows to a multiple of
     the replicas, split, decoded on every card at once, gathered on the
-    first and cropped (synthesize_mel, synthesize_streaming, warmup). The
+    first and cropped (synthesize_mel, synthesize_streaming, warmup); a
+    generator that draws its initial phase takes each replica's rows of the
+    whole batch's draw, so the decode is one device's. The
     state-carrying stream decodes on the first card alone. On the CPU the
     replicas are N copies on the CPU.
 An Orbax bundle of the JAX package raises here, naming
@@ -51,6 +53,7 @@ from ..data import load_wav, write_wav
 from ..models import build_generator, model_input_bins
 from ..models.bsrnn import band_plan
 from ..models.layers import fold_weight_norm
+from ..ops.griffin_lim import default_phase
 from ..ops.spectral import (StreamingOLA, hann_window, istft_frames, mel_spectrogram,
                             mel_spectrogram_np)
 from ..parallel import local_devices
@@ -115,6 +118,10 @@ class InferenceEngine:
         self.generator.to(self.device)
         self.replicas = [self.generator] + [copy.deepcopy(self.generator).to(d)
                                             for d in self.devices[1:]]
+        # a generator that draws its initial phase when none is passed (ConvTasNet,
+        # HD-Demucs with "rand" or "griffin_lim"): replicas take their rows of the
+        # batch's draw, as one device and the JAX engine's sharded decode do
+        self._draws_phase = getattr(self.generator, "init_phase", None) in ("rand", "griffin_lim")
         self._warmed: set = set()
 
     @torch.inference_mode()
@@ -130,8 +137,11 @@ class InferenceEngine:
         B = mel.shape[0]
         mel = torch.nn.functional.pad(mel, (0, 0, 0, 0, 0, _bucket(B, n) - B), value=_PAD)
         outs = []
-        for rep, dev, rows in zip(self.replicas, self.devices, mel.chunk(n)):
-            out = rep(rows.to(dev, self.dtype, non_blocking=True))
+        for r, (rep, dev, rows) in enumerate(zip(self.replicas, self.devices, mel.chunk(n))):
+            k = rows.shape[0]
+            kw = ({"theta": default_phase((k, rep.n_fft // 2 + 1, rows.shape[-1]), dev, r * k)}
+                  if self._draws_phase else {})
+            out = rep(rows.to(dev, self.dtype, non_blocking=True), **kw)
             outs.append(out[-1] if isinstance(out, tuple) else out)
         return torch.cat([o.to(self.device).float() for o in outs])[:B]
 

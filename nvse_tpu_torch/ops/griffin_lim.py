@@ -36,15 +36,20 @@ def random_phase(shape, generator: torch.Generator | None = None,
 
 
 @device_cache(maxsize=16)
-def default_phase(shape: tuple, device: torch.device) -> torch.Tensor:
+def default_phase(shape: tuple, device: torch.device, row0: int = 0) -> torch.Tensor:
     """The initial phase the mel front ends (ConvTasNet, HD-Demucs) take
     for "rand" and "griffin_lim" when no theta is passed: random_phase's
     seed-0 draw, made once per shape and device, so the card's decode and
-    the CPU's start from the same phase."""
+    the CPU's start from the same phase. row0: rows row0 ... row0 + shape[0]
+    of the draw over row0 + shape[0] rows, a replica's share of a batch
+    split over replicas (the CPU generator fills the draw row after row,
+    so the first rows of a draw do not depend on how many follow)."""
     # made with inference mode off: a tensor first made under
     # torch.inference_mode() (a decode) could not be saved for backward later
     with torch.inference_mode(False):
-        return random_phase(shape, None, device)
+        if row0 == 0:
+            return random_phase(shape, None, device)
+        return random_phase((row0 + shape[0], *shape[1:]), None)[row0:].to(device)
 
 
 def griffin_lim(magnitude: torch.Tensor, n_fft: int, hop_size: int, win_size: int,

@@ -65,13 +65,18 @@ W_hh resident, tensor cores in bfloat16, the plans of `scan_wide_plan` and
 `bwd_wide_plan`); the dW_hh reduction of csrc/lstm_bwd.cu (a GEMM: tensor
 cores in bfloat16, CUDA cores in float32, split over the rows by `dw_plan`)
 takes both.
-Past the resident kernels' H = 768, and in float16 at any H (no resident
-kernel is built for it), every route takes the step-wise kernels of
-csrc/lstm_stepwise.cu: one launch a time step with W_hh read from L2, the
-forward (both scans of lstm_scan_bidir2 / lstm_scan_bidir in each step's launch;
-h rounded to the weights' type for the inference scans, not for lstm_fwd_hc)
-and the reverse-time backward (`_stepwise`, `stepwise_plan`); dW_hh stays
-csrc/lstm_bwd.cu's reduction (tensor cores in bfloat16 and float16).
+The training kernels are also built in float16 (the bfloat16 layouts with
+float16 products; the backward's carry splits its dgates at a power-of-two
+scale a row, as float16's exponent range is not float32's), so float16
+training takes the same routes as bfloat16 up to H = 768.
+Past the resident kernels' H = 768, and in float16 for every other wrapper
+(the inference scans: no resident kernel is built for them in float16), the
+route is the step-wise kernels of csrc/lstm_stepwise.cu: one launch a time step
+with W_hh read from L2, the forward (both scans of lstm_scan_bidir2 /
+lstm_scan_bidir in each step's launch; h rounded to the weights' type for the
+inference scans, not for lstm_fwd_hc) and the reverse-time backward
+(`_stepwise`, `stepwise_plan`); dW_hh stays csrc/lstm_bwd.cu's reduction
+(tensor cores in bfloat16 and float16).
 The kernels take H % 8 == 0 (and the fused ones C % 4 == 0): on a CUDA tensor
 each wrapper zero-pads H to a multiple of 8 and C to one of 4 once at its
 entry (`pad_lstm_args`) and slices its results back (`slice_lstm_results`);
@@ -124,8 +129,11 @@ _ITEM = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}      # bytes an 
 # the kernels take H a multiple of 8 and (the fused ones) C of 4: the wrappers pad to them
 _H_ALIGN, _C_ALIGN = 8, 4
 # csrc/lstm_stepwise.cu: one launch a step, W_hh read from L2; every wrapper's route
-# past _WIDE_MAX_H and in float16 (`_stepwise`)
+# past _WIDE_MAX_H and float16's inference scans (`_stepwise`)
 _STEPWISE = "lstm_stepwise"
+# the wrappers whose resident kernels are built in float16 (the training forward and
+# backward recurrence, to H = 768); float16's other recurrences take the step-wise kernel
+_F16_RESIDENT = ("lstm_fwd_hc", "lstm_bwd")
 # the csrc/<stem>.cu whose kernel each wrapper launches: (H <= _MAX_H, H > _MAX_H)
 # (lstm_scan_bidir2's is the route `bidir2_plan` picks)
 _SOURCES = {"lstm_scan_fused": ("lstm_fused", "lstm_fused_wide"),
@@ -141,17 +149,21 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _stepwise(H: int, dtype: torch.dtype | None) -> bool:
-    """Whether a recurrence at H (padded to a multiple of 8) in dtype takes the
-    step-wise kernel of csrc/lstm_stepwise.cu: past the resident kernels'
-    H = 768, and in float16, which no resident kernel is built for."""
-    return dtype == torch.float16 or _round_up(H, _H_ALIGN) > _WIDE_MAX_H
+def _stepwise(H: int, dtype: torch.dtype | None, name: str | None = None) -> bool:
+    """Whether the recurrence of the wrapper `name` (None: an inference scan) at H
+    (padded to a multiple of 8) in dtype takes the step-wise kernel of
+    csrc/lstm_stepwise.cu: past the resident kernels' H = 768, and in float16
+    outside the training kernels (`_F16_RESIDENT`), the only resident ones built
+    for it."""
+    if _round_up(H, _H_ALIGN) > _WIDE_MAX_H:
+        return True
+    return dtype == torch.float16 and name not in _F16_RESIDENT
 
 
 def _kernel_source(name: str, H: int, dtype: torch.dtype | None = None) -> str:
     """The csrc/<stem>.cu stem of the kernel that the wrapper `name` launches at H
     (padded to a multiple of 8) in dtype."""
-    if name != "lstm_dw_hh" and _stepwise(H, dtype):
+    if name != "lstm_dw_hh" and _stepwise(H, dtype, name):
         return _STEPWISE
     return _SOURCES[name][_round_up(H, _H_ALIGN) > _MAX_H]
 
@@ -898,18 +910,23 @@ def _bwd_wide_lib() -> ctypes.CDLL:
 _BWD_WIDE = {torch.bfloat16: ((32, 64), (32, 32), (16, 64), (16, 32), (8, 64)),
              torch.float32: ((16, 64), (16, 32), (8, 64), (8, 32))}
 _BWD_MIN_GROUP_ROWS = {torch.bfloat16: 4, torch.float32: 8}
+# float16: the bfloat16 instances (the same tensor-core kernel, float16 products)
+_BWD_WIDE[torch.float16] = _BWD_WIDE[torch.bfloat16]
+_BWD_MIN_GROUP_ROWS[torch.float16] = _BWD_MIN_GROUP_ROWS[torch.bfloat16]
 
 
 def _bwd_wide_smem(U: int, tile_rows: int, H: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of the wide backward (its `Lay`): the W_hh column
-    slice, the h tile, the gate sums and (bfloat16) the dgates split hi / lo,
-    each 16-byte aligned. bfloat16 pads k to 16 and each row of the slice and
+    slice, the h tile, the gate sums (float16: and the two parities' row maxima of
+    |dgates|, 2 x tile_rows ints) and (16 bits) the dgates split hi / lo, each
+    16-byte aligned. bfloat16 and float16 pad k to 16 and each row of the slice and
     the h tile by 8 values."""
     up = lambda v: -(-v // 16) * 16
     TM, NC = tile_rows, 4 * U
-    if dtype == torch.bfloat16:
+    if _ITEM[dtype] == 2:
         kp = up(H) + 8
-        parts = (NC * kp * 2, TM * kp * 2, TM * NC * 4, 2 * TM * (NC + 8) * 2)
+        rmax = 2 * TM * 4 if dtype == torch.float16 else 0
+        parts = (NC * kp * 2, TM * kp * 2, TM * NC * 4 + rmax, 2 * TM * (NC + 8) * 2)
     else:
         parts = (H * (NC + 1) * 4, TM * (H + 4) * 4, TM * (NC + 4) * 4, 0)
     return sum(up(p) for p in parts)
@@ -949,7 +966,7 @@ def bwd_wide_plan(R: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: int
             rows = math.ceil(R / groups)
             plans.append(dict(units=U, tile_rows=TM, groups=groups, rows_per_group=rows,
                               tiles_per_group=math.ceil(rows / TM), smem_bytes=smem,
-                              blocks=groups * per_group, tensor_cores=dtype == torch.bfloat16,
+                              blocks=groups * per_group, tensor_cores=_ITEM[dtype] == 2,
                               co_resident=True))
         if plans:
             plan = max(plans, key=lambda p: (p["groups"],
@@ -988,6 +1005,7 @@ _BWD_NARROW = {torch.bfloat16: dict(units=64, max_cluster=2, tiles=(16,), kp=136
                                     wrows=256),
                torch.float32: dict(units=32, max_cluster=4, tiles=(16, 32, 48), kp=132, wp=0, dp=0,
                                    wrows=0)}
+_BWD_NARROW[torch.float16] = _BWD_NARROW[torch.bfloat16]    # the bfloat16 layout
 _BWD_NARROW_STAGES = (3, 2)
 _BWD_NARROW_STATIC_SMEM = 16    # bytes of static shared memory beside the plan's (two mbarriers)
 
@@ -1049,7 +1067,7 @@ def bwd_narrow_plan(R: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: i
     return dict(units=U, cluster=K, tile_rows=BM, rows=rows, ntiles=ntiles, clusters=ncl,
                 rounds=math.ceil(ntiles / ncl), stages=fits[BM],
                 smem_bytes=_bwd_narrow_smem(BM, dtype, fits[BM]), blocks=ncl * K,
-                tensor_cores=dtype == torch.bfloat16, co_resident=True)
+                tensor_cores=_ITEM[dtype] == 2, co_resident=True)
 
 
 @functools.cache
@@ -1088,10 +1106,10 @@ def train_route(name: str, H: int, narrow_plan: dict, dtype: torch.dtype | None 
     the narrow kernel (csrc/lstm_scan.cu mode kFwdHc, csrc/lstm_bwd.cu) where
     its plan runs, else the wide one (csrc/lstm_scan_wide.cu mode kFwdHc,
     csrc/lstm_bwd_wide.cu), which takes every H % 8 == 0 up to 768; the wide one
-    past 128; past 768 and in float16 the step-wise kernels of
-    csrc/lstm_stepwise.cu. A route by shape, dtype and card, picked before any
-    launch: a failed build or launch still raises."""
-    if _stepwise(H, dtype):
+    past 128 (float32, bfloat16 and float16 alike); past 768 the step-wise
+    kernels of csrc/lstm_stepwise.cu. A route by shape, dtype and card, picked
+    before any launch: a failed build or launch still raises."""
+    if _stepwise(H, dtype, name):
         return _STEPWISE
     narrow, wide = _TRAIN_KERNELS[name]
     return narrow if H <= _MAX_H and narrow_plan["co_resident"] else wide
@@ -1107,7 +1125,7 @@ def stepwise_plan(R: int, H: int, scans: int = 1) -> dict:
 def _card_train_route(name: str, x_proj: torch.Tensor, R: int, H: int) -> tuple:
     """train_route on x_proj's card -> (kernel stem, the plan it launches with)."""
     index, dtype = _device_index(x_proj.device), x_proj.dtype
-    if _stepwise(H, dtype):
+    if _stepwise(H, dtype, name):
         return _STEPWISE, stepwise_plan(R, H)
     narrow = dict(co_resident=False)
     if H <= _MAX_H:
@@ -1187,8 +1205,8 @@ def lstm_fwd_hc(x_proj: torch.Tensor, w_hh: torch.Tensor, key=None):
     `train_route` picks: mode kFwdHc of csrc/lstm_scan.cu (H <= 128, the plan
     of `scan_narrow_plan`) or of csrc/lstm_scan_wide.cu (the plan of
     `scan_wide_plan`; 128 < H <= 768, and at H <= 128 where no cluster of the
-    narrow kernel is held), or past 768 and in float16 the step-wise forward of
-    csrc/lstm_stepwise.cu; H is zero-padded to a multiple of 8 and the results
+    narrow kernel is held), in float32, bfloat16 and float16, or past 768 the
+    step-wise forward of csrc/lstm_stepwise.cu; H is zero-padded to a multiple of 8 and the results
     sliced back (`pad_lstm_args`). CPU tensors run lstm_fwd_hc_plain. Counts
     launches in `lstm_fwd_hc.launches` (per the caller's (T, R, H, dtype) in
     `lstm_fwd_hc.launches_by_shape`, per kernel in
@@ -1217,10 +1235,10 @@ def lstm_fwd_hc(x_proj: torch.Tensor, w_hh: torch.Tensor, key=None):
                                                  plan["clusters"], plan["stages"],
                                                  plan["smem_bytes"], stream)
         else:
-            # kernel scratch: in bfloat16 h - bf16(h) of each (row, unit), two
-            # slots by step parity (hs holds bf16(h)); the float32 c of each (row, unit)
-            lo = (torch.empty(2, R, H, device=x_proj.device, dtype=torch.bfloat16)
-                  if x_proj.dtype == torch.bfloat16 else None)
+            # kernel scratch: in 16 bits h - hi of each (row, unit), two slots by
+            # step parity (hs holds hi, h rounded); the float32 c of each (row, unit)
+            lo = (torch.empty(2, R, H, device=x_proj.device, dtype=x_proj.dtype)
+                  if x_proj.dtype != torch.float32 else None)
             c_state = torch.empty(R, H, device=x_proj.device, dtype=torch.float32)
             err = _scan_wide_lib().lstm_fwd_hc_wide_launch(
                 *args, None if lo is None else lo.data_ptr(), c_state.data_ptr(), R, T, H,
@@ -1347,8 +1365,8 @@ def lstm_bwd_recurrence(x_proj, hs, cs, dhs, w_hh, key=None) -> torch.Tensor:
     -> dx_proj (T, R, 4H); the one `train_route` picks: that of csrc/lstm_bwd.cu
     (H <= 128, the plan of `bwd_narrow_plan`) or that of csrc/lstm_bwd_wide.cu
     (the plan of `bwd_wide_plan`; 128 < H <= 768, and at H <= 128 where no
-    cluster of the narrow kernel is held), or past 768 and in float16 the
-    step-wise backward of csrc/lstm_stepwise.cu; H zero-padded to a multiple of
+    cluster of the narrow kernel is held), in float32, bfloat16 and float16, or
+    past 768 the step-wise backward of csrc/lstm_stepwise.cu; H zero-padded to a multiple of
     8. Counts in `lstm_bwd.launches` (per kernel in
     `lstm_bwd.launches_by_kernel`)."""
     T, R, H = _check_seq_args("lstm_bwd", x_proj, w_hh, hs, cs, dhs)
@@ -1442,6 +1460,9 @@ _SCAN = {torch.bfloat16: dict(units=64, rows=16, insts=(1, 2, 4), fwd_hc_insts=(
                               hpp=136, scratch=16 * 16 * 24 * 4),
          torch.float32: dict(units=32, rows=1, insts=(1, 2, 4, 8, 16),
                              fwd_hc_insts=(1, 2, 4, 8, 16, 32, 48), hpp=128, scratch=0)}
+# float16: the bfloat16 layout, built for lstm_fwd_hc only (its other modes take
+# the step-wise kernel)
+_SCAN[torch.float16] = _SCAN[torch.bfloat16]
 _SCAN_STAGES = 3                # the x ring
 _SCAN_STATIC_SMEM = 16          # bytes of static shared memory beside the plan's (two mbarriers)
 # csrc/lstm_scan.cu's modes (its `Mode`): the wrapper that launches each
@@ -1460,7 +1481,7 @@ def _scan_smem(inst: int, dtype: torch.dtype, stages: int, mode: str = "lstm_sca
     and the warps' gate scratch (bfloat16)."""
     d = _SCAN[dtype]
     bm = d["rows"] * inst
-    planes = 4 if dtype == torch.bfloat16 and mode == "lstm_fwd_hc" else 2
+    planes = 4 if _ITEM[dtype] == 2 and mode == "lstm_fwd_hc" else 2
     return (planes * bm * d["hpp"] + stages * bm * 4 * d["units"]) * _ITEM[dtype] + d["scratch"]
 
 
@@ -1506,7 +1527,7 @@ def scan_narrow_plan(R: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: 
     return dict(units=U, cluster=K, inst=inst, tile_rows=d["rows"] * inst, rows=rows,
                 ntiles=ntiles, clusters=ncl, rounds=math.ceil(ntiles / ncl), stages=_SCAN_STAGES,
                 smem_bytes=_scan_smem(inst, dtype, _SCAN_STAGES, mode), blocks=directions * ncl * K,
-                tensor_cores=dtype == torch.bfloat16, co_resident=True)
+                tensor_cores=_ITEM[dtype] == 2, co_resident=True)
 
 
 @functools.cache
@@ -1568,6 +1589,7 @@ def _scan_wide_lib() -> ctypes.CDLL:
 # that launches each
 _SCAN_WIDE = {torch.bfloat16: ((32, 64), (32, 32), (16, 64), (16, 32), (8, 64), (8, 32)),
               torch.float32: ((16, 64), (16, 32), (8, 64), (8, 32))}
+_SCAN_WIDE[torch.float16] = _SCAN_WIDE[torch.bfloat16]    # lstm_fwd_hc only
 # and those lstm_scan_bidir2 takes: float32 adds (16 units, 8 rows) at H >= 512 (its
 # product's k-slice sums fill the h tile's memory), whose slice and h tile fit beside
 # each other at H = 768, so that both directions' 48-block groups run in one launch
@@ -1586,20 +1608,20 @@ _SCAN_WIDE_MODE = {"lstm_scan": 1, "lstm_scan_stateful": 2, "lstm_scan_bidir": 3
 
 def _scan_wide_min_group_rows(dtype: torch.dtype, mode: str) -> int:
     """Rows a row group of the wide scan at least (where R has them): 8; 4 for
-    lstm_fwd_hc in bfloat16, whose h goes in as two products (hi + lo)."""
-    return 4 if dtype == torch.bfloat16 and mode == "lstm_fwd_hc" else 8
+    lstm_fwd_hc in bfloat16 and float16, whose h goes in as two products (hi + lo)."""
+    return 4 if _ITEM[dtype] == 2 and mode == "lstm_fwd_hc" else 8
 
 
 def _scan_wide_smem(U: int, tile_rows: int, H: int, dtype: torch.dtype,
                     mode: str = "lstm_scan") -> int:
     """Dynamic shared memory of the wide scan (its `Lay`): the W_hh column
-    slice, the h tile (two planes, hi and lo, for lstm_fwd_hc in bfloat16), the
-    gate sums and the ring of two x tiles, each 16-byte aligned. bfloat16 pads k
-    to 16 and each row of the slice and the h tile by 8 values, each row of the
-    gate sums by 8 floats."""
+    slice, the h tile (two planes, hi and lo, for lstm_fwd_hc in 16 bits), the
+    gate sums and the ring of two x tiles, each 16-byte aligned. bfloat16 and
+    float16 pad k to 16 and each row of the slice and the h tile by 8 values, each
+    row of the gate sums by 8 floats."""
     up = lambda v: -(-v // 16) * 16
     TM, NC, item = tile_rows, 4 * U, _ITEM[dtype]
-    if dtype == torch.bfloat16:
+    if item == 2:
         kp = up(H) + 8
         planes = 2 if mode == "lstm_fwd_hc" else 1
         parts = (NC * kp * 2, planes * TM * kp * 2, TM * (NC + 8) * 4)
@@ -1650,7 +1672,7 @@ def scan_wide_plan(R: int, H: int, dtype: torch.dtype, n_sm: int, smem_limit: in
         plans.append(dict(units=U, tile_rows=TM, groups=groups, rows_per_group=rows,
                           tiles_per_group=math.ceil(rows / TM), launch_dirs=dirs,
                           smem_bytes=smem, blocks=dirs * groups * per_group,
-                          tensor_cores=dtype == torch.bfloat16, co_resident=True))
+                          tensor_cores=_ITEM[dtype] == 2, co_resident=True))
     if not plans:
         return dict(units=None, co_resident=False, groups=0)
     return max(plans, key=lambda p: (p["launch_dirs"], p["blocks"] <= n_sm, p["blocks"], p["units"],

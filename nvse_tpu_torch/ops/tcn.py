@@ -5,7 +5,8 @@ Counterpart of nvse_tpu/ops/pallas_tcn.py. `tcn_block_tail` folds the
 global layer norm into per-batch scale and shift (a, b2) (one pass, m2 - m1^2
 clamped at 0, as `_tail_fwd_impl`, pallas_tcn.py:168-182), then runs the tail:
   * on a CUDA tensor the fold is the statistics kernel of csrc/tcn_tail.cu
-    (`tcn_gln_fold_kernel`: one read of c, two stages in a fixed order) and the
+    (`tcn_gln_fold_kernel`: one launch, one read of c, the partial sums folded
+    in a fixed order by the last block of each batch element) and the
     tail its hand-written kernel (`tcn_block_tail_kernel`: wgmma in bfloat16 and
     float16, register-blocked float32 FMAs, the plan of `tail_plan`); each
     raises on what it does not take;
@@ -35,10 +36,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .lstm import _DTYPE_CODE, _ITEM, _count, _device_index, _n_sm, _raise_on, _reset_counts
+from .lstm import _DTYPE_CODE, _ITEM, _count, _device_index, _raise_on, _reset_counts
 
-__all__ = ["tail_plan", "tcn_block_tail", "tcn_block_tail_kernel", "tcn_block_tail_plain",
-           "tcn_gln_fold_kernel"]
+__all__ = ["gln_stats_partials", "gln_stats_scratch", "tail_plan", "tcn_block_tail",
+           "tcn_block_tail_kernel", "tcn_block_tail_plain", "tcn_gln_fold_kernel"]
 
 _SOURCE = "tcn_tail"               # csrc/tcn_tail.cu
 _STATS_KEY = "tcn_gln_stats"       # the statistics kernel's key in launches_by_kernel
@@ -171,7 +172,7 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = load_library(_SOURCE)
     ptr, i = ctypes.c_void_p, ctypes.c_int
     lib.tcn_tail_launch.argtypes = [i, *[ptr] * 10, *[i] * 10, ptr]
-    lib.tcn_gln_stats_launch.argtypes = [i, i, *[ptr] * 6, i, i, i, i, ctypes.c_float, i, ptr]
+    lib.tcn_gln_stats_launch.argtypes = [i, i, *[ptr] * 7, i, i, i, i, ctypes.c_float, i, ptr]
     for fn in (lib.tcn_tail_launch, lib.tcn_gln_stats_launch):
         fn.restype = ctypes.c_int
     return lib
@@ -221,13 +222,32 @@ def tcn_block_tail_kernel(c, x, a, b2, w_dw, b_dw, w_rs, b_rs, dilation: int, pl
     return e, s
 
 
-def tcn_gln_fold_kernel(c, gln_w, gln_b, eps: float):
-    """The gLN fold of `_fold` by the statistics kernel of csrc/tcn_tail.cu on
-    CUDA tensors: c (B, T, H) read once, a float32 sum and sum of squares a
-    batch element in two stages of fixed order (no float atomics: two runs give
-    the same bits), then a, b2 (B, H) float32. Counts the launch on
-    `tcn_gln_fold_kernel` and under "tcn_gln_stats" in
-    `tcn_block_tail.launches_by_kernel`."""
+def gln_stats_scratch(B: int, P: int) -> tuple:
+    """The statistics kernel's scratch at B batch elements and P runs each: (int32
+    tickets, one a batch element; float32 values of the partial sums (B, P, 2))."""
+    return B, 2 * B * P
+
+
+# (device, launch stream) -> (int32 tickets, float32 partials): the statistics kernel's
+# scratch, made once a stream of a card (again for a larger launch) and reused by every
+# launch on it, which run in turn; each launch leaves the tickets at 0 and overwrites
+# the partials it reads. Keyed by the device too: every card's default stream has the
+# raw handle 0, and replicas on several cards launch at once. Held here, never made
+# under a trace: the kernel runs inside the registered operator.
+_SCRATCH: dict = {}
+
+
+def _scratch(device: torch.device, stream: int, B: int, P: int) -> tuple:
+    n_tickets, n_part = gln_stats_scratch(B, P)
+    held = _SCRATCH.get((device, stream))
+    if held is None or held[0].numel() < n_tickets or held[1].numel() < n_part:
+        held = _SCRATCH[device, stream] = (
+            torch.zeros(n_tickets, device=device, dtype=torch.int32),
+            torch.empty(n_part, device=device, dtype=torch.float32))
+    return held
+
+
+def _check_stats_args(c, gln_w, gln_b):
     if c.dim() != 3 or not c.is_contiguous():
         raise ValueError(f"tcn_gln_stats kernel needs a contiguous c (B, T, H), got "
                          f"{tuple(c.shape)}")
@@ -242,26 +262,58 @@ def tcn_gln_fold_kernel(c, gln_w, gln_b, eps: float):
         raise ValueError("tcn_gln_stats kernel needs all tensors on one CUDA device")
     if B > _MAX_B:
         raise NotImplementedError(f"tcn_gln_stats kernel takes B <= {_MAX_B}; got B={B}")
-    a = torch.empty(B, H, device=c.device, dtype=torch.float32)
-    b2 = torch.empty_like(a)
-    if B == 0:
-        return a, b2
-    if T == 0:
+    if T == 0 and B:
         raise ValueError("tcn_gln_stats: the mean over T = 0 steps is not defined")
-    gw, gb = gln_w.contiguous(), gln_b.contiguous()
-    P = gln_stats_partials(B, T, H, _n_sm(c.device))
-    part = torch.empty(B, P, 2, device=c.device, dtype=torch.float32)
-    vec = int((T * H * _ITEM[c.dtype]) % 16 == 0 and _aligned(c))
-    with torch.cuda.device(c.device):
-        stream = torch.cuda.current_stream(c.device).cuda_stream
-        err = _kernel_lib().tcn_gln_stats_launch(
-            _DTYPE_CODE[c.dtype], _DTYPE_CODE[gw.dtype], c.data_ptr(), gw.data_ptr(),
-            gb.data_ptr(), part.data_ptr(), a.data_ptr(), b2.data_ptr(), B, T, H, P, eps, vec,
-            stream)
-    _raise_on(err, f"{_SOURCE} ({_STATS_KEY})")
-    _count(tcn_gln_fold_kernel, (B, T, H, str(c.dtype).replace("torch.", "")), _STATS_KEY)
-    tcn_block_tail.launches_by_kernel[_STATS_KEY] = (
-        tcn_block_tail.launches_by_kernel.get(_STATS_KEY, 0) + 1)
+
+
+# an argument signature the checks passed -> (P, c's dtype code, the weights' dtype
+# code, the launch-count key, c's device), so that a call at a known signature
+# checks nothing but contiguity
+_STATS: dict = {}
+_STATS_ERROR = f"{_SOURCE} ({_STATS_KEY})"
+
+
+def tcn_gln_fold_kernel(c, gln_w, gln_b, eps: float):
+    """The gLN fold of `_fold` by the statistics kernel of csrc/tcn_tail.cu on
+    CUDA tensors, in one launch: c (B, T, H) read once, a float32 sum and sum of
+    squares a batch element, folded in a fixed order by the last block of the
+    element to finish (no float atomics: two runs give the same bits), then a,
+    b2 (B, H) float32. The arguments are checked fully the first time their
+    signature is seen; the scratch is held per card and stream (`_scratch`). Counts the
+    launch on `tcn_gln_fold_kernel` and under "tcn_gln_stats" in
+    `tcn_block_tail.launches_by_kernel`."""
+    sig = (c.shape, c.dtype, c.device, gln_w.shape, gln_w.dtype, gln_w.device, gln_b.shape,
+           gln_b.dtype, gln_b.device)
+    plan = _STATS.get(sig)
+    if plan is None or not (c.is_contiguous() and gln_w.is_contiguous() and gln_b.is_contiguous()):
+        _check_stats_args(c, gln_w, gln_b)
+        gln_w, gln_b = gln_w.contiguous(), gln_b.contiguous()
+        B, T, H = c.shape
+        if B == 0:
+            return torch.empty(2, 0, H, device=c.device, dtype=torch.float32).unbind(0)
+        n_sm = torch.cuda.get_device_properties(c.device).multi_processor_count
+        plan = _STATS[sig] = (gln_stats_partials(B, T, H, n_sm), _DTYPE_CODE[c.dtype],
+                              _DTYPE_CODE[gln_w.dtype],
+                              (B, T, H, str(c.dtype).replace("torch.", "")), c.device)
+    P, code, wcode, key, dev = plan
+    B, T, H = key[:3]
+    index, current = c.get_device(), torch._C._cuda_getDevice()
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    tickets, part = _scratch(dev, stream, B, P)
+    a, b2 = torch.empty(2, B, H, device=dev, dtype=torch.float32).unbind(0)
+    cptr = c.data_ptr()
+    vec = int((T * H * _ITEM[c.dtype]) % 16 == 0 and cptr % 16 == 0)
+    args = (code, wcode, cptr, gln_w.data_ptr(), gln_b.data_ptr(), part.data_ptr(),
+            tickets.data_ptr(), a.data_ptr(), b2.data_ptr(), B, T, H, P, eps, vec, stream)
+    if index == current:
+        err = _kernel_lib().tcn_gln_stats_launch(*args)
+    else:
+        with torch.cuda.device(index):
+            err = _kernel_lib().tcn_gln_stats_launch(*args)
+    _raise_on(err, _STATS_ERROR)
+    _count(tcn_gln_fold_kernel, key, _STATS_KEY)
+    by_kernel = tcn_block_tail.launches_by_kernel
+    by_kernel[_STATS_KEY] = by_kernel.get(_STATS_KEY, 0) + 1
     return a, b2
 
 

@@ -47,8 +47,11 @@ from cast copies of the float32 master weights (torch.func.functional_call);
 features, losses and optimizer states stay float32, and the casts pass
 float32 gradients back, as the JAX step's `_to_compute` does
 (nvse_tpu/train/trainer.py:220-236). As there, float16 takes no loss scaling.
-On the card every LSTM of a float16 trunk runs the step-wise kernels of
-csrc/lstm_stepwise.cu and ConvTasNet's tail the float16 instance of
+On the card the LSTMs of a float16 trunk train on the float16 instances of the
+resident training kernels up to H = 768 (the forward of csrc/lstm_scan.cu or
+csrc/lstm_scan_wide.cu, the backward of csrc/lstm_bwd.cu or csrc/lstm_bwd_wide.cu,
+as in bfloat16; ops/lstm.py `train_route`), and on the step-wise kernels of
+csrc/lstm_stepwise.cu past it; ConvTasNet's tail runs the float16 instance of
 csrc/tcn_tail.cu.
 
 Over a mesh (GANTrainer(..., mesh=parallel.get_mesh(...)), one process a

@@ -51,21 +51,13 @@ from nvse_tpu_torch.utils import disc_params_from_jax, load_config, params_from_
 
 from test_torch_port_bsrnn import assert_tf_outputs_close, jax_params
 from test_torch_port_disc import disc_params
-from test_torch_port_joint import torch_threads
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 from test_torch_port_train import KEYS, LR, _adam_mu, _np, _port_moments, assert_moments_close
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = ("apnet_config.json", "apnet2_config.json", "freeV_config.json", "vocos_config.json")
 # the fixed widths of APNet2 / FreeV narrowed to one ConvNeXt block of width 32
 SMALL_CONVNEXT = dict(num_layers=1, intermediate_dim=32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """torch on one intra-op thread for this file (test_torch_port_joint.torch_threads:
-    small ops on a loaded host)."""
-    with torch_threads(1):
-        yield
 
 
 def _h(model_name, **kw):

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 
 from nvse_tpu.ops import pallas_lstm as jax_lstm
 from nvse_tpu_torch.ops import lstm as port_lstm
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=0.05, atol=0.05)

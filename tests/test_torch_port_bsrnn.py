@@ -18,6 +18,7 @@ from nvse_tpu.models import build_generator as jax_build
 from nvse_tpu.utils import AttrDict
 from nvse_tpu_torch.models import build_generator
 from nvse_tpu_torch.utils import params_from_jax
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 NAMES = ("logamp", "phase", "rea", "imag", "wav")
 

@@ -35,6 +35,7 @@ from nvse_tpu_torch.train import GANTrainer
 from nvse_tpu_torch.utils import load_config, params_from_jax
 
 from test_torch_port_bsrnn import assert_tf_outputs_close, jax_params
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 WIDTH = 136      # > 128: the wide kernels' range on the card

@@ -42,18 +42,12 @@ from nvse_tpu_torch.ops.lstm import pad_lstm_args, slice_lstm_results
 from nvse_tpu_torch.utils import params_from_jax
 
 from test_torch_port_bsrnn import assert_tf_outputs_close, jax_params
-from test_torch_port_joint import torch_threads
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 from test_torch_port_train import KEYS, _audio, _h, assert_moments_close, run_both
 
 TOL = dict(rtol=2e-3, atol=2e-4)
 ODD = [(10, 13), (102, 100)]            # (C, H): neither a multiple of the kernels'
 F16_METRIC_RTOL, F16_MOMENT_REL = 1e-3, 0.1
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    with torch_threads(1):
-        yield
 
 
 def _rand(rng, *shape, scale=1.0):
@@ -195,23 +189,28 @@ def test_padding_is_zero_in_every_padded_unit_and_gate():
                                      (128, torch.float16), (100, torch.float16),
                                      (102, torch.float32)])
 def test_routes_and_plans_take_wide_and_float16_shapes(H, dtype):
-    """The route and plan functions pick a kernel at H = 1024 and in float16
-    (the step-wise kernel) and at odd H (the kernel of the padded H), and the
-    wrappers' checks stop only at the device."""
+    """The route and plan functions pick a kernel at H = 1024 (the step-wise
+    kernel), in float16 (the step-wise kernel for the inference scans, the
+    resident training kernels for lstm_fwd_hc and lstm_bwd) and at odd H (the
+    kernel of the padded H), and the wrappers' checks stop only at the device."""
     stepwise = H > port_lstm._WIDE_MAX_H or dtype == torch.float16
+    train_stepwise = H > port_lstm._WIDE_MAX_H
     Hp = port_lstm.lstm_padding(H)[0]
-    want = "lstm_stepwise" if stepwise else ("lstm_scan" if Hp <= 128 else "lstm_scan_wide")
-    for name in ("lstm_scan", "lstm_scan_stateful", "lstm_scan_bidir", "lstm_fwd_hc"):
+    resident = "lstm_scan" if Hp <= 128 else "lstm_scan_wide"
+    want = "lstm_stepwise" if stepwise else resident
+    for name in ("lstm_scan", "lstm_scan_stateful", "lstm_scan_bidir"):
         assert port_lstm._kernel_source(name, H, dtype) == want, name
+    assert port_lstm._kernel_source("lstm_fwd_hc", H, dtype) == (
+        "lstm_stepwise" if train_stepwise else resident)
     assert port_lstm._kernel_source("lstm_dw_hh", H, dtype) == "lstm_bwd"
     H100 = (132, 232448)
     fused = port_lstm.fused_route(H, H, dtype, *H100)
     assert fused == ("projection+lstm_stepwise" if stepwise else "lstm_fused")
     assert port_lstm._fused_route(H, H, dtype=dtype) == fused
     narrow = dict(co_resident=Hp <= 128)
-    for name, resident in (("lstm_fwd_hc", "lstm_scan"), ("lstm_bwd", "lstm_bwd")):
+    for name, kernel in (("lstm_fwd_hc", "lstm_scan"), ("lstm_bwd", "lstm_bwd")):
         assert port_lstm.train_route(name, Hp, narrow, dtype) == (
-            "lstm_stepwise" if stepwise else resident)
+            "lstm_stepwise" if train_stepwise else kernel)
     got = port_lstm.bidir2_plan(34, 8, H, dtype, *H100)
     assert got["plan"]["co_resident"]
     assert got["route"] == ("lstm_stepwise" if stepwise else "lstm_scan")
@@ -255,8 +254,9 @@ def test_feature_dim_102_bsrnn_matches_jax(monkeypatch):
 def test_float16_gan_step_matches_jax():
     """One T-F GAN step of the tiny BSRNN in float16 trunks (float32 master
     weights, optimizer states, features and losses; no loss scaling, as JAX)
-    against JAX's float16 step."""
-    h = _h(compute_dtype="float16")
+    against JAX's float16 step. The MPD has one period: the float16 trunk is
+    the point (tests/test_torch_port_train.py holds the full MPD + MRD step)."""
+    h = _h(compute_dtype="float16", mpd_reshapes=[2])
     r = run_both(h, _audio(2, h.segment_size))
     for k in KEYS:
         assert np.isfinite(r["port_metrics"][k]), k

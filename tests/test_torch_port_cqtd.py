@@ -16,7 +16,9 @@ mapped onto the port by cqtd_params_from_jax. Compared:
     generator and of all three discriminators at a relative L2 of 2e-3
     (tests/test_torch_port_train.py's rule);
   * the time and joint trainers build disc["cqtd"], the D pass changes every
-    CQTD parameter and the G pass none; the do_ bundle carries it.
+    CQTD parameter and the G pass none; the do_ bundle carries it
+    (tests/test_torch_port_cqtd_trainers.py, its own file so that the two
+    halves run on different test workers).
 """
 import numpy as np
 import pytest
@@ -36,13 +38,13 @@ from nvse_tpu.utils import AttrDict
 from nvse_tpu_torch.models.cqt_discriminator import MultiScaleSubbandCQTDiscriminator
 from nvse_tpu_torch.ops.cqt import _cqt_kernels_np, cqt
 from nvse_tpu_torch.train import GANTrainer
-from nvse_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from nvse_tpu_torch.utils import cqtd_params_from_jax, disc_params_from_jax, params_from_jax
 
 from test_torch_port_bsrnn import jax_params
 from test_torch_port_disc import disc_params
 from test_torch_port_train import (_adam_mu, _audio, _bridge_gen, _h, _np, _port_moments,
                                    assert_moments_close)
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 TINY = dict(use_cqtd=True, cqtd_weight=1.0, cqtd_hop_lengths=[256], cqtd_n_octaves=[4],
             cqtd_bins_per_octaves=[12], cqtd_filters=8)
@@ -168,48 +170,3 @@ def test_one_tf_step_with_the_cqt_discriminator_matches_jax():
             **{f"mrd.{k}": v for k, v in mrd_mu.items()},
             **{f"cqtd.{k}": v for k, v in cqtd_params_from_jax(mu["cqtd"]).items()}}
     assert_moments_close(_port_moments(tr.opt_d, tr.disc), d_mu, rel=2e-3)
-
-
-TIME_H = dict(model_name="HiFiGAN", resblock="1", upsample_rates=[8, 8, 2, 2],
-              upsample_kernel_sizes=[16, 16, 4, 4], upsample_initial_channel=16,
-              resblock_kernel_sizes=[3], resblock_dilation_sizes=[[1, 3]], mpd_reshapes=[2])
-JOINT_H = dict(model_name="BSRNN_24k", feature_dim=8, num_repeat=1, sampling_rate=24000,
-               num_mels=100, fmax=12000, mpd_reshapes=[2])
-
-
-@pytest.mark.parametrize("domain", ["tf", "time", "joint"])
-def test_every_trainer_trains_the_cqt_discriminator(domain):
-    """D changes every CQTD parameter, G none, and the step is finite."""
-    kw = {"tf": dict(num_repeat=1), "time": TIME_H, "joint": JOINT_H}[domain]
-    h = _h(**{**kw, **TINY})
-    tr = GANTrainer(h, device="cpu", joint=domain == "joint")
-    assert set(tr.disc) == {"mpd", "mrd" if domain != "time" else "msd", "cqtd"}
-    assert any(p is q for p in tr.opt_d.param_groups[0]["params"]
-               for q in tr.disc["cqtd"].parameters())
-    audio = torch.from_numpy(_audio(2, h.segment_size))
-    args = (audio, audio, "vocoder") if domain == "joint" else (audio,)
-    before = {n: p.detach().clone() for n, p in tr.disc["cqtd"].named_parameters()}
-    fwd = tr.generator_forward(*args)
-    tr.discriminator_update(fwd)
-    after_d = {n: p.detach().clone() for n, p in tr.disc["cqtd"].named_parameters()}
-    metrics, _ = tr.generator_update(fwd)
-    assert all(not torch.equal(before[n], after_d[n]) for n in before)
-    assert all(torch.equal(p, after_d[n]) for n, p in tr.disc["cqtd"].named_parameters())
-    assert all(np.isfinite(float(v)) for v in metrics.values())
-
-
-def test_do_bundle_round_trip_restores_the_cqt_discriminator(tmp_path):
-    h = _h(num_repeat=1, **TINY)
-    tr = GANTrainer(h, device="cpu", steps_per_epoch=4)
-    tr.step(torch.from_numpy(_audio(2, h.segment_size)))
-    save_checkpoint(str(tmp_path), 1, 0, tr)
-    assert "cqtd" in torch.load(tmp_path / "do_00000001", weights_only=True)
-    fresh = GANTrainer(_h(num_repeat=1, seed=99, **TINY), device="cpu", steps_per_epoch=4)
-    assert not torch.equal(fresh.disc["cqtd"].discs[0].convs[0].kernel,
-                           tr.disc["cqtd"].discs[0].convs[0].kernel)
-    assert restore_checkpoint(str(tmp_path), fresh) == (2, 0)
-    for (k, v), w in zip(tr.disc["cqtd"].state_dict().items(),
-                         fresh.disc["cqtd"].state_dict().values()):
-        assert torch.equal(v, w), k
-    for p, q in zip(tr.disc["cqtd"].parameters(), fresh.disc["cqtd"].parameters()):
-        assert torch.equal(tr.opt_d.state[p]["exp_avg"], fresh.opt_d.state[q]["exp_avg"])

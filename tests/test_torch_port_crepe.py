@@ -17,6 +17,7 @@ from nvse_tpu.metrics import crepe_jax
 from nvse_tpu.metrics import dsp as jax_dsp
 from nvse_tpu_torch.metrics import crepe
 from nvse_tpu_torch.metrics import dsp
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 SR = 22050
 

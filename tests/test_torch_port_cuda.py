@@ -822,13 +822,17 @@ def test_tcn_tail_every_instance_matches_plain(cuda, B, T, H, Bc, d):
             assert max((g.float() - r.float()).abs().max().item() for g, r in zip(ctl, ref)) > tol
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,T,H", [(1, 1, 8), (3, 700, 512), (2, 333, 96), (2, 77, 12)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,T,H", [(1, 1, 8), (3, 700, 512), (2, 333, 96), (2, 77, 12),
+                                   (1, 4063, 512), (3, 101, 7), (140, 37, 13), (200, 64, 64)])
 def test_gln_stats_kernel_matches_fold(cuda, B, T, H, dtype):
     """The statistics kernel against `_fold` (float32 sums in another order: 1e-5
     of a and b2), its launch counted on its own and under its own key in the
     tail's launches_by_kernel, the same bits from two runs, and gln_w and gln_b
-    swapped as the control."""
+    swapped as the control; at one batch element (its partials over the whole
+    card), at odd T H (element loads, vec 0; 2 bytes an element leave the rows
+    unaligned) and at B > 132 (fewer partials than SMs a row), and a third run
+    after a call at another B (the tickets left at 0 by every launch)."""
     from nvse_tpu_torch.ops.tcn import _fold, tcn_block_tail, tcn_gln_fold_kernel
 
     c, _, gw, gb, *_ = _tail_args(B, T, H, 4, dtype, seed=B + T + H)
@@ -838,12 +842,69 @@ def test_gln_stats_kernel_matches_fold(cuda, B, T, H, dtype):
         again = tcn_gln_fold_kernel(c, gw, gb, 1e-5)
         ref = _fold(c, gw, gb, 1e-5)
         ctl = tcn_gln_fold_kernel(c, gb, gw, 1e-5)
-    assert tcn_gln_fold_kernel.launches == n0[0] + 3
-    assert tcn_block_tail.launches_by_kernel["tcn_gln_stats"] == n0[1] + 3
-    for g, a, r in zip(got, again, ref):
-        assert g.dtype == torch.float32 and g.shape == (B, H) and torch.equal(g, a)
+        tcn_gln_fold_kernel(c[:1].contiguous(), gw, gb, 1e-5)
+        third = tcn_gln_fold_kernel(c, gw, gb, 1e-5)
+    assert tcn_gln_fold_kernel.launches == n0[0] + 5
+    assert tcn_block_tail.launches_by_kernel["tcn_gln_stats"] == n0[1] + 5
+    for g, a, a3, r in zip(got, again, third, ref):
+        assert g.dtype == torch.float32 and g.shape == (B, H)
+        assert torch.equal(g, a) and torch.equal(g, a3)
         torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
     assert max((g - r).abs().max().item() for g, r in zip(ctl, ref)) > 1e-2
+
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gln_stats_kernel_on_two_cards_keeps_its_scratch_apart(two_cards, dtype):
+    """The statistics kernel on two cards' default streams (both raw handle 0),
+    launched in turns with no wait between the cards, as replicas serve: each
+    card's results match `_fold` and its own first run bit for bit, and each
+    card holds its own tickets and partials."""
+    from nvse_tpu_torch.ops.tcn import _SCRATCH, _fold, tcn_gln_fold_kernel
+
+    cs = []
+    for dev, B in zip(two_cards, (16, 8)):
+        c, _, gw, gb, *_ = _tail_args(B, 2047, 512, 4, dtype, seed=B)
+        cs.append((c.to(dev), gw.to(dev), gb.to(dev)))
+    with torch.inference_mode():
+        first = [tcn_gln_fold_kernel(c, gw, gb, 1e-5) for c, gw, gb in cs]
+        for _ in range(20):
+            runs = [tcn_gln_fold_kernel(c, gw, gb, 1e-5) for c, gw, gb in cs]
+        for dev in two_cards:
+            torch.cuda.synchronize(dev)
+        for (c, gw, gb), got, last in zip(cs, first, runs):
+            for g, a, r in zip(got, last, _fold(c, gw, gb, 1e-5)):
+                assert torch.equal(g, a)
+                torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
+    for dev in two_cards:
+        tickets, part = _SCRATCH[dev, 0]
+        assert tickets.device == dev and part.device == dev and not tickets.any()
+
+
+def test_convtasnet_served_on_two_cards_matches_one(two_cards):
+    """ConvTasNet (fused_tcn 1) served by InferenceEngine with a replica on each
+    of two cards: the replicas' statistics kernels launch at once on the two
+    default streams, and the decode matches the one-card decode."""
+    from nvse_tpu_torch.infer import InferenceEngine
+    from nvse_tpu_torch.utils import AttrDict
+
+    h = dict(model_name="ConvTasNet", sampling_rate=22050, n_fft=1024, hop_size=256,
+             win_size=1024, num_mels=80, fmin=0, fmax=8000, N=64, L=16, B=128, H=128, P=3,
+             X=8, R=3, num_spks=1, skip_con=True, init_phase="griffin_lim", causal=False,
+             norm="gln", fused_tcn=1, seed=1234)
+    mel = torch.randn(4, 80, 64, generator=torch.Generator().manual_seed(0)) - 4.0
+    one = InferenceEngine(AttrDict(h), device="cuda:0")
+    dp = InferenceEngine(AttrDict(dict(h, infer_dp_devices=2)), device="cuda:0")
+    assert [next(r.parameters()).device for r in dp.replicas] == list(two_cards)
+    ref = one.forward(mel).cpu()
+    for _ in range(3):
+        torch.testing.assert_close(dp.forward(mel).cpu(), ref, rtol=1e-4, atol=1e-5)
 
 
 def test_tcn_tail_kernel_raises_on_what_it_does_not_take(cuda):
@@ -1361,6 +1422,7 @@ def test_stepwise_kernels_match_plain(cuda, T, R, H, dtype):
     tol = STEP_TOL[dtype]
     xp, whh, dhs = _seq_args(T, R, H, dtype)
     stepwise = dtype == torch.float16 or H > port_lstm._WIDE_MAX_H
+    train_stepwise = H > port_lstm._WIDE_MAX_H    # float16 trains on the resident kernels
     k0 = (dict(port_lstm.lstm_scan.launches_by_kernel),
           dict(port_lstm.lstm_fwd_hc.launches_by_kernel),
           dict(port_lstm.lstm_bwd.launches_by_kernel))
@@ -1372,8 +1434,13 @@ def test_stepwise_kernels_match_plain(cuda, T, R, H, dtype):
     torch.cuda.synchronize()
     if stepwise:
         assert _kernel_delta(port_lstm.lstm_scan, k0[0]) == {"lstm_stepwise": 2}
+    if train_stepwise:
         assert _kernel_delta(port_lstm.lstm_fwd_hc, k0[1]) == {"lstm_stepwise": 1}
         assert _kernel_delta(port_lstm.lstm_bwd, k0[2]) == {"lstm_stepwise": 1}
+    elif dtype == torch.float16:
+        for fn, n0 in ((port_lstm.lstm_fwd_hc, k0[1]), (port_lstm.lstm_bwd, k0[2])):
+            got = _kernel_delta(fn, n0)
+            assert sum(got.values()) == 1 and "lstm_stepwise" not in got, got
     ref = port_lstm.lstm_scan_plain(xp, whh)
     torch.testing.assert_close(hs.float(), ref.float(), atol=tol, rtol=tol)
     if T > 1:
@@ -1407,6 +1474,52 @@ def test_stepwise_two_scans_and_fused_route_in_one_launch_a_step(cuda, dtype):
     with torch.inference_mode():
         torch.testing.assert_close(port_lstm.lstm_scan_bidir(xp, ws).float(),
                                    port_lstm.lstm_scan_bidir_plain(xp, ws).float(), atol=tol, rtol=tol)
+
+
+# the resident training kernels in float16 (the bfloat16 layouts with float16
+# products): csrc/lstm_scan.cu kFwdHc and csrc/lstm_bwd.cu at H <= 128,
+# csrc/lstm_scan_wide.cu kFwdHc and csrc/lstm_bwd_wide.cu past it, at the f16
+# limit 1e-2 of the plain versions (hs, cs, dx stored with 11 bits), relative to
+# each output's largest value; dhs at 1, at 1e-3 (dgates of 1e-4 ... 1e-7, below
+# float16's normal range of 6.1e-5: without the carry's row scale their split
+# loses its bits; smaller dhs would be float16 subnormals in dhs and dx themselves,
+# on both sides) and at 1e3 (large carries)
+F16_LIMIT = 1e-2
+
+
+@pytest.mark.parametrize("dhs_scale", [1.0, 1e-3, 1e3])
+@pytest.mark.parametrize("T,R,H", [(9, 37, 128), (7, 20, 64), (6, 16, 448), (5, 8, 768),
+                                   (4, 33, 256), (7, 3, 8), (1, 5, 128), (9, 37, 120),
+                                   (3, 2000, 128), (65, 544, 128)])
+def test_float16_resident_training_kernels_match_plain(cuda, T, R, H, dhs_scale):
+    """lstm_fwd_hc and lstm_bwd in float16 on the resident kernels (none on the
+    step-wise one) against their plain versions, and W_hh's rows reversed as the
+    control, which the limit refuses; narrow shapes as the bfloat16 ones below (H = 8
+    and 120: units past H in a warp's row; T = 1; clusters walking several tiles;
+    BSRNN-M's time shape)."""
+    xp, whh, dhs = _seq_args(T, R, H, torch.float16, seed=T + R)
+    dhs = (dhs.float() * dhs_scale).half()
+    k0 = (dict(port_lstm.lstm_fwd_hc.launches_by_kernel), dict(port_lstm.lstm_bwd.launches_by_kernel))
+    hs, cs = port_lstm.lstm_fwd_hc(xp, whh)
+    dx, dw = port_lstm.lstm_bwd(xp, hs, cs, dhs, whh)
+    ctl_dx, _ = port_lstm.lstm_bwd(xp, hs, cs, dhs, whh.flip(0).contiguous())
+    torch.cuda.synchronize()
+    want_fwd = "lstm_scan" if H <= 128 else "lstm_scan_wide"
+    assert set(_kernel_delta(port_lstm.lstm_fwd_hc, k0[0])) <= {want_fwd, "lstm_scan_wide"}
+    assert "lstm_stepwise" not in _kernel_delta(port_lstm.lstm_bwd, k0[1])
+
+    def rel(got, want):                      # T = 1: dW_hh is 0 (h_{-1} = 0)
+        err = (got.float() - want.float()).abs().max()
+        return (err / want.float().abs().max() if err > 0 else err).item()
+
+    for got, want in zip((hs, cs), port_lstm.lstm_fwd_hc_plain(xp, whh)):
+        assert rel(got, want) <= F16_LIMIT
+    dx_ref, dw_ref = port_lstm.lstm_bwd_plain(xp, hs, cs, dhs, whh)
+    assert torch.isfinite(dx.float()).all() and dx_ref.float().abs().max() > 0
+    assert rel(dx, dx_ref) <= F16_LIMIT
+    assert rel(dw, dw_ref) <= F16_LIMIT
+    if T > 1:
+        assert rel(ctl_dx, dx_ref) > F16_LIMIT
 
 
 def test_float16_tcn_tail_and_stats_match_plain(cuda):

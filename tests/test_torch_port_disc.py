@@ -22,6 +22,7 @@ from nvse_tpu_torch import losses as tl
 from nvse_tpu_torch.losses.spectral import _masked_mean
 from nvse_tpu_torch.models.discriminators import MultiPeriodDiscriminator, MultiResolutionDiscriminator
 from nvse_tpu_torch.utils import disc_params_from_jax
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 SEG = 2048
 

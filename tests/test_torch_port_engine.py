@@ -18,6 +18,7 @@ from nvse_tpu_torch.infer import InferenceEngine, run_inference
 from nvse_tpu_torch.utils import params_from_jax
 
 from test_torch_port_bsrnn import jax_params
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -47,7 +47,7 @@ from nvse_tpu_torch.data import read_wav
 from nvse_tpu_torch.metrics import enhance, joint_curve
 
 from test_torch_port_bsrnn import jax_params
-from test_torch_port_joint import torch_threads
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SYNTH24 = os.path.join(REPO, "DatasetsScp", "synth24")
@@ -79,12 +79,6 @@ def _run_script(name, argv, monkeypatch):
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         _script(name).main()
     return out.getvalue().splitlines(), err.getvalue()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    with torch_threads(1):
-        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

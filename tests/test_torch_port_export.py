@@ -29,18 +29,12 @@ from nvse_tpu_torch.utils import params_from_jax
 
 from test_export import _hifigan_h
 from test_torch_port_bsrnn import jax_params
-from test_torch_port_joint import torch_threads
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 MODEL_TOL = dict(rtol=2e-3, atol=2e-4)
 LIVE_ATOL = 1e-5
 BASE = dict(sampling_rate=22050, n_fft=1024, hop_size=256, win_size=1024, num_mels=80,
             fmin=0, fmax=8000, seed=1234)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    with torch_threads(1):
-        yield
 
 
 def _mel(batch, T, seed=0):

@@ -36,6 +36,7 @@ from nvse_tpu_torch.utils import load_config, params_from_jax
 from nvse_tpu_torch.utils.jax_params import glstm_params, glu_params
 
 from test_torch_port_bsrnn import jax_params
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -353,8 +354,9 @@ def test_gcrn_engine_loads_g_bundles_and_bare_state_dicts(tmp_path, both):
 def test_gcrn_gan_trainer_step_on_cpu():
     """One GANTrainer step with GCRN at batch 2 on a short segment: finite
     losses, the generator moved, and every GLSTM parameter got a gradient
-    through the residual-saving route."""
-    h = _gcrn_config(segment_size=2048, batch_size=2)
+    through the residual-saving route. The MPD has one period: the GLSTM's
+    gradient is the point."""
+    h = _gcrn_config(segment_size=2048, batch_size=2, mpd_reshapes=[2])
     t = np.arange(2048) / 22050.0
     audio = (0.3 * np.sin(2 * np.pi * 220 * t)[None, :]
              + 0.05 * np.random.default_rng(0).standard_normal((2, 2048))).astype(np.float32)

@@ -32,6 +32,7 @@ from nvse_tpu_torch.models.layers import ConvTranspose1d
 from nvse_tpu_torch.ops import default_phase, downsample2, upsample2
 from nvse_tpu_torch.utils import load_config, params_from_jax
 from nvse_tpu_torch.utils.jax_params import _conv1d
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -46,7 +46,7 @@ from nvse_tpu_torch.utils import torch_import as port_import
 import test_torch_parity as oracles
 from test_torch_import import TorchMRFGen
 from test_torch_port_bsrnn import jax_params
-from test_torch_port_joint import torch_threads
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 2e-3, 2e-4
@@ -56,14 +56,6 @@ CASES = {"HiFiGAN-1": ("HiFiGAN", "1", (4, 4), (8, 8)),
          "HiFiGAN-2": ("HiFiGAN", "2", (8, 8, 2, 2), (16, 16, 4, 4)),
          "iSTFTNet-1": ("iSTFTNet", "1", (8, 8), (16, 16)),
          "iSTFTNet-2": ("iSTFTNet", "2", (8, 8), (16, 16))}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """torch on one intra-op thread for this file (test_torch_port_joint.torch_threads:
-    small ops on a loaded host)."""
-    with torch_threads(1):
-        yield
 
 
 def small_h(case: str, **kw) -> AttrDict:

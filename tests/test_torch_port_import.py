@@ -43,7 +43,7 @@ from nvse_tpu_torch.utils import torch_import as port_import
 
 import test_torch_parity as oracles
 from test_torch_port_bsrnn import assert_tf_outputs_close
-from test_torch_port_joint import torch_threads
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE = dict(num_mels=80, n_fft=1024, hop_size=256, win_size=1024, sampling_rate=22050,
@@ -79,14 +79,6 @@ FAMILIES = {
 }
 # families whose generator takes the pseudo-inverse-mel amplitude as a second input
 AMP_INPUT = ("GCRN", "ConvTasNet", "HDDemucas", "FreeV")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """torch on one intra-op thread for this file (test_torch_port_joint.torch_threads:
-    small ops on a loaded host)."""
-    with torch_threads(1):
-        yield
 
 
 def _h(family):

@@ -301,6 +301,14 @@ def one_torch_thread():
         yield
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one intra-op thread for a whole test module (`torch_threads`): the
+    port's test modules import it by name, and pytest runs it for each of them."""
+    with torch_threads(1):
+        yield
+
+
 def test_train_joint_checkpoints_validates_and_resumes_at_its_epoch(tmp_path, joint_files,
                                                                       one_torch_thread):
     """3 speech files at batch 2: one step an epoch. Steps 0-1 run epochs 1-2,

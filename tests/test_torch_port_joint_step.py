@@ -9,7 +9,7 @@ Compared after one step: every metric at rtol 1e-3, AdamW's first and
 second moments per tensor at a relative L2 of 2e-3 (floored at 1e-4 of the
 largest, as tests/test_torch_port_train.py), and eval_step on the updated
 weights at rtol 1e-3. BSRNN_24k is narrowed to feature_dim 8 and one BSNet,
-at segment 2048 and batch 2. Kept apart from tests/test_torch_port_joint.py
+at segment 2048 and batch 2; the vocoder step has an MPD of one period. Kept apart from tests/test_torch_port_joint.py
 so that its two JAX step compiles (about 30 s each on one CPU) run beside
 that file's tests.
 """
@@ -28,9 +28,10 @@ from nvse_tpu_torch.utils import disc_params_from_jax, params_from_jax
 
 from test_torch_port_bsrnn import jax_params
 from test_torch_port_disc import disc_params
-from test_torch_port_joint import _h, _waves
+from test_torch_port_joint import _h, _one_torch_thread, _waves  # noqa: F401
 from test_torch_port_train import (_adam_mu, _bridge_gen, _np, _port_moments,
                                    assert_moments_close)
+from test_torch_port_joint import torch_threads
 
 KEYS = ("A", "IP", "GD", "PTD", "C", "R", "I", "Mel", "GAN", "FM", "G", "D")
 EVAL_KEYS = ("A", "IP", "GD", "PTD", "C", "R", "I", "Mel")
@@ -93,7 +94,10 @@ def run_joint_both(h, task):
 
 @pytest.fixture(scope="module", params=["denoise", "vocoder"])
 def joint_step(request):
-    return request.param, run_joint_both(_h(), request.param)
+    # the denoise step holds the full MPD + MRD; the vocoder step, whose point is
+    # the task's input, an MPD of one period
+    kw = {} if request.param == "denoise" else dict(mpd_reshapes=[2])
+    return request.param, run_joint_both(_h(**kw), request.param)
 
 
 def test_joint_step_metrics_match_jax(joint_step):

@@ -894,3 +894,99 @@ def test_gln_stats_runs_a_batch_element():
     assert tcn.gln_stats_partials(8, 32735, 512, 132) == 66
     assert tcn.gln_stats_partials(1, 1, 8, 132) == 1
     assert tcn.gln_stats_partials(3, 700, 96, 132) == 17
+
+
+@pytest.mark.parametrize("B,T,H", [(8, 4063, 512), (16, 2047, 512), (2, 511, 512),
+                                   (8, 32735, 512), (1, 1, 8), (200, 64, 64)])
+def test_gln_stats_scratch_holds_the_tickets_and_the_partials(B, T, H):
+    """The statistics kernel's scratch (held per card and stream): a ticket a batch element
+    and the (B, P, 2) partial sums; P from the SM count, never more blocks a batch
+    element than its 4,096-element runs."""
+    from nvse_tpu_torch.ops import tcn
+
+    P = tcn.gln_stats_partials(B, T, H, 132)
+    assert tcn.gln_stats_scratch(B, P) == (B, 2 * B * P)
+    assert 1 <= P <= max(1, -(-T * H // 4096)) and B * P <= max(B, 4 * 132)
+    # the ConvTasNet shapes fill the card: about four blocks an SM
+    if B * T * H >= 2 ** 22:
+        assert B * P >= 3 * 132
+
+
+def test_gln_stats_scratch_is_held_per_device_and_stream():
+    """Every card's default stream has the raw handle 0: the scratch is keyed by
+    the device too, so that replicas on two cards never share tickets, and each
+    device's scratch lives on it; a larger launch on a stream makes it anew."""
+    from nvse_tpu_torch.ops import tcn
+
+    one, other = torch.device("cpu"), torch.device("meta")
+    held = dict(tcn._SCRATCH)
+    try:
+        a = tcn._scratch(one, 0, 2, 3)
+        b = tcn._scratch(other, 0, 2, 3)
+        assert (one, 0) in tcn._SCRATCH and (other, 0) in tcn._SCRATCH
+        assert a[0] is not b[0] and a[1] is not b[1]
+        assert {t.device for t in a} == {one} and {t.device for t in b} == {other}
+        assert a[0].dtype == torch.int32 and a[1].dtype == torch.float32
+        assert not a[0].any() and (a[0].numel(), a[1].numel()) == tcn.gln_stats_scratch(2, 3)
+        assert tcn._scratch(one, 0, 1, 3)[0] is a[0]             # a smaller launch reuses it
+        assert tcn._scratch(one, 7, 2, 3)[0] is not a[0]         # another stream has its own
+        grown = tcn._scratch(one, 0, 4, 3)
+        assert grown[0] is not a[0] and grown[1].numel() == 2 * 4 * 3
+    finally:
+        tcn._SCRATCH.clear()
+        tcn._SCRATCH.update(held)
+
+
+F16 = torch.float16
+
+
+def test_float16_plans_are_the_bfloat16_instances():
+    """float16 runs the bfloat16 layouts of the training kernels (float16
+    products): the same instance tables, and the same plans at BSRNN-M's, GCRN's
+    and HD-Demucs's training shapes, but for the wide backward's 2 x tile_rows
+    ints of row maxima (its carry's scale)."""
+    assert L._SCAN[F16] == L._SCAN[torch.bfloat16]
+    assert L._BWD_NARROW[F16] == L._BWD_NARROW[torch.bfloat16]
+    assert L._SCAN_WIDE[F16] == L._SCAN_WIDE[torch.bfloat16]
+    assert L._BWD_WIDE[F16] == L._BWD_WIDE[torch.bfloat16]
+    assert L._BWD_MIN_GROUP_ROWS[F16] == L._BWD_MIN_GROUP_ROWS[torch.bfloat16]
+    for R, H in ((544, 128), (1040, 128), (16, 448), (63, 768)):
+        if H <= 128:
+            got = L.scan_narrow_plan(R, H, F16, *H100, mode="lstm_fwd_hc")
+            assert got == L.scan_narrow_plan(R, H, torch.bfloat16, *H100, mode="lstm_fwd_hc")
+            assert got["co_resident"] and got["tensor_cores"]
+            got = L.bwd_narrow_plan(R, H, F16, *H100)
+            assert got == L.bwd_narrow_plan(R, H, torch.bfloat16, *H100) and got["co_resident"]
+        else:
+            got = L.scan_wide_plan(R, H, F16, *H100, 1, 1, "lstm_fwd_hc")
+            assert got == L.scan_wide_plan(R, H, torch.bfloat16, *H100, 1, 1, "lstm_fwd_hc")
+            assert got["co_resident"] and got["tensor_cores"]
+            got = L.bwd_wide_plan(R, H, F16, *H100)
+            want = L.bwd_wide_plan(R, H, torch.bfloat16, *H100)
+            assert got["co_resident"] and got["tensor_cores"]
+            assert {k: v for k, v in got.items() if k != "smem_bytes"} == \
+                {k: v for k, v in want.items() if k != "smem_bytes"}
+            assert got["smem_bytes"] == want["smem_bytes"] + 2 * got["tile_rows"] * 4
+
+
+@pytest.mark.parametrize("H", [8, 100, 128, 136, 448, 768, 776, 1024])
+def test_float16_training_routes_take_the_resident_kernels_to_768(H):
+    """_stepwise and the training routes: float16's lstm_fwd_hc and lstm_bwd take
+    the resident kernels (narrow at H <= 128 where the plan runs, else wide) up to
+    H = 768 and the step-wise kernel past it; its inference scans and the fused
+    route stay on the step-wise kernel at every H; bfloat16 and float32 unchanged."""
+    Hp = L.lstm_padding(H)[0]
+    past = Hp > L._WIDE_MAX_H
+    for name in ("lstm_fwd_hc", "lstm_bwd"):
+        assert L._stepwise(H, F16, name) == past
+        for narrow_fits in (True, False):
+            route = L.train_route(name, Hp, dict(co_resident=narrow_fits), F16)
+            want = L._TRAIN_KERNELS[name][0 if Hp <= 128 and narrow_fits else 1]
+            assert route == ("lstm_stepwise" if past else want)
+            assert route == L.train_route(name, Hp, dict(co_resident=narrow_fits),
+                                          torch.bfloat16)
+    for name in ("lstm_scan", "lstm_scan_stateful", "lstm_scan_bidir", None):
+        assert L._stepwise(H, F16, name)
+        assert L._stepwise(H, torch.bfloat16, name) == past
+    assert L._fused_route(H, H, dtype=F16) == "projection+lstm_stepwise"
+    assert L._kernel_source("lstm_dw_hh", H, F16) == "lstm_bwd"

@@ -32,16 +32,10 @@ from nvse_tpu_torch.utils import AttrDict
 
 from test_export import _hifigan_h
 from test_torch_port_bsrnn import jax_params
-from test_torch_port_joint import torch_threads
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SR, SEGMENT, BATCH, SEED = 22050, 8192, 4, 1234
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    with torch_threads(1):
-        yield
 
 
 @pytest.fixture(scope="module")

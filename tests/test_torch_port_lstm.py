@@ -20,6 +20,7 @@ from nvse_tpu.ops.pallas_lstm import (
     _xla_lstm_scan,
 )
 from nvse_tpu_torch.ops import lstm as port_lstm
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -32,6 +32,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from nvse_tpu_torch.ops import lstm as port_lstm
 from nvse_tpu_torch.ops import lstm_step as port_step
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from nvse_tpu.ops.pallas_lstm import _fused_bwd_saved, _fused_fwd_saving
 from nvse_tpu.ops.pallas_lstm_bwd import lstm_bwd, lstm_fwd_hc
 from nvse_tpu_torch.ops import lstm as port_lstm
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 

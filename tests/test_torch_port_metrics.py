@@ -29,6 +29,7 @@ import nvse_tpu_torch.metrics.onnx_np as PO
 from nvse_tpu.metrics.common import run_metric_cli, run_multi_metric_cli
 from nvse_tpu_torch.data.audio_io import load_wav, write_wav
 from nvse_tpu_torch.metrics import cli
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WAVS = os.path.join(REPO, "DatasetsScp", "synth", "wavs")

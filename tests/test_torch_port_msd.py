@@ -30,17 +30,9 @@ from nvse_tpu_torch.ops import lstm as L
 from nvse_tpu_torch.ops import tcn as T
 from nvse_tpu_torch.utils import disc_params_from_jax
 
-from test_torch_port_joint import torch_threads
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 from test_torch_port_time_train import _u, msd_params
 from test_torch_port_train import _np
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """torch on one intra-op thread for this file (test_torch_port_joint.torch_threads:
-    small ops on a loaded host)."""
-    with torch_threads(1):
-        yield
 
 
 # ---------------------------------------------------------------------------

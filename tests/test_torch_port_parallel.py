@@ -25,17 +25,14 @@ its own mesh:
     virtual devices of tests/conftest.py, from the same weights, at the
     limits of tests/test_torch_port_train.py;
 every job also checks that parameters, buffers and optimizer states end
-equal on every rank. Then serving with infer_dp_devices (CPU replicas)
-against the one-device decode and the JAX engine's data-parallel decode,
-SegmentDataset's sharding against the JAX dataset's, the training loop on
-the four ranks, and the port's dry run (python -m nvse_tpu_torch.parallel.dryrun
---n 4 --device cpu).
+equal on every rank. Then the training loop on the four ranks. Serving with
+infer_dp_devices, the datasets' shards, the dry run and spawn's device rule
+are in tests/test_torch_port_parallel_cli.py (its own file so that the two
+halves run on different test workers).
 """
 import datetime
 import json
 import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -44,16 +41,12 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from nvse_tpu.data import SegmentDataset as JaxSegments
-from nvse_tpu.infer.engine import InferenceEngine as JaxEngine
 from nvse_tpu.models import build_generator as jax_build
 from nvse_tpu.parallel import get_mesh as jax_get_mesh
 from nvse_tpu.train.trainer import DiscState, GenState
 from nvse_tpu.train.trainer import make_optimizer as jax_make_optimizer
 from nvse_tpu.train.trainer import make_train_step
 from nvse_tpu.utils import AttrDict as JaxAttrDict
-from nvse_tpu_torch.data import SegmentDataset
-from nvse_tpu_torch.infer import InferenceEngine
 from nvse_tpu_torch.parallel import spawn, split_sizes
 from nvse_tpu_torch.train import GANTrainer, fetch_scalars, restore_checkpoint
 from nvse_tpu_torch.utils import AttrDict, disc_params_from_jax, load_config, params_from_jax
@@ -235,58 +228,6 @@ def test_dp_sp_step_matches_the_jax_mesh_step(runs):
     assert_updates_close(port["disc"], d_new, g0["disc"], d_mu)
 
 
-def _engine_h(**kw):
-    """tests/test_inference.py's HiFiGAN (the JAX DP engine's test model)."""
-    return dict(model_name="HiFiGAN", resblock="2", upsample_rates=[8, 8, 2, 2],
-                upsample_kernel_sizes=[16, 16, 4, 4], upsample_initial_channel=32,
-                resblock_kernel_sizes=[3], resblock_dilation_sizes=[[1, 3]],
-                sampling_rate=22050, n_fft=1024, hop_size=256, win_size=1024, num_mels=80,
-                fmin=0, fmax=8000, segment_size=2048, seed=1234, **kw)
-
-
-def test_engine_dp_replicas_match_one_device_and_the_jax_dp_engine():
-    """infer_dp_devices 2 (CPU replicas) on a batch of 5 (padded to 6, split
-    3 + 3) against the one-device decode, and against the JAX engine with
-    infer_dp_devices 8 (padded to 8) from the same weights, as
-    tests/test_inference.py:236-260 holds the JAX engine (its model, bucket
-    and shapes); streaming windows and warmup too."""
-    mel = np.random.default_rng(0).standard_normal((5, 80, 20)).astype(np.float32) - 4.0
-    jgen, _ = jax_build(JaxAttrDict(_engine_h()))
-    jp = jax_params(jgen, mel)
-    sd = params_from_jax(jp, AttrDict(_engine_h()))
-    lines = []
-    one = InferenceEngine(AttrDict(_engine_h()), params=sd, device="cpu", bucket_frames=32)
-    dp = InferenceEngine(AttrDict(_engine_h(infer_dp_devices=2)), params=sd, device="cpu",
-                         bucket_frames=32, log_fn=lines.append)
-    assert len(dp.replicas) == 2 and lines == ["serving on 2 replica(s) (cpu; infer_dp_devices=2)"]
-    assert dp.replicas[1] is not dp.generator
-    ref = one.synthesize_mel(torch.from_numpy(mel), out_len=5000)
-    got = dp.synthesize_mel(torch.from_numpy(mel), out_len=5000)
-    assert got.shape == (5, 5000)
-    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
-    jeng = JaxEngine(JaxAttrDict(_engine_h(infer_dp_devices=8)),
-                     params=jax.tree.map(jnp.asarray, jp), bucket_frames=32)
-    assert jeng.mesh is not None and jeng.mesh.devices.size == 8
-    np.testing.assert_allclose(got, jeng.synthesize_mel(jnp.asarray(mel), out_len=5000),
-                               rtol=2e-4, atol=2e-5)
-    s_ref = one.synthesize_streaming(torch.from_numpy(mel[:3]), chunk_frames=8, context_frames=4)
-    s_got = dp.synthesize_streaming(torch.from_numpy(mel[:3]), chunk_frames=8, context_frames=4)
-    np.testing.assert_allclose(s_got, s_ref, rtol=1e-5, atol=1e-6)
-    dp.warmup(20, batch=3)
-    assert (32, 3) in dp._warmed
-
-
-def test_segment_dataset_shards_as_the_jax_dataset():
-    files = [f"f{i}.wav" for i in range(11)]
-    for shard in range(3):
-        ours = SegmentDataset(files, 2048, 22050, seed=7, shard_id=shard, num_shards=3)
-        theirs = JaxSegments(files, 2048, 22050, seed=7, shard_id=shard, num_shards=3)
-        assert ours.files == theirs.files and len(ours) == len(theirs)
-        assert ours.rng.random() == theirs.rng.random()
-    assert SegmentDataset(files, 2048, 22050, seed=7).files == \
-        JaxSegments(files, 2048, 22050, seed=7).files
-
-
 def test_training_loop_on_four_ranks_with_sequence_parallelism(runs):
     """The training loop (train/loop.py train, as torchrun runs it on each
     rank) on the 4 ranks with sp_devices 2 and batch 2: a (2, 2) dp x sp
@@ -300,30 +241,3 @@ def test_training_loop_on_four_ranks_with_sequence_parallelism(runs):
     fresh = GANTrainer(AttrDict(cfg), device="cpu", steps_per_epoch=2)
     assert restore_checkpoint(ckpt, fresh) == (2, 0)
     assert all(torch.isfinite(p).all() for p in fresh.generator.parameters())
-
-
-def test_dryrun_cli_on_four_cpu_ranks():
-    out = subprocess.run([sys.executable, "-m", "nvse_tpu_torch.parallel.dryrun", "--n", "4",
-                          "--device", "cpu"], cwd=REPO, capture_output=True, text=True,
-                         timeout=300)
-    assert out.returncode == 0, out.stderr[-3000:]
-    lines = out.stdout.splitlines()
-    assert any("one DP GAN step ok" in l for l in lines)
-    assert any("dp x sp (=2x2) GAN step ok" in l and "(matches DP)" in l for l in lines)
-    assert any("checkpoint save/restore ok" in l for l in lines)
-
-
-def test_spawn_runs_on_the_card_unless_asked_and_starts_nothing_without_one(monkeypatch):
-    """spawn's ranks run on the card by default: where no card is visible a call
-    without `device` raises the port's no-card message before any process
-    starts (no CPU job in its place)."""
-    import torch.multiprocessing as mp
-
-    started = []
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    monkeypatch.setattr(mp, "start_processes", lambda *a, **kw: started.append(a))
-    with pytest.raises(RuntimeError, match="no CUDA GPU is visible"):
-        spawn(run_jobs, 2, args=([],))
-    assert not started
-    spawn(run_jobs, 2, args=([],), device="cpu")          # asked for: the CPU job starts
-    assert len(started) == 1

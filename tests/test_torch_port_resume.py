@@ -3,19 +3,21 @@
 scripts/convert_jax_checkpoint.py's run mode converts a JAX g_/do_ pair (Orbax)
 into the port's g_/do_ bundles; the port's restore_checkpoint loads them, and
 the port's next step is held against JAX's next step from the same state on
-the same batch, for a tiny BSRNN (T-F trainer, MPD + MRD, LSTM summed biases),
-a narrowed HiFiGAN (time trainer, MPD + MSD with its spectral-norm u) and a
-tiny joint BSRNN_24k (the T-F trainer's joint domain, both steps on the
-denoise task: one JAX compile). The configs and limits are those of
-tests/test_torch_port_train.py, tests/test_torch_port_time_train.py and
-tests/test_torch_port_joint_step.py:
+the same batch, for a tiny BSRNN (T-F trainer, MPD + MRD, LSTM summed biases)
+and a tiny joint BSRNN_24k (the T-F trainer's joint domain, both steps on the
+denoise task: one JAX compile) here, and a narrowed HiFiGAN (time trainer,
+MPD + MSD with its spectral-norm u) in tests/test_torch_port_resume_time.py.
+The configs and limits are those of tests/test_torch_port_train.py,
+tests/test_torch_port_time_train.py and tests/test_torch_port_joint_step.py,
+with the MPD cut to one period (the discriminators are not what the
+resume checks: the full MPD + MRD step is held in those files):
   * the restored state equals JAX's after its first step: weights, the MSD's u,
     AdamW's moments (the summed bias's is the JAX b_ih's) and its step count;
   * after the second step every metric at rtol 1e-3, the first moments per
     tensor at a relative L2 of 2e-3, and the updated parameters as the
     harness's `assert_updates_close`.
 A do_ whose b_ih and b_hh moments differ makes the converter raise, naming the
-port's parameter.
+port's parameter (tests/test_torch_port_resume_time.py).
 """
 import importlib.util
 import json
@@ -41,7 +43,7 @@ from nvse_tpu_torch.utils import disc_params_from_jax, load_config, params_from_
 
 from test_torch_port_bsrnn import jax_params
 from test_torch_port_disc import disc_params
-from test_torch_port_joint import _h as joint_h
+from test_torch_port_joint import _h as joint_h, _one_torch_thread  # noqa: F401
 from test_torch_port_joint import _waves as joint_waves
 from test_torch_port_joint import torch_threads
 from test_torch_port_time_train import TIME_METRIC_KEYS, mrf_params, msd_params
@@ -54,6 +56,7 @@ from test_torch_port_train import _h as tf_h
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPE = 10                        # steps per epoch on both sides (the lr schedule)
+ONE_PERIOD = dict(mpd_reshapes=[2])     # the MPD of tests/test_torch_port_time_train.py
 
 
 def _converter():
@@ -64,31 +67,17 @@ def _converter():
     return mod
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    with torch_threads(1):
-        yield
-
-
-@pytest.fixture
-def bundles(tmp_path):
-    """A directory for JAX and port bundles, removed after the test: a pair
-    with the full-size discriminators' Adam moments is some 0.4 GB."""
-    yield tmp_path
-    shutil.rmtree(tmp_path, ignore_errors=True)
-
-
 def _jax_run(model):
     """(h, domain, jax generator, gen_state, disc_state, the (clean, input)
     batch of each of two steps; input None outside the joint domain)."""
     if model == "BSRNN_24k":
-        h = joint_h()
+        h = joint_h(**ONE_PERIOD)
         jm, domain = jax_build(h)
         gp = jax_params(jm, np.zeros((1, 513, 9), np.float32), seed=0)
         dp, spec = disc_params(segment=h.segment_size, periods=h.mpd_reshapes), None
         audio = [joint_waves(b=h.batch_size, n=h.segment_size, seed=s) for s in (0, 1)]
     elif model == "BSRNN":
-        h = tf_h()
+        h = tf_h(**ONE_PERIOD)
         jm, domain = jax_build(h)
         gp = jax_params(jm, np.zeros((1, h.num_mels, h.segment_size // h.hop_size + 1),
                                      np.float32), seed=0)
@@ -116,11 +105,14 @@ def _jnp(x):
     return None if x is None else jnp.asarray(x)
 
 
-@pytest.fixture(scope="module", params=["BSRNN", "HiFiGAN", "BSRNN_24k"])
+@pytest.fixture(scope="module", params=["BSRNN", "BSRNN_24k"])
 def resumed(request, tmp_path_factory):
+    return resume_case(request.param, tmp_path_factory)
+
+
+def resume_case(model, tmp_path_factory):
     """One JAX step, its g_/do_ pair saved and converted, the port restored from
     the conversion; then the second step on both sides."""
-    model = request.param
     tmp = tmp_path_factory.mktemp(f"resume_{model}")
     h, domain, jm, gen_state, disc_state, audio = _jax_run(model)
     joint = model == "BSRNN_24k"
@@ -139,7 +131,7 @@ def resumed(request, tmp_path_factory):
 
     tr = GANTrainer(load_config(cfg), device="cpu", steps_per_epoch=SPE, joint=joint)
     assert restore_checkpoint(port_dir, tr) == (2, 0)
-    shutil.rmtree(tmp, ignore_errors=True)      # the bundles: some 0.9 GB with the discriminators
+    shutil.rmtree(tmp, ignore_errors=True)      # the bundles, discriminators' moments and all
     # copies: the step below updates the weights and the moments in place
     g1 = {k: v.clone() for k, v in tr.generator.state_dict().items()}
     d1 = {k: v.clone() for k, v in tr.disc.state_dict().items()}
@@ -173,7 +165,10 @@ def resumed(request, tmp_path_factory):
 
 
 def test_restored_state_is_the_jax_state_after_its_step(resumed):
-    r = resumed
+    check_restored_state(resumed)
+
+
+def check_restored_state(r):
     want = params_from_jax(r["after_one"]["g"], r["h"])
     assert set(want) == set(r["restored"]["g"])
     for k, v in want.items():
@@ -193,59 +188,21 @@ def test_restored_state_is_the_jax_state_after_its_step(resumed):
 
 
 def test_next_step_metrics_match_jax(resumed):
-    for k, v in resumed["port_metrics"].items():
+    check_next_metrics(resumed)
+
+
+def check_next_metrics(r):
+    for k, v in r["port_metrics"].items():
         assert np.isfinite(v), k
-        np.testing.assert_allclose(v, resumed["jax_metrics"][k], rtol=1e-3, err_msg=k)
+        np.testing.assert_allclose(v, r["jax_metrics"][k], rtol=1e-3, err_msg=k)
 
 
 def test_next_step_moments_and_updates_match_jax(resumed):
-    r = resumed
+    check_next_moments_and_updates(resumed)
+
+
+def check_next_moments_and_updates(r):
     assert_moments_close(r["g_mu_port"], r["g_mu_jax"], rel=2e-3)
     assert_moments_close(r["d_mu_port"], r["d_mu_jax"], rel=2e-3)
     assert_updates_close(r["g_new_port"], r["g_new_jax"], r["g_old"], r["g_mu_jax"])
     assert_updates_close(r["d_new_port"], r["d_new_jax"], r["d_old"], r["d_mu_jax"])
-
-
-def test_converter_raises_where_the_two_bias_moments_differ(bundles):
-    """A do_ whose first moment of one b_hh leaf is moved off its b_ih's: the
-    converter names the port's summed bias and writes nothing. (The JAX states
-    before any step: no step to compile; the unmoved bundles convert in the
-    `resumed` fixture.)"""
-    h, _, _, gen_state, disc_state, _ = _jax_run("BSRNN")
-    moved = []
-
-    def move(path, x):
-        name = jax.tree_util.keystr(path)
-        if ".mu" in name and "b_hh_" in name and not moved:
-            moved.append(name)
-            return x + 1e-3
-        return x
-
-    opt = jax.tree_util.tree_map_with_path(move, gen_state.opt_state)
-    assert moved
-    bad = str(bundles / "jax")
-    jax_save_checkpoint(bad, 0, 0, gen_state.replace(opt_state=opt), disc_state)
-    cfg = str(bundles / "config.json")
-    with open(cfg, "w") as f:
-        json.dump(dict(h), f)
-    out = str(bundles / "port")
-    with pytest.raises(ValueError, match=r"\.b_(fwd|bwd): the JAX moments of b_ih and b_hh"):
-        _converter().convert_run(cfg, bad, out)
-    assert not os.path.exists(out)
-
-
-def test_converter_takes_a_given_step_and_refuses_a_missing_one(bundles):
-    """Of two saved pairs the converter takes the one asked for (the fixture
-    takes the newest), and a step with no pair raises before any work."""
-    h, _, _, gen_state, disc_state, _ = _jax_run("HiFiGAN")
-    jax_dir = str(bundles / "jax")
-    for step in (3, 5):
-        jax_save_checkpoint(jax_dir, step, 0, gen_state, disc_state, max_to_keep=0)
-    cfg = str(bundles / "config.json")
-    with open(cfg, "w") as f:
-        json.dump(dict(h), f)
-    conv, out = _converter(), str(bundles / "port")
-    assert conv.convert_run(cfg, jax_dir, out, step=3) == 3
-    assert sorted(os.listdir(out)) == ["do_00000003", "g_00000003"]
-    with pytest.raises(FileNotFoundError, match="step 4"):
-        conv.convert_run(cfg, jax_dir, out, step=4)

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 
 from nvse_tpu import ops as jops
 from nvse_tpu_torch.ops import spectral as tops
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 MEL = (1024, 80, 22050, 256, 1024, 0, 8000)   # n_fft, mels, sr, hop, win, fmin, fmax

@@ -26,6 +26,7 @@ from nvse_tpu_torch.ops import StreamingOLA, hann_window, istft_frames, istft_ri
 from nvse_tpu_torch.utils import params_from_jax
 
 from test_torch_port_bsrnn import jax_params
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 N_FFT, HOP, WIN = 64, 16, 48
 

@@ -33,6 +33,7 @@ from nvse_tpu.ops.pallas_tcn import _pallas_tail, _xla_tail
 from nvse_tpu.ops.pallas_tcn import tcn_block_tail as jax_tail
 from nvse_tpu_torch.ops import griffin_lim, tcn_block_tail, tcn_block_tail_plain
 from nvse_tpu_torch.ops.tcn import _fold, tcn_block_tail_kernel
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 jax_gl = importlib.import_module("nvse_tpu.ops.griffin_lim")   # the package exports the function
 TOL = dict(rtol=2e-5, atol=2e-5)

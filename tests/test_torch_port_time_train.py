@@ -48,7 +48,7 @@ from nvse_tpu_torch.utils import disc_params_from_jax, load_config, params_from_
 
 from test_torch_port_convtasnet import _seeded
 from test_torch_port_disc import disc_params
-from test_torch_port_joint import torch_threads
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 from test_torch_port_train import LR, _adam_mu, _np, _port_moments, assert_moments_close
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -63,14 +63,6 @@ HIFIGAN = dict(model_name="HiFiGAN", resblock="1", upsample_rates=[8, 8, 2, 2],
                resblock_kernel_sizes=[3, 5], resblock_dilation_sizes=[[1, 3], [1, 3]])
 CONVTASNET = dict(model_name="ConvTasNet", N=16, L=16, B=8, H=16, P=3, X=2, R=1, num_spks=1,
                   skip_con=True, init_phase="zero", causal=False, norm="gln", fused_tcn=True)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """torch on one intra-op thread for this file (test_torch_port_joint.torch_threads:
-    small ops on a loaded host)."""
-    with torch_threads(1):
-        yield
 
 
 def _h(model, **kw):

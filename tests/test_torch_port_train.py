@@ -33,6 +33,7 @@ from nvse_tpu_torch.utils import disc_params_from_jax, params_from_jax
 
 from test_torch_port_bsrnn import jax_params
 from test_torch_port_disc import disc_params
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 KEYS = ("A", "IP", "GD", "PTD", "C", "R", "I", "Mel", "GAN", "FM", "G", "D")
 LR = 2e-4

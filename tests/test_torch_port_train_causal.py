@@ -14,11 +14,14 @@ from nvse_tpu_torch.ops import lstm as port_lstm
 
 from test_torch_port_train import (KEYS, _audio, _h, assert_moments_close, assert_updates_close,
                                    run_both)
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
 def one_causal_step_f32():
-    h = _h(causal=True)
+    # one MPD period: the causal generator is the point (the full MPD + MRD
+    # step is tests/test_torch_port_train.py's)
+    h = _h(causal=True, mpd_reshapes=[2])
     return run_both(h, _audio(2, h.segment_size, seed=3))
 
 

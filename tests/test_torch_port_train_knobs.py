@@ -35,18 +35,12 @@ from nvse_tpu_torch.train import checkpoint as ckpt
 from nvse_tpu_torch.train import loop, loop_joint
 from nvse_tpu_torch.utils import AttrDict
 
-from test_torch_port_joint import _loop_config, joint_files, torch_threads  # noqa: F401
+from test_torch_port_joint import _loop_config, _one_torch_thread, joint_files  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SYNTH = os.path.join(REPO, "DatasetsScp", "synth")
 # the backward of lstm_scan_fused's training route, one per BiLSTM call
 FUSED_BACKWARD = "_BiLSTMSavingBackward"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    with torch_threads(1):
-        yield
 
 
 @pytest.fixture(autouse=True)
@@ -66,7 +60,7 @@ def _h(tmp_path, **kw):
              sampling_rate=22050, n_fft=1024, hop_size=256, win_size=1024, num_mels=80,
              fmin=0, fmax=8000, meloss=None, segment_size=2048, batch_size=2,
              learning_rate=2e-4, adam_b1=0.8, adam_b2=0.99, lr_decay=0.999, mrd_weight=0.1,
-             mpd_reshapes=[2, 3], seed=1234, training_steps=1, training_epochs=10,
+             mpd_reshapes=[2], seed=1234, training_steps=1, training_epochs=10,
              stdout_interval=1, summary_interval=1000, checkpoint_interval=1000,
              validation_interval=1000, skip_step0_validation=True, max_to_keep=5,
              num_workers=1, input_training_wav_list=str(tmp_path / "train.txt"),

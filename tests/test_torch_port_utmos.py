@@ -28,6 +28,7 @@ from nvse_tpu.metrics import utmos_torch as J
 from nvse_tpu_torch.data.audio_io import write_wav
 from nvse_tpu_torch.metrics import utmos as P
 from nvse_tpu_torch.ops.lstm import lstm_scan_fused, prefix_reversal
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 SR = 16000
 TOL = 2e-4

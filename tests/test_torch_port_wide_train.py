@@ -30,6 +30,7 @@ from nvse_tpu.utils import AttrDict
 from nvse_tpu_torch.ops import lstm as port_lstm
 
 from test_torch_port_train import KEYS, LR, _audio, assert_moments_close, run_both
+from test_torch_port_joint import _one_torch_thread  # noqa: F401
 
 H = 448
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -166,7 +167,9 @@ def _gcrn_h(**kw):
 
 @pytest.fixture(scope="module")
 def gcrn_step():
-    h = _gcrn_h()
+    # one MPD period: the GCRN generator's training route is the point
+    # (tests/test_torch_port_train.py holds the full MPD + MRD step)
+    h = _gcrn_h(mpd_reshapes=[2])
     return run_both(h, _audio(2, h.segment_size))
 
 
